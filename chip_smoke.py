@@ -6,23 +6,41 @@
 Phases, each of which exits non-zero on failure:
 
 1. card: the name and power limit that nvidia-smi reports;
-2. build: every CUDA source of the port (phc_gnn_torch/csrc/*.cu) with nvcc;
+2. build: every CUDA source of the port (phc_gnn_torch/csrc/*.cu) with nvcc,
+   one compiler per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (the CSR of synthetic_batch(128, 4096, 8192, seed=0),
-   D = 200) and on adversarial segments (an isolated node, an all-masked
-   segment inside the edge array, a segment of 1,100 edges, |beta * m| up to
-   ~88 with beta = -2.75); timed with CUDA events.  Where the plain segment
-   max is the identity -2^100 (empty and all-masked segments) the kernel
-   must give it exactly; the other entries are held to the tolerance;
-4. slice: the flagship model (bench.py's config: PHCGNN phm_dim=4, width 200,
-   4 x PHMGINEConvSoftmax, soft-attention pooling, (200, 100) -> 1 head) at
-   random weights from a seed, with random running stats and betas, served
-   through ``train.make_eval_step`` on 3 batches.  The launch counters are
-   zeroed just before and read just after; every kernel must have run.  The
-   outputs are held to the same model and batches on the CPU, where the
-   kernels' plain versions run.  A CUDA batch without its CSR plan must
-   raise.  Last, the forward is timed from a CUDA graph and profiled
-   (kernels per forward, device busy time and idle share).
+   main path's shapes (the CSRs of synthetic_batch(128, 4096, 8192, seed=0),
+   D = 200; the batch norms at [4096, 200] and [129, 100]) and on
+   adversarial inputs: for the softmax kernels A and B an isolated node, an
+   all-masked segment inside the edge array, a segment of 1,100 edges and
+   |beta * m| up to ~88 with beta = -2.75 (where the plain segment max is the
+   identity -2^100 the kernel must give it exactly; the other entries are
+   held to the tolerance); for the segment sum C an isolated sender, a
+   sender of 1,100 edges and a cotangent that is non-zero on masked edges;
+   for the batch norms D and E an all-masked and a one-row mask.  Each is
+   timed with CUDA events, eagerly and from a CUDA graph, beside its plain
+   version, its bound and, where one exists, one PyTorch call that computes
+   the same function;
+4. eval slice: the flagship model (bench.py's config: PHCGNN phm_dim=4, width
+   200, 4 x PHMGINEConvSoftmax, soft-attention pooling, (200, 100) -> 1 head)
+   at random weights from a seed, with random running stats and betas,
+   served through ``train.make_eval_step`` on 3 batches.  The launch
+   counters are zeroed just before and read just after: A and B run 4 times
+   a batch, the training kernels C, D and E never.  The outputs are held to
+   the same model and batches on the CPU, where the kernels' plain versions
+   run.  A CUDA batch without its CSR plan must raise.  The forward is timed
+   from a CUDA graph and profiled (kernels per forward, device busy time and
+   idle share);
+5. train slice: the same model trained through ``train.make_train_step``
+   (masked L1 plus lr * 0.1 * the PHM weight regularization, Adam after a
+   global-norm clip of 2.0, lr 1e-3).  First, with dropout off, one forward
+   and backward on the GPU against the same model and batch on the CPU: the
+   loss, the output, every parameter's gradient and the running stats, then
+   the optimizer's update given the same gradients.  Then ten steps with the
+   flagship's dropout on one batch, the counters zeroed just before and read
+   just after: per step A, B and C run 4 times, D and E 10; the loss stays
+   finite and falls.  A CUDA batch without its sender plan must raise.  Last,
+   the step is timed and profiled.
 
 It prints a ``{"kernels": [...]}`` line, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -42,10 +60,28 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 TOL_MAX = 1e-6              # segment max: order-free, the same f32 products
 TOL_AGG = 1e-5              # softmax aggregate: exp ulps, summation order
+TOL_SUM = 1e-5              # segment sum, per leaf, against a float64 sum:
+                            # the kernel's f32 running sum of 1,100 rows
+                            # drifts ~1e-6 of the leaf's max; one row
+                            # dropped or added reads ~1e-2
+TOL_BN = 1e-5               # batch norms: column sums of 4,096 rows, rsqrt
 TOL_MODEL = 1e-4            # whole model, GPU vs CPU: 4 layers of f32 GEMMs
+TOL_GRAD = 1e-4             # gradients, GPU vs CPU, per leaf: forward and
+                            # backward through 4 layers, sums in other orders
+TOL_NOISE = 1e-5            # |grad| of a bias a batch norm follows (zero in
+                            # exact arithmetic), over the largest gradient
+TOL_UPDATE = 1e-5           # Adam update given equal gradients, per leaf
 N_BATCHES = 3
 FLAGSHIP = dict(batch_size=128, num_nodes=4096, num_edges=8192)
 DIM = 200
+LR = 1e-3
+WEIGHT_DECAY = 0.1
+GRAD_CLIP = 2.0
+TRAIN_STEPS = 10
+# launches per train step: A, B and C once per layer; D and E once per norm
+# (4 in the convs' MLPs, 4 after the convs, 2 in the downstream head)
+TRAIN_LAUNCHES = {"segment_logit_max": 4, "segment_softmax_aggregate": 4,
+                  "segment_sum_perm": 4, "bn_forward": 10, "bn_backward": 10}
 
 
 def fail(msg: str) -> None:
@@ -67,6 +103,20 @@ def normwise(got, want, identity=None):
         return 0.0, 0.0
     err = float((got - want).abs().max())
     return err, err / max(1.0, float(want.abs().max()))
+
+
+def leafwise(got, want):
+    """(max abs err, max abs err / max |want|): relative to the tensor's own
+    size, for values far below 1.  Where ``want`` is all zero, ``got`` must
+    be too, or both errors are inf."""
+    got, want = got.double().cpu(), want.double().cpu()
+    if not bool(got.isfinite().all()):
+        return float("inf"), float("inf")
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if scale == 0.0:
+        return (0.0, 0.0) if err == 0.0 else (float("inf"), float("inf"))
+    return err, err / scale
 
 
 def time_eager(torch, fn, iters: int = 200, warmup: int = 10) -> float:
@@ -111,6 +161,36 @@ def time_graph(torch, fn, iters: int = 100, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernel_wrappers():
+    """The launch-counting wrapper of every kernel of the port, A to E."""
+    from phc_gnn_torch.ops import fused_bn
+    from phc_gnn_torch.ops import segment_softmax as ss
+    from phc_gnn_torch.ops import segment_sum as ssum
+
+    return {"segment_logit_max": ss.segment_logit_max,
+            "segment_softmax_aggregate": ss.segment_softmax_aggregate,
+            "segment_sum_perm": ssum.segment_sum_perm,
+            "bn_forward": fused_bn.bn_forward,
+            "bn_backward": fused_bn.bn_backward}
+
+
+def reset_launches() -> None:
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def adversarial_counts(rng, n: int = 64):
+    """Edges per node: 1-5, but none for node 3 and 1,100 for node 7."""
+    counts = rng.integers(1, 6, size=n)
+    counts[3] = 0
+    counts[7] = 1100
+    return counts
+
+
 def adversarial_case(torch, dev, d: int):
     """Receiver-sorted CSR segments that stress the identities (see the
     module docstring); 64 nodes, a 40-edge padding tail on the last node."""
@@ -119,9 +199,7 @@ def adversarial_case(torch, dev, d: int):
 
     rng = np.random.default_rng(11)
     n = 64
-    counts = rng.integers(1, 6, size=n)
-    counts[3] = 0
-    counts[7] = 1100
+    counts = adversarial_counts(rng, n)
     recv = np.repeat(np.arange(n), counts)
     mask = rng.random(recv.shape[0]) > 0.25
     lo = counts[:11].sum()
@@ -134,55 +212,116 @@ def adversarial_case(torch, dev, d: int):
             torch.tensor(-2.75, device=dev), torch.from_numpy(rowptr).to(dev))
 
 
-def kernel_phase(torch, dev):
-    """Kernels vs plain versions at the main-path and adversarial shapes;
-    returns the per-kernel records (launches filled in later)."""
-    from phc_gnn_torch.data import synthetic_batch
-    from phc_gnn_torch.graph import attach_csr_plan
+def adversarial_senders(torch, dev, d: int):
+    """A sender plan with an isolated sender (3), a sender of 1,100 edges (7),
+    masked edges among real ones and a masked tail, and a cotangent that is
+    non-zero on every edge; 64 senders."""
+    import numpy as np
+    from phc_gnn_torch.graph.batch import build_sender_csr
+
+    rng = np.random.default_rng(12)
+    n = 64
+    senders = rng.permutation(np.repeat(np.arange(n),
+                                        adversarial_counts(rng, n)))
+    mask = rng.random(senders.shape[0]) > 0.2
+    senders = np.concatenate([senders, np.full(40, n - 1)]).astype(np.int32)
+    mask = np.concatenate([mask, np.zeros(40, bool)])
+    perm, rowptr = build_sender_csr(senders, n, mask)
+    g = rng.normal(size=(senders.shape[0], d)).astype(np.float32)
+    return (torch.from_numpy(g).to(dev), torch.from_numpy(perm).to(dev),
+            torch.from_numpy(rowptr).to(dev))
+
+
+def check(errs, kname, case, got, want, tol, identity=None, note="",
+          own_scale=True):
+    """Hold a kernel output to its plain version, relative to the tensor's
+    own size, or normwise (``own_scale=False``; ``identity`` marks the empty
+    segments of the segment max)."""
+    if own_scale:
+        abs_err, rel_err = leafwise(got, want)
+        how = "rel err (own scale)"
+    else:
+        abs_err, rel_err = normwise(got, want, identity)
+        how = "normwise rel err"
+    errs.setdefault(kname, []).append((abs_err, rel_err))
+    print(f"kernel {kname} [{case}]: max abs err {abs_err:.3e}, {how} "
+          f"{rel_err:.3e} (tolerance {tol:g}{note})", flush=True)
+    if not rel_err <= tol:
+        fail(f"{kname} disagrees with its plain version on {case}")
+
+
+def record(torch, name, source, replaces, errs, fn, plain, library, nbytes,
+           flops):
+    """The timing record of one kernel at the main path's shapes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    rec = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": None,
+        "max_abs_err": max(a for a, _ in errs[name]),
+        "max_rel_err": max(r for _, r in errs[name]),
+        "ms": time_eager(torch, fn),
+        "graph_ms": time_graph(torch, fn),
+        "plain_ms": time_eager(torch, plain),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes,
+        "library_ms": time_eager(torch, library) if library else None,
+        "library_graph_ms": time_graph(torch, library) if library else None,
+    }
+    for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "library_ms"):
+        us = key[:-2] + "us"
+        rec[us] = rec[key] * 1e3 if rec[key] is not None else None
+    print(f"kernel {name}: {rec['ms'] * 1e3:.2f} us per call, "
+          f"{rec['graph_ms'] * 1e3:.2f} us device (CUDA graph), plain "
+          f"{rec['plain_ms'] * 1e3:.2f} us, bound {rec['bound_ms'] * 1e3:.2f} us "
+          f"({nbytes / 1e6:.2f} MB)"
+          + (f", library {rec['library_ms'] * 1e3:.2f} us" if library else ""),
+          flush=True)
+    return rec
+
+
+def softmax_kernels(torch, dev, batch, errs):
+    """A and B against their plain versions; B's training variant with its
+    ``w`` and ``den`` outputs too.  Returns the timing records."""
     from phc_gnn_torch.ops import segment_softmax as ss
 
-    batch = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP)).to(dev)
     gen = torch.Generator().manual_seed(0)
     msgs = torch.randn((batch.num_edges, DIM), generator=gen).to(dev)
     main = (msgs, batch.edge_mask, torch.tensor(1.37, device=dev), batch.rowptr)
     cases = {"main": main, "adversarial": adversarial_case(torch, dev, DIM)}
-
-    errs = {"segment_logit_max": [], "segment_softmax_aggregate": []}
     for name, (m, k, b, rp) in cases.items():
         before = (ss.segment_logit_max.launches,
                   ss.segment_softmax_aggregate.launches)
         smax = ss.segment_logit_max(m, k, b, rp)
-        out, w = ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True)
+        out, w, den = ss.segment_softmax_aggregate(m, k, b, rp, smax,
+                                                   emit_w=True)
         out_nw = ss.segment_softmax_aggregate(m, k, b, rp, smax)
         torch.cuda.synchronize()
         if (ss.segment_logit_max.launches != before[0] + 1
                 or ss.segment_softmax_aggregate.launches != before[1] + 2):
             fail(f"{name}: the launch counters did not move")
         smax_ref = ss.segment_logit_max_plain(m, k, b, rp)
-        out_ref, w_ref = ss.segment_softmax_aggregate_plain(
+        out_ref, w_ref, den_ref = ss.segment_softmax_aggregate_plain(
             m, k, b, rp, smax_ref, emit_w=True)
-        for tensor in (smax, out, w, out_nw):
+        for tensor in (smax, out, w, out_nw, den):
             if not torch.isfinite(tensor).all():
                 fail(f"{name}: non-finite kernel output")
         n_empty = int((smax_ref == ss.NEG).all(dim=1).sum())
-        checks = (("segment_logit_max", smax, smax_ref, TOL_MAX),
-                  ("segment_softmax_aggregate", out, out_ref, TOL_AGG),
-                  ("segment_softmax_aggregate", out_nw, out_ref, TOL_AGG),
-                  ("segment_softmax_aggregate", w, w_ref, TOL_AGG))
-        for kname, got, want, tol in checks:
-            abs_err, rel_err = normwise(got, want, identity=ss.NEG)
-            errs[kname].append((abs_err, rel_err))
-            print(f"kernel {kname} [{name}]: max abs err {abs_err:.3e}, "
-                  f"normwise rel err {rel_err:.3e} (tolerance {tol:g}; "
-                  f"{n_empty} empty or all-masked segments must hold -2^100 "
-                  f"exactly in the segment max)", flush=True)
-            if not rel_err <= tol:
-                fail(f"{kname} disagrees with its plain version on {name}")
+        note = (f"; {n_empty} empty or all-masked segments must hold -2^100 "
+                f"exactly in the segment max")
+        check(errs, "segment_logit_max", name, smax, smax_ref, TOL_MAX,
+              identity=ss.NEG, note=note, own_scale=False)
+        for what, got, want in (("out", out, out_ref),
+                                ("eval out", out_nw, out_ref), ("w", w, w_ref)):
+            check(errs, "segment_softmax_aggregate", f"{name}, {what}", got,
+                  want, TOL_AGG, own_scale=False)
+        check(errs, "segment_softmax_aggregate", f"{name}, den", den, den_ref,
+              TOL_AGG, note="; the floor 1e-16 on empty segments")
         if name == "adversarial":
             if not (bool((out[3] == 0).all()) and bool((out[11] == 0).all())):
                 fail("isolated or all-masked segment did not give 0")
 
-    # timing at the main path's shapes
     m, k, b, rp = main
     smax = ss.segment_logit_max(m, k, b, rp)
     n, d = rp.shape[0] - 1, m.shape[1]
@@ -198,44 +337,159 @@ def kernel_phase(torch, dev):
 
     in_bytes = e_seg * d * 4 + e_seg + (n + 1) * 4 + 4
     nd_bytes = n * d * 4
-    specs = [
-        ("segment_logit_max", "phc_gnn_tpu/ops/stream_scan.py:415",
-         lambda: ss.segment_logit_max(m, k, b, rp),
-         lambda: ss.segment_logit_max_plain(m, k, b, rp),
-         library_amax, in_bytes + nd_bytes, 2 * e_seg * d),
-        ("segment_softmax_aggregate", "phc_gnn_tpu/ops/stream_scan.py:521",
-         lambda: ss.segment_softmax_aggregate(m, k, b, rp, smax),
-         lambda: ss.segment_softmax_aggregate_plain(m, k, b, rp, smax),
-         None, in_bytes + 2 * nd_bytes, 6 * e_seg * d + n * d),
-    ]
-    records = []
-    for name, replaces, fn, plain, library, nbytes, flops in specs:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        rec = {
-            "name": name, "route": "cuda",
-            "source": "phc_gnn_torch/csrc/segment_softmax.cu",
-            "replaces": replaces, "launches": None,
-            "max_abs_err": max(a for a, _ in errs[name]),
-            "max_rel_err": max(r for _, r in errs[name]),
-            "ms": time_eager(torch, fn),
-            "graph_ms": time_graph(torch, fn),
-            "plain_ms": time_eager(torch, plain),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes,
-            "library_ms": time_eager(torch, library) if library else None,
-            "library_graph_ms": time_graph(torch, library) if library else None,
-        }
-        for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "library_ms"):
-            us = key[:-2] + "us"
-            rec[us] = rec[key] * 1e3 if rec[key] is not None else None
-        print(f"kernel {name}: {rec['ms'] * 1e3:.2f} us per call, "
-              f"{rec['graph_ms'] * 1e3:.2f} us device (CUDA graph), plain "
-              f"{rec['plain_ms'] * 1e3:.2f} us, bound {rec['bound_ms'] * 1e3:.2f} us "
-              f"({nbytes / 1e6:.2f} MB)", flush=True)
-        records.append(rec)
-    return records
+    src = "phc_gnn_torch/csrc/segment_softmax.cu"
+    rec_a = record(torch, "segment_logit_max", src,
+                   "phc_gnn_tpu/ops/stream_scan.py:415", errs,
+                   lambda: ss.segment_logit_max(m, k, b, rp),
+                   lambda: ss.segment_logit_max_plain(m, k, b, rp),
+                   library_amax, in_bytes + nd_bytes, 2 * e_seg * d)
+    rec_b = record(torch, "segment_softmax_aggregate", src,
+                   "phc_gnn_tpu/ops/stream_scan.py:521", errs,
+                   lambda: ss.segment_softmax_aggregate(m, k, b, rp, smax),
+                   lambda: ss.segment_softmax_aggregate_plain(m, k, b, rp,
+                                                              smax),
+                   None, in_bytes + 2 * nd_bytes, 6 * e_seg * d + n * d)
+    # the training variant also writes w [E, D] and den [N, D]
+    train_fn = lambda: ss.segment_softmax_aggregate(  # noqa: E731
+        m, k, b, rp, smax, emit_w=True)
+    train_bytes = in_bytes + 3 * nd_bytes + m.shape[0] * d * 4
+    rec_b["train_variant"] = {
+        "replaces": "phc_gnn_tpu/ops/stream_scan.py:439",
+        "ms": time_eager(torch, train_fn), "graph_ms": time_graph(torch, train_fn),
+        "bound_ms": train_bytes / HBM_BYTES_PER_S * 1e3, "bytes": train_bytes}
+    print(f"kernel segment_softmax_aggregate (training variant, w and den): "
+          f"{rec_b['train_variant']['ms'] * 1e3:.2f} us per call, "
+          f"{rec_b['train_variant']['graph_ms'] * 1e3:.2f} us device, bound "
+          f"{rec_b['train_variant']['bound_ms'] * 1e3:.2f} us", flush=True)
+    return [rec_a, rec_b]
+
+
+def segment_sum_kernel(torch, dev, batch, errs):
+    """C against its plain version over the flagship's sender plan and the
+    adversarial senders; returns its timing record."""
+    from phc_gnn_torch.ops import segment_sum as ssum
+
+    gen = torch.Generator().manual_seed(1)
+    g = torch.randn((batch.num_edges, DIM), generator=gen).to(dev)  # masked too
+    cases = {"main": (g, batch.snd_perm, batch.snd_rowptr),
+             "adversarial": adversarial_senders(torch, dev, DIM)}
+    for name, (gv, perm, rowptr) in cases.items():
+        before = ssum.segment_sum_perm.launches
+        out = ssum.segment_sum_perm(gv, perm, rowptr)
+        torch.cuda.synchronize()
+        if ssum.segment_sum_perm.launches != before + 1:
+            fail(f"{name}: the launch counter of segment_sum_perm did not move")
+        want = ssum.segment_sum_perm_plain(gv.double(), perm, rowptr)
+        check(errs, "segment_sum_perm", name, out, want, TOL_SUM)
+        if name == "adversarial" and not bool((out[3] == 0).all()):
+            fail("segment_sum_perm: the isolated sender did not give 0")
+
+    perm, rowptr = batch.snd_perm, batch.snd_rowptr
+    n, d = rowptr.shape[0] - 1, DIM
+    e_real = int(rowptr[-1])
+    real = perm[:e_real].long()
+    g_real, s_real = g[real], batch.senders[real].long()
+    zeros = torch.zeros((n, d), device=dev)
+
+    def library():
+        return zeros.clone().index_add_(0, s_real, g_real)
+
+    nbytes = e_real * d * 4 + e_real * 4 + (n + 1) * 4 + n * d * 4
+    return [record(torch, "segment_sum_perm", "phc_gnn_torch/csrc/segment_sum.cu",
+                   "phc_gnn_tpu/ops/stream_scan.py:373", errs,
+                   lambda: ssum.segment_sum_perm(g, perm, rowptr),
+                   lambda: ssum.segment_sum_perm_plain(g, perm, rowptr),
+                   library, nbytes, e_real * d)]
+
+
+def batch_norm_kernels(torch, dev, batch, errs):
+    """D and E against their plain versions at [4096, 200] and [129, 100],
+    with the flagship's node and graph masks, an all-masked and a one-row
+    mask; returns their timing records."""
+    from phc_gnn_torch.ops import fused_bn
+
+    gen = torch.Generator().manual_seed(2)
+
+    def inputs(n, d):
+        x = (torch.randn((n, d), generator=gen) * 2 + 3).to(dev)
+        g = torch.randn((n, d), generator=gen).to(dev)
+        scale = torch.randn(d, generator=gen).to(dev)
+        bias = torch.randn(d, generator=gen).to(dev)
+        return x, g, scale, bias
+
+    def only(n, rows):
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        mask[rows] = True
+        return mask
+
+    main = inputs(4096, DIM)
+    head = inputs(129, 100)
+    cases = {"main [4096, 200]": (main, batch.node_mask),
+             "head [129, 100]": (head, batch.graph_mask),
+             "all-masked [4096, 200]": (main, only(4096, [])),
+             "one-row [129, 100]": (head, only(129, [64]))}
+    for name, ((x, g, scale, bias), mask) in cases.items():
+        before = (fused_bn.bn_forward.launches, fused_bn.bn_backward.launches)
+        y, mean, var = fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
+        dx, dscale, dbias = fused_bn.bn_backward(x, mask, scale, mean, var,
+                                                 1e-5, g)
+        torch.cuda.synchronize()
+        if (fused_bn.bn_forward.launches, fused_bn.bn_backward.launches) != (
+                before[0] + 1, before[1] + 1):
+            fail(f"{name}: the batch-norm launch counters did not move")
+        ref = fused_bn.bn_forward_plain(x, mask, scale, bias, 1e-5)
+        ref_b = fused_bn.bn_backward_plain(x, mask, scale, ref[1], ref[2],
+                                           1e-5, g)
+        for kname, what, got, want in (
+                ("bn_forward", "y", y, ref[0]), ("bn_forward", "mean", mean, ref[1]),
+                ("bn_forward", "var", var, ref[2]),
+                ("bn_backward", "dx", dx, ref_b[0]),
+                ("bn_backward", "dscale", dscale, ref_b[1]),
+                ("bn_backward", "dbias", dbias, ref_b[2])):
+            check(errs, kname, f"{name}, {what}", got, want, TOL_BN)
+
+    (x, g, scale, bias), mask = main, batch.node_mask
+    n, d = x.shape
+    y, mean, var = fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
+    nd_bytes = n * d * 4
+    src = "phc_gnn_torch/csrc/fused_bn.cu"
+    return [
+        record(torch, "bn_forward", src, "phc_gnn_tpu/ops/fused_bn.py:50", errs,
+               lambda: fused_bn.bn_forward(x, mask, scale, bias, 1e-5),
+               lambda: fused_bn.bn_forward_plain(x, mask, scale, bias, 1e-5),
+               None, 2 * nd_bytes + n + 4 * d * 4, 8 * n * d),
+        record(torch, "bn_backward", src, "phc_gnn_tpu/ops/fused_bn.py:64",
+               errs,
+               lambda: fused_bn.bn_backward(x, mask, scale, mean, var, 1e-5, g),
+               lambda: fused_bn.bn_backward_plain(x, mask, scale, mean, var,
+                                                  1e-5, g),
+               None, 3 * nd_bytes + n + 5 * d * 4, 12 * n * d)]
+
+
+def kernel_phase(torch, dev):
+    """Kernels vs plain versions at the main-path and adversarial shapes;
+    returns the per-kernel records (launches filled in later)."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+
+    batch = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP)).to(dev)
+    errs: dict = {}
+    return (softmax_kernels(torch, dev, batch, errs)
+            + segment_sum_kernel(torch, dev, batch, errs)
+            + batch_norm_kernels(torch, dev, batch, errs))
+
+
+def flagship_config(dropout: bool = True) -> dict:
+    """bench.py:140-146; with ``dropout=False`` every rate is 0."""
+    from phc_gnn_torch.data import ZINC_ATOM_DIMS, ZINC_BOND_DIMS
+
+    return dict(phm_dim=4, atom_input_dims=ZINC_ATOM_DIMS,
+                bond_input_dims=ZINC_BOND_DIMS, atom_encoded_dim=DIM,
+                mp_layers=(DIM,) * 4,
+                dropout_mpnn=(0.1 if dropout else 0.0,) * 4,
+                downstream_layers=(200, 100), target_dim=1,
+                dropout_dn=(0.2, 0.1) if dropout else (0.0, 0.0),
+                msg_aggr="softmax", mlp_mp=True, sc_type="last")
 
 
 def randomize_eval_state(torch, model, seed: int = 1):
@@ -256,19 +510,12 @@ def randomize_eval_state(torch, model, seed: int = 1):
 def slice_phase(torch, dev):
     """The flagship eval forward through the kernels; returns the launch
     counts of the main-path run."""
-    from phc_gnn_torch.data import ZINC_ATOM_DIMS, ZINC_BOND_DIMS, synthetic_batch
+    from phc_gnn_torch.data import synthetic_batch
     from phc_gnn_torch.graph import attach_csr_plan
     from phc_gnn_torch.models import PHCGNN
-    from phc_gnn_torch.ops import segment_softmax as ss
     from phc_gnn_torch.train import make_eval_step
 
-    cfg = dict(phm_dim=4, atom_input_dims=ZINC_ATOM_DIMS,
-               bond_input_dims=ZINC_BOND_DIMS, atom_encoded_dim=DIM,
-               mp_layers=(DIM,) * 4, dropout_mpnn=(0.1,) * 4,
-               downstream_layers=(200, 100), target_dim=1,
-               dropout_dn=(0.2, 0.1), msg_aggr="softmax", mlp_mp=True,
-               sc_type="last")
-    model = PHCGNN(**cfg, seed=0, device=dev)
+    model = PHCGNN(**flagship_config(), seed=0, device=dev)
     randomize_eval_state(torch, model)
     host_batches = [attach_csr_plan(synthetic_batch(seed=s, **FLAGSHIP))
                     for s in range(N_BATCHES)]
@@ -282,18 +529,18 @@ def slice_phase(torch, dev):
     else:
         fail("a CUDA batch without a CSR plan was served without the kernels")
 
-    ss.segment_logit_max.launches = 0
-    ss.segment_softmax_aggregate.launches = 0
+    reset_launches()
     outs = [step(b) for b in batches]
     torch.cuda.synchronize()
-    launches = {"segment_logit_max": ss.segment_logit_max.launches,
-                "segment_softmax_aggregate": ss.segment_softmax_aggregate.launches}
-    want = 4 * N_BATCHES
-    print(f"slice: launches on the main path {launches} "
-          f"(expected {want} each: 4 layers x {N_BATCHES} batches)", flush=True)
-    for name, count in launches.items():
-        if count != want:
-            fail(f"{name} ran {count} times on the main path, not {want}")
+    launches = read_launches()
+    want = {name: (4 * N_BATCHES if name.startswith("segment_softmax")
+                   or name == "segment_logit_max" else 0)
+            for name in launches}
+    print(f"slice: launches on the eval path {launches} (expected {want}: A "
+          f"and B once per layer, 4 layers x {N_BATCHES} batches; the "
+          f"training kernels never)", flush=True)
+    if launches != want:
+        fail(f"the eval path launched {launches}, not {want}")
 
     cpu_step = make_eval_step(copy.deepcopy(model).to("cpu"), device="cpu")
     for i, (out, hb) in enumerate(zip(outs, host_batches)):
@@ -311,68 +558,275 @@ def slice_phase(torch, dev):
 
     real_edges = host_batches[0].count_edges()
     b0 = batches[0]
-    for _ in range(5):
-        step(b0)
+    eval_ms, host_ms = time_steps(torch, lambda: step(b0))
+    print(f"slice: eval {eval_ms:.3f} ms per batch (CUDA events, median of 30; "
+          f"host clock {host_ms:.3f} ms), "
+          f"{real_edges / (eval_ms / 1e3):.4g} real edges/s "
+          f"({real_edges} real edges)", flush=True)
+    print(json.dumps({"slice": {"eval_ms": eval_ms,
+                                "eval_host_ms": host_ms,
+                                "real_edges": real_edges,
+                                "real_edges_per_s": real_edges / (eval_ms / 1e3),
+                                "batches": N_BATCHES}}), flush=True)
+    graph_eval_ms = time_graph(torch, lambda: step(b0), iters=20)
+    prof = device_profile(torch, lambda: step(b0), eval_ms, iters=20)
+    print(f"profile: {prof['kernels_per_call']:g} kernels per forward, device "
+          f"busy {prof['busy_ms']:.3f} ms of {eval_ms:.3f} ms eager (idle "
+          f"{100 * prof['idle_share']:.1f} %), {graph_eval_ms:.3f} ms "
+          f"from one CUDA graph", flush=True)
+    print(json.dumps({"profile": {
+        "graph_eval_ms": graph_eval_ms,
+        "kernels_per_forward": prof["kernels_per_call"],
+        "device_busy_ms_per_forward": prof["busy_ms"],
+        "device_idle_share_eager": prof["idle_share"],
+        "top_kernels_us_per_forward": prof["top_us"]}}), flush=True)
+    return launches
+
+
+def time_steps(torch, fn, warmup: int = 5, iters: int = 30):
+    """(device ms, host ms) per call of ``fn``: CUDA events around each call
+    and the host clock until it is done, medians of ``iters`` calls after
+    ``warmup``."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     dev_ms, host_ms = [], []
-    for _ in range(30):
+    for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        step(b0)
+        fn()
         end.record()
         end.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         dev_ms.append(start.elapsed_time(end))
-    eval_ms = statistics.median(dev_ms)
-    print(f"slice: eval {eval_ms:.3f} ms per batch (CUDA events, median of 30; "
-          f"host clock {statistics.median(host_ms):.3f} ms), "
-          f"{real_edges / (eval_ms / 1e3):.4g} real edges/s "
-          f"({real_edges} real edges)", flush=True)
-    print(json.dumps({"slice": {"eval_ms": eval_ms,
-                                "eval_host_ms": statistics.median(host_ms),
-                                "real_edges": real_edges,
-                                "real_edges_per_s": real_edges / (eval_ms / 1e3),
-                                "batches": N_BATCHES}}), flush=True)
-    profile_phase(torch, lambda: step(b0), eval_ms)
-    return launches
+    return statistics.median(dev_ms), statistics.median(host_ms)
 
 
-def profile_phase(torch, forward, eval_ms: float, iters: int = 20) -> None:
-    """Where the eval forward's time goes: the forward replayed from a CUDA
-    graph (the host's launch cost taken away), and from torch.profiler the
-    kernels per forward, the device's busy time (sum of kernel durations),
-    its idle share of the eager forward (1 - busy / eval_ms) and the kernels
-    that take the most device time.  Prints one ``{"profile": ...}`` line."""
-    graph_eval_ms = time_graph(torch, forward, iters=iters)
+def device_profile(torch, fn, call_ms: float, iters: int = 10) -> dict:
+    """Where the time of ``fn`` goes, from torch.profiler over ``iters``
+    calls: kernels per call, the device's busy time (sum of kernel
+    durations) per call, its idle share of ``call_ms`` (1 - busy / call_ms)
+    and the kernels that take the most device time.  The ranges that
+    ``record_function`` marks on the device's timeline (torch's
+    ``Optimizer.step`` is one) span kernels and are not counted."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
-            forward()
+            fn()
         torch.cuda.synchronize()
     by_name: dict = {}
     n_kernels = 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
             n_kernels += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     if not n_kernels:
         fail("the profiler recorded no device kernels")
     busy_ms = sum(by_name.values()) / 1e3 / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    print(f"profile: {n_kernels / iters:g} kernels per forward, device busy "
-          f"{busy_ms:.3f} ms of {eval_ms:.3f} ms eager (idle "
-          f"{100 * (1 - busy_ms / eval_ms):.1f} %), {graph_eval_ms:.3f} ms "
-          f"from one CUDA graph", flush=True)
-    print(json.dumps({"profile": {
-        "graph_eval_ms": graph_eval_ms,
-        "kernels_per_forward": n_kernels / iters,
-        "device_busy_ms_per_forward": busy_ms,
-        "device_idle_share_eager": 1.0 - busy_ms / eval_ms,
-        "top_kernels_us_per_forward": [[name[:90], us / iters]
-                                       for name, us in top]}}), flush=True)
+    return {"kernels_per_call": n_kernels / iters, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / call_ms,
+            "top_us": [[name[:90], us / iters] for name, us in top]}
+
+
+def shift_invariant(key: str) -> bool:
+    """Biases of the PHM layers that a batch norm follows (the MLPs'
+    ``linear1`` and ``linear2``, the head's hidden layers): their gradient is
+    zero in exact arithmetic, as the norm removes any shift."""
+    return key.endswith(("transform.linear1.b", "transform.linear2.b")) or (
+        key.startswith("downstream.affine_") and key.endswith(".b")
+        and key != "downstream.affine_2.b")
+
+
+class ReluReplay:
+    """ReLU that records its input's sign pattern, or applies a recorded one
+    (``torch.where(mask, x, 0)``: relu's value and gradient where the mask
+    is relu's own)."""
+
+    def __init__(self, torch, masks=None):
+        self.torch = torch
+        self.masks = [] if masks is None else masks
+        self.replay = masks is not None
+        self.calls = 0
+
+    def __call__(self, x):
+        if self.replay:
+            mask = self.masks[self.calls].to(x.device)
+            self.calls += 1
+            return self.torch.where(mask, x, 0.0)
+        self.masks.append(x.detach() > 0)
+        return self.torch.relu(x)
+
+    def install(self, model):
+        model.act = self
+        model.downstream.act = self
+        for i in range(model.num_layers):
+            getattr(model, f"conv_{i}").conv.transform.act = self
+        return self
+
+
+def agreement(torch, dev, host_batch, batch, loss_fn):
+    """One forward and backward with dropout off on the GPU and on the CPU,
+    from the same weights: the loss, the output, the gradients, the running
+    stats; then the Adam update given the CPU's gradients on both.
+
+    The CPU run applies the GPU run's ReLU sign pattern.  A ReLU whose input
+    lies within rounding of 0 can switch between the devices, and then one
+    row's whole contribution to a weight's gradient moves: a difference of
+    the inputs, not of the arithmetic under test.  The switches are counted
+    over the real rows and printed."""
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_loss_and_grads, make_optimizer
+
+    model = PHCGNN(**flagship_config(dropout=False), seed=0, device=dev)
+    randomize_eval_state(torch, model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    own_model = copy.deepcopy(cpu_model)
+    own = ReluReplay(torch).install(own_model)
+    relu = ReluReplay(torch).install(model)
+    loss, out, grads = make_loss_and_grads(model, loss_fn, WEIGHT_DECAY)(
+        batch, LR)
+    torch.cuda.synchronize()
+    masks = [m.cpu() for m in relu.masks]
+    ReluReplay(torch, masks).install(cpu_model)
+    c_loss, c_out, c_grads = make_loss_and_grads(cpu_model, loss_fn,
+                                                 WEIGHT_DECAY)(host_batch, LR)
+    with torch.no_grad():  # the CPU's own sign pattern, to count switches
+        own_model(host_batch, training=True)
+    worst = {"relu_switches_on_real_rows": sum(
+        int((a != b)[host_batch.node_mask if a.shape[0] == host_batch.num_nodes
+                     else host_batch.graph_mask].sum())
+        for a, b in zip(masks, own.masks))}
+    _, worst["loss"] = leafwise(loss, c_loss)
+    _, worst["out"] = normwise(out.cpu(), c_out)
+    if not (worst["loss"] <= TOL_MODEL and worst["out"] <= TOL_MODEL):
+        fail(f"train: loss or output disagrees with the CPU: {worst}")
+    top = max(float(g.abs().max()) for g in c_grads.values())
+    grad_errs, noise = {}, 0.0
+    for key, g in grads.items():
+        if shift_invariant(key):
+            noise = max(noise, float(g.abs().max()) / top,
+                        float(c_grads[key].abs().max()) / top)
+        else:
+            grad_errs[key] = leafwise(g, c_grads[key])[1]
+    worst["grad"] = max(grad_errs.values())
+    worst["grad_leaf"] = max(grad_errs, key=grad_errs.get)
+    worst["noise_grad"] = noise
+    if not (worst["grad"] <= TOL_GRAD and noise <= TOL_NOISE):
+        fail(f"train: gradients disagree with the CPU: {worst}")
+    cpu_bufs = dict(cpu_model.named_buffers())
+    worst["running_stats"] = max(leafwise(b, cpu_bufs[k])[1]
+                                 for k, b in model.named_buffers())
+    if not worst["running_stats"] <= TOL_BN:
+        fail(f"train: running stats disagree with the CPU: {worst}")
+
+    before = {k: p.detach().cpu().clone() for k, p in cpu_model.named_parameters()}
+    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
+    c_opt = make_optimizer(dict(cpu_model.named_parameters()),
+                           grad_clip=GRAD_CLIP)
+    opt.step([c_grads[k].to(dev) for k in opt.params], LR)
+    c_opt.step([c_grads[k] for k in c_opt.params], LR)
+    torch.cuda.synchronize()
+    upd = 0.0
+    cpu_params = dict(cpu_model.named_parameters())
+    for key, p in model.named_parameters():
+        want = cpu_params[key].detach().double()
+        got = p.detach().cpu().double()
+        # each side rounds p - lr * u to f32 once: allow 2 ulp of max |p|
+        ulp = float(torch.finfo(torch.float32).eps) * float(want.abs().max())
+        step = float((want - before[key].double()).abs().max())
+        err = float((got - want).abs().max())
+        upd = max(upd, max(0.0, err - 2 * ulp) / step if step > 0 else err)
+    worst["update"] = upd
+    if not upd <= TOL_UPDATE:
+        fail(f"train: the Adam update disagrees with the CPU's: {worst}")
+    print(f"train: one step with dropout off, GPU vs CPU: loss rel err "
+          f"{worst['loss']:.3e}, output normwise {worst['out']:.3e} "
+          f"(tolerance {TOL_MODEL:g}); with the GPU's ReLU pattern "
+          f"({worst['relu_switches_on_real_rows']} ReLUs of real rows switch "
+          f"between the devices), gradients per leaf <= {worst['grad']:.3e} "
+          f"of the leaf's max (tolerance {TOL_GRAD:g}; worst "
+          f"{worst['grad_leaf']}); the biases a norm follows <= "
+          f"{noise:.3e} of the largest gradient (tolerance {TOL_NOISE:g}); "
+          f"running stats <= {worst['running_stats']:.3e} (tolerance "
+          f"{TOL_BN:g}); Adam update given equal gradients <= {upd:.3e} "
+          f"(tolerance {TOL_UPDATE:g})", flush=True)
+    return worst
+
+
+def train_phase(torch, dev):
+    """The flagship train step through the kernels; returns the launch counts
+    of the main-path run."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_optimizer, make_train_step, masked_l1
+
+    host_batch = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP))
+    batch = host_batch.to(dev)
+
+    def loss_fn(out, b):
+        return masked_l1(out, b.y)
+
+    worst = agreement(torch, dev, host_batch, batch, loss_fn)
+
+    model = PHCGNN(**flagship_config(), seed=0, device=dev)
+    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
+    step = make_train_step(model, opt, loss_fn, weight_decay=WEIGHT_DECAY,
+                           seed=0, device=dev)
+    try:
+        step(batch.replace(snd_perm=None, snd_rowptr=None), LR)
+    except ValueError as exc:
+        print(f"train: a CUDA batch without its sender plan raises: {exc}",
+              flush=True)
+    else:
+        fail("a CUDA training batch without its sender plan was trained "
+             "without kernel C")
+
+    reset_launches()
+    losses = [step(batch, LR)[0] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    print(f"train: launches over {TRAIN_STEPS} steps {launches} (expected "
+          f"{want})", flush=True)
+    if launches != want:
+        fail(f"the train path launched {launches}, not {want}")
+    losses = [float(x) for x in losses]
+    print(f"train: losses over {TRAIN_STEPS} steps with dropout "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail("train: non-finite loss")
+    if not last < first:
+        fail(f"train: the loss did not fall (mean of the first three steps "
+             f"{first:.5f}, of the last three {last:.5f})")
+
+    real_edges = host_batch.count_edges()
+    train_ms, host_ms = time_steps(torch, lambda: step(batch, LR))
+    print(f"train: {train_ms:.3f} ms per step (CUDA events, median of 30 "
+          f"after 5 warm-ups; host clock {host_ms:.3f} ms), "
+          f"{real_edges / (train_ms / 1e3):.4g} real edges/s "
+          f"({real_edges} real edges)", flush=True)
+    print(json.dumps({"train": {
+        "step_ms": train_ms, "step_host_ms": host_ms,
+        "real_edges": real_edges,
+        "real_edges_per_s": real_edges / (train_ms / 1e3),
+        "losses": losses, "agreement": worst}}), flush=True)
+    prof = device_profile(torch, lambda: step(batch, LR), train_ms)
+    print(f"profile_train: {prof['kernels_per_call']:g} kernels per step, "
+          f"device busy {prof['busy_ms']:.3f} ms of {train_ms:.3f} ms (idle "
+          f"{100 * prof['idle_share']:.1f} %)", flush=True)
+    print(json.dumps({"profile_train": {
+        "kernels_per_step": prof["kernels_per_call"],
+        "device_busy_ms_per_step": prof["busy_ms"],
+        "device_idle_share": prof["idle_share"],
+        "top_kernels_us_per_step": prof["top_us"]}}), flush=True)
+    return launches
 
 
 def main() -> None:
@@ -394,16 +848,17 @@ def main() -> None:
     from phc_gnn_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = _build.source_names()
-    for name in names:
-        _build.load(name)
+    names = sorted(_build.load_all())
     print(f"build: {time.perf_counter() - t0:.1f} s for {names} "
-          f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+          f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel)", flush=True)
 
     records = kernel_phase(torch, dev)
-    launches = slice_phase(torch, dev)
+    eval_launches = slice_phase(torch, dev)
+    train_launches = train_phase(torch, dev)
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = train_launches[rec["name"]]
+        rec["launches_by_path"] = {"eval": eval_launches[rec["name"]],
+                                   "train": train_launches[rec["name"]]}
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,10 @@ flax path ``a/b/c`` becomes the key ``a.b.c``; ``params`` and
 buffers).  One leaf changes layout: flax ``nn.Dense`` keeps ``kernel`` as
 (in, out) where ``torch.nn.Linear`` keeps ``weight`` as (out, in).
 
+``adam_state_from_optax`` carries optax's Adam moments across the same way
+(``count``, and the ``mu`` and ``nu`` trees, keyed like the params), so a run
+started in JAX can continue in the port.
+
 Takes nested dicts of numpy arrays (``jax.device_get`` of the variables), so
 this module needs no JAX.
 """
@@ -13,13 +17,13 @@ this module needs no JAX.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_flax_variables"]
+__all__ = ["from_flax_variables", "adam_state_from_optax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -46,11 +50,22 @@ def from_flax_variables(variables: Mapping, model: nn.Module) -> "OrderedDict[st
         raise KeyError(f"unexpected flax collections {sorted(unknown_cols)}")
     flat: Dict[str, np.ndarray] = {}
     for col in ("params", "batch_stats"):
-        for key, arr in _flatten(variables.get(col, {})).items():
-            if key.endswith(".kernel"):  # nn.Dense (in, out) -> Linear (out, in)
-                key, arr = key[:-len("kernel")] + "weight", arr.T
-            flat[key] = arr
-    expected = model.state_dict()
+        flat.update(_port_keys(variables.get(col, {})))
+    return _match(flat, model.state_dict())
+
+
+def _port_keys(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A flax tree flattened to the port's keys and layouts."""
+    flat = {}
+    for key, arr in _flatten(tree).items():
+        if key.endswith(".kernel"):  # nn.Dense (in, out) -> Linear (out, in)
+            key, arr = key[:-len("kernel")] + "weight", arr.T
+        flat[key] = arr
+    return flat
+
+
+def _match(flat: Dict[str, np.ndarray], expected: Mapping[str, torch.Tensor]
+           ) -> "OrderedDict[str, torch.Tensor]":
     missing = sorted(set(expected) - set(flat))
     extra = sorted(set(flat) - set(expected))
     if missing or extra:
@@ -64,3 +79,15 @@ def from_flax_variables(variables: Mapping, model: nn.Module) -> "OrderedDict[st
                              f"shape {tuple(ref.shape)}")
         out[key] = torch.tensor(arr, dtype=ref.dtype)  # a copy, writable
     return out
+
+
+def adam_state_from_optax(count, mu: Mapping, nu: Mapping, model: nn.Module
+                          ) -> Tuple[int, "OrderedDict[str, torch.Tensor]",
+                                     "OrderedDict[str, torch.Tensor]"]:
+    """optax ``ScaleByAdamState`` (its ``count`` and the ``mu`` and ``nu``
+    trees, keyed like the flax params) -> ``(count, mu, nu)`` keyed like
+    ``model.named_parameters()``, for ``train.Adam.load_state``.  Raises as
+    ``from_flax_variables`` does on a missing, extra or mis-shaped leaf."""
+    expected = OrderedDict(model.named_parameters())
+    return (int(np.asarray(count)), _match(_port_keys(mu), expected),
+            _match(_port_keys(nu), expected))

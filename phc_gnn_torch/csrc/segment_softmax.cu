@@ -7,7 +7,9 @@
 //                                    eval variant _softmax_fused_kernel_nw
 //                                    (:521), plus the XLA epilogue that
 //                                    gathers at last_edge and divides
-//                                    (:778-782)
+//                                    (:778-782); the training variant also
+//                                    writes w and den_end (:780) for the
+//                                    backward
 //
 // The TPU kernels scan a receiver-sorted edge stream block by block on a
 // sequential grid, carrying partial maxima and sums between blocks.  Blocks
@@ -20,8 +22,9 @@
 //   logit_e  = mask_e ? beta * m_e : -2^100   (a power of two, exact in bf16)
 //   segmax_n = max over the segment of logit_e (-2^100 if empty/all masked)
 //   w_e      = mask_e ? exp(logit_e - segmax_n) : 0
-//   out_n    = (sum w_e * m_e) / max(sum w_e, 1e-16)   (0 for an empty or
-//                                                      all-masked segment)
+//   den_n    = max(sum w_e, 1e-16)
+//   out_n    = (sum w_e * m_e) / den_n   (0 for an empty or all-masked
+//                                         segment)
 // The padding run at the tail of the edge array lies outside every segment
 // (rowptr[N] stops at the last real edge), exactly as build_scan_plan
 // isolates it.
@@ -30,9 +33,11 @@
 // so the floor is DRAM bandwidth.  At the flagship shapes (6,374 real edges
 // x 200 lanes of f32, 4,096 nodes) the first reads ~5.1 MB and writes
 // ~3.3 MB (~2.5 us at 3.35 TB/s), the second reads ~8.4 MB and writes
-// ~3.3 MB (~3.5 us).  The design reads each message row once per kernel
-// with full-width coalesced loads and keeps the per-lane running max and
-// sums in registers; at these sizes launch latency dominates either bound.
+// ~3.3 MB (~3.5 us); the training variant adds w (~5.1 MB) and den
+// (~3.3 MB) to the writes (~6.0 us).  The design reads each message row
+// once per kernel with full-width coalesced loads and keeps the per-lane
+// running max and sums in registers; at these sizes launch latency
+// dominates either bound.
 // beta is read from device memory so that no launch waits on the host.
 
 #include <cuda_runtime.h>
@@ -65,7 +70,7 @@ __global__ void segment_softmax_aggregate_kernel(
     const float* __restrict__ msgs, const uint8_t* __restrict__ mask,
     const float* __restrict__ beta_ptr, const int32_t* __restrict__ rowptr,
     const float* __restrict__ segmax, float* __restrict__ out,
-    float* __restrict__ w_out, int64_t d) {
+    float* __restrict__ w_out, float* __restrict__ den_out, int64_t d) {
   const int64_t n = blockIdx.x;
   const float beta = *beta_ptr;
   const int32_t lo = rowptr[n];
@@ -81,7 +86,9 @@ __global__ void segment_softmax_aggregate_kernel(
       den += w;
       if (w_out != nullptr) w_out[e * d + j] = w;
     }
-    out[n * d + j] = num / fmaxf(den, 1e-16f);
+    den = fmaxf(den, 1e-16f);
+    out[n * d + j] = num / den;
+    if (den_out != nullptr) den_out[n * d + j] = den;
   }
 }
 
@@ -112,7 +119,8 @@ extern "C" int segment_softmax_aggregate_f32(const void* msgs,
                                              const void* beta,
                                              const void* rowptr,
                                              const void* segmax, void* out,
-                                             void* w_out, int64_t num_nodes,
+                                             void* w_out, void* den_out,
+                                             int64_t num_nodes,
                                              int64_t d, void* stream) {
   if (num_nodes > 0 && d > 0) {
     segment_softmax_aggregate_kernel<<<static_cast<unsigned>(num_nodes),
@@ -121,7 +129,7 @@ extern "C" int segment_softmax_aggregate_f32(const void* msgs,
         static_cast<const float*>(msgs), static_cast<const uint8_t*>(mask),
         static_cast<const float*>(beta), static_cast<const int32_t*>(rowptr),
         static_cast<const float*>(segmax), static_cast<float*>(out),
-        static_cast<float*>(w_out), d);
+        static_cast<float*>(w_out), static_cast<float*>(den_out), d);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,6 +5,8 @@ from phc_gnn_torch.graph.batch import (
     attach_csr_plan,
     batch_graphs,
     build_csr_rowptr,
+    build_sender_csr,
 )
 
-__all__ = ["GraphsTuple", "attach_csr_plan", "batch_graphs", "build_csr_rowptr"]
+__all__ = ["GraphsTuple", "attach_csr_plan", "batch_graphs", "build_csr_rowptr",
+           "build_sender_csr"]

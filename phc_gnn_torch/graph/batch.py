@@ -10,8 +10,9 @@ padded to fixed ``(num_nodes, num_edges, num_graphs)`` bucket sizes:
 - padding *graphs* carry ``graph_mask=False`` and NaN labels.
 
 ``attach_csr_plan`` is the counterpart of ``attach_scan_plan``
-(phc_gnn_tpu/ops/stream_scan.py:261): it adds the CSR ``rowptr`` that the
-segment kernels walk.
+(phc_gnn_tpu/ops/stream_scan.py:261): it adds the receiver CSR ``rowptr``
+that the softmax kernels walk, and the sender CSR (``snd_perm``,
+``snd_rowptr``) that the backward of the message gather walks.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["GraphsTuple", "batch_graphs", "build_csr_rowptr", "attach_csr_plan"]
+__all__ = ["GraphsTuple", "batch_graphs", "build_csr_rowptr", "build_sender_csr",
+           "attach_csr_plan"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +43,10 @@ class GraphsTuple:
     # CSR over the receiver-sorted edges (attach_csr_plan): node n's segment
     # is edges rowptr[n]..rowptr[n+1]; the trailing padding run is in none
     rowptr: Optional[torch.Tensor] = None  # [N_pad + 1] int32
+    # CSR over the edges in sender order (build_sender_csr): sender n's edges
+    # are snd_perm[snd_rowptr[n]:snd_rowptr[n+1]]; masked edges are in none
+    snd_perm: Optional[torch.Tensor] = None    # [E_pad] int32
+    snd_rowptr: Optional[torch.Tensor] = None  # [N_pad + 1] int32
 
     @property
     def num_nodes(self) -> int:
@@ -177,10 +183,41 @@ def build_csr_rowptr(receivers: np.ndarray, num_nodes: int,
     return rowptr
 
 
+def build_sender_csr(senders: np.ndarray, num_nodes: int,
+                     edge_mask: Optional[np.ndarray] = None):
+    """The sender plan of the message gather's backward: ``(perm [E] int32,
+    rowptr [num_nodes + 1] int32)``.
+
+    The rule of ``build_sender_plan`` (phc_gnn_tpu/ops/stream_scan.py:230-258):
+    ``perm`` is a stable sort by sender in which EVERY masked edge sorts last,
+    whatever its sender, and ``rowptr`` covers the sorted real edges only, so
+    ``rowptr[-1]`` is the number of real edges and masked edges belong to no
+    segment (their cotangents never reach ``dx``)."""
+    senders = np.asarray(senders, np.int64)
+    if senders.ndim != 1:
+        raise ValueError("senders must be 1-D")
+    if senders.shape[0] >= 2 ** 31:
+        raise ValueError("the sender plan indexes edges with int32")
+    real = (np.ones(senders.shape, bool) if edge_mask is None
+            else np.asarray(edge_mask, bool))
+    if np.any(senders[real] < 0) or np.any(senders[real] >= num_nodes):
+        raise ValueError("sender index out of range")
+    perm = np.argsort(np.where(real, senders, num_nodes), kind="stable")
+    rowptr = np.zeros(num_nodes + 1, np.int32)
+    rowptr[1:] = np.cumsum(np.bincount(senders[real], minlength=num_nodes))
+    return perm.astype(np.int32), rowptr
+
+
 def attach_csr_plan(batch: GraphsTuple) -> GraphsTuple:
-    """Host-side: a copy of ``batch`` carrying its CSR ``rowptr`` (on the
-    device of ``batch.receivers``)."""
+    """Host-side: a copy of ``batch`` carrying its receiver CSR ``rowptr`` and
+    its sender CSR ``snd_perm`` / ``snd_rowptr`` (on the device of
+    ``batch.receivers``)."""
+    emask = batch.edge_mask.cpu().numpy()
     rowptr = build_csr_rowptr(batch.receivers.cpu().numpy(), batch.num_nodes,
-                              batch.edge_mask.cpu().numpy())
-    return batch.replace(
-        rowptr=torch.from_numpy(rowptr).to(batch.receivers.device))
+                              emask)
+    perm, snd_rowptr = build_sender_csr(batch.senders.cpu().numpy(),
+                                        batch.num_nodes, emask)
+    dev = batch.receivers.device
+    return batch.replace(rowptr=torch.from_numpy(rowptr).to(dev),
+                         snd_perm=torch.from_numpy(perm).to(dev),
+                         snd_rowptr=torch.from_numpy(snd_rowptr).to(dev))

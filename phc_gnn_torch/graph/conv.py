@@ -4,8 +4,10 @@ Counterpart of phc_gnn_tpu/graph/conv.py for the ported variant: messages
 ``msg_encoder(x[senders] + edge_attr)``, softmax aggregation with a learnable
 beta, ``aggr + x``, then a 2-layer PHM MLP with its norm
 (``PHMGINEConvSoftmax``, conv.py:243-285).  The aggregation runs the segment
-kernels (ops/segment_softmax.py) over the batch's CSR plan; a CPU batch
-without a plan takes the plain composite, a CUDA batch without one raises.
+kernels (ops/segment_softmax.py) over the batch's CSR plan, and the message
+gather's backward runs kernel C (ops/segment_sum.py) over its sender plan; a
+CPU batch without a plan takes the plain composite and autograd's own
+gather backward, a CUDA batch without one raises.
 """
 
 from __future__ import annotations
@@ -19,20 +21,35 @@ from phc_gnn_torch.graph.aggregators import softmax_aggregate
 from phc_gnn_torch.nn.activations import get_activation
 from phc_gnn_torch.nn.phm_linear import PHMMLP
 from phc_gnn_torch.ops.segment_softmax import segment_softmax
+from phc_gnn_torch.ops.segment_sum import gather_nodes
 
 __all__ = ["PHMGINEConvSoftmax", "PHMMessagePassing"]
 
 
-def _messages(x, senders, edge_attr, msg_encoder: str):
-    """Edge messages: msg_encoder(x[senders] + edge_attr)."""
-    return get_activation(msg_encoder)(x.index_select(0, senders) + edge_attr)
+def _messages(x, senders, edge_attr, msg_encoder: str, snd_perm=None,
+              snd_rowptr=None):
+    """Edge messages: msg_encoder(x[senders] + edge_attr) (conv.py:49-76).
+    With the batch's sender plan the gather's backward is kernel C; a CUDA
+    gather that needs a gradient and has no plan raises."""
+    if snd_rowptr is not None:
+        gathered = gather_nodes(x, senders, snd_perm, snd_rowptr)
+    elif (x.device.type != "cpu" and torch.is_grad_enabled()
+            and x.requires_grad):
+        raise ValueError(
+            f"the message gather's backward on {x.device} runs kernel C over "
+            f"the batch's sender plan: build the batch with "
+            f"graph.attach_csr_plan")
+    else:
+        gathered = x.index_select(0, senders)
+    return get_activation(msg_encoder)(gathered + edge_attr)
 
 
 def _softmax_aggr(msgs, receivers, num_nodes: int, beta, edge_mask,
                   rowptr: Optional[torch.Tensor] = None):
     """Softmax aggregation through the segment kernels over the CSR plan
-    (their plain versions for CPU tensors).  Without a plan only CPU tensors
-    are served, by the plain composite; a CUDA batch without one raises."""
+    (their plain versions for CPU tensors), differentiable in ``msgs`` and
+    ``beta`` (conv.py:79-93).  Without a plan only CPU tensors are served, by
+    the plain composite; a CUDA batch without one raises."""
     if rowptr is None:
         if msgs.device.type != "cpu":
             raise ValueError(
@@ -40,16 +57,10 @@ def _softmax_aggr(msgs, receivers, num_nodes: int, beta, edge_mask,
                 f"kernels, which walk the batch's CSR plan: build the batch "
                 f"with graph.attach_csr_plan")
         return softmax_aggregate(msgs, receivers, num_nodes, beta, edge_mask)
-    if msgs.device.type == "cuda" and torch.is_grad_enabled() and (
-            msgs.requires_grad or beta.requires_grad):
-        raise NotImplementedError(
-            "the segment softmax kernels have no backward yet; it lands in "
-            "the training slice (ROADMAP.md, section 2, kernel B): run the "
-            "forward under torch.inference_mode() or train.make_eval_step")
     if edge_mask is None:
         edge_mask = torch.ones(msgs.shape[0], dtype=torch.bool,
                                device=msgs.device)
-    return segment_softmax(msgs, edge_mask, beta, rowptr)
+    return segment_softmax(msgs, edge_mask, beta, rowptr, receivers)
 
 
 class PHMGINEConvSoftmax(nn.Module):
@@ -73,8 +84,10 @@ class PHMGINEConvSoftmax(nn.Module):
                                 factor=1.0, generator=generator)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
-                training: bool = False, node_mask=None, rowptr=None):
-        msgs = _messages(x, senders, edge_attr, self.msg_encoder)
+                training: bool = False, node_mask=None, rowptr=None,
+                snd_perm=None, snd_rowptr=None):
+        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
+                         snd_rowptr)
         aggr = _softmax_aggr(msgs, receivers, x.shape[0], self.beta,
                              edge_mask, rowptr)
         if self.add_self_loops:
@@ -107,7 +120,9 @@ class PHMMessagePassing(nn.Module):
             initial_beta, learn_beta, generator)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
-                training: bool = False, node_mask=None, rowptr=None):
+                training: bool = False, node_mask=None, rowptr=None,
+                snd_perm=None, snd_rowptr=None):
         return self.conv(x, senders, receivers, edge_attr, edge_mask,
                          training=training, node_mask=node_mask,
-                         rowptr=rowptr)
+                         rowptr=rowptr, snd_perm=snd_perm,
+                         snd_rowptr=snd_rowptr)

@@ -2,7 +2,7 @@
 
 Counterpart of phc_gnn_tpu/models/phc_gnn.py:182-266 for
 ``skip_connect="add"``: atom-encode -> flatten [N, n*d] -> L x (bond-encode,
-conv, norm, act, add-skip) -> pool -> downstream head.  ``sc_type`` selects
+conv, norm, act, dropout, add-skip) -> pool -> downstream head.  ``sc_type`` selects
 the skip source: "first" = the initial embedding, "last" = the previous
 layer's output.  Module names follow the flax tree (``atomencoder``,
 ``bondencoder_<i>``, ``conv_<i>``, ``norm_<i>``, ``pooling``,
@@ -10,7 +10,9 @@ layer's output.  Module names follow the flax tree (``atomencoder``,
 
 The model is initialised from ``seed`` on a CPU ``torch.Generator`` and then
 moved to ``device`` (default "cuda"; without CUDA it raises unless
-``device="cpu"``).  Eval mode only in this slice.
+``device="cpu"``).  The training forward (phc_gnn.py:202-266) takes a
+``torch.Generator`` on that device for its dropout masks; it updates the
+batch-norm running stats in place.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from phc_gnn_torch.graph.conv import PHMMessagePassing
 from phc_gnn_torch.graph.pooling import PHMGlobalSumPooling, PHMSoftAttentionPooling
 from phc_gnn_torch.nn.activations import get_activation
 from phc_gnn_torch.nn.downstream import PHMDownstreamNet
+from phc_gnn_torch.nn.dropout import phm_dropout
 from phc_gnn_torch.nn.encoder import PHMEncoder
 from phc_gnn_torch.nn.norm import PHMNorm
 
@@ -43,7 +46,7 @@ class PHCGNN(nn.Module):
                  atom_encoded_dim: int = 196,
                  bond_input_dims: Union[int, Sequence[int]] = tuple(BOND_FEATURE_DIMS),
                  naive_encoder: bool = False, w_init: str = "phm",
-                 c_init: str = "standard",
+                 c_init: str = "standard", same_dropout: bool = False,
                  mp_layers: Sequence[int] = (196, 196, 196), bias: bool = True,
                  dropout_mpnn: Sequence[float] = (0.0, 0.0, 0.0),
                  norm_mp: Optional[str] = "naive-batch-norm",
@@ -91,6 +94,8 @@ class PHCGNN(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         self.phm_dim = n
         self.sc_type = sc_type
+        self.same_dropout = same_dropout
+        self.dropout_mpnn = tuple(float(p) for p in dropout_mpnn)
         self.num_layers = len(mp_layers)
         self.act = get_activation(activation)
         embed = atom_encoded_dim
@@ -118,14 +123,13 @@ class PHCGNN(nn.Module):
         self.downstream = PHMDownstreamNet(
             final_dim, tuple(downstream_layers), target_dim, n, activation,
             bias, norm_dn, w_init, c_init, learn_phm, real_trafo,
-            generator=gen)
+            dropout=dropout_dn, same_dropout=same_dropout, generator=gen)
         self.to(dev)
 
-    def forward(self, graphs: GraphsTuple, training: bool = False) -> torch.Tensor:
-        if training:
-            raise NotImplementedError(
-                "the training forward is not ported yet: it is the next slice "
-                "(ROADMAP.md, section 1, items 6-8)")
+    def forward(self, graphs: GraphsTuple, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[G, target_dim] predictions; in training, ``generator`` draws the
+        dropout masks and the batch-norm running stats are updated."""
         atom = self.atomencoder(graphs.nodes)
         atom = atom.reshape(atom.shape[0], -1)  # flat [N, n*d]
         x = atom
@@ -135,12 +139,17 @@ class PHCGNN(nn.Module):
             edge_emb = edge_emb.reshape(edge_emb.shape[0], -1)
             h = getattr(self, f"conv_{i}")(
                 x, graphs.senders, graphs.receivers, edge_emb,
-                graphs.edge_mask, training=False,
-                node_mask=graphs.node_mask, rowptr=graphs.rowptr)
+                graphs.edge_mask, training=training,
+                node_mask=graphs.node_mask, rowptr=graphs.rowptr,
+                snd_perm=graphs.snd_perm, snd_rowptr=graphs.snd_rowptr)
             if self.has_norm:
-                h = getattr(self, f"norm_{i}")(h, training=False,
+                h = getattr(self, f"norm_{i}")(h, training=training,
                                                mask=graphs.node_mask)
-            x = self.act(h) + skip
+            h = phm_dropout(self.act(h), self.dropout_mpnn[i], self.phm_dim,
+                            generator, training=training,
+                            same=self.same_dropout)
+            x = h + skip
         pooled = self.pooling(x, graphs.graph_ids, graphs.num_graphs,
                               graphs.node_mask)
-        return self.downstream(pooled, training=False, mask=graphs.graph_mask)
+        return self.downstream(pooled, training=training,
+                               mask=graphs.graph_mask, generator=generator)

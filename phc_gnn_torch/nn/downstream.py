@@ -2,18 +2,19 @@
 
 Counterpart of phc_gnn_tpu/nn/downstream.py: PHM layers ``affine_<i>``
 (input -> hidden... -> n * target_dim), each hidden one followed by
-``norm_<i>`` and the activation, closed by a RealTransformer.  Eval mode:
-dropout is the identity.
+``norm_<i>``, the activation and, in training, dropout (downstream.py:55-69),
+closed by a RealTransformer.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from phc_gnn_torch.nn.activations import get_activation
+from phc_gnn_torch.nn.dropout import phm_dropout
 from phc_gnn_torch.nn.norm import PHMNorm
 from phc_gnn_torch.nn.phm_linear import PHMLinear, RealTransformer
 
@@ -29,9 +30,18 @@ class PHMDownstreamNet(nn.Module):
                  bias: bool = True, norm: Optional[str] = None,
                  w_init: str = "phm", c_init: str = "standard",
                  learn_phm: bool = True, real_trafo: str = "linear",
+                 dropout: Union[float, Sequence[float]] = 0.1,
+                 same_dropout: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         n = phm_dim
+        self.dropout = ([float(dropout)] * len(hidden_layers)
+                        if isinstance(dropout, (int, float))
+                        else [float(p) for p in dropout])
+        if len(self.dropout) != len(hidden_layers):
+            raise ValueError("dropout needs one rate per hidden layer")
+        self.phm_dim = n
+        self.same_dropout = same_dropout
         sizes = [in_features] + list(hidden_layers) + [n * out_features]
         self.num_layers = len(sizes) - 1
         self.act = get_activation(activation)
@@ -46,7 +56,9 @@ class PHMDownstreamNet(nn.Module):
                                           bias=True, generator=generator)
 
     def forward(self, x: torch.Tensor, training: bool = False,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training."""
         for i in range(self.num_layers):
             x = getattr(self, f"affine_{i}")(x)
             if i < self.num_layers - 1:  # hidden layers only
@@ -54,4 +66,6 @@ class PHMDownstreamNet(nn.Module):
                     x = getattr(self, f"norm_{i}")(x, training=training,
                                                    mask=mask)
                 x = self.act(x)
+                x = phm_dropout(x, self.dropout[i], self.phm_dim, generator,
+                                training=training, same=self.same_dropout)
         return self.real_trafo(x)

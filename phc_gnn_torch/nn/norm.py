@@ -6,8 +6,13 @@ the input viewed as ``[N, n, d]``.  Parameters ``scale``/``bias`` and buffers
 ``mean``/``var`` have the feature shape ``(n, d)``.
 
 The eval path normalises with the running mean and var (norm.py:130-132).
-The training path, with its masked batch statistics, comes with the fused
-batch-norm kernels (D and E) in the training slice of the port.
+The training path (norm.py:78-129) normalises with the masked batch
+statistics through the fused batch-norm kernels D and E
+(``ops/fused_bn.py``), the input ``[N, n, d]`` passed flat as ``[N, n*d]``,
+and updates the running stats in place as torch's BatchNorm1d does:
+``mean += 0.1 * (mu - mean)`` and ``var += 0.1 * (var_u - var)``
+with the UNBIASED batch variance ``var_u = sigma^2 * cnt / max(cnt - 1, 1)``
+(norm.py:12-19, :124-129).  ``cnt`` stays on the device: no host sync.
 """
 
 from __future__ import annotations
@@ -17,11 +22,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from phc_gnn_torch.ops.fused_bn import fused_masked_bn
+
 __all__ = ["PHMNorm"]
 
-_TRAINING_TODO = ("training-mode batch norm is not ported yet: it lands with "
-                  "the fused batch-norm kernels D and E in the training slice "
-                  "(ROADMAP.md, section 1, item 6)")
+_MOMENTUM = 0.1  # torch BatchNorm1d's, as JAX's _BatchNorm uses it
 
 
 class _BatchNorm(nn.Module):
@@ -37,10 +42,20 @@ class _BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if training:
-            raise NotImplementedError(_TRAINING_TODO)
-        return (x - self.mean) * torch.rsqrt(self.var + self.eps) \
-            * self.scale + self.bias
+        if not training:
+            return (x - self.mean) * torch.rsqrt(self.var + self.eps) \
+                * self.scale + self.bias
+        if mask is None:
+            mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        y, mean, var = fused_masked_bn(
+            x.reshape(x.shape[0], -1), mask, self.scale.reshape(-1),
+            self.bias.reshape(-1), self.eps)
+        with torch.no_grad():
+            cnt = mask.sum(dtype=torch.float32).clamp_min(1.0)
+            var_u = var * (cnt / (cnt - 1.0).clamp_min(1.0))
+            self.mean.lerp_(mean.view(self.mean.shape), _MOMENTUM)
+            self.var.lerp_(var_u.view(self.var.shape), _MOMENTUM)
+        return y.view(x.shape)
 
 
 class PHMNorm(nn.Module):

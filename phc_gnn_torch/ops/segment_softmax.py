@@ -9,9 +9,18 @@ PyTorch version over the same CSR and mask semantics:
 - ``segment_softmax_aggregate`` replaces ``_softmax_fused_kernel`` /
   ``_softmax_fused_kernel_nw`` (stream_scan.py:439, :521) together with the
   epilogue that gathers at ``last_edge`` and divides (:778-782):
-  ``out = sum(w * m) / max(sum(w), 1e-16)`` with
-  ``w = mask * exp(beta * m - segmax)``, and optionally the per-edge ``w``
-  that the training backward reads.
+  ``out = sum(w * m) / den`` with ``den = max(sum(w), 1e-16)`` and
+  ``w = mask * exp(beta * m - segmax)``; its training variant also writes
+  the per-edge ``w`` and the per-node ``den`` that the backward reads.
+
+``segment_softmax`` runs the two in sequence.  Where a gradient is wanted it
+goes through an ``autograd.Function`` whose backward is the closed form of
+``_softmax_agg_streamed_bwd`` (stream_scan.py:794-815) in plain torch ops, as
+JAX leaves it to XLA: one gather of ``[den, g, out * g]`` at the receivers,
+then ``dm = (w / den_e) * (g_e + beta * (m * g_e - s_e))`` and
+``dbeta = sum (w / den_e) * m * (m * g_e - s_e)``.  The segment max gets no
+gradient (``stop_gradient``, :772).  Without a gradient (the eval path) B
+runs its eval variant and writes neither ``w`` nor ``den``.
 
 The CSR ``rowptr`` [N + 1] (int32) comes from ``graph.batch.attach_csr_plan``;
 it stops at the last real edge, so the padding run at the tail of the edge
@@ -57,7 +66,7 @@ def _lib():
         lib.segment_logit_max_f32.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _P]
         lib.segment_logit_max_f32.restype = ctypes.c_int
         lib.segment_softmax_aggregate_f32.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P]
+            _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P]
         lib.segment_softmax_aggregate_f32.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
@@ -93,13 +102,14 @@ def segment_softmax_aggregate_plain(msgs, mask, beta, rowptr, segmax,
     den = torch.zeros_like(num)
     num.index_add_(0, seg, w * m)
     den.index_add_(0, seg, w)
-    out = num / den.clamp_min(1e-16)
+    den = den.clamp_min(1e-16)
+    out = num / den
     if not emit_w:
         return out
     w_full = torch.zeros((msgs.shape[0], d), dtype=torch.float32,
                          device=msgs.device)
     w_full[:e] = w
-    return out, w_full
+    return out, w_full, den
 
 
 # ------------------------------------------------------------------ wrappers
@@ -127,10 +137,6 @@ def _check(msgs, mask, beta, rowptr):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def segment_logit_max(msgs, mask, beta, rowptr):
     """[N, D] max over each segment of ``where(mask, beta * m, -2^100)``."""
     if msgs.device.type == "cpu":
@@ -140,7 +146,7 @@ def segment_logit_max(msgs, mask, beta, rowptr):
     out = torch.empty((n, d), dtype=torch.float32, device=msgs.device)
     err = _lib().segment_logit_max_f32(
         msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
-        out.data_ptr(), n, d, _stream(msgs.device))
+        out.data_ptr(), n, d, _build.stream(msgs.device))
     if err != 0:
         raise RuntimeError(f"segment_logit_max launch failed: CUDA error {err}")
     segment_logit_max.launches += 1
@@ -153,8 +159,9 @@ segment_logit_max.launches = 0
 def segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax,
                               emit_w: bool = False):
     """[N, D] softmax-weighted segment sum given ``segmax`` from
-    ``segment_logit_max``; with ``emit_w`` also the per-edge weights
-    ``w`` [E, D] (0 on masked and padding-tail edges)."""
+    ``segment_logit_max``; with ``emit_w`` the triple ``(out, w, den)``,
+    adding the per-edge weights ``w`` [E, D] (0 on masked and padding-tail
+    edges) and ``den = max(sum w, 1e-16)`` [N, D]."""
     if msgs.device.type == "cpu":
         return segment_softmax_aggregate_plain(msgs, mask, beta, rowptr,
                                                segmax, emit_w)
@@ -165,24 +172,61 @@ def segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax,
         raise TypeError(f"segmax must be contiguous float32 [{n}, {d}] on "
                         f"{msgs.device}")
     out = torch.empty((n, d), dtype=torch.float32, device=msgs.device)
-    w = (torch.zeros((msgs.shape[0], d), dtype=torch.float32,
-                     device=msgs.device) if emit_w else None)
+    w = den = None
+    if emit_w:
+        w = torch.zeros((msgs.shape[0], d), dtype=torch.float32,
+                        device=msgs.device)
+        den = torch.empty_like(out)
     err = _lib().segment_softmax_aggregate_f32(
         msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
         segmax.data_ptr(), out.data_ptr(), w.data_ptr() if emit_w else None,
-        n, d, _stream(msgs.device))
+        den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
     if err != 0:
         raise RuntimeError(
             f"segment_softmax_aggregate launch failed: CUDA error {err}")
     segment_softmax_aggregate.launches += 1
-    return (out, w) if emit_w else out
+    return (out, w, den) if emit_w else out
 
 
 segment_softmax_aggregate.launches = 0
 
 
-def segment_softmax(msgs, mask, beta, rowptr):
+class _SegmentSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msgs, mask, beta, rowptr, receivers):
+        segmax = segment_logit_max(msgs, mask, beta, rowptr)
+        out, w, den = segment_softmax_aggregate(msgs, mask, beta, rowptr,
+                                                segmax, emit_w=True)
+        ctx.save_for_backward(msgs, beta, w, den, out, receivers)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        msgs, beta, w, den, out, receivers = ctx.saved_tensors
+        d = msgs.shape[1]
+        g = g.float()
+        packed = torch.cat([den, g, out * g], dim=1)
+        den_e, g_e, s_e = packed.index_select(0, receivers).split(d, dim=1)
+        wt = w / den_e
+        m = msgs.float()
+        diff = m * g_e - s_e
+        dm = dbeta = None
+        if ctx.needs_input_grad[0]:
+            dm = (wt * (g_e + beta * diff)).to(msgs.dtype)
+        if ctx.needs_input_grad[2]:
+            dbeta = (wt * m * diff).sum().reshape(beta.shape)
+        return dm, None, dbeta, None, None
+
+
+def segment_softmax(msgs, mask, beta, rowptr, receivers=None):
     """Softmax aggregation ``sum_e softmax(beta * m)_e * m_e`` per node, per
-    lane: the two kernels in sequence (their plain versions on the CPU)."""
+    lane: the two kernels in sequence (their plain versions on the CPU).
+    Differentiable in ``msgs`` and ``beta``; the backward gathers at
+    ``receivers`` [E], which a gradient needs."""
+    if torch.is_grad_enabled() and (msgs.requires_grad or beta.requires_grad):
+        if receivers is None:
+            raise ValueError("the softmax backward gathers at the receivers: "
+                             "pass receivers")
+        return _SegmentSoftmax.apply(msgs, mask, beta, rowptr, receivers)
     segmax = segment_logit_max(msgs, mask, beta, rowptr)
     return segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax)

@@ -1,21 +1,93 @@
-"""Serving entry point: the eval step.
+"""Training and serving entry points: the train step and the eval step.
 
-Counterpart of ``make_eval_step`` in phc_gnn_tpu/train/state.py:107-113.  The
-port's model owns its parameters and running stats, so the step takes the
-batch alone.
+Counterparts of ``make_loss_and_aux``, ``make_train_step`` and
+``make_eval_step`` in phc_gnn_tpu/train/state.py:52-113.  The port's model
+owns its parameters and running stats, and the optimizer owns its moments,
+so a step takes the batch (and the learning rate) alone.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, Dict, Tuple, Union
 
 import torch
 from torch import nn
 
 from phc_gnn_torch.device import resolve_device
 from phc_gnn_torch.graph.batch import GraphsTuple
+from phc_gnn_torch.nn.regularization import (
+    multiplication_rule_regularization,
+    phm_weight_regularization,
+)
+from phc_gnn_torch.train.optim import Adam
 
-__all__ = ["make_eval_step"]
+__all__ = ["make_loss_and_grads", "make_train_step", "make_eval_step"]
+
+LossFn = Callable[[torch.Tensor, GraphsTuple], torch.Tensor]
+
+
+def make_loss_and_grads(model: nn.Module, loss_fn: LossFn,
+                        weight_decay: float = 0.0, weight_decay2: float = 0.0,
+                        reg_p: int = 2):
+    """``f(batch, lr, generator) -> (loss, out, grads)``: the training
+    forward, the masked task loss plus the reference's lr-scaled weight and
+    rule regularization (``loss += lr*wd*phm_weight_reg + lr*wd2*rule_reg``,
+    train_hiv.py:180-191), and the gradients of every parameter that
+    requires one, keyed by name.  The forward updates the batch-norm running
+    stats; ``loss`` and ``out`` come back detached."""
+    named = dict(model.named_parameters())
+    trainable = {k: p for k, p in named.items() if p.requires_grad}
+
+    def loss_and_grads(batch: GraphsTuple, lr: float,
+                       generator: torch.Generator = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  Dict[str, torch.Tensor]]:
+        out = model(batch, training=True, generator=generator)
+        loss = loss_fn(out, batch)
+        if weight_decay > 0.0:
+            loss = loss + lr * weight_decay * phm_weight_regularization(
+                named, p=reg_p)
+        if weight_decay2 > 0.0:
+            loss = loss + lr * weight_decay2 * (
+                multiplication_rule_regularization(named, p=1))
+        grads = torch.autograd.grad(loss, list(trainable.values()))
+        return loss.detach(), out.detach(), dict(zip(trainable, grads))
+
+    return loss_and_grads
+
+
+def make_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
+                    weight_decay: float = 0.0, weight_decay2: float = 0.0,
+                    reg_p: int = 2, seed: int = 0,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> Callable[[GraphsTuple, float], Tuple[torch.Tensor,
+                                                           torch.Tensor]]:
+    """Move ``model`` to ``device`` (default "cuda"; without CUDA this raises
+    unless ``device="cpu"``) and return ``step(batch, lr)``: forward,
+    backward and the optimizer update, with the batch-norm running stats
+    updated.  It returns ``(loss, out)`` as device tensors and syncs with the
+    host nowhere.  ``optimizer`` is built on the model's parameters
+    (``make_optimizer(dict(model.named_parameters()), ...)``); the dropout
+    masks come from a generator on the device seeded with ``seed``.  The
+    batch needs its CSR plan (``graph.attach_csr_plan``) on a CUDA device."""
+    dev = resolve_device(device)
+    model.to(dev)
+    trainable = {k: p for k, p in model.named_parameters() if p.requires_grad}
+    if (list(optimizer.params) != list(trainable)
+            or any(optimizer.params[k] is not p for k, p in trainable.items())):
+        raise ValueError("the optimizer was not built on this model's "
+                         "parameters")
+    loss_and_grads = make_loss_and_grads(model, loss_fn, weight_decay,
+                                         weight_decay2, reg_p)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def step(batch: GraphsTuple, lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        batch = batch.to(dev, non_blocking=True)
+        loss, out, grads = loss_and_grads(batch, lr, gen)
+        optimizer.step(list(grads.values()), lr)
+        return loss, out
+
+    return step
 
 
 def make_eval_step(model: nn.Module, device: Union[str, torch.device] = "cuda"

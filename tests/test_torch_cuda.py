@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from phc_gnn_torch.data import synthetic_batch
-from phc_gnn_torch.graph import attach_csr_plan, build_csr_rowptr
+from phc_gnn_torch.graph import (attach_csr_plan, build_csr_rowptr,
+                                 build_sender_csr)
+from phc_gnn_torch.ops import fused_bn
 from phc_gnn_torch.ops import segment_softmax as ss
+from phc_gnn_torch.ops import segment_sum as ssum
 
 pytestmark = pytest.mark.cuda
 
@@ -67,17 +70,86 @@ def test_kernels_match_plain_versions(dev, case):
                    else _adversarial_case(dev))
     n0, a0 = ss.segment_logit_max.launches, ss.segment_softmax_aggregate.launches
     smax = ss.segment_logit_max(m, k, b, rp)
-    out, w = ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True)
+    out, w, den = ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True)
     torch.cuda.synchronize()
     assert ss.segment_logit_max.launches == n0 + 1
     assert ss.segment_softmax_aggregate.launches == a0 + 1
     smax_ref = ss.segment_logit_max_plain(m, k, b, rp)
-    out_ref, w_ref = ss.segment_softmax_aggregate_plain(m, k, b, rp, smax_ref,
-                                                        emit_w=True)
+    out_ref, w_ref, den_ref = ss.segment_softmax_aggregate_plain(
+        m, k, b, rp, smax_ref, emit_w=True)
     assert _rel_err(smax, smax_ref) <= 1e-6
     assert _rel_err(out, out_ref) <= 1e-5
     assert _rel_err(w, w_ref) <= 1e-5
+    assert _leaf_err(den, den_ref) <= 1e-5
     assert torch.isfinite(out).all()
+
+
+def _leaf_err(got, want):
+    """max |got - want| over max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("case", ["flagship", "adversarial"])
+def test_segment_sum_kernel_matches_plain_version(dev, case):
+    """Kernel C over the sender CSR, with g non-zero on masked edges; the
+    adversarial senders hold an isolated node and one of 1,100 edges.
+    ``test_segment_sum_tolerance_separates_a_dropped_edge`` shows the limit
+    catches one edge too few."""
+    if case == "flagship":
+        b = attach_csr_plan(synthetic_batch(128, 4096, 8192, seed=0)).to(dev)
+        perm, rowptr, e = b.snd_perm, b.snd_rowptr, b.num_edges
+    else:
+        rng = np.random.default_rng(4)
+        counts = rng.integers(1, 6, size=48)
+        counts[3], counts[7] = 0, 1100
+        senders = rng.permutation(np.repeat(np.arange(48), counts))
+        mask = rng.random(senders.shape[0]) > 0.2
+        perm, rowptr = (torch.from_numpy(a).to(dev)
+                        for a in build_sender_csr(senders, 48, mask))
+        e = senders.shape[0]
+    g = torch.randn((e, 200), generator=torch.Generator().manual_seed(1)).to(dev)
+    n0 = ssum.segment_sum_perm.launches
+    out = ssum.segment_sum_perm(g, perm, rowptr)
+    torch.cuda.synchronize()
+    assert ssum.segment_sum_perm.launches == n0 + 1
+    # against a float64 sum, so that the reference's order does not matter;
+    # the kernel's f32 running sum of 1,100 rows drifts ~1e-6 of the max
+    want = ssum.segment_sum_perm_plain(g.double(), perm, rowptr)
+    assert _leaf_err(out, want) <= 1e-5
+    if case == "adversarial":
+        assert torch.all(out[3] == 0)
+
+
+@pytest.mark.parametrize("shape", [(4096, 200), (129, 100)])
+@pytest.mark.parametrize("mask_kind", ["random", "all_masked", "one_row"])
+def test_fused_bn_kernels_match_plain_versions(dev, shape, mask_kind):
+    gen = torch.Generator().manual_seed(2)
+    n, d = shape
+    x = (torch.randn(shape, generator=gen) * 2 + 3).to(dev)
+    g = torch.randn(shape, generator=gen).to(dev)
+    scale = torch.randn(d, generator=gen).to(dev)
+    bias = torch.randn(d, generator=gen).to(dev)
+    mask = torch.rand(n, generator=gen) > 0.3
+    if mask_kind != "random":
+        mask[:] = False
+        if mask_kind == "one_row":
+            mask[n // 2] = True
+    mask = mask.to(dev)
+    f0, b0 = fused_bn.bn_forward.launches, fused_bn.bn_backward.launches
+    y, mean, var = fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
+    dx, ds, db = fused_bn.bn_backward(x, mask, scale, mean, var, 1e-5, g)
+    torch.cuda.synchronize()
+    assert (fused_bn.bn_forward.launches, fused_bn.bn_backward.launches) == (
+        f0 + 1, b0 + 1)
+    ref = fused_bn.bn_forward_plain(x, mask, scale, bias, 1e-5)
+    ref_b = fused_bn.bn_backward_plain(x, mask, scale, ref[1], ref[2], 1e-5, g)
+    for got, want in zip((y, mean, var, dx, ds, db), ref + ref_b):
+        assert torch.isfinite(got).all()
+        if float(want.abs().max()) == 0.0:
+            assert torch.equal(got, want)
+        else:
+            assert _leaf_err(got, want) <= 1e-5
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -2,9 +2,11 @@
 
 The kernels' plain versions run here (CPU tensors); the CUDA kernels are held
 to them on the card (test_torch_cuda.py, chip_smoke.py).  Tolerance: 1e-5
-normwise relative (different summation order, same f32 arithmetic).
+normwise relative (different summation order, same f32 arithmetic); the
+backward's gradients 1e-5 per leaf, scaled by the gradient's own max.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ from phc_gnn_torch.data import synthetic_batch
 from phc_gnn_torch.graph import attach_csr_plan, build_csr_rowptr
 from phc_gnn_torch.graph.aggregators import softmax_aggregate
 from phc_gnn_torch.ops import segment_softmax as ss
-from torch_parity import assert_close
+from torch_parity import assert_close, assert_leaf_close
 
 REL = 1e-5
 
@@ -119,6 +121,54 @@ def test_segment_softmax_matches_streamed_kernel(case):
     assert_close(comp, np.asarray(want_comp), REL)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_segment_softmax_grad_matches_streamed_vjp(case):
+    """Gradients in ``msgs`` and ``beta`` of the port's autograd Function
+    (forward A, then B's training variant; closed-form backward) against
+    ``jax.grad`` through ``softmax_aggregate_streamed`` (Pallas A and B in
+    interpret mode, its custom VJP), on the same adversarial segments."""
+    msgs, recv, mask, n, beta = CASES[case]()
+    flags, cont, last = build_scan_plan(recv, n, edge_mask=mask)
+    g = np.random.default_rng(5).normal(
+        size=(n, msgs.shape[1])).astype(np.float32)
+
+    def f(m, b):
+        out = softmax_aggregate_streamed(
+            m, jnp.asarray(recv), jnp.asarray(flags), jnp.asarray(cont),
+            jnp.asarray(last), n, b, edge_mask=jnp.asarray(mask))
+        return jnp.sum(out * g)
+
+    dm_j, db_j = jax.grad(f, argnums=(0, 1))(jnp.asarray(msgs),
+                                             jnp.float32(beta))
+    m = torch.tensor(msgs, requires_grad=True)
+    b = torch.tensor(beta, requires_grad=True)
+    rowptr = torch.from_numpy(build_csr_rowptr(recv, n, mask))
+    out = ss.segment_softmax(m, torch.from_numpy(mask), b, rowptr,
+                             torch.from_numpy(recv))
+    (out * torch.from_numpy(g)).sum().backward()
+    assert_leaf_close(m.grad, np.asarray(dm_j), REL, "dmsgs")
+    # dbeta sums E x D signed terms that cancel (|beta * m| up to 88 in the
+    # adversarial cases): its f32 rounding scales with the sum of |terms|
+    k, r = torch.from_numpy(mask), torch.from_numpy(recv).long()
+    smax = ss.segment_logit_max_plain(m.detach(), k, b.detach(), rowptr)
+    out, w, den = ss.segment_softmax_aggregate_plain(
+        m.detach(), k, b.detach(), rowptr, smax, emit_w=True)
+    md, gd = m.detach().double(), torch.from_numpy(g).double()[r]
+    terms = (w.double() / den.double()[r]) * md * (md * gd
+                                                   - out.double()[r] * gd)
+    err = abs(float(b.grad) - float(db_j))
+    assert err <= REL * float(terms.abs().sum()), (err, float(db_j))
+    assert torch.all(m.grad[~torch.from_numpy(mask)] == 0)
+
+
+def test_segment_softmax_grad_needs_receivers():
+    msgs, recv, mask, n, beta = _synthetic(0)
+    rowptr = torch.from_numpy(build_csr_rowptr(recv, n, mask))
+    m = torch.tensor(msgs, requires_grad=True)
+    with pytest.raises(ValueError, match="receivers"):
+        ss.segment_softmax(m, torch.from_numpy(mask), torch.tensor(beta), rowptr)
+
+
 def test_segment_softmax_identities():
     """-2^100 is the max identity; isolated and all-masked nodes give 0; w is
     0 on masked and padding-tail edges and peaks at 1 in real segments."""
@@ -128,10 +178,13 @@ def test_segment_softmax_identities():
     segmax = ss.segment_logit_max(m, k, b, rowptr)
     assert ss.NEG == -(2.0 ** 100) and float(np.float32(ss.NEG)) == ss.NEG
     assert torch.all(segmax[3] == ss.NEG) and torch.all(segmax[11] == ss.NEG)
-    out, w = ss.segment_softmax_aggregate(m, k, b, rowptr, segmax, emit_w=True)
+    out, w, den = ss.segment_softmax_aggregate(m, k, b, rowptr, segmax,
+                                               emit_w=True)
     assert torch.isfinite(out).all()
     assert torch.all(out[3] == 0) and torch.all(out[11] == 0)
     assert torch.all(w[~k] == 0)
+    # den = max(sum w, 1e-16): the floor on empty and all-masked segments
+    assert torch.all(den[3] == 1e-16) and torch.all(den[11] == 1e-16)
     # w = exp(logit - segmax) is 1 at each real segment's argmax, per lane
     seg = torch.repeat_interleave(torch.arange(n), rowptr.diff().long())
     e = seg.shape[0]

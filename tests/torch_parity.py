@@ -48,13 +48,31 @@ def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     return module.eval()
 
 
-def assert_close(got, want, rel: float):
-    """Normwise relative check: max |got - want| <= rel * max(1, max |want|)."""
+def _as_f64(got, want):
     got = np.asarray(got.detach().cpu().numpy() if torch.is_tensor(got) else got,
                      np.float64)
-    want = np.asarray(want, np.float64)
+    return got, np.asarray(want, np.float64)
+
+
+def assert_close(got, want, rel: float):
+    """Normwise relative check: max |got - want| <= rel * max(1, max |want|)."""
+    got, want = _as_f64(got, want)
     assert got.shape == want.shape, (got.shape, want.shape)
     assert np.isfinite(got).all()
     err = np.max(np.abs(got - want)) if got.size else 0.0
     scale = max(1.0, float(np.max(np.abs(want)))) if want.size else 1.0
     assert err <= rel * scale, f"max abs err {err:.3g} > {rel:g} * {scale:.3g}"
+
+
+def assert_leaf_close(got, want, rel: float, name: str = ""):
+    """Relative check scaled by the leaf's OWN size: max |got - want| <=
+    rel * max |want|.  For gradients and updates, whose entries can be far
+    below 1, where ``assert_close``'s floor of 1 would make the check
+    vacuous."""
+    got, want = _as_f64(got, want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    assert np.isfinite(got).all(), name
+    err = np.max(np.abs(got - want)) if got.size else 0.0
+    scale = float(np.max(np.abs(want))) if want.size else 0.0
+    assert err <= rel * scale, (f"{name}: max abs err {err:.3g} > {rel:g} * "
+                                f"max |want| {scale:.3g}")

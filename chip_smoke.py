@@ -9,18 +9,24 @@ Phases, each of which exits non-zero on failure:
 2. build: every CUDA source of the port (phc_gnn_torch/csrc/*.cu) with nvcc,
    one compiler per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (the CSRs of synthetic_batch(128, 4096, 8192, seed=0),
-   D = 200; the batch norms at [4096, 200] and [129, 100]) and on
-   adversarial inputs: for the softmax kernels A and B an isolated node, an
+   main paths' shapes (the CSRs of synthetic_batch(128, 4096, 8192, seed=0),
+   D = 200; the batch norms at [4096, 200] and [129, 100]; for the pcba
+   path, the CSRs of its 128-graph and 512-graph batches at D = 512 and the
+   row-blocked batch norm at [4096, 512]) and on adversarial inputs: for the softmax kernels A and B an isolated node, an
    all-masked segment inside the edge array, a segment of 1,100 edges and
    |beta * m| up to ~88 with beta = -2.75 (where the plain segment max is the
    identity -2^100 the kernel must give it exactly; the other entries are
    held to the tolerance); for the segment sum C an isolated sender, a
    sender of 1,100 edges and a cotangent that is non-zero on masked edges;
-   for the batch norms D and E an all-masked and a one-row mask.  Each is
-   timed with CUDA events, eagerly and from a CUDA graph, beside its plain
-   version, its bound and, where one exists, one PyTorch call that computes
-   the same function;
+   for the batch norms D and E an all-masked and a one-row mask; for the
+   row-blocked batch norm F, G and its two elementwise passes a ragged last
+   row block, whole row blocks masked, an all-masked and a one-row mask; for
+   C's forward role (the masked sum aggregation) masked edges inside
+   segments, an all-masked segment, an isolated node and a 1,100-edge
+   segment.  Each is timed with CUDA events, eagerly and from a CUDA graph,
+   beside its plain version, its bound and, where one exists, one PyTorch
+   call that computes the same function; D + E are timed at [4096, 512]
+   beside F, G and the passes, as data for the size gate between them;
 4. eval slice: the flagship model (bench.py's config: PHCGNN phm_dim=4, width
    200, 4 x PHMGINEConvSoftmax, soft-attention pooling, (200, 100) -> 1 head)
    at random weights from a seed, with random running stats and betas,
@@ -40,17 +46,40 @@ Phases, each of which exits non-zero on failure:
    flagship's dropout on one batch, the counters zeroed just before and read
    just after: per step A, B and C run 4 times, D and E 10; the loss stays
    finite and falls.  A CUDA batch without its sender plan must raise.  Last,
-   the step is timed and profiled.
+   the step is timed and profiled;
+6. pcba eval: the molpcba PHC-2 configuration (benchmarks/
+   run_script_pcba_phm2.sh over DATASET_DEFAULTS["pcba"], built by
+   ``train.trainer.build_model``: phm_dim 2, 7 x PHMConv with sum
+   aggregation at width 512, sc_type "first", OGB encoders, a (768, 256) ->
+   128 head) at random weights, random running stats, served through
+   ``make_eval_step`` on a 512-graph batch (synthetic_batch(512, 16384,
+   32768) with 9 atom and 3 bond features); only C's forward role runs, 7
+   times.  Held to the CPU path, timed and profiled;
+7. pcba train: ``train.make_accum_train_step`` over K = 4 sub-batches of
+   synthetic_batch(128, 4096, 8192, seed=0..3) with 0/1 labels of 128 tasks,
+   a share missing (NaN), under the masked BCE, Adam after a clip of 2.0, lr
+   1e-3.  One dropout-free step on the GPU against the CPU (loss, outputs,
+   each accumulated gradient with the GPU's ReLU pattern replayed, running
+   stats, the Adam update given equal gradients); then ten steps with the
+   configuration's dropout, counters zeroed just before and read just after:
+   per step F, G, their passes, C's two roles 28 times each, D and E 8; the
+   loss stays finite and falls.  Timed and profiled.
 
-It prints a ``{"kernels": [...]}`` line, then, as its last line,
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
-and prints no result.  It imports nothing of JAX.
+It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
+``{"profile_train"}``, ``{"pcba"}`` and ``{"kernels": [...]}`` lines, then,
+as its last line, ``{"ok": true, "device": {...}}``.  In the kernels line,
+each kernel's ``launches_by_path`` holds its count from each of the four
+main-path runs above (``eval``: 3 flagship batches; ``train``: 10 flagship
+steps; ``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated steps), and
+``launches`` is their sum.  Without a CUDA device it exits non-zero and
+prints no result.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +111,33 @@ TRAIN_STEPS = 10
 # (4 in the convs' MLPs, 4 after the convs, 2 in the downstream head)
 TRAIN_LAUNCHES = {"segment_logit_max": 4, "segment_softmax_aggregate": 4,
                   "segment_sum_perm": 4, "bn_forward": 10, "bn_backward": 10}
+# the molpcba PHC-2 configuration (benchmarks/run_script_pcba_phm2.sh)
+PCBA_DIM = 512
+PCBA_LAYERS = 7
+PCBA_TASKS = 128
+PCBA_K = 4                  # grad_accum
+PCBA_FEATS = dict(target_dim=PCBA_TASKS, num_node_feats=9, num_edge_feats=3)
+PCBA = dict(batch_size=128, num_nodes=4096, num_edges=8192, **PCBA_FEATS)
+PCBA_EVAL = dict(batch_size=512, num_nodes=16384, num_edges=32768,
+                 **PCBA_FEATS)
+PCBA_STEPS = 10
+# per accumulated step, K = 4 sub-batches: the sum aggregation (C forward)
+# and the gather backward (C backward) once per layer; the blocked norm (F,
+# G and their passes) after each of the 7 convs ([4096, 2, 256], 8.39 MB,
+# over the 3.5 MB gate); D and E in the head's 2 norms
+PCBA_LAUNCHES = {"segment_sum_masked": 28, "segment_sum_perm": 28,
+                 "bn_stats_blocked": 28, "bn_bwd_sums_blocked": 28,
+                 "bn_normalize": 28, "bn_dx": 28, "bn_forward": 8,
+                 "bn_backward": 8}
+PCBA_EVAL_LAUNCHES = {"segment_sum_masked": PCBA_LAYERS}
+# the flags of benchmarks/run_script_pcba_phm2.sh over DATASET_DEFAULTS["pcba"]
+PCBA_SCRIPT = dict(dataset="pcba", phm_dim=2, model_type="add", aggr_msg="sum",
+                   mlp_mp=False, input_embed_dim=PCBA_DIM,
+                   mp_units=(PCBA_DIM,) * PCBA_LAYERS, d_units=(768, 256),
+                   dropout_mpnn=(0.3,) * PCBA_LAYERS, dropout_dn=(0.4, 0.2),
+                   batch_size=128, grad_accum=PCBA_K, max_nodes=4096,
+                   max_edges=8192, eval_batch_size=512, lr=1e-3, patience=5,
+                   factor=0.75, epochs=150, weightdecay=0.0)
 
 
 def fail(msg: str) -> None:
@@ -162,7 +218,8 @@ def time_graph(torch, fn, iters: int = 100, reps: int = 5) -> float:
 
 
 def kernel_wrappers():
-    """The launch-counting wrapper of every kernel of the port, A to E."""
+    """The launch-counting wrapper of every kernel of the port, A to G with
+    C's two roles and the blocked norm's two elementwise passes."""
     from phc_gnn_torch.ops import fused_bn
     from phc_gnn_torch.ops import segment_softmax as ss
     from phc_gnn_torch.ops import segment_sum as ssum
@@ -170,8 +227,13 @@ def kernel_wrappers():
     return {"segment_logit_max": ss.segment_logit_max,
             "segment_softmax_aggregate": ss.segment_softmax_aggregate,
             "segment_sum_perm": ssum.segment_sum_perm,
+            "segment_sum_masked": ssum.segment_sum_masked,
             "bn_forward": fused_bn.bn_forward,
-            "bn_backward": fused_bn.bn_backward}
+            "bn_backward": fused_bn.bn_backward,
+            "bn_stats_blocked": fused_bn.bn_stats_blocked,
+            "bn_bwd_sums_blocked": fused_bn.bn_bwd_sums_blocked,
+            "bn_normalize": fused_bn.bn_normalize,
+            "bn_dx": fused_bn.bn_dx}
 
 
 def reset_launches() -> None:
@@ -466,6 +528,233 @@ def batch_norm_kernels(torch, dev, batch, errs):
                None, 3 * nd_bytes + n + 5 * d * 4, 12 * n * d)]
 
 
+def pcba_labels(torch, batch, seed: int):
+    """``batch`` with 0/1 labels of the 128 tasks, ~40 % of them missing
+    (NaN) as molpcba's are, and NaN on the padding graphs; drawn with numpy
+    from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + seed)
+    g = batch.num_graphs
+    y = (rng.random((g, PCBA_TASKS)) < 0.3).astype(np.float32)
+    y[rng.random(y.shape) < 0.4] = np.nan
+    y[~batch.graph_mask.cpu().numpy()] = np.nan
+    return batch.replace(y=torch.from_numpy(y).to(batch.graph_mask.device))
+
+
+def pcba_batch(torch, seed: int, shape: dict):
+    """A host pcba batch with its CSR plans and labels."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+
+    return pcba_labels(torch, attach_csr_plan(
+        synthetic_batch(seed=seed, **shape)), seed)
+
+
+def blocked_bn_kernels(torch, dev, batch, errs):
+    """F, G and the two elementwise passes against their plain versions at
+    [4096, 512] with the pcba batch's node mask, at a ragged [1100, 24] with
+    a random mask and with row blocks 1-4 all masked, all-masked at [4096,
+    512] and one-row at [129, 768]; returns their timing records, with D and
+    E timed at the same [4096, 512] beside them."""
+    from phc_gnn_torch.ops import fused_bn
+
+    gen = torch.Generator().manual_seed(3)
+
+    def inputs(n, d):
+        x = (torch.randn((n, d), generator=gen) * 2 + 3).to(dev)
+        g = torch.randn((n, d), generator=gen).to(dev)
+        scale = torch.randn(d, generator=gen).to(dev)
+        bias = torch.randn(d, generator=gen).to(dev)
+        return x, g, scale, bias
+
+    def mask_of(n, kind):
+        mask = torch.rand(n, generator=gen) > 0.25
+        if kind == "masked blocks":
+            mask[128:640] = False
+        elif kind == "all-masked":
+            mask[:] = False
+        elif kind == "one-row":
+            mask[:] = False
+            mask[64] = True
+        return mask.to(dev)
+
+    n_main = batch.num_nodes
+    main = inputs(n_main, PCBA_DIM)
+    ragged = inputs(1100, 24)
+    shape = f"[{n_main}, {PCBA_DIM}]"
+    cases = {f"main {shape}": (main, batch.node_mask),
+             "ragged [1100, 24]": (ragged, mask_of(1100, "random")),
+             "masked blocks [1100, 24]": (ragged, mask_of(1100, "masked blocks")),
+             f"all-masked {shape}": (main, mask_of(n_main, "all-masked")),
+             "one-row [129, 768]": (inputs(129, 768), mask_of(129, "one-row"))}
+    names = ("bn_stats_blocked", "bn_bwd_sums_blocked", "bn_normalize", "bn_dx")
+    wrappers = kernel_wrappers()
+    for name, ((x, g, scale, bias), mask) in cases.items():
+        before = [wrappers[k].launches for k in names]
+        mean, var, cnt = fused_bn.bn_stats_blocked(x, mask)
+        y = fused_bn.bn_normalize(x, mean, var, scale, bias, 1e-5)
+        sg, sgx = fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)
+        dx = fused_bn.bn_dx(x, mask, g, scale, mean, var, 1e-5, sg, sgx, cnt)
+        torch.cuda.synchronize()
+        if [wrappers[k].launches for k in names] != [b + 1 for b in before]:
+            fail(f"{name}: the blocked batch-norm launch counters did not move")
+        r_mean, r_var, r_cnt = fused_bn.bn_stats_blocked_plain(x, mask)
+        r_y = fused_bn.bn_normalize_plain(x, r_mean, r_var, scale, bias, 1e-5)
+        r_sg, r_sgx = fused_bn.bn_bwd_sums_blocked_plain(x, g, r_mean, r_var,
+                                                         1e-5)
+        r_dx = fused_bn.bn_dx_plain(x, mask, g, scale, r_mean, r_var, 1e-5,
+                                    r_sg, r_sgx, r_cnt)
+        if not torch.equal(cnt, r_cnt):
+            fail(f"bn_stats_blocked: cnt {float(cnt)} on {name}, plain "
+                 f"{float(r_cnt)}")
+        for kname, what, got, want in (
+                ("bn_stats_blocked", "mean", mean, r_mean),
+                ("bn_stats_blocked", "var", var, r_var),
+                ("bn_normalize", "y", y, r_y),
+                ("bn_bwd_sums_blocked", "sum g", sg, r_sg),
+                ("bn_bwd_sums_blocked", "sum g xhat", sgx, r_sgx),
+                ("bn_dx", "dx", dx, r_dx)):
+            check(errs, kname, f"{name}, {what}", got, want, TOL_BN)
+
+    (x, g, scale, bias), mask = main, batch.node_mask
+    n, d = x.shape
+    mean, var, cnt = fused_bn.bn_stats_blocked(x, mask)
+    sg, sgx = fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)
+    nd_bytes = n * d * 4
+    src = "phc_gnn_torch/csrc/fused_bn.cu"
+    xla = "phc_gnn_tpu/ops/fused_bn.py"
+    recs = [
+        record(torch, "bn_stats_blocked", src, f"{xla}:162", errs,
+               lambda: fused_bn.bn_stats_blocked(x, mask),
+               lambda: fused_bn.bn_stats_blocked_plain(x, mask),
+               None, nd_bytes + n + 2 * d * 4 + 4, 5 * n * d),
+        record(torch, "bn_normalize", src, f"{xla}:283", errs,
+               lambda: fused_bn.bn_normalize(x, mean, var, scale, bias, 1e-5),
+               lambda: fused_bn.bn_normalize_plain(x, mean, var, scale, bias,
+                                                   1e-5),
+               None, 2 * nd_bytes + 4 * d * 4, 4 * n * d),
+        record(torch, "bn_bwd_sums_blocked", src, f"{xla}:202", errs,
+               lambda: fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5),
+               lambda: fused_bn.bn_bwd_sums_blocked_plain(x, g, mean, var,
+                                                          1e-5),
+               None, 2 * nd_bytes + 4 * d * 4, 5 * n * d),
+        record(torch, "bn_dx", src, f"{xla}:299", errs,
+               lambda: fused_bn.bn_dx(x, mask, g, scale, mean, var, 1e-5, sg,
+                                      sgx, cnt),
+               lambda: fused_bn.bn_dx_plain(x, mask, g, scale, mean, var,
+                                            1e-5, sg, sgx, cnt),
+               None, 3 * nd_bytes + n + 5 * d * 4 + 4, 8 * n * d)]
+
+    # the same [4096, 512] through the single-block pair D and E, for the
+    # size gate: blocked forward = F + normalise, blocked backward = G + dx
+    def blocked_fwd():
+        m_, v_, _ = fused_bn.bn_stats_blocked(x, mask)
+        return fused_bn.bn_normalize(x, m_, v_, scale, bias, 1e-5)
+
+    def blocked_bwd():
+        s_g, s_gx = fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)
+        return fused_bn.bn_dx(x, mask, g, scale, mean, var, 1e-5, s_g, s_gx,
+                              cnt)
+
+    gate = {"shape": [n, d],
+            "single_block_forward_graph_ms": time_graph(
+                torch, lambda: fused_bn.bn_forward(x, mask, scale, bias, 1e-5)),
+            "single_block_backward_graph_ms": time_graph(
+                torch, lambda: fused_bn.bn_backward(x, mask, scale, mean, var,
+                                                    1e-5, g)),
+            "blocked_forward_graph_ms": time_graph(torch, blocked_fwd),
+            "blocked_backward_graph_ms": time_graph(torch, blocked_bwd)}
+    print(f"kernel gate data at [{n}, {d}]: D {gate['single_block_forward_graph_ms'] * 1e3:.2f} us "
+          f"vs F + normalise {gate['blocked_forward_graph_ms'] * 1e3:.2f} us; "
+          f"E {gate['single_block_backward_graph_ms'] * 1e3:.2f} us vs G + dx "
+          f"{gate['blocked_backward_graph_ms'] * 1e3:.2f} us (device, CUDA graph)",
+          flush=True)
+    recs[0]["gate_data"] = gate
+    # each of F's and G's two CUDA kernels (row blocks, then the combine)
+    split = device_profile(torch, lambda: (
+        fused_bn.bn_stats_blocked(x, mask),
+        fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)), 1.0, iters=20)
+    for rec, prefix in ((recs[0], "bn_stats"), (recs[2], "bn_bwd_sums")):
+        rec["cuda_kernels_us"] = {
+            re.search(r"bn_\w+_kernel", name).group(0): us
+            for name, us in split["top_us"] if prefix in name}
+        print(f"kernel {rec['name']}: its CUDA kernels {rec['cuda_kernels_us']} "
+              f"(us of device time a call, torch.profiler over 20 calls)",
+              flush=True)
+    for rec in recs[1::2]:  # JAX leaves these passes to XLA: no Pallas kernel
+        rec["replaces_what"] = "XLA elementwise pass beside the blocked kernels"
+    return recs
+
+
+def segment_sum_masked_kernel(torch, dev, batch, eval_batch, errs):
+    """C's forward role against its plain version run in float64, over the
+    receiver CSRs of the pcba batch [8192, 512] and the 512-graph eval batch
+    [32768, 512], and on the adversarial receivers; returns its timing
+    record, with the eval shape beside it."""
+    from phc_gnn_torch.ops import segment_sum as ssum
+
+    gen = torch.Generator().manual_seed(4)
+    msgs = torch.randn((batch.num_edges, PCBA_DIM), generator=gen).to(dev)
+    e_msgs = torch.randn((eval_batch.num_edges, PCBA_DIM), generator=gen).to(dev)
+    adv_m, adv_k, _, adv_rp = adversarial_case(torch, dev, PCBA_DIM)
+    cases = {f"pcba [{batch.num_edges}, {PCBA_DIM}]": (
+                 msgs, batch.edge_mask, batch.rowptr),
+             f"eval [{eval_batch.num_edges}, {PCBA_DIM}]": (
+                 e_msgs, eval_batch.edge_mask, eval_batch.rowptr),
+             "adversarial": (adv_m, adv_k, adv_rp)}
+    for name, (m, k, rp) in cases.items():
+        before = ssum.segment_sum_masked.launches
+        out = ssum.segment_sum_masked(m, k, rp)
+        torch.cuda.synchronize()
+        if ssum.segment_sum_masked.launches != before + 1:
+            fail(f"{name}: the launch counter of segment_sum_masked did not "
+                 f"move")
+        want = ssum.segment_sum_masked_plain(m.double(), k, rp)
+        check(errs, "segment_sum_masked", name, out, want, TOL_SUM)
+        if name == "adversarial" and not (bool((out[3] == 0).all())
+                                          and bool((out[11] == 0).all())):
+            fail("segment_sum_masked: an isolated or all-masked segment did "
+                 "not give 0")
+
+    def library_of(m, k, rp):
+        n = rp.shape[0] - 1
+        seg = torch.repeat_interleave(torch.arange(n, device=dev),
+                                      (rp[1:] - rp[:-1]).long())
+        real = k[:seg.shape[0]].nonzero()[:, 0]
+        rows, index = m[real], seg[real]
+        zeros = torch.zeros((n, m.shape[1]), device=dev)
+        nbytes = (real.shape[0] * m.shape[1] * 4 + int(rp[-1]) + rp.shape[0] * 4
+                  + n * m.shape[1] * 4)
+        return (lambda: zeros.clone().index_add_(0, index, rows)), nbytes, \
+            real.shape[0] * m.shape[1]
+
+    library, nbytes, flops = library_of(msgs, batch.edge_mask, batch.rowptr)
+    rec = record(torch, "segment_sum_masked", "phc_gnn_torch/csrc/segment_sum.cu",
+                 "phc_gnn_tpu/ops/stream_scan.py:373", errs,
+                 lambda: ssum.segment_sum_masked(msgs, batch.edge_mask,
+                                                 batch.rowptr),
+                 lambda: ssum.segment_sum_masked_plain(msgs, batch.edge_mask,
+                                                       batch.rowptr),
+                 library, nbytes, flops)
+    rec["role"] = "forward of the sum aggregation (_seg_sum_streamed :698)"
+    e_lib, e_bytes, _ = library_of(e_msgs, eval_batch.edge_mask,
+                                   eval_batch.rowptr)
+    e_fn = lambda: ssum.segment_sum_masked(  # noqa: E731
+        e_msgs, eval_batch.edge_mask, eval_batch.rowptr)
+    rec["eval_shape"] = {
+        "ms": time_eager(torch, e_fn), "graph_ms": time_graph(torch, e_fn),
+        "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3, "bytes": e_bytes,
+        "library_graph_ms": time_graph(torch, e_lib)}
+    print(f"kernel segment_sum_masked at the eval shape: "
+          f"{rec['eval_shape']['ms'] * 1e3:.2f} us per call, "
+          f"{rec['eval_shape']['graph_ms'] * 1e3:.2f} us device, bound "
+          f"{rec['eval_shape']['bound_ms'] * 1e3:.2f} us, library "
+          f"{rec['eval_shape']['library_graph_ms'] * 1e3:.2f} us device",
+          flush=True)
+    return [rec]
+
+
 def kernel_phase(torch, dev):
     """Kernels vs plain versions at the main-path and adversarial shapes;
     returns the per-kernel records (launches filled in later)."""
@@ -473,10 +762,14 @@ def kernel_phase(torch, dev):
     from phc_gnn_torch.graph import attach_csr_plan
 
     batch = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP)).to(dev)
+    pcba = pcba_batch(torch, 0, PCBA).to(dev)
+    pcba_eval = pcba_batch(torch, 0, PCBA_EVAL).to(dev)
     errs: dict = {}
     return (softmax_kernels(torch, dev, batch, errs)
             + segment_sum_kernel(torch, dev, batch, errs)
-            + batch_norm_kernels(torch, dev, batch, errs))
+            + segment_sum_masked_kernel(torch, dev, pcba, pcba_eval, errs)
+            + batch_norm_kernels(torch, dev, batch, errs)
+            + blocked_bn_kernels(torch, dev, pcba, errs))
 
 
 def flagship_config(dropout: bool = True) -> dict:
@@ -635,9 +928,11 @@ def device_profile(torch, fn, call_ms: float, iters: int = 10) -> dict:
 
 def shift_invariant(key: str) -> bool:
     """Biases of the PHM layers that a batch norm follows (the MLPs'
-    ``linear1`` and ``linear2``, the head's hidden layers): their gradient is
-    zero in exact arithmetic, as the norm removes any shift."""
-    return key.endswith(("transform.linear1.b", "transform.linear2.b")) or (
+    ``linear1`` and ``linear2``, a ``PHMConv``'s ``transform``, the head's
+    hidden layers): their gradient is zero in exact arithmetic, as the norm
+    removes any shift."""
+    return key.endswith(("transform.linear1.b", "transform.linear2.b",
+                         "conv.transform.b")) or (
         key.startswith("downstream.affine_") and key.endswith(".b")
         and key != "downstream.affine_2.b")
 
@@ -665,8 +960,60 @@ class ReluReplay:
         model.act = self
         model.downstream.act = self
         for i in range(model.num_layers):
-            getattr(model, f"conv_{i}").conv.transform.act = self
+            transform = getattr(model, f"conv_{i}").conv.transform
+            if hasattr(transform, "act"):  # a PHMMLP, not a PHMLinear
+                transform.act = self
         return self
+
+
+def hold_to_cpu(torch, dev, phase, grads, c_grads, model, cpu_model,
+                pre_step, worst):
+    """The gradients per leaf (the biases a norm follows to a noise bound),
+    the running stats of ``model`` against ``cpu_model``, and the Adam update
+    given the CPU's gradients on both devices from ``pre_step``, the two
+    models' parameters before any update; the worst readings go into
+    ``worst``."""
+    from phc_gnn_torch.train import make_optimizer
+
+    top = max(float(g.abs().max()) for g in c_grads.values())
+    grad_errs, noise = {}, 0.0
+    for key, g in grads.items():
+        if shift_invariant(key):
+            noise = max(noise, float(g.abs().max()) / top,
+                        float(c_grads[key].abs().max()) / top)
+        else:
+            grad_errs[key] = leafwise(g, c_grads[key])[1]
+    worst["grad"] = max(grad_errs.values())
+    worst["grad_leaf"] = max(grad_errs, key=grad_errs.get)
+    worst["noise_grad"] = noise
+    if not (worst["grad"] <= TOL_GRAD and noise <= TOL_NOISE):
+        fail(f"{phase}: gradients disagree with the CPU: {worst}")
+    cpu_bufs = dict(cpu_model.named_buffers())
+    worst["running_stats"] = max(leafwise(b, cpu_bufs[k])[1]
+                                 for k, b in model.named_buffers())
+    if not worst["running_stats"] <= TOL_BN:
+        fail(f"{phase}: running stats disagree with the CPU: {worst}")
+
+    gpu_model, c_model = pre_step
+    before = {k: p.detach().cpu().clone() for k, p in c_model.named_parameters()}
+    opt = make_optimizer(dict(gpu_model.named_parameters()), grad_clip=GRAD_CLIP)
+    c_opt = make_optimizer(dict(c_model.named_parameters()), grad_clip=GRAD_CLIP)
+    opt.step([c_grads[k].to(dev) for k in opt.params], LR)
+    c_opt.step([c_grads[k] for k in c_opt.params], LR)
+    torch.cuda.synchronize()
+    upd = 0.0
+    cpu_params = dict(c_model.named_parameters())
+    for key, p in gpu_model.named_parameters():
+        want = cpu_params[key].detach().double()
+        got = p.detach().cpu().double()
+        # each side rounds p - lr * u to f32 once: allow 2 ulp of max |p|
+        ulp = float(torch.finfo(torch.float32).eps) * float(want.abs().max())
+        step = float((want - before[key].double()).abs().max())
+        err = float((got - want).abs().max())
+        upd = max(upd, max(0.0, err - 2 * ulp) / step if step > 0 else err)
+    worst["update"] = upd
+    if not upd <= TOL_UPDATE:
+        fail(f"{phase}: the Adam update disagrees with the CPU's: {worst}")
 
 
 def agreement(torch, dev, host_batch, batch, loss_fn):
@@ -680,11 +1027,14 @@ def agreement(torch, dev, host_batch, batch, loss_fn):
     the inputs, not of the arithmetic under test.  The switches are counted
     over the real rows and printed."""
     from phc_gnn_torch.models import PHCGNN
-    from phc_gnn_torch.train import make_loss_and_grads, make_optimizer
+    from phc_gnn_torch.train import make_loss_and_grads
 
     model = PHCGNN(**flagship_config(dropout=False), seed=0, device=dev)
     randomize_eval_state(torch, model)
     cpu_model = copy.deepcopy(model).to("cpu")
+    # the loss-and-gradient pass updates only the running stats, so the
+    # models' parameters stay as they were for the update check
+    pre_step = (model, cpu_model)
     own_model = copy.deepcopy(cpu_model)
     own = ReluReplay(torch).install(own_model)
     relu = ReluReplay(torch).install(model)
@@ -705,45 +1055,8 @@ def agreement(torch, dev, host_batch, batch, loss_fn):
     _, worst["out"] = normwise(out.cpu(), c_out)
     if not (worst["loss"] <= TOL_MODEL and worst["out"] <= TOL_MODEL):
         fail(f"train: loss or output disagrees with the CPU: {worst}")
-    top = max(float(g.abs().max()) for g in c_grads.values())
-    grad_errs, noise = {}, 0.0
-    for key, g in grads.items():
-        if shift_invariant(key):
-            noise = max(noise, float(g.abs().max()) / top,
-                        float(c_grads[key].abs().max()) / top)
-        else:
-            grad_errs[key] = leafwise(g, c_grads[key])[1]
-    worst["grad"] = max(grad_errs.values())
-    worst["grad_leaf"] = max(grad_errs, key=grad_errs.get)
-    worst["noise_grad"] = noise
-    if not (worst["grad"] <= TOL_GRAD and noise <= TOL_NOISE):
-        fail(f"train: gradients disagree with the CPU: {worst}")
-    cpu_bufs = dict(cpu_model.named_buffers())
-    worst["running_stats"] = max(leafwise(b, cpu_bufs[k])[1]
-                                 for k, b in model.named_buffers())
-    if not worst["running_stats"] <= TOL_BN:
-        fail(f"train: running stats disagree with the CPU: {worst}")
-
-    before = {k: p.detach().cpu().clone() for k, p in cpu_model.named_parameters()}
-    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
-    c_opt = make_optimizer(dict(cpu_model.named_parameters()),
-                           grad_clip=GRAD_CLIP)
-    opt.step([c_grads[k].to(dev) for k in opt.params], LR)
-    c_opt.step([c_grads[k] for k in c_opt.params], LR)
-    torch.cuda.synchronize()
-    upd = 0.0
-    cpu_params = dict(cpu_model.named_parameters())
-    for key, p in model.named_parameters():
-        want = cpu_params[key].detach().double()
-        got = p.detach().cpu().double()
-        # each side rounds p - lr * u to f32 once: allow 2 ulp of max |p|
-        ulp = float(torch.finfo(torch.float32).eps) * float(want.abs().max())
-        step = float((want - before[key].double()).abs().max())
-        err = float((got - want).abs().max())
-        upd = max(upd, max(0.0, err - 2 * ulp) / step if step > 0 else err)
-    worst["update"] = upd
-    if not upd <= TOL_UPDATE:
-        fail(f"train: the Adam update disagrees with the CPU's: {worst}")
+    hold_to_cpu(torch, dev, "train", grads, c_grads, model, cpu_model,
+                pre_step, worst)
     print(f"train: one step with dropout off, GPU vs CPU: loss rel err "
           f"{worst['loss']:.3e}, output normwise {worst['out']:.3e} "
           f"(tolerance {TOL_MODEL:g}); with the GPU's ReLU pattern "
@@ -751,9 +1064,11 @@ def agreement(torch, dev, host_batch, batch, loss_fn):
           f"between the devices), gradients per leaf <= {worst['grad']:.3e} "
           f"of the leaf's max (tolerance {TOL_GRAD:g}; worst "
           f"{worst['grad_leaf']}); the biases a norm follows <= "
-          f"{noise:.3e} of the largest gradient (tolerance {TOL_NOISE:g}); "
+          f"{worst['noise_grad']:.3e} of the largest gradient (tolerance "
+          f"{TOL_NOISE:g}); "
           f"running stats <= {worst['running_stats']:.3e} (tolerance "
-          f"{TOL_BN:g}); Adam update given equal gradients <= {upd:.3e} "
+          f"{TOL_BN:g}); Adam update given equal gradients <= "
+          f"{worst['update']:.3e} "
           f"(tolerance {TOL_UPDATE:g})", flush=True)
     return worst
 
@@ -791,7 +1106,7 @@ def train_phase(torch, dev):
     losses = [step(batch, LR)[0] for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    want = {k: TRAIN_LAUNCHES.get(k, 0) * TRAIN_STEPS for k in launches}
     print(f"train: launches over {TRAIN_STEPS} steps {launches} (expected "
           f"{want})", flush=True)
     if launches != want:
@@ -829,6 +1144,202 @@ def train_phase(torch, dev):
     return launches
 
 
+def pcba_model(torch, dev, dropout: bool = True):
+    """The pcba model from its configuration through ``build_model``, at
+    random weights from seed 0; with ``dropout=False`` every rate is 0.
+    Returns ``(model, loss_fn, cfg)``."""
+    from phc_gnn_torch.data import ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS
+    from phc_gnn_torch.train.config import DATASET_DEFAULTS, ExperimentConfig
+    from phc_gnn_torch.train.trainer import build_loss, build_model
+
+    over = dict(PCBA_SCRIPT)
+    if not dropout:
+        over.update(dropout_mpnn=(0.0,) * PCBA_LAYERS, dropout_dn=(0.0, 0.0))
+    cfg = ExperimentConfig(**{**DATASET_DEFAULTS["pcba"], **over})
+    if (cfg.sc_type, cfg.loss, cfg.target_dim, cfg.grad_clipping) != (
+            "first", "bce", PCBA_TASKS, GRAD_CLIP):
+        fail(f"the pcba configuration changed: {cfg}")
+    model = build_model(cfg, ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS, seed=0,
+                        device=dev)
+    return model, build_loss(cfg), cfg
+
+
+def pcba_eval_phase(torch, dev):
+    """The pcba eval forward on a 512-graph batch through C's forward role;
+    returns the launch counts of the main-path run and the timings."""
+    from phc_gnn_torch.train import make_eval_step
+
+    model, _, _ = pcba_model(torch, dev)
+    randomize_eval_state(torch, model)
+    host = pcba_batch(torch, 0, PCBA_EVAL)
+    batch = host.to(dev)
+    step = make_eval_step(model, device=dev)
+    try:
+        step(batch.replace(rowptr=None))
+    except ValueError as exc:
+        print(f"pcba: a CUDA batch without its CSR plan raises: {exc}",
+              flush=True)
+    else:
+        fail("a CUDA pcba batch without a CSR plan was served without "
+             "kernel C")
+
+    reset_launches()
+    out = step(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: PCBA_EVAL_LAUNCHES.get(k, 0) for k in launches}
+    print(f"pcba: launches on the eval path {launches} (expected {want})",
+          flush=True)
+    if launches != want:
+        fail(f"the pcba eval path launched {launches}, not {want}")
+    if out.shape != (PCBA_EVAL["batch_size"] + 1, PCBA_TASKS):
+        fail(f"pcba eval: output shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        fail("pcba eval: non-finite output")
+    ref = make_eval_step(copy.deepcopy(model).to("cpu"), device="cpu")(host)
+    abs_err, rel_err = normwise(out.cpu(), ref)
+    print(f"pcba: eval vs CPU plain path: max abs err {abs_err:.3e}, normwise "
+          f"rel err {rel_err:.3e} (tolerance {TOL_MODEL:g}), max |out| "
+          f"{float(ref.abs().max()):.3f}", flush=True)
+    if not rel_err <= TOL_MODEL:
+        fail("pcba eval: GPU output disagrees with the CPU path")
+
+    real_edges = host.count_edges()
+    eval_ms, host_ms = time_steps(torch, lambda: step(batch))
+    graph_ms = time_graph(torch, lambda: step(batch), iters=10)
+    prof = device_profile(torch, lambda: step(batch), eval_ms, iters=10)
+    info = {"eval_ms": eval_ms, "eval_host_ms": host_ms, "eval_graph_ms": graph_ms,
+            "eval_real_edges": real_edges,
+            "eval_real_edges_per_s": real_edges / (eval_ms / 1e3),
+            "eval_vs_cpu": rel_err,
+            "eval_kernels_per_forward": prof["kernels_per_call"],
+            "eval_device_busy_ms": prof["busy_ms"],
+            "eval_device_idle_share": prof["idle_share"],
+            "eval_top_kernels_us": prof["top_us"]}
+    print(f"pcba: eval {eval_ms:.3f} ms per 512-graph batch (CUDA events, "
+          f"median of 30; host clock {host_ms:.3f} ms), "
+          f"{info['eval_real_edges_per_s']:.4g} real edges/s ({real_edges} "
+          f"real edges), {graph_ms:.3f} ms from one CUDA graph; "
+          f"{prof['kernels_per_call']:g} kernels, device busy "
+          f"{prof['busy_ms']:.3f} ms (idle {100 * prof['idle_share']:.1f} %)",
+          flush=True)
+    return launches, info
+
+
+def pcba_agreement(torch, dev, host_batches, batches):
+    """One dropout-free accumulated step (K = 4) on the GPU and on the CPU
+    from the same weights and running stats: the loss, the outputs, the
+    accumulated gradients (with the GPU's ReLU pattern replayed), the
+    running stats, and the Adam update given the CPU's gradients."""
+    from phc_gnn_torch.train import make_accum_train_step, make_optimizer
+
+    model, loss_fn, cfg = pcba_model(torch, dev, dropout=False)
+    randomize_eval_state(torch, model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    pre_step = (copy.deepcopy(model), copy.deepcopy(cpu_model))
+    own_model = copy.deepcopy(cpu_model)
+    own = ReluReplay(torch).install(own_model)
+    relu = ReluReplay(torch).install(model)
+
+    def accumulate(m, bs, device):
+        opt = make_optimizer(dict(m.named_parameters()), grad_clip=GRAD_CLIP)
+        seen, real_step = {}, opt.step
+
+        def spy(grads, lr):  # the accumulated gradients, before the clip
+            seen.update(zip(opt.params, (g.detach().clone() for g in grads)))
+            real_step(grads, lr)
+
+        opt.step = spy
+        step = make_accum_train_step(m, opt, loss_fn, loss_name=cfg.loss,
+                                     device=device)
+        loss, outs = step(bs, LR)
+        return loss, outs, seen
+
+    loss, outs, grads = accumulate(model, batches, dev)
+    torch.cuda.synchronize()
+    masks = [m.cpu() for m in relu.masks]
+    ReluReplay(torch, masks).install(cpu_model)
+    c_loss, c_outs, c_grads = accumulate(cpu_model, host_batches, "cpu")
+    with torch.no_grad():  # the CPU's own sign pattern, to count switches
+        for hb in host_batches:
+            own_model(hb, training=True)
+    worst = {"relu_switches": sum(int((a != b).sum())
+                                  for a, b in zip(masks, own.masks))}
+    _, worst["loss"] = leafwise(loss, c_loss)
+    _, worst["outs"] = normwise(outs.cpu(), c_outs)
+    if not (bool(torch.isfinite(loss)) and worst["loss"] <= TOL_MODEL
+            and worst["outs"] <= TOL_MODEL):
+        fail(f"pcba train: loss or outputs disagree with the CPU: {worst}")
+    hold_to_cpu(torch, dev, "pcba train", grads, c_grads, model, cpu_model,
+                pre_step, worst)
+    print(f"pcba: one accumulated step (K = {len(batches)}) with dropout off, "
+          f"GPU vs CPU: loss rel err {worst['loss']:.3e}, outputs normwise "
+          f"{worst['outs']:.3e} (tolerance {TOL_MODEL:g}); with the GPU's "
+          f"ReLU pattern ({worst['relu_switches']} ReLUs switch between the "
+          f"devices), accumulated gradients per leaf <= {worst['grad']:.3e} "
+          f"of the leaf's max (tolerance {TOL_GRAD:g}; worst "
+          f"{worst['grad_leaf']}); the biases a norm follows <= "
+          f"{worst['noise_grad']:.3e} of the largest gradient (tolerance "
+          f"{TOL_NOISE:g}); running stats <= {worst['running_stats']:.3e} "
+          f"(tolerance {TOL_BN:g}); Adam update given equal gradients <= "
+          f"{worst['update']:.3e} (tolerance {TOL_UPDATE:g})", flush=True)
+    return worst
+
+
+def pcba_train_phase(torch, dev):
+    """The pcba accumulated train step through the kernels; returns the
+    launch counts of the main-path run and the timings."""
+    from phc_gnn_torch.train import make_accum_train_step, make_optimizer
+
+    host = [pcba_batch(torch, s, PCBA) for s in range(PCBA_K)]
+    batches = [b.to(dev) for b in host]
+    worst = pcba_agreement(torch, dev, host, batches)
+
+    model, loss_fn, cfg = pcba_model(torch, dev)
+    opt = make_optimizer(dict(model.named_parameters()),
+                         grad_clip=cfg.grad_clipping)
+    step = make_accum_train_step(model, opt, loss_fn,
+                                 weight_decay=cfg.weightdecay,
+                                 loss_name=cfg.loss, seed=0, device=dev)
+    reset_launches()
+    losses = [step(batches, cfg.lr)[0] for _ in range(PCBA_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: PCBA_LAUNCHES.get(k, 0) * PCBA_STEPS for k in launches}
+    print(f"pcba: launches over {PCBA_STEPS} accumulated steps {launches} "
+          f"(expected {want})", flush=True)
+    if launches != want:
+        fail(f"the pcba train path launched {launches}, not {want}")
+    losses = [float(x) for x in losses]
+    print(f"pcba: losses over {PCBA_STEPS} accumulated steps with dropout "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail("pcba train: non-finite loss")
+    if not last < first:
+        fail(f"pcba train: the loss did not fall (mean of the first three "
+             f"steps {first:.5f}, of the last three {last:.5f})")
+
+    real_edges = sum(b.count_edges() for b in host)
+    step_ms, host_ms = time_steps(torch, lambda: step(batches, cfg.lr))
+    prof = device_profile(torch, lambda: step(batches, cfg.lr), step_ms)
+    info = {"step_ms": step_ms, "step_host_ms": host_ms,
+            "real_edges_per_step": real_edges,
+            "real_edges_per_s": real_edges / (step_ms / 1e3),
+            "losses": losses, "agreement": worst,
+            "kernels_per_step": prof["kernels_per_call"],
+            "device_busy_ms_per_step": prof["busy_ms"],
+            "device_idle_share": prof["idle_share"],
+            "top_kernels_us_per_step": prof["top_us"]}
+    print(f"pcba: {step_ms:.3f} ms per accumulated step of {PCBA_K} x 128 "
+          f"graphs (CUDA events, median of 30 after 5 warm-ups; host clock "
+          f"{host_ms:.3f} ms), {info['real_edges_per_s']:.4g} real edges/s "
+          f"({real_edges} real edges); {prof['kernels_per_call']:g} kernels "
+          f"per step, device busy {prof['busy_ms']:.3f} ms (idle "
+          f"{100 * prof['idle_share']:.1f} %)", flush=True)
+    return launches, info
+
+
 def main() -> None:
     import torch
 
@@ -853,12 +1364,16 @@ def main() -> None:
           f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel)", flush=True)
 
     records = kernel_phase(torch, dev)
-    eval_launches = slice_phase(torch, dev)
-    train_launches = train_phase(torch, dev)
+    paths = {"eval": slice_phase(torch, dev), "train": train_phase(torch, dev)}
+    paths["pcba_eval"], pcba = pcba_eval_phase(torch, dev)
+    paths["pcba_train"], pcba_train = pcba_train_phase(torch, dev)
+    pcba.update(pcba_train)
+    print(json.dumps({"pcba": pcba}), flush=True)
     for rec in records:
-        rec["launches"] = train_launches[rec["name"]]
-        rec["launches_by_path"] = {"eval": eval_launches[rec["name"]],
-                                   "train": train_launches[rec["name"]]}
+        rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        if not rec["launches"]:
+            fail(f"{rec['name']} was launched no time on the main paths")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

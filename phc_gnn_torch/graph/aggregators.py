@@ -1,9 +1,13 @@
-"""Softmax aggregation as a plain PyTorch composite.
+"""Aggregations as plain PyTorch composites.
 
-Counterpart of ``softmax_aggregate`` in phc_gnn_tpu/graph/aggregators.py:71-96:
-``out = segment_sum(softmax(beta * m) * m)`` per node and lane, computed as a
-numerator over a denominator.  It is the CPU reference of the aggregation;
-the segment kernels (ops/segment_softmax.py) are held to the same function.
+Counterpart of phc_gnn_tpu/graph/aggregators.py for what the port runs:
+``AGGREGATORS`` maps ``(messages [E, D], receivers [E], num_nodes,
+edge_mask)`` to node arrays [N, D], so far for ``"sum"`` alone (the others
+come with ROADMAP.md, section 1, item 9); ``softmax_aggregate`` (:71-96) is
+``out = segment_sum(softmax(beta * m) * m)`` per node and lane, computed as
+a numerator over a denominator.  They are the CPU path of a batch without a
+CSR plan, and the reference that the segment kernels (ops/segment_softmax.py,
+ops/segment_sum.py) are held to.
 """
 
 from __future__ import annotations
@@ -14,7 +18,11 @@ import torch
 
 from phc_gnn_torch.graph import segment as seg
 
-__all__ = ["softmax_aggregate"]
+__all__ = ["AGGREGATORS", "softmax_aggregate"]
+
+AGGREGATORS = {
+    "sum": seg.segment_sum,
+}
 
 
 def softmax_aggregate(messages: torch.Tensor, receivers: torch.Tensor,

@@ -1,13 +1,21 @@
 """PHM graph convolution on padded edge lists.
 
-Counterpart of phc_gnn_tpu/graph/conv.py for the ported variant: messages
-``msg_encoder(x[senders] + edge_attr)``, softmax aggregation with a learnable
-beta, ``aggr + x``, then a 2-layer PHM MLP with its norm
-(``PHMGINEConvSoftmax``, conv.py:243-285).  The aggregation runs the segment
-kernels (ops/segment_softmax.py) over the batch's CSR plan, and the message
-gather's backward runs kernel C (ops/segment_sum.py) over its sender plan; a
-CPU batch without a plan takes the plain composite and autograd's own
-gather backward, a CUDA batch without one raises.
+Counterpart of phc_gnn_tpu/graph/conv.py for the ported variants, all on the
+messages ``msg_encoder(x[senders] + edge_attr)``:
+
+- ``PHMConv`` (conv.py:112-152): sum aggregation, then a PHM linear
+  ``transform``, the self loop added after it (JAX's ``same_dim=True``, the
+  only order the ported ``skip_connect="add"`` takes);
+- ``PHMGINEConv`` (:155-193): sum aggregation, ``aggr + x``, then a 2-layer
+  PHM MLP with its norm;
+- ``PHMGINEConvSoftmax`` (:243-285): softmax aggregation with a learnable
+  beta, ``aggr + x``, then the MLP.
+
+The aggregations run the segment kernels over the batch's receiver CSR plan
+(ops/segment_softmax.py, and kernel C's forward role in ops/segment_sum.py),
+and the message gather's backward runs kernel C over its sender plan; a CPU
+batch without a plan takes the plain composites and autograd's own gather
+backward, a CUDA batch without one raises.
 """
 
 from __future__ import annotations
@@ -17,13 +25,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from phc_gnn_torch.graph.aggregators import softmax_aggregate
+from phc_gnn_torch.graph.aggregators import AGGREGATORS, softmax_aggregate
 from phc_gnn_torch.nn.activations import get_activation
-from phc_gnn_torch.nn.phm_linear import PHMMLP
+from phc_gnn_torch.nn.phm_linear import PHMLinear, PHMMLP
 from phc_gnn_torch.ops.segment_softmax import segment_softmax
-from phc_gnn_torch.ops.segment_sum import gather_nodes
+from phc_gnn_torch.ops.segment_sum import gather_nodes, segment_sum_aggregate
 
-__all__ = ["PHMGINEConvSoftmax", "PHMMessagePassing"]
+__all__ = ["PHMConv", "PHMGINEConv", "PHMGINEConvSoftmax", "PHMMessagePassing"]
 
 
 def _messages(x, senders, edge_attr, msg_encoder: str, snd_perm=None,
@@ -63,6 +71,94 @@ def _softmax_aggr(msgs, receivers, num_nodes: int, beta, edge_mask,
     return segment_softmax(msgs, edge_mask, beta, rowptr, receivers)
 
 
+def _fixed_aggr(msgs, receivers, num_nodes: int, edge_mask, aggr: str,
+                rowptr: Optional[torch.Tensor] = None):
+    """Fixed-reduce aggregation (conv.py:96-109): the sum through kernel C
+    over the CSR plan (its plain version for CPU tensors), differentiable in
+    ``msgs``.  Without a plan only CPU tensors are served, by the plain
+    composite; a CUDA batch without one raises."""
+    if rowptr is None:
+        if msgs.device.type != "cpu":
+            raise ValueError(
+                f"{aggr} aggregation on {msgs.device} runs kernel C, which "
+                f"walks the batch's CSR plan: build the batch with "
+                f"graph.attach_csr_plan")
+        return AGGREGATORS[aggr](msgs, receivers, num_nodes, edge_mask)
+    if edge_mask is None:
+        edge_mask = torch.ones(msgs.shape[0], dtype=torch.bool,
+                               device=msgs.device)
+    return segment_sum_aggregate(msgs, receivers, edge_mask, rowptr)
+
+
+def _check_fixed_aggr(aggr: str) -> None:
+    if aggr not in AGGREGATORS:
+        raise NotImplementedError(
+            f"aggregation {aggr!r} is not ported yet (ROADMAP.md, section 1, "
+            f"item 9)")
+
+
+class PHMConv(nn.Module):
+    """Fixed-reduce conv with a PHM linear ``transform``, the self loop
+    added after it: ``transform(aggr) + x`` (reference:
+    messagepassing.py:19-88)."""
+
+    def __init__(self, in_features: int, out_features: int, phm_dim: int,
+                 learn_phm: bool = True, bias: bool = True,
+                 add_self_loops: bool = True, w_init: str = "phm",
+                 c_init: str = "standard", aggr: str = "sum",
+                 msg_encoder: str = "identity",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_fixed_aggr(aggr)
+        self.add_self_loops = add_self_loops
+        self.aggr = aggr
+        self.msg_encoder = msg_encoder
+        self.transform = PHMLinear(in_features, out_features, phm_dim, bias,
+                                   w_init, c_init, learn_phm, generator)
+
+    def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
+                training: bool = False, node_mask=None, rowptr=None,
+                snd_perm=None, snd_rowptr=None):
+        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
+                         snd_rowptr)
+        aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
+                           rowptr)
+        out = self.transform(aggr)
+        return out + x if self.add_self_loops else out
+
+
+class PHMGINEConv(nn.Module):
+    """GIN-E conv with a fixed aggregation: aggregate -> +self -> PHM MLP
+    (reference: messagepassing.py:91-161)."""
+
+    def __init__(self, in_features: int, out_features: int, phm_dim: int,
+                 learn_phm: bool = True, bias: bool = True,
+                 add_self_loops: bool = True, norm: Optional[str] = None,
+                 activation: str = "relu", w_init: str = "phm",
+                 c_init: str = "standard", aggr: str = "sum",
+                 msg_encoder: str = "identity",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_fixed_aggr(aggr)
+        self.add_self_loops = add_self_loops
+        self.aggr = aggr
+        self.msg_encoder = msg_encoder
+        self.transform = PHMMLP(in_features, out_features, phm_dim, bias,
+                                learn_phm, activation, norm, w_init, c_init,
+                                factor=1.0, generator=generator)
+
+    def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
+                training: bool = False, node_mask=None, rowptr=None,
+                snd_perm=None, snd_rowptr=None):
+        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
+                         snd_rowptr)
+        aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
+                           rowptr)
+        if self.add_self_loops:
+            aggr = aggr + x
+        return self.transform(aggr, training=training, mask=node_mask)
+
+
 class PHMGINEConvSoftmax(nn.Module):
     """GIN-E conv with softmax aggregation: aggregate -> +self -> PHM MLP
     (reference: messagepassing.py:248-327)."""
@@ -97,27 +193,38 @@ class PHMGINEConvSoftmax(nn.Module):
 
 class PHMMessagePassing(nn.Module):
     """Facade dispatching on (aggr, mlp) to a conv variant held as ``conv``
-    (reference: messagepassing.py:456-518).  Ported: aggr="softmax" with
-    mlp=True."""
+    (reference: messagepassing.py:456-518; conv.py:382-420).  Ported:
+    aggr="softmax" with mlp=True, and aggr="sum" (or "add") with mlp False
+    (``PHMConv``) or True (``PHMGINEConv``)."""
 
     def __init__(self, in_features: int, out_features: int, phm_dim: int,
                  learn_phm: bool = True, bias: bool = True,
                  add_self_loops: bool = True, norm: Optional[str] = None,
                  activation: str = "relu", w_init: str = "phm",
                  c_init: str = "standard", aggr: str = "sum", mlp: bool = True,
-                 msg_encoder: str = "identity", initial_beta: float = 1.0,
-                 learn_beta: bool = True,
+                 msg_encoder: str = "identity",
+                 initial_beta: float = 1.0, learn_beta: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         aggr = "sum" if aggr == "add" else aggr
-        if aggr != "softmax" or not mlp:
-            raise NotImplementedError(
-                f"conv variant aggr={aggr!r}, mlp={mlp} is not ported yet "
-                f"(ROADMAP.md, section 1, item 9)")
-        self.conv = PHMGINEConvSoftmax(
-            in_features, out_features, phm_dim, learn_phm, bias,
-            add_self_loops, norm, activation, w_init, c_init, msg_encoder,
-            initial_beta, learn_beta, generator)
+        if aggr == "softmax":
+            if not mlp:
+                raise NotImplementedError(
+                    "conv variant aggr='softmax', mlp=False is not ported yet "
+                    "(ROADMAP.md, section 1, item 9)")
+            self.conv = PHMGINEConvSoftmax(
+                in_features, out_features, phm_dim, learn_phm, bias,
+                add_self_loops, norm, activation, w_init, c_init, msg_encoder,
+                initial_beta, learn_beta, generator)
+        elif mlp:
+            self.conv = PHMGINEConv(
+                in_features, out_features, phm_dim, learn_phm, bias,
+                add_self_loops, norm, activation, w_init, c_init, aggr,
+                msg_encoder, generator)
+        else:
+            self.conv = PHMConv(
+                in_features, out_features, phm_dim, learn_phm, bias,
+                add_self_loops, w_init, c_init, aggr, msg_encoder, generator)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,

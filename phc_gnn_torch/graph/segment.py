@@ -1,7 +1,8 @@
 """Masked segment reductions over padded edge/node arrays, in plain PyTorch.
 
 Counterpart of phc_gnn_tpu/graph/segment.py for what the ported path needs:
-the masked segment sum of the pooling readout.
+the masked segment sum of the pooling readout and of the sum
+aggregation.
 """
 
 from __future__ import annotations

@@ -7,9 +7,12 @@ the input viewed as ``[N, n, d]``.  Parameters ``scale``/``bias`` and buffers
 
 The eval path normalises with the running mean and var (norm.py:130-132).
 The training path (norm.py:78-129) normalises with the masked batch
-statistics through the fused batch-norm kernels D and E
-(``ops/fused_bn.py``), the input ``[N, n, d]`` passed flat as ``[N, n*d]``,
-and updates the running stats in place as torch's BatchNorm1d does:
+statistics through the fused batch-norm kernels (``ops/fused_bn.py``), the
+input ``[N, n, d]`` passed flat as ``[N, n*d]``, with JAX's size gate
+(norm.py:92-95): the single-block pair D and E while the input's f32 bytes
+are at most ``fused_bn.FUSED_BN_VMEM_LIMIT``, the row-blocked family F and G
+above it (pcba's [4096, 2, 256]).  It updates the running stats in place as
+torch's BatchNorm1d does:
 ``mean += 0.1 * (mu - mean)`` and ``var += 0.1 * (var_u - var)``
 with the UNBIASED batch variance ``var_u = sigma^2 * cnt / max(cnt - 1, 1)``
 (norm.py:12-19, :124-129).  ``cnt`` stays on the device: no host sync.
@@ -22,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from phc_gnn_torch.ops.fused_bn import fused_masked_bn
+from phc_gnn_torch.ops import fused_bn
 
 __all__ = ["PHMNorm"]
 
@@ -47,7 +50,10 @@ class _BatchNorm(nn.Module):
                 * self.scale + self.bias
         if mask is None:
             mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-        y, mean, var = fused_masked_bn(
+        kernel = (fused_bn.fused_masked_bn
+                  if x.numel() * 4 <= fused_bn.FUSED_BN_VMEM_LIMIT
+                  else fused_bn.fused_masked_bn_blocked)
+        y, mean, var = kernel(
             x.reshape(x.shape[0], -1), mask, self.scale.reshape(-1),
             self.bias.reshape(-1), self.eps)
         with torch.no_grad():

@@ -1,8 +1,8 @@
 """Masked batch norm in training mode: the statistics, the normalised output
 and the analytic backward.
 
-Two Hopper kernels (``csrc/fused_bn.cu``), each beside its plain PyTorch
-version with the same masking semantics:
+Hopper kernels (``csrc/fused_bn.cu``), each beside its plain PyTorch version
+with the same masking semantics.  The single-block pair:
 
 - ``bn_forward`` replaces ``_bn_fwd_kernel`` (phc_gnn_tpu/ops/fused_bn.py:50):
   over the rows where ``mask`` holds, the mean and the biased, centred
@@ -13,12 +13,25 @@ version with the same masking semantics:
   (dbias + xhat * dscale) / cnt)``, where only the row's own mask gates the
   statistics term (:18-22).
 
+The row-blocked pair, for inputs past ``FUSED_BN_VMEM_LIMIT``:
+
+- ``bn_stats_blocked`` replaces ``_bn_stats_blocked_kernel`` (:162): the
+  masked mean, biased variance and ``cnt`` from per-row-block partials
+  combined with Chan's formula;
+- ``bn_bwd_sums_blocked`` replaces ``_bn_bwd_sums_blocked_kernel`` (:202):
+  ``sum g`` and ``sum g * xhat`` over ALL rows;
+- ``bn_normalize`` and ``bn_dx`` are the two elementwise passes that JAX
+  leaves to XLA beside them (:282-286, :295-302), as kernels of their own.
+
 ``cnt = max(sum mask, 1)``, so an all-masked input gives finite outputs.
-``fused_masked_bn`` ties the two into one ``autograd.Function`` that returns
-``(y, mean, var)``; mean and var are detached, as in JAX (:105-110): they
-feed the running statistics, never a gradient.  The Pallas size gate
-(``FUSED_BN_VMEM_LIMIT``) exists only for the TPU's VMEM: these kernels take
-any [N, D].
+``fused_masked_bn`` (D, E) and ``fused_masked_bn_blocked`` (F, G and the two
+passes) are ``autograd.Function``s that return ``(y, mean, var)``; mean and
+var are detached, as in JAX (:105-110): they feed the running statistics,
+never a gradient.
+
+``FUSED_BN_VMEM_LIMIT`` is JAX's size gate between the two families
+(:43): the TPU needs it for VMEM, and the port keeps the same gate so that
+both packages run the same kernel family at each shape (``nn/norm.py``).
 
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
 launches its kernel or raises; it never falls back.  ``<wrapper>.launches``
@@ -34,8 +47,15 @@ import torch
 
 from phc_gnn_torch.ops import _build
 
-__all__ = ["bn_forward", "bn_forward_plain", "bn_backward",
-           "bn_backward_plain", "fused_masked_bn"]
+__all__ = ["FUSED_BN_VMEM_LIMIT", "bn_forward", "bn_forward_plain",
+           "bn_backward", "bn_backward_plain", "fused_masked_bn",
+           "bn_stats_blocked", "bn_stats_blocked_plain", "bn_bwd_sums_blocked",
+           "bn_bwd_sums_blocked_plain", "bn_normalize", "bn_normalize_plain",
+           "bn_dx", "bn_dx_plain", "fused_masked_bn_blocked"]
+
+# bytes of x up to which training BN takes the single-block pair (D, E);
+# above it, the row-blocked family (phc_gnn_tpu/ops/fused_bn.py:43)
+FUSED_BN_VMEM_LIMIT = 3_500_000
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -53,6 +73,18 @@ def _lib():
         lib.fused_bn_backward_f32.argtypes = [
             _P, _P, _P, _P, _P, _F32, _P, _P, _P, _P, _I64, _I64, _P]
         lib.fused_bn_backward_f32.restype = ctypes.c_int
+        lib.bn_blocked_rows.argtypes = []
+        lib.bn_blocked_rows.restype = _I64
+        lib.bn_stats_blocked_f32.argtypes = [_P] * 6 + [_I64, _I64, _P]
+        lib.bn_stats_blocked_f32.restype = ctypes.c_int
+        lib.bn_bwd_sums_blocked_f32.argtypes = [
+            _P, _P, _P, _P, _F32, _P, _P, _P, _I64, _I64, _P]
+        lib.bn_bwd_sums_blocked_f32.restype = ctypes.c_int
+        lib.bn_normalize_f32.argtypes = [_P] * 5 + [_F32, _P, _I64, _I64, _P]
+        lib.bn_normalize_f32.restype = ctypes.c_int
+        lib.bn_dx_f32.argtypes = [_P] * 6 + [_F32] + [_P] * 4 + [
+            _I64, _I64, _P]
+        lib.bn_dx_f32.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
 
@@ -63,24 +95,44 @@ def _count(mask):
     return mask.sum(dtype=torch.float32).clamp_min(1.0)
 
 
-def bn_forward_plain(x, mask, scale, bias, eps: float):
+def bn_stats_blocked_plain(x, mask):
+    """``(mean [D], var [D], cnt [1])`` over the live rows: the mean, then
+    the centred, biased variance (two passes, never E[x^2] - E[x]^2).  The
+    kernel's row blocks and Chan combine give the same to rounding."""
     m = mask[:, None]
     cnt = _count(mask)
     mean = torch.where(m, x, 0.0).sum(0) / cnt
     xc = torch.where(m, x - mean, 0.0)
-    var = (xc * xc).sum(0) / cnt
-    y = (x - mean) * torch.rsqrt(var + eps) * scale + bias
-    return y, mean, var
+    return mean, (xc * xc).sum(0) / cnt, cnt.reshape(1)
+
+
+def bn_normalize_plain(x, mean, var, scale, bias, eps: float):
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def bn_bwd_sums_blocked_plain(x, g, mean, var, eps: float):
+    """``(sum g [D], sum g * xhat [D])`` over ALL rows."""
+    xhat = (x - mean) * torch.rsqrt(var + eps)
+    return g.sum(0), (g * xhat).sum(0)
+
+
+def bn_dx_plain(x, mask, g, scale, mean, var, eps: float, sum_g, sum_gx, cnt):
+    r = torch.rsqrt(var + eps)
+    xhat = (x - mean) * r
+    stats = torch.where(mask[:, None], (sum_g + xhat * sum_gx) / cnt, 0.0)
+    return scale * r * (g - stats)
+
+
+def bn_forward_plain(x, mask, scale, bias, eps: float):
+    mean, var, _ = bn_stats_blocked_plain(x, mask)
+    return bn_normalize_plain(x, mean, var, scale, bias, eps), mean, var
 
 
 def bn_backward_plain(x, mask, scale, mean, var, eps: float, g):
-    r = torch.rsqrt(var + eps)
-    xhat = (x - mean) * r
-    cnt = _count(mask)
-    sum_g = g.sum(0)
-    sum_gx = (g * xhat).sum(0)
-    stats = torch.where(mask[:, None], (sum_g + xhat * sum_gx) / cnt, 0.0)
-    return scale * r * (g - stats), sum_gx, sum_g
+    sum_g, sum_gx = bn_bwd_sums_blocked_plain(x, g, mean, var, eps)
+    dx = bn_dx_plain(x, mask, g, scale, mean, var, eps, sum_g, sum_gx,
+                     _count(mask))
+    return dx, sum_gx, sum_g
 
 
 # ------------------------------------------------------------------ wrappers
@@ -93,10 +145,12 @@ def _check(x, mask, vectors, g=None):
     if x.dtype != torch.float32 or x.ndim != 2:
         raise TypeError(f"x must be a 2-D float32 tensor, got {x.dtype} "
                         f"{tuple(x.shape)}")
-    if mask.dtype != torch.bool or mask.shape != x.shape[:1]:
-        raise TypeError(f"mask must be bool [{x.shape[0]}], got {mask.dtype} "
-                        f"{tuple(mask.shape)}")
-    tensors = [("x", x), ("mask", mask)] + list(vectors)
+    tensors = [("x", x)] + list(vectors)
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.shape != x.shape[:1]:
+            raise TypeError(f"mask must be bool [{x.shape[0]}], got "
+                            f"{mask.dtype} {tuple(mask.shape)}")
+        tensors.append(("mask", mask))
     if g is not None:
         if g.dtype != torch.float32 or g.shape != x.shape:
             raise TypeError(f"g must be float32 {tuple(x.shape)}, got "
@@ -113,6 +167,11 @@ def _check(x, mask, vectors, g=None):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
 def bn_forward(x, mask, scale, bias, eps: float):
     """``(y [N, D], mean [D], var [D])`` of the masked batch norm of ``x``."""
     if x.device.type == "cpu":
@@ -122,12 +181,10 @@ def bn_forward(x, mask, scale, bias, eps: float):
     y = torch.empty_like(x)
     mean = torch.empty((d,), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
-    err = _lib().fused_bn_forward_f32(
+    _launch("bn_forward", _lib().fused_bn_forward_f32(
         x.data_ptr(), mask.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         eps, y.data_ptr(), mean.data_ptr(), var.data_ptr(), n, d,
-        _build.stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"bn_forward launch failed: CUDA error {err}")
+        _build.stream(x.device)))
     bn_forward.launches += 1
     return y, mean, var
 
@@ -145,12 +202,10 @@ def bn_backward(x, mask, scale, mean, var, eps: float, g):
     dx = torch.empty_like(x)
     dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dscale)
-    err = _lib().fused_bn_backward_f32(
+    _launch("bn_backward", _lib().fused_bn_backward_f32(
         x.data_ptr(), mask.data_ptr(), scale.data_ptr(), mean.data_ptr(),
         var.data_ptr(), eps, g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-        dbias.data_ptr(), n, d, _build.stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"bn_backward launch failed: CUDA error {err}")
+        dbias.data_ptr(), n, d, _build.stream(x.device)))
     bn_backward.launches += 1
     return dx, dscale, dbias
 
@@ -175,6 +230,114 @@ class _FusedMaskedBN(torch.autograd.Function):
         return dx, None, dscale, dbias, None
 
 
+def bn_stats_blocked(x, mask):
+    """``(mean [D], var [D], cnt [1])`` of the masked batch norm of ``x``,
+    from row-block partials (kernel F)."""
+    if x.device.type == "cpu":
+        return bn_stats_blocked_plain(x, mask)
+    _check(x, mask, ())
+    n, d = x.shape
+    lib = _lib()
+    nrb = -(-n // lib.bn_blocked_rows())
+    work = torch.empty((3, nrb, d), dtype=torch.float32, device=x.device)
+    mean = torch.empty((d,), dtype=torch.float32, device=x.device)
+    var = torch.empty_like(mean)
+    cnt = torch.empty((1,), dtype=torch.float32, device=x.device)
+    _launch("bn_stats_blocked", lib.bn_stats_blocked_f32(
+        x.data_ptr(), mask.data_ptr(), work.data_ptr(), mean.data_ptr(),
+        var.data_ptr(), cnt.data_ptr(), n, d, _build.stream(x.device)))
+    bn_stats_blocked.launches += 1
+    return mean, var, cnt
+
+
+bn_stats_blocked.launches = 0
+
+
+def bn_bwd_sums_blocked(x, g, mean, var, eps: float):
+    """``(sum g [D], sum g * xhat [D])`` over all rows, from row-block
+    partials (kernel G)."""
+    if x.device.type == "cpu":
+        return bn_bwd_sums_blocked_plain(x, g, mean, var, eps)
+    _check(x, None, (("mean", mean), ("var", var)), g)
+    n, d = x.shape
+    lib = _lib()
+    nrb = -(-n // lib.bn_blocked_rows())
+    work = torch.empty((2, nrb, d), dtype=torch.float32, device=x.device)
+    sum_g = torch.empty((d,), dtype=torch.float32, device=x.device)
+    sum_gx = torch.empty_like(sum_g)
+    _launch("bn_bwd_sums_blocked", lib.bn_bwd_sums_blocked_f32(
+        x.data_ptr(), g.data_ptr(), mean.data_ptr(), var.data_ptr(), eps,
+        work.data_ptr(), sum_g.data_ptr(), sum_gx.data_ptr(), n, d,
+        _build.stream(x.device)))
+    bn_bwd_sums_blocked.launches += 1
+    return sum_g, sum_gx
+
+
+bn_bwd_sums_blocked.launches = 0
+
+
+def bn_normalize(x, mean, var, scale, bias, eps: float):
+    """``y = (x - mean) * rsqrt(var + eps) * scale + bias``, elementwise."""
+    if x.device.type == "cpu":
+        return bn_normalize_plain(x, mean, var, scale, bias, eps)
+    _check(x, None, (("mean", mean), ("var", var), ("scale", scale),
+                     ("bias", bias)))
+    n, d = x.shape
+    y = torch.empty_like(x)
+    _launch("bn_normalize", _lib().bn_normalize_f32(
+        x.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), eps, y.data_ptr(), n, d, _build.stream(x.device)))
+    bn_normalize.launches += 1
+    return y
+
+
+bn_normalize.launches = 0
+
+
+def bn_dx(x, mask, g, scale, mean, var, eps: float, sum_g, sum_gx, cnt):
+    """``dx = scale * r * (g - m * (sum_g + xhat * sum_gx) / cnt)``,
+    elementwise; ``cnt`` is the [1] count of ``bn_stats_blocked``."""
+    if x.device.type == "cpu":
+        return bn_dx_plain(x, mask, g, scale, mean, var, eps, sum_g, sum_gx,
+                           cnt)
+    _check(x, mask, (("scale", scale), ("mean", mean), ("var", var),
+                     ("sum_g", sum_g), ("sum_gx", sum_gx)), g)
+    if cnt.dtype != torch.float32 or cnt.shape != (1,) or cnt.device != x.device:
+        raise TypeError(f"cnt must be float32 [1] on {x.device}, got "
+                        f"{cnt.dtype} {tuple(cnt.shape)} on {cnt.device}")
+    n, d = x.shape
+    dx = torch.empty_like(x)
+    _launch("bn_dx", _lib().bn_dx_f32(
+        x.data_ptr(), mask.data_ptr(), g.data_ptr(), scale.data_ptr(),
+        mean.data_ptr(), var.data_ptr(), eps, sum_g.data_ptr(),
+        sum_gx.data_ptr(), cnt.data_ptr(), dx.data_ptr(), n, d,
+        _build.stream(x.device)))
+    bn_dx.launches += 1
+    return dx
+
+
+bn_dx.launches = 0
+
+
+class _FusedMaskedBNBlocked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mask, scale, bias, eps):
+        mean, var, cnt = bn_stats_blocked(x, mask)
+        y = bn_normalize(x, mean, var, scale, bias, eps)
+        ctx.save_for_backward(x, mask, scale, mean, var, cnt)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mask, scale, mean, var, cnt = ctx.saved_tensors
+        gy = gy.contiguous()
+        sum_g, sum_gx = bn_bwd_sums_blocked(x, gy, mean, var, ctx.eps)
+        dx = bn_dx(x, mask, gy, scale, mean, var, ctx.eps, sum_g, sum_gx, cnt)
+        return dx, None, sum_gx, sum_g, None
+
+
 def fused_masked_bn(x, mask: Optional[torch.Tensor], scale, bias,
                     eps: float = 1e-5):
     """Training-mode masked batch norm over axis 0 of ``x`` [N, D]:
@@ -184,3 +347,12 @@ def fused_masked_bn(x, mask: Optional[torch.Tensor], scale, bias,
     if mask is None:
         mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     return _FusedMaskedBN.apply(x, mask, scale, bias, float(eps))
+
+
+def fused_masked_bn_blocked(x, mask: Optional[torch.Tensor], scale, bias,
+                            eps: float = 1e-5):
+    """The contract of ``fused_masked_bn`` through the row-blocked kernels
+    (F, G and the two elementwise passes), for any [N, D]."""
+    if mask is None:
+        mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    return _FusedMaskedBNBlocked.apply(x, mask, scale, bias, float(eps))

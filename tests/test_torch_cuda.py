@@ -162,3 +162,85 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ss.segment_logit_max(m.t().contiguous().t(), k, b, rp)
     with pytest.raises(ValueError, match="msgs on"):
         ss.segment_logit_max(m, k, b.cpu(), rp)
+
+
+def _pcba_batch(dev):
+    return attach_csr_plan(synthetic_batch(
+        128, 4096, 8192, seed=0, target_dim=128, num_node_feats=9,
+        num_edge_feats=3)).to(dev)
+
+
+@pytest.mark.parametrize("shape,mask_kind", [
+    ((4096, 512), "pcba"), ((1100, 24), "random"), ((1100, 24), "masked_block"),
+    ((4096, 512), "all_masked"), ((129, 768), "one_row")])
+def test_blocked_bn_kernels_match_plain_versions(dev, shape, mask_kind):
+    """F, G and the two elementwise passes: the pcba batch's node mask at
+    [4096, 512], a ragged last row block with a random mask, whole row blocks
+    masked, an all-masked and a one-row mask."""
+    gen = torch.Generator().manual_seed(5)
+    n, d = shape
+    x = (torch.randn(shape, generator=gen) * 2 + 3).to(dev)
+    g = torch.randn(shape, generator=gen).to(dev)
+    scale = torch.randn(d, generator=gen).to(dev)
+    bias = torch.randn(d, generator=gen).to(dev)
+    if mask_kind == "pcba":
+        mask = _pcba_batch(dev).node_mask
+    else:
+        mask = torch.rand(n, generator=gen) > 0.25
+        if mask_kind == "masked_block":
+            mask[128:640] = False
+        elif mask_kind != "random":
+            mask[:] = False
+            if mask_kind == "one_row":
+                mask[n // 2] = True
+        mask = mask.to(dev)
+    counts = [w.launches for w in (fused_bn.bn_stats_blocked,
+                                   fused_bn.bn_bwd_sums_blocked,
+                                   fused_bn.bn_normalize, fused_bn.bn_dx)]
+    mean, var, cnt = fused_bn.bn_stats_blocked(x, mask)
+    y = fused_bn.bn_normalize(x, mean, var, scale, bias, 1e-5)
+    sg, sgx = fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)
+    dx = fused_bn.bn_dx(x, mask, g, scale, mean, var, 1e-5, sg, sgx, cnt)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (fused_bn.bn_stats_blocked,
+                                 fused_bn.bn_bwd_sums_blocked,
+                                 fused_bn.bn_normalize, fused_bn.bn_dx)] == [
+        c + 1 for c in counts]
+    r_mean, r_var, r_cnt = fused_bn.bn_stats_blocked_plain(x, mask)
+    r_sg, r_sgx = fused_bn.bn_bwd_sums_blocked_plain(x, g, r_mean, r_var, 1e-5)
+    ref = (r_mean, r_var, r_cnt,
+           fused_bn.bn_normalize_plain(x, r_mean, r_var, scale, bias, 1e-5),
+           r_sg, r_sgx,
+           fused_bn.bn_dx_plain(x, mask, g, scale, r_mean, r_var, 1e-5, r_sg,
+                                r_sgx, r_cnt))
+    for got, want in zip((mean, var, cnt, y, sg, sgx, dx), ref):
+        assert torch.isfinite(got).all()
+        if float(want.abs().max()) == 0.0:
+            assert torch.equal(got, want)
+        else:
+            assert _leaf_err(got, want) <= 1e-5
+    assert float(cnt) == max(float(mask.sum()), 1.0)
+
+
+@pytest.mark.parametrize("case", ["pcba", "adversarial"])
+def test_segment_sum_masked_kernel_matches_plain_version(dev, case):
+    """C's forward role over the receiver CSR at width 512, against a float64
+    sum: the pcba batch, and receivers with an isolated node (3), a segment
+    of 1,100 edges (7), masked edges inside segments and an all-masked one
+    (11)."""
+    if case == "pcba":
+        b = _pcba_batch(dev)
+        mask, rowptr = b.edge_mask, b.rowptr
+        msgs = torch.randn((b.num_edges, 512),
+                           generator=torch.Generator().manual_seed(6)).to(dev)
+    else:
+        msgs, mask, _, rowptr = _adversarial_case(dev)
+        msgs = torch.cat([msgs, msgs, msgs[:, :112]], 1).contiguous()
+    n0 = ssum.segment_sum_masked.launches
+    out = ssum.segment_sum_masked(msgs, mask, rowptr)
+    torch.cuda.synchronize()
+    assert ssum.segment_sum_masked.launches == n0 + 1
+    want = ssum.segment_sum_masked_plain(msgs.double(), mask, rowptr)
+    assert _leaf_err(out, want) <= 1e-5
+    if case == "adversarial":
+        assert torch.all(out[3] == 0) and torch.all(out[11] == 0)

@@ -115,7 +115,7 @@ def test_training_and_later_slice_configs_raise():
     for over in (dict(skip_connect="concat"), dict(edge_axis="ep"),
                  dict(node_axis="dp"), dict(remat=True),
                  dict(compute_dtype=torch.bfloat16),
-                 dict(norm_mp="q-batch-norm"), dict(msg_aggr="sum"),
+                 dict(norm_mp="q-batch-norm"), dict(msg_aggr="mean"),
                  dict(unique_phm=True), dict(naive_encoder=True),
                  dict(real_trafo="sum")):
         with pytest.raises(NotImplementedError):

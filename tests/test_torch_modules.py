@@ -169,7 +169,7 @@ def test_softmax_aggr_off_cpu_takes_the_kernels_or_raises():
 
 def test_unported_conv_variants_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
-        conv.PHMMessagePassing(32, 32, N4, aggr="sum", mlp=True)
+        conv.PHMMessagePassing(32, 32, N4, aggr="mean", mlp=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         conv.PHMMessagePassing(32, 32, N4, aggr="softmax", mlp=False)
 

@@ -23,10 +23,16 @@ Phases, each of which exits non-zero on failure:
    row block, whole row blocks masked, an all-masked and a one-row mask; for
    C's forward role (the masked sum aggregation) masked edges inside
    segments, an all-masked segment, an isolated node and a 1,100-edge
-   segment.  Each is timed with CUDA events, eagerly and from a CUDA graph,
-   beside its plain version, its bound and, where one exists, one PyTorch
-   call that computes the same function; D + E are timed at [4096, 512]
-   beside F, G and the passes, as data for the size gate between them;
+   segment; for the whitening kernels J, K, L (with the T/S/M algebra), M
+   and the eval Cholesky, at [4096, 200] (d = 50) against their plain
+   versions in float64, a ragged N = 1,100, d = 49, all-masked and one-row
+   masks, a column offset of 1e3 with std 0.1 and nearly collinear
+   features (where K, L and M, fed the plain version's f32 statistics, are
+   also read against float64).  Each is timed with CUDA events, eagerly and
+   from a CUDA graph, beside its plain version, its bound and, where one
+   exists, one PyTorch call that computes the same function; D + E are
+   timed at [4096, 512] beside F, G and the passes, as data for the size
+   gate between them;
 4. eval slice: the flagship model (bench.py's config: PHCGNN phm_dim=4, width
    200, 4 x PHMGINEConvSoftmax, soft-attention pooling, (200, 100) -> 1 head)
    at random weights from a seed, with random running stats and betas,
@@ -41,12 +47,15 @@ Phases, each of which exits non-zero on failure:
    (masked L1 plus lr * 0.1 * the PHM weight regularization, Adam after a
    global-norm clip of 2.0, lr 1e-3).  First, with dropout off, one forward
    and backward on the GPU against the same model and batch on the CPU: the
-   loss, the output, every parameter's gradient and the running stats, then
-   the optimizer's update given the same gradients.  Then ten steps with the
-   flagship's dropout on one batch, the counters zeroed just before and read
-   just after: per step A, B and C run 4 times, D and E 10; the loss stays
-   finite and falls.  A CUDA batch without its sender plan must raise.  Last,
-   the step is timed and profiled;
+   loss, the output, every parameter's gradient (the CPU run repeated in
+   float64 with the same ReLU pattern: a leaf whose f32 error on the CPU
+   exceeds TOL_GRAD / COND_GRAD may differ by COND_GRAD times that error, up
+   to TOL_GRAD_CAP) and the running stats, then the optimizer's update given
+   the same gradients.  Then ten steps with the flagship's dropout on one
+   batch, the counters zeroed just before and read just after: per step A,
+   B and C run 4 times, D and E 10; the loss stays finite and falls.  A
+   CUDA batch without its sender plan must raise.  Last, the step is timed
+   and profiled;
 6. pcba eval: the molpcba PHC-2 configuration (benchmarks/
    run_script_pcba_phm2.sh over DATASET_DEFAULTS["pcba"], built by
    ``train.trainer.build_model``: phm_dim 2, 7 x PHMConv with sum
@@ -59,20 +68,38 @@ Phases, each of which exits non-zero on failure:
    synthetic_batch(128, 4096, 8192, seed=0..3) with 0/1 labels of 128 tasks,
    a share missing (NaN), under the masked BCE, Adam after a clip of 2.0, lr
    1e-3.  One dropout-free step on the GPU against the CPU (loss, outputs,
-   each accumulated gradient with the GPU's ReLU pattern replayed, running
-   stats, the Adam update given equal gradients); then ten steps with the
-   configuration's dropout, counters zeroed just before and read just after:
-   per step F, G, their passes, C's two roles 28 times each, D and E 8; the
-   loss stays finite and falls.  Timed and profiled.
+   each accumulated gradient with the GPU's ReLU pattern replayed, under
+   the rule of 5, running stats, the Adam update given equal gradients);
+   then ten steps with the configuration's dropout, counters zeroed just
+   before and read just after: per step F, G, their passes, C's two roles
+   28 times each, D and E 8; the loss stays finite and falls.  Timed and
+   profiled;
+8. quaternion eval: scripts/bench_presets.py's whitening configuration
+   (``build("add", "q-batch-norm")``) through the port's
+   ``QuaternionSkipConnectAdd``: the flagship's widths with
+   ``QuaternionWhiteningNorm`` at the 8 conv sites, the frozen quaternion
+   rule, random weights and running stats, on 3 batches: per batch the
+   Cholesky and K run 8 times, A and B 4.  Held to the CPU path; a CUDA
+   graph of the forward replays to the eager output; timed and profiled;
+9. quaternion train: one dropout-free step against the CPU as in 5 (a
+   softmax beta's gradient, a sum that cancels, is where the float64 rule
+   can widen a limit); then ten steps with dropout (per step J, K, L, M 8
+   times, A, B, C 4, D, E 2; the loss falls); timed over 30 steps after 5
+   warm-ups and profiled;
+10. quaternion concat: ``QuaternionSkipConnectConcat`` (``build("concat",
+   "q-batch-norm")``: convs of 200/400/400/400 features, pooling and head
+   at 400) on one batch against the CPU, and one dropout-free step as in 9.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
-``{"profile_train"}``, ``{"pcba"}`` and ``{"kernels": [...]}`` lines, then,
-as its last line, ``{"ok": true, "device": {...}}``.  In the kernels line,
-each kernel's ``launches_by_path`` holds its count from each of the four
-main-path runs above (``eval``: 3 flagship batches; ``train``: 10 flagship
-steps; ``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated steps), and
-``launches`` is their sum.  Without a CUDA device it exits non-zero and
-prints no result.  It imports nothing of JAX.
+``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}`` and ``{"kernels": [...]}``
+lines, then, as its last line, ``{"ok": true, "device": {...}}``.  In the
+kernels line, each kernel's ``launches_by_path`` holds its count from each
+of the seven main-path runs above (``eval``: 3 flagship batches; ``train``:
+10 flagship steps; ``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated
+steps; ``quat_eval``: 3 batches; ``quat_train``: 10 steps;
+``quat_concat_eval``: 1 batch), and ``launches`` is their sum.  Without a
+CUDA device it exits non-zero and prints no result.  It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -100,6 +127,24 @@ TOL_GRAD = 1e-4             # gradients, GPU vs CPU, per leaf: forward and
 TOL_NOISE = 1e-5            # |grad| of a bias a batch norm follows (zero in
                             # exact arithmetic), over the largest gradient
 TOL_UPDATE = 1e-5           # Adam update given equal gradients, per leaf
+TOL_WBN = 1e-5              # whitening kernels against their plain versions
+                            # in float64, per output: column sums of 4,096
+                            # rows in f32 through a 4x4 Cholesky
+COND_WBN = 4.0              # ... or, where f32 itself cannot reach that
+                            # (the offset and collinear inputs), within 4x
+                            # the plain version's own f32 error against
+                            # float64: the kernels read 0.39-0.51x of it on
+                            # the offset, 1.8-2.75x on the collinear input
+COND_GRAD = 10.0            # a gradient leaf may differ from the CPU's by
+TOL_GRAD_CAP = 1e-3         # 10x the CPU's own f32 error against float64
+                            # where that exceeds TOL_GRAD, but by no more
+                            # than 1e-3: the quaternion step's softmax beta
+                            # (a sum that cancels; CPU f32 error 1.9e-5)
+                            # read 2.4-5.5x that error on the GPU over five
+                            # runs, the atomics' order differing
+TOL_REPLAY = 1e-6            # a CUDA graph's replay against the eager
+                            # forward: the same kernels, but the pooling's
+                            # index_add_ adds in the order its atomics land
 N_BATCHES = 3
 FLAGSHIP = dict(batch_size=128, num_nodes=4096, num_edges=8192)
 DIM = 200
@@ -121,6 +166,18 @@ PCBA = dict(batch_size=128, num_nodes=4096, num_edges=8192, **PCBA_FEATS)
 PCBA_EVAL = dict(batch_size=512, num_nodes=16384, num_edges=32768,
                  **PCBA_FEATS)
 PCBA_STEPS = 10
+# the quaternion family with whitening batch norm (scripts/bench_presets.py
+# build(family, "q-batch-norm")): per train step J, K, L, M at the 8
+# whitening sites (4 in the convs' MLPs, 4 after the convs), A, B and C once
+# per layer, D and E in the head's 2 norms; per eval batch the running
+# stats' Cholesky and K at the 8 sites, A and B once per layer
+QUAT_TRAIN_LAUNCHES = {"wbn_stats": 8, "wbn_transform": 8, "wbn_bwd_sums": 8,
+                       "wbn_dx": 8, "segment_logit_max": 4,
+                       "segment_softmax_aggregate": 4, "segment_sum_perm": 4,
+                       "bn_forward": 2, "bn_backward": 2}
+QUAT_EVAL_LAUNCHES = {"wbn_cholesky": 8, "wbn_transform": 8,
+                      "segment_logit_max": 4, "segment_softmax_aggregate": 4}
+QUAT_STEPS = 10
 # per accumulated step, K = 4 sub-batches: the sum aggregation (C forward)
 # and the gather backward (C backward) once per layer; the blocked norm (F,
 # G and their passes) after each of the 7 convs ([4096, 2, 256], 8.39 MB,
@@ -219,8 +276,10 @@ def time_graph(torch, fn, iters: int = 100, reps: int = 5) -> float:
 
 def kernel_wrappers():
     """The launch-counting wrapper of every kernel of the port, A to G with
-    C's two roles and the blocked norm's two elementwise passes."""
+    C's two roles and the blocked norm's two elementwise passes, J to M and
+    the whitening's eval Cholesky."""
     from phc_gnn_torch.ops import fused_bn
+    from phc_gnn_torch.ops import fused_whitening as fw
     from phc_gnn_torch.ops import segment_softmax as ss
     from phc_gnn_torch.ops import segment_sum as ssum
 
@@ -233,7 +292,12 @@ def kernel_wrappers():
             "bn_stats_blocked": fused_bn.bn_stats_blocked,
             "bn_bwd_sums_blocked": fused_bn.bn_bwd_sums_blocked,
             "bn_normalize": fused_bn.bn_normalize,
-            "bn_dx": fused_bn.bn_dx}
+            "bn_dx": fused_bn.bn_dx,
+            "wbn_stats": fw.wbn_stats,
+            "wbn_transform": fw.wbn_transform,
+            "wbn_bwd_sums": fw.wbn_bwd_sums,
+            "wbn_dx": fw.wbn_dx,
+            "wbn_cholesky": fw.wbn_cholesky}
 
 
 def reset_launches() -> None:
@@ -755,6 +819,169 @@ def segment_sum_masked_kernel(torch, dev, batch, eval_batch, errs):
     return [rec]
 
 
+def whitening_case(torch, dev, n, d, kind, node_mask=None):
+    """``(x, mask, gamma, beta, g)`` for the whitening kernels: x ~ N(0.5,
+    1.5^2) with ``node_mask`` or a random mask, or the adversarial ``kind``:
+    "all-masked", "one-row", "offset" (every column 1e3 + N(0, 0.1^2)),
+    "collinear" (component 1 of features 0-9 is component 0 plus N(0,
+    1e-3^2): a covariance within 1e-6 of singular, which eps = 1e-5
+    regularises)."""
+    gen = torch.Generator().manual_seed(20 + n + d)
+    x = torch.randn((n, 4 * d), generator=gen) * 1.5 + 0.5
+    mask = (node_mask.cpu() if node_mask is not None
+            else torch.rand(n, generator=gen) > 0.2)
+    if kind in ("all-masked", "one-row"):
+        mask = torch.zeros(n, dtype=torch.bool)
+        if kind == "one-row":
+            mask[n // 2] = True
+    elif kind == "offset":
+        x = 1e3 + torch.randn((n, 4 * d), generator=gen) * 0.1
+    elif kind == "collinear":
+        x[:, d:d + 10] = x[:, :10] + 1e-3 * torch.randn((n, 10), generator=gen)
+    gamma = (torch.randn((4, 4, d), generator=gen) * 0.2
+             + 0.5 * torch.eye(4)[..., None])
+    beta = torch.randn((4, d), generator=gen) * 0.3
+    g = torch.randn((n, 4 * d), generator=gen)
+    return [t.to(dev).contiguous() for t in (x, mask, gamma, beta, g)]
+
+
+def whitening_chain(fw, x, mask, gamma, beta, g, kernels: bool, given=None):
+    """J, K, L, M and the eval Cholesky in sequence, through the kernels or
+    through the plain versions (in the inputs' dtype): the outputs by name.
+    With ``given`` (J's four outputs from elsewhere), K, L and M read those
+    in place of J's."""
+    if kernels:
+        stats, transform, sums, dx_of, chol = (
+            fw.wbn_stats, fw.wbn_transform, fw.wbn_bwd_sums, fw.wbn_dx,
+            fw.wbn_cholesky)
+    else:
+        stats, transform, sums, dx_of, chol = (
+            fw.wbn_stats_plain, fw.wbn_transform_plain, fw.wbn_bwd_sums_plain,
+            fw.wbn_dx_plain, fw.wbn_cholesky_plain)
+    mean, cov, l, cnt = stats(x, mask, 1e-5) if given is None else given
+    dgamma, dbeta, mmat, sw = sums(x, g, gamma, mean, l)
+    return {"wbn_stats": {"mean": mean, "cov": cov, "L": l, "cnt": cnt},
+            "wbn_transform": {"y": transform(x, mean, l, gamma, beta)},
+            "wbn_bwd_sums": {"dgamma": dgamma, "dbeta": dbeta, "M": mmat,
+                             "sum w": sw},
+            "wbn_dx": {"dx": dx_of(x, g, mask, gamma, mean, l, mmat, sw, cnt)},
+            "wbn_cholesky": {"L of cov": chol(cov, 1e-5)}}
+
+
+def collinear_split(fw, inputs, want, plain, case):
+    """Where the kernels' gap to the f32 plain version arises on a badly
+    conditioned input: K, L and M fed the plain version's f32 statistics in
+    place of J's, against float64, beside the plain version's own error."""
+    fed = whitening_chain(fw, *inputs, kernels=True,
+                          given=tuple(plain["wbn_stats"].values()))
+    for kname in ("wbn_transform", "wbn_bwd_sums", "wbn_dx"):
+        for what, tensor in fed[kname].items():
+            err = leafwise(tensor, want[kname][what])[1]
+            f32_err = leafwise(plain[kname][what], want[kname][what])[1]
+            print(f"kernel {kname} [{case}, {what}] fed the plain version's "
+                  f"f32 statistics: rel err (own scale) {err:.3e}, the plain "
+                  f"version in f32 {f32_err:.3e} ({err / f32_err:.2f}x)",
+                  flush=True)
+
+
+def whitening_kernels(torch, dev, batch, errs):
+    """J, K, L (with the T/S/M algebra), M and the eval Cholesky against
+    their plain versions run in float64 on the same f32 inputs, at the
+    quaternion path's [4096, 200] (d = 50) with the flagship's node mask, a
+    ragged N = 1,100, d = 49, all-masked and one-row masks, a column offset
+    of 1e3 with std 0.1 and nearly collinear features; returns their timing
+    records."""
+    from phc_gnn_torch.ops import fused_whitening as fw
+
+    n, d = batch.num_nodes, DIM // 4
+    cases = {f"main [{n}, {4 * d}]": (n, d, "main", batch.node_mask),
+             f"ragged [1100, {4 * d}]": (1100, d, "random", None),
+             "d = 49 [1100, 196]": (1100, 49, "random", None),
+             f"all-masked [{n}, {4 * d}]": (n, d, "all-masked", None),
+             "one-row [129, 196]": (129, 49, "one-row", None),
+             f"offset 1e3, std 0.1 [{n}, {4 * d}]": (n, d, "offset", None),
+             f"collinear [{n}, {4 * d}]": (n, d, "collinear", None)}
+    wrappers = kernel_wrappers()
+    names = ("wbn_stats", "wbn_transform", "wbn_bwd_sums", "wbn_dx",
+             "wbn_cholesky")
+    for case, (cn, cd, kind, node_mask) in cases.items():
+        x, mask, gamma, beta, g = whitening_case(torch, dev, cn, cd, kind,
+                                                 node_mask)
+        before = [wrappers[k].launches for k in names]
+        got = whitening_chain(fw, x, mask, gamma, beta, g, kernels=True)
+        torch.cuda.synchronize()
+        if [wrappers[k].launches for k in names] != [b + 1 for b in before]:
+            fail(f"{case}: the whitening launch counters did not move")
+        want = whitening_chain(fw, x.double(), mask, gamma.double(),
+                               beta.double(), g.double(), kernels=False)
+        plain = whitening_chain(fw, x, mask, gamma, beta, g, kernels=False)
+        if float(got["wbn_stats"]["cnt"]) != float(want["wbn_stats"]["cnt"]):
+            fail(f"wbn_stats: cnt {float(got['wbn_stats']['cnt'])} on {case}")
+        for kname, outs in got.items():
+            for what, tensor in outs.items():
+                if what == "cnt":
+                    continue
+                ref = want[kname][what]
+                f32_err = leafwise(plain[kname][what], ref)[1]
+                check(errs, kname, f"{case}, {what}", tensor, ref,
+                      max(TOL_WBN, COND_WBN * f32_err),
+                      note=f"; the plain version in f32 reads {f32_err:.3e}")
+        if kind == "collinear":
+            collinear_split(fw, (x, mask, gamma, beta, g), want, plain, case)
+
+    x, mask, gamma, beta, g = whitening_case(torch, dev, n, d, "main",
+                                             batch.node_mask)
+    mean, cov, l, cnt = fw.wbn_stats(x, mask, 1e-5)
+    dgamma, dbeta, mmat, sw = fw.wbn_bwd_sums(x, g, gamma, mean, l)
+    x_bytes, f_bytes = n * 4 * d * 4, d * 4  # [N, 4d] f32; one [d] field
+    eye = 1e-5 * torch.eye(4, device=dev)  # the library Cholesky's eps I
+    src = "phc_gnn_torch/csrc/fused_whitening.cu"
+    pallas = "phc_gnn_tpu/ops/fused_whitening.py"
+    recs = [
+        record(torch, "wbn_stats", src, f"{pallas}:184", errs,
+               lambda: fw.wbn_stats(x, mask, 1e-5),
+               lambda: fw.wbn_stats_plain(x, mask, 1e-5), None,
+               x_bytes + n + (4 + 16 + 10) * f_bytes + 4, 28 * n * d),
+        record(torch, "wbn_transform", src, f"{pallas}:236", errs,
+               lambda: fw.wbn_transform(x, mean, l, gamma, beta),
+               lambda: fw.wbn_transform_plain(x, mean, l, gamma, beta), None,
+               2 * x_bytes + (4 + 10 + 16 + 4) * f_bytes, 56 * n * d),
+        record(torch, "wbn_bwd_sums", src, f"{pallas}:253", errs,
+               lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l),
+               lambda: fw.wbn_bwd_sums_plain(x, g, gamma, mean, l), None,
+               2 * x_bytes + (16 + 4 + 10 + 16 + 4 + 16 + 4) * f_bytes,
+               128 * n * d),
+        record(torch, "wbn_dx", src, f"{pallas}:304", errs,
+               lambda: fw.wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt),
+               lambda: fw.wbn_dx_plain(x, g, mask, gamma, mean, l, mmat, sw,
+                                       cnt), None,
+               3 * x_bytes + n + (16 + 4 + 10 + 16 + 4) * f_bytes + 4,
+               96 * n * d),
+        record(torch, "wbn_cholesky", src, "phc_gnn_tpu/nn/norm.py:340", errs,
+               lambda: fw.wbn_cholesky(cov, 1e-5),
+               lambda: fw.wbn_cholesky_plain(cov, 1e-5),
+               lambda: torch.linalg.cholesky_ex(cov.permute(2, 0, 1) + eye).L,
+               (10 + 10) * f_bytes, 40 * d)]
+    recs[1]["also_replaces"] = ("the eval path's inline whitening, "
+                                "phc_gnn_tpu/nn/norm.py:339-345")
+    recs[2]["also_replaces"] = ("the T/S/M algebra in XLA between L and M, "
+                                f"{pallas}:408-412")
+    recs[4]["replaces_what"] = ("XLA Cholesky of the running covariance in "
+                                "the eval path (no Pallas kernel)")
+    # each of J's and L's two CUDA kernels (row blocks, then the combine)
+    split = device_profile(torch, lambda: (
+        fw.wbn_stats(x, mask, 1e-5),
+        fw.wbn_bwd_sums(x, g, gamma, mean, l)), 1.0, iters=20)
+    for rec, prefix in ((recs[0], "wbn_stats"), (recs[2], "wbn_bwd_sums")):
+        rec["cuda_kernels_us"] = {
+            re.search(r"wbn_\w+_kernel", name).group(0): us
+            for name, us in split["top_us"] if prefix in name}
+        print(f"kernel {rec['name']}: its CUDA kernels "
+              f"{rec['cuda_kernels_us']} (us of device time a call, "
+              f"torch.profiler over 20 calls)", flush=True)
+    return recs
+
+
 def kernel_phase(torch, dev):
     """Kernels vs plain versions at the main-path and adversarial shapes;
     returns the per-kernel records (launches filled in later)."""
@@ -769,7 +996,8 @@ def kernel_phase(torch, dev):
             + segment_sum_kernel(torch, dev, batch, errs)
             + segment_sum_masked_kernel(torch, dev, pcba, pcba_eval, errs)
             + batch_norm_kernels(torch, dev, batch, errs)
-            + blocked_bn_kernels(torch, dev, pcba, errs))
+            + blocked_bn_kernels(torch, dev, pcba, errs)
+            + whitening_kernels(torch, dev, batch, errs))
 
 
 def flagship_config(dropout: bool = True) -> dict:
@@ -786,8 +1014,10 @@ def flagship_config(dropout: bool = True) -> dict:
 
 
 def randomize_eval_state(torch, model, seed: int = 1):
-    """Random BN running stats (mean ~ N(0, 0.3), var ~ U(0.5, 2)) and betas
-    (~ U(0.5, 2.5)), drawn on the CPU from ``seed``."""
+    """Random BN running stats (mean ~ N(0, 0.3), var ~ U(0.5, 2)) and the
+    convs' betas (~ U(0.5, 2.5)), drawn on the CPU from ``seed``; for the
+    whitening norms a random SPD running cov per feature, Gamma 0.5 I +
+    N(0, 0.1) and beta ~ N(0, 0.3)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -795,9 +1025,17 @@ def randomize_eval_state(torch, model, seed: int = 1):
                 buf.copy_(torch.randn(buf.shape, generator=gen) * 0.3)
             elif name.endswith(".var"):
                 buf.copy_(torch.rand(buf.shape, generator=gen) * 1.5 + 0.5)
+            elif name.endswith(".cov"):
+                b = torch.randn((buf.shape[-1], 4, 4), generator=gen)
+                spd = b @ b.transpose(1, 2) / 4 + 0.2 * torch.eye(4)
+                buf.copy_(spd.permute(1, 2, 0))
         for name, p in model.named_parameters():
-            if name.endswith(".beta"):
+            if name.endswith(".beta") and p.ndim == 0:
                 p.copy_(torch.rand((), generator=gen) * 2.0 + 0.5)
+            elif name.endswith(".beta"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+            elif name.endswith(".gamma"):
+                p.add_((torch.randn(p.shape, generator=gen) * 0.1).to(p.device))
 
 
 def slice_phase(torch, dev):
@@ -966,10 +1204,27 @@ class ReluReplay:
         return self
 
 
-def hold_to_cpu(torch, dev, phase, grads, c_grads, model, cpu_model,
+def exact_errors(c_grads, e_grads):
+    """The CPU's own f32 error per gradient leaf against ``e_grads``, the
+    same run in float64 with the same ReLU pattern."""
+    return {k: leafwise(c_grads[k], e_grads[k])[1] for k in c_grads}
+
+
+def grad_rule(worst):
+    """The gradient tolerance and what it granted, for a phase's line."""
+    return (f"tolerance {TOL_GRAD:g}, or {COND_GRAD:g}x the CPU's own f32 "
+            f"error against float64 up to {TOL_GRAD_CAP:g}: the widest "
+            f"limit {worst['grad_widest_tol']:.3e} on "
+            f"{worst['grad_widest_tol_leaf']}; the largest error over its "
+            f"leaf's limit {worst['grad_over_tol']:.3f}")
+
+
+def hold_to_cpu(torch, dev, phase, grads, c_grads, f32_err, model, cpu_model,
                 pre_step, worst):
-    """The gradients per leaf (the biases a norm follows to a noise bound),
-    the running stats of ``model`` against ``cpu_model``, and the Adam update
+    """The gradients per leaf (the biases a norm follows to a noise bound;
+    each other leaf to ``max(TOL_GRAD, min(TOL_GRAD_CAP, COND_GRAD *
+    f32_err))``, ``f32_err`` the CPU's own error on it against float64), the
+    running stats of ``model`` against ``cpu_model``, and the Adam update
     given the CPU's gradients on both devices from ``pre_step``, the two
     models' parameters before any update; the worst readings go into
     ``worst``."""
@@ -983,10 +1238,17 @@ def hold_to_cpu(torch, dev, phase, grads, c_grads, model, cpu_model,
                         float(c_grads[key].abs().max()) / top)
         else:
             grad_errs[key] = leafwise(g, c_grads[key])[1]
+    tol = {k: max(TOL_GRAD, min(TOL_GRAD_CAP, COND_GRAD * f32_err[k]))
+           for k in grad_errs}
     worst["grad"] = max(grad_errs.values())
     worst["grad_leaf"] = max(grad_errs, key=grad_errs.get)
+    worst["grad_leaf_f32_err"] = f32_err[worst["grad_leaf"]]
+    worst["grad_widest_tol_leaf"] = max(tol, key=tol.get)
+    worst["grad_widest_tol"] = tol[worst["grad_widest_tol_leaf"]]
+    worst["grad_over_tol"] = max(grad_errs[k] / tol[k] for k in grad_errs)
     worst["noise_grad"] = noise
-    if not (worst["grad"] <= TOL_GRAD and noise <= TOL_NOISE):
+    if not (all(grad_errs[k] <= tol[k] for k in grad_errs)
+            and noise <= TOL_NOISE):
         fail(f"{phase}: gradients disagree with the CPU: {worst}")
     cpu_bufs = dict(cpu_model.named_buffers())
     worst["running_stats"] = max(leafwise(b, cpu_bufs[k])[1]
@@ -1016,10 +1278,15 @@ def hold_to_cpu(torch, dev, phase, grads, c_grads, model, cpu_model,
         fail(f"{phase}: the Adam update disagrees with the CPU's: {worst}")
 
 
-def agreement(torch, dev, host_batch, batch, loss_fn):
+def agreement(torch, dev, host_batch, batch, loss_fn, build=None,
+              phase="train"):
     """One forward and backward with dropout off on the GPU and on the CPU,
     from the same weights: the loss, the output, the gradients, the running
-    stats; then the Adam update given the CPU's gradients on both.
+    stats; then the Adam update given the CPU's gradients on both.  The
+    model is ``build(dropout=False)`` (the flagship by default).  The CPU
+    run is repeated in float64 with the same ReLU pattern, and each gradient
+    leaf may differ by ``COND_GRAD`` times the CPU's own f32 error on it
+    where that exceeds ``TOL_GRAD``, up to ``TOL_GRAD_CAP``.
 
     The CPU run applies the GPU run's ReLU sign pattern.  A ReLU whose input
     lies within rounding of 0 can switch between the devices, and then one
@@ -1029,9 +1296,11 @@ def agreement(torch, dev, host_batch, batch, loss_fn):
     from phc_gnn_torch.models import PHCGNN
     from phc_gnn_torch.train import make_loss_and_grads
 
-    model = PHCGNN(**flagship_config(dropout=False), seed=0, device=dev)
+    model = (build(dropout=False) if build is not None else
+             PHCGNN(**flagship_config(dropout=False), seed=0, device=dev))
     randomize_eval_state(torch, model)
     cpu_model = copy.deepcopy(model).to("cpu")
+    exact_model = copy.deepcopy(cpu_model).double()
     # the loss-and-gradient pass updates only the running stats, so the
     # models' parameters stay as they were for the update check
     pre_step = (model, cpu_model)
@@ -1045,6 +1314,10 @@ def agreement(torch, dev, host_batch, batch, loss_fn):
     ReluReplay(torch, masks).install(cpu_model)
     c_loss, c_out, c_grads = make_loss_and_grads(cpu_model, loss_fn,
                                                  WEIGHT_DECAY)(host_batch, LR)
+    ReluReplay(torch, masks).install(exact_model)
+    _, _, e_grads = make_loss_and_grads(exact_model, loss_fn, WEIGHT_DECAY)(
+        host_batch.replace(y=host_batch.y.double()), LR)
+    f32_err = exact_errors(c_grads, e_grads)
     with torch.no_grad():  # the CPU's own sign pattern, to count switches
         own_model(host_batch, training=True)
     worst = {"relu_switches_on_real_rows": sum(
@@ -1054,16 +1327,17 @@ def agreement(torch, dev, host_batch, batch, loss_fn):
     _, worst["loss"] = leafwise(loss, c_loss)
     _, worst["out"] = normwise(out.cpu(), c_out)
     if not (worst["loss"] <= TOL_MODEL and worst["out"] <= TOL_MODEL):
-        fail(f"train: loss or output disagrees with the CPU: {worst}")
-    hold_to_cpu(torch, dev, "train", grads, c_grads, model, cpu_model,
+        fail(f"{phase}: loss or output disagrees with the CPU: {worst}")
+    hold_to_cpu(torch, dev, phase, grads, c_grads, f32_err, model, cpu_model,
                 pre_step, worst)
-    print(f"train: one step with dropout off, GPU vs CPU: loss rel err "
+    print(f"{phase}: one step with dropout off, GPU vs CPU: loss rel err "
           f"{worst['loss']:.3e}, output normwise {worst['out']:.3e} "
           f"(tolerance {TOL_MODEL:g}); with the GPU's ReLU pattern "
           f"({worst['relu_switches_on_real_rows']} ReLUs of real rows switch "
           f"between the devices), gradients per leaf <= {worst['grad']:.3e} "
-          f"of the leaf's max (tolerance {TOL_GRAD:g}; worst "
-          f"{worst['grad_leaf']}); the biases a norm follows <= "
+          f"of the leaf's max on {worst['grad_leaf']} (its CPU f32 error "
+          f"{worst['grad_leaf_f32_err']:.3e}; {grad_rule(worst)}); the biases "
+          f"a norm follows <= "
           f"{worst['noise_grad']:.3e} of the largest gradient (tolerance "
           f"{TOL_NOISE:g}); "
           f"running stats <= {worst['running_stats']:.3e} (tolerance "
@@ -1236,6 +1510,7 @@ def pcba_agreement(torch, dev, host_batches, batches):
     model, loss_fn, cfg = pcba_model(torch, dev, dropout=False)
     randomize_eval_state(torch, model)
     cpu_model = copy.deepcopy(model).to("cpu")
+    exact_model = copy.deepcopy(cpu_model).double()
     pre_step = (copy.deepcopy(model), copy.deepcopy(cpu_model))
     own_model = copy.deepcopy(cpu_model)
     own = ReluReplay(torch).install(own_model)
@@ -1260,6 +1535,10 @@ def pcba_agreement(torch, dev, host_batches, batches):
     masks = [m.cpu() for m in relu.masks]
     ReluReplay(torch, masks).install(cpu_model)
     c_loss, c_outs, c_grads = accumulate(cpu_model, host_batches, "cpu")
+    ReluReplay(torch, masks).install(exact_model)
+    _, _, e_grads = accumulate(exact_model, [hb.replace(y=hb.y.double())
+                                             for hb in host_batches], "cpu")
+    f32_err = exact_errors(c_grads, e_grads)
     with torch.no_grad():  # the CPU's own sign pattern, to count switches
         for hb in host_batches:
             own_model(hb, training=True)
@@ -1270,15 +1549,16 @@ def pcba_agreement(torch, dev, host_batches, batches):
     if not (bool(torch.isfinite(loss)) and worst["loss"] <= TOL_MODEL
             and worst["outs"] <= TOL_MODEL):
         fail(f"pcba train: loss or outputs disagree with the CPU: {worst}")
-    hold_to_cpu(torch, dev, "pcba train", grads, c_grads, model, cpu_model,
-                pre_step, worst)
+    hold_to_cpu(torch, dev, "pcba train", grads, c_grads, f32_err, model,
+                cpu_model, pre_step, worst)
     print(f"pcba: one accumulated step (K = {len(batches)}) with dropout off, "
           f"GPU vs CPU: loss rel err {worst['loss']:.3e}, outputs normwise "
           f"{worst['outs']:.3e} (tolerance {TOL_MODEL:g}); with the GPU's "
           f"ReLU pattern ({worst['relu_switches']} ReLUs switch between the "
           f"devices), accumulated gradients per leaf <= {worst['grad']:.3e} "
-          f"of the leaf's max (tolerance {TOL_GRAD:g}; worst "
-          f"{worst['grad_leaf']}); the biases a norm follows <= "
+          f"of the leaf's max on {worst['grad_leaf']} (its CPU f32 error "
+          f"{worst['grad_leaf_f32_err']:.3e}; {grad_rule(worst)}); the biases "
+          f"a norm follows <= "
           f"{worst['noise_grad']:.3e} of the largest gradient (tolerance "
           f"{TOL_NOISE:g}); running stats <= {worst['running_stats']:.3e} "
           f"(tolerance {TOL_BN:g}); Adam update given equal gradients <= "
@@ -1340,6 +1620,193 @@ def pcba_train_phase(torch, dev):
     return launches, info
 
 
+def quat_model(torch, dev, family: str = "add", dropout: bool = True):
+    """scripts/bench_presets.py's ``build(family, "q-batch-norm")`` through
+    the port's preset (``QuaternionSkipConnectAdd`` or ``...Concat``: the
+    frozen quaternion rule) at random weights from seed 0: the flagship's
+    widths and head, whitening at the 8 conv sites, ``sc_type`` "last" (add)
+    or "first" (concat, whose convs take 200/400/400/400 features)."""
+    from phc_gnn_torch.models import presets
+
+    cfg = flagship_config(dropout)
+    del cfg["phm_dim"]
+    cfg.update(norm_mp="q-batch-norm", norm_dn="naive-batch-norm",
+               sc_type="last" if family == "add" else "first")
+    cls = (presets.QuaternionSkipConnectAdd if family == "add"
+           else presets.QuaternionSkipConnectConcat)
+    return cls(**cfg, seed=0, device=dev)
+
+
+def quat_eval(torch, dev, model, host_batches, phase, want_per_batch):
+    """The eval forward of ``model`` through the kernels on ``host_batches``:
+    the launch counts of the run (``want_per_batch`` each), the outputs
+    against the CPU path.  Returns the launches and the step."""
+    from phc_gnn_torch.train import make_eval_step
+
+    batches = [b.to(dev) for b in host_batches]
+    step = make_eval_step(model, device=dev)
+    reset_launches()
+    outs = [step(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: want_per_batch.get(k, 0) * len(batches) for k in launches}
+    print(f"{phase}: launches on the eval path over {len(batches)} batches "
+          f"{launches} (expected {want})", flush=True)
+    if launches != want:
+        fail(f"the {phase} eval path launched {launches}, not {want}")
+    cpu_step = make_eval_step(copy.deepcopy(model).to("cpu"), device="cpu")
+    for i, (out, hb) in enumerate(zip(outs, host_batches)):
+        if out.shape != (FLAGSHIP["batch_size"] + 1, 1):
+            fail(f"{phase} batch {i}: output shape {tuple(out.shape)}")
+        if not torch.isfinite(out).all():
+            fail(f"{phase} batch {i}: non-finite output")
+        abs_err, rel_err = normwise(out.cpu(), cpu_step(hb))
+        print(f"{phase}: batch {i} vs CPU plain path: max abs err "
+              f"{abs_err:.3e}, normwise rel err {rel_err:.3e} (tolerance "
+              f"{TOL_MODEL:g})", flush=True)
+        if not rel_err <= TOL_MODEL:
+            fail(f"{phase} batch {i}: GPU output disagrees with the CPU path")
+    return launches, step, batches
+
+
+def graph_replay(torch, fn):
+    """The output of ``fn`` captured in a CUDA graph and replayed once."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def quat_eval_phase(torch, dev):
+    """The quaternion add preset's eval forward on 3 batches, its launches,
+    eval ms, a CUDA-graph replay against the eager output, and a profile;
+    returns the launch counts of the main-path run and the timings."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+
+    model = quat_model(torch, dev)
+    randomize_eval_state(torch, model)
+    host = [attach_csr_plan(synthetic_batch(seed=s, **FLAGSHIP))
+            for s in range(N_BATCHES)]
+    launches, step, batches = quat_eval(torch, dev, model, host, "quat",
+                                        QUAT_EVAL_LAUNCHES)
+    b0 = batches[0]
+    eager = step(b0)
+    replay_err = normwise(graph_replay(torch, lambda: step(b0)).cpu(),
+                          eager.cpu())[1]
+    print(f"quat: a CUDA graph of the eval forward replays to normwise "
+          f"{replay_err:.3e} of the eager output (tolerance {TOL_REPLAY:g})",
+          flush=True)
+    if not replay_err <= TOL_REPLAY:
+        fail("quat: the CUDA graph replay differs from the eager forward")
+    real_edges = host[0].count_edges()
+    eval_ms, host_ms = time_steps(torch, lambda: step(b0))
+    graph_ms = time_graph(torch, lambda: step(b0), iters=20)
+    prof = device_profile(torch, lambda: step(b0), eval_ms, iters=20)
+    info = {"eval_ms": eval_ms, "eval_host_ms": host_ms,
+            "eval_graph_ms": graph_ms, "eval_real_edges": real_edges,
+            "eval_real_edges_per_s": real_edges / (eval_ms / 1e3),
+            "eval_kernels_per_forward": prof["kernels_per_call"],
+            "eval_device_busy_ms": prof["busy_ms"],
+            "eval_device_idle_share": prof["idle_share"],
+            "eval_top_kernels_us": prof["top_us"]}
+    print(f"quat: eval {eval_ms:.3f} ms per batch (CUDA events, median of "
+          f"30; host clock {host_ms:.3f} ms), "
+          f"{info['eval_real_edges_per_s']:.4g} real edges/s, {graph_ms:.3f} "
+          f"ms from one CUDA graph; {prof['kernels_per_call']:g} kernels, "
+          f"device busy {prof['busy_ms']:.3f} ms (idle "
+          f"{100 * prof['idle_share']:.1f} %)", flush=True)
+    return launches, info
+
+
+def quat_train_phase(torch, dev):
+    """The quaternion add preset's train step: one dropout-free step against
+    the CPU, ten steps with dropout (launches, the loss falls), step ms and a
+    profile; returns the launch counts of the main-path run and the
+    timings."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.train import make_optimizer, make_train_step, masked_l1
+
+    host_batch = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP))
+    batch = host_batch.to(dev)
+
+    def loss_fn(out, b):
+        return masked_l1(out, b.y)
+
+    worst = agreement(torch, dev, host_batch, batch, loss_fn,
+                      build=lambda dropout: quat_model(torch, dev,
+                                                       dropout=dropout),
+                      phase="quat train")
+    model = quat_model(torch, dev)
+    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
+    step = make_train_step(model, opt, loss_fn, weight_decay=WEIGHT_DECAY,
+                           seed=0, device=dev)
+    reset_launches()
+    losses = [step(batch, LR)[0] for _ in range(QUAT_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: QUAT_TRAIN_LAUNCHES.get(k, 0) * QUAT_STEPS for k in launches}
+    print(f"quat train: launches over {QUAT_STEPS} steps {launches} "
+          f"(expected {want})", flush=True)
+    if launches != want:
+        fail(f"the quaternion train path launched {launches}, not {want}")
+    losses = [float(x) for x in losses]
+    print(f"quat train: losses over {QUAT_STEPS} steps with dropout "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail("quat train: non-finite loss")
+    if not last < first:
+        fail(f"quat train: the loss did not fall (mean of the first three "
+             f"steps {first:.5f}, of the last three {last:.5f})")
+    real_edges = host_batch.count_edges()
+    step_ms, host_ms = time_steps(torch, lambda: step(batch, LR))
+    prof = device_profile(torch, lambda: step(batch, LR), step_ms)
+    info = {"step_ms": step_ms, "step_host_ms": host_ms,
+            "real_edges_per_s": real_edges / (step_ms / 1e3),
+            "losses": losses, "agreement": worst,
+            "kernels_per_step": prof["kernels_per_call"],
+            "device_busy_ms_per_step": prof["busy_ms"],
+            "device_idle_share": prof["idle_share"],
+            "top_kernels_us_per_step": prof["top_us"]}
+    print(f"quat train: {step_ms:.3f} ms per step (CUDA events, median of 30 "
+          f"after 5 warm-ups; host clock {host_ms:.3f} ms), "
+          f"{info['real_edges_per_s']:.4g} real edges/s ({real_edges} real "
+          f"edges); {prof['kernels_per_call']:g} kernels per step, device "
+          f"busy {prof['busy_ms']:.3f} ms (idle "
+          f"{100 * prof['idle_share']:.1f} %)", flush=True)
+    return launches, info
+
+
+def quat_concat_phase(torch, dev):
+    """The quaternion concat preset: its eval forward on one batch against
+    the CPU (the launch counts of that run are returned) and one
+    dropout-free step against the CPU."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.train import masked_l1
+
+    host = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP))
+    model = quat_model(torch, dev, "concat")
+    randomize_eval_state(torch, model)
+    launches, _, _ = quat_eval(torch, dev, model, [host], "concat",
+                               QUAT_EVAL_LAUNCHES)
+    worst = agreement(torch, dev, host, host.to(dev),
+                      lambda out, b: masked_l1(out, b.y),
+                      build=lambda dropout: quat_model(torch, dev, "concat",
+                                                       dropout=dropout),
+                      phase="concat train")
+    return launches, {"agreement": worst}
+
+
 def main() -> None:
     import torch
 
@@ -1369,6 +1836,12 @@ def main() -> None:
     paths["pcba_train"], pcba_train = pcba_train_phase(torch, dev)
     pcba.update(pcba_train)
     print(json.dumps({"pcba": pcba}), flush=True)
+    paths["quat_eval"], quat = quat_eval_phase(torch, dev)
+    paths["quat_train"], quat_train = quat_train_phase(torch, dev)
+    paths["quat_concat_eval"], concat = quat_concat_phase(torch, dev)
+    quat.update(quat_train)
+    quat["concat"] = concat
+    print(json.dumps({"quat": quat}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -3,11 +3,15 @@
 Counterpart of phc_gnn_tpu/graph/conv.py for the ported variants, all on the
 messages ``msg_encoder(x[senders] + edge_attr)``:
 
-- ``PHMConv`` (conv.py:112-152): sum aggregation, then a PHM linear
-  ``transform``, the self loop added after it (JAX's ``same_dim=True``, the
-  only order the ported ``skip_connect="add"`` takes);
+- ``PHMConv`` (conv.py:112-152): sum aggregation and a PHM linear
+  ``transform``; with ``same_dim`` (the add-skip family) the self loop is
+  added after it, ``transform(aggr) + x``, else (the concat-skip family,
+  whose layers change width) before it, ``transform(aggr + x)``;
 - ``PHMGINEConv`` (:155-193): sum aggregation, ``aggr + x``, then a 2-layer
   PHM MLP with its norm;
+- ``PHMConvSoftmax`` (:196-240): softmax aggregation with a learnable beta
+  and the linear ``transform``, the self loop placed by ``same_dim`` as in
+  ``PHMConv``;
 - ``PHMGINEConvSoftmax`` (:243-285): softmax aggregation with a learnable
   beta, ``aggr + x``, then the MLP.
 
@@ -31,7 +35,8 @@ from phc_gnn_torch.nn.phm_linear import PHMLinear, PHMMLP
 from phc_gnn_torch.ops.segment_softmax import segment_softmax
 from phc_gnn_torch.ops.segment_sum import gather_nodes, segment_sum_aggregate
 
-__all__ = ["PHMConv", "PHMGINEConv", "PHMGINEConvSoftmax", "PHMMessagePassing"]
+__all__ = ["PHMConv", "PHMGINEConv", "PHMConvSoftmax", "PHMGINEConvSoftmax",
+           "PHMMessagePassing"]
 
 
 def _messages(x, senders, edge_attr, msg_encoder: str, snd_perm=None,
@@ -97,20 +102,31 @@ def _check_fixed_aggr(aggr: str) -> None:
             f"item 9)")
 
 
+def _linear_out(transform, aggr, x, add_self_loops: bool, same_dim: bool):
+    """``transform(aggr) + x`` with ``same_dim``, else ``transform(aggr +
+    x)``; without self loops ``transform(aggr)`` (conv.py:144-151)."""
+    if not add_self_loops:
+        return transform(aggr)
+    if same_dim:
+        return transform(aggr) + x
+    return transform(aggr + x)
+
+
 class PHMConv(nn.Module):
-    """Fixed-reduce conv with a PHM linear ``transform``, the self loop
-    added after it: ``transform(aggr) + x`` (reference:
+    """Fixed-reduce conv with a PHM linear ``transform``; ``same_dim``
+    places the self loop after it or before it (reference:
     messagepassing.py:19-88)."""
 
     def __init__(self, in_features: int, out_features: int, phm_dim: int,
                  learn_phm: bool = True, bias: bool = True,
                  add_self_loops: bool = True, w_init: str = "phm",
                  c_init: str = "standard", aggr: str = "sum",
-                 msg_encoder: str = "identity",
+                 same_dim: bool = True, msg_encoder: str = "identity",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_fixed_aggr(aggr)
         self.add_self_loops = add_self_loops
+        self.same_dim = same_dim
         self.aggr = aggr
         self.msg_encoder = msg_encoder
         self.transform = PHMLinear(in_features, out_features, phm_dim, bias,
@@ -123,8 +139,8 @@ class PHMConv(nn.Module):
                          snd_rowptr)
         aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
                            rowptr)
-        out = self.transform(aggr)
-        return out + x if self.add_self_loops else out
+        return _linear_out(self.transform, aggr, x, self.add_self_loops,
+                           self.same_dim)
 
 
 class PHMGINEConv(nn.Module):
@@ -157,6 +173,38 @@ class PHMGINEConv(nn.Module):
         if self.add_self_loops:
             aggr = aggr + x
         return self.transform(aggr, training=training, mask=node_mask)
+
+
+class PHMConvSoftmax(nn.Module):
+    """Softmax aggregation with a learnable beta and a PHM linear
+    ``transform``; ``same_dim`` places the self loop as in ``PHMConv``
+    (reference: messagepassing.py:164-245)."""
+
+    def __init__(self, in_features: int, out_features: int, phm_dim: int,
+                 learn_phm: bool = True, bias: bool = True,
+                 add_self_loops: bool = True, w_init: str = "phm",
+                 c_init: str = "standard", same_dim: bool = True,
+                 msg_encoder: str = "identity", initial_beta: float = 1.0,
+                 learn_beta: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.add_self_loops = add_self_loops
+        self.same_dim = same_dim
+        self.msg_encoder = msg_encoder
+        self.beta = nn.Parameter(torch.tensor(float(initial_beta)),
+                                 requires_grad=learn_beta)
+        self.transform = PHMLinear(in_features, out_features, phm_dim, bias,
+                                   w_init, c_init, learn_phm, generator)
+
+    def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
+                training: bool = False, node_mask=None, rowptr=None,
+                snd_perm=None, snd_rowptr=None):
+        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
+                         snd_rowptr)
+        aggr = _softmax_aggr(msgs, receivers, x.shape[0], self.beta,
+                             edge_mask, rowptr)
+        return _linear_out(self.transform, aggr, x, self.add_self_loops,
+                           self.same_dim)
 
 
 class PHMGINEConvSoftmax(nn.Module):
@@ -194,24 +242,25 @@ class PHMGINEConvSoftmax(nn.Module):
 class PHMMessagePassing(nn.Module):
     """Facade dispatching on (aggr, mlp) to a conv variant held as ``conv``
     (reference: messagepassing.py:456-518; conv.py:382-420).  Ported:
-    aggr="softmax" with mlp=True, and aggr="sum" (or "add") with mlp False
-    (``PHMConv``) or True (``PHMGINEConv``)."""
+    aggr="softmax" and aggr="sum" (or "add"), each with mlp False or True;
+    ``same_dim`` reaches the variants without an MLP."""
 
     def __init__(self, in_features: int, out_features: int, phm_dim: int,
                  learn_phm: bool = True, bias: bool = True,
                  add_self_loops: bool = True, norm: Optional[str] = None,
                  activation: str = "relu", w_init: str = "phm",
                  c_init: str = "standard", aggr: str = "sum", mlp: bool = True,
-                 msg_encoder: str = "identity",
+                 same_dim: bool = True, msg_encoder: str = "identity",
                  initial_beta: float = 1.0, learn_beta: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         aggr = "sum" if aggr == "add" else aggr
-        if aggr == "softmax":
-            if not mlp:
-                raise NotImplementedError(
-                    "conv variant aggr='softmax', mlp=False is not ported yet "
-                    "(ROADMAP.md, section 1, item 9)")
+        if aggr == "softmax" and not mlp:
+            self.conv = PHMConvSoftmax(
+                in_features, out_features, phm_dim, learn_phm, bias,
+                add_self_loops, w_init, c_init, same_dim, msg_encoder,
+                initial_beta, learn_beta, generator)
+        elif aggr == "softmax":
             self.conv = PHMGINEConvSoftmax(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, norm, activation, w_init, c_init, msg_encoder,
@@ -224,7 +273,8 @@ class PHMMessagePassing(nn.Module):
         else:
             self.conv = PHMConv(
                 in_features, out_features, phm_dim, learn_phm, bias,
-                add_self_loops, w_init, c_init, aggr, msg_encoder, generator)
+                add_self_loops, w_init, c_init, aggr, same_dim, msg_encoder,
+                generator)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,

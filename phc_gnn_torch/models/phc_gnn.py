@@ -1,10 +1,15 @@
-"""End-to-end PHC-GNN, add-skip family.
+"""End-to-end PHC-GNN: the add-skip and the concat-skip families.
 
-Counterpart of phc_gnn_tpu/models/phc_gnn.py:182-266 for
-``skip_connect="add"``: atom-encode -> flatten [N, n*d] -> L x (bond-encode,
-conv, norm, act, dropout, add-skip) -> pool -> downstream head.  ``sc_type`` selects
-the skip source: "first" = the initial embedding, "last" = the previous
-layer's output.  Module names follow the flax tree (``atomencoder``,
+Counterpart of phc_gnn_tpu/models/phc_gnn.py: atom-encode -> flatten
+[N, n*d] -> L x (bond-encode, conv, norm, act, dropout, skip) -> pool ->
+downstream head.  ``skip_connect="add"`` adds the skip, whose source
+``sc_type`` selects: "first" = the initial embedding, "last" = the previous
+layer's output.  ``skip_connect="concat"`` concatenates the initial
+embedding to every layer's output, so the widths grow (phc_gnn.py:104-121,
+:162-163, :253-256): layer i takes ``mp_layers[i-1] + embed`` features, its
+bond encoder emits that width, its conv (``same_dim=False``) adds the self
+loop before the transform, and pooling and head take ``mp_layers[-1] +
+embed``.  Module names follow the flax tree (``atomencoder``,
 ``bondencoder_<i>``, ``conv_<i>``, ``norm_<i>``, ``pooling``,
 ``downstream``), so ``convert.from_flax_variables`` maps paths one to one.
 
@@ -65,10 +70,9 @@ class PHCGNN(nn.Module):
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        if skip_connect != "add":
-            raise NotImplementedError(
-                "the concat-skip family is not ported yet "
-                "(ROADMAP.md, section 1, item 10)")
+        if skip_connect not in ("add", "concat"):
+            raise ValueError(f"skip_connect must be 'add' or 'concat', got "
+                             f"{skip_connect!r}")
         if edge_axis is not None or node_axis is not None:
             raise NotImplementedError(
                 "edge partitioning and the node-sharded halo path are not "
@@ -79,13 +83,14 @@ class PHCGNN(nn.Module):
                 "(ROADMAP.md, section 1, item 11)")
         if unique_phm or naive_encoder:
             raise NotImplementedError(
-                "unique_phm and naive_encoder are not ported yet: they come "
-                "with the model presets (ROADMAP.md, section 1, item 7)")
+                "unique_phm and naive_encoder are not ported yet (ROADMAP.md, "
+                "section 1, item 10)")
         if sc_type not in ("first", "last"):
             raise ValueError(f"sc_type must be 'first' or 'last', got {sc_type!r}")
         if pooling not in ("globalsum", "softattention"):
             raise ValueError(f"unknown pooling {pooling!r}")
-        if not all(d == atom_encoded_dim for d in mp_layers):
+        if skip_connect == "add" and not all(d == atom_encoded_dim
+                                             for d in mp_layers):
             raise ValueError("the add-skip model needs equal dims "
                              "(reference models.py:46)")
         if len(dropout_mpnn) != len(mp_layers):
@@ -94,6 +99,7 @@ class PHCGNN(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         self.phm_dim = n
         self.sc_type = sc_type
+        self.concat = skip_connect == "concat"
         self.same_dropout = same_dropout
         self.dropout_mpnn = tuple(float(p) for p in dropout_mpnn)
         self.num_layers = len(mp_layers)
@@ -102,18 +108,23 @@ class PHCGNN(nn.Module):
 
         self.atomencoder = PHMEncoder(embed // n, atom_input_dims, n, gen)
         for i, d in enumerate(mp_layers):
+            # the input width (in the add-skip family every width is the
+            # embedding's), which the bond encoder emits too
+            in_dim = embed if i == 0 else mp_layers[i - 1] + (
+                embed if self.concat else 0)
             self.add_module(f"bondencoder_{i}", PHMEncoder(
-                d // n, bond_input_dims, n, gen))
+                in_dim // n, bond_input_dims, n, gen))
             self.add_module(f"conv_{i}", PHMMessagePassing(
-                embed, d, n, learn_phm, bias, add_self_loops, norm_mp,
+                in_dim, d, n, learn_phm, bias, add_self_loops, norm_mp,
                 activation, w_init, c_init, aggr=msg_aggr, mlp=mlp_mp,
-                msg_encoder=msg_encoder, initial_beta=initial_beta,
-                learn_beta=learn_beta, generator=gen))
+                same_dim=not self.concat, msg_encoder=msg_encoder,
+                initial_beta=initial_beta, learn_beta=learn_beta,
+                generator=gen))
             if norm_mp not in (None, "None"):
                 self.add_module(f"norm_{i}", PHMNorm(d, n, norm_mp))
         self.has_norm = norm_mp not in (None, "None")
 
-        final_dim = mp_layers[-1]
+        final_dim = mp_layers[-1] + (embed if self.concat else 0)
         if pooling == "globalsum":
             self.pooling = PHMGlobalSumPooling(n)
         else:
@@ -134,7 +145,8 @@ class PHCGNN(nn.Module):
         atom = atom.reshape(atom.shape[0], -1)  # flat [N, n*d]
         x = atom
         for i in range(self.num_layers):
-            skip = atom if (self.sc_type == "first" or i == 0) else x
+            skip = atom if (self.concat or self.sc_type == "first"
+                            or i == 0) else x
             edge_emb = getattr(self, f"bondencoder_{i}")(graphs.edges)
             edge_emb = edge_emb.reshape(edge_emb.shape[0], -1)
             h = getattr(self, f"conv_{i}")(
@@ -148,7 +160,7 @@ class PHCGNN(nn.Module):
             h = phm_dropout(self.act(h), self.dropout_mpnn[i], self.phm_dim,
                             generator, training=training,
                             same=self.same_dropout)
-            x = h + skip
+            x = torch.cat([h, skip], dim=-1) if self.concat else h + skip
         pooled = self.pooling(x, graphs.graph_ids, graphs.num_graphs,
                               graphs.node_mask)
         return self.downstream(pooled, training=training,

@@ -9,8 +9,8 @@ and layouts:
                                  for the rest (phm_linear.py:65-74).
 
 Every module takes the ``torch.Generator`` its parameters are drawn from.
-A rule shared across the network (``unique_phm``) waits for the model
-presets (ROADMAP.md, section 1, item 7).
+A rule shared across the network (``unique_phm``) is not ported yet
+(ROADMAP.md, section 1, item 10).
 """
 
 from __future__ import annotations
@@ -112,8 +112,8 @@ class PHMMLP(nn.Module):
 class RealTransformer(nn.Module):
     """H^d -> R^(d/n) head, type 'linear': a dense layer ``affine`` on the
     flat vector (reference: phc/hypercomplex/layers.py:372-420).  The 'sum',
-    'mean' and 'norm' types wait for the model presets (ROADMAP.md, section
-    1, item 7)."""
+    'mean' and 'norm' types are not ported yet (ROADMAP.md, section 1, item
+    10)."""
 
     def __init__(self, trafo_type: str, in_features: int, phm_dim: int,
                  bias: bool = True, generator: Optional[torch.Generator] = None):
@@ -121,7 +121,7 @@ class RealTransformer(nn.Module):
         if trafo_type != "linear":
             raise NotImplementedError(
                 f"real_trafo {trafo_type!r} is not ported yet (ROADMAP.md, "
-                f"section 1, item 7)")
+                f"section 1, item 10)")
         # xavier-uniform (gain 1) + zero bias (reference layers.py:393-397);
         # torch keeps the weight as (out, in), flax's kernel is (in, out)
         out = in_features // phm_dim

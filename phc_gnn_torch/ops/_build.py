@@ -22,7 +22,7 @@ from typing import Dict
 import torch
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "source_names", "library_path",
-           "load", "load_all", "stream"]
+           "check_launch", "load", "load_all", "stream"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -87,6 +87,12 @@ def stream(device) -> int:
     """The handle of PyTorch's current CUDA stream on ``device``, which every
     kernel of the port launches on."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -167,11 +167,6 @@ def _check(x, mask, vectors, g=None):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def bn_forward(x, mask, scale, bias, eps: float):
     """``(y [N, D], mean [D], var [D])`` of the masked batch norm of ``x``."""
     if x.device.type == "cpu":
@@ -181,7 +176,7 @@ def bn_forward(x, mask, scale, bias, eps: float):
     y = torch.empty_like(x)
     mean = torch.empty((d,), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
-    _launch("bn_forward", _lib().fused_bn_forward_f32(
+    _build.check_launch("bn_forward", _lib().fused_bn_forward_f32(
         x.data_ptr(), mask.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         eps, y.data_ptr(), mean.data_ptr(), var.data_ptr(), n, d,
         _build.stream(x.device)))
@@ -202,7 +197,7 @@ def bn_backward(x, mask, scale, mean, var, eps: float, g):
     dx = torch.empty_like(x)
     dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dscale)
-    _launch("bn_backward", _lib().fused_bn_backward_f32(
+    _build.check_launch("bn_backward", _lib().fused_bn_backward_f32(
         x.data_ptr(), mask.data_ptr(), scale.data_ptr(), mean.data_ptr(),
         var.data_ptr(), eps, g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
         dbias.data_ptr(), n, d, _build.stream(x.device)))
@@ -243,7 +238,7 @@ def bn_stats_blocked(x, mask):
     mean = torch.empty((d,), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
     cnt = torch.empty((1,), dtype=torch.float32, device=x.device)
-    _launch("bn_stats_blocked", lib.bn_stats_blocked_f32(
+    _build.check_launch("bn_stats_blocked", lib.bn_stats_blocked_f32(
         x.data_ptr(), mask.data_ptr(), work.data_ptr(), mean.data_ptr(),
         var.data_ptr(), cnt.data_ptr(), n, d, _build.stream(x.device)))
     bn_stats_blocked.launches += 1
@@ -265,7 +260,7 @@ def bn_bwd_sums_blocked(x, g, mean, var, eps: float):
     work = torch.empty((2, nrb, d), dtype=torch.float32, device=x.device)
     sum_g = torch.empty((d,), dtype=torch.float32, device=x.device)
     sum_gx = torch.empty_like(sum_g)
-    _launch("bn_bwd_sums_blocked", lib.bn_bwd_sums_blocked_f32(
+    _build.check_launch("bn_bwd_sums_blocked", lib.bn_bwd_sums_blocked_f32(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), var.data_ptr(), eps,
         work.data_ptr(), sum_g.data_ptr(), sum_gx.data_ptr(), n, d,
         _build.stream(x.device)))
@@ -284,7 +279,7 @@ def bn_normalize(x, mean, var, scale, bias, eps: float):
                      ("bias", bias)))
     n, d = x.shape
     y = torch.empty_like(x)
-    _launch("bn_normalize", _lib().bn_normalize_f32(
+    _build.check_launch("bn_normalize", _lib().bn_normalize_f32(
         x.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), eps, y.data_ptr(), n, d, _build.stream(x.device)))
     bn_normalize.launches += 1
@@ -307,7 +302,7 @@ def bn_dx(x, mask, g, scale, mean, var, eps: float, sum_g, sum_gx, cnt):
                         f"{cnt.dtype} {tuple(cnt.shape)} on {cnt.device}")
     n, d = x.shape
     dx = torch.empty_like(x)
-    _launch("bn_dx", _lib().bn_dx_f32(
+    _build.check_launch("bn_dx", _lib().bn_dx_f32(
         x.data_ptr(), mask.data_ptr(), g.data_ptr(), scale.data_ptr(),
         mean.data_ptr(), var.data_ptr(), eps, sum_g.data_ptr(),
         sum_gx.data_ptr(), cnt.data_ptr(), dx.data_ptr(), n, d,

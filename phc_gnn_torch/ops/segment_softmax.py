@@ -144,11 +144,9 @@ def segment_logit_max(msgs, mask, beta, rowptr):
     _check(msgs, mask, beta, rowptr)
     n, d = rowptr.shape[0] - 1, msgs.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=msgs.device)
-    err = _lib().segment_logit_max_f32(
+    _build.check_launch("segment_logit_max", _lib().segment_logit_max_f32(
         msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
-        out.data_ptr(), n, d, _build.stream(msgs.device))
-    if err != 0:
-        raise RuntimeError(f"segment_logit_max launch failed: CUDA error {err}")
+        out.data_ptr(), n, d, _build.stream(msgs.device)))
     segment_logit_max.launches += 1
     return out
 
@@ -181,9 +179,7 @@ def segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax,
         msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
         segmax.data_ptr(), out.data_ptr(), w.data_ptr() if emit_w else None,
         den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
-    if err != 0:
-        raise RuntimeError(
-            f"segment_softmax_aggregate launch failed: CUDA error {err}")
+    _build.check_launch("segment_softmax_aggregate", err)
     segment_softmax_aggregate.launches += 1
     return (out, w, den) if emit_w else out
 

@@ -114,11 +114,9 @@ def segment_sum_perm(values, perm, rowptr):
     dev = values.device
     n, d = rowptr.shape[0] - 1, values.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    err = _lib().segment_sum_perm_f32(
+    _build.check_launch("segment_sum_perm", _lib().segment_sum_perm_f32(
         values.data_ptr(), perm.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
-        n, d, _build.stream(dev))
-    if err != 0:
-        raise RuntimeError(f"segment_sum_perm launch failed: CUDA error {err}")
+        n, d, _build.stream(dev)))
     segment_sum_perm.launches += 1
     return out
 
@@ -138,12 +136,9 @@ def segment_sum_masked(msgs, mask, rowptr):
     dev = msgs.device
     n, d = rowptr.shape[0] - 1, msgs.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    err = _lib().segment_sum_masked_f32(
+    _build.check_launch("segment_sum_masked", _lib().segment_sum_masked_f32(
         msgs.data_ptr(), mask.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
-        n, d, _build.stream(dev))
-    if err != 0:
-        raise RuntimeError(f"segment_sum_masked launch failed: CUDA error "
-                           f"{err}")
+        n, d, _build.stream(dev)))
     segment_sum_masked.launches += 1
     return out
 

@@ -14,7 +14,7 @@ import torch
 from phc_gnn_torch.data import synthetic_batch
 from phc_gnn_torch.graph import (attach_csr_plan, build_csr_rowptr,
                                  build_sender_csr)
-from phc_gnn_torch.ops import fused_bn
+from phc_gnn_torch.ops import fused_bn, fused_whitening as fw
 from phc_gnn_torch.ops import segment_softmax as ss
 from phc_gnn_torch.ops import segment_sum as ssum
 
@@ -244,3 +244,75 @@ def test_segment_sum_masked_kernel_matches_plain_version(dev, case):
     assert _leaf_err(out, want) <= 1e-5
     if case == "adversarial":
         assert torch.all(out[3] == 0) and torch.all(out[11] == 0)
+
+
+def _whitening_case(dev, n, d, mask_kind, seed=8):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, 4 * d), generator=gen) * 1.5 + 0.5
+    mask = torch.rand(n, generator=gen) > 0.2
+    if mask_kind == "flagship":
+        mask = attach_csr_plan(synthetic_batch(128, 4096, 8192, seed=0)
+                               ).node_mask
+    elif mask_kind != "random":
+        mask[:] = False
+        if mask_kind == "one_row":
+            mask[n // 2] = True
+    gamma = torch.randn((4, 4, d), generator=gen) * 0.2 + 0.5 * torch.eye(4)[
+        ..., None]
+    beta = torch.randn((4, d), generator=gen) * 0.3
+    g = torch.randn((n, 4 * d), generator=gen)
+    return [t.to(dev).contiguous() for t in (x, mask, gamma, beta, g)]
+
+
+@pytest.mark.parametrize("n,d,mask_kind", [
+    (4096, 50, "flagship"), (1100, 50, "random"), (1100, 49, "random"),
+    (4096, 50, "all_masked"), (129, 49, "one_row")])
+def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
+    """J, K, L (with the T/S/M algebra) and M, and the eval Cholesky,
+    against the plain versions run in float64 on the card: the flagship's
+    [4096, 200] with its node mask, a ragged N = 1,100, d = 49, an
+    all-masked and a one-row mask.  1e-5 of each output's max: the
+    covariances here are well conditioned (chip_smoke.py holds the badly
+    conditioned cases)."""
+    x, mask, gamma, beta, g = _whitening_case(dev, n, d, mask_kind)
+    wrappers = (fw.wbn_stats, fw.wbn_transform, fw.wbn_bwd_sums, fw.wbn_dx,
+                fw.wbn_cholesky)
+    counts = [w.launches for w in wrappers]
+    mean, cov, l, cnt = fw.wbn_stats(x, mask, 1e-5)
+    y = fw.wbn_transform(x, mean, l, gamma, beta)
+    dgamma, dbeta, mmat, sw = fw.wbn_bwd_sums(x, g, gamma, mean, l)
+    dx = fw.wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt)
+    l_eval = fw.wbn_cholesky(cov, 1e-5)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [c + 1 for c in counts]
+    x64, gam64, beta64, g64 = (t.double() for t in (x, gamma, beta, g))
+    r_mean, r_cov, r_l, r_cnt = fw.wbn_stats_plain(x64, mask, 1e-5)
+    r_sums = fw.wbn_bwd_sums_plain(x64, g64, gam64, r_mean, r_l)
+    ref = (r_mean, r_cov, r_l, r_cnt,
+           fw.wbn_transform_plain(x64, r_mean, r_l, gam64, beta64)) + r_sums + (
+        fw.wbn_dx_plain(x64, g64, mask, gam64, r_mean, r_l, r_sums[2],
+                        r_sums[3], r_cnt), fw.wbn_cholesky_plain(r_cov, 1e-5))
+    got = (mean, cov, l, cnt, y, dgamma, dbeta, mmat, sw, dx, l_eval)
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        if float(b.abs().max()) == 0.0:
+            assert float(a.abs().max()) == 0.0
+        else:
+            assert _leaf_err(a, b) <= 1e-5
+    assert float(cnt) == max(float(mask.sum()), 1.0)
+
+
+def test_fused_whitening_autograd_on_the_card(dev):
+    """``fused_whitening`` forward and backward on CUDA tensors go through
+    the four kernels and agree with the same function on the CPU."""
+    x, mask, gamma, beta, g = _whitening_case(dev, 1100, 50, "random")
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        tx, tg, tb = (t.detach().to(device).requires_grad_()
+                      for t in (x, gamma, beta))
+        y, mean, cov = fw.fused_whitening(tx, mask.to(device), tg, tb)
+        (y * g.to(device)).sum().backward()
+        outs.append([t.detach().cpu() for t in (y, mean, cov, tx.grad,
+                                                tg.grad, tb.grad)])
+    for a, b in zip(*outs):
+        assert _leaf_err(a, b) <= 1e-5

@@ -112,10 +112,10 @@ def test_training_and_later_slice_configs_raise():
     out.sum().backward()
     assert all(p.grad is not None for p in model.parameters()
                if p.requires_grad)
-    for over in (dict(skip_connect="concat"), dict(edge_axis="ep"),
+    for over in (dict(edge_axis="ep"),
                  dict(node_axis="dp"), dict(remat=True),
                  dict(compute_dtype=torch.bfloat16),
-                 dict(norm_mp="q-batch-norm"), dict(msg_aggr="mean"),
+                 dict(msg_aggr="mean"),
                  dict(unique_phm=True), dict(naive_encoder=True),
                  dict(real_trafo="sum")):
         with pytest.raises(NotImplementedError):

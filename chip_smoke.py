@@ -28,7 +28,12 @@ Phases, each of which exits non-zero on failure:
    versions in float64, a ragged N = 1,100, d = 49, all-masked and one-row
    masks, a column offset of 1e3 with std 0.1 and nearly collinear
    features (where K, L and M, fed the plain version's f32 statistics, are
-   also read against float64).  Each is timed with CUDA events, eagerly and
+   also read against float64), L and M in their frozen variants too (the
+   eval whitening's backward); for H (max and min) and I (mean and var) over
+   the flagship's receiver CSR at D = 200 with ReLU messages, exact ties,
+   the adversarial receivers of A and B (one-edge, all-masked and isolated
+   segments) and, for H, |m| >= 1e29: H bit for bit, I within TOL_SUM and
+   var 0 exactly on one-edge segments.  Each is timed with CUDA events, eagerly and
    from a CUDA graph, beside its plain version, its bound and, where one
    exists, one PyTorch call that computes the same function; D + E are
    timed at [4096, 512] beside F, G and the passes, as data for the size
@@ -88,22 +93,44 @@ Phases, each of which exits non-zero on failure:
    warm-ups and profiled;
 10. quaternion concat: ``QuaternionSkipConnectConcat`` (``build("concat",
    "q-batch-norm")``: convs of 200/400/400/400 features, pooling and head
-   at 400) on one batch against the CPU, and one dropout-free step as in 9.
+   at 400) on one batch against the CPU, and one dropout-free step as in 9;
+11. quaternion eval gradient: the add preset's eval forward (running stats
+   fixed) differentiated in every parameter on one batch, on the card
+   (the Cholesky, K, then the frozen variants of L and M at the 8 sites,
+   A, B, C 4) against the CPU under the rule of 5;
+12. PNA eval: the ZINC PHC-4 recipe with ``--aggr_msg pna``
+   (benchmarks/run_script_zinc_phm4.sh over DATASET_DEFAULTS["zinc"],
+   built by ``build_model`` with ``avg_deg`` from ``degree_histogram`` of
+   the flagship batch's graphs: phm_dim 4, width 200, 4 x
+   ``PHMPNAConvSimple`` with mean, min, max, std and the identity,
+   amplification and attenuation scalers, naive BN, ``sc_type`` "last",
+   soft attention, a (128, 64) -> 1 head) on 3 batches: per batch C's
+   forward role 4, H 8, I 4.  Held to the CPU path; a CUDA batch without its
+   plan must raise; a CUDA graph of the forward replays to the eager output;
+   timed and profiled;
+13. PNA train: L1 loss, no weight decay, Adam after a clip of 2.0, lr 1e-3;
+   one dropout-free step against the CPU as in 5, with the GPU's ReLU
+   pattern, its extreme edges (where the min and max send the cotangent)
+   and its var > 0 pattern (std's relu) replayed on the CPU; ten steps with
+   the recipe's dropout (per step H 8, I 4, C 4 in each role, D and E 6;
+   the loss falls); timed over 30 steps after 5 warm-ups and profiled.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
-``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}`` and ``{"kernels": [...]}``
-lines, then, as its last line, ``{"ok": true, "device": {...}}``.  In the
-kernels line, each kernel's ``launches_by_path`` holds its count from each
-of the seven main-path runs above (``eval``: 3 flagship batches; ``train``:
-10 flagship steps; ``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated
-steps; ``quat_eval``: 3 batches; ``quat_train``: 10 steps;
-``quat_concat_eval``: 1 batch), and ``launches`` is their sum.  Without a
-CUDA device it exits non-zero and prints no result.  It imports nothing of
-JAX.
+``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}`` and
+``{"kernels": [...]}`` lines, then, as its last line, ``{"ok": true,
+"device": {...}}``.  In the kernels line, each kernel's ``launches_by_path``
+holds its count from each of the ten main-path runs above (``eval``: 3
+flagship batches; ``train``: 10 flagship steps; ``pcba_eval``: 1 batch;
+``pcba_train``: 10 accumulated steps; ``quat_eval``: 3 batches;
+``quat_train``: 10 steps; ``quat_concat_eval``: 1 batch;
+``quat_eval_grad``: 1 batch; ``pna_eval``: 3 batches; ``pna_train``: 10
+steps), and ``launches`` is their sum.  Without a CUDA device it exits
+non-zero and prints no result.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -178,6 +205,30 @@ QUAT_TRAIN_LAUNCHES = {"wbn_stats": 8, "wbn_transform": 8, "wbn_bwd_sums": 8,
 QUAT_EVAL_LAUNCHES = {"wbn_cholesky": 8, "wbn_transform": 8,
                       "segment_logit_max": 4, "segment_softmax_aggregate": 4}
 QUAT_STEPS = 10
+# the eval whitening's backward (fine-tuning with frozen running stats):
+# per quaternion batch the eval forward's kernels, then the frozen variants
+# of L and M at the 8 sites and C's gather backward once per layer
+QUAT_EVAL_GRAD_LAUNCHES = {**QUAT_EVAL_LAUNCHES, "wbn_bwd_sums": 8, "wbn_dx": 8,
+                           "segment_sum_perm": 4}
+# PNA (benchmarks/run_script_zinc_phm4.sh --aggr_msg pna): per layer the mean
+# through C's forward role, the min and the max through H, the std through I
+PNA_DIM = 200
+PNA_LAYERS = 4
+PNA_EVAL_LAUNCHES = {"segment_sum_masked": 4, "segment_extreme": 8,
+                     "segment_moments": 4}
+# ... and per train step C's gather backward once per layer, D and E in the
+# 4 norms after the convs and the head's 2
+PNA_TRAIN_LAUNCHES = {**PNA_EVAL_LAUNCHES, "segment_sum_perm": 4,
+                      "bn_forward": 6, "bn_backward": 6}
+PNA_STEPS = 10
+# the flags of benchmarks/run_script_zinc_phm4.sh, then --aggr_msg pna, over
+# DATASET_DEFAULTS["zinc"]
+PNA_SCRIPT = dict(dataset="zinc", phm_dim=4, model_type="add", sc_type="last",
+                  aggr_msg="pna", mlp_mp=True, input_embed_dim=PNA_DIM,
+                  mp_units=(PNA_DIM,) * PNA_LAYERS, d_units=(128, 64),
+                  dropout_mpnn=(0.0,) * PNA_LAYERS, dropout_dn=(0.2, 0.1),
+                  batch_size=128, lr=1e-3, patience=20, factor=0.5,
+                  min_lr=1e-7, epochs=1000, weightdecay=0.0)
 # per accumulated step, K = 4 sub-batches: the sum aggregation (C forward)
 # and the gather backward (C backward) once per layer; the blocked norm (F,
 # G and their passes) after each of the 7 convs ([4096, 2, 256], 8.39 MB,
@@ -276,10 +327,12 @@ def time_graph(torch, fn, iters: int = 100, reps: int = 5) -> float:
 
 def kernel_wrappers():
     """The launch-counting wrapper of every kernel of the port, A to G with
-    C's two roles and the blocked norm's two elementwise passes, J to M and
-    the whitening's eval Cholesky."""
+    C's two roles and the blocked norm's two elementwise passes, J to M (L
+    and M with their frozen variants) and the whitening's eval Cholesky, H
+    and I."""
     from phc_gnn_torch.ops import fused_bn
     from phc_gnn_torch.ops import fused_whitening as fw
+    from phc_gnn_torch.ops import segment_reduce as sr
     from phc_gnn_torch.ops import segment_softmax as ss
     from phc_gnn_torch.ops import segment_sum as ssum
 
@@ -297,7 +350,9 @@ def kernel_wrappers():
             "wbn_transform": fw.wbn_transform,
             "wbn_bwd_sums": fw.wbn_bwd_sums,
             "wbn_dx": fw.wbn_dx,
-            "wbn_cholesky": fw.wbn_cholesky}
+            "wbn_cholesky": fw.wbn_cholesky,
+            "segment_extreme": sr.segment_extreme,
+            "segment_moments": sr.segment_moments}
 
 
 def reset_launches() -> None:
@@ -407,6 +462,17 @@ def record(torch, name, source, replaces, errs, fn, plain, library, nbytes,
     return rec
 
 
+def variant(torch, name, fn, nbytes, what="frozen variant"):
+    """Timing of a variant of a kernel: ms per call, device ms from a CUDA
+    graph, and its bound on ``nbytes``."""
+    rec = {"ms": time_eager(torch, fn), "graph_ms": time_graph(torch, fn),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    print(f"kernel {name} ({what}): {rec['ms'] * 1e3:.2f} us per call, "
+          f"{rec['graph_ms'] * 1e3:.2f} us device, bound "
+          f"{rec['bound_ms'] * 1e3:.2f} us", flush=True)
+    return rec
+
+
 def softmax_kernels(torch, dev, batch, errs):
     """A and B against their plain versions; B's training variant with its
     ``w`` and ``den`` outputs too.  Returns the timing records."""
@@ -476,17 +542,11 @@ def softmax_kernels(torch, dev, batch, errs):
                                                               smax),
                    None, in_bytes + 2 * nd_bytes, 6 * e_seg * d + n * d)
     # the training variant also writes w [E, D] and den [N, D]
-    train_fn = lambda: ss.segment_softmax_aggregate(  # noqa: E731
-        m, k, b, rp, smax, emit_w=True)
-    train_bytes = in_bytes + 3 * nd_bytes + m.shape[0] * d * 4
-    rec_b["train_variant"] = {
-        "replaces": "phc_gnn_tpu/ops/stream_scan.py:439",
-        "ms": time_eager(torch, train_fn), "graph_ms": time_graph(torch, train_fn),
-        "bound_ms": train_bytes / HBM_BYTES_PER_S * 1e3, "bytes": train_bytes}
-    print(f"kernel segment_softmax_aggregate (training variant, w and den): "
-          f"{rec_b['train_variant']['ms'] * 1e3:.2f} us per call, "
-          f"{rec_b['train_variant']['graph_ms'] * 1e3:.2f} us device, bound "
-          f"{rec_b['train_variant']['bound_ms'] * 1e3:.2f} us", flush=True)
+    rec_b["train_variant"] = variant(
+        torch, "segment_softmax_aggregate",
+        lambda: ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True),
+        in_bytes + 3 * nd_bytes + m.shape[0] * d * 4, "training variant, w and den")
+    rec_b["train_variant"]["replaces"] = "phc_gnn_tpu/ops/stream_scan.py:439"
     return [rec_a, rec_b]
 
 
@@ -847,9 +907,10 @@ def whitening_case(torch, dev, n, d, kind, node_mask=None):
 
 def whitening_chain(fw, x, mask, gamma, beta, g, kernels: bool, given=None):
     """J, K, L, M and the eval Cholesky in sequence, through the kernels or
-    through the plain versions (in the inputs' dtype): the outputs by name.
-    With ``given`` (J's four outputs from elsewhere), K, L and M read those
-    in place of J's."""
+    through the plain versions (in the inputs' dtype), and the frozen
+    variants of L and M (the eval whitening's backward, J's statistics held
+    fixed): the outputs by name.  With ``given`` (J's four outputs from
+    elsewhere), K, L and M read those in place of J's."""
     if kernels:
         stats, transform, sums, dx_of, chol = (
             fw.wbn_stats, fw.wbn_transform, fw.wbn_bwd_sums, fw.wbn_dx,
@@ -860,11 +921,15 @@ def whitening_chain(fw, x, mask, gamma, beta, g, kernels: bool, given=None):
             fw.wbn_dx_plain, fw.wbn_cholesky_plain)
     mean, cov, l, cnt = stats(x, mask, 1e-5) if given is None else given
     dgamma, dbeta, mmat, sw = sums(x, g, gamma, mean, l)
+    f_dgamma, f_dbeta = sums(x, g, gamma, mean, l, frozen=True)
     return {"wbn_stats": {"mean": mean, "cov": cov, "L": l, "cnt": cnt},
             "wbn_transform": {"y": transform(x, mean, l, gamma, beta)},
             "wbn_bwd_sums": {"dgamma": dgamma, "dbeta": dbeta, "M": mmat,
-                             "sum w": sw},
-            "wbn_dx": {"dx": dx_of(x, g, mask, gamma, mean, l, mmat, sw, cnt)},
+                             "sum w": sw, "frozen dgamma": f_dgamma,
+                             "frozen dbeta": f_dbeta},
+            "wbn_dx": {"dx": dx_of(x, g, mask, gamma, mean, l, mmat, sw, cnt),
+                       "frozen dx": dx_of(x, g, None, gamma, mean, l, None,
+                                          None, None, frozen=True)},
             "wbn_cholesky": {"L of cov": chol(cov, 1e-5)}}
 
 
@@ -902,15 +967,16 @@ def whitening_kernels(torch, dev, batch, errs):
              f"offset 1e3, std 0.1 [{n}, {4 * d}]": (n, d, "offset", None),
              f"collinear [{n}, {4 * d}]": (n, d, "collinear", None)}
     wrappers = kernel_wrappers()
-    names = ("wbn_stats", "wbn_transform", "wbn_bwd_sums", "wbn_dx",
-             "wbn_cholesky")
+    # L and M run twice in the chain: the training variant and the frozen one
+    calls = {"wbn_stats": 1, "wbn_transform": 1, "wbn_bwd_sums": 2,
+             "wbn_dx": 2, "wbn_cholesky": 1}
     for case, (cn, cd, kind, node_mask) in cases.items():
         x, mask, gamma, beta, g = whitening_case(torch, dev, cn, cd, kind,
                                                  node_mask)
-        before = [wrappers[k].launches for k in names]
+        before = {k: wrappers[k].launches for k in calls}
         got = whitening_chain(fw, x, mask, gamma, beta, g, kernels=True)
         torch.cuda.synchronize()
-        if [wrappers[k].launches for k in names] != [b + 1 for b in before]:
+        if {k: wrappers[k].launches - before[k] for k in calls} != calls:
             fail(f"{case}: the whitening launch counters did not move")
         want = whitening_chain(fw, x.double(), mask, gamma.double(),
                                beta.double(), g.double(), kernels=False)
@@ -968,6 +1034,17 @@ def whitening_kernels(torch, dev, batch, errs):
                                 f"{pallas}:408-412")
     recs[4]["replaces_what"] = ("XLA Cholesky of the running covariance in "
                                 "the eval path (no Pallas kernel)")
+    # the frozen variants, the eval whitening's backward: L reads x, g, the
+    # mean, L and Gamma and writes dGamma and dbeta; M reads g, L and Gamma
+    # and writes dx
+    recs[2]["frozen_variant"] = variant(
+        torch, "wbn_bwd_sums", lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l,
+                                                       frozen=True),
+        2 * x_bytes + (4 + 10 + 16 + 16 + 4) * f_bytes)
+    recs[3]["frozen_variant"] = variant(
+        torch, "wbn_dx", lambda: fw.wbn_dx(x, g, None, gamma, mean, l, None,
+                                           None, None, frozen=True),
+        2 * x_bytes + (10 + 16) * f_bytes)
     # each of J's and L's two CUDA kernels (row blocks, then the combine)
     split = device_profile(torch, lambda: (
         fw.wbn_stats(x, mask, 1e-5),
@@ -980,6 +1057,94 @@ def whitening_kernels(torch, dev, batch, errs):
               f"{rec['cuda_kernels_us']} (us of device time a call, "
               f"torch.profiler over 20 calls)", flush=True)
     return recs
+
+
+def segment_reduce_kernels(torch, dev, batch, errs):
+    """H (max and min) and I (mean and var) against their plain versions in
+    float64 over the flagship's receiver CSR at D = 200 with the PNA path's
+    ReLU messages, on exact ties (halves in [-1.5, 1.5] through a ReLU), on
+    the adversarial receivers (an isolated node, a 1,100-edge segment,
+    one-edge segments, masked edges inside segments, an all-masked one), and
+    H on |m| >= 1e29 (I's squares overflow f32 there, as JAX's do).  H must
+    match exactly (a selection); I within TOL_SUM, and var 0 exactly on every
+    segment of one real edge.  Returns their timing records."""
+    from phc_gnn_torch.ops import segment_reduce as sr
+    from phc_gnn_torch.ops import segment_sum as ssum
+
+    gen = torch.Generator().manual_seed(5)
+    e, rp, k = batch.num_edges, batch.rowptr, batch.edge_mask
+    main = torch.relu(torch.randn((e, DIM), generator=gen)).to(dev)
+    ties = torch.relu(torch.randint(-3, 4, (e, DIM), generator=gen) / 2).to(dev)
+    huge = torch.randn((e, DIM), generator=gen)
+    huge = (torch.sign(huge) * (1e29 + 1e30 * huge.abs())).to(dev)
+    adv_m, adv_k, _, adv_rp = adversarial_case(torch, dev, DIM)
+    cases = {f"main [{e}, {DIM}]": (main, k, rp, True),
+             "ties": (ties, k, rp, True),
+             "adversarial": (adv_m, adv_k, adv_rp, True),
+             "|m| >= 1e29": (huge, k, rp, False)}
+    for case, (m, mk, mrp, moments) in cases.items():
+        before = (sr.segment_extreme.launches, sr.segment_moments.launches)
+        outs = {what: sr.segment_extreme(m, mk, mrp, minimum=what == "min")
+                for what in ("max", "min")}
+        mean, var = sr.segment_moments(m, mk, mrp) if moments else (None, None)
+        torch.cuda.synchronize()
+        if (sr.segment_extreme.launches, sr.segment_moments.launches) != (
+                before[0] + 2, before[1] + int(moments)):
+            fail(f"{case}: the launch counters of H and I did not move")
+        for what, out in outs.items():
+            want = sr.segment_extreme_plain(m.double(), mk, mrp,
+                                            minimum=what == "min")
+            check(errs, "segment_extreme", f"{case}, {what}", out, want, 0.0,
+                  note="; a selection: exact")
+        if not moments:
+            continue
+        r_mean, r_var = sr.segment_moments_plain(m.double(), mk, mrp)
+        check(errs, "segment_moments", f"{case}, mean", mean, r_mean, TOL_SUM)
+        check(errs, "segment_moments", f"{case}, var", var, r_var, TOL_SUM)
+        seg = ssum.segment_ids(mrp)
+        real = torch.zeros(mrp.shape[0] - 1, device=dev).index_add_(
+            0, seg, mk[:seg.shape[0]].float())
+        if not bool((var[real == 1] == 0).all()):
+            fail(f"segment_moments: a one-edge segment's var is not 0 on "
+                 f"{case}")
+        if case == "adversarial" and not all(
+                bool((t[r] == 0).all()) for t in (mean, var, *outs.values())
+                for r in (3, 11)):
+            fail("H or I: an isolated or all-masked segment did not give 0")
+
+    n, d = rp.shape[0] - 1, DIM
+    seg = ssum.segment_ids(rp)
+    real = k[:seg.shape[0]].nonzero()[:, 0]
+    rows, index = main[real], seg[real][:, None].expand(-1, d).contiguous()
+    e_real, zeros = real.shape[0], torch.zeros((n, d), device=dev)
+    stacked = torch.cat([rows, rows * rows], 1)
+    zeros2 = torch.zeros((n, 2 * d), device=dev)
+    in_bytes = e_real * d * 4 + int(rp[-1]) + (n + 1) * 4
+    src = "phc_gnn_torch/csrc/segment_reduce.cu"
+    rec_h = record(torch, "segment_extreme", src,
+                   "phc_gnn_tpu/ops/stream_scan.py:600", errs,
+                   lambda: sr.segment_extreme(main, k, rp),
+                   lambda: sr.segment_extreme_plain(main, k, rp),
+                   lambda: zeros.scatter_reduce(0, index, rows, "amax",
+                                                include_self=False),
+                   in_bytes + n * d * 4, e_real * d)
+    rec_i = record(torch, "segment_moments", src,
+                   "phc_gnn_tpu/ops/stream_scan.py:383", errs,
+                   lambda: sr.segment_moments(main, k, rp),
+                   lambda: sr.segment_moments_plain(main, k, rp), None,
+                   in_bytes + 2 * n * d * 4, 4 * e_real * d + 4 * n * d)
+    rec_h["also_replaces"] = ("the min as -max(-m), _seg_extreme_streamed "
+                              "phc_gnn_tpu/ops/stream_scan.py:1012")
+    rec_i["also_replaces"] = ("the XLA glue of _seg_var_parts, "
+                              "phc_gnn_tpu/ops/stream_scan.py:1088-1093")
+    # no single PyTorch call computes I's joint sums; one index_add_ of the
+    # stacked [m, m^2] as context
+    rec_i["context_index_add_stacked_graph_ms"] = time_graph(
+        torch, lambda: zeros2.index_add(0, seg[real], stacked))
+    print(f"kernel segment_moments: context, one index_add_ of [m, m^2] "
+          f"{rec_i['context_index_add_stacked_graph_ms'] * 1e3:.2f} us device",
+          flush=True)
+    return [rec_h, rec_i]
 
 
 def kernel_phase(torch, dev):
@@ -997,7 +1162,8 @@ def kernel_phase(torch, dev):
             + segment_sum_masked_kernel(torch, dev, pcba, pcba_eval, errs)
             + batch_norm_kernels(torch, dev, batch, errs)
             + blocked_bn_kernels(torch, dev, pcba, errs)
-            + whitening_kernels(torch, dev, batch, errs))
+            + whitening_kernels(torch, dev, batch, errs)
+            + segment_reduce_kernels(torch, dev, batch, errs))
 
 
 def flagship_config(dropout: bool = True) -> dict:
@@ -1166,11 +1332,11 @@ def device_profile(torch, fn, call_ms: float, iters: int = 10) -> dict:
 
 def shift_invariant(key: str) -> bool:
     """Biases of the PHM layers that a batch norm follows (the MLPs'
-    ``linear1`` and ``linear2``, a ``PHMConv``'s ``transform``, the head's
-    hidden layers): their gradient is zero in exact arithmetic, as the norm
-    removes any shift."""
+    ``linear1`` and ``linear2``, a ``PHMConv``'s ``transform``, a PNA conv's
+    one post layer, the head's hidden layers): their gradient is zero in
+    exact arithmetic, as the norm removes any shift."""
     return key.endswith(("transform.linear1.b", "transform.linear2.b",
-                         "conv.transform.b")) or (
+                         "conv.transform.b", "conv.post_0.b")) or (
         key.startswith("downstream.affine_") and key.endswith(".b")
         and key != "downstream.affine_2.b")
 
@@ -1178,30 +1344,109 @@ def shift_invariant(key: str) -> bool:
 class ReluReplay:
     """ReLU that records its input's sign pattern, or applies a recorded one
     (``torch.where(mask, x, 0)``: relu's value and gradient where the mask
-    is relu's own)."""
+    is relu's own).  Inside ``patched()`` it also stands in for the PNA
+    conv's message ReLU, and records or replays which edges attain each min
+    and max (where the backward sends the cotangent) and where var > 0 in
+    each std (relu's branch there): each is a place where an input within
+    rounding of a boundary moves a gradient between devices.  Patterns are
+    kept in call order; ``recorded()`` hands them to a replaying copy."""
 
-    def __init__(self, torch, masks=None):
+    def __init__(self, torch, recorded=None):
         self.torch = torch
-        self.masks = [] if masks is None else masks
-        self.replay = masks is not None
-        self.calls = 0
+        self.replay = recorded is not None
+        recorded = recorded or {}
+        self.masks = recorded.get("relu", [])
+        self.hits = recorded.get("hit", [])
+        self.var_pos = recorded.get("var", [])
+        self.calls = {"relu": 0, "hit": 0, "var": 0}
+
+    def recorded(self):
+        return {"relu": [m.cpu() for m in self.masks],
+                "hit": [m.cpu() for m in self.hits],
+                "var": [m.cpu() for m in self.var_pos]}
+
+    def _next(self, kind, store, like):
+        mask = store[self.calls[kind]].to(like.device)
+        self.calls[kind] += 1
+        return mask
 
     def __call__(self, x):
         if self.replay:
-            mask = self.masks[self.calls].to(x.device)
-            self.calls += 1
-            return self.torch.where(mask, x, 0.0)
+            return self.torch.where(self._next("relu", self.masks, x), x, 0.0)
         self.masks.append(x.detach() > 0)
         return self.torch.relu(x)
+
+    def extreme(self, msgs, receivers, mask, rowptr, minimum=False):
+        """The min or max aggregation, its cotangent sent to the recorded
+        extreme edges: ``out + S - S.detach()`` with ``S`` the per-receiver
+        sum of those edges' messages, whose gradient is 1 on each of them."""
+        from phc_gnn_torch.ops import segment_reduce as sr
+
+        torch = self.torch
+        out = sr.segment_extreme_aggregate(msgs, receivers, mask, rowptr,
+                                           minimum)
+        if not self.replay:
+            self.hits.append(mask[:, None] & (
+                msgs.detach() == out.detach().index_select(0, receivers)))
+            return out
+        hit = self._next("hit", self.hits, msgs)
+        routed = torch.zeros_like(out).index_add(
+            0, receivers.long(), torch.where(hit, msgs, 0.0))
+        return out.detach() + (routed - routed.detach())
+
+    def std(self, msgs, receivers, mask, rowptr, counts):
+        from phc_gnn_torch.ops import segment_reduce as sr
+
+        var = sr.segment_var_aggregate(msgs, receivers, mask, rowptr, counts)
+        if self.replay:
+            var = self.torch.where(self._next("var", self.var_pos, var), var,
+                                   0.0)
+        else:
+            self.var_pos.append(var.detach() > 0)
+            var = self.torch.relu(var)
+        return self.torch.sqrt(var + sr.STD_EPS)
+
+    @contextlib.contextmanager
+    def patched(self):
+        from unittest import mock
+
+        from phc_gnn_torch.graph import conv
+        from phc_gnn_torch.nn.activations import get_activation
+
+        def act(name):
+            return self if name == "relu" else get_activation(name)
+
+        with mock.patch.object(conv, "get_activation", act), \
+                mock.patch.object(conv, "segment_extreme_aggregate",
+                                  self.extreme), \
+                mock.patch.object(conv, "segment_std_aggregate", self.std):
+            yield
 
     def install(self, model):
         model.act = self
         model.downstream.act = self
         for i in range(model.num_layers):
-            transform = getattr(model, f"conv_{i}").conv.transform
+            transform = getattr(getattr(model, f"conv_{i}").conv, "transform",
+                                None)
             if hasattr(transform, "act"):  # a PHMMLP, not a PHMLinear
                 transform.act = self
         return self
+
+
+def switches(batch, got, own):
+    """How many entries of the recorded patterns ``got`` differ from
+    ``own``: ReLUs over the real nodes, edges or graphs, extreme edges and
+    var signs over all."""
+    def real(a):
+        for rows in (batch.node_mask, batch.edge_mask, batch.graph_mask):
+            if a.shape[0] == rows.shape[0]:
+                return rows.cpu()
+        return slice(None)
+
+    return {kind: sum(int((a != b)[real(a) if kind == "relu" else
+                                   slice(None)].sum())
+                      for a, b in zip(got[kind], own[kind]))
+            for kind in ("relu", "hit", "var")}
 
 
 def exact_errors(c_grads, e_grads):
@@ -1219,21 +1464,15 @@ def grad_rule(worst):
             f"leaf's limit {worst['grad_over_tol']:.3f}")
 
 
-def hold_to_cpu(torch, dev, phase, grads, c_grads, f32_err, model, cpu_model,
-                pre_step, worst):
-    """The gradients per leaf (the biases a norm follows to a noise bound;
-    each other leaf to ``max(TOL_GRAD, min(TOL_GRAD_CAP, COND_GRAD *
-    f32_err))``, ``f32_err`` the CPU's own error on it against float64), the
-    running stats of ``model`` against ``cpu_model``, and the Adam update
-    given the CPU's gradients on both devices from ``pre_step``, the two
-    models' parameters before any update; the worst readings go into
-    ``worst``."""
-    from phc_gnn_torch.train import make_optimizer
-
+def hold_grads(phase, grads, c_grads, f32_err, worst, shift_noise=True):
+    """The gradients per leaf: with ``shift_noise`` the biases a norm
+    follows to a noise bound; each other leaf to ``max(TOL_GRAD,
+    min(TOL_GRAD_CAP, COND_GRAD * f32_err))``, ``f32_err`` the CPU's own
+    error on it against float64.  The worst readings go into ``worst``."""
     top = max(float(g.abs().max()) for g in c_grads.values())
     grad_errs, noise = {}, 0.0
     for key, g in grads.items():
-        if shift_invariant(key):
+        if shift_noise and shift_invariant(key):
             noise = max(noise, float(g.abs().max()) / top,
                         float(c_grads[key].abs().max()) / top)
         else:
@@ -1250,6 +1489,18 @@ def hold_to_cpu(torch, dev, phase, grads, c_grads, f32_err, model, cpu_model,
     if not (all(grad_errs[k] <= tol[k] for k in grad_errs)
             and noise <= TOL_NOISE):
         fail(f"{phase}: gradients disagree with the CPU: {worst}")
+
+
+def hold_to_cpu(torch, dev, phase, grads, c_grads, f32_err, model, cpu_model,
+                pre_step, worst):
+    """The gradients per leaf (``hold_grads``), the
+    running stats of ``model`` against ``cpu_model``, and the Adam update
+    given the CPU's gradients on both devices from ``pre_step``, the two
+    models' parameters before any update; the worst readings go into
+    ``worst``."""
+    from phc_gnn_torch.train import make_optimizer
+
+    hold_grads(phase, grads, c_grads, f32_err, worst)
     cpu_bufs = dict(cpu_model.named_buffers())
     worst["running_stats"] = max(leafwise(b, cpu_bufs[k])[1]
                                  for k, b in model.named_buffers())
@@ -1279,7 +1530,7 @@ def hold_to_cpu(torch, dev, phase, grads, c_grads, f32_err, model, cpu_model,
 
 
 def agreement(torch, dev, host_batch, batch, loss_fn, build=None,
-              phase="train"):
+              phase="train", weight_decay=WEIGHT_DECAY):
     """One forward and backward with dropout off on the GPU and on the CPU,
     from the same weights: the loss, the output, the gradients, the running
     stats; then the Adam update given the CPU's gradients on both.  The
@@ -1288,10 +1539,11 @@ def agreement(torch, dev, host_batch, batch, loss_fn, build=None,
     leaf may differ by ``COND_GRAD`` times the CPU's own f32 error on it
     where that exceeds ``TOL_GRAD``, up to ``TOL_GRAD_CAP``.
 
-    The CPU run applies the GPU run's ReLU sign pattern.  A ReLU whose input
-    lies within rounding of 0 can switch between the devices, and then one
-    row's whole contribution to a weight's gradient moves: a difference of
-    the inputs, not of the arithmetic under test.  The switches are counted
+    The CPU run applies the GPU run's ReLU sign pattern (and, for PNA, its
+    extreme edges and var signs, ``ReluReplay``).  A ReLU whose input lies
+    within rounding of 0 can switch between the devices, and then one row's
+    whole contribution to a weight's gradient moves: a difference of the
+    inputs, not of the arithmetic under test.  The switches are counted
     over the real rows and printed."""
     from phc_gnn_torch.models import PHCGNN
     from phc_gnn_torch.train import make_loss_and_grads
@@ -1307,23 +1559,27 @@ def agreement(torch, dev, host_batch, batch, loss_fn, build=None,
     own_model = copy.deepcopy(cpu_model)
     own = ReluReplay(torch).install(own_model)
     relu = ReluReplay(torch).install(model)
-    loss, out, grads = make_loss_and_grads(model, loss_fn, WEIGHT_DECAY)(
-        batch, LR)
+    with relu.patched():
+        loss, out, grads = make_loss_and_grads(model, loss_fn, weight_decay)(
+            batch, LR)
     torch.cuda.synchronize()
-    masks = [m.cpu() for m in relu.masks]
-    ReluReplay(torch, masks).install(cpu_model)
-    c_loss, c_out, c_grads = make_loss_and_grads(cpu_model, loss_fn,
-                                                 WEIGHT_DECAY)(host_batch, LR)
-    ReluReplay(torch, masks).install(exact_model)
-    _, _, e_grads = make_loss_and_grads(exact_model, loss_fn, WEIGHT_DECAY)(
-        host_batch.replace(y=host_batch.y.double()), LR)
+    pattern = relu.recorded()
+    c_relu = ReluReplay(torch, pattern).install(cpu_model)
+    with c_relu.patched():
+        c_loss, c_out, c_grads = make_loss_and_grads(
+            cpu_model, loss_fn, weight_decay)(host_batch, LR)
+    e_relu = ReluReplay(torch, pattern).install(exact_model)
+    with e_relu.patched():
+        _, _, e_grads = make_loss_and_grads(exact_model, loss_fn,
+                                            weight_decay)(
+            host_batch.replace(y=host_batch.y.double()), LR)
     f32_err = exact_errors(c_grads, e_grads)
-    with torch.no_grad():  # the CPU's own sign pattern, to count switches
+    with torch.no_grad(), own.patched():  # the CPU's own patterns
         own_model(host_batch, training=True)
-    worst = {"relu_switches_on_real_rows": sum(
-        int((a != b)[host_batch.node_mask if a.shape[0] == host_batch.num_nodes
-                     else host_batch.graph_mask].sum())
-        for a, b in zip(masks, own.masks))}
+    moved = switches(host_batch, pattern, own.recorded())
+    worst = {"relu_switches_on_real_rows": moved["relu"],
+             "extreme_edge_switches": moved["hit"],
+             "var_sign_switches": moved["var"]}
     _, worst["loss"] = leafwise(loss, c_loss)
     _, worst["out"] = normwise(out.cpu(), c_out)
     if not (worst["loss"] <= TOL_MODEL and worst["out"] <= TOL_MODEL):
@@ -1333,8 +1589,10 @@ def agreement(torch, dev, host_batch, batch, loss_fn, build=None,
     print(f"{phase}: one step with dropout off, GPU vs CPU: loss rel err "
           f"{worst['loss']:.3e}, output normwise {worst['out']:.3e} "
           f"(tolerance {TOL_MODEL:g}); with the GPU's ReLU pattern "
-          f"({worst['relu_switches_on_real_rows']} ReLUs of real rows switch "
-          f"between the devices), gradients per leaf <= {worst['grad']:.3e} "
+          f"({worst['relu_switches_on_real_rows']} ReLUs of real rows, "
+          f"{worst['extreme_edge_switches']} extreme edges and "
+          f"{worst['var_sign_switches']} var signs switch between the "
+          f"devices), gradients per leaf <= {worst['grad']:.3e} "
           f"of the leaf's max on {worst['grad_leaf']} (its CPU f32 error "
           f"{worst['grad_leaf_f32_err']:.3e}; {grad_rule(worst)}); the biases "
           f"a norm follows <= "
@@ -1532,10 +1790,11 @@ def pcba_agreement(torch, dev, host_batches, batches):
 
     loss, outs, grads = accumulate(model, batches, dev)
     torch.cuda.synchronize()
-    masks = [m.cpu() for m in relu.masks]
-    ReluReplay(torch, masks).install(cpu_model)
+    pattern = relu.recorded()
+    masks = pattern["relu"]
+    ReluReplay(torch, pattern).install(cpu_model)
     c_loss, c_outs, c_grads = accumulate(cpu_model, host_batches, "cpu")
-    ReluReplay(torch, masks).install(exact_model)
+    ReluReplay(torch, pattern).install(exact_model)
     _, _, e_grads = accumulate(exact_model, [hb.replace(y=hb.y.double())
                                              for hb in host_batches], "cpu")
     f32_err = exact_errors(c_grads, e_grads)
@@ -1637,7 +1896,7 @@ def quat_model(torch, dev, family: str = "add", dropout: bool = True):
     return cls(**cfg, seed=0, device=dev)
 
 
-def quat_eval(torch, dev, model, host_batches, phase, want_per_batch):
+def eval_vs_cpu(torch, dev, model, host_batches, phase, want_per_batch):
     """The eval forward of ``model`` through the kernels on ``host_batches``:
     the launch counts of the run (``want_per_batch`` each), the outputs
     against the CPU path.  Returns the launches and the step."""
@@ -1695,35 +1954,41 @@ def quat_eval_phase(torch, dev):
     randomize_eval_state(torch, model)
     host = [attach_csr_plan(synthetic_batch(seed=s, **FLAGSHIP))
             for s in range(N_BATCHES)]
-    launches, step, batches = quat_eval(torch, dev, model, host, "quat",
-                                        QUAT_EVAL_LAUNCHES)
-    b0 = batches[0]
+    launches, step, batches = eval_vs_cpu(torch, dev, model, host, "quat",
+                                          QUAT_EVAL_LAUNCHES)
+    return launches, replay_and_time(torch, "quat", step, batches[0],
+                                     host[0].count_edges())
+
+
+def replay_and_time(torch, phase, step, b0, real_edges):
+    """A CUDA graph of the eval forward ``step(b0)`` replayed against the
+    eager output, then eval ms, ms from one CUDA graph and a profile."""
     eager = step(b0)
     replay_err = normwise(graph_replay(torch, lambda: step(b0)).cpu(),
                           eager.cpu())[1]
-    print(f"quat: a CUDA graph of the eval forward replays to normwise "
+    print(f"{phase}: a CUDA graph of the eval forward replays to normwise "
           f"{replay_err:.3e} of the eager output (tolerance {TOL_REPLAY:g})",
           flush=True)
     if not replay_err <= TOL_REPLAY:
-        fail("quat: the CUDA graph replay differs from the eager forward")
-    real_edges = host[0].count_edges()
+        fail(f"{phase}: the CUDA graph replay differs from the eager forward")
     eval_ms, host_ms = time_steps(torch, lambda: step(b0))
     graph_ms = time_graph(torch, lambda: step(b0), iters=20)
     prof = device_profile(torch, lambda: step(b0), eval_ms, iters=20)
     info = {"eval_ms": eval_ms, "eval_host_ms": host_ms,
             "eval_graph_ms": graph_ms, "eval_real_edges": real_edges,
             "eval_real_edges_per_s": real_edges / (eval_ms / 1e3),
+            "eval_replay_err": replay_err,
             "eval_kernels_per_forward": prof["kernels_per_call"],
             "eval_device_busy_ms": prof["busy_ms"],
             "eval_device_idle_share": prof["idle_share"],
             "eval_top_kernels_us": prof["top_us"]}
-    print(f"quat: eval {eval_ms:.3f} ms per batch (CUDA events, median of "
+    print(f"{phase}: eval {eval_ms:.3f} ms per batch (CUDA events, median of "
           f"30; host clock {host_ms:.3f} ms), "
           f"{info['eval_real_edges_per_s']:.4g} real edges/s, {graph_ms:.3f} "
           f"ms from one CUDA graph; {prof['kernels_per_call']:g} kernels, "
           f"device busy {prof['busy_ms']:.3f} ms (idle "
           f"{100 * prof['idle_share']:.1f} %)", flush=True)
-    return launches, info
+    return info
 
 
 def quat_train_phase(torch, dev):
@@ -1749,27 +2014,36 @@ def quat_train_phase(torch, dev):
     opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
     step = make_train_step(model, opt, loss_fn, weight_decay=WEIGHT_DECAY,
                            seed=0, device=dev)
+    return train_and_time(torch, "quat train", lambda: step(batch, LR),
+                          QUAT_TRAIN_LAUNCHES, QUAT_STEPS,
+                          host_batch.count_edges(), worst)
+
+
+def train_and_time(torch, phase, step, per_step, n_steps, real_edges, worst):
+    """``n_steps`` calls of ``step()`` with the counters zeroed just before
+    and read just after (``per_step`` launches each), the loss finite and
+    falling, then step ms over 30 steps after 5 warm-ups and a profile;
+    returns the launch counts and the timings."""
     reset_launches()
-    losses = [step(batch, LR)[0] for _ in range(QUAT_STEPS)]
+    losses = [step()[0] for _ in range(n_steps)]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {k: QUAT_TRAIN_LAUNCHES.get(k, 0) * QUAT_STEPS for k in launches}
-    print(f"quat train: launches over {QUAT_STEPS} steps {launches} "
-          f"(expected {want})", flush=True)
+    want = {k: per_step.get(k, 0) * n_steps for k in launches}
+    print(f"{phase}: launches over {n_steps} steps {launches} (expected "
+          f"{want})", flush=True)
     if launches != want:
-        fail(f"the quaternion train path launched {launches}, not {want}")
+        fail(f"the {phase} path launched {launches}, not {want}")
     losses = [float(x) for x in losses]
-    print(f"quat train: losses over {QUAT_STEPS} steps with dropout "
+    print(f"{phase}: losses over {n_steps} steps with dropout "
           f"{[round(x, 5) for x in losses]}", flush=True)
     first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
     if not all(x == x and abs(x) < float("inf") for x in losses):
-        fail("quat train: non-finite loss")
+        fail(f"{phase}: non-finite loss")
     if not last < first:
-        fail(f"quat train: the loss did not fall (mean of the first three "
+        fail(f"{phase}: the loss did not fall (mean of the first three "
              f"steps {first:.5f}, of the last three {last:.5f})")
-    real_edges = host_batch.count_edges()
-    step_ms, host_ms = time_steps(torch, lambda: step(batch, LR))
-    prof = device_profile(torch, lambda: step(batch, LR), step_ms)
+    step_ms, host_ms = time_steps(torch, step)
+    prof = device_profile(torch, step, step_ms)
     info = {"step_ms": step_ms, "step_host_ms": host_ms,
             "real_edges_per_s": real_edges / (step_ms / 1e3),
             "losses": losses, "agreement": worst,
@@ -1777,7 +2051,7 @@ def quat_train_phase(torch, dev):
             "device_busy_ms_per_step": prof["busy_ms"],
             "device_idle_share": prof["idle_share"],
             "top_kernels_us_per_step": prof["top_us"]}
-    print(f"quat train: {step_ms:.3f} ms per step (CUDA events, median of 30 "
+    print(f"{phase}: {step_ms:.3f} ms per step (CUDA events, median of 30 "
           f"after 5 warm-ups; host clock {host_ms:.3f} ms), "
           f"{info['real_edges_per_s']:.4g} real edges/s ({real_edges} real "
           f"edges); {prof['kernels_per_call']:g} kernels per step, device "
@@ -1797,14 +2071,139 @@ def quat_concat_phase(torch, dev):
     host = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP))
     model = quat_model(torch, dev, "concat")
     randomize_eval_state(torch, model)
-    launches, _, _ = quat_eval(torch, dev, model, [host], "concat",
-                               QUAT_EVAL_LAUNCHES)
+    launches, _, _ = eval_vs_cpu(torch, dev, model, [host], "concat",
+                                 QUAT_EVAL_LAUNCHES)
     worst = agreement(torch, dev, host, host.to(dev),
                       lambda out, b: masked_l1(out, b.y),
                       build=lambda dropout: quat_model(torch, dev, "concat",
                                                        dropout=dropout),
                       phase="concat train")
     return launches, {"agreement": worst}
+
+
+def quat_eval_grad_phase(torch, dev):
+    """The eval whitening's backward: the L1 loss of the quaternion add
+    preset's eval forward (running stats fixed, as in fine-tuning or input
+    attribution) differentiated in every parameter on one batch, on the card
+    and on the CPU from the same weights (the GPU's ReLU pattern replayed,
+    the CPU run repeated in float64).  Returns the launch counts of the run
+    on the card and the agreement."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.train import masked_l1
+
+    host = attach_csr_plan(synthetic_batch(seed=1, **FLAGSHIP))
+    model = quat_model(torch, dev, dropout=False).eval()
+    randomize_eval_state(torch, model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    exact_model = copy.deepcopy(cpu_model).double()
+
+    def grads_of(m, batch):
+        params = {k: p for k, p in m.named_parameters() if p.requires_grad}
+        loss = masked_l1(m(batch, training=False), batch.y)
+        return dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+
+    relu = ReluReplay(torch).install(model)
+    reset_launches()
+    grads = grads_of(model, host.to(dev))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: QUAT_EVAL_GRAD_LAUNCHES.get(k, 0) for k in launches}
+    print(f"quat eval grad: launches {launches} (expected {want})", flush=True)
+    if launches != want:
+        fail(f"the eval whitening's backward launched {launches}, not {want}")
+    pattern = relu.recorded()
+    ReluReplay(torch, pattern).install(cpu_model)
+    c_grads = grads_of(cpu_model, host)
+    ReluReplay(torch, pattern).install(exact_model)
+    e_grads = grads_of(exact_model, host.replace(y=host.y.double()))
+    worst = {}
+    hold_grads("quat eval grad", grads, c_grads, exact_errors(c_grads, e_grads),
+               worst, shift_noise=False)
+    print(f"quat eval grad: the eval forward's gradients, GPU vs CPU with the "
+          f"GPU's ReLU pattern: per leaf <= {worst['grad']:.3e} of the leaf's "
+          f"max on {worst['grad_leaf']} (its CPU f32 error "
+          f"{worst['grad_leaf_f32_err']:.3e}; {grad_rule(worst)})", flush=True)
+    return launches, worst
+
+
+def pna_model(torch, dev, dropout: bool = True):
+    """The ZINC PHC-4 recipe with ``--aggr_msg pna`` from its configuration
+    through ``build_model``, at random weights from seed 0, its ``avg_deg``
+    from the port's ``degree_histogram`` over the 128 graphs of the
+    flagship batch; with ``dropout=False`` every rate is 0.  Returns
+    ``(model, loss_fn, cfg)``."""
+    from phc_gnn_torch.data import (ZINC_ATOM_DIMS, ZINC_BOND_DIMS,
+                                    avg_deg_from_histogram, degree_histogram,
+                                    synthetic_graphs)
+    from phc_gnn_torch.train.config import DATASET_DEFAULTS, ExperimentConfig
+    from phc_gnn_torch.train.trainer import build_loss, build_model
+
+    over = dict(PNA_SCRIPT)
+    if not dropout:
+        over.update(dropout_dn=(0.0, 0.0))
+    cfg = ExperimentConfig(**{**DATASET_DEFAULTS["zinc"], **over})
+    if (cfg.loss, cfg.grad_clipping, cfg.norm_mp, cfg.pooling) != (
+            "l1", GRAD_CLIP, "naive-batch-norm", "softattention"):
+        fail(f"the PNA configuration changed: {cfg}")
+    avg_deg = avg_deg_from_histogram(degree_histogram(synthetic_graphs(
+        FLAGSHIP["batch_size"], seed=0)))
+    model = build_model(cfg, ZINC_ATOM_DIMS, ZINC_BOND_DIMS, avg_deg=avg_deg,
+                        seed=0, device=dev)
+    return model, build_loss(cfg), cfg
+
+
+def pna_eval_phase(torch, dev):
+    """The PNA eval forward on 3 flagship batches through C's forward role,
+    H and I: its launches, the outputs against the CPU path, a CUDA-graph
+    replay against the eager output, eval ms and a profile; returns the
+    launch counts of the main-path run and the timings."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+
+    model, _, _ = pna_model(torch, dev)
+    randomize_eval_state(torch, model)
+    host = [attach_csr_plan(synthetic_batch(seed=s, **FLAGSHIP))
+            for s in range(N_BATCHES)]
+    launches, step, batches = eval_vs_cpu(torch, dev, model, host, "pna",
+                                          PNA_EVAL_LAUNCHES)
+    b0 = batches[0]
+    try:
+        step(b0.replace(rowptr=None))
+    except ValueError as exc:
+        print(f"pna: a CUDA batch without its CSR plan raises: {exc}",
+              flush=True)
+    else:
+        fail("a CUDA PNA batch without a CSR plan was served without the "
+             "kernels")
+    return launches, replay_and_time(torch, "pna", step, b0,
+                                     host[0].count_edges())
+
+
+def pna_train_phase(torch, dev):
+    """The PNA train step: one dropout-free step against the CPU (the GPU's
+    ReLU, extreme-edge and var-sign patterns replayed), ten steps with the
+    recipe's dropout (launches, the loss falls), step ms over 30 steps after
+    5 warm-ups and a profile; returns the launch counts of the main-path run
+    and the timings."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.train import make_optimizer, make_train_step
+
+    host_batch = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP))
+    batch = host_batch.to(dev)
+    model, loss_fn, cfg = pna_model(torch, dev)
+    worst = agreement(torch, dev, host_batch, batch, loss_fn,
+                      build=lambda dropout: pna_model(torch, dev, dropout)[0],
+                      phase="pna train", weight_decay=cfg.weightdecay)
+    opt = make_optimizer(dict(model.named_parameters()),
+                         grad_clip=cfg.grad_clipping)
+    step = make_train_step(model, opt, loss_fn, weight_decay=cfg.weightdecay,
+                           seed=0, device=dev)
+    return train_and_time(torch, "pna train", lambda: step(batch, cfg.lr),
+                          PNA_TRAIN_LAUNCHES, PNA_STEPS,
+                          host_batch.count_edges(), worst)
 
 
 def main() -> None:
@@ -1839,9 +2238,15 @@ def main() -> None:
     paths["quat_eval"], quat = quat_eval_phase(torch, dev)
     paths["quat_train"], quat_train = quat_train_phase(torch, dev)
     paths["quat_concat_eval"], concat = quat_concat_phase(torch, dev)
+    paths["quat_eval_grad"], quat["eval_grad"] = quat_eval_grad_phase(torch,
+                                                                      dev)
     quat.update(quat_train)
     quat["concat"] = concat
     print(json.dumps({"quat": quat}), flush=True)
+    paths["pna_eval"], pna = pna_eval_phase(torch, dev)
+    paths["pna_train"], pna_train = pna_train_phase(torch, dev)
+    pna.update(pna_train)
+    print(json.dumps({"pna": pna}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

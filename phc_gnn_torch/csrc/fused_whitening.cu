@@ -12,7 +12,10 @@
 // and, for the eval path (phc_gnn_tpu/nn/norm.py:301-345, inline XLA there),
 //   wbn_cholesky_f32     the Cholesky factor of a running covariance + eps I,
 //                        with the device function of J's combine; it feeds
-//                        wbn_transform_f32 with the running mean.
+//                        wbn_transform_f32 with the running mean;
+//   wbn_bwd_sums_frozen_f32, wbn_dx_frozen_f32
+//                        the eval path's backward: L's and M's kernels with
+//                        the statistics fixed (kFrozen), below.
 //
 // Layout: x [N, 4d] f32, component-major: x[n, k*d + f] is component k of
 // feature f.  mean [4, d]; cov [4, 4, d] (symmetric); the Cholesky factor
@@ -28,7 +31,14 @@
 //   Lbar = -tril(sum w z^T),  sum_w = sum w
 //   T = L^T Lbar,  S = tril_s(T) + tril_s(T)^T + diag(T),  M = L^{-T} S L^{-1}
 //   dx = w + (m / cnt) (M u - sum_w)     only the mean-path term is masked
-// The substitutions multiply by the reciprocal diagonal, as JAX's do.
+// The substitutions multiply by the reciprocal diagonal, as JAX's do.  With
+// the running statistics fixed (the eval path, whose mean and L are buffers)
+// mu and L carry no gradient: dx = w on every row, and dbeta, dGamma are the
+// same sums.  The frozen variants of L and M compute just that: L's row
+// blocks skip w and its 14 sums, its combine skips the T/S/M algebra, and M
+// skips the mean-path term.  Reaching this through the training variants
+// with an all-false mask would give cnt = 0, and the mean-path term
+// (m / cnt) (M u - sum w) would read 0 * inf = NaN.
 //
 // Design.  The TPU kernels walk a SEQUENTIAL grid of 1,024-row blocks with a
 // VMEM carry.  Here the per-row kernels share one tiling: block (c, b) owns
@@ -60,7 +70,8 @@
 // Bound on an H100: bytes.  At [4096, 200] f32 (3.28 MB): J reads x and the
 // mask (3.28 MB, 0.98 us at 3.35 TB/s); K reads x and writes y (6.56 MB,
 // 1.96 us); L reads x and g (6.56 MB, 1.96 us); M reads x, g and the mask and
-// writes dx (9.83 MB, 2.94 us).  Their arithmetic (about 30, 60, 130 and 90
+// writes dx (9.83 MB, 2.94 us); frozen, L reads the same and M reads g and
+// writes dx (6.56 MB, 1.96 us).  Their arithmetic (about 30, 60, 130 and 90
 // f32 operations per (row, feature)) is an order of magnitude under the
 // 67 TFLOP/s of the CUDA cores.  At d = 50 the grid is 2 feature tiles (64
 // lanes for 50 features) by 64 row blocks: 128 blocks of 256 threads.
@@ -77,6 +88,7 @@ constexpr int kRows = 64;                  // rows per row block
 constexpr int kSums = 34;                  // dbeta 0..3, dGamma 4..19 (c*4+k),
                                            // sum w z^T 20..29 (L order),
                                            // sum w 30..33
+constexpr int kFrozenSums = 20;            // dbeta and dGamma alone
 constexpr int kCombineWarps = 8;           // features per combine block
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -410,8 +422,13 @@ wbn_transform_kernel(const float* __restrict__ x,
 
 // ----------------------------------------------------------------- L
 
+__host__ __device__ constexpr int sums_of(bool frozen) {
+  return frozen ? kFrozenSums : kSums;
+}
+
 // Partial sums of one row block per feature over ALL rows; work is
-// [kSums, d, nrb].
+// [sums_of(kFrozen), d, nrb].
+template <bool kFrozen>
 __global__ void __launch_bounds__(kThreads)
 wbn_bwd_sums_partial_kernel(const float* __restrict__ x,
                             const float* __restrict__ g,
@@ -420,7 +437,8 @@ wbn_bwd_sums_partial_kernel(const float* __restrict__ x,
                             const float* __restrict__ gamma,
                             float* __restrict__ work, int64_t n, int64_t d,
                             int64_t nrb) {
-  __shared__ float sm[kSums][kGroups][kCols];  // 34,816 bytes
+  constexpr int kN = sums_of(kFrozen);
+  __shared__ float sm[kN][kGroups][kCols];  // 34,816 bytes, or 20,480 frozen
   const int lane = threadIdx.x % kCols;
   const int rg = threadIdx.x / kCols;
   const int64_t f = static_cast<int64_t>(blockIdx.x) * kCols + lane;
@@ -430,9 +448,9 @@ wbn_bwd_sums_partial_kernel(const float* __restrict__ x,
   const int64_t dd = 4 * d;
   const bool live = f < d;
 
-  float acc[kSums];
+  float acc[kN];
 #pragma unroll
-  for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
   if (live) {
     float mu[4], l[10], il[4], gam[16];
 #pragma unroll
@@ -454,28 +472,30 @@ wbn_bwd_sums_partial_kernel(const float* __restrict__ x,
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[4 + c * 4 + k] += gv[c] * z[k];
       }
+      if constexpr (!kFrozen) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float hk = gam[k] * gv[0];
+        for (int k = 0; k < 4; ++k) {
+          float hk = gam[k] * gv[0];
 #pragma unroll
-        for (int c = 1; c < 4; ++c) hk += gam[c * 4 + k] * gv[c];
-        h[k] = hk;
+          for (int c = 1; c < 4; ++c) hk += gam[c * 4 + k] * gv[c];
+          h[k] = hk;
+        }
+        bwd_subst(l, il, h, w);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int k = 0; k <= j; ++k) acc[20 + l_at(j, k)] += w[j] * z[k];
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[30 + k] += w[k];
       }
-      bwd_subst(l, il, h, w);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int k = 0; k <= j; ++k) acc[20 + l_at(j, k)] += w[j] * z[k];
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[30 + k] += w[k];
     }
   }
 #pragma unroll
-  for (int i = 0; i < kSums; ++i) sm[i][rg][lane] = acc[i];
+  for (int i = 0; i < kN; ++i) sm[i][rg][lane] = acc[i];
   __syncthreads();
   if (!live) return;  // no barrier follows
-  for (int qi = rg; qi < kSums; qi += kGroups) {
+  for (int qi = rg; qi < kN; qi += kGroups) {
     float v = 0.0f;
     for (int i = 0; i < kGroups; ++i) v += sm[qi][i][lane];
     work[(qi * d + f) * nrb + b] = v;
@@ -483,7 +503,9 @@ wbn_bwd_sums_partial_kernel(const float* __restrict__ x,
 }
 
 // Sum of L's partials, one warp per feature, and the T/S/M epilogue:
-// dGamma, dbeta, M = L^{-T} S L^{-1} from Lbar = -sum w z^T, and sum w.
+// dGamma, dbeta, M = L^{-T} S L^{-1} from Lbar = -sum w z^T, and sum w;
+// frozen, dGamma and dbeta alone (mmat and sw are not written).
+template <bool kFrozen>
 __global__ void __launch_bounds__(kCombineWarps * 32)
 wbn_bwd_sums_combine_kernel(const float* __restrict__ work,
                             const float* __restrict__ lf,
@@ -495,40 +517,50 @@ wbn_bwd_sums_combine_kernel(const float* __restrict__ work,
   const int64_t f = static_cast<int64_t>(blockIdx.x) * kCombineWarps +
                     threadIdx.x / 32;
   if (f >= d) return;  // the whole warp: f is the warp's
-  float acc[kSums];
+  constexpr int kN = sums_of(kFrozen);
+  float acc[kN];
 #pragma unroll
-  for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
   for (int64_t b = lane; b < nrb; b += 32) {
 #pragma unroll
-    for (int i = 0; i < kSums; ++i) acc[i] += work[(i * d + f) * nrb + b];
+    for (int i = 0; i < kN; ++i) acc[i] += work[(i * d + f) * nrb + b];
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-    for (int i = 0; i < kSums; ++i) {
+    for (int i = 0; i < kN; ++i) {
       acc[i] += __shfl_down_sync(kFull, acc[i], off);
     }
   }
   if (lane != 0) return;
-  float l[10], il[4], lbar[10], m[16];
-  load_factor(lf, f, d, l, il);
+  if constexpr (kFrozen) {
 #pragma unroll
-  for (int i = 0; i < 10; ++i) lbar[i] = -acc[20 + i];
-  m_from_lbar(l, il, lbar, m);
+    for (int c = 0; c < 4; ++c) dbeta[c * d + f] = acc[c];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    dbeta[c * d + f] = acc[c];
-    sw[c * d + f] = acc[30 + c];
-  }
+    for (int i = 0; i < 16; ++i) dgamma[i * d + f] = acc[4 + i];
+  } else {
+    float l[10], il[4], lbar[10], m[16];
+    load_factor(lf, f, d, l, il);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    dgamma[i * d + f] = acc[4 + i];
-    mmat[i * d + f] = m[i];
+    for (int i = 0; i < 10; ++i) lbar[i] = -acc[20 + i];
+    m_from_lbar(l, il, lbar, m);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dbeta[c * d + f] = acc[c];
+      sw[c * d + f] = acc[30 + c];
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      dgamma[i * d + f] = acc[4 + i];
+      mmat[i * d + f] = m[i];
+    }
   }
 }
 
 // ----------------------------------------------------------------- M
 
+// Frozen: dx = w, and x, the mask, mean, M, sum w and cnt are not read.
+template <bool kFrozen>
 __global__ void __launch_bounds__(kThreads)
 wbn_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
               const uint8_t* __restrict__ mask, const float* __restrict__ mean,
@@ -544,23 +576,25 @@ wbn_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int64_t r1 = r0 + kRows < n ? r0 + kRows : n;
   const int64_t dd = 4 * d;
   float mu[4], l[10], il[4], gam[16], mm[16], s[4];
+  if constexpr (!kFrozen) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    mu[c] = mean[c * d + f];
-    s[c] = sw[c * d + f];
+    for (int c = 0; c < 4; ++c) {
+      mu[c] = mean[c * d + f];
+      s[c] = sw[c * d + f];
+    }
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     gam[i] = gamma[i * d + f];
-    mm[i] = mmat[i * d + f];
+    if constexpr (!kFrozen) mm[i] = mmat[i * d + f];
   }
   load_factor(lf, f, d, l, il);
-  const float inv_cnt = 1.0f / cnt[0];
+  const float inv_cnt = kFrozen ? 0.0f : 1.0f / cnt[0];
   for (int64_t r = r0 + rg; r < r1; r += kGroups) {
     float u[4], gv[4], h[4], w[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      u[c] = x[r * dd + c * d + f] - mu[c];
+      if constexpr (!kFrozen) u[c] = x[r * dd + c * d + f] - mu[c];
       gv[c] = g[r * dd + c * d + f];
     }
 #pragma unroll
@@ -571,13 +605,18 @@ wbn_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
       h[k] = hk;
     }
     bwd_subst(l, il, h, w);
-    const float scale = mask[r] ? inv_cnt : 0.0f;
+    if constexpr (kFrozen) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mu_a = mm[a * 4] * u[0];
+      for (int a = 0; a < 4; ++a) dx[r * dd + a * d + f] = w[a];
+    } else {
+      const float scale = mask[r] ? inv_cnt : 0.0f;
 #pragma unroll
-      for (int bb = 1; bb < 4; ++bb) mu_a += mm[a * 4 + bb] * u[bb];
-      dx[r * dd + a * d + f] = w[a] + scale * (mu_a - s[a]);
+      for (int a = 0; a < 4; ++a) {
+        float mu_a = mm[a * 4] * u[0];
+#pragma unroll
+        for (int bb = 1; bb < 4; ++bb) mu_a += mm[a * 4 + bb] * u[bb];
+        dx[r * dd + a * d + f] = w[a] + scale * (mu_a - s[a]);
+      }
     }
   }
 }
@@ -662,14 +701,14 @@ extern "C" int wbn_bwd_sums_f32(const void* x, const void* g, const void* mean,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d > 0) {
     if (nrb > 0) {
-      wbn_bwd_sums_partial_kernel<<<tile_grid(n, d), kThreads, 0, s>>>(
+      wbn_bwd_sums_partial_kernel<false><<<tile_grid(n, d), kThreads, 0, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(g),
           static_cast<const float*>(mean), static_cast<const float*>(l),
           static_cast<const float*>(gamma), static_cast<float*>(work), n, d,
           nrb);
     }
-    wbn_bwd_sums_combine_kernel<<<combine_blocks(d), kCombineWarps * 32, 0,
-                                  s>>>(
+    wbn_bwd_sums_combine_kernel<false><<<combine_blocks(d),
+                                         kCombineWarps * 32, 0, s>>>(
         static_cast<const float*>(work), static_cast<const float*>(l),
         static_cast<float*>(dgamma), static_cast<float*>(dbeta),
         static_cast<float*>(mmat), static_cast<float*>(sw), d, nrb);
@@ -683,8 +722,8 @@ extern "C" int wbn_dx_f32(const void* x, const void* g, const void* mask,
                           void* dx, int64_t n, int64_t d, void* stream) {
   if (row_blocks(n) > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0 && d > 0) {
-    wbn_dx_kernel<<<tile_grid(n, d), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+    wbn_dx_kernel<false><<<tile_grid(n, d), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),
         static_cast<const uint8_t*>(mask), static_cast<const float*>(mean),
         static_cast<const float*>(l), static_cast<const float*>(gamma),
@@ -700,6 +739,47 @@ extern "C" int wbn_cholesky_f32(const void* cov, float eps, void* l, int64_t d,
     wbn_cholesky_kernel<<<static_cast<unsigned>((d + 127) / 128), 128, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(cov), eps, static_cast<float*>(l), d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The eval path's backward, with the statistics fixed.  work: [20, d,
+// ceil(n / wbn_block_rows())] floats of scratch.
+extern "C" int wbn_bwd_sums_frozen_f32(const void* x, const void* g,
+                                       const void* mean, const void* l,
+                                       const void* gamma, void* work,
+                                       void* dgamma, void* dbeta, int64_t n,
+                                       int64_t d, void* stream) {
+  const int64_t nrb = row_blocks(n);
+  if (nrb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 0) {
+    if (nrb > 0) {
+      wbn_bwd_sums_partial_kernel<true><<<tile_grid(n, d), kThreads, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(g),
+          static_cast<const float*>(mean), static_cast<const float*>(l),
+          static_cast<const float*>(gamma), static_cast<float*>(work), n, d,
+          nrb);
+    }
+    wbn_bwd_sums_combine_kernel<true><<<combine_blocks(d),
+                                        kCombineWarps * 32, 0, s>>>(
+        static_cast<const float*>(work), static_cast<const float*>(l),
+        static_cast<float*>(dgamma), static_cast<float*>(dbeta), nullptr,
+        nullptr, d, nrb);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wbn_dx_frozen_f32(const void* g, const void* l,
+                                 const void* gamma, void* dx, int64_t n,
+                                 int64_t d, void* stream) {
+  if (row_blocks(n) > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0 && d > 0) {
+    wbn_dx_kernel<true><<<tile_grid(n, d), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        nullptr, static_cast<const float*>(g), nullptr, nullptr,
+        static_cast<const float*>(l), static_cast<const float*>(gamma),
+        nullptr, nullptr, nullptr, static_cast<float*>(dx), n, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

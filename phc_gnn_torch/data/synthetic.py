@@ -14,7 +14,7 @@ import numpy as np
 
 from phc_gnn_torch.graph.batch import GraphsTuple, batch_graphs
 
-__all__ = ["random_graph", "synthetic_batch"]
+__all__ = ["random_graph", "synthetic_graphs", "synthetic_batch"]
 
 
 def random_graph(rng: np.random.Generator, num_atom_types: int = 28,
@@ -43,12 +43,18 @@ def random_graph(rng: np.random.Generator, num_atom_types: int = 28,
             "edge_attr": edge_attr, "y": y}
 
 
+def synthetic_graphs(batch_size: int = 32, seed: int = 0, target_dim: int = 1,
+                     **kwargs) -> List[dict]:
+    """The ``batch_size`` graph dicts that ``synthetic_batch`` pads."""
+    rng = np.random.default_rng(seed)
+    return [random_graph(rng, target_dim=target_dim, **kwargs)
+            for _ in range(batch_size)]
+
+
 def synthetic_batch(batch_size: int = 32, num_nodes: int = 1024,
                     num_edges: int = 2048, seed: int = 0,
                     target_dim: int = 1, **kwargs) -> GraphsTuple:
     """A padded batch of ``batch_size`` random graphs, on the CPU."""
-    rng = np.random.default_rng(seed)
-    graphs: List[dict] = [random_graph(rng, target_dim=target_dim, **kwargs)
-                          for _ in range(batch_size)]
+    graphs = synthetic_graphs(batch_size, seed, target_dim, **kwargs)
     return batch_graphs(graphs, num_nodes=num_nodes, num_edges=num_edges,
                         num_graphs=batch_size + 1, y_shape=(target_dim,))

@@ -1,27 +1,75 @@
-"""Aggregations as plain PyTorch composites.
+"""Aggregations and degree scalers as plain PyTorch composites.
 
-Counterpart of phc_gnn_tpu/graph/aggregators.py for what the port runs:
-``AGGREGATORS`` maps ``(messages [E, D], receivers [E], num_nodes,
-edge_mask)`` to node arrays [N, D], so far for ``"sum"`` alone (the others
-come with ROADMAP.md, section 1, item 9); ``softmax_aggregate`` (:71-96) is
-``out = segment_sum(softmax(beta * m) * m)`` per node and lane, computed as
-a numerator over a denominator.  They are the CPU path of a batch without a
-CSR plan, and the reference that the segment kernels (ops/segment_softmax.py,
-ops/segment_sum.py) are held to.
+Counterpart of phc_gnn_tpu/graph/aggregators.py: ``AGGREGATORS`` maps
+``(messages [E, D], receivers [E], num_nodes, edge_mask)`` to node arrays
+[N, D] for sum, mean, min, max, var and std (graph/segment.py);
+``softmax_aggregate`` (:71-96) is ``out = segment_sum(softmax(beta * m) * m)``
+per node and lane, computed as a numerator over a denominator.  They are the
+CPU path of a batch without a CSR plan, and the reference that the segment
+kernels (ops/segment_softmax.py, ops/segment_sum.py, ops/segment_reduce.py)
+are held to.  ``SCALERS`` (:38-68) rescale a node array by its in-degree from
+``node_degrees`` against the dataset's ``avg_deg`` statistics
+(data/datasets.py), and ``phm_cat`` (:99-105) concatenates flat PHM tensors
+component block by component block.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from phc_gnn_torch.graph import segment as seg
 
-__all__ = ["AGGREGATORS", "softmax_aggregate"]
+__all__ = ["AGGREGATORS", "SCALERS", "softmax_aggregate", "phm_cat",
+           "node_degrees"]
 
 AGGREGATORS = {
     "sum": seg.segment_sum,
+    "mean": seg.segment_mean,
+    "min": seg.segment_min,
+    "max": seg.segment_max,
+    "var": seg.segment_var,
+    "std": seg.segment_std,
+}
+
+
+def node_degrees(receivers: torch.Tensor, num_nodes: int,
+                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """In-degree per node over the real edges, float [N, 1]."""
+    return seg.segment_count(receivers, num_nodes, edge_mask)[:, None]
+
+
+def scale_identity(x, deg, avg_deg):
+    return x
+
+
+def scale_amplification(x, deg, avg_deg):
+    return x * (torch.log(deg + 1.0) / avg_deg["log"])
+
+
+def scale_attenuation(x, deg, avg_deg):
+    # log(1) = 0 at deg = 0: the inf there is selected away, and no gradient
+    # flows into deg, which counts the mask
+    scale = avg_deg["log"] / torch.log(deg + 1.0)
+    return x * torch.where(deg == 0, 1.0, scale)
+
+
+def scale_linear(x, deg, avg_deg):
+    return x * (deg / avg_deg["lin"])
+
+
+def scale_inverse_linear(x, deg, avg_deg):
+    scale = avg_deg["lin"] / deg
+    return x * torch.where(deg == 0, 1.0, scale)
+
+
+SCALERS = {
+    "identity": scale_identity,
+    "amplification": scale_amplification,
+    "attenuation": scale_attenuation,
+    "linear": scale_linear,
+    "inverse_linear": scale_inverse_linear,
 }
 
 
@@ -42,3 +90,11 @@ def softmax_aggregate(messages: torch.Tensor, receivers: torch.Tensor,
     numer = seg.segment_sum(expd * messages, receivers, num_nodes)
     denom = seg.segment_sum(expd, receivers, num_nodes)
     return numer / denom.clamp_min(1e-16)
+
+
+def phm_cat(tensors: Sequence[torch.Tensor], phm_dim: int) -> torch.Tensor:
+    """[N, n*d1], [N, n*d2], ... -> [N, n*(d1 + d2 + ...)], each component
+    block the concatenation of the inputs' blocks."""
+    parts = [t.reshape(t.shape[0], phm_dim, t.shape[1] // phm_dim)
+             for t in tensors]
+    return torch.cat(parts, dim=-1).reshape(tensors[0].shape[0], -1)

@@ -1,42 +1,59 @@
 """PHM graph convolution on padded edge lists.
 
-Counterpart of phc_gnn_tpu/graph/conv.py for the ported variants, all on the
-messages ``msg_encoder(x[senders] + edge_attr)``:
+Counterpart of phc_gnn_tpu/graph/conv.py, all on the messages
+``msg_encoder(x[senders] + edge_attr)``:
 
-- ``PHMConv`` (conv.py:112-152): sum aggregation and a PHM linear
-  ``transform``; with ``same_dim`` (the add-skip family) the self loop is
-  added after it, ``transform(aggr) + x``, else (the concat-skip family,
-  whose layers change width) before it, ``transform(aggr + x)``;
-- ``PHMGINEConv`` (:155-193): sum aggregation, ``aggr + x``, then a 2-layer
-  PHM MLP with its norm;
+- ``PHMConv`` (conv.py:112-152): a fixed aggregation (sum, mean, min, max,
+  var or std) and a PHM linear ``transform``; with ``same_dim`` (the
+  add-skip family) the self loop is added after it, ``transform(aggr) +
+  x``, else (the concat-skip family, whose layers change width) before it,
+  ``transform(aggr + x)``;
+- ``PHMGINEConv`` (:155-193): a fixed aggregation, ``aggr + x``, then a
+  2-layer PHM MLP with its norm;
 - ``PHMConvSoftmax`` (:196-240): softmax aggregation with a learnable beta
   and the linear ``transform``, the self loop placed by ``same_dim`` as in
   ``PHMConv``;
 - ``PHMGINEConvSoftmax`` (:243-285): softmax aggregation with a learnable
-  beta, ``aggr + x``, then the MLP.
+  beta, ``aggr + x``, then the MLP;
+- ``PHMPNAConvSimple`` (:288-348): several fixed aggregations (mean, min,
+  max, std by default) joined by ``phm_cat``, each degree scaler applied to
+  the join, joined again, then a stack of PHM linears (``post_0`` ...),
+  the later ones behind a hardcoded naive batch norm and the activation.
 
 The aggregations run the segment kernels over the batch's receiver CSR plan
-(ops/segment_softmax.py, and kernel C's forward role in ops/segment_sum.py),
-and the message gather's backward runs kernel C over its sender plan; a CPU
-batch without a plan takes the plain composites and autograd's own gather
-backward, a CUDA batch without one raises.
+(ops/segment_softmax.py; kernel C's forward role in ops/segment_sum.py for
+sum and mean; kernels H and I in ops/segment_reduce.py for min, max, var and
+std), and the message gather's backward runs kernel C over its sender plan;
+a CPU batch without a plan takes the plain composites and autograd's own
+gather backward, a CUDA batch without one raises.  The two routes differ at
+ties: over the plan every edge that attains a min or max gets the whole
+cotangent (JAX's streamed VJP), the composite splits it (JAX's XLA
+``segment_max``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
-from phc_gnn_torch.graph.aggregators import AGGREGATORS, softmax_aggregate
+from phc_gnn_torch.graph.aggregators import (AGGREGATORS, SCALERS,
+                                             node_degrees, phm_cat,
+                                             softmax_aggregate)
+from phc_gnn_torch.graph.segment import segment_count
 from phc_gnn_torch.nn.activations import get_activation
+from phc_gnn_torch.nn.norm import PHMNorm
 from phc_gnn_torch.nn.phm_linear import PHMLinear, PHMMLP
+from phc_gnn_torch.ops.segment_reduce import (segment_extreme_aggregate,
+                                              segment_mean_aggregate,
+                                              segment_std_aggregate,
+                                              segment_var_aggregate)
 from phc_gnn_torch.ops.segment_softmax import segment_softmax
 from phc_gnn_torch.ops.segment_sum import gather_nodes, segment_sum_aggregate
 
 __all__ = ["PHMConv", "PHMGINEConv", "PHMConvSoftmax", "PHMGINEConvSoftmax",
-           "PHMMessagePassing"]
+           "PHMPNAConvSimple", "PHMMessagePassing"]
 
 
 def _messages(x, senders, edge_attr, msg_encoder: str, snd_perm=None,
@@ -77,29 +94,44 @@ def _softmax_aggr(msgs, receivers, num_nodes: int, beta, edge_mask,
 
 
 def _fixed_aggr(msgs, receivers, num_nodes: int, edge_mask, aggr: str,
-                rowptr: Optional[torch.Tensor] = None):
-    """Fixed-reduce aggregation (conv.py:96-109): the sum through kernel C
-    over the CSR plan (its plain version for CPU tensors), differentiable in
-    ``msgs``.  Without a plan only CPU tensors are served, by the plain
-    composite; a CUDA batch without one raises."""
+                rowptr: Optional[torch.Tensor] = None,
+                counts: Optional[torch.Tensor] = None):
+    """Fixed-reduce aggregation (conv.py:96-109) over the CSR plan, through
+    kernel C (sum, mean) and kernels H (min, max) and I (var, std), their
+    plain versions for CPU tensors; differentiable in ``msgs``.  ``counts``
+    [N], the real edges of each receiver, serves mean, var and std (computed
+    here if not given).  Without a plan only CPU tensors are served, by the
+    plain composites; a CUDA batch without one raises."""
     if rowptr is None:
         if msgs.device.type != "cpu":
             raise ValueError(
-                f"{aggr} aggregation on {msgs.device} runs kernel C, which "
-                f"walks the batch's CSR plan: build the batch with "
-                f"graph.attach_csr_plan")
+                f"{aggr} aggregation on {msgs.device} runs the segment "
+                f"kernels, which walk the batch's CSR plan: build the batch "
+                f"with graph.attach_csr_plan")
         return AGGREGATORS[aggr](msgs, receivers, num_nodes, edge_mask)
     if edge_mask is None:
         edge_mask = torch.ones(msgs.shape[0], dtype=torch.bool,
                                device=msgs.device)
-    return segment_sum_aggregate(msgs, receivers, edge_mask, rowptr)
+    if aggr == "sum":
+        return segment_sum_aggregate(msgs, receivers, edge_mask, rowptr)
+    if aggr in ("min", "max"):
+        return segment_extreme_aggregate(msgs, receivers, edge_mask, rowptr,
+                                         minimum=aggr == "min")
+    if counts is None:
+        counts = segment_count(receivers, num_nodes, edge_mask)
+    if aggr == "mean":
+        return segment_mean_aggregate(msgs, receivers, edge_mask, rowptr,
+                                      counts)
+    if aggr == "var":
+        return segment_var_aggregate(msgs, receivers, edge_mask, rowptr,
+                                     counts)
+    return segment_std_aggregate(msgs, receivers, edge_mask, rowptr, counts)
 
 
 def _check_fixed_aggr(aggr: str) -> None:
     if aggr not in AGGREGATORS:
-        raise NotImplementedError(
-            f"aggregation {aggr!r} is not ported yet (ROADMAP.md, section 1, "
-            f"item 9)")
+        raise ValueError(f"unknown aggregation {aggr!r}: one of "
+                         f"{sorted(AGGREGATORS)}, softmax or pna")
 
 
 def _linear_out(transform, aggr, x, add_self_loops: bool, same_dim: bool):
@@ -239,11 +271,86 @@ class PHMGINEConvSoftmax(nn.Module):
         return self.transform(aggr, training=training, mask=node_mask)
 
 
+class PHMPNAConvSimple(nn.Module):
+    """Simplified principal-neighbourhood-aggregation conv: multi-aggregate
+    -> phm_cat -> degree scalers -> phm_cat -> PHM linear stack (reference:
+    messagepassing.py:339-453).  ``avg_deg`` holds the dataset's degree
+    statistics (``data.datasets.avg_deg_from_histogram``).  It has no self
+    loop.  For ``post_layers`` > 1 each later PHM linear ``post_i`` follows
+    the activation and, where ``norm`` is set, a naive batch norm
+    ``post_norm_i`` whatever ``norm`` names, as the reference hardcodes."""
+
+    def __init__(self, in_features: int, out_features: int, phm_dim: int,
+                 avg_deg: Dict[str, float], learn_phm: bool = True,
+                 bias: bool = True, activation: str = "relu",
+                 norm: Optional[str] = None, w_init: str = "phm",
+                 c_init: str = "standard",
+                 aggregators: Sequence[str] = ("mean", "min", "max", "std"),
+                 scalers: Sequence[str] = ("identity", "amplification",
+                                           "attenuation"),
+                 post_layers: int = 1, msg_encoder: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if avg_deg is None:
+            raise ValueError("the PNA conv needs avg_deg, the dataset's "
+                             "degree statistics")
+        for aggr in aggregators:
+            _check_fixed_aggr(aggr)
+        unknown = [s for s in scalers if s not in SCALERS]
+        if unknown:
+            raise ValueError(f"unknown scalers {unknown}: one of "
+                             f"{sorted(SCALERS)}")
+        if post_layers < 1:
+            raise ValueError(f"post_layers must be >= 1, got {post_layers}")
+        self.phm_dim = phm_dim
+        self.avg_deg = dict(avg_deg)
+        self.aggregators = tuple(aggregators)
+        self.scalers = tuple(scalers)
+        self.post_layers = post_layers
+        self.msg_encoder = msg_encoder
+        self.has_norm = norm not in (None, "None")
+        self.act = get_activation(activation)
+        in_dim = len(self.aggregators) * len(self.scalers) * in_features
+        self.post_0 = PHMLinear(in_dim, out_features, phm_dim, bias, w_init,
+                                c_init, learn_phm, generator)
+        for i in range(1, post_layers):
+            if self.has_norm:
+                self.add_module(f"post_norm_{i}", PHMNorm(
+                    out_features, phm_dim, "naive-batch-norm"))
+            self.add_module(f"post_{i}", PHMLinear(
+                out_features, out_features, phm_dim, bias, w_init, c_init,
+                learn_phm, generator))
+
+    def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
+                training: bool = False, node_mask=None, rowptr=None,
+                snd_perm=None, snd_rowptr=None):
+        num_nodes = x.shape[0]
+        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
+                         snd_rowptr)
+        deg = node_degrees(receivers, num_nodes, edge_mask)
+        out = phm_cat([_fixed_aggr(msgs, receivers, num_nodes, edge_mask, a,
+                                   rowptr, deg[:, 0])
+                       for a in self.aggregators], self.phm_dim)
+        out = phm_cat([SCALERS[s](out, deg, self.avg_deg)
+                       for s in self.scalers], self.phm_dim)
+        out = self.post_0(out)
+        for i in range(1, self.post_layers):
+            if self.has_norm:
+                out = getattr(self, f"post_norm_{i}")(out, training=training,
+                                                      mask=node_mask)
+            out = getattr(self, f"post_{i}")(self.act(out))
+        return out
+
+
 class PHMMessagePassing(nn.Module):
     """Facade dispatching on (aggr, mlp) to a conv variant held as ``conv``
-    (reference: messagepassing.py:456-518; conv.py:382-420).  Ported:
-    aggr="softmax" and aggr="sum" (or "add"), each with mlp False or True;
-    ``same_dim`` reaches the variants without an MLP."""
+    (reference: messagepassing.py:456-518; conv.py:382-440): "softmax" and
+    the fixed aggregations ("add" aliases "sum"), each with mlp False or
+    True, ``same_dim`` reaching the variants without an MLP; "pna" builds
+    ``PHMPNAConvSimple`` from ``avg_deg``, ``aggregators``, ``scalers`` and
+    ``post_layers`` with the message encoder "relu", whatever
+    ``msg_encoder``, ``mlp``, ``add_self_loops`` and ``same_dim`` say, as
+    flax's does."""
 
     def __init__(self, in_features: int, out_features: int, phm_dim: int,
                  learn_phm: bool = True, bias: bool = True,
@@ -252,10 +359,20 @@ class PHMMessagePassing(nn.Module):
                  c_init: str = "standard", aggr: str = "sum", mlp: bool = True,
                  same_dim: bool = True, msg_encoder: str = "identity",
                  initial_beta: float = 1.0, learn_beta: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 avg_deg: Optional[Dict[str, float]] = None,
+                 aggregators: Sequence[str] = ("mean", "min", "max", "std"),
+                 scalers: Sequence[str] = ("identity", "amplification",
+                                           "attenuation"),
+                 post_layers: int = 1):
         super().__init__()
         aggr = "sum" if aggr == "add" else aggr
-        if aggr == "softmax" and not mlp:
+        if aggr == "pna":
+            self.conv = PHMPNAConvSimple(
+                in_features, out_features, phm_dim, avg_deg, learn_phm, bias,
+                activation, norm, w_init, c_init, aggregators, scalers,
+                post_layers, msg_encoder="relu", generator=generator)
+        elif aggr == "softmax" and not mlp:
             self.conv = PHMConvSoftmax(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, w_init, c_init, same_dim, msg_encoder,

@@ -11,7 +11,11 @@ bond encoder emits that width, its conv (``same_dim=False``) adds the self
 loop before the transform, and pooling and head take ``mp_layers[-1] +
 embed``.  Module names follow the flax tree (``atomencoder``,
 ``bondencoder_<i>``, ``conv_<i>``, ``norm_<i>``, ``pooling``,
-``downstream``), so ``convert.from_flax_variables`` maps paths one to one.
+``downstream``; a PNA conv's ``conv_<i>.conv.post_<j>`` and
+``post_norm_<j>``), so ``convert.from_flax_variables`` maps paths one to
+one.  ``msg_aggr="pna"`` takes ``avg_deg`` (the training split's degree
+statistics, ``data.datasets.avg_deg_from_histogram``) and the
+``pna_aggregators``, ``pna_scalers`` and ``pna_post_layers`` of every conv.
 
 The model is initialised from ``seed`` on a CPU ``torch.Generator`` and then
 moved to ``device`` (default "cuda"; without CUDA it raises unless
@@ -22,7 +26,7 @@ batch-norm running stats in place.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -66,7 +70,12 @@ class PHCGNN(nn.Module):
                  skip_connect: str = "add", initial_beta: float = 1.0,
                  learn_beta: bool = True, edge_axis: Optional[str] = None,
                  node_axis: Optional[str] = None, compute_dtype=None,
-                 remat: bool = False, seed: int = 0,
+                 remat: bool = False,
+                 avg_deg: Optional[Dict[str, float]] = None,
+                 pna_aggregators: Sequence[str] = ("mean", "min", "max", "std"),
+                 pna_scalers: Sequence[str] = ("identity", "amplification",
+                                               "attenuation"),
+                 pna_post_layers: int = 1, seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
         dev = resolve_device(device)
@@ -119,7 +128,8 @@ class PHCGNN(nn.Module):
                 activation, w_init, c_init, aggr=msg_aggr, mlp=mlp_mp,
                 same_dim=not self.concat, msg_encoder=msg_encoder,
                 initial_beta=initial_beta, learn_beta=learn_beta,
-                generator=gen))
+                generator=gen, avg_deg=avg_deg, aggregators=pna_aggregators,
+                scalers=pna_scalers, post_layers=pna_post_layers))
             if norm_mp not in (None, "None"):
                 self.add_module(f"norm_{i}", PHMNorm(d, n, norm_mp))
         self.has_norm = norm_mp not in (None, "None")

@@ -29,9 +29,12 @@ through ``ops/fused_whitening.py::fused_whitening`` (kernels J, K and, in the
 backward, L and M), then ``mean += 0.1 * (mu - mean)`` and
 ``cov += 0.1 * (Sigma - cov)`` with the BIASED batch covariance; the running
 cov starts as all ones (norm.py:248-255, :295-298), Gamma as 0.5 I, beta as
-0.  Eval whitens with the running stats (norm.py:301-345): the Cholesky
-factor of ``cov + eps I`` by ``wbn_cholesky``, then kernel K.  Neither path
-syncs with the host, so the eval forward can be captured in a CUDA graph.
+0.  Eval whitens with the running stats (norm.py:301-345) through
+``fused_whitening.eval_whitening``: the Cholesky factor of ``cov + eps I``
+by ``wbn_cholesky``, then kernel K; it is differentiable in the input,
+Gamma and beta, as JAX's eval path is (the frozen variants of L and M).
+Neither path syncs with the host, so the eval forward can be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -107,14 +110,9 @@ class QuaternionWhiteningNorm(nn.Module):
                 self.mean.lerp_(mean, _MOMENTUM)
                 self.cov.lerp_(cov, _MOMENTUM)
             return y.view(x.shape)
-        if (flat.device.type != "cpu" and torch.is_grad_enabled()
-                and (flat.requires_grad or self.gamma.requires_grad)):
-            raise RuntimeError(
-                "the eval whitening on a CUDA device runs kernels without a "
-                "backward: call it under torch.no_grad() or inference_mode()")
-        l = fused_whitening.wbn_cholesky(self.cov, self.eps)
-        return fused_whitening.wbn_transform(
-            flat, self.mean, l, self.gamma, self.beta).view(x.shape)
+        return fused_whitening.eval_whitening(
+            flat, self.mean, self.cov, self.gamma, self.beta,
+            self.eps).view(x.shape)
 
 
 class PHMNorm(nn.Module):

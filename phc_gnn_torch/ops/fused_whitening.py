@@ -25,9 +25,14 @@ version, which follows the formula path of phc_gnn_tpu/ops/fused_whitening.py
 
 ``fused_whitening`` is an ``autograd.Function`` that returns
 ``(y, mean [4, d], cov [4, 4, d])``, differentiable in ``x``, ``gamma`` and
-``beta``; mean and cov are detached (fused_whitening.py:432-446).  The plain
-versions run in the dtype of their inputs, so a check can run them in
-float64.
+``beta``; mean and cov are detached (fused_whitening.py:432-446).
+``eval_whitening`` is the eval path (norm.py:331-345): the running stats'
+Cholesky and K, differentiable in ``x``, ``gamma`` and ``beta`` with the
+statistics fixed, so that ``dx = w = L^{-T} Gamma^T g`` and ``dbeta``,
+``dGamma`` are L's sums: the ``frozen`` variants of L and M, which skip the
+T/S/M algebra and the mean-path term (through the training variants, an
+all-false mask would give ``cnt = 0`` and a NaN there).  The plain versions
+run in the dtype of their inputs, so a check can run them in float64.
 
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
 launches its kernel or raises; it never falls back.  ``<wrapper>.launches``
@@ -46,7 +51,7 @@ from phc_gnn_torch.ops import _build
 __all__ = ["L_IDX", "wbn_stats", "wbn_stats_plain", "wbn_transform",
            "wbn_transform_plain", "wbn_bwd_sums", "wbn_bwd_sums_plain",
            "wbn_dx", "wbn_dx_plain", "wbn_cholesky", "wbn_cholesky_plain",
-           "fused_whitening"]
+           "fused_whitening", "eval_whitening"]
 
 # rows of the Cholesky factor [10, d] (fused_whitening.py:473-474)
 L_IDX = [(0, 0), (1, 0), (1, 1), (2, 0), (2, 1), (2, 2),
@@ -69,8 +74,11 @@ def _lib():
         lib.wbn_bwd_sums_f32.argtypes = [_P] * 10 + [_I64, _I64, _P]
         lib.wbn_dx_f32.argtypes = [_P] * 10 + [_I64, _I64, _P]
         lib.wbn_cholesky_f32.argtypes = [_P, _F32, _P, _I64, _P]
+        lib.wbn_bwd_sums_frozen_f32.argtypes = [_P] * 8 + [_I64, _I64, _P]
+        lib.wbn_dx_frozen_f32.argtypes = [_P] * 4 + [_I64, _I64, _P]
         for fn in (lib.wbn_stats_f32, lib.wbn_transform_f32,
-                   lib.wbn_bwd_sums_f32, lib.wbn_dx_f32, lib.wbn_cholesky_f32):
+                   lib.wbn_bwd_sums_f32, lib.wbn_dx_f32, lib.wbn_cholesky_f32,
+                   lib.wbn_bwd_sums_frozen_f32, lib.wbn_dx_frozen_f32):
             fn.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
@@ -201,25 +209,32 @@ def _solve_w(g, gamma, lf, il):
     return gs, _bwd_subst(lf, hs, il)
 
 
-def wbn_bwd_sums_plain(x, g, gamma, mean, l):
+def wbn_bwd_sums_plain(x, g, gamma, mean, l, frozen: bool = False):
     """``(dGamma [4, 4, d], dbeta [4, d], M [16, d], sum w [4, d])`` over ALL
     rows (``_fused_whitening_bwd``, :496-514); row ``a*4+b`` of M is
-    ``M_ab``."""
+    ``M_ab``.  ``frozen``: ``(dGamma, dbeta)`` alone."""
     _, zs, lf, il = _whiten(x, mean, l)
-    gs, ws = _solve_w(g, gamma, lf, il)
+    gs = _slices(g)
     dbeta = torch.stack([gc.sum(0) for gc in gs])
     dgamma = torch.stack([torch.stack([(gs[c] * zs[k]).sum(0)
                                        for k in range(4)]) for c in range(4)])
+    if frozen:
+        return dgamma, dbeta
+    _, ws = _solve_w(g, gamma, lf, il)
     lbar = {(j, k): -(ws[j] * zs[k]).sum(0) for j, k in L_IDX}
     m_rows = _m_from_lbar(lf, lbar)
     mmat = torch.stack([m_rows[a][b] for a in range(4) for b in range(4)])
     return dgamma, dbeta, mmat, torch.stack([wk.sum(0) for wk in ws])
 
 
-def wbn_dx_plain(x, g, mask, gamma, mean, l, mmat, sw, cnt):
-    """``dx = w + (m / cnt) (M u - sum w)`` (:515-519)."""
+def wbn_dx_plain(x, g, mask, gamma, mean, l, mmat, sw, cnt,
+                 frozen: bool = False):
+    """``dx = w + (m / cnt) (M u - sum w)`` (:515-519); ``frozen``: ``dx =
+    w``."""
     cu, _, lf, il = _whiten(x, mean, l)
     _, ws = _solve_w(g, gamma, lf, il)
+    if frozen:
+        return torch.cat(ws, dim=1)
     scale = mask[:, None].to(x.dtype) * (1.0 / cnt)
     return torch.cat([ws[a] + scale * (sum(mmat[a * 4 + b] * cu[b]
                                            for b in range(4)) - sw[a])
@@ -312,15 +327,25 @@ def wbn_transform(x, mean, l, gamma, beta):
 wbn_transform.launches = 0
 
 
-def wbn_bwd_sums(x, g, gamma, mean, l):
+def wbn_bwd_sums(x, g, gamma, mean, l, frozen: bool = False):
     """``(dGamma [4, 4, d], dbeta [4, d], M [16, d], sum w [4, d])`` over all
     rows, from row-block partials and the T/S/M algebra in the combine
-    (kernel L)."""
+    (kernel L).  ``frozen`` (the eval path, its statistics fixed):
+    ``(dGamma, dbeta)`` alone, from L's frozen variant."""
     if x.device.type == "cpu":
-        return wbn_bwd_sums_plain(x, g, gamma, mean, l)
+        return wbn_bwd_sums_plain(x, g, gamma, mean, l, frozen)
     n, d = x.shape[0], x.shape[1] // 4
     _check(x, _field_checks(d, gamma, mean, l), g=g)
     dev = x.device
+    if frozen:
+        work = _empty(dev, 20, d, _row_blocks(n))
+        dgamma, dbeta = _empty(dev, 4, 4, d), _empty(dev, 4, d)
+        _build.check_launch("wbn_bwd_sums", _lib().wbn_bwd_sums_frozen_f32(
+            x.data_ptr(), g.data_ptr(), mean.data_ptr(), l.data_ptr(),
+            gamma.data_ptr(), work.data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), n, d, _build.stream(dev)))
+        wbn_bwd_sums.launches += 1
+        return dgamma, dbeta
     work = _empty(dev, 34, d, _row_blocks(n))
     dgamma, dbeta, mmat, sw = (_empty(dev, 4, 4, d), _empty(dev, 4, d),
                                _empty(dev, 16, d), _empty(dev, 4, d))
@@ -335,12 +360,22 @@ def wbn_bwd_sums(x, g, gamma, mean, l):
 wbn_bwd_sums.launches = 0
 
 
-def wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt):
+def wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt, frozen: bool = False):
     """``dx = w + (m / cnt) (M u - sum w)``, elementwise (kernel M); ``cnt``
-    is the [1] count of ``wbn_stats``."""
+    is the [1] count of ``wbn_stats``.  ``frozen`` (the eval path, its
+    statistics fixed): ``dx = w``, from M's frozen variant, which reads
+    neither ``mask``, ``mmat``, ``sw`` nor ``cnt`` (they may be None)."""
     if x.device.type == "cpu":
-        return wbn_dx_plain(x, g, mask, gamma, mean, l, mmat, sw, cnt)
+        return wbn_dx_plain(x, g, mask, gamma, mean, l, mmat, sw, cnt, frozen)
     n, d = x.shape[0], x.shape[1] // 4
+    if frozen:
+        _check(x, _field_checks(d, gamma, mean, l), g=g)
+        dx = torch.empty_like(x)
+        _build.check_launch("wbn_dx", _lib().wbn_dx_frozen_f32(
+            g.data_ptr(), l.data_ptr(), gamma.data_ptr(), dx.data_ptr(), n, d,
+            _build.stream(x.device)))
+        wbn_dx.launches += 1
+        return dx
     _check(x, _field_checks(d, gamma, mean, l) + [
         ("mmat", mmat, (16, d)), ("sw", sw, (4, d)), ("cnt", cnt, (1,))],
         mask, g)
@@ -409,3 +444,33 @@ def fused_whitening(x, mask: Optional[torch.Tensor], gamma, beta,
     if mask is None:
         mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     return _FusedWhitening.apply(x, mask, gamma, beta, float(eps))
+
+
+class _EvalWhitening(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, mean, l):
+        ctx.save_for_backward(x, gamma, mean, l)
+        return wbn_transform(x, mean, l, gamma, beta)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, mean, l = ctx.saved_tensors
+        gy = gy.contiguous()
+        dx = dgamma = dbeta = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dgamma, dbeta = wbn_bwd_sums(x, gy, gamma, mean, l, frozen=True)
+        if ctx.needs_input_grad[0]:
+            dx = wbn_dx(x, gy, None, gamma, mean, l, None, None, None,
+                        frozen=True)
+        return dx, dgamma, dbeta, None, None
+
+
+def eval_whitening(x, mean, cov, gamma, beta, eps: float = 1e-5):
+    """Eval-mode quaternion whitening of ``x`` [N, 4d] with the running
+    ``mean`` [4, d] and ``cov`` [4, 4, d]: ``y = Gamma L^{-1} (x - mean) +
+    beta``, ``L`` the Cholesky factor of ``cov + eps I`` (the eval Cholesky,
+    then K).  Differentiable in ``x``, ``gamma`` and ``beta`` (the frozen
+    variants of L and M), not in the running stats; no host sync, so a CUDA
+    graph can capture it, forward and backward."""
+    l = wbn_cholesky(cov, eps)
+    return _EvalWhitening.apply(x, gamma, beta, mean, l)

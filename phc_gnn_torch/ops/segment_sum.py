@@ -42,7 +42,8 @@ import torch
 from phc_gnn_torch.ops import _build
 
 __all__ = ["segment_sum_perm", "segment_sum_perm_plain", "segment_sum_masked",
-           "segment_sum_masked_plain", "gather_nodes", "segment_sum_aggregate"]
+           "segment_sum_masked_plain", "gather_nodes", "segment_sum_aggregate",
+           "segment_ids", "check_masked_csr"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -61,26 +62,31 @@ def _lib():
     return _typed_lib
 
 
+def segment_ids(rowptr):
+    """The segment of each edge inside the CSR segments of ``rowptr``
+    [N + 1]: ``rowptr[-1]`` entries, ascending."""
+    n = rowptr.shape[0] - 1
+    counts = (rowptr[1:] - rowptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(n, device=rowptr.device), counts)
+
+
 def segment_sum_perm_plain(values, perm, rowptr):
     """The kernel's function in ``values``' dtype (the checks pass float64,
     so that the order of the sums does not matter)."""
-    n = rowptr.shape[0] - 1
-    counts = (rowptr[1:] - rowptr[:-1]).long()
-    seg = torch.repeat_interleave(torch.arange(n, device=rowptr.device), counts)
+    seg = segment_ids(rowptr)
     rows = values.index_select(0, perm[:seg.shape[0]].long())
-    out = torch.zeros((n, values.shape[1]), dtype=values.dtype,
-                      device=values.device)
+    out = torch.zeros((rowptr.shape[0] - 1, values.shape[1]),
+                      dtype=values.dtype, device=values.device)
     return out.index_add_(0, seg, rows)
 
 
 def segment_sum_masked_plain(msgs, mask, rowptr):
     """The forward kernel's function in ``msgs``' dtype (the checks pass
     float64)."""
-    n = rowptr.shape[0] - 1
-    counts = (rowptr[1:] - rowptr[:-1]).long()
-    seg = torch.repeat_interleave(torch.arange(n, device=rowptr.device), counts)
+    seg = segment_ids(rowptr)
     rows = torch.where(mask[:seg.shape[0], None], msgs[:seg.shape[0]], 0)
-    out = torch.zeros((n, msgs.shape[1]), dtype=msgs.dtype, device=msgs.device)
+    out = torch.zeros((rowptr.shape[0] - 1, msgs.shape[1]), dtype=msgs.dtype,
+                      device=msgs.device)
     return out.index_add_(0, seg, rows)
 
 
@@ -103,6 +109,15 @@ def _check(name, values, index, rowptr):
             raise ValueError(f"{tname} is on {t.device}, values on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{tname} must be contiguous")
+
+
+def check_masked_csr(name, msgs, mask, rowptr):
+    """``_check`` of a launch over the receiver CSR that reads ``mask`` [E]
+    beside ``msgs`` [E, D]: C's forward role, and kernels H and I."""
+    _check(name, msgs, ("mask", mask, torch.bool), rowptr)
+    if mask.shape[0] != msgs.shape[0]:
+        raise ValueError(f"mask has {mask.shape[0]} entries for "
+                         f"{msgs.shape[0]} rows of msgs")
 
 
 def segment_sum_perm(values, perm, rowptr):
@@ -129,10 +144,7 @@ def segment_sum_masked(msgs, mask, rowptr):
     CSR segment of ``rowptr`` [N + 1]."""
     if msgs.device.type == "cpu":
         return segment_sum_masked_plain(msgs, mask, rowptr)
-    _check("segment_sum_masked", msgs, ("mask", mask, torch.bool), rowptr)
-    if mask.shape[0] != msgs.shape[0]:
-        raise ValueError(f"mask has {mask.shape[0]} entries for "
-                         f"{msgs.shape[0]} rows of msgs")
+    check_masked_csr("segment_sum_masked", msgs, mask, rowptr)
     dev = msgs.device
     n, d = rowptr.shape[0] - 1, msgs.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=dev)

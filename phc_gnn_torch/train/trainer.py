@@ -9,7 +9,7 @@ section 1, item 13.
 
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -26,13 +26,15 @@ __all__ = ["build_model", "build_loss"]
 
 
 def build_model(cfg: ExperimentConfig, atom_input_dims, bond_input_dims,
-                seed: int = 0,
+                avg_deg: Optional[Dict[str, float]] = None, seed: int = 0,
                 device: Union[str, torch.device] = "cuda") -> PHCGNN:
     """``PHCGNN`` from ``cfg`` (reference main():566-579), its weights drawn
     from ``seed`` and moved to ``device``.  A length-1 ``dropout_mpnn``
-    broadcasts over all message-passing layers.  ``cfg.aggr_node`` is not
-    read, as in JAX; JAX's ``avg_deg`` argument comes with the PNA conv
-    (ROADMAP.md, section 1, item 9)."""
+    broadcasts over all message-passing layers.  ``avg_deg`` is the PNA
+    conv's degree statistics (``cfg.aggr_msg == "pna"``), which the CLI
+    takes from the training split's in-degree histogram
+    (``data.datasets.avg_deg_from_histogram(degree_histogram(graphs))``).
+    ``cfg.aggr_node`` is not read, as in JAX."""
     dropout_mpnn = tuple(cfg.dropout_mpnn)
     if len(dropout_mpnn) == 1 and len(cfg.mp_units) > 1:
         dropout_mpnn = dropout_mpnn * len(cfg.mp_units)
@@ -49,7 +51,7 @@ def build_model(cfg: ExperimentConfig, atom_input_dims, bond_input_dims,
         target_dim=cfg.target_dim, dropout_dn=tuple(cfg.dropout_dn),
         norm_dn=cfg.norm_dn, msg_encoder=cfg.msg_encoder, sc_type=cfg.sc_type,
         skip_connect=cfg.model_type, initial_beta=cfg.initial_beta,
-        learn_beta=cfg.learn_beta,
+        learn_beta=cfg.learn_beta, avg_deg=avg_deg,
         compute_dtype=(torch.bfloat16
                        if str(getattr(cfg, "compute_dtype", "f32")) == "bf16"
                        else None),

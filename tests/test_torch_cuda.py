@@ -14,7 +14,9 @@ import torch
 from phc_gnn_torch.data import synthetic_batch
 from phc_gnn_torch.graph import (attach_csr_plan, build_csr_rowptr,
                                  build_sender_csr)
+from phc_gnn_torch.nn.norm import QuaternionWhiteningNorm
 from phc_gnn_torch.ops import fused_bn, fused_whitening as fw
+from phc_gnn_torch.ops import segment_reduce as sr
 from phc_gnn_torch.ops import segment_softmax as ss
 from phc_gnn_torch.ops import segment_sum as ssum
 
@@ -315,4 +317,101 @@ def test_fused_whitening_autograd_on_the_card(dev):
         outs.append([t.detach().cpu() for t in (y, mean, cov, tx.grad,
                                                 tg.grad, tb.grad)])
     for a, b in zip(*outs):
+        assert _leaf_err(a, b) <= 1e-5
+
+
+def _reduce_case(dev, case):
+    """(msgs, mask, rowptr) for kernels H and I: the flagship batch's
+    receivers at D = 200; the adversarial receivers (an isolated node, a
+    1,100-edge segment, masked edges inside segments, an all-masked one);
+    the flagship's with exact ties (halves in [-1.5, 1.5]); or with |m| >=
+    1e29 (H only: I's squares overflow f32 there, as JAX's do)."""
+    if case == "adversarial":
+        msgs, mask, _, rowptr = _adversarial_case(dev)
+        return msgs, mask, rowptr
+    msgs, mask, _, rowptr = _flagship_case(dev, 1.0)
+    gen = torch.Generator().manual_seed(9)
+    if case == "ties":
+        msgs = (torch.randint(-3, 4, msgs.shape, generator=gen) / 2).to(dev)
+    elif case == "huge":
+        msgs = (torch.sign(msgs) * (1e29 + 1e30 * msgs.abs())).contiguous()
+    return msgs, mask, rowptr
+
+
+@pytest.mark.parametrize("case", ["flagship", "adversarial", "ties", "huge"])
+def test_segment_extreme_kernel_matches_plain_version(dev, case):
+    """H, max and min, bit for bit against its plain version in float64 (a
+    selection is exact); 0 where a segment has no real edge."""
+    msgs, mask, rowptr = _reduce_case(dev, case)
+    n0 = sr.segment_extreme.launches
+    outs = [sr.segment_extreme(msgs, mask, rowptr, minimum)
+            for minimum in (False, True)]
+    torch.cuda.synchronize()
+    assert sr.segment_extreme.launches == n0 + 2
+    for minimum, out in zip((False, True), outs):
+        want = sr.segment_extreme_plain(msgs.double(), mask, rowptr, minimum)
+        assert torch.equal(out.double(), want)
+    if case == "adversarial":
+        assert torch.all(outs[0][3] == 0) and torch.all(outs[1][11] == 0)
+
+
+@pytest.mark.parametrize("case", ["flagship", "adversarial", "ties"])
+def test_segment_moments_kernel_matches_plain_version(dev, case):
+    """I's mean and var against its plain version in float64 (1e-5 of each
+    output's max: f32 sums of up to 1,100 rows); a segment of one real edge
+    gives var 0 exactly (no FMA contracts JAX's formula)."""
+    msgs, mask, rowptr = _reduce_case(dev, case)
+    n0 = sr.segment_moments.launches
+    mean, var = sr.segment_moments(msgs, mask, rowptr)
+    torch.cuda.synchronize()
+    assert sr.segment_moments.launches == n0 + 1
+    r_mean, r_var = sr.segment_moments_plain(msgs.double(), mask, rowptr)
+    assert _leaf_err(mean, r_mean) <= 1e-5
+    assert _leaf_err(var, r_var) <= 1e-5
+    seg = ssum.segment_ids(rowptr)
+    real = torch.zeros(rowptr.shape[0] - 1, device=dev).index_add_(
+        0, seg, mask[:seg.shape[0]].float())
+    assert torch.all(var[real == 1] == 0)
+
+
+def test_eval_whitening_backward_on_the_card(dev):
+    """The eval whitening's gradients in the input, Gamma and beta on the
+    card (the running stats' Cholesky and K, then the frozen variants of L
+    and M) against the same module on the CPU, and the frozen kernels
+    against their plain versions in float64."""
+    x, _, gamma, beta, g = _whitening_case(dev, 1100, 50, "random")
+    gen = torch.Generator().manual_seed(3)
+    b = torch.randn((50, 4, 4), generator=gen)
+    cov = (b @ b.transpose(1, 2) / 4 + 0.2 * torch.eye(4)).permute(1, 2, 0)
+    mean = torch.randn((4, 50), generator=gen) * 0.3
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        norm = QuaternionWhiteningNorm(50).to(device)
+        with torch.no_grad():
+            for t, v in ((norm.gamma, gamma), (norm.beta, beta),
+                         (norm.mean, mean), (norm.cov, cov)):
+                t.copy_(v)
+        tx = x.detach().to(device).requires_grad_()
+        counts = (fw.wbn_bwd_sums.launches, fw.wbn_dx.launches)
+        y = norm(tx, training=False)
+        (y * g.to(device)).sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert (fw.wbn_bwd_sums.launches, fw.wbn_dx.launches) == (
+                counts[0] + 1, counts[1] + 1)
+        outs.append([t.detach().cpu() for t in (y, tx.grad, norm.gamma.grad,
+                                                norm.beta.grad)])
+    for a, b in zip(*outs):
+        assert _leaf_err(a, b) <= 1e-5
+    l = fw.wbn_cholesky(cov.to(dev).contiguous(), 1e-5)
+    mean_d = mean.to(dev)
+    got = fw.wbn_bwd_sums(x, g, gamma, mean_d, l, frozen=True) + (
+        fw.wbn_dx(x, g, None, gamma, mean_d, l, None, None, None,
+                  frozen=True),)
+    x64, g64, gam64, l64 = (t.double() for t in (x, g, gamma, l))
+    want = fw.wbn_bwd_sums_plain(x64, g64, gam64, mean_d.double(), l64,
+                                 frozen=True) + (
+        fw.wbn_dx_plain(x64, g64, None, gam64, mean_d.double(), l64, None,
+                        None, None, frozen=True),)
+    for a, b in zip(got, want):
         assert _leaf_err(a, b) <= 1e-5

@@ -104,7 +104,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 def test_training_and_later_slice_configs_raise():
     """Every configuration of a later slice raises; the training forward,
     which raised before the training slice, now runs (its parity with JAX is
-    in tests/test_torch_train.py)."""
+    in tests/test_torch_train.py), and so does the mean aggregation since
+    the PNA slice (tests/test_torch_pna.py)."""
     model = PHCGNN(**_config(32, 2), device="cpu")
     out = model(attach_csr_plan(synthetic_batch(4, 128, 256)), training=True,
                 generator=torch.Generator().manual_seed(0))
@@ -115,8 +116,9 @@ def test_training_and_later_slice_configs_raise():
     for over in (dict(edge_axis="ep"),
                  dict(node_axis="dp"), dict(remat=True),
                  dict(compute_dtype=torch.bfloat16),
-                 dict(msg_aggr="mean"),
                  dict(unique_phm=True), dict(naive_encoder=True),
                  dict(real_trafo="sum")):
         with pytest.raises(NotImplementedError):
             PHCGNN(**_config(32, 2, **over), device="cpu")
+    mean = PHCGNN(**_config(32, 2, msg_aggr="mean"), device="cpu")
+    assert mean.conv_0.conv.aggr == "mean"

@@ -168,10 +168,17 @@ def test_softmax_aggr_off_cpu_takes_the_kernels_or_raises():
 
 
 def test_unported_conv_variants_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        conv.PHMMessagePassing(32, 32, N4, aggr="mean", mlp=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        conv.PHMMessagePassing(32, 32, N4, aggr="max", mlp=False)
+    """Every conv variant of the reference is ported since the PNA slice
+    (mean and max build, tests/test_torch_pna.py holds them to flax); an
+    aggregation the reference does not know raises, naming it."""
+    assert conv.PHMMessagePassing(32, 32, N4, aggr="mean", mlp=True).conv.aggr \
+        == "mean"
+    assert conv.PHMMessagePassing(32, 32, N4, aggr="max", mlp=False).conv.aggr \
+        == "max"
+    with pytest.raises(ValueError, match="'median'"):
+        conv.PHMMessagePassing(32, 32, N4, aggr="median", mlp=False)
+    with pytest.raises(ValueError, match="avg_deg"):
+        conv.PHMMessagePassing(32, 32, N4, aggr="pna")
 
 
 @pytest.mark.parametrize("kind", ["softattention", "globalsum"])

@@ -72,7 +72,7 @@ from phc_gnn_torch.train import (make_accum_train_step, make_eval_step,
 from phc_gnn_torch.train.config import DATASET_DEFAULTS, ExperimentConfig
 from phc_gnn_torch.train.trainer import build_loss, build_model
 from torch_parity import (assert_close, assert_leaf_close, load_flax,
-                          numpy_tree, randomize)
+                          numpy_tree, port_flat, randomize)
 
 REL_OUT = 1e-5
 REL_EVAL = 1e-4
@@ -143,16 +143,6 @@ def _shift_invariant(key: str) -> bool:
         and key != "downstream.affine_2.b")
 
 
-def _port_flat(tree):
-    out = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        key = ".".join(p.key for p in path)
-        if key.endswith(".kernel"):
-            key, leaf = key[:-len("kernel")] + "weight", leaf.T
-        out[key] = np.asarray(leaf)
-    return out
-
-
 @pytest.fixture
 def blocked_gate(monkeypatch):
     monkeypatch.setattr(jnorm, "_FORCE_FUSED_INTERPRET", True)
@@ -177,7 +167,7 @@ def test_pcba_forward_matches_jax(blocked_gate):
     got = model(tb, training=True)
     assert got.shape == want.shape == (SHAPE[0] + 1, TASKS)
     assert_close(got.detach(), np.asarray(want), REL_OUT)
-    stats = _port_flat(numpy_tree(upd["batch_stats"]))
+    stats = port_flat(numpy_tree(upd["batch_stats"]))
     bufs = dict(model.named_buffers())
     assert set(bufs) == set(stats)
     for key, arr in stats.items():
@@ -250,7 +240,7 @@ def jax_accum():
             rng=jax.random.key(1), step=jnp.zeros((), jnp.int32))
         step = jax_accum_step(jm, sgd, loss_fn, donate=False, loss_name="bce")
         new, loss, outs = step(state, stacked, jnp.float32(lr))
-    p0, p1 = _port_flat(numpy_tree(params)), _port_flat(numpy_tree(new.params))
+    p0, p1 = port_flat(numpy_tree(params)), port_flat(numpy_tree(new.params))
     grads = {k: (p0[k].astype(np.float64) - p1[k]) / lr for k in p0}
     tx = jax_make_optimizer(LR, grad_clip=CLIP)
     jgrads = jax.tree_util.tree_map(
@@ -260,10 +250,10 @@ def jax_accum():
     _, opt1 = tx.update(jax.tree_util.tree_map(lambda g: 0.5 * g, jgrads),
                         opt0, params)
     upd, _ = tx.update(jgrads, opt1, params)
-    after = _port_flat(numpy_tree(optax.apply_updates(
+    after = port_flat(numpy_tree(optax.apply_updates(
         params, jax.tree_util.tree_map(lambda u: LR * u, upd))))
     return dict(cfg=cfg, variables=v, loss=float(loss), outs=np.asarray(outs),
-                grads=grads, stats=_port_flat(numpy_tree(new.batch_stats)),
+                grads=grads, stats=port_flat(numpy_tree(new.batch_stats)),
                 adam=opt1[1], after=after)
 
 
@@ -330,7 +320,7 @@ def test_accum_step_update_from_carried_optax_state(jax_accum, blocked_gate):
     +-lr whose sign neither side controls)."""
     model, _, _, _ = _port_step(jax_accum, carried=True)
     want = jax_accum["after"]
-    before = _port_flat(numpy_tree(jax_accum["variables"]["params"]))
+    before = port_flat(numpy_tree(jax_accum["variables"]["params"]))
     for key, p in model.named_parameters():
         if not _shift_invariant(key):
             assert_close(p.detach(), want[key], REL_OUT)

@@ -50,7 +50,8 @@ from phc_gnn_torch.train import (loss as tloss, make_eval_step,
                                  make_train_step)
 from phc_gnn_torch.train.config import ExperimentConfig
 from phc_gnn_torch.train.trainer import build_model
-from torch_parity import assert_close, assert_leaf_close, load_flax, numpy_tree
+from torch_parity import (assert_close, assert_leaf_close, assert_update,
+                          load_flax, numpy_tree, port_flat, spd_cov)
 
 REL = 1e-4
 REL_OUT = 1e-5
@@ -85,12 +86,6 @@ def _init(jm, jb):
     return jax.jit(lambda b: jm.init(jax.random.key(0), b, training=False))(jb)
 
 
-def _spd(rng, d):
-    b = rng.normal(size=(d, 4, 4))
-    cov = b @ b.transpose(0, 2, 1) / 4 + 0.2 * np.eye(4)
-    return np.ascontiguousarray(cov.transpose(1, 2, 0)).astype(np.float32)
-
-
 def randomize_quat(variables, seed):
     """Non-trivial eval state: BN mean ~ N(0, 0.3), var ~ U(0.5, 2), the
     whitening's running cov a random SPD 4x4 per feature, its Gamma 0.5 I +
@@ -107,7 +102,7 @@ def randomize_quat(variables, seed):
             elif col == "batch_stats" and k == "var":
                 out[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
             elif col == "batch_stats" and k == "cov":
-                out[k] = _spd(rng, v.shape[-1])
+                out[k] = spd_cov(rng, v.shape[-1])
             elif col == "params" and k == "beta" and v.ndim == 0:
                 out[k] = np.float32(rng.uniform(0.5, 2.5))
             elif col == "params" and k in ("gamma", "beta"):
@@ -119,17 +114,6 @@ def randomize_quat(variables, seed):
 
     variables = numpy_tree(variables)
     return {col: walk(tree, col) for col, tree in variables.items()}
-
-
-def _port_flat(tree):
-    """A flax tree (numpy) flattened to the port's keys and layouts."""
-    out = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        key = ".".join(p.key for p in path)
-        if key.endswith(".kernel"):  # nn.Dense (in, out) -> Linear (out, in)
-            key, leaf = key[:-len("kernel")] + "weight", leaf.T
-        out[key] = np.asarray(leaf)
-    return out
 
 
 def _shift_invariant(key: str) -> bool:
@@ -225,7 +209,7 @@ def test_quaternion_train_step_matches_jax(jax_run):
     loss, out = step(_batch(), LR)
     assert_close(loss, np.float32(jax_run["losses"][0]), REL_OUT)
     assert_close(out, jax_run["outs"][0], REL_OUT)
-    want = _port_flat(numpy_tree(jax_run["states"][1].batch_stats))
+    want = port_flat(numpy_tree(jax_run["states"][1].batch_stats))
     got = dict(model.named_buffers())
     assert set(got) == set(want)
     assert any(k.endswith("qbn.cov") for k in got)
@@ -240,7 +224,7 @@ def test_quaternion_gradients_match_jax(jax_run, at):
     model = _port_model(jax_run, _variables(jax_run["states"][at]))
     _, _, grads = make_loss_and_grads(model, _loss_fn, WD, 0.0, 2)(_batch(),
                                                                    LR)
-    want = _port_flat(jax_run["grads"][at])
+    want = port_flat(jax_run["grads"][at])
     frozen = {k for k in want if k.endswith("phm_rule")}
     assert frozen and set(grads) == set(want) - frozen
     for key in frozen:
@@ -252,17 +236,6 @@ def test_quaternion_gradients_match_jax(jax_run, at):
             assert float(np.abs(want[key]).max()) <= 1e-5 * top, key
         else:
             assert_leaf_close(g, want[key], REL_GRAD, key)
-
-
-def _assert_step(new, old, want_new, key):
-    """The update ``new - old`` against ``want_new - old`` to ``REL_UPDATE``
-    of its largest entry plus 2 ulp of the largest parameter."""
-    new, old = new.detach().double().numpy(), old.double().numpy()
-    want_new = np.asarray(want_new, np.float64)
-    err = np.abs(new - want_new).max()
-    ulp = np.spacing(np.float32(np.abs(want_new).max()))
-    tol = REL_UPDATE * np.abs(want_new - old).max() + 2 * float(ulp)
-    assert err <= tol, f"{key}: update err {err:.3g} > {tol:.3g}"
 
 
 def test_quaternion_third_step_from_carried_optax_state(jax_run):
@@ -279,12 +252,12 @@ def test_quaternion_third_step_from_carried_optax_state(jax_run):
     tx = jax_make_optimizer(LR, grad_clip=CLIP)
     upd, _ = tx.update(jax_run["grads"][2], states[2].opt_state,
                        states[2].params)
-    want = _port_flat(numpy_tree(optax.apply_updates(
+    want = port_flat(numpy_tree(optax.apply_updates(
         states[2].params, jax.tree_util.tree_map(lambda u: LR * u, upd))))
-    jgrads = _port_flat(jax_run["grads"][2])
+    jgrads = port_flat(jax_run["grads"][2])
     opt.step([torch.tensor(jgrads[k]) for k in opt.params], LR)
     for key, p in model.named_parameters():
-        _assert_step(p, before[key], want[key], key)
+        assert_update(p, before[key], want[key], REL_UPDATE, key)
 
     model = _port_model(jax_run, _variables(states[2]))
     opt = make_optimizer(dict(model.named_parameters()), grad_clip=CLIP)
@@ -293,7 +266,7 @@ def test_quaternion_third_step_from_carried_optax_state(jax_run):
                            device="cpu")
     loss, _ = step(_batch(), LR)
     assert_close(loss, np.float32(jax_run["losses"][2]), REL_OUT)
-    want = _port_flat(numpy_tree(states[3].params))
+    want = port_flat(numpy_tree(states[3].params))
     for key, p in model.named_parameters():
         if not _shift_invariant(key):
             assert_leaf_close(p.detach(), want[key], REL_OUT, key)

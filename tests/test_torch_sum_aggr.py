@@ -29,28 +29,12 @@ from phc_gnn_tpu.ops.stream_scan import (attach_scan_plan, build_scan_plan,
 from phc_gnn_torch.data import synthetic_batch
 from phc_gnn_torch.graph import attach_csr_plan, build_csr_rowptr, conv
 from phc_gnn_torch.ops import segment_sum as ssum
-from torch_parity import assert_close, assert_leaf_close, load_flax, randomize
+from torch_parity import (adversarial_receivers, assert_close,
+                          assert_leaf_close, load_flax, randomize)
 
 REL_SUM = 1e-5
 REL_GATHER = 1e-6
 REL = 1e-5
-
-
-def _adversarial(seed: int, n: int = 40):
-    """Receiver-sorted edges: node 3 isolated, node 7 with 1,100 edges,
-    masked edges among real ones (all of node 11's), and a masked tail of 40
-    edges on the last node, as the batcher pads."""
-    rng = np.random.default_rng(seed)
-    counts = rng.integers(1, 6, size=n)
-    counts[3] = 0
-    counts[7] = 1100
-    recv = np.repeat(np.arange(n), counts)
-    mask = rng.random(recv.shape[0]) > 0.25
-    lo = counts[:11].sum()
-    mask[lo:lo + counts[11]] = False
-    recv = np.concatenate([recv, np.full(40, n - 1)]).astype(np.int32)
-    mask = np.concatenate([mask, np.zeros(40, bool)])
-    return recv, mask, n
 
 
 def _synthetic(seed: int):
@@ -58,8 +42,9 @@ def _synthetic(seed: int):
     return np.array(b.receivers), np.array(b.edge_mask), b.num_nodes
 
 
-CASES = {"synthetic0": lambda: _synthetic(0), "adversarial0": lambda: _adversarial(0),
-         "adversarial1": lambda: _adversarial(1)}
+CASES = {"synthetic0": lambda: _synthetic(0),
+         "adversarial0": lambda: adversarial_receivers(0, 40),
+         "adversarial1": lambda: adversarial_receivers(1, 40)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -175,7 +160,9 @@ def test_fixed_aggr_off_cpu_takes_the_kernel_or_raises():
 
 @pytest.mark.parametrize("cls", [conv.PHMConv, conv.PHMGINEConv])
 def test_fixed_aggr_convs_refuse_unported_aggregations(cls):
-    """Built directly, a fixed-aggregation conv with an aggregation that is
-    not ported raises, rather than running the sum kernel."""
-    with pytest.raises(NotImplementedError, match="'mean'.*item 9"):
-        cls(16, 16, 2, aggr="mean")
+    """Built directly, a fixed-aggregation conv with an aggregation that it
+    does not know raises, rather than running the sum kernel; since the PNA
+    slice that is any but sum, mean, min, max, var and std."""
+    with pytest.raises(ValueError, match="'median'"):
+        cls(16, 16, 2, aggr="median")
+    assert cls(16, 16, 2, aggr="mean").aggr == "mean"

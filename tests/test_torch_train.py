@@ -21,7 +21,7 @@ Tolerances, each with its reason:
   optimizer is fed JAX's gradients.
 - ``REL_UPDATE`` 1e-5 per leaf on the update given equal gradients: the same
   formula, elementwise in f32; read from the parameters, each side's f32
-  rounding of ``p - lr * u`` adds up to 1 ulp of ``max |p|`` (``_assert_step``).
+  rounding of ``p - lr * u`` adds up to 1 ulp of ``max |p|`` (``assert_update``).
 """
 
 import jax
@@ -50,7 +50,8 @@ from phc_gnn_torch.nn import (multiplication_rule_regularization, phm_dropout,
 from phc_gnn_torch.train import (ReduceLROnPlateau, loss as tloss,
                                  make_loss_and_grads, make_optimizer,
                                  make_train_step)
-from torch_parity import assert_close, assert_leaf_close, numpy_tree, randomize
+from torch_parity import (assert_close, assert_leaf_close, assert_update,
+                          numpy_tree, port_flat, randomize)
 
 REL_OUT = 1e-5
 REL_GRAD = 2e-5
@@ -79,17 +80,6 @@ def _shift_invariant(key: str) -> bool:
     return key.endswith(("transform.linear1.b", "transform.linear2.b")) or (
         key.startswith("downstream.affine_") and key.endswith(".b")
         and key != "downstream.affine_2.b")
-
-
-def _port_flat(tree):
-    """A flax tree (numpy) flattened to the port's keys and layouts."""
-    out = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        key = ".".join(p.key for p in path)
-        if key.endswith(".kernel"):  # nn.Dense (in, out) -> Linear (out, in)
-            key, leaf = key[:-len("kernel")] + "weight", leaf.T
-        out[key] = np.asarray(leaf)
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -136,18 +126,6 @@ def jax_run():
                 grads=[grads0, None, grads2], adam=adam)
 
 
-def _assert_step(new, old, want_new, key):
-    """The parameter update ``new - old`` against ``want_new - old``, per
-    leaf, to ``REL_UPDATE`` of its largest entry plus 2 ulp of the largest
-    parameter (both sides round ``p - lr * u`` to f32)."""
-    new, old = new.detach().double().numpy(), old.double().numpy()
-    want_new = np.asarray(want_new, np.float64)
-    err = np.abs(new - want_new).max()
-    ulp = np.spacing(np.float32(np.abs(want_new).max()))
-    tol = REL_UPDATE * np.abs(want_new - old).max() + 2 * float(ulp)
-    assert err <= tol, f"{key}: update err {err:.3g} > {tol:.3g}"
-
-
 def _variables(state):
     return numpy_tree({"params": state.params,
                        "batch_stats": state.batch_stats})
@@ -178,7 +156,7 @@ def test_train_step_matches_jax(jax_run):
     assert loss.device.type == "cpu" and loss.ndim == 0
     assert_close(loss, np.float32(jax_run["losses"][0]), REL_OUT)
     assert_close(out, jax_run["outs"][0], REL_OUT)
-    want = _port_flat(numpy_tree(jax_run["states"][1].batch_stats))
+    want = port_flat(numpy_tree(jax_run["states"][1].batch_stats))
     got = dict(model.named_buffers())
     assert set(got) == set(want)
     for key, arr in want.items():
@@ -191,7 +169,7 @@ def test_train_step_gradients_match_jax(jax_run, at):
     model = _port_model(jax_run["cfg"], _variables(jax_run["states"][at]))
     loss_and_grads = make_loss_and_grads(model, _loss_fn, WD, 0.0, 2)
     _, _, grads = loss_and_grads(_batch(), LR)
-    want = _port_flat(jax_run["grads"][at])
+    want = port_flat(jax_run["grads"][at])
     assert set(grads) == set(want)
     top = max(float(np.abs(w).max()) for w in want.values())
     for key, g in grads.items():
@@ -220,13 +198,13 @@ def test_third_step_from_carried_optax_state(jax_run):
     tx = jax_make_optimizer(LR, grad_clip=CLIP)
     upd, _ = tx.update(jax_run["grads"][2], states[2].opt_state,
                        states[2].params)
-    want = _port_flat(numpy_tree(optax.apply_updates(
+    want = port_flat(numpy_tree(optax.apply_updates(
         states[2].params, jax.tree_util.tree_map(lambda u: LR * u, upd))))
-    jgrads = _port_flat(jax_run["grads"][2])
+    jgrads = port_flat(jax_run["grads"][2])
     opt.step([torch.tensor(jgrads[k]) for k in opt.params], LR)
     assert opt.count == 3
     for key, p in model.named_parameters():
-        _assert_step(p, before[key], want[key], key)
+        assert_update(p, before[key], want[key], REL_UPDATE, key)
 
     model = _port_model(cfg, _variables(states[2]))
     opt = make_optimizer(dict(model.named_parameters()), grad_clip=CLIP)
@@ -235,7 +213,7 @@ def test_third_step_from_carried_optax_state(jax_run):
                            device="cpu")
     loss, _ = step(_batch(), LR)
     assert_close(loss, np.float32(jax_run["losses"][2]), REL_OUT)
-    want = _port_flat(numpy_tree(states[3].params))
+    want = port_flat(numpy_tree(states[3].params))
     for key, p in model.named_parameters():
         if not _shift_invariant(key):
             assert_leaf_close(p.detach(), want[key], REL_OUT, key)
@@ -277,21 +255,22 @@ def test_optimizer_matches_optax(carried, scale):
     if carried:
         for g in grads[:2]:
             jparams, state = apply(jparams, state, g)
-    start = _port_flat(numpy_tree(jparams))
-    want = _port_flat(numpy_tree(apply(jparams, state, grads[-1])[0]))
+    start = port_flat(numpy_tree(jparams))
+    want = port_flat(numpy_tree(apply(jparams, state, grads[-1])[0]))
 
     port = {k: torch.tensor(v, requires_grad=True) for k, v in start.items()}
     opt = make_optimizer(port, grad_clip=CLIP)
     if carried:
         adam = state[1]  # (clip, scale_by_adam, scale)
         moments = [{k: torch.tensor(v) for k, v in
-                    _port_flat(numpy_tree(t)).items()}
+                    port_flat(numpy_tree(t)).items()}
                    for t in (adam.mu, adam.nu)]
         opt.load_state(int(adam.count), *moments)
-    g = _port_flat(grads[-1])
+    g = port_flat(grads[-1])
     opt.step([torch.tensor(g[k]) for k in opt.params], LR)
     for key, p in port.items():
-        _assert_step(p, torch.tensor(start[key]), want[key], key)
+        assert_update(p, torch.tensor(start[key]), want[key], REL_UPDATE,
+                      key)
 
 
 @pytest.mark.parametrize("name", ["masked_l1", "masked_mse",
@@ -349,7 +328,7 @@ def test_regularization_matches_jax(kind, p):
     got = tfn(params, p=p)
     got.backward()
     assert_leaf_close(got.detach(), np.asarray(want), 1e-6)
-    want_g = _port_flat(numpy_tree(want_g))
+    want_g = port_flat(numpy_tree(want_g))
     leaf = "W" if kind == "weight" else "phm_rule"
     for key, t in params.items():
         if key.rsplit(".", 1)[-1] == leaf:

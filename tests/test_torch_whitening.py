@@ -27,7 +27,8 @@ from phc_gnn_tpu.nn.norm import PHMNorm as JaxPHMNorm
 from phc_gnn_tpu.nn.norm import QuaternionWhiteningNorm as JaxWhiteningNorm
 from phc_gnn_torch.nn.norm import PHMNorm, QuaternionWhiteningNorm
 from phc_gnn_torch.ops import fused_whitening as tfw
-from torch_parity import assert_close, assert_leaf_close, load_flax, numpy_tree
+from torch_parity import (assert_close, assert_leaf_close, load_flax,
+                          numpy_tree, spd_cov)
 
 TOL_WBN = 2e-5
 TOL_MODULE = 1e-5
@@ -48,13 +49,6 @@ def _inputs(n, d, seed, mask_kind="random"):
     beta = (rng.normal(size=(4, d)) * 0.3).astype(np.float32)
     g = rng.normal(size=(n, 4 * d)).astype(np.float32)
     return x, mask, gamma, beta, g
-
-
-def _spd_cov(rng, d):
-    """A random symmetric positive definite 4x4 per feature, [4, 4, d]."""
-    b = rng.normal(size=(d, 4, 4))
-    cov = b @ b.transpose(0, 2, 1) / 4 + 0.2 * np.eye(4)
-    return np.ascontiguousarray(cov.transpose(1, 2, 0)).astype(np.float32)
 
 
 def _jax_whitening(x, mask, gamma, beta, g):
@@ -142,7 +136,7 @@ def test_eval_cholesky_matches_jax():
     JAX's eval path does, including the all-ones start (where cov + eps I is
     barely positive definite)."""
     rng = np.random.default_rng(5)
-    for cov in (_spd_cov(rng, 7), np.ones((4, 4, 7), np.float32)):
+    for cov in (spd_cov(rng, 7), np.ones((4, 4, 7), np.float32)):
         want = jfw._chol_fields({(j, k): jnp.asarray(cov[j, k])
                                  for j in range(4) for k in range(j, 4)},
                                 jnp.float32(EPS))
@@ -176,7 +170,7 @@ def _randomize_qbn(variables, seed):
                   ).astype(np.float32)
     p["beta"] = (rng.normal(size=(4, d)) * 0.3).astype(np.float32)
     s["mean"] = (rng.normal(size=(4, d)) * 0.3).astype(np.float32)
-    s["cov"] = _spd_cov(rng, d)
+    s["cov"] = spd_cov(rng, d)
     return v
 
 

@@ -10,7 +10,8 @@ Phases, each of which exits non-zero on failure:
    one compiler per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (the CSRs of synthetic_batch(128, 4096, 8192, seed=0),
-   D = 200; the batch norms at [4096, 200] and [129, 100]; for the pcba
+   D = 200; the batch norms D and E at [4096, 200], [129, 100] and
+   [129, 768]; for the pcba
    path, the CSRs of its 128-graph and 512-graph batches at D = 512 and the
    row-blocked batch norm at [4096, 512]) and on adversarial inputs: for the softmax kernels A and B an isolated node, an
    all-masked segment inside the edge array, a segment of 1,100 edges and
@@ -18,7 +19,11 @@ Phases, each of which exits non-zero on failure:
    identity -2^100 the kernel must give it exactly; the other entries are
    held to the tolerance); for the segment sum C an isolated sender, a
    sender of 1,100 edges and a cotangent that is non-zero on masked edges;
-   for the batch norms D and E an all-masked and a one-row mask; for the
+   for the batch norms D and E, against their plain versions in float64,
+   an all-masked and a one-row mask, the size gate's edges [109375, 8] and
+   [4096, 213], a ragged width [4096, 203], one row [1, 200], columns at an
+   offset of 1e3 with std 0.1, the rows of whole CTAs masked, and two
+   launches that must be bit-equal; for the
    row-blocked batch norm F, G and its two elementwise passes a ragged last
    row block, whole row blocks masked, an all-masked and a one-row mask; for
    C's forward role (the masked sum aggregation) masked edges inside
@@ -589,15 +594,23 @@ def segment_sum_kernel(torch, dev, batch, errs):
 
 
 def batch_norm_kernels(torch, dev, batch, errs):
-    """D and E against their plain versions at [4096, 200] and [129, 100],
-    with the flagship's node and graph masks, an all-masked and a one-row
-    mask; returns their timing records."""
+    """D and E against their plain versions run in float64 (E fed D's own
+    mean and var, so that each is held alone): the flagship's node mask at
+    [4096, 200] and graph mask at [129, 100], pcba's head at [129, 768],
+    all-masked and one-row masks, the size gate's edges [109375, 8] (rows
+    past one shared-memory chunk) and [4096, 213], a ragged width [4096,
+    203], one row [1, 200], columns at an offset of 1e3 with std 0.1, and a
+    mask that leaves the rows of whole CTAs masked (the first three of the
+    cluster at [4096, 200]).  Two launches on one input must be bit-equal.
+    Returns the timing records: [4096, 200], with the head shapes [129, 768]
+    and [129, 100] as variants and, as context, torch's unmasked batch norm
+    and its backward."""
     from phc_gnn_torch.ops import fused_bn
 
     gen = torch.Generator().manual_seed(2)
 
-    def inputs(n, d):
-        x = (torch.randn((n, d), generator=gen) * 2 + 3).to(dev)
+    def inputs(n, d, offset=3.0, std=2.0):
+        x = (torch.randn((n, d), generator=gen) * std + offset).to(dev)
         g = torch.randn((n, d), generator=gen).to(dev)
         scale = torch.randn(d, generator=gen).to(dev)
         bias = torch.randn(d, generator=gen).to(dev)
@@ -608,48 +621,120 @@ def batch_norm_kernels(torch, dev, batch, errs):
         mask[rows] = True
         return mask
 
+    def live(n, dead=slice(0, 0)):
+        mask = torch.rand(n, generator=gen) > 0.25
+        mask[dead] = False
+        return mask.to(dev)
+
     main = inputs(4096, DIM)
     head = inputs(129, 100)
+    pcba_head = inputs(129, 768)
+    rows = fused_bn.bn_plan(4096, DIM).rows_per_cta
     cases = {"main [4096, 200]": (main, batch.node_mask),
              "head [129, 100]": (head, batch.graph_mask),
+             "pcba head [129, 768]": (pcba_head, live(129)),
              "all-masked [4096, 200]": (main, only(4096, [])),
-             "one-row [129, 100]": (head, only(129, [64]))}
+             "one-row [129, 100]": (head, only(129, [64])),
+             "gate edge [109375, 8]": (inputs(109375, 8), live(109375)),
+             "gate edge [4096, 213]": (inputs(4096, 213), live(4096)),
+             "ragged width [4096, 203]": (inputs(4096, 203), live(4096)),
+             "one row [1, 200]": (inputs(1, DIM), only(1, [0])),
+             "offset 1e3, std 0.1 [4096, 200]": (
+                 inputs(4096, DIM, 1e3, 0.1), batch.node_mask),
+             f"CTAs 0-2 masked [4096, 200] ({rows} rows a CTA)": (
+                 main, live(4096, slice(0, 3 * rows)))}
     for name, ((x, g, scale, bias), mask) in cases.items():
         before = (fused_bn.bn_forward.launches, fused_bn.bn_backward.launches)
         y, mean, var = fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
         dx, dscale, dbias = fused_bn.bn_backward(x, mask, scale, mean, var,
                                                  1e-5, g)
+        again = (fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
+                 + fused_bn.bn_backward(x, mask, scale, mean, var, 1e-5, g))
         torch.cuda.synchronize()
         if (fused_bn.bn_forward.launches, fused_bn.bn_backward.launches) != (
-                before[0] + 1, before[1] + 1):
+                before[0] + 2, before[1] + 2):
             fail(f"{name}: the batch-norm launch counters did not move")
-        ref = fused_bn.bn_forward_plain(x, mask, scale, bias, 1e-5)
-        ref_b = fused_bn.bn_backward_plain(x, mask, scale, ref[1], ref[2],
-                                           1e-5, g)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((y, mean, var, dx, dscale, dbias), again)):
+            fail(f"bn_forward, bn_backward: two launches on {name} differ")
+        ref = fused_bn.bn_forward_plain(x.double(), mask, scale.double(),
+                                        bias.double(), 1e-5)
+        ref_b = fused_bn.bn_backward_plain(x.double(), mask, scale.double(),
+                                           mean.double(), var.double(), 1e-5,
+                                           g.double())
         for kname, what, got, want in (
                 ("bn_forward", "y", y, ref[0]), ("bn_forward", "mean", mean, ref[1]),
                 ("bn_forward", "var", var, ref[2]),
                 ("bn_backward", "dx", dx, ref_b[0]),
                 ("bn_backward", "dscale", dscale, ref_b[1]),
                 ("bn_backward", "dbias", dbias, ref_b[2])):
-            check(errs, kname, f"{name}, {what}", got, want, TOL_BN)
+            check(errs, kname, f"{name}, {what}", got, want, TOL_BN,
+                  note="; against float64, bit-equal on a second launch")
 
     (x, g, scale, bias), mask = main, batch.node_mask
     n, d = x.shape
+    plan = fused_bn.bn_plan(n, d)
+    print(f"kernel bn_forward, bn_backward at [{n}, {d}]: {plan.grid} CTAs "
+          f"in clusters of {plan.cluster}, slabs of {plan.slab_cols} columns, "
+          f"{plan.rows_per_cta} rows a CTA", flush=True)
+    if plan.grid < 100:
+        fail(f"D and E run {plan.grid} CTAs at [{n}, {d}], under 100")
     y, mean, var = fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
-    nd_bytes = n * d * 4
+
+    def fwd_bytes(n, d):
+        return 2 * n * d * 4 + n + 4 * d * 4
+
+    def bwd_bytes(n, d):
+        return 3 * n * d * 4 + n + 5 * d * 4
+
     src = "phc_gnn_torch/csrc/fused_bn.cu"
-    return [
+    recs = [
         record(torch, "bn_forward", src, "phc_gnn_tpu/ops/fused_bn.py:50", errs,
                lambda: fused_bn.bn_forward(x, mask, scale, bias, 1e-5),
                lambda: fused_bn.bn_forward_plain(x, mask, scale, bias, 1e-5),
-               None, 2 * nd_bytes + n + 4 * d * 4, 8 * n * d),
+               None, fwd_bytes(n, d), 8 * n * d),
         record(torch, "bn_backward", src, "phc_gnn_tpu/ops/fused_bn.py:64",
                errs,
                lambda: fused_bn.bn_backward(x, mask, scale, mean, var, 1e-5, g),
                lambda: fused_bn.bn_backward_plain(x, mask, scale, mean, var,
                                                   1e-5, g),
-               None, 3 * nd_bytes + n + 5 * d * 4, 12 * n * d)]
+               None, bwd_bytes(n, d), 12 * n * d)]
+    for rec in recs:
+        rec["plan"] = fused_bn.bn_plan(n, d, 1 + (rec is recs[1]))._asdict()
+        rec["head_shapes"] = {}
+    for (hx, hg, hs, hb), hm in ((pcba_head, cases["pcba head [129, 768]"][1]),
+                                 (head, batch.graph_mask)):
+        hn, hd = hx.shape
+        _, h_mean, h_var = fused_bn.bn_forward(hx, hm, hs, hb, 1e-5)
+        key = f"[{hn}, {hd}]"
+        recs[0]["head_shapes"][key] = variant(
+            torch, "bn_forward",
+            lambda: fused_bn.bn_forward(hx, hm, hs, hb, 1e-5),
+            fwd_bytes(hn, hd), f"head shape {key}")
+        recs[1]["head_shapes"][key] = variant(
+            torch, "bn_backward",
+            lambda: fused_bn.bn_backward(hx, hm, hs, h_mean, h_var, 1e-5, hg),
+            bwd_bytes(hn, hd), f"head shape {key}")
+    # context, unmasked: torch's batch norm of every row, and its backward
+    # (the aten op that autograd calls for it, given the saved statistics);
+    # not the masked function, so not the library time
+    _, s_mean, s_invstd = torch.ops.aten.native_batch_norm(
+        x, scale, bias, None, None, True, 0.1, 1e-5)
+    context = {
+        "forward": (lambda: torch.nn.functional.batch_norm(
+            x, None, None, scale, bias, training=True, eps=1e-5)),
+        "backward": (lambda: torch.ops.aten.native_batch_norm_backward(
+            g, x, scale, None, None, s_mean, s_invstd, True, 1e-5,
+            [True, True, True]))}
+    for rec, (what, fn) in zip(recs, context.items()):
+        rec["context_unmasked_batch_norm"] = {
+            "ms": time_eager(torch, fn), "graph_ms": time_graph(torch, fn)}
+        print(f"kernel {rec['name']}: context, unmasked "
+              f"torch.nn.functional.batch_norm {what} "
+              f"{rec['context_unmasked_batch_norm']['ms'] * 1e3:.2f} us per "
+              f"call, {rec['context_unmasked_batch_norm']['graph_ms'] * 1e3:.2f}"
+              f" us device", flush=True)
+    return recs
 
 
 def pcba_labels(torch, batch, seed: int):
@@ -770,7 +855,7 @@ def blocked_bn_kernels(torch, dev, batch, errs):
                                             1e-5, sg, sgx, cnt),
                None, 3 * nd_bytes + n + 5 * d * 4 + 4, 8 * n * d)]
 
-    # the same [4096, 512] through the single-block pair D and E, for the
+    # the same [4096, 512] through the cluster pair D and E, for the
     # size gate: blocked forward = F + normalise, blocked backward = G + dx
     def blocked_fwd():
         m_, v_, _ = fused_bn.bn_stats_blocked(x, mask)
@@ -782,16 +867,16 @@ def blocked_bn_kernels(torch, dev, batch, errs):
                               cnt)
 
     gate = {"shape": [n, d],
-            "single_block_forward_graph_ms": time_graph(
+            "cluster_pair_forward_graph_ms": time_graph(
                 torch, lambda: fused_bn.bn_forward(x, mask, scale, bias, 1e-5)),
-            "single_block_backward_graph_ms": time_graph(
+            "cluster_pair_backward_graph_ms": time_graph(
                 torch, lambda: fused_bn.bn_backward(x, mask, scale, mean, var,
                                                     1e-5, g)),
             "blocked_forward_graph_ms": time_graph(torch, blocked_fwd),
             "blocked_backward_graph_ms": time_graph(torch, blocked_bwd)}
-    print(f"kernel gate data at [{n}, {d}]: D {gate['single_block_forward_graph_ms'] * 1e3:.2f} us "
+    print(f"kernel gate data at [{n}, {d}]: D {gate['cluster_pair_forward_graph_ms'] * 1e3:.2f} us "
           f"vs F + normalise {gate['blocked_forward_graph_ms'] * 1e3:.2f} us; "
-          f"E {gate['single_block_backward_graph_ms'] * 1e3:.2f} us vs G + dx "
+          f"E {gate['cluster_pair_backward_graph_ms'] * 1e3:.2f} us vs G + dx "
           f"{gate['blocked_backward_graph_ms'] * 1e3:.2f} us (device, CUDA graph)",
           flush=True)
     recs[0]["gate_data"] = gate
@@ -1325,9 +1410,12 @@ def device_profile(torch, fn, call_ms: float, iters: int = 10) -> dict:
         fail("the profiler recorded no device kernels")
     busy_ms = sum(by_name.values()) / 1e3 / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    pair = {k: sum(us for name, us in by_name.items() if f"{k}_kernel" in name)
+            / iters for k in ("bn_forward", "bn_backward")}
     return {"kernels_per_call": n_kernels / iters, "busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / call_ms,
-            "top_us": [[name[:90], us / iters] for name, us in top]}
+            "top_us": [[name[:90], us / iters] for name, us in top],
+            "bn_pair_us": pair}
 
 
 def shift_invariant(key: str) -> bool:
@@ -1667,11 +1755,14 @@ def train_phase(torch, dev):
     prof = device_profile(torch, lambda: step(batch, LR), train_ms)
     print(f"profile_train: {prof['kernels_per_call']:g} kernels per step, "
           f"device busy {prof['busy_ms']:.3f} ms of {train_ms:.3f} ms (idle "
-          f"{100 * prof['idle_share']:.1f} %)", flush=True)
+          f"{100 * prof['idle_share']:.1f} %); D, E "
+          f"{prof['bn_pair_us']['bn_forward']:.2f}, "
+          f"{prof['bn_pair_us']['bn_backward']:.2f} us a step", flush=True)
     print(json.dumps({"profile_train": {
         "kernels_per_step": prof["kernels_per_call"],
         "device_busy_ms_per_step": prof["busy_ms"],
         "device_idle_share": prof["idle_share"],
+        "bn_pair_us_per_step": prof["bn_pair_us"],
         "top_kernels_us_per_step": prof["top_us"]}}), flush=True)
     return launches
 
@@ -2050,13 +2141,16 @@ def train_and_time(torch, phase, step, per_step, n_steps, real_edges, worst):
             "kernels_per_step": prof["kernels_per_call"],
             "device_busy_ms_per_step": prof["busy_ms"],
             "device_idle_share": prof["idle_share"],
+            "bn_pair_us_per_step": prof["bn_pair_us"],
             "top_kernels_us_per_step": prof["top_us"]}
     print(f"{phase}: {step_ms:.3f} ms per step (CUDA events, median of 30 "
           f"after 5 warm-ups; host clock {host_ms:.3f} ms), "
           f"{info['real_edges_per_s']:.4g} real edges/s ({real_edges} real "
           f"edges); {prof['kernels_per_call']:g} kernels per step, device "
           f"busy {prof['busy_ms']:.3f} ms (idle "
-          f"{100 * prof['idle_share']:.1f} %)", flush=True)
+          f"{100 * prof['idle_share']:.1f} %); D, E "
+          f"{prof['bn_pair_us']['bn_forward']:.2f}, "
+          f"{prof['bn_pair_us']['bn_backward']:.2f} us a step", flush=True)
     return launches, info
 
 

@@ -16,7 +16,7 @@ Counterpart of phc_gnn_tpu/nn/norm.py, dispatched by ``PHMNorm`` on
 (norm.py:130-132).  The training path (norm.py:78-129) normalises with the
 masked batch statistics through the fused batch-norm kernels
 (``ops/fused_bn.py``), the input passed flat as ``[N, n*d]``, with JAX's size
-gate (norm.py:92-95): the single-block pair D and E while the input's f32
+gate (norm.py:92-95): the cluster pair D and E while the input's f32
 bytes are at most ``fused_bn.FUSED_BN_VMEM_LIMIT``, the row-blocked family F
 and G above it (pcba's [4096, 2, 256]).  It updates the running stats in
 place as torch's BatchNorm1d does:

@@ -2,7 +2,10 @@
 and the analytic backward.
 
 Hopper kernels (``csrc/fused_bn.cu``), each beside its plain PyTorch version
-with the same masking semantics.  The single-block pair:
+with the same masking semantics.  The pair for inputs up to
+``FUSED_BN_VMEM_LIMIT``, one launch of a grid of thread-block clusters each
+(a cluster owns a slab of columns, its CTAs split the rows and meet through
+distributed shared memory; ``bn_plan`` computes the launch):
 
 - ``bn_forward`` replaces ``_bn_fwd_kernel`` (phc_gnn_tpu/ops/fused_bn.py:50):
   over the rows where ``mask`` holds, the mean and the biased, centred
@@ -41,21 +44,62 @@ counts the launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from phc_gnn_torch.ops import _build
 
-__all__ = ["FUSED_BN_VMEM_LIMIT", "bn_forward", "bn_forward_plain",
-           "bn_backward", "bn_backward_plain", "fused_masked_bn",
+__all__ = ["FUSED_BN_VMEM_LIMIT", "BnPlan", "bn_plan", "bn_forward",
+           "bn_forward_plain", "bn_backward", "bn_backward_plain",
+           "fused_masked_bn",
            "bn_stats_blocked", "bn_stats_blocked_plain", "bn_bwd_sums_blocked",
            "bn_bwd_sums_blocked_plain", "bn_normalize", "bn_normalize_plain",
            "bn_dx", "bn_dx_plain", "fused_masked_bn_blocked"]
 
-# bytes of x up to which training BN takes the single-block pair (D, E);
+# bytes of x up to which training BN takes the cluster pair (D, E);
 # above it, the row-blocked family (phc_gnn_tpu/ops/fused_bn.py:43)
 FUSED_BN_VMEM_LIMIT = 3_500_000
+
+# D's and E's launch plan (csrc/fused_bn.cu holds the same constants)
+BN_SLAB_COLS = 16           # columns a cluster owns: 64 bytes a row
+BN_MAX_CLUSTER = 8          # CTAs a cluster, the portable limit
+BN_MIN_ROWS = 256           # a cluster grows only while each CTA keeps these
+BN_TILE_BYTES = 200 * 1024  # dynamic shared memory a CTA, at most
+BN_STATIC_SMEM = 4096       # the reductions' static shared memory, at most
+_SMS = 132                  # H100 SXM
+
+
+class BnPlan(NamedTuple):
+    """The launch of D or E: ``grid`` CTAs in clusters of ``cluster``, one
+    cluster a slab of ``slab_cols`` columns; the CTA of rank r owns the rows
+    ``[r * rows_per_cta, min(n, (r + 1) * rows_per_cta))`` and walks them in
+    chunks of ``chunk_rows`` staged in ``smem_bytes`` of dynamic shared
+    memory (the slab's rows of each tensor, then their mask bytes)."""
+    slab_cols: int
+    cluster: int
+    rows_per_cta: int
+    chunk_rows: int
+    smem_bytes: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def bn_plan(n: int, d: int, tensors: int = 1) -> BnPlan:
+    """The launch plan of D (``tensors=1``: x staged) or E (2: x and g) at
+    ``[n, d]``: enough clusters to fill the card's 132 SMs, but no CTA under
+    ``BN_MIN_ROWS`` rows while the cluster is above 1, and every CTA's rows
+    in shared memory where they fit in ``BN_TILE_BYTES``."""
+    slabs = max(1, -(-d // BN_SLAB_COLS))
+    cluster = max(1, min(BN_MAX_CLUSTER, -(-_SMS // slabs),
+                         -(-n // BN_MIN_ROWS)))
+    rows = -(-n // cluster)
+    row_bytes = BN_SLAB_COLS * 4 * tensors + 1  # the slab's floats, a mask byte
+    chunk = max(1, min(rows, BN_TILE_BYTES // row_bytes))
+    return BnPlan(BN_SLAB_COLS, cluster, rows, chunk,
+                  -(-chunk * row_bytes // 16) * 16, slabs * cluster)
+
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -68,10 +112,10 @@ def _lib():
     if _typed_lib is None:
         lib = _build.load("fused_bn")
         lib.fused_bn_forward_f32.argtypes = [
-            _P, _P, _P, _P, _F32, _P, _P, _P, _I64, _I64, _P]
+            _P, _P, _P, _P, _F32, _P, _P, _P] + [_I64] * 7 + [_P]
         lib.fused_bn_forward_f32.restype = ctypes.c_int
         lib.fused_bn_backward_f32.argtypes = [
-            _P, _P, _P, _P, _P, _F32, _P, _P, _P, _P, _I64, _I64, _P]
+            _P, _P, _P, _P, _P, _F32, _P, _P, _P, _P] + [_I64] * 7 + [_P]
         lib.fused_bn_backward_f32.restype = ctypes.c_int
         lib.bn_blocked_rows.argtypes = []
         lib.bn_blocked_rows.restype = _I64
@@ -167,19 +211,27 @@ def _check(x, mask, vectors, g=None):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_rows(n: int) -> None:
+    if n >= 2 ** 31:
+        raise ValueError(f"the batch-norm pair D, E takes fewer than 2^31 "
+                         f"rows, got {n}")
+
+
 def bn_forward(x, mask, scale, bias, eps: float):
     """``(y [N, D], mean [D], var [D])`` of the masked batch norm of ``x``."""
     if x.device.type == "cpu":
         return bn_forward_plain(x, mask, scale, bias, eps)
     _check(x, mask, (("scale", scale), ("bias", bias)))
     n, d = x.shape
+    _check_rows(n)
     y = torch.empty_like(x)
     mean = torch.empty((d,), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
+    plan = bn_plan(n, d, 1)
     _build.check_launch("bn_forward", _lib().fused_bn_forward_f32(
         x.data_ptr(), mask.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         eps, y.data_ptr(), mean.data_ptr(), var.data_ptr(), n, d,
-        _build.stream(x.device)))
+        *plan[:5], _build.stream(x.device)))
     bn_forward.launches += 1
     return y, mean, var
 
@@ -194,13 +246,15 @@ def bn_backward(x, mask, scale, mean, var, eps: float, g):
         return bn_backward_plain(x, mask, scale, mean, var, eps, g)
     _check(x, mask, (("scale", scale), ("mean", mean), ("var", var)), g)
     n, d = x.shape
+    _check_rows(n)
     dx = torch.empty_like(x)
     dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dscale)
+    plan = bn_plan(n, d, 2)
     _build.check_launch("bn_backward", _lib().fused_bn_backward_f32(
         x.data_ptr(), mask.data_ptr(), scale.data_ptr(), mean.data_ptr(),
         var.data_ptr(), eps, g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-        dbias.data_ptr(), n, d, _build.stream(x.device)))
+        dbias.data_ptr(), n, d, *plan[:5], _build.stream(x.device)))
     bn_backward.launches += 1
     return dx, dscale, dbias
 

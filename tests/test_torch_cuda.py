@@ -123,35 +123,53 @@ def test_segment_sum_kernel_matches_plain_version(dev, case):
         assert torch.all(out[3] == 0)
 
 
-@pytest.mark.parametrize("shape", [(4096, 200), (129, 100)])
-@pytest.mark.parametrize("mask_kind", ["random", "all_masked", "one_row"])
+@pytest.mark.parametrize("shape", [(4096, 200), (129, 100), (129, 768),
+                                   (109_375, 8), (4096, 213), (4096, 203),
+                                   (1, 200)])
+@pytest.mark.parametrize("mask_kind", ["random", "all_masked", "one_row",
+                                       "offset", "ctas_masked"])
 def test_fused_bn_kernels_match_plain_versions(dev, shape, mask_kind):
+    """D and E against their plain versions in float64 (E fed D's own mean
+    and var): the node and head shapes, the size gate's edges ([109375, 8]
+    walks its rows in chunks), ragged widths, one row; columns at an offset
+    of 1e3 with std 0.1, and the rows of the first three CTAs of each
+    cluster masked.  A second launch is bit-equal."""
     gen = torch.Generator().manual_seed(2)
     n, d = shape
-    x = (torch.randn(shape, generator=gen) * 2 + 3).to(dev)
+    offset, std = (1e3, 0.1) if mask_kind == "offset" else (3.0, 2.0)
+    x = (torch.randn(shape, generator=gen) * std + offset).to(dev)
     g = torch.randn(shape, generator=gen).to(dev)
     scale = torch.randn(d, generator=gen).to(dev)
     bias = torch.randn(d, generator=gen).to(dev)
     mask = torch.rand(n, generator=gen) > 0.3
-    if mask_kind != "random":
+    if mask_kind in ("all_masked", "one_row"):
         mask[:] = False
         if mask_kind == "one_row":
             mask[n // 2] = True
+    elif mask_kind == "ctas_masked":
+        mask[:3 * fused_bn.bn_plan(n, d).rows_per_cta] = False
     mask = mask.to(dev)
     f0, b0 = fused_bn.bn_forward.launches, fused_bn.bn_backward.launches
     y, mean, var = fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
     dx, ds, db = fused_bn.bn_backward(x, mask, scale, mean, var, 1e-5, g)
+    again = (fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
+             + fused_bn.bn_backward(x, mask, scale, mean, var, 1e-5, g))
     torch.cuda.synchronize()
     assert (fused_bn.bn_forward.launches, fused_bn.bn_backward.launches) == (
-        f0 + 1, b0 + 1)
-    ref = fused_bn.bn_forward_plain(x, mask, scale, bias, 1e-5)
-    ref_b = fused_bn.bn_backward_plain(x, mask, scale, ref[1], ref[2], 1e-5, g)
-    for got, want in zip((y, mean, var, dx, ds, db), ref + ref_b):
-        assert torch.isfinite(got).all()
+        f0 + 2, b0 + 2)
+    got = (y, mean, var, dx, ds, db)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = fused_bn.bn_forward_plain(x.double(), mask, scale.double(),
+                                    bias.double(), 1e-5)
+    ref_b = fused_bn.bn_backward_plain(x.double(), mask, scale.double(),
+                                       mean.double(), var.double(), 1e-5,
+                                       g.double())
+    for got_t, want in zip(got, ref + ref_b):
+        assert torch.isfinite(got_t).all()
         if float(want.abs().max()) == 0.0:
-            assert torch.equal(got, want)
+            assert torch.equal(got_t, want.float())
         else:
-            assert _leaf_err(got, want) <= 1e-5
+            assert _leaf_err(got_t, want) <= 1e-5
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

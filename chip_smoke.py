@@ -13,7 +13,7 @@ Phases, each of which exits non-zero on failure:
    D = 200; the batch norms D and E at [4096, 200], [129, 100] and
    [129, 768]; for the pcba
    path, the CSRs of its 128-graph and 512-graph batches at D = 512 and the
-   row-blocked batch norm at [4096, 512]) and on adversarial inputs: for the softmax kernels A and B an isolated node, an
+   row-blocked batch norm F, G at [4096, 512]) and on adversarial inputs: for the softmax kernels A and B an isolated node, an
    all-masked segment inside the edge array, a segment of 1,100 edges and
    |beta * m| up to ~88 with beta = -2.75 (where the plain segment max is the
    identity -2^100 the kernel must give it exactly; the other entries are
@@ -24,8 +24,11 @@ Phases, each of which exits non-zero on failure:
    [4096, 213], a ragged width [4096, 203], one row [1, 200], columns at an
    offset of 1e3 with std 0.1, the rows of whole CTAs masked, and two
    launches that must be bit-equal; for the
-   row-blocked batch norm F, G and its two elementwise passes a ragged last
-   row block, whole row blocks masked, an all-masked and a one-row mask; for
+   row-blocked batch norm F and G (each with its elementwise pass fused in),
+   against their plain versions in float64, a ragged [1100, 24] with rows
+   128-639 masked, an all-masked and a one-row mask, [32768, 512] (rows
+   walked in chunks, x and g past the 50 MB L2), columns at an offset of
+   1e3 with std 0.1, and two launches that must be bit-equal; for
    C's forward role (the masked sum aggregation) masked edges inside
    segments, an all-masked segment, an isolated node and a 1,100-edge
    segment; for the whitening kernels J, K, L (with the T/S/M algebra), M
@@ -41,8 +44,8 @@ Phases, each of which exits non-zero on failure:
    var 0 exactly on one-edge segments.  Each is timed with CUDA events, eagerly and
    from a CUDA graph, beside its plain version, its bound and, where one
    exists, one PyTorch call that computes the same function; D + E are
-   timed at [4096, 512] beside F, G and the passes, as data for the size
-   gate between them;
+   timed at [4096, 512] beside F and G, as data for the size gate between
+   them;
 4. eval slice: the flagship model (bench.py's config: PHCGNN phm_dim=4, width
    200, 4 x PHMGINEConvSoftmax, soft-attention pooling, (200, 100) -> 1 head)
    at random weights from a seed, with random running stats and betas,
@@ -81,8 +84,8 @@ Phases, each of which exits non-zero on failure:
    each accumulated gradient with the GPU's ReLU pattern replayed, under
    the rule of 5, running stats, the Adam update given equal gradients);
    then ten steps with the configuration's dropout, counters zeroed just
-   before and read just after: per step F, G, their passes, C's two roles
-   28 times each, D and E 8; the loss stays finite and falls.  Timed and
+   before and read just after: per step F, G and C's two roles 28 times
+   each, D and E 8; the loss stays finite and falls.  Timed and
    profiled;
 8. quaternion eval: scripts/bench_presets.py's whitening configuration
    (``build("add", "q-batch-norm")``) through the port's
@@ -236,12 +239,11 @@ PNA_SCRIPT = dict(dataset="zinc", phm_dim=4, model_type="add", sc_type="last",
                   min_lr=1e-7, epochs=1000, weightdecay=0.0)
 # per accumulated step, K = 4 sub-batches: the sum aggregation (C forward)
 # and the gather backward (C backward) once per layer; the blocked norm (F,
-# G and their passes) after each of the 7 convs ([4096, 2, 256], 8.39 MB,
-# over the 3.5 MB gate); D and E in the head's 2 norms
+# G) after each of the 7 convs ([4096, 2, 256], 8.39 MB, over the 3.5 MB
+# gate); D and E in the head's 2 norms
 PCBA_LAUNCHES = {"segment_sum_masked": 28, "segment_sum_perm": 28,
-                 "bn_stats_blocked": 28, "bn_bwd_sums_blocked": 28,
-                 "bn_normalize": 28, "bn_dx": 28, "bn_forward": 8,
-                 "bn_backward": 8}
+                 "bn_forward_blocked": 28, "bn_backward_blocked": 28,
+                 "bn_forward": 8, "bn_backward": 8}
 PCBA_EVAL_LAUNCHES = {"segment_sum_masked": PCBA_LAYERS}
 # the flags of benchmarks/run_script_pcba_phm2.sh over DATASET_DEFAULTS["pcba"]
 PCBA_SCRIPT = dict(dataset="pcba", phm_dim=2, model_type="add", aggr_msg="sum",
@@ -332,9 +334,8 @@ def time_graph(torch, fn, iters: int = 100, reps: int = 5) -> float:
 
 def kernel_wrappers():
     """The launch-counting wrapper of every kernel of the port, A to G with
-    C's two roles and the blocked norm's two elementwise passes, J to M (L
-    and M with their frozen variants) and the whitening's eval Cholesky, H
-    and I."""
+    C's two roles, J to M (L and M with their frozen variants) and the
+    whitening's eval Cholesky, H and I."""
     from phc_gnn_torch.ops import fused_bn
     from phc_gnn_torch.ops import fused_whitening as fw
     from phc_gnn_torch.ops import segment_reduce as sr
@@ -347,10 +348,8 @@ def kernel_wrappers():
             "segment_sum_masked": ssum.segment_sum_masked,
             "bn_forward": fused_bn.bn_forward,
             "bn_backward": fused_bn.bn_backward,
-            "bn_stats_blocked": fused_bn.bn_stats_blocked,
-            "bn_bwd_sums_blocked": fused_bn.bn_bwd_sums_blocked,
-            "bn_normalize": fused_bn.bn_normalize,
-            "bn_dx": fused_bn.bn_dx,
+            "bn_forward_blocked": fused_bn.bn_forward_blocked,
+            "bn_backward_blocked": fused_bn.bn_backward_blocked,
             "wbn_stats": fw.wbn_stats,
             "wbn_transform": fw.wbn_transform,
             "wbn_bwd_sums": fw.wbn_bwd_sums,
@@ -593,6 +592,50 @@ def segment_sum_kernel(torch, dev, batch, errs):
                    library, nbytes, e_real * d)]
 
 
+def bn_forward_bytes(n: int, d: int) -> int:
+    """A batch-norm forward's bytes: x, the mask, scale and bias read, y,
+    mean and var written."""
+    return 2 * n * d * 4 + n + 4 * d * 4
+
+
+def bn_backward_bytes(n: int, d: int) -> int:
+    """A batch-norm backward's: x, g, the mask, scale, mean and var read,
+    dx, dscale and dbias written."""
+    return 3 * n * d * 4 + n + 5 * d * 4
+
+
+def hold_bn_pair(torch, errs, fwd, bwd, fwd_plain, bwd_plain, cases):
+    """A batch-norm pair (D and E, or F and G) against its plain versions
+    run in float64, the backward fed the forward's own mean and var, on each
+    of ``cases`` ({name: ((x, g, scale, bias), mask)}): one launch each way
+    moves each counter by one, and a second launch is bit-equal."""
+    for name, ((x, g, scale, bias), mask) in cases.items():
+        before = (fwd.launches, bwd.launches)
+        y, mean, var = fwd(x, mask, scale, bias, 1e-5)
+        dx, dscale, dbias = bwd(x, mask, scale, mean, var, 1e-5, g)
+        torch.cuda.synchronize()
+        if (fwd.launches, bwd.launches) != (before[0] + 1, before[1] + 1):
+            fail(f"{name}: the {fwd.__name__}, {bwd.__name__} launch counters "
+                 f"did not move by one")
+        again = (fwd(x, mask, scale, bias, 1e-5)
+                 + bwd(x, mask, scale, mean, var, 1e-5, g))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip((y, mean, var, dx, dscale, dbias), again)):
+            fail(f"{fwd.__name__}, {bwd.__name__}: two launches on {name} "
+                 f"differ")
+        ref = fwd_plain(x.double(), mask, scale.double(), bias.double(), 1e-5)
+        ref_b = bwd_plain(x.double(), mask, scale.double(), mean.double(),
+                          var.double(), 1e-5, g.double())
+        f, b = fwd.__name__, bwd.__name__
+        for kname, what, got, want in (
+                (f, "y", y, ref[0]), (f, "mean", mean, ref[1]),
+                (f, "var", var, ref[2]), (b, "dx", dx, ref_b[0]),
+                (b, "dscale", dscale, ref_b[1]), (b, "dbias", dbias, ref_b[2])):
+            check(errs, kname, f"{name}, {what}", got, want, TOL_BN,
+                  note="; against float64, bit-equal on a second launch")
+
+
 def batch_norm_kernels(torch, dev, batch, errs):
     """D and E against their plain versions run in float64 (E fed D's own
     mean and var, so that each is held alone): the flagship's node mask at
@@ -643,33 +686,8 @@ def batch_norm_kernels(torch, dev, batch, errs):
                  inputs(4096, DIM, 1e3, 0.1), batch.node_mask),
              f"CTAs 0-2 masked [4096, 200] ({rows} rows a CTA)": (
                  main, live(4096, slice(0, 3 * rows)))}
-    for name, ((x, g, scale, bias), mask) in cases.items():
-        before = (fused_bn.bn_forward.launches, fused_bn.bn_backward.launches)
-        y, mean, var = fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
-        dx, dscale, dbias = fused_bn.bn_backward(x, mask, scale, mean, var,
-                                                 1e-5, g)
-        again = (fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
-                 + fused_bn.bn_backward(x, mask, scale, mean, var, 1e-5, g))
-        torch.cuda.synchronize()
-        if (fused_bn.bn_forward.launches, fused_bn.bn_backward.launches) != (
-                before[0] + 2, before[1] + 2):
-            fail(f"{name}: the batch-norm launch counters did not move")
-        if not all(torch.equal(a, b) for a, b in
-                   zip((y, mean, var, dx, dscale, dbias), again)):
-            fail(f"bn_forward, bn_backward: two launches on {name} differ")
-        ref = fused_bn.bn_forward_plain(x.double(), mask, scale.double(),
-                                        bias.double(), 1e-5)
-        ref_b = fused_bn.bn_backward_plain(x.double(), mask, scale.double(),
-                                           mean.double(), var.double(), 1e-5,
-                                           g.double())
-        for kname, what, got, want in (
-                ("bn_forward", "y", y, ref[0]), ("bn_forward", "mean", mean, ref[1]),
-                ("bn_forward", "var", var, ref[2]),
-                ("bn_backward", "dx", dx, ref_b[0]),
-                ("bn_backward", "dscale", dscale, ref_b[1]),
-                ("bn_backward", "dbias", dbias, ref_b[2])):
-            check(errs, kname, f"{name}, {what}", got, want, TOL_BN,
-                  note="; against float64, bit-equal on a second launch")
+    hold_bn_pair(torch, errs, fused_bn.bn_forward, fused_bn.bn_backward,
+                 fused_bn.bn_forward_plain, fused_bn.bn_backward_plain, cases)
 
     (x, g, scale, bias), mask = main, batch.node_mask
     n, d = x.shape
@@ -681,24 +699,18 @@ def batch_norm_kernels(torch, dev, batch, errs):
         fail(f"D and E run {plan.grid} CTAs at [{n}, {d}], under 100")
     y, mean, var = fused_bn.bn_forward(x, mask, scale, bias, 1e-5)
 
-    def fwd_bytes(n, d):
-        return 2 * n * d * 4 + n + 4 * d * 4
-
-    def bwd_bytes(n, d):
-        return 3 * n * d * 4 + n + 5 * d * 4
-
     src = "phc_gnn_torch/csrc/fused_bn.cu"
     recs = [
         record(torch, "bn_forward", src, "phc_gnn_tpu/ops/fused_bn.py:50", errs,
                lambda: fused_bn.bn_forward(x, mask, scale, bias, 1e-5),
                lambda: fused_bn.bn_forward_plain(x, mask, scale, bias, 1e-5),
-               None, fwd_bytes(n, d), 8 * n * d),
+               None, bn_forward_bytes(n, d), 8 * n * d),
         record(torch, "bn_backward", src, "phc_gnn_tpu/ops/fused_bn.py:64",
                errs,
                lambda: fused_bn.bn_backward(x, mask, scale, mean, var, 1e-5, g),
                lambda: fused_bn.bn_backward_plain(x, mask, scale, mean, var,
                                                   1e-5, g),
-               None, bwd_bytes(n, d), 12 * n * d)]
+               None, bn_backward_bytes(n, d), 12 * n * d)]
     for rec in recs:
         rec["plan"] = fused_bn.bn_plan(n, d, 1 + (rec is recs[1]))._asdict()
         rec["head_shapes"] = {}
@@ -710,11 +722,11 @@ def batch_norm_kernels(torch, dev, batch, errs):
         recs[0]["head_shapes"][key] = variant(
             torch, "bn_forward",
             lambda: fused_bn.bn_forward(hx, hm, hs, hb, 1e-5),
-            fwd_bytes(hn, hd), f"head shape {key}")
+            bn_forward_bytes(hn, hd), f"head shape {key}")
         recs[1]["head_shapes"][key] = variant(
             torch, "bn_backward",
             lambda: fused_bn.bn_backward(hx, hm, hs, h_mean, h_var, 1e-5, hg),
-            bwd_bytes(hn, hd), f"head shape {key}")
+            bn_backward_bytes(hn, hd), f"head shape {key}")
     # context, unmasked: torch's batch norm of every row, and its backward
     # (the aten op that autograd calls for it, given the saved statistics);
     # not the masked function, so not the library time
@@ -761,17 +773,22 @@ def pcba_batch(torch, seed: int, shape: dict):
 
 
 def blocked_bn_kernels(torch, dev, batch, errs):
-    """F, G and the two elementwise passes against their plain versions at
-    [4096, 512] with the pcba batch's node mask, at a ragged [1100, 24] with
-    a random mask and with row blocks 1-4 all masked, all-masked at [4096,
-    512] and one-row at [129, 768]; returns their timing records, with D and
-    E timed at the same [4096, 512] beside them."""
+    """F and G, each with its elementwise pass fused in, against their plain
+    versions run in float64 (G fed F's own mean and var): [4096, 512] with
+    the pcba batch's node mask, a ragged [1100, 24] with a random mask and
+    with rows 128-639 masked, all-masked at [4096, 512], one-row at [129,
+    768], [32768, 512] (each CTA walks its rows in chunks; x and g 67 MB
+    each, past the 50 MB L2), columns at an offset of 1e3 with std 0.1, and
+    two ragged widths in chunks, [40000, 41] (4-byte copies) and [20000,
+    212].  Two launches on one input must be bit-equal.  Returns their timing
+    records at [4096, 512], with D and E timed at the same shape beside them
+    (the size gate's data)."""
     from phc_gnn_torch.ops import fused_bn
 
     gen = torch.Generator().manual_seed(3)
 
-    def inputs(n, d):
-        x = (torch.randn((n, d), generator=gen) * 2 + 3).to(dev)
+    def inputs(n, d, offset=3.0, std=2.0):
+        x = (torch.randn((n, d), generator=gen) * std + offset).to(dev)
         g = torch.randn((n, d), generator=gen).to(dev)
         scale = torch.randn(d, generator=gen).to(dev)
         bias = torch.randn(d, generator=gen).to(dev)
@@ -792,107 +809,83 @@ def blocked_bn_kernels(torch, dev, batch, errs):
     main = inputs(n_main, PCBA_DIM)
     ragged = inputs(1100, 24)
     shape = f"[{n_main}, {PCBA_DIM}]"
+    chunked = fused_bn.bn_plan(32768, PCBA_DIM, 2)
     cases = {f"main {shape}": (main, batch.node_mask),
              "ragged [1100, 24]": (ragged, mask_of(1100, "random")),
              "masked blocks [1100, 24]": (ragged, mask_of(1100, "masked blocks")),
              f"all-masked {shape}": (main, mask_of(n_main, "all-masked")),
-             "one-row [129, 768]": (inputs(129, 768), mask_of(129, "one-row"))}
-    names = ("bn_stats_blocked", "bn_bwd_sums_blocked", "bn_normalize", "bn_dx")
-    wrappers = kernel_wrappers()
-    for name, ((x, g, scale, bias), mask) in cases.items():
-        before = [wrappers[k].launches for k in names]
-        mean, var, cnt = fused_bn.bn_stats_blocked(x, mask)
-        y = fused_bn.bn_normalize(x, mean, var, scale, bias, 1e-5)
-        sg, sgx = fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)
-        dx = fused_bn.bn_dx(x, mask, g, scale, mean, var, 1e-5, sg, sgx, cnt)
-        torch.cuda.synchronize()
-        if [wrappers[k].launches for k in names] != [b + 1 for b in before]:
-            fail(f"{name}: the blocked batch-norm launch counters did not move")
-        r_mean, r_var, r_cnt = fused_bn.bn_stats_blocked_plain(x, mask)
-        r_y = fused_bn.bn_normalize_plain(x, r_mean, r_var, scale, bias, 1e-5)
-        r_sg, r_sgx = fused_bn.bn_bwd_sums_blocked_plain(x, g, r_mean, r_var,
-                                                         1e-5)
-        r_dx = fused_bn.bn_dx_plain(x, mask, g, scale, r_mean, r_var, 1e-5,
-                                    r_sg, r_sgx, r_cnt)
-        if not torch.equal(cnt, r_cnt):
-            fail(f"bn_stats_blocked: cnt {float(cnt)} on {name}, plain "
-                 f"{float(r_cnt)}")
-        for kname, what, got, want in (
-                ("bn_stats_blocked", "mean", mean, r_mean),
-                ("bn_stats_blocked", "var", var, r_var),
-                ("bn_normalize", "y", y, r_y),
-                ("bn_bwd_sums_blocked", "sum g", sg, r_sg),
-                ("bn_bwd_sums_blocked", "sum g xhat", sgx, r_sgx),
-                ("bn_dx", "dx", dx, r_dx)):
-            check(errs, kname, f"{name}, {what}", got, want, TOL_BN)
+             "one-row [129, 768]": (inputs(129, 768), mask_of(129, "one-row")),
+             f"chunked [32768, {PCBA_DIM}] ({chunked.rows_per_cta} rows a "
+             f"CTA, G's chunks of {chunked.chunk_rows})": (
+                 inputs(32768, PCBA_DIM), mask_of(32768, "random")),
+             f"offset 1e3, std 0.1 {shape}": (
+                 inputs(n_main, PCBA_DIM, 1e3, 0.1), batch.node_mask),
+             "ragged chunked [40000, 41]": (inputs(40000, 41),
+                                            mask_of(40000, "random")),
+             "ragged chunked [20000, 212]": (inputs(20000, 212),
+                                             mask_of(20000, "random"))}
+    hold_bn_pair(torch, errs, fused_bn.bn_forward_blocked,
+                 fused_bn.bn_backward_blocked,
+                 fused_bn.bn_forward_blocked_plain,
+                 fused_bn.bn_backward_blocked_plain, cases)
+    del cases
 
     (x, g, scale, bias), mask = main, batch.node_mask
     n, d = x.shape
-    mean, var, cnt = fused_bn.bn_stats_blocked(x, mask)
-    sg, sgx = fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)
-    nd_bytes = n * d * 4
+    plan = fused_bn.bn_plan(n, d)
+    print(f"kernel bn_forward_blocked, bn_backward_blocked at [{n}, {d}]: "
+          f"{plan.grid} CTAs in clusters of {plan.cluster}, slabs of "
+          f"{plan.slab_cols} columns, {plan.rows_per_cta} rows a CTA",
+          flush=True)
+    if plan.grid < 100:
+        fail(f"F and G run {plan.grid} CTAs at [{n}, {d}], under 100")
+    clusters = plan.grid // plan.cluster
+    resident = [fused_bn._max_active_clusters(fused_bn.bn_plan(n, d, t), t)
+                for t in (1, 2)]
+    print(f"kernel bn_forward_blocked, bn_backward_blocked: the card holds "
+          f"{resident[0]} and {resident[1]} of their {clusters} clusters at "
+          f"once (cudaOccupancyMaxActiveClusters)", flush=True)
+    if min(resident) < clusters:
+        fail(f"F and G at [{n}, {d}] run their {clusters} clusters in more "
+             f"than one wave")
+    y, mean, var = fused_bn.bn_forward_blocked(x, mask, scale, bias, 1e-5)
     src = "phc_gnn_torch/csrc/fused_bn.cu"
     xla = "phc_gnn_tpu/ops/fused_bn.py"
     recs = [
-        record(torch, "bn_stats_blocked", src, f"{xla}:162", errs,
-               lambda: fused_bn.bn_stats_blocked(x, mask),
-               lambda: fused_bn.bn_stats_blocked_plain(x, mask),
-               None, nd_bytes + n + 2 * d * 4 + 4, 5 * n * d),
-        record(torch, "bn_normalize", src, f"{xla}:283", errs,
-               lambda: fused_bn.bn_normalize(x, mean, var, scale, bias, 1e-5),
-               lambda: fused_bn.bn_normalize_plain(x, mean, var, scale, bias,
-                                                   1e-5),
-               None, 2 * nd_bytes + 4 * d * 4, 4 * n * d),
-        record(torch, "bn_bwd_sums_blocked", src, f"{xla}:202", errs,
-               lambda: fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5),
-               lambda: fused_bn.bn_bwd_sums_blocked_plain(x, g, mean, var,
-                                                          1e-5),
-               None, 2 * nd_bytes + 4 * d * 4, 5 * n * d),
-        record(torch, "bn_dx", src, f"{xla}:299", errs,
-               lambda: fused_bn.bn_dx(x, mask, g, scale, mean, var, 1e-5, sg,
-                                      sgx, cnt),
-               lambda: fused_bn.bn_dx_plain(x, mask, g, scale, mean, var,
-                                            1e-5, sg, sgx, cnt),
-               None, 3 * nd_bytes + n + 5 * d * 4 + 4, 8 * n * d)]
+        record(torch, "bn_forward_blocked", src, f"{xla}:162", errs,
+               lambda: fused_bn.bn_forward_blocked(x, mask, scale, bias, 1e-5),
+               lambda: fused_bn.bn_forward_blocked_plain(x, mask, scale, bias,
+                                                         1e-5),
+               None, bn_forward_bytes(n, d), 8 * n * d),
+        record(torch, "bn_backward_blocked", src, f"{xla}:202", errs,
+               lambda: fused_bn.bn_backward_blocked(x, mask, scale, mean, var,
+                                                    1e-5, g),
+               lambda: fused_bn.bn_backward_blocked_plain(
+                   x, mask, scale, mean, var, 1e-5, g),
+               None, bn_backward_bytes(n, d), 12 * n * d)]
+    for rec, tensors, held in zip(recs, (1, 2), resident):
+        rec["plan"] = fused_bn.bn_plan(n, d, tensors)._asdict()
+        rec["plan"]["resident_clusters"] = held
+        rec["replaces_what"] = ("the Pallas kernel and the XLA elementwise "
+                                "pass beside it (" + ("y, :283" if tensors == 1
+                                                      else "dx, :299") + ")")
 
-    # the same [4096, 512] through the cluster pair D and E, for the
-    # size gate: blocked forward = F + normalise, blocked backward = G + dx
-    def blocked_fwd():
-        m_, v_, _ = fused_bn.bn_stats_blocked(x, mask)
-        return fused_bn.bn_normalize(x, m_, v_, scale, bias, 1e-5)
-
-    def blocked_bwd():
-        s_g, s_gx = fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)
-        return fused_bn.bn_dx(x, mask, g, scale, mean, var, 1e-5, s_g, s_gx,
-                              cnt)
-
+    # the same [4096, 512] through the cluster pair D and E, for the size
+    # gate between the two families
     gate = {"shape": [n, d],
             "cluster_pair_forward_graph_ms": time_graph(
                 torch, lambda: fused_bn.bn_forward(x, mask, scale, bias, 1e-5)),
             "cluster_pair_backward_graph_ms": time_graph(
                 torch, lambda: fused_bn.bn_backward(x, mask, scale, mean, var,
                                                     1e-5, g)),
-            "blocked_forward_graph_ms": time_graph(torch, blocked_fwd),
-            "blocked_backward_graph_ms": time_graph(torch, blocked_bwd)}
+            "blocked_forward_graph_ms": recs[0]["graph_ms"],
+            "blocked_backward_graph_ms": recs[1]["graph_ms"]}
     print(f"kernel gate data at [{n}, {d}]: D {gate['cluster_pair_forward_graph_ms'] * 1e3:.2f} us "
-          f"vs F + normalise {gate['blocked_forward_graph_ms'] * 1e3:.2f} us; "
-          f"E {gate['cluster_pair_backward_graph_ms'] * 1e3:.2f} us vs G + dx "
+          f"vs F {gate['blocked_forward_graph_ms'] * 1e3:.2f} us; "
+          f"E {gate['cluster_pair_backward_graph_ms'] * 1e3:.2f} us vs G "
           f"{gate['blocked_backward_graph_ms'] * 1e3:.2f} us (device, CUDA graph)",
           flush=True)
     recs[0]["gate_data"] = gate
-    # each of F's and G's two CUDA kernels (row blocks, then the combine)
-    split = device_profile(torch, lambda: (
-        fused_bn.bn_stats_blocked(x, mask),
-        fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)), 1.0, iters=20)
-    for rec, prefix in ((recs[0], "bn_stats"), (recs[2], "bn_bwd_sums")):
-        rec["cuda_kernels_us"] = {
-            re.search(r"bn_\w+_kernel", name).group(0): us
-            for name, us in split["top_us"] if prefix in name}
-        print(f"kernel {rec['name']}: its CUDA kernels {rec['cuda_kernels_us']} "
-              f"(us of device time a call, torch.profiler over 20 calls)",
-              flush=True)
-    for rec in recs[1::2]:  # JAX leaves these passes to XLA: no Pallas kernel
-        rec["replaces_what"] = "XLA elementwise pass beside the blocked kernels"
     return recs
 
 

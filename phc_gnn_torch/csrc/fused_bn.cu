@@ -1,8 +1,18 @@
 // Masked batch norm in training mode, forward and backward (sm_90a).
 //
-// Replaces the two single-block Pallas kernels of phc_gnn_tpu/ops/fused_bn.py:
-//   fused_bn_forward_f32  <- _bn_fwd_kernel (:50, pallas_call :85)
-//   fused_bn_backward_f32 <- _bn_bwd_kernel (:64, pallas_call :96)
+// Replaces the four Pallas kernels of phc_gnn_tpu/ops/fused_bn.py, two
+// kernels each launched by one entry point on the plan it is given:
+//   fused_bn_forward_f32   D <- _bn_fwd_kernel (:50, pallas_call :85), up to
+//                             the size gate (nn/norm.py); past it
+//                          F <- _bn_stats_blocked_kernel (:162, pallas_call
+//                             :238) with the normalise JAX leaves to XLA
+//                             (:282-286)
+//   fused_bn_backward_f32  E <- _bn_bwd_kernel (:64, pallas_call :96)
+//                          G <- _bn_bwd_sums_blocked_kernel (:202,
+//                             pallas_call :259) with its dx (:295-302)
+// The row-blocked pair computes the same function as D and E; the TPU needs
+// it only for VMEM.  Here F and G are D's and E's kernels on the same plan,
+// counted apart by their wrappers (ops/fused_bn.py).
 //
 // Semantics (fused_bn.py:11-22, :50-80), per column j of x [N, D] with the
 // row mask m [N]:
@@ -23,18 +33,23 @@
 // a multiple of 4 takes 4-byte copies instead, and the ragged last slab is
 // masked).  A cluster of 1-8 CTAs (portable sizes) owns one slab, and its
 // CTA of rank r owns the contiguous rows [r * rows, min(N, (r + 1) * rows)).
-// The launch plan (slab, cluster, rows per CTA, rows per chunk, dynamic
-// shared memory) is computed in Python (ops/fused_bn.py::bn_plan) and
-// checked here.
+// The TPU's row-blocked kernels walk a SEQUENTIAL grid of 512-row blocks
+// with a VMEM carry; here the row blocks are a cluster's CTAs, which run at
+// once and meet through distributed shared memory.  The launch plan (slab,
+// cluster, rows per CTA, rows per chunk, dynamic shared memory) is computed
+// in Python (ops/fused_bn.py::bn_plan) and checked here.
 //
 // x is read from device memory once.  Each CTA copies its rows of the slab
-// into shared memory with cp.async (x for D; x and g for E), and the later
-// passes read them there.  Where a CTA's rows do not fit in kTileBytes, the
-// passes walk them in chunks and copy each chunk again (from L2): of the
-// shapes the size gate sends here, only the narrowest ([109375, 8]) do.
-// The rows' mask bytes are copied beside the tile, and the per-column
-// parameters are loaded first, so a launch waits on device memory once
-// before its passes; one barrier after the copy makes the tile whole.
+// into shared memory with cp.async (x for the forward; x and g for the
+// backward), and the later passes read them there.  Where a CTA's rows do
+// not fit in kTileBytes, the passes walk them in chunks and copy each chunk
+// again (from L2 where it holds them): below the size gate only the
+// narrowest shapes ([109375, 8]) do; past it the forward past 3,150 rows a
+// CTA and the backward past 1,587 (at d = 512 from [16384, 512] and
+// [8192, 512] on).  The rows' mask bytes are
+// copied beside the tile, and the per-column parameters are loaded first,
+// so a launch waits on device memory once before its passes; one barrier
+// after the copy makes the tile whole.
 //
 // Reductions, in a fixed order: a thread reduces its rows; the 8 lanes of a
 // column quad meet by warp shuffles; the 8 warps meet through shared
@@ -49,7 +64,7 @@
 //   Forward: per thread, in one sweep of the tile (Welford), the count c,
 //   the mean of x - s about the CTA's shift s (x at its first live row, 0
 //   without one) and the centred M2 about that mean, merged over the CTA
-//   with Chan's formula;
+//   with Chan's formula (the Pallas kernel's combine, fused_bn.py:184-192);
 //   then, over the ranks in order, with K the shift of the first rank with
 //   a live row and e_q = (s_q - K) + mean_q:
 //     corr = sum c_q e_q / cnt,  var = sum [M2_q + c_q (e_q - corr)^2] / cnt,
@@ -64,38 +79,19 @@
 // started; after the exchange barrier no CTA touches another's shared
 // memory, so each exits when it is done.
 //
-// Grid: at [4096, 200] 13 slabs (8 columns live in the last) x a cluster of
-// 8 = 104 CTAs of 256 threads, 512 rows each: a 32 KB tile for D, 64 KB
-// for E.  A cluster grows only while each CTA keeps 256 rows,
-// so a head's 129 rows take clusters of 1: at [129, 768] 48 CTAs, at
-// [129, 100] 7, each of 129 rows, with no cluster barrier.
+// Grids: at [4096, 200] 13 slabs (8 columns live in the last) x a cluster
+// of 8 = 104 CTAs of 256 threads, 512 rows each: a 32 KB tile for D, 64 KB
+// for E.  A cluster grows only while each CTA keeps 256 rows, so a head's
+// 129 rows take clusters of 1: at [129, 768] 48 CTAs, at [129, 100] 7, each
+// of 129 rows, with no cluster barrier.  At pcba's [4096, 512] (F and G)
+// 32 slabs x clusters of 5 = 160 CTAs of 820 rows, a 53 KB tile for F,
+// 106 KB for G: two CTAs an SM, so every cluster is resident at once.
 //
 // Bound on an H100: bytes.  At [4096, 200] f32 the forward reads x (3.28 MB)
 // and the mask and writes y (3.28 MB): ~6.56 MB, ~1.96 us at 3.35 TB/s; the
-// backward reads x and g and writes dx: ~9.84 MB, ~2.94 us.
-//
-// The row-blocked pair, for inputs past the size gate (nn/norm.py):
-//   bn_stats_blocked_f32    <- _bn_stats_blocked_kernel (:162, pallas_call :238)
-//   bn_bwd_sums_blocked_f32 <- _bn_bwd_sums_blocked_kernel (:202, pallas_call :259)
-// with the two elementwise passes that JAX leaves to XLA (:282-286, :295-302)
-// as kernels of their own:
-//   bn_normalize_f32        y  = (x - mean) * rsqrt(var + eps) * scale + bias
-//   bn_dx_f32               dx = scale * r * (g - m * (sum_g + xhat * sum_gx) / cnt)
-//
-// The TPU kernels walk a SEQUENTIAL grid of 512-row blocks with a VMEM carry.
-// GPU blocks run in no order, so the grid here is row-split: block (c, b)
-// owns a tile of 32 columns (128 bytes a row, one coalesced line per warp)
-// and a block of 128 rows; its 256 threads are 32 columns by 8 row groups.
-// Each block writes its partial (count, mean, M2) -- or (sum g, sum g*xhat)
-// -- per column to a workspace [3 or 2, row blocks, D], and a second small
-// kernel combines the partials of each column in row-block order, with Chan's
-// formula for the statistics (fused_bn.py:184-192):
-//   c' = c + c_b,  delta = mean_b - mean,  mean' = mean + delta * c_b / c',
-//   M2' = M2 + M2_b + delta^2 * c * c_b / c'        (c' clamped to >= 1)
-// so the result is deterministic, a row block with no live row is an exact
-// no-op (c_b = 0), and no E[x^2] - E[x]^2 appears anywhere: each block's own
-// M2_b is centred on its own mean in a second pass over its rows, which then
-// come from L1/L2.  The ragged last row block simply has fewer rows.
+// backward reads x and g and writes dx: ~9.84 MB, ~2.94 us.  At [4096, 512]
+// (8.39 MB) the forward moves ~16.78 MB, ~5.01 us, the backward ~25.17 MB,
+// ~7.51 us.
 // At [4096, 512] the grid is 16 column tiles x 32 row blocks = 512 blocks of
 // 256 threads: every one of the 132 SMs works (up to 8 such blocks each).
 //
@@ -125,13 +121,6 @@ constexpr int kStaticBytes = 4096;         // ops/fused_bn.py::BN_STATIC_SMEM
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNoRow = 0xffffffffu;
 
-constexpr int kBlkCols = 32;                     // row-blocked kernels
-constexpr int kBlkGroups = 8;
-constexpr int kBlkThreads = kBlkCols * kBlkGroups;
-constexpr int kBlkRows = 128;
-constexpr int kCombineThreads = 256;
-constexpr int kCombineChunk = 8;
-constexpr int kElemThreads = 256;
 
 // One CTA's partials, per column of its slab: what the other CTAs of its
 // cluster read through distributed shared memory.
@@ -734,235 +723,42 @@ cudaError_t launch(void (*kernel)(Params...), int64_t d, int64_t cluster,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// ------------------------------------------------------ row-blocked pair
-
-// Partial (count, mean, M2) of the live rows of one row block, per column of
-// one column tile; work is [3, nrb, d].
-__global__ void __launch_bounds__(kBlkThreads)
-bn_stats_partial_kernel(const float* __restrict__ x,
-                        const uint8_t* __restrict__ mask,
-                        float* __restrict__ work, int64_t n, int64_t d,
-                        int64_t nrb) {
-  __shared__ float s_val[kBlkGroups][kBlkCols];
-  __shared__ float s_cnt[kBlkGroups];
-  const int lane = threadIdx.x % kBlkCols;
-  const int rg = threadIdx.x / kBlkCols;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kBlkCols + lane;
-  const int64_t b = blockIdx.y;
-  const int64_t r0 = b * kBlkRows;
-  const int64_t r1 = r0 + kBlkRows < n ? r0 + kBlkRows : n;
-  const bool live = col < d;
-
-  // loads are not behind the mask's branch, so that several rows are in
-  // flight at once; a masked row adds an exact 0
-  float s = 0.0f, k = 0.0f;
-  if (live) {  // lane 0 is live in every tile, and it writes the count
-#pragma unroll 4
-    for (int64_t r = r0 + rg; r < r1; r += kBlkGroups) {
-      const bool m = mask[r];
-      const float v = x[r * d + col];
-      s += m ? v : 0.0f;
-      k += m ? 1.0f : 0.0f;
-    }
-  }
-  s_val[rg][lane] = s;
-  if (lane == 0) s_cnt[rg] = k;
-  __syncthreads();
-  float cb = 0.0f, total = 0.0f;
-  for (int i = 0; i < kBlkGroups; ++i) {
-    cb += s_cnt[i];
-    total += s_val[i][lane];
-  }
-  const float mean_b = total / fmaxf(cb, 1.0f);
-  __syncthreads();  // s_val is reused below
-
-  float q = 0.0f;
-  if (live) {
-#pragma unroll 4
-    for (int64_t r = r0 + rg; r < r1; r += kBlkGroups) {
-      const bool m = mask[r];
-      const float c = x[r * d + col] - mean_b;
-      q += m ? c * c : 0.0f;
-    }
-  }
-  s_val[rg][lane] = q;
-  __syncthreads();
-  if (rg == 0 && live) {
-    float m2 = 0.0f;
-    for (int i = 0; i < kBlkGroups; ++i) m2 += s_val[i][lane];
-    work[(0 * nrb + b) * d + col] = cb;
-    work[(1 * nrb + b) * d + col] = mean_b;
-    work[(2 * nrb + b) * d + col] = m2;
-  }
-}
-
-// Chan's combine of the partials of each column, in row-block order.  The
-// partials of kCombineChunk row blocks are loaded into registers before they
-// are combined, so that their loads are in flight together; a padding slot
-// past the last row block holds c_b = 0, an exact no-op.
-__global__ void bn_stats_combine_kernel(const float* __restrict__ work,
-                                        float* __restrict__ mean_out,
-                                        float* __restrict__ var_out,
-                                        float* __restrict__ cnt_out,
-                                        int64_t d, int64_t nrb) {
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (col >= d) return;
-  float c = 0.0f, mean = 0.0f, m2 = 0.0f;
-  for (int64_t b0 = 0; b0 < nrb; b0 += kCombineChunk) {
-    float cbs[kCombineChunk], means[kCombineChunk], m2s[kCombineChunk];
-#pragma unroll
-    for (int i = 0; i < kCombineChunk; ++i) {
-      const int64_t b = b0 + i;
-      const bool in = b < nrb;
-      cbs[i] = in ? work[(0 * nrb + b) * d + col] : 0.0f;
-      means[i] = in ? work[(1 * nrb + b) * d + col] : 0.0f;
-      m2s[i] = in ? work[(2 * nrb + b) * d + col] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kCombineChunk; ++i) {
-      const float cb = cbs[i];
-      const float c_new = c + cb;
-      const float safe = fmaxf(c_new, 1.0f);
-      const float delta = means[i] - mean;
-      mean = mean + delta * (cb / safe);  // cb = 0: an exact no-op
-      m2 = m2 + m2s[i] + delta * delta * (c * cb / safe);
-      c = c_new;
-    }
-  }
-  mean_out[col] = mean;
-  var_out[col] = m2 / fmaxf(c, 1.0f);
-  if (col == 0) cnt_out[0] = fmaxf(c, 1.0f);
-}
-
-// Partial sum g and sum g * xhat over ALL rows of one row block; work is
-// [2, nrb, d].
-__global__ void __launch_bounds__(kBlkThreads)
-bn_bwd_sums_partial_kernel(const float* __restrict__ x,
-                           const float* __restrict__ g,
-                           const float* __restrict__ mean_in,
-                           const float* __restrict__ var_in, float eps,
-                           float* __restrict__ work, int64_t n, int64_t d,
-                           int64_t nrb) {
-  __shared__ float s_g[kBlkGroups][kBlkCols];
-  __shared__ float s_gx[kBlkGroups][kBlkCols];
-  const int lane = threadIdx.x % kBlkCols;
-  const int rg = threadIdx.x / kBlkCols;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kBlkCols + lane;
-  const int64_t b = blockIdx.y;
-  const int64_t r0 = b * kBlkRows;
-  const int64_t r1 = r0 + kBlkRows < n ? r0 + kBlkRows : n;
-  const bool live = col < d;
-
-  float sg = 0.0f, sgx = 0.0f;
-  if (live) {
-    const float mean = mean_in[col];
-    const float rs = rsqrtf(var_in[col] + eps);
-    for (int64_t r = r0 + rg; r < r1; r += kBlkGroups) {
-      const float gv = g[r * d + col];
-      sg += gv;
-      sgx += gv * ((x[r * d + col] - mean) * rs);
-    }
-  }
-  s_g[rg][lane] = sg;
-  s_gx[rg][lane] = sgx;
-  __syncthreads();
-  if (rg == 0 && live) {
-    float a = 0.0f, c = 0.0f;
-    for (int i = 0; i < kBlkGroups; ++i) {
-      a += s_g[i][lane];
-      c += s_gx[i][lane];
-    }
-    work[(0 * nrb + b) * d + col] = a;
-    work[(1 * nrb + b) * d + col] = c;
-  }
-}
-
-__global__ void bn_bwd_sums_combine_kernel(const float* __restrict__ work,
-                                           float* __restrict__ sum_g,
-                                           float* __restrict__ sum_gx,
-                                           int64_t d, int64_t nrb) {
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (col >= d) return;
-  float a = 0.0f, c = 0.0f;
-  for (int64_t b0 = 0; b0 < nrb; b0 += kCombineChunk) {
-    float as[kCombineChunk], cs[kCombineChunk];
-#pragma unroll
-    for (int i = 0; i < kCombineChunk; ++i) {
-      const int64_t b = b0 + i;
-      as[i] = b < nrb ? work[(0 * nrb + b) * d + col] : 0.0f;
-      cs[i] = b < nrb ? work[(1 * nrb + b) * d + col] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kCombineChunk; ++i) {
-      a += as[i];
-      c += cs[i];
-    }
-  }
-  sum_g[col] = a;
-  sum_gx[col] = c;
-}
-
-__global__ void bn_normalize_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ mean,
-                                    const float* __restrict__ var,
-                                    const float* __restrict__ scale,
-                                    const float* __restrict__ bias, float eps,
-                                    float* __restrict__ y, int64_t total,
-                                    int64_t d) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    const int64_t col = i % d;
-    y[i] = (x[i] - mean[col]) * rsqrtf(var[col] + eps) * scale[col] +
-           bias[col];
-  }
-}
-
-__global__ void bn_dx_kernel(const float* __restrict__ x,
-                             const uint8_t* __restrict__ mask,
-                             const float* __restrict__ g,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ mean,
-                             const float* __restrict__ var, float eps,
-                             const float* __restrict__ sum_g,
-                             const float* __restrict__ sum_gx,
-                             const float* __restrict__ cnt,
-                             float* __restrict__ dx, int64_t total,
-                             int64_t d) {
-  const float count = cnt[0];
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < total; i += stride) {
-    const int64_t col = i % d;
-    const float rs = rsqrtf(var[col] + eps);
-    const float xhat = (x[i] - mean[col]) * rs;
-    const float stats =
-        mask[i / d] ? (sum_g[col] + xhat * sum_gx[col]) / count : 0.0f;
-    dx[i] = scale[col] * rs * (g[i] - stats);
-  }
-}
-
-int64_t row_blocks(int64_t n) { return (n + kBlkRows - 1) / kBlkRows; }
-
-dim3 partial_grid(int64_t n, int64_t d) {
-  return dim3(static_cast<unsigned>((d + kBlkCols - 1) / kBlkCols),
-              static_cast<unsigned>(row_blocks(n)));
-}
-
-unsigned combine_blocks(int64_t d) {
-  return static_cast<unsigned>((d + kCombineThreads - 1) / kCombineThreads);
-}
-
-unsigned elementwise_blocks(int64_t total) {
-  const int64_t want = (total + kElemThreads - 1) / kElemThreads;
-  return static_cast<unsigned>(want < 132 * 16 ? want : 132 * 16);
+// How many clusters of `cluster` CTAs with `smem` bytes of tile the card
+// holds at once, for the forward (tensors 1) or the backward (2).
+cudaError_t active_clusters(int64_t tensors, int64_t cluster, int64_t smem,
+                            int* out) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const void* kernel =
+      tensors == 1 ? reinterpret_cast<const void*>(bn_forward_kernel<true>)
+                   : reinterpret_cast<const void*>(bn_backward_kernel<true>);
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
 }  // namespace
+
+// The clusters of a plan (cluster, smem) that the card holds at once, for
+// the forward (tensors 1) or the backward (2): a plan whose grid has more
+// runs in waves.  A check of the plan; no launch path calls it.
+extern "C" int bn_max_active_clusters(int64_t tensors, int64_t cluster,
+                                      int64_t smem, int* out) {
+  if (tensors < 1 || tensors > 2 || cluster < 1 || cluster > kMaxCluster ||
+      smem < 0 || smem > kTileBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = allow_tiles();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(active_clusters(tensors, cluster, smem, out));
+}
 
 // The plan arguments (slab_cols, cluster, rows, chunk, smem) are those of
 // ops/fused_bn.py::bn_plan(n, d, tensors) with tensors 1 for the forward
@@ -1018,86 +814,4 @@ extern "C" int fused_bn_backward_f32(const void* x, const void* mask,
                static_cast<float*>(dscale), static_cast<float*>(dbias), n, d,
                static_cast<int>(rows), static_cast<int>(chunk));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-// Rows per row block of the blocked pair: the workspace has
-// ceil(n / rows) row blocks.
-extern "C" int64_t bn_blocked_rows() { return kBlkRows; }
-
-// work: [3, ceil(n / bn_blocked_rows()), d] floats of scratch.
-extern "C" int bn_stats_blocked_f32(const void* x, const void* mask,
-                                    void* work, void* mean, void* var,
-                                    void* cnt, int64_t n, int64_t d,
-                                    void* stream) {
-  const int64_t nrb = row_blocks(n);
-  if (nrb > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 0) {
-    if (nrb > 0) {
-      bn_stats_partial_kernel<<<partial_grid(n, d), kBlkThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const uint8_t*>(mask),
-          static_cast<float*>(work), n, d, nrb);
-    }
-    bn_stats_combine_kernel<<<combine_blocks(d), kCombineThreads, 0, s>>>(
-        static_cast<const float*>(work), static_cast<float*>(mean),
-        static_cast<float*>(var), static_cast<float*>(cnt), d, nrb);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// work: [2, ceil(n / bn_blocked_rows()), d] floats of scratch.
-extern "C" int bn_bwd_sums_blocked_f32(const void* x, const void* g,
-                                       const void* mean, const void* var,
-                                       float eps, void* work, void* sum_g,
-                                       void* sum_gx, int64_t n, int64_t d,
-                                       void* stream) {
-  const int64_t nrb = row_blocks(n);
-  if (nrb > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 0) {
-    if (nrb > 0) {
-      bn_bwd_sums_partial_kernel<<<partial_grid(n, d), kBlkThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(g),
-          static_cast<const float*>(mean), static_cast<const float*>(var), eps,
-          static_cast<float*>(work), n, d, nrb);
-    }
-    bn_bwd_sums_combine_kernel<<<combine_blocks(d), kCombineThreads, 0, s>>>(
-        static_cast<const float*>(work), static_cast<float*>(sum_g),
-        static_cast<float*>(sum_gx), d, nrb);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int bn_normalize_f32(const void* x, const void* mean,
-                                const void* var, const void* scale,
-                                const void* bias, float eps, void* y,
-                                int64_t n, int64_t d, void* stream) {
-  const int64_t total = n * d;
-  if (total > 0) {
-    bn_normalize_kernel<<<elementwise_blocks(total), kElemThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(mean),
-        static_cast<const float*>(var), static_cast<const float*>(scale),
-        static_cast<const float*>(bias), eps, static_cast<float*>(y), total,
-        d);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int bn_dx_f32(const void* x, const void* mask, const void* g,
-                         const void* scale, const void* mean, const void* var,
-                         float eps, const void* sum_g, const void* sum_gx,
-                         const void* cnt, void* dx, int64_t n, int64_t d,
-                         void* stream) {
-  const int64_t total = n * d;
-  if (total > 0) {
-    bn_dx_kernel<<<elementwise_blocks(total), kElemThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const uint8_t*>(mask),
-        static_cast<const float*>(g), static_cast<const float*>(scale),
-        static_cast<const float*>(mean), static_cast<const float*>(var), eps,
-        static_cast<const float*>(sum_g), static_cast<const float*>(sum_gx),
-        static_cast<const float*>(cnt), static_cast<float*>(dx), total, d);
-  }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -16,21 +16,23 @@ distributed shared memory; ``bn_plan`` computes the launch):
   (dbias + xhat * dscale) / cnt)``, where only the row's own mask gates the
   statistics term (:18-22).
 
-The row-blocked pair, for inputs past ``FUSED_BN_VMEM_LIMIT``:
+The row-blocked pair, for inputs past ``FUSED_BN_VMEM_LIMIT``, computes the
+same function (the TPU needs it only for VMEM): the same cluster kernels on
+the same plan, whose passes take in the elementwise work that JAX leaves to
+XLA beside its Pallas kernels, counted apart:
 
-- ``bn_stats_blocked`` replaces ``_bn_stats_blocked_kernel`` (:162): the
-  masked mean, biased variance and ``cnt`` from per-row-block partials
-  combined with Chan's formula;
-- ``bn_bwd_sums_blocked`` replaces ``_bn_bwd_sums_blocked_kernel`` (:202):
-  ``sum g`` and ``sum g * xhat`` over ALL rows;
-- ``bn_normalize`` and ``bn_dx`` are the two elementwise passes that JAX
-  leaves to XLA beside them (:282-286, :295-302), as kernels of their own.
+- ``bn_forward_blocked`` replaces ``_bn_stats_blocked_kernel`` (:162), whose
+  row blocks JAX combines with Chan's formula, and the normalise beside it
+  (:282-286);
+- ``bn_backward_blocked`` replaces ``_bn_bwd_sums_blocked_kernel`` (:202),
+  ``sum g`` and ``sum g * xhat`` over ALL rows, and the dx beside it
+  (:295-302).
 
 ``cnt = max(sum mask, 1)``, so an all-masked input gives finite outputs.
-``fused_masked_bn`` (D, E) and ``fused_masked_bn_blocked`` (F, G and the two
-passes) are ``autograd.Function``s that return ``(y, mean, var)``; mean and
-var are detached, as in JAX (:105-110): they feed the running statistics,
-never a gradient.
+``fused_masked_bn`` (D, E) and ``fused_masked_bn_blocked`` (F, G) are
+``autograd.Function``s that return ``(y, mean, var)``; mean and var are
+detached, as in JAX (:105-110): they feed the running statistics, never a
+gradient.
 
 ``FUSED_BN_VMEM_LIMIT`` is JAX's size gate between the two families
 (:43): the TPU needs it for VMEM, and the port keeps the same gate so that
@@ -53,16 +55,17 @@ from phc_gnn_torch.ops import _build
 
 __all__ = ["FUSED_BN_VMEM_LIMIT", "BnPlan", "bn_plan", "bn_forward",
            "bn_forward_plain", "bn_backward", "bn_backward_plain",
-           "fused_masked_bn",
-           "bn_stats_blocked", "bn_stats_blocked_plain", "bn_bwd_sums_blocked",
-           "bn_bwd_sums_blocked_plain", "bn_normalize", "bn_normalize_plain",
-           "bn_dx", "bn_dx_plain", "fused_masked_bn_blocked"]
+           "fused_masked_bn", "bn_forward_blocked", "bn_forward_blocked_plain",
+           "bn_backward_blocked", "bn_backward_blocked_plain",
+           "bn_stats_blocked_plain", "bn_normalize_plain",
+           "bn_bwd_sums_blocked_plain", "bn_dx_plain",
+           "fused_masked_bn_blocked"]
 
 # bytes of x up to which training BN takes the cluster pair (D, E);
 # above it, the row-blocked family (phc_gnn_tpu/ops/fused_bn.py:43)
 FUSED_BN_VMEM_LIMIT = 3_500_000
 
-# D's and E's launch plan (csrc/fused_bn.cu holds the same constants)
+# the launch plan (csrc/fused_bn.cu holds the same constants)
 BN_SLAB_COLS = 16           # columns a cluster owns: 64 bytes a row
 BN_MAX_CLUSTER = 8          # CTAs a cluster, the portable limit
 BN_MIN_ROWS = 256           # a cluster grows only while each CTA keeps these
@@ -72,11 +75,11 @@ _SMS = 132                  # H100 SXM
 
 
 class BnPlan(NamedTuple):
-    """The launch of D or E: ``grid`` CTAs in clusters of ``cluster``, one
-    cluster a slab of ``slab_cols`` columns; the CTA of rank r owns the rows
-    ``[r * rows_per_cta, min(n, (r + 1) * rows_per_cta))`` and walks them in
-    chunks of ``chunk_rows`` staged in ``smem_bytes`` of dynamic shared
-    memory (the slab's rows of each tensor, then their mask bytes)."""
+    """The launch of D, E, F or G: ``grid`` CTAs in clusters of ``cluster``,
+    one cluster a slab of ``slab_cols`` columns; the CTA of rank r owns the
+    rows ``[r * rows_per_cta, min(n, (r + 1) * rows_per_cta))`` and walks
+    them in chunks of ``chunk_rows`` staged in ``smem_bytes`` of dynamic
+    shared memory (the slab's rows of each tensor, then their mask bytes)."""
     slab_cols: int
     cluster: int
     rows_per_cta: int
@@ -87,10 +90,11 @@ class BnPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def bn_plan(n: int, d: int, tensors: int = 1) -> BnPlan:
-    """The launch plan of D (``tensors=1``: x staged) or E (2: x and g) at
-    ``[n, d]``: enough clusters to fill the card's 132 SMs, but no CTA under
-    ``BN_MIN_ROWS`` rows while the cluster is above 1, and every CTA's rows
-    in shared memory where they fit in ``BN_TILE_BYTES``."""
+    """The launch plan of the forward (``tensors=1``: x staged) or the
+    backward (2: x and g) at ``[n, d]``: enough clusters to fill the card's
+    132 SMs, but no CTA under ``BN_MIN_ROWS`` rows while the cluster is
+    above 1, and every CTA's rows in shared memory where they fit in
+    ``BN_TILE_BYTES``."""
     slabs = max(1, -(-d // BN_SLAB_COLS))
     cluster = max(1, min(BN_MAX_CLUSTER, -(-_SMS // slabs),
                          -(-n // BN_MIN_ROWS)))
@@ -117,20 +121,23 @@ def _lib():
         lib.fused_bn_backward_f32.argtypes = [
             _P, _P, _P, _P, _P, _F32, _P, _P, _P, _P] + [_I64] * 7 + [_P]
         lib.fused_bn_backward_f32.restype = ctypes.c_int
-        lib.bn_blocked_rows.argtypes = []
-        lib.bn_blocked_rows.restype = _I64
-        lib.bn_stats_blocked_f32.argtypes = [_P] * 6 + [_I64, _I64, _P]
-        lib.bn_stats_blocked_f32.restype = ctypes.c_int
-        lib.bn_bwd_sums_blocked_f32.argtypes = [
-            _P, _P, _P, _P, _F32, _P, _P, _P, _I64, _I64, _P]
-        lib.bn_bwd_sums_blocked_f32.restype = ctypes.c_int
-        lib.bn_normalize_f32.argtypes = [_P] * 5 + [_F32, _P, _I64, _I64, _P]
-        lib.bn_normalize_f32.restype = ctypes.c_int
-        lib.bn_dx_f32.argtypes = [_P] * 6 + [_F32] + [_P] * 4 + [
-            _I64, _I64, _P]
-        lib.bn_dx_f32.restype = ctypes.c_int
+        lib.bn_max_active_clusters.argtypes = [_I64] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.bn_max_active_clusters.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
+
+
+def _max_active_clusters(plan: BnPlan, tensors: int) -> int:
+    """How many clusters of ``plan`` the current CUDA device holds at once
+    for the forward (``tensors=1``) or the backward (2)
+    (``cudaOccupancyMaxActiveClusters``); a grid of more clusters runs in
+    waves.  A check of the plan for the card's tests; no path calls it."""
+    out = ctypes.c_int()
+    err = _lib().bn_max_active_clusters(tensors, plan.cluster,
+                                        plan.smem_bytes, ctypes.byref(out))
+    _build.check_launch("bn_max_active_clusters", err)
+    return out.value
 
 
 # ------------------------------------------------------------ plain versions
@@ -179,6 +186,12 @@ def bn_backward_plain(x, mask, scale, mean, var, eps: float, g):
     return dx, sum_gx, sum_g
 
 
+# both families compute the same function: F with its normalise is D's, G
+# with its dx is E's
+bn_forward_blocked_plain = bn_forward_plain
+bn_backward_blocked_plain = bn_backward_plain
+
+
 # ------------------------------------------------------------------ wrappers
 
 def _check(x, mask, vectors, g=None):
@@ -189,12 +202,10 @@ def _check(x, mask, vectors, g=None):
     if x.dtype != torch.float32 or x.ndim != 2:
         raise TypeError(f"x must be a 2-D float32 tensor, got {x.dtype} "
                         f"{tuple(x.shape)}")
-    tensors = [("x", x)] + list(vectors)
-    if mask is not None:
-        if mask.dtype != torch.bool or mask.shape != x.shape[:1]:
-            raise TypeError(f"mask must be bool [{x.shape[0]}], got "
-                            f"{mask.dtype} {tuple(mask.shape)}")
-        tensors.append(("mask", mask))
+    tensors = [("x", x), ("mask", mask)] + list(vectors)
+    if mask.dtype != torch.bool or mask.shape != x.shape[:1]:
+        raise TypeError(f"mask must be bool [{x.shape[0]}], got "
+                        f"{mask.dtype} {tuple(mask.shape)}")
     if g is not None:
         if g.dtype != torch.float32 or g.shape != x.shape:
             raise TypeError(f"g must be float32 {tuple(x.shape)}, got "
@@ -213,27 +224,47 @@ def _check(x, mask, vectors, g=None):
 
 def _check_rows(n: int) -> None:
     if n >= 2 ** 31:
-        raise ValueError(f"the batch-norm pair D, E takes fewer than 2^31 "
-                         f"rows, got {n}")
+        raise ValueError(f"the batch-norm kernels take fewer than 2^31 rows, "
+                         f"got {n}")
 
 
-def bn_forward(x, mask, scale, bias, eps: float):
-    """``(y [N, D], mean [D], var [D])`` of the masked batch norm of ``x``."""
-    if x.device.type == "cpu":
-        return bn_forward_plain(x, mask, scale, bias, eps)
+def _forward(name: str, x, mask, scale, bias, eps: float):
     _check(x, mask, (("scale", scale), ("bias", bias)))
     n, d = x.shape
     _check_rows(n)
     y = torch.empty_like(x)
     mean = torch.empty((d,), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
-    plan = bn_plan(n, d, 1)
-    _build.check_launch("bn_forward", _lib().fused_bn_forward_f32(
+    _build.check_launch(name, _lib().fused_bn_forward_f32(
         x.data_ptr(), mask.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         eps, y.data_ptr(), mean.data_ptr(), var.data_ptr(), n, d,
-        *plan[:5], _build.stream(x.device)))
-    bn_forward.launches += 1
+        *bn_plan(n, d, 1)[:5], _build.stream(x.device)))
     return y, mean, var
+
+
+def _backward(name: str, x, mask, scale, mean, var, eps: float, g):
+    _check(x, mask, (("scale", scale), ("mean", mean), ("var", var)), g)
+    n, d = x.shape
+    _check_rows(n)
+    dx = torch.empty_like(x)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    dbias = torch.empty_like(dscale)
+    _build.check_launch(name, _lib().fused_bn_backward_f32(
+        x.data_ptr(), mask.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+        var.data_ptr(), eps, g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+        dbias.data_ptr(), n, d, *bn_plan(n, d, 2)[:5],
+        _build.stream(x.device)))
+    return dx, dscale, dbias
+
+
+def bn_forward(x, mask, scale, bias, eps: float):
+    """``(y [N, D], mean [D], var [D])`` of the masked batch norm of ``x``
+    (kernel D)."""
+    if x.device.type == "cpu":
+        return bn_forward_plain(x, mask, scale, bias, eps)
+    out = _forward("bn_forward", x, mask, scale, bias, eps)
+    bn_forward.launches += 1
+    return out
 
 
 bn_forward.launches = 0
@@ -241,150 +272,68 @@ bn_forward.launches = 0
 
 def bn_backward(x, mask, scale, mean, var, eps: float, g):
     """``(dx [N, D], dscale [D], dbias [D])`` given the forward's ``mean``
-    and ``var`` and the cotangent ``g`` of ``y``."""
+    and ``var`` and the cotangent ``g`` of ``y`` (kernel E)."""
     if x.device.type == "cpu":
         return bn_backward_plain(x, mask, scale, mean, var, eps, g)
-    _check(x, mask, (("scale", scale), ("mean", mean), ("var", var)), g)
-    n, d = x.shape
-    _check_rows(n)
-    dx = torch.empty_like(x)
-    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
-    dbias = torch.empty_like(dscale)
-    plan = bn_plan(n, d, 2)
-    _build.check_launch("bn_backward", _lib().fused_bn_backward_f32(
-        x.data_ptr(), mask.data_ptr(), scale.data_ptr(), mean.data_ptr(),
-        var.data_ptr(), eps, g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-        dbias.data_ptr(), n, d, *plan[:5], _build.stream(x.device)))
+    out = _backward("bn_backward", x, mask, scale, mean, var, eps, g)
     bn_backward.launches += 1
-    return dx, dscale, dbias
+    return out
 
 
 bn_backward.launches = 0
 
 
+def bn_forward_blocked(x, mask, scale, bias, eps: float):
+    """``bn_forward``'s launch counted as F with its normalise fused in: the
+    same kernel on the same plan."""
+    if x.device.type == "cpu":
+        return bn_forward_blocked_plain(x, mask, scale, bias, eps)
+    out = _forward("bn_forward_blocked", x, mask, scale, bias, eps)
+    bn_forward_blocked.launches += 1
+    return out
+
+
+bn_forward_blocked.launches = 0
+
+
+def bn_backward_blocked(x, mask, scale, mean, var, eps: float, g):
+    """``bn_backward``'s launch counted as G with its dx fused in: the same
+    kernel on the same plan."""
+    if x.device.type == "cpu":
+        return bn_backward_blocked_plain(x, mask, scale, mean, var, eps, g)
+    out = _backward("bn_backward_blocked", x, mask, scale, mean, var, eps,
+                    g)
+    bn_backward_blocked.launches += 1
+    return out
+
+
+bn_backward_blocked.launches = 0
+
+
 class _FusedMaskedBN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mask, scale, bias, eps):
-        y, mean, var = bn_forward(x, mask, scale, bias, eps)
+    def forward(ctx, x, mask, scale, bias, eps, blocked):
+        fwd = bn_forward_blocked if blocked else bn_forward
+        y, mean, var = fwd(x, mask, scale, bias, eps)
         ctx.save_for_backward(x, mask, scale, mean, var)
         ctx.eps = eps
+        ctx.blocked = blocked
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x, mask, scale, mean, var = ctx.saved_tensors
-        dx, dscale, dbias = bn_backward(x, mask, scale, mean, var, ctx.eps,
-                                        gy.contiguous())
-        return dx, None, dscale, dbias, None
+        bwd = bn_backward_blocked if ctx.blocked else bn_backward
+        dx, dscale, dbias = bwd(x, mask, scale, mean, var, ctx.eps,
+                                gy.contiguous())
+        return dx, None, dscale, dbias, None, None
 
 
-def bn_stats_blocked(x, mask):
-    """``(mean [D], var [D], cnt [1])`` of the masked batch norm of ``x``,
-    from row-block partials (kernel F)."""
-    if x.device.type == "cpu":
-        return bn_stats_blocked_plain(x, mask)
-    _check(x, mask, ())
-    n, d = x.shape
-    lib = _lib()
-    nrb = -(-n // lib.bn_blocked_rows())
-    work = torch.empty((3, nrb, d), dtype=torch.float32, device=x.device)
-    mean = torch.empty((d,), dtype=torch.float32, device=x.device)
-    var = torch.empty_like(mean)
-    cnt = torch.empty((1,), dtype=torch.float32, device=x.device)
-    _build.check_launch("bn_stats_blocked", lib.bn_stats_blocked_f32(
-        x.data_ptr(), mask.data_ptr(), work.data_ptr(), mean.data_ptr(),
-        var.data_ptr(), cnt.data_ptr(), n, d, _build.stream(x.device)))
-    bn_stats_blocked.launches += 1
-    return mean, var, cnt
-
-
-bn_stats_blocked.launches = 0
-
-
-def bn_bwd_sums_blocked(x, g, mean, var, eps: float):
-    """``(sum g [D], sum g * xhat [D])`` over all rows, from row-block
-    partials (kernel G)."""
-    if x.device.type == "cpu":
-        return bn_bwd_sums_blocked_plain(x, g, mean, var, eps)
-    _check(x, None, (("mean", mean), ("var", var)), g)
-    n, d = x.shape
-    lib = _lib()
-    nrb = -(-n // lib.bn_blocked_rows())
-    work = torch.empty((2, nrb, d), dtype=torch.float32, device=x.device)
-    sum_g = torch.empty((d,), dtype=torch.float32, device=x.device)
-    sum_gx = torch.empty_like(sum_g)
-    _build.check_launch("bn_bwd_sums_blocked", lib.bn_bwd_sums_blocked_f32(
-        x.data_ptr(), g.data_ptr(), mean.data_ptr(), var.data_ptr(), eps,
-        work.data_ptr(), sum_g.data_ptr(), sum_gx.data_ptr(), n, d,
-        _build.stream(x.device)))
-    bn_bwd_sums_blocked.launches += 1
-    return sum_g, sum_gx
-
-
-bn_bwd_sums_blocked.launches = 0
-
-
-def bn_normalize(x, mean, var, scale, bias, eps: float):
-    """``y = (x - mean) * rsqrt(var + eps) * scale + bias``, elementwise."""
-    if x.device.type == "cpu":
-        return bn_normalize_plain(x, mean, var, scale, bias, eps)
-    _check(x, None, (("mean", mean), ("var", var), ("scale", scale),
-                     ("bias", bias)))
-    n, d = x.shape
-    y = torch.empty_like(x)
-    _build.check_launch("bn_normalize", _lib().bn_normalize_f32(
-        x.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), eps, y.data_ptr(), n, d, _build.stream(x.device)))
-    bn_normalize.launches += 1
-    return y
-
-
-bn_normalize.launches = 0
-
-
-def bn_dx(x, mask, g, scale, mean, var, eps: float, sum_g, sum_gx, cnt):
-    """``dx = scale * r * (g - m * (sum_g + xhat * sum_gx) / cnt)``,
-    elementwise; ``cnt`` is the [1] count of ``bn_stats_blocked``."""
-    if x.device.type == "cpu":
-        return bn_dx_plain(x, mask, g, scale, mean, var, eps, sum_g, sum_gx,
-                           cnt)
-    _check(x, mask, (("scale", scale), ("mean", mean), ("var", var),
-                     ("sum_g", sum_g), ("sum_gx", sum_gx)), g)
-    if cnt.dtype != torch.float32 or cnt.shape != (1,) or cnt.device != x.device:
-        raise TypeError(f"cnt must be float32 [1] on {x.device}, got "
-                        f"{cnt.dtype} {tuple(cnt.shape)} on {cnt.device}")
-    n, d = x.shape
-    dx = torch.empty_like(x)
-    _build.check_launch("bn_dx", _lib().bn_dx_f32(
-        x.data_ptr(), mask.data_ptr(), g.data_ptr(), scale.data_ptr(),
-        mean.data_ptr(), var.data_ptr(), eps, sum_g.data_ptr(),
-        sum_gx.data_ptr(), cnt.data_ptr(), dx.data_ptr(), n, d,
-        _build.stream(x.device)))
-    bn_dx.launches += 1
-    return dx
-
-
-bn_dx.launches = 0
-
-
-class _FusedMaskedBNBlocked(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mask, scale, bias, eps):
-        mean, var, cnt = bn_stats_blocked(x, mask)
-        y = bn_normalize(x, mean, var, scale, bias, eps)
-        ctx.save_for_backward(x, mask, scale, mean, var, cnt)
-        ctx.eps = eps
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
-
-    @staticmethod
-    def backward(ctx, gy, _gmean, _gvar):
-        x, mask, scale, mean, var, cnt = ctx.saved_tensors
-        gy = gy.contiguous()
-        sum_g, sum_gx = bn_bwd_sums_blocked(x, gy, mean, var, ctx.eps)
-        dx = bn_dx(x, mask, gy, scale, mean, var, ctx.eps, sum_g, sum_gx, cnt)
-        return dx, None, sum_gx, sum_g, None
+def _apply(x, mask, scale, bias, eps, blocked: bool):
+    if mask is None:
+        mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    return _FusedMaskedBN.apply(x, mask, scale, bias, float(eps), blocked)
 
 
 def fused_masked_bn(x, mask: Optional[torch.Tensor], scale, bias,
@@ -393,15 +342,11 @@ def fused_masked_bn(x, mask: Optional[torch.Tensor], scale, bias,
     ``(y, mean [D], var [D])``, differentiable in ``x``, ``scale`` and
     ``bias``; ``mean`` and ``var`` (biased) are detached.  ``mask=None``
     counts every row."""
-    if mask is None:
-        mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-    return _FusedMaskedBN.apply(x, mask, scale, bias, float(eps))
+    return _apply(x, mask, scale, bias, eps, False)
 
 
 def fused_masked_bn_blocked(x, mask: Optional[torch.Tensor], scale, bias,
                             eps: float = 1e-5):
     """The contract of ``fused_masked_bn`` through the row-blocked kernels
-    (F, G and the two elementwise passes), for any [N, D]."""
-    if mask is None:
-        mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-    return _FusedMaskedBNBlocked.apply(x, mask, scale, bias, float(eps))
+    F and G (one launch each way), for any [N, D]."""
+    return _apply(x, mask, scale, bias, eps, True)

@@ -1,5 +1,5 @@
-"""The port's row-blocked batch norm (kernels F and G's plain versions, and
-the two elementwise passes) and the norm's size gate, against the JAX
+"""The port's row-blocked batch norm (the plain versions of kernels F and G,
+each with its elementwise pass) and the norm's size gate, against the JAX
 reference.
 
 ``fused_masked_bn_blocked`` is held to
@@ -81,10 +81,11 @@ def test_fused_masked_bn_blocked_matches_pallas(mask_kind):
 
 
 def test_blocked_stats_skip_masked_blocks_exactly():
-    """Masked rows, whole 128-row blocks of them (the kernel's row blocks),
-    add nothing: the statistics equal those of the live rows alone; ``cnt``
-    is the live count, at least 1."""
-    rng, x, _, _, _ = _inputs(6, n=600, d=8)
+    """Masked rows, whole 128-row blocks of them, add nothing: the
+    statistics equal those of the live rows alone; ``cnt`` is the live
+    count, at least 1, so an all-masked input has mean and var 0 exactly and
+    a finite output (``bn_forward_blocked`` on CPU tensors)."""
+    rng, x, scale, bias, _ = _inputs(6, n=600, d=8)
     mask = np.zeros(600, bool)
     mask[130:250] = rng.random(120) > 0.3  # live rows in row block 1 only
     mean, var, cnt = fused_bn.bn_stats_blocked_plain(
@@ -94,9 +95,15 @@ def test_blocked_stats_skip_masked_blocks_exactly():
     torch.testing.assert_close(mean, live.mean(0), rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(var, live.var(0, unbiased=False), rtol=1e-5,
                                atol=1e-6)
-    _, _, cnt0 = fused_bn.bn_stats_blocked(torch.from_numpy(x),
-                                           torch.zeros(600, dtype=torch.bool))
+    none = torch.zeros(600, dtype=torch.bool)
+    _, _, cnt0 = fused_bn.bn_stats_blocked_plain(torch.from_numpy(x), none)
     assert float(cnt0) == 1.0
+    y0, mean0, var0 = fused_bn.bn_forward_blocked(
+        torch.from_numpy(x), none, torch.from_numpy(scale),
+        torch.from_numpy(bias), EPS)
+    assert torch.equal(mean0, torch.zeros(8)) and torch.equal(var0,
+                                                              torch.zeros(8))
+    assert torch.isfinite(y0).all()
 
 
 def test_blocked_variance_is_centred():
@@ -105,7 +112,8 @@ def test_blocked_variance_is_centred():
     rng = np.random.default_rng(7)
     x = (1e4 + 1e-2 * rng.normal(size=(1000, 3))).astype(np.float32)
     mask = torch.ones(1000, dtype=torch.bool)
-    _, var, _ = fused_bn.bn_stats_blocked(torch.from_numpy(x), mask)
+    _, _, var = fused_bn.bn_forward_blocked(torch.from_numpy(x), mask,
+                                            torch.ones(3), torch.zeros(3), EPS)
     want = x.astype(np.float64).var(0)
     np.testing.assert_allclose(var.numpy(), want, rtol=2e-2)
 
@@ -181,12 +189,7 @@ def test_blocked_wrappers_never_fall_back_for_non_cpu_tensors():
     x = torch.empty(4, 8, device="meta")
     k = torch.empty(4, dtype=torch.bool, device="meta")
     v = torch.empty(8, device="meta")
-    c = torch.empty(1, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        fused_bn.bn_stats_blocked(x, k)
+        fused_bn.bn_forward_blocked(x, k, v, v, EPS)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        fused_bn.bn_bwd_sums_blocked(x, x, v, v, EPS)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        fused_bn.bn_normalize(x, v, v, v, v, EPS)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        fused_bn.bn_dx(x, k, x, v, v, v, EPS, v, v, c)
+        fused_bn.bn_backward_blocked(x, k, v, v, v, EPS, x)

@@ -190,56 +190,102 @@ def _pcba_batch(dev):
         num_edge_feats=3)).to(dev)
 
 
-@pytest.mark.parametrize("shape,mask_kind", [
-    ((4096, 512), "pcba"), ((1100, 24), "random"), ((1100, 24), "masked_block"),
-    ((4096, 512), "all_masked"), ((129, 768), "one_row")])
-def test_blocked_bn_kernels_match_plain_versions(dev, shape, mask_kind):
-    """F, G and the two elementwise passes: the pcba batch's node mask at
-    [4096, 512], a ragged last row block with a random mask, whole row blocks
-    masked, an all-masked and a one-row mask."""
+def _blocked_case(dev, shape, mask_kind):
+    """(x, g, scale, bias, mask) for F and G; see
+    test_blocked_bn_kernels_match_plain_versions."""
     gen = torch.Generator().manual_seed(5)
     n, d = shape
-    x = (torch.randn(shape, generator=gen) * 2 + 3).to(dev)
+    offset, std = (1e3, 0.1) if mask_kind == "offset" else (3.0, 2.0)
+    x = (torch.randn(shape, generator=gen) * std + offset).to(dev)
     g = torch.randn(shape, generator=gen).to(dev)
     scale = torch.randn(d, generator=gen).to(dev)
     bias = torch.randn(d, generator=gen).to(dev)
-    if mask_kind == "pcba":
-        mask = _pcba_batch(dev).node_mask
-    else:
-        mask = torch.rand(n, generator=gen) > 0.25
-        if mask_kind == "masked_block":
-            mask[128:640] = False
-        elif mask_kind != "random":
-            mask[:] = False
-            if mask_kind == "one_row":
-                mask[n // 2] = True
-        mask = mask.to(dev)
-    counts = [w.launches for w in (fused_bn.bn_stats_blocked,
-                                   fused_bn.bn_bwd_sums_blocked,
-                                   fused_bn.bn_normalize, fused_bn.bn_dx)]
-    mean, var, cnt = fused_bn.bn_stats_blocked(x, mask)
-    y = fused_bn.bn_normalize(x, mean, var, scale, bias, 1e-5)
-    sg, sgx = fused_bn.bn_bwd_sums_blocked(x, g, mean, var, 1e-5)
-    dx = fused_bn.bn_dx(x, mask, g, scale, mean, var, 1e-5, sg, sgx, cnt)
+    if mask_kind in ("pcba", "offset"):
+        return x, g, scale, bias, _pcba_batch(dev).node_mask
+    mask = torch.rand(n, generator=gen) > 0.25
+    if mask_kind == "masked_block":
+        mask[128:640] = False
+    elif mask_kind in ("all_masked", "one_row"):
+        mask[:] = False
+        if mask_kind == "one_row":
+            mask[n // 2] = True
+    return x, g, scale, bias, mask.to(dev)
+
+
+@pytest.mark.parametrize("shape,mask_kind", [
+    ((4096, 512), "pcba"), ((1100, 24), "random"), ((1100, 24), "masked_block"),
+    ((4096, 512), "all_masked"), ((129, 768), "one_row"),
+    ((32768, 512), "chunked"), ((4096, 512), "offset"),
+    ((40000, 41), "random"), ((20000, 212), "random")])
+def test_blocked_bn_kernels_match_plain_versions(dev, shape, mask_kind):
+    """F and G, each with its elementwise pass fused in, against their plain
+    versions in float64 (G fed F's own mean and var): the pcba batch's node
+    mask at [4096, 512], a ragged [1100, 24] with a random mask and with
+    rows 128-639 masked, an all-masked and a one-row mask, [32768, 512]
+    (rows past a CTA's tile, walked in chunks; x and g 67 MB each, past the
+    50 MB L2), columns at an offset of 1e3 with std 0.1, and two ragged
+    widths in chunks: [40000, 41] (4-byte copies, 9 columns in the last
+    slab) and [20000, 212] (4 in the last slab; the backward chunked, the
+    forward whole).  One launch each way; a second is bit-equal."""
+    x, g, scale, bias, mask = _blocked_case(dev, shape, mask_kind)
+    f0 = fused_bn.bn_forward_blocked.launches
+    b0 = fused_bn.bn_backward_blocked.launches
+    y, mean, var = fused_bn.bn_forward_blocked(x, mask, scale, bias, 1e-5)
+    dx, ds, db = fused_bn.bn_backward_blocked(x, mask, scale, mean, var, 1e-5,
+                                              g)
     torch.cuda.synchronize()
-    assert [w.launches for w in (fused_bn.bn_stats_blocked,
-                                 fused_bn.bn_bwd_sums_blocked,
-                                 fused_bn.bn_normalize, fused_bn.bn_dx)] == [
-        c + 1 for c in counts]
-    r_mean, r_var, r_cnt = fused_bn.bn_stats_blocked_plain(x, mask)
-    r_sg, r_sgx = fused_bn.bn_bwd_sums_blocked_plain(x, g, r_mean, r_var, 1e-5)
-    ref = (r_mean, r_var, r_cnt,
-           fused_bn.bn_normalize_plain(x, r_mean, r_var, scale, bias, 1e-5),
-           r_sg, r_sgx,
-           fused_bn.bn_dx_plain(x, mask, g, scale, r_mean, r_var, 1e-5, r_sg,
-                                r_sgx, r_cnt))
-    for got, want in zip((mean, var, cnt, y, sg, sgx, dx), ref):
-        assert torch.isfinite(got).all()
+    assert (fused_bn.bn_forward_blocked.launches,
+            fused_bn.bn_backward_blocked.launches) == (f0 + 1, b0 + 1)
+    again = (fused_bn.bn_forward_blocked(x, mask, scale, bias, 1e-5)
+             + fused_bn.bn_backward_blocked(x, mask, scale, mean, var, 1e-5,
+                                            g))
+    got = (y, mean, var, dx, ds, db)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = fused_bn.bn_forward_blocked_plain(x.double(), mask, scale.double(),
+                                            bias.double(), 1e-5)
+    ref_b = fused_bn.bn_backward_blocked_plain(
+        x.double(), mask, scale.double(), mean.double(), var.double(), 1e-5,
+        g.double())
+    for got_t, want in zip(got, ref + ref_b):
+        assert torch.isfinite(got_t).all()
         if float(want.abs().max()) == 0.0:
-            assert torch.equal(got, want)
+            assert torch.equal(got_t, want.float())
         else:
-            assert _leaf_err(got, want) <= 1e-5
-    assert float(cnt) == max(float(mask.sum()), 1.0)
+            assert _leaf_err(got_t, want) <= 1e-5
+
+
+def test_blocked_plan_runs_in_one_wave_on_the_card(dev):
+    """At pcba's [4096, 512] the card holds every cluster of F's and G's
+    plan at once."""
+    for tensors in (1, 2):
+        plan = fused_bn.bn_plan(4096, 512, tensors)
+        assert (fused_bn._max_active_clusters(plan, tensors)
+                >= plan.grid // plan.cluster)
+
+
+def test_fused_masked_bn_blocked_autograd_on_the_card(dev):
+    """``fused_masked_bn_blocked`` forward and backward on CUDA tensors at
+    pcba's [4096, 512] go through F and G once each and agree with the same
+    function on the CPU in float64."""
+    x, g, scale, bias, mask = _blocked_case(dev, (4096, 512), "pcba")
+    outs = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        tx, ts, tb = (t.detach().to(device, dtype).requires_grad_()
+                      for t in (x, scale, bias))
+        counts = (fused_bn.bn_forward_blocked.launches,
+                  fused_bn.bn_backward_blocked.launches)
+        y, mean, var = fused_bn.fused_masked_bn_blocked(tx, mask.to(device),
+                                                        ts, tb)
+        (y * g.to(device, dtype)).sum().backward()
+        if device == dev:
+            torch.cuda.synchronize()
+            assert (fused_bn.bn_forward_blocked.launches,
+                    fused_bn.bn_backward_blocked.launches) == (
+                counts[0] + 1, counts[1] + 1)
+        outs.append([t.detach().cpu() for t in (y, mean, var, tx.grad,
+                                                ts.grad, tb.grad)])
+    for a, b in zip(*outs):
+        assert _leaf_err(a, b) <= 1e-5
 
 
 @pytest.mark.parametrize("case", ["pcba", "adversarial"])

@@ -34,12 +34,14 @@ Phases, each of which exits non-zero on failure:
    segment; for the whitening kernels J, K, L (with the T/S/M algebra), M
    and the eval Cholesky, at [4096, 200] (d = 50) against their plain
    versions in float64, a ragged N = 1,100, d = 49, all-masked and one-row
-   masks, a column offset of 1e3 with std 0.1 and nearly collinear
+   masks, a column offset of 1e3 with std 0.1, nearly collinear
    features (where K, L and M, fed the plain version's f32 statistics, are
-   also read against float64), L and M in their frozen variants too (the
-   eval whitening's backward); for H (max and min) and I (mean and var) over
-   the flagship's receiver CSR at D = 200 with ReLU messages, exact ties,
-   the adversarial receivers of A and B (one-edge, all-masked and isolated
+   also read against float64) and the rows of J's first three CTAs masked,
+   L and M in their frozen variants too (the eval whitening's backward),
+   J, L and the frozen L each one CUDA kernel a call, bit-equal on a second
+   launch, with every cluster of their plan on the card at once; for H (max
+   and min) and I (mean and var) over the flagship's receiver CSR at D =
+   200 with ReLU messages, exact ties, the adversarial receivers of A and B (one-edge, all-masked and isolated
    segments) and, for H, |m| >= 1e29: H bit for bit, I within TOL_SUM and
    var 0 exactly on one-edge segments.  Each is timed with CUDA events, eagerly and
    from a CUDA graph, beside its plain version, its bound and, where one
@@ -960,7 +962,8 @@ def segment_sum_masked_kernel(torch, dev, batch, eval_batch, errs):
 def whitening_case(torch, dev, n, d, kind, node_mask=None):
     """``(x, mask, gamma, beta, g)`` for the whitening kernels: x ~ N(0.5,
     1.5^2) with ``node_mask`` or a random mask, or the adversarial ``kind``:
-    "all-masked", "one-row", "offset" (every column 1e3 + N(0, 0.1^2)),
+    "all-masked", "one-row", "ctas masked" (the random mask with the rows of
+    J's first three CTAs masked), "offset" (every column 1e3 + N(0, 0.1^2)),
     "collinear" (component 1 of features 0-9 is component 0 plus N(0,
     1e-3^2): a covariance within 1e-6 of singular, which eps = 1e-5
     regularises)."""
@@ -972,6 +975,10 @@ def whitening_case(torch, dev, n, d, kind, node_mask=None):
         mask = torch.zeros(n, dtype=torch.bool)
         if kind == "one-row":
             mask[n // 2] = True
+    elif kind == "ctas masked":
+        from phc_gnn_torch.ops import fused_whitening as fw
+
+        mask[:3 * fw.wbn_plan(n, d, fw.WBN_STATS_SUMS).rows_per_cta] = False
     elif kind == "offset":
         x = 1e3 + torch.randn((n, 4 * d), generator=gen) * 0.1
     elif kind == "collinear":
@@ -1032,18 +1039,23 @@ def whitening_kernels(torch, dev, batch, errs):
     their plain versions run in float64 on the same f32 inputs, at the
     quaternion path's [4096, 200] (d = 50) with the flagship's node mask, a
     ragged N = 1,100, d = 49, all-masked and one-row masks, a column offset
-    of 1e3 with std 0.1 and nearly collinear features; returns their timing
-    records."""
+    of 1e3 with std 0.1, nearly collinear features and the rows of J's first
+    three CTAs masked; J and L (both variants) bit-equal on a second launch,
+    one CUDA kernel a call each, their clusters in one wave.  Returns the
+    timing records."""
     from phc_gnn_torch.ops import fused_whitening as fw
 
     n, d = batch.num_nodes, DIM // 4
+    plan = fw.wbn_plan(n, d, fw.WBN_STATS_SUMS)
     cases = {f"main [{n}, {4 * d}]": (n, d, "main", batch.node_mask),
              f"ragged [1100, {4 * d}]": (1100, d, "random", None),
              "d = 49 [1100, 196]": (1100, 49, "random", None),
              f"all-masked [{n}, {4 * d}]": (n, d, "all-masked", None),
              "one-row [129, 196]": (129, 49, "one-row", None),
              f"offset 1e3, std 0.1 [{n}, {4 * d}]": (n, d, "offset", None),
-             f"collinear [{n}, {4 * d}]": (n, d, "collinear", None)}
+             f"collinear [{n}, {4 * d}]": (n, d, "collinear", None),
+             f"CTAs 0-2 masked [{n}, {4 * d}] ({plan.rows_per_cta} rows a "
+             f"CTA)": (n, d, "ctas masked", None)}
     wrappers = kernel_wrappers()
     # L and M run twice in the chain: the training variant and the frozen one
     calls = {"wbn_stats": 1, "wbn_transform": 1, "wbn_bwd_sums": 2,
@@ -1056,6 +1068,19 @@ def whitening_kernels(torch, dev, batch, errs):
         torch.cuda.synchronize()
         if {k: wrappers[k].launches - before[k] for k in calls} != calls:
             fail(f"{case}: the whitening launch counters did not move")
+        mean, l = got["wbn_stats"]["mean"], got["wbn_stats"]["L"]
+        again = {"wbn_stats": fw.wbn_stats(x, mask, 1e-5),
+                 "wbn_bwd_sums": fw.wbn_bwd_sums(x, g, gamma, mean, l),
+                 "frozen wbn_bwd_sums": fw.wbn_bwd_sums(x, g, gamma, mean, l,
+                                                        frozen=True)}
+        firsts = {"wbn_stats": tuple(got["wbn_stats"].values()),
+                  "wbn_bwd_sums": tuple(got["wbn_bwd_sums"].values())[:4],
+                  "frozen wbn_bwd_sums": tuple(
+                      got["wbn_bwd_sums"].values())[4:]}
+        torch.cuda.synchronize()
+        for kname, outs in again.items():
+            if not all(torch.equal(a, b) for a, b in zip(firsts[kname], outs)):
+                fail(f"{kname}: two launches on {case} differ")
         want = whitening_chain(fw, x.double(), mask, gamma.double(),
                                beta.double(), g.double(), kernels=False)
         plain = whitening_chain(fw, x, mask, gamma, beta, g, kernels=False)
@@ -1094,7 +1119,7 @@ def whitening_kernels(torch, dev, batch, errs):
                lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l),
                lambda: fw.wbn_bwd_sums_plain(x, g, gamma, mean, l), None,
                2 * x_bytes + (16 + 4 + 10 + 16 + 4 + 16 + 4) * f_bytes,
-               128 * n * d),
+               40 * n * d),
         record(torch, "wbn_dx", src, f"{pallas}:304", errs,
                lambda: fw.wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt),
                lambda: fw.wbn_dx_plain(x, g, mask, gamma, mean, l, mmat, sw,
@@ -1113,27 +1138,48 @@ def whitening_kernels(torch, dev, batch, errs):
     recs[4]["replaces_what"] = ("XLA Cholesky of the running covariance in "
                                 "the eval path (no Pallas kernel)")
     # the frozen variants, the eval whitening's backward: L reads x, g, the
-    # mean, L and Gamma and writes dGamma and dbeta; M reads g, L and Gamma
-    # and writes dx
+    # mean and L and writes dGamma and dbeta; M reads g, L and Gamma and
+    # writes dx
     recs[2]["frozen_variant"] = variant(
         torch, "wbn_bwd_sums", lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l,
                                                        frozen=True),
-        2 * x_bytes + (4 + 10 + 16 + 16 + 4) * f_bytes)
+        2 * x_bytes + (4 + 10 + 16 + 4) * f_bytes)
     recs[3]["frozen_variant"] = variant(
         torch, "wbn_dx", lambda: fw.wbn_dx(x, g, None, gamma, mean, l, None,
                                            None, None, frozen=True),
         2 * x_bytes + (10 + 16) * f_bytes)
-    # each of J's and L's two CUDA kernels (row blocks, then the combine)
-    split = device_profile(torch, lambda: (
-        fw.wbn_stats(x, mask, 1e-5),
-        fw.wbn_bwd_sums(x, g, gamma, mean, l)), 1.0, iters=20)
-    for rec, prefix in ((recs[0], "wbn_stats"), (recs[2], "wbn_bwd_sums")):
+    # J, L and L frozen: one CUDA kernel a call each, all of a plan's
+    # clusters on the card at once
+    splits = {"wbn_stats": (recs[0], lambda: fw.wbn_stats(x, mask, 1e-5),
+                            fw.WBN_STATS_SUMS),
+              "wbn_bwd_sums": (recs[2],
+                               lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l),
+                               fw.WBN_SUMS),
+              "wbn_bwd_sums_frozen": (
+                  recs[2]["frozen_variant"],
+                  lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True),
+                  fw.WBN_SUMS)}
+    for what, (rec, fn, sums) in splits.items():
+        prof = device_profile(torch, fn, 1.0, iters=20)
         rec["cuda_kernels_us"] = {
             re.search(r"wbn_\w+_kernel", name).group(0): us
-            for name, us in split["top_us"] if prefix in name}
-        print(f"kernel {rec['name']}: its CUDA kernels "
-              f"{rec['cuda_kernels_us']} (us of device time a call, "
-              f"torch.profiler over 20 calls)", flush=True)
+            for name, us in prof["top_us"] if "wbn_" in name}
+        plan = fw.wbn_plan(n, d, sums)
+        rec["plan"] = plan._asdict()
+        rec["plan"]["resident_clusters"] = fw._max_active_clusters(plan, what)
+        print(f"kernel {what}: {prof['kernels_per_call']:g} CUDA kernel a "
+              f"call, {rec['cuda_kernels_us']} (us of device time a call, "
+              f"torch.profiler over 20 calls); {plan.grid} CTAs in clusters "
+              f"of {plan.cluster}, slabs of {plan.slab} features, "
+              f"{plan.rows_per_cta} rows a CTA; the card holds "
+              f"{rec['plan']['resident_clusters']} of its "
+              f"{plan.grid // plan.cluster} clusters at once", flush=True)
+        if prof["kernels_per_call"] != 1 or len(rec["cuda_kernels_us"]) != 1:
+            fail(f"{what} runs {prof['kernels_per_call']:g} CUDA kernels a "
+                 f"call, not one")
+        if rec["plan"]["resident_clusters"] < plan.grid // plan.cluster:
+            fail(f"{what} at [{n}, {4 * d}] runs its clusters in more than "
+                 f"one wave")
     return recs
 
 

@@ -7,11 +7,11 @@
 //   wbn_bwd_sums_f32  <- _wbn_bwd_sums_kernel   (:253, pallas_call :388)  L
 //                        together with the T/S/M field algebra that JAX runs
 //                        in XLA between L and M (:408-412, _m_from_lbar
-//                        :110-130), here in the epilogue of L's combine
+//                        :110-130), here in L's epilogue
 //   wbn_dx_f32        <- _wbn_dx_kernel         (:304, pallas_call :413)  M
 // and, for the eval path (phc_gnn_tpu/nn/norm.py:301-345, inline XLA there),
 //   wbn_cholesky_f32     the Cholesky factor of a running covariance + eps I,
-//                        with the device function of J's combine; it feeds
+//                        with J's device function; it feeds
 //                        wbn_transform_f32 with the running mean;
 //   wbn_bwd_sums_frozen_f32, wbn_dx_frozen_f32
 //                        the eval path's backward: L's and M's kernels with
@@ -30,66 +30,102 @@
 //   dbeta_c = sum g_c,  dGamma_ck = sum g_c z_k,  h = Gamma^T g,  w = L^{-T} h
 //   Lbar = -tril(sum w z^T),  sum_w = sum w
 //   T = L^T Lbar,  S = tril_s(T) + tril_s(T)^T + diag(T),  M = L^{-T} S L^{-1}
-//   dx = w + (m / cnt) (M u - sum_w)     only the mean-path term is masked
+//   dx = w + (m / cnt) (M u - sum w)     only the mean-path term is masked
 // The substitutions multiply by the reciprocal diagonal, as JAX's do.  With
 // the running statistics fixed (the eval path, whose mean and L are buffers)
 // mu and L carry no gradient: dx = w on every row, and dbeta, dGamma are the
-// same sums.  The frozen variants of L and M compute just that: L's row
-// blocks skip w and its 14 sums, its combine skips the T/S/M algebra, and M
-// skips the mean-path term.  Reaching this through the training variants
-// with an all-false mask would give cnt = 0, and the mean-path term
-// (m / cnt) (M u - sum w) would read 0 * inf = NaN.
+// same sums.  The frozen variants of L and M compute just that: L skips w
+// and its 14 sums and the T/S/M algebra, and M skips the mean-path term.
+// Reaching this through the training variants with an all-false mask would
+// give cnt = 0, and the mean-path term (m / cnt) (M u - sum w) would read
+// 0 * inf = NaN.
 //
-// Design.  The TPU kernels walk a SEQUENTIAL grid of 1,024-row blocks with a
-// VMEM carry.  Here the per-row kernels share one tiling: block (c, b) owns
-// 32 features (one per lane, so that each of the four component slices
-// x[:, k*d + f] is read as one coalesced run per warp) and a block of 64
-// rows, over 8 warps (row groups).  A thread loads its feature's fields
-// (mean, L, Gamma, ...) once and walks 8 rows.
-//   J: each block writes its row block's partial (count, 4 means, 10
-//      co-moments centred on the block's own mean, from a second pass over
-//      its rows, which then come from L1) per feature: 15 partials.  The
-//      combine gives each feature a warp: lane i merges row blocks i, i+32,
-//      ... in order with Chan's formula, then the lanes merge in a fixed
-//      shuffle tree (deterministic, an all-masked block an exact no-op), and
-//      lane 0 writes mean, cov = M2 / cnt and L.  The partials are taken
-//      about a shift, the feature's value in the first live row: Chan's
-//      deltas between block means then keep their digits under a large
-//      common offset (a column at 1e3 with std 0.1 lost 6e-5 of its
-//      covariance to the f32 rounding of unshifted block means of 64 rows),
-//      and a single live row gets its own value as the mean exactly.
-//   L: each block writes its row block's 34 partial sums per feature (dbeta
-//      4, dGamma 16, sum w z^T 10, sum w 4); the combine sums them with the
-//      same warp per feature and shuffle tree, and lane 0 runs the T/S/M
-//      algebra (about 150 scalar operations) for its feature: no XLA-style
-//      chain of small launches between L and M.
-//   K, M: elementwise over the same tiles.
-// The partials are laid out [quantity, feature, row block] so that the
-// combine's lanes read consecutive row blocks.
+// Design of J and L: one launch each, a grid of thread-block clusters (as
+// the batch norms D and E of fused_bn.cu).  The TPU kernels walk a
+// SEQUENTIAL grid of 1,024-row blocks with a VMEM carry; here the row
+// blocks are a cluster's CTAs, which run at once and meet through
+// distributed shared memory: no workspace, no second kernel, no float
+// atomics.  The launch plan (features a slab, cluster, rows per CTA, shared
+// memory) is computed in Python (ops/fused_whitening.py::wbn_plan) and
+// checked here.
+//   A cluster owns a slab of F = kSlab = 8 features with all four component
+//   columns of each (k*d + f, k = 0..3); its CTA of rank r owns the rows
+//   [r * rows, min(N, (r + 1) * rows)).  A thread owns one feature (t % F)
+//   and walks rows t / F, + 256 / F, ..., so a warp reads 32 / F rows of F
+//   consecutive floats a component.  All four components of a feature sit
+//   in one thread, so its loads are 4 bytes wide; its rows are unrolled (8
+//   in flight) so that a CTA has all its loads in flight at once.  Neither
+//   kernel rereads a row, so nothing is staged in shared memory.
+//   What bounds the sweep is the 32-byte sectors it pulls: a slab's 32-byte
+//   run of a component straddles two sectors for k*d*4 not a multiple of
+//   32, and the neighbouring slab pulls the other half: at d = 50 a slab
+//   of 4 features pulls 2.5x its bytes in sectors, of 8 1.75x, and wider
+//   slabs leave too few SMs (slabs of 4 took 1.3-1.7x as long).  So the
+//   plan takes slabs of 8 and clusters of 16 CTAs (a non-portable size,
+//   allowed per kernel), or 8, 4, 2, 1: the largest whose clusters an H100
+//   holds all at once, one CTA an SM: at [4096, 200] 7 slabs x 16 = 112
+//   CTAs of 256 rows.
+//   J, one sweep: per thread Welford's count, 4 means and 10 co-moments of
+//   x - s about the thread's shift s (x at its first live row, 0 without
+//   one).  Merged with Chan's formula (the Pallas kernel's combine,
+//   fused_whitening.py:204-216), b's mean taken about a's shift, delta =
+//   ((s_b - s_a) + m_b) - m_a, in fixed shuffle trees: the lanes of a
+//   feature, then the warps, then -- after the exchange -- the ranks, one
+//   lane each; then mean = s + m, cov = M2 * (1 / cnt) and the closed-form
+//   Cholesky (cholesky, the eval Cholesky's too).  The shifts are data of
+//   the column, so every partial stays at the size of the deviations where
+//   a column sits far from 0 (a column at 1e3 with std 0.1 lost 6e-5 of its
+//   covariance to unshifted block means); a partial with no live row is an
+//   exact no-op in every merge, and a single live row gets its own value as
+//   the mean exactly.
+//   L, one sweep of the 20 sums that are linear in the rows: sum g and G =
+//   sum g u^T (u = x - mu), over all rows, a shuffle tree and the warps'
+//   sums in order.  Since z = L^{-1} u and w = L^{-T} Gamma^T g,
+//     dGamma = G L^{-T},  sum w z^T = L^{-T} Gamma^T dGamma,
+//     sum w = L^{-T} Gamma^T sum g,
+//   which the epilogue solves once a feature: 24 operations a row and
+//   feature in place of the ~130 of a per-row z and w.  The frozen variant
+//   takes the same sweep and stops at dGamma.
+//   Feature i of a slab belongs to rank i % cluster: each CTA writes its
+//   partials of feature i into that rank's shared memory, in its own slot
+//   (cluster.map_shared_rank), then one cluster barrier, and the owner
+//   writes the feature's outputs: J from its rank tree; L sums the ranks in
+//   rank order, then four lanes a feature solve (lane j: row j of dGamma,
+//   column j of sum w z^T, then L^T v_j = S e_j and row j of M = L^{-T} S
+//   L^{-1}, the lanes trading columns by shuffles).  Two launches on one
+//   input give bit-equal outputs.
+//   K, M: elementwise over tiles of 32 features (one per lane) by 64 rows.
 //
 // Bound on an H100: bytes.  At [4096, 200] f32 (3.28 MB): J reads x and the
 // mask (3.28 MB, 0.98 us at 3.35 TB/s); K reads x and writes y (6.56 MB,
 // 1.96 us); L reads x and g (6.56 MB, 1.96 us); M reads x, g and the mask and
 // writes dx (9.83 MB, 2.94 us); frozen, L reads the same and M reads g and
-// writes dx (6.56 MB, 1.96 us).  Their arithmetic (about 30, 60, 130 and 90
+// writes dx (6.56 MB, 1.96 us).  Their arithmetic (about 30, 60, 40 and 90
 // f32 operations per (row, feature)) is an order of magnitude under the
-// 67 TFLOP/s of the CUDA cores.  At d = 50 the grid is 2 feature tiles (64
-// lanes for 50 features) by 64 row blocks: 128 blocks of 256 threads.
+// 67 TFLOP/s of the CUDA cores.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kCols = 32;                  // features per tile: one warp
-constexpr int kGroups = 8;                 // row groups (warps) per block
-constexpr int kThreads = kCols * kGroups;
-constexpr int kRows = 64;                  // rows per row block
-constexpr int kSums = 34;                  // dbeta 0..3, dGamma 4..19 (c*4+k),
-                                           // sum w z^T 20..29 (L order),
-                                           // sum w 30..33
-constexpr int kFrozenSums = 20;            // dbeta and dGamma alone
-constexpr int kCombineWarps = 8;           // features per combine block
+constexpr int kCols = 32;                  // K, M: features per tile, a warp
+constexpr int kGroups = 8;                 // K, M: row groups (warps) a block
+constexpr int kThreads = kCols * kGroups;  // every kernel of this file
+constexpr int kRows = 64;                  // K, M: rows per row block
+constexpr int kWarps = kThreads / 32;
+constexpr int kStatsSums = 15;             // J: count, mean 0..3, M2 5..14
+constexpr int kSums = 20;                  // L: sum g 0..3, sum g u^T 4..19
+constexpr int kSlab = 8;                   // J, L: features a cluster
+constexpr int kMaxCluster = 16;            // past 8 a non-portable size
+constexpr int kMaxSmem = 48 * 1024;        // without an opt-in
+constexpr int kStatsUnroll = 8;            // J's rows in flight a thread
+constexpr int kSumsUnroll = 8;             // L's (x and g)
 constexpr unsigned kFull = 0xffffffffu;
 
 // entry (j, k), j <= k, of the upper covariance in JAX's _COV_IDX order
@@ -143,35 +179,6 @@ __device__ __forceinline__ void bwd_subst(const float* l, const float* il,
   w[0] = (b[0] - l[1] * w[1] - l[3] * w[2] - l[6] * w[3]) * il[0];
 }
 
-// M = L^{-T} S L^{-1} from the Cholesky cotangent Lbar (_m_from_lbar);
-// m[a*4+b] = M_ab.
-__device__ __forceinline__ void m_from_lbar(const float* l, const float* il,
-                                            const float* lbar, float* m) {
-  float s[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b <= a; ++b) {
-      float t = 0.0f;  // T_ab = sum_{c >= a} L_ca Lbar_cb  (b <= a)
-#pragma unroll
-      for (int c = a; c < 4; ++c) t += l[l_at(c, a)] * lbar[l_at(c, b)];
-      s[a][b] = t;
-      s[b][a] = t;
-    }
-  }
-  float v[4][4];  // v[b] = L^{-T} S[:, b]
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const float col[4] = {s[0][b], s[1][b], s[2][b], s[3][b]};
-    bwd_subst(l, il, col, v[b]);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float row[4] = {v[0][a], v[1][a], v[2][a], v[3][a]};
-    bwd_subst(l, il, row, m + 4 * a);
-  }
-}
-
 __device__ __forceinline__ void load_factor(const float* __restrict__ lf,
                                             int64_t f, int64_t d, float* l,
                                             float* il) {
@@ -180,23 +187,156 @@ __device__ __forceinline__ void load_factor(const float* __restrict__ lf,
   inv_diag(l, il);
 }
 
-// ----------------------------------------------------------------- J
+// ------------------------------------------------- J and L: the clusters
 
-struct Moments {
-  float c;      // live rows
-  float m[4];   // mean per component
-  float q[10];  // centred co-moments, cov order
+// The cluster barrier in two halves: every CTA arrives as it starts and
+// waits just before it first writes another CTA's shared memory, by which
+// time every CTA of the cluster has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Every rank's partials in its shared memory, once every CTA has written its
+// own: one cluster barrier (a CTA barrier in a cluster of 1).  No CTA
+// touches another's shared memory after it.
+__device__ __forceinline__ void exchange(cg::cluster_group& cluster,
+                                         unsigned ranks) {
+  if (ranks > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Floats of J's and L's dynamic shared memory for a slab of f features, r
+// ranks and q quantities a feature (ops/fused_whitening.py::wbn_plan), in
+// slots of q + 4 floats a feature (J's partial is its q = 15 and its shift):
+//   rank  [r][q + 4][f]       every rank's partials, each written by its rank
+//   warp  [kWarps][q + 4][f]  each warp's partials
+//   tot   [q + 4][f]          L: the cluster's sums of the features it owns
+__host__ __device__ constexpr int64_t smem_floats(int64_t f, int64_t r,
+                                                  int64_t q) {
+  return f * (r + kWarps + 1) * (q + 4);
+}
+
+// J's and L's dynamic shared memory, indexed as an array of the shared
+// space so that every access is a shared-memory instruction
+extern __shared__ float wsm[];
+
+// Offsets of the regions in wsm.
+struct Layout {
+  int rank, warp, tot, F, S;
+  __device__ Layout(int f, unsigned r, int q)
+      : rank(0),
+        warp(static_cast<int>(r) * (q + 4) * f),
+        tot(warp + kWarps * (q + 4) * f),
+        F(f),
+        S(q + 4) {}
+  // offset of quantity i of feature fi in slot q of the rank or warp region
+  __device__ int slot(int q, int i, int fi) const {
+    return (q * S + i) * F + fi;
+  }
 };
 
-// Chan's combine of b into a (fused_whitening.py:204-216); c' is clamped to
-// >= 1, so a block with no live row (c_b = 0, q = 0) is an exact no-op.
+// Where this thread works: feature f (the slab's fi-th), rows rg, rg +
+// groups, ... of its CTA's rows [r0, r1).
+struct Place {
+  int64_t f, base, r0, r1;
+  int fi, rg, groups;
+  unsigned rank, ranks;
+  bool live;
+};
+
+__device__ Place place(int64_t n, int64_t d, int rows) {
+  const cg::cluster_group cluster = cg::this_cluster();
+  Place p;
+  p.rank = cluster.block_rank();
+  p.ranks = cluster.num_blocks();
+  p.fi = threadIdx.x % kSlab;
+  p.rg = threadIdx.x / kSlab;
+  p.groups = kThreads / kSlab;
+  p.base = static_cast<int64_t>(blockIdx.x / p.ranks) * kSlab;
+  p.f = p.base + p.fi;
+  p.live = p.f < d;
+  const int64_t r0 = static_cast<int64_t>(p.rank) * rows;
+  p.r0 = r0 < n ? r0 : n;
+  p.r1 = p.r0 + rows < n ? p.r0 + rows : n;
+  return p;
+}
+
+// Feature fi of the slab belongs to rank fi % ranks, which writes it.
+__device__ __forceinline__ bool owns(const Place& p, int fi) {
+  return static_cast<unsigned>(fi) % p.ranks == p.rank;
+}
+
+// Load U of this thread's rows from c0 on, the four components of its
+// feature from each of src (0 past the CTA's rows or for a feature past
+// d), and whether each row counts: inside the rows and, with kMask, live.
+template <int U, int kN, bool kMask>
+__device__ __forceinline__ void load_rows(const float* const (&src)[kN],
+                                          const uint8_t* __restrict__ mask,
+                                          int64_t c0, int64_t d,
+                                          const Place& p,
+                                          float (&v)[U][kN][4], bool (&m)[U]) {
+  const int64_t dd = 4 * d;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t r = c0 + static_cast<int64_t>(u) * p.groups;
+    const bool in = r < p.r1;
+    m[u] = kMask ? in && mask[r] != 0 : in;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        v[u][k][c] = in && p.live ? __ldg(src[k] + r * dd + c * d + p.f)
+                                  : 0.0f;
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------- J
+
+// A partial of J for one feature: its live rows c, its shift s (x at its
+// first live row, 0 without one), the mean m of x - s and the co-moments q
+// about that mean.
+struct Moments {
+  float c;      // live rows
+  float m[4];   // mean of x - s per component
+  float q[10];  // centred co-moments, cov order
+  float s[4];   // shift
+};
+
+// Quantity i of a partial as published: 0 count, 1..4 mean, 5..14 M2, then
+// 15..18 the shift.
+__device__ __forceinline__ float& moment(Moments& a, int i) {
+  return i == 0 ? a.c : i < 5 ? a.m[i - 1] : i < 15 ? a.q[i - 5] : a.s[i - 15];
+}
+
+constexpr int kMoments = kStatsSums + 4;
+
+// Chan's combine of b into a (fused_whitening.py:204-216), with b's mean
+// taken about a's shift: delta = ((s_b - s_a) + m_b) - m_a.  The shifts are
+// data of one column, so s_b - s_a keeps its digits where the column sits
+// far from 0.  A partial with no live row is an exact no-op, and one merged
+// into an empty partial is copied.  The weights take the fast reciprocal
+// (__fdividef, 2 ulp): a few ulp in a mean of deviations.
 __device__ __forceinline__ void chan_merge(Moments& a, const Moments& b) {
+  if (b.c == 0.0f) return;
+  if (a.c == 0.0f) {
+    a = b;
+    return;
+  }
   const float cn = a.c + b.c;
-  const float ratio = b.c / fmaxf(cn, 1.0f);
+  const float ratio = __fdividef(b.c, cn);
   const float cross = a.c * ratio;
   float delta[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) delta[k] = b.m[k] - a.m[k];
+  for (int k = 0; k < 4; ++k) delta[k] = ((b.s[k] - a.s[k]) + b.m[k]) - a.m[k];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -209,165 +349,142 @@ __device__ __forceinline__ void chan_merge(Moments& a, const Moments& b) {
   a.c = cn;
 }
 
-__device__ __forceinline__ Moments shfl_down(const Moments& a, int off) {
+__device__ __forceinline__ Moments shfl_down(Moments& a, int off) {
   Moments b;
-  b.c = __shfl_down_sync(kFull, a.c, off);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) b.m[k] = __shfl_down_sync(kFull, a.m[k], off);
-#pragma unroll
-  for (int i = 0; i < 10; ++i) b.q[i] = __shfl_down_sync(kFull, a.q[i], off);
+  for (int i = 0; i < kMoments; ++i) {
+    moment(b, i) = __shfl_down_sync(kFull, moment(a, i), off);
+  }
   return b;
 }
 
-// Partial (count, mean, centred co-moments) of one row block per feature,
-// about the shift; work is [15, d, nrb] (count, mean 0..3, M2 in cov order)
-// followed by the shifts [4, d], which row block 0 writes.
-__global__ void __launch_bounds__(kThreads)
-wbn_stats_partial_kernel(const float* __restrict__ x,
-                         const uint8_t* __restrict__ mask,
-                         float* __restrict__ work, int64_t n, int64_t d,
-                         int64_t nrb) {
-  __shared__ float sm[10][kGroups][kCols];
-  __shared__ int first_live;
-  const int lane = threadIdx.x % kCols;
-  const int rg = threadIdx.x / kCols;
-  const int64_t f = static_cast<int64_t>(blockIdx.x) * kCols + lane;
-  const int64_t b = blockIdx.y;
-  const int64_t r0 = b * kRows;
-  const int64_t r1 = r0 + kRows < n ? r0 + kRows : n;
-  const int64_t dd = 4 * d;
-  const bool live = f < d;
+// mean [4, d], cov [4, 4, d], L [10, d] and cnt [1] of the masked rows.
+__global__ void __launch_bounds__(kThreads, 1)
+wbn_stats_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
+                 float eps, float* __restrict__ mean_out,
+                 float* __restrict__ cov_out, float* __restrict__ l_out,
+                 float* __restrict__ cnt_out, int64_t n, int64_t d,
+                 int rows) {
+  constexpr int F = kSlab;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Place p = place(n, d, rows);
+  if (p.ranks > 1) cluster_arrive_relaxed();
+  const Layout lay(F, p.ranks, kStatsSums);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const float* const src[1] = {x};
 
-  // the first live row, whose values are the shift (0 without one); a
-  // thread stops at its first live row, so this reads little of the mask
-  if (threadIdx.x == 0) first_live = static_cast<int>(n);
-  __syncthreads();
-  for (int64_t r = threadIdx.x; r < n; r += kThreads) {
-    if (mask[r]) {
-      atomicMin(&first_live, static_cast<int>(r));
-      break;
-    }
-  }
-  __syncthreads();
-  const int64_t rs = first_live;
-  float shift[4];
+  // Welford over this thread's live rows, about its first one
+  Moments a;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    shift[c] = live && rs < n ? x[rs * dd + c * d + f] : 0.0f;
-  }
-  if (b == 0 && rg == 0 && live) {
+  for (int i = 0; i < kMoments; ++i) moment(a, i) = 0.0f;
+  for (int64_t c0 = p.r0 + p.rg; c0 < p.r1;
+       c0 += static_cast<int64_t>(kStatsUnroll) * p.groups) {
+    float v[kStatsUnroll][1][4];
+    bool m[kStatsUnroll];
+    load_rows<kStatsUnroll, 1, true>(src, mask, c0, d, p, v, m);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) work[(15 * nrb + c) * d + f] = shift[c];
-  }
-
-  // loads are not behind the mask's branch, so that several rows are in
-  // flight at once; a masked row adds an exact 0
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float k = 0.0f;
-  for (int64_t r = r0 + rg; r < r1; r += kGroups) {
-    const bool m = mask[r];
-    k += m ? 1.0f : 0.0f;
-    if (live) {
+    for (int u = 0; u < kStatsUnroll; ++u) {
+      if (!m[u]) continue;
+      if (a.c == 0.0f) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float v = x[r * dd + c * d + f] - shift[c];
-        s[c] += m ? v : 0.0f;
+        for (int c = 0; c < 4; ++c) a.s[c] = v[u][0][c];
       }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) sm[c][rg][lane] = s[c];
-  sm[4][rg][lane] = k;
-  __syncthreads();
-  float cb = 0.0f, tot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < kGroups; ++i) {
-    cb += sm[4][i][lane];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) tot[c] += sm[c][i][lane];
-  }
-  float mean[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) mean[c] = tot[c] / fmaxf(cb, 1.0f);
-  __syncthreads();  // sm is reused below
-
-  float q[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) q[i] = 0.0f;
-  if (live) {
-    for (int64_t r = r0 + rg; r < r1; r += kGroups) {
-      const bool m = mask[r];
-      float u[4];
+      a.c += 1.0f;
+      const float inv = __fdividef(1.0f, a.c);
+      float xs[4], e[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float v = (x[r * dd + c * d + f] - shift[c]) - mean[c];
-        u[c] = m ? v : 0.0f;
+        xs[c] = v[u][0][c] - a.s[c];
+        e[c] = xs[c] - a.m[c];
+        a.m[c] += e[c] * inv;
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int kk = j; kk < 4; ++kk) q[cov_at(j, kk)] += u[j] * u[kk];
+        for (int k = j; k < 4; ++k) {
+          a.q[cov_at(j, k)] += e[j] * (xs[k] - a.m[k]);
+        }
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < 10; ++i) sm[i][rg][lane] = q[i];
-  __syncthreads();
-  if (!live) return;  // no barrier follows
-  if (rg == 0) {
-    work[(0 * d + f) * nrb + b] = cb;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) work[((1 + c) * d + f) * nrb + b] = mean[c];
-  }
-  for (int i = rg; i < 10; i += kGroups) {
-    float v = 0.0f;
-    for (int j = 0; j < kGroups; ++j) v += sm[i][j][lane];
-    work[((5 + i) * d + f) * nrb + b] = v;
-  }
-}
 
-// Combine of J's partials, one warp per feature, and its epilogue: mean
-// (the shift restored; 0 without a live row), cov = M2 / cnt (both
-// triangles), L = chol(cov + eps I), cnt.
-__global__ void __launch_bounds__(kCombineWarps * 32)
-wbn_stats_combine_kernel(const float* __restrict__ work, float eps,
-                         float* __restrict__ mean_out,
-                         float* __restrict__ cov_out, float* __restrict__ l_out,
-                         float* __restrict__ cnt_out, int64_t d, int64_t nrb) {
-  const int lane = threadIdx.x % 32;
-  const int64_t f = static_cast<int64_t>(blockIdx.x) * kCombineWarps +
-                    threadIdx.x / 32;
-  if (f >= d) return;  // the whole warp: f is the warp's
-  Moments acc;
-  acc.c = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) acc.m[k] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) acc.q[i] = 0.0f;
-  for (int64_t b = lane; b < nrb; b += 32) {
-    Moments p;
-    p.c = work[(0 * d + f) * nrb + b];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) p.m[k] = work[((1 + k) * d + f) * nrb + b];
-#pragma unroll
-    for (int i = 0; i < 10; ++i) p.q[i] = work[((5 + i) * d + f) * nrb + b];
-    chan_merge(acc, p);
+  // the lanes of a feature, in a fixed tree; lane fi < F holds the warp's
+  for (int off = 16; off >= F; off >>= 1) {
+    const Moments b = shfl_down(a, off);
+    chan_merge(a, b);
   }
+  if (lane < F) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const Moments other = shfl_down(acc, off);
-    chan_merge(acc, other);  // lanes past 31 - off merge junk nobody reads
+    for (int i = 0; i < kMoments; ++i) {
+      wsm[lay.warp + lay.slot(warp, i, lane)] = moment(a, i);
+    }
   }
-  if (lane != 0) return;
-  const float cnt = fmaxf(acc.c, 1.0f);
+  __syncthreads();
+  if (p.ranks > 1) cluster_wait();
+  // a thread per (feature, warp), 8 lanes a feature: the warps' partials in
+  // a fixed tree; lane w = the feature's owner (fi % ranks < F <= 8) takes
+  // lane 0's and writes it into the owner's slot for this rank
+  if (t < F * kWarps) {  // whole warps
+    const int fi = t / kWarps, w = t % kWarps;
+    Moments acc;
+#pragma unroll
+    for (int i = 0; i < kMoments; ++i) {
+      moment(acc, i) = wsm[lay.warp + lay.slot(w, i, fi)];
+    }
+#pragma unroll
+    for (int off = kWarps / 2; off > 0; off >>= 1) {
+      Moments b;
+#pragma unroll
+      for (int i = 0; i < kMoments; ++i) {
+        moment(b, i) = __shfl_down_sync(kFull, moment(acc, i), off, kWarps);
+      }
+      chan_merge(acc, b);
+    }
+#pragma unroll
+    for (int i = 0; i < kMoments; ++i) {
+      moment(acc, i) = __shfl_sync(kFull, moment(acc, i), 0, kWarps);
+    }
+    if (static_cast<unsigned>(w) == static_cast<unsigned>(fi) % p.ranks) {
+      float* dst = cluster.map_shared_rank(wsm, w) + lay.rank;
+#pragma unroll
+      for (int i = 0; i < kMoments; ++i) {
+        dst[lay.slot(p.rank, i, fi)] = moment(acc, i);
+      }
+    }
+  }
+  exchange(cluster, p.ranks);
+
+  // lanes 8 fi + q (q < 8; 16 fi + q for q < 16 past 8 ranks): rank q's
+  // partial of feature fi, merged over the ranks in the same fixed tree;
+  // lane q = 0 of the feature's owner writes its outputs
+  const int lanes = p.ranks > 8 ? 16 : 8;
+  if (t >= F * lanes) return;  // no barrier follows
+  const int fi = t / lanes, q = t % lanes;
+  const int64_t f = p.base + fi;
+  Moments r;
+#pragma unroll
+  for (int i = 0; i < kMoments; ++i) {
+    moment(r, i) = q < static_cast<int>(p.ranks)
+                       ? wsm[lay.rank + lay.slot(q, i, fi)]
+                       : 0.0f;
+  }
+  for (int off = lanes / 2; off > 0; off >>= 1) {
+    Moments b;
+#pragma unroll
+    for (int i = 0; i < kMoments; ++i) {
+      moment(b, i) = __shfl_down_sync(kFull, moment(r, i), off, lanes);
+    }
+    chan_merge(r, b);
+  }
+  if (q != 0 || !owns(p, fi) || f >= d) return;
+  const float cnt = fmaxf(r.c, 1.0f);
+  const float inv = 1.0f / cnt;
   float cov[10], l[10];
 #pragma unroll
-  for (int i = 0; i < 10; ++i) cov[i] = acc.q[i] / cnt;
+  for (int i = 0; i < 10; ++i) cov[i] = r.q[i] * inv;
   cholesky(cov, eps, l);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    mean_out[k * d + f] =
-        acc.c > 0.0f ? work[(15 * nrb + k) * d + f] + acc.m[k] : 0.0f;
-  }
+  for (int c = 0; c < 4; ++c) mean_out[c * d + f] = r.s[c] + r.m[c];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -422,137 +539,207 @@ wbn_transform_kernel(const float* __restrict__ x,
 
 // ----------------------------------------------------------------- L
 
-__host__ __device__ constexpr int sums_of(bool frozen) {
-  return frozen ? kFrozenSums : kSums;
-}
-
-// Partial sums of one row block per feature over ALL rows; work is
-// [sums_of(kFrozen), d, nrb].
-template <bool kFrozen>
-__global__ void __launch_bounds__(kThreads)
-wbn_bwd_sums_partial_kernel(const float* __restrict__ x,
-                            const float* __restrict__ g,
-                            const float* __restrict__ mean,
-                            const float* __restrict__ lf,
-                            const float* __restrict__ gamma,
-                            float* __restrict__ work, int64_t n, int64_t d,
-                            int64_t nrb) {
-  constexpr int kN = sums_of(kFrozen);
-  __shared__ float sm[kN][kGroups][kCols];  // 34,816 bytes, or 20,480 frozen
-  const int lane = threadIdx.x % kCols;
-  const int rg = threadIdx.x / kCols;
-  const int64_t f = static_cast<int64_t>(blockIdx.x) * kCols + lane;
-  const int64_t b = blockIdx.y;
-  const int64_t r0 = b * kRows;
-  const int64_t r1 = r0 + kRows < n ? r0 + kRows : n;
-  const int64_t dd = 4 * d;
-  const bool live = f < d;
-
-  float acc[kN];
+// S e_j of the symmetric S = copyltu(L^T Lbar) (_m_from_lbar), Lbar in L
+// order.
+__device__ __forceinline__ void s_column(const float* l, const float* lbar,
+                                         int j, float* col) {
+  float s[4][4];
 #pragma unroll
-  for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
-  if (live) {
-    float mu[4], l[10], il[4], gam[16];
+  for (int a = 0; a < 4; ++a) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) mu[c] = mean[c * d + f];
+    for (int b = 0; b <= a; ++b) {
+      float t = 0.0f;  // T_ab = sum_{c >= a} L_ca Lbar_cb  (b <= a)
 #pragma unroll
-    for (int i = 0; i < 16; ++i) gam[i] = gamma[i * d + f];
-    load_factor(lf, f, d, l, il);
-    for (int64_t r = r0 + rg; r < r1; r += kGroups) {
-      float u[4], z[4], gv[4], h[4], w[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        u[c] = x[r * dd + c * d + f] - mu[c];
-        gv[c] = g[r * dd + c * d + f];
-      }
-      fwd_subst(l, il, u, z);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[c] += gv[c];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[4 + c * 4 + k] += gv[c] * z[k];
-      }
-      if constexpr (!kFrozen) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float hk = gam[k] * gv[0];
-#pragma unroll
-          for (int c = 1; c < 4; ++c) hk += gam[c * 4 + k] * gv[c];
-          h[k] = hk;
-        }
-        bwd_subst(l, il, h, w);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int k = 0; k <= j; ++k) acc[20 + l_at(j, k)] += w[j] * z[k];
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[30 + k] += w[k];
-      }
+      for (int c = a; c < 4; ++c) t += l[l_at(c, a)] * lbar[l_at(c, b)];
+      s[a][b] = t;
+      s[b][a] = t;
     }
   }
 #pragma unroll
-  for (int i = 0; i < kN; ++i) sm[i][rg][lane] = acc[i];
-  __syncthreads();
-  if (!live) return;  // no barrier follows
-  for (int qi = rg; qi < kN; qi += kGroups) {
-    float v = 0.0f;
-    for (int i = 0; i < kGroups; ++i) v += sm[qi][i][lane];
-    work[(qi * d + f) * nrb + b] = v;
+  for (int a = 0; a < 4; ++a) {
+    col[a] = j == 0 ? s[a][0] : j == 1 ? s[a][1] : j == 2 ? s[a][2] : s[a][3];
   }
 }
 
-// Sum of L's partials, one warp per feature, and the T/S/M epilogue:
-// dGamma, dbeta, M = L^{-T} S L^{-1} from Lbar = -sum w z^T, and sum w;
-// frozen, dGamma and dbeta alone (mmat and sw are not written).
+// One lane j of the 4 of a feature in L's epilogue takes, from lane b of
+// its quad, b's value v[j]: the transpose of what the 4 lanes hold.
+__device__ __forceinline__ void quad_transpose(const float (&v)[4], int j,
+                                               float (&out)[4]) {
+  const int base = (threadIdx.x & 31) & ~3;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float o = __shfl_sync(kFull, v[k], base + b);
+      if (k == j) out[b] = o;
+    }
+  }
+}
+
+// dGamma [4, 4, d], dbeta [4, d], M [16, d] and sum w [4, d] over all rows;
+// frozen, dGamma and dbeta alone (mmat and sw are not written).  The sweep
+// sums the 20 quantities that are linear in the rows, sum g and
+// G = sum g u^T (u = x - mean); since z = L^{-1} u and w = L^{-T} Gamma^T g,
+//   dGamma = G L^{-T},  sum w z^T = L^{-T} Gamma^T dGamma,
+//   sum w = L^{-T} Gamma^T sum g,
+// which the epilogue solves once a feature.
 template <bool kFrozen>
-__global__ void __launch_bounds__(kCombineWarps * 32)
-wbn_bwd_sums_combine_kernel(const float* __restrict__ work,
-                            const float* __restrict__ lf,
-                            float* __restrict__ dgamma,
-                            float* __restrict__ dbeta,
-                            float* __restrict__ mmat, float* __restrict__ sw,
-                            int64_t d, int64_t nrb) {
-  const int lane = threadIdx.x % 32;
-  const int64_t f = static_cast<int64_t>(blockIdx.x) * kCombineWarps +
-                    threadIdx.x / 32;
-  if (f >= d) return;  // the whole warp: f is the warp's
-  constexpr int kN = sums_of(kFrozen);
-  float acc[kN];
+__global__ void __launch_bounds__(kThreads, 1)
+wbn_bwd_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                    const float* __restrict__ mean,
+                    const float* __restrict__ lf,
+                    const float* __restrict__ gamma,
+                    float* __restrict__ dgamma, float* __restrict__ dbeta,
+                    float* __restrict__ mmat, float* __restrict__ sw,
+                    int64_t n, int64_t d, int rows) {
+  constexpr int F = kSlab;
+  cg::cluster_group cluster = cg::this_cluster();
+  const Place p = place(n, d, rows);
+  if (p.ranks > 1) cluster_arrive_relaxed();
+  const Layout lay(F, p.ranks, kSums);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const float* const src[2] = {x, g};
+
+  // the epilogue's lanes 4 fi + j (t < 4 F) load feature fi's factor and,
+  // outside the frozen variant, Gamma, while the rows stream in
+  const int fq = t >> 2, j = t & 3;
+  const int ei = fq < F ? fq : F - 1;
+  const int64_t ef = p.base + ei;
+  float lq[10], gam[16];
 #pragma unroll
-  for (int i = 0; i < kN; ++i) acc[i] = 0.0f;
-  for (int64_t b = lane; b < nrb; b += 32) {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) acc[i] += work[(i * d + f) * nrb + b];
+  for (int i = 0; i < 10; ++i) {
+    lq[i] = t < 4 * F && ef < d ? lf[i * d + ef]
+                                : (i == 0 || i == 2 || i == 5 || i == 9);
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int i = 0; i < 16; ++i) {
+    gam[i] = !kFrozen && t < 4 * F && ef < d ? gamma[i * d + ef] : 0.0f;
+  }
+  float mu[4];
 #pragma unroll
-    for (int i = 0; i < kN; ++i) {
+  for (int c = 0; c < 4; ++c) mu[c] = p.live ? mean[c * d + p.f] : 0.0f;
+
+  // acc: sum g 0..3, then G row-major (4 + c * 4 + k: sum g_c u_k)
+  float acc[kSums];
+#pragma unroll
+  for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
+  for (int64_t c0 = p.r0 + p.rg; c0 < p.r1;
+       c0 += static_cast<int64_t>(kSumsUnroll) * p.groups) {
+    float v[kSumsUnroll][2][4];
+    bool in[kSumsUnroll];
+    load_rows<kSumsUnroll, 2, false>(src, nullptr, c0, d, p, v, in);
+#pragma unroll
+    for (int r = 0; r < kSumsUnroll; ++r) {
+      if (!in[r]) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[c] += v[r][1][c];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc[4 + c * 4 + k] += v[r][1][c] * (v[r][0][k] - mu[k]);
+        }
+      }
+    }
+  }
+
+  // the lanes of a feature, in a fixed tree; lane fi < F holds the warp's
+  for (int off = 16; off >= F; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) {
       acc[i] += __shfl_down_sync(kFull, acc[i], off);
     }
   }
-  if (lane != 0) return;
-  if constexpr (kFrozen) {
+  if (lane < F) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dbeta[c * d + f] = acc[c];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) dgamma[i * d + f] = acc[4 + i];
-  } else {
-    float l[10], il[4], lbar[10], m[16];
-    load_factor(lf, f, d, l, il);
-#pragma unroll
-    for (int i = 0; i < 10; ++i) lbar[i] = -acc[20 + i];
-    m_from_lbar(l, il, lbar, m);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      dbeta[c * d + f] = acc[c];
-      sw[c * d + f] = acc[30 + c];
+    for (int i = 0; i < kSums; ++i) {
+      wsm[lay.warp + lay.slot(warp, i, lane)] = acc[i];
     }
+  }
+  __syncthreads();
+  if (p.ranks > 1) cluster_wait();
+  // a thread per (sum, feature): the warps in order, then into the
+  // feature's owner
+  for (int idx = t; idx < kSums * F; idx += kThreads) {
+    const int i = idx / F, fi = idx % F;
+    float s = wsm[lay.warp + lay.slot(0, i, fi)];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      dgamma[i * d + f] = acc[4 + i];
-      mmat[i * d + f] = m[i];
+    for (int w = 1; w < kWarps; ++w) s += wsm[lay.warp + lay.slot(w, i, fi)];
+    cluster.map_shared_rank(wsm, fi % static_cast<int>(p.ranks))[
+        lay.rank + lay.slot(p.rank, i, fi)] = s;
+  }
+  exchange(cluster, p.ranks);
+
+  // the owner of each feature sums the ranks in order
+  for (int idx = t; idx < kSums * F; idx += kThreads) {
+    const int i = idx / F, fi = idx % F;
+    if (!owns(p, fi)) continue;
+    float s = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      const bool in = q < static_cast<int>(p.ranks);
+      const float v = wsm[lay.rank + lay.slot(in ? q : 0, i, fi)];
+      s += in ? v : 0.0f;
+    }
+    wsm[lay.tot + i * F + fi] = s;
+    if (i < 4 && p.base + fi < d) dbeta[i * d + p.base + fi] = s;
+  }
+  __syncthreads();
+  if (warp >= (4 * F + 31) / 32) return;  // no barrier follows
+  // lanes 4 fi + j: row j of dGamma = L^{-1} G[j, :]^T; outside the frozen
+  // variant lane j then solves column j of W = sum w z^T = L^{-T} Gamma^T
+  // dGamma, the lanes trade W into Lbar = -tril(W), and lane j solves
+  // L^T v_j = S e_j and row j of M = L^{-T} S L^{-1} from
+  // (v_0[j], v_1[j], v_2[j], v_3[j]), and writes sum w [j]
+  const bool mine = fq < F && owns(p, ei) && ef < d;
+  float ilq[4], grow[4], dg[4];
+  inv_diag(lq, ilq);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) grow[k] = wsm[lay.tot + (4 + j * 4 + k) * F + ei];
+  fwd_subst(lq, ilq, grow, dg);
+  if (mine) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dgamma[(j * 4 + k) * d + ef] = dg[k];
+  }
+  if constexpr (!kFrozen) {
+    float col[4], a[4], wj[4], sg[4], h[4], swv[4];
+    quad_transpose(dg, j, col);  // col[c] = dGamma[c][j]
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float s = gam[k] * col[0];
+#pragma unroll
+      for (int c = 1; c < 4; ++c) s += gam[c * 4 + k] * col[c];
+      a[k] = s;  // (Gamma^T dGamma)[k][j]
+    }
+    bwd_subst(lq, ilq, a, wj);  // W[:, j]
+    float lbar[10];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float o = __shfl_sync(kFull, wj[r], (lane & ~3) + b);
+        if (r >= b) lbar[l_at(r, b)] = -o;
+      }
+    }
+    float scol[4], vj[4], row[4], mrow[4];
+    s_column(lq, lbar, j, scol);
+    bwd_subst(lq, ilq, scol, vj);
+    quad_transpose(vj, j, row);
+    bwd_subst(lq, ilq, row, mrow);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sg[c] = wsm[lay.tot + c * F + ei];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float s = gam[k] * sg[0];
+#pragma unroll
+      for (int c = 1; c < 4; ++c) s += gam[c * 4 + k] * sg[c];
+      h[k] = s;
+    }
+    bwd_subst(lq, ilq, h, swv);
+    if (mine) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) mmat[(j * 4 + b) * d + ef] = mrow[b];
+      sw[j * d + ef] =
+          j == 0 ? swv[0] : j == 1 ? swv[1] : j == 2 ? swv[2] : swv[3];
     }
   }
 }
@@ -646,34 +833,113 @@ dim3 tile_grid(int64_t n, int64_t d) {
               static_cast<unsigned>(row_blocks(n)));
 }
 
-unsigned combine_blocks(int64_t d) {
-  return static_cast<unsigned>((d + kCombineWarps - 1) / kCombineWarps);
+// The plan of wbn_plan, checked: slabs of kSlab features, a cluster of at
+// most kMaxCluster CTAs, rows that cover n, and the shared memory of
+// smem_floats.
+bool plan_ok(int64_t n, int64_t d, int64_t slab, int64_t cluster,
+             int64_t rows, int64_t smem, int sums) {
+  return slab == kSlab && cluster >= 1 && cluster <= kMaxCluster && n >= 0 &&
+         n < (int64_t{1} << 31) && rows >= 0 && rows < (int64_t{1} << 31) &&
+         rows * cluster >= n && smem == 4 * smem_floats(kSlab, cluster, sums) &&
+         smem <= kMaxSmem && d >= 0 &&
+         (d + kSlab - 1) / kSlab * cluster < (int64_t{1} << 31);
+}
+
+cudaLaunchConfig_t cluster_config(int64_t blocks, int64_t cluster,
+                                  int64_t smem, void* stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters past the portable 8 must be allowed per kernel, on each device;
+// done once.
+cudaError_t allow_clusters() {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  const cudaFuncAttribute attr = cudaFuncAttributeNonPortableClusterSizeAllowed;
+  if ((err = cudaFuncSetAttribute(wbn_stats_kernel, attr, 1)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(wbn_bwd_sums_kernel<false>, attr, 1)) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(wbn_bwd_sums_kernel<true>, attr, 1)) !=
+          cudaSuccess) {
+    return err;
+  }
+  done.fetch_or(bit);
+  return cudaSuccess;
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), int64_t d, int64_t cluster,
+                   int64_t smem, void* stream, Args... args) {
+  const cudaError_t err = allow_clusters();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      (d + kSlab - 1) / kSlab * cluster, cluster, smem, stream, attr);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace
 
-// Rows per row block: the partial workspaces have ceil(n / rows) row blocks.
-extern "C" int64_t wbn_block_rows() { return kRows; }
-
-// work: (15 * ceil(n / wbn_block_rows()) + 4) * d floats of scratch.
-extern "C" int wbn_stats_f32(const void* x, const void* mask, float eps,
-                             void* work, void* mean, void* cov, void* l,
-                             void* cnt, int64_t n, int64_t d, void* stream) {
-  const int64_t nrb = row_blocks(n);
-  if (nrb > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 0) {
-    if (nrb > 0) {
-      wbn_stats_partial_kernel<<<tile_grid(n, d), kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const uint8_t*>(mask),
-          static_cast<float*>(work), n, d, nrb);
-    }
-    wbn_stats_combine_kernel<<<combine_blocks(d), kCombineWarps * 32, 0, s>>>(
-        static_cast<const float*>(work), eps, static_cast<float*>(mean),
-        static_cast<float*>(cov), static_cast<float*>(l),
-        static_cast<float*>(cnt), d, nrb);
+// The clusters of a plan (cluster, smem) that the card holds at once, for J
+// (which 0), L (1) or L's frozen variant (2): a plan whose grid has more
+// runs in waves.  A check of the plan; no launch path calls it.
+extern "C" int wbn_max_active_clusters(int64_t which, int64_t cluster,
+                                       int64_t smem, int* out) {
+  const void* kernel =
+      which == 0 ? reinterpret_cast<const void*>(wbn_stats_kernel)
+      : which == 1
+          ? reinterpret_cast<const void*>(wbn_bwd_sums_kernel<false>)
+      : which == 2
+          ? reinterpret_cast<const void*>(wbn_bwd_sums_kernel<true>)
+          : nullptr;
+  if (kernel == nullptr || cluster < 1 || cluster > kMaxCluster || smem < 0 ||
+      smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = allow_clusters();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(cluster, cluster, smem, nullptr, attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kernel, &cfg));
+}
+
+// The plan arguments (slab, cluster, rows, smem) of J and L are those of
+// ops/fused_whitening.py::wbn_plan(n, d, sums) with sums 15 (J) or 20 (L,
+// both variants); a plan this file cannot run returns cudaErrorInvalidValue
+// and launches nothing.
+extern "C" int wbn_stats_f32(const void* x, const void* mask, float eps,
+                             void* mean, void* cov, void* l, void* cnt,
+                             int64_t n, int64_t d, int64_t slab,
+                             int64_t cluster, int64_t rows, int64_t smem,
+                             void* stream) {
+  if (!plan_ok(n, d, slab, cluster, rows, smem, kStatsSums)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (d == 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t err = launch(
+      wbn_stats_kernel, d, cluster, smem, stream,
+      static_cast<const float*>(x), static_cast<const uint8_t*>(mask), eps,
+      static_cast<float*>(mean), static_cast<float*>(cov),
+      static_cast<float*>(l), static_cast<float*>(cnt), n, d,
+      static_cast<int>(rows));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int wbn_transform_f32(const void* x, const void* mean,
@@ -691,29 +957,24 @@ extern "C" int wbn_transform_f32(const void* x, const void* mean,
   return static_cast<int>(cudaGetLastError());
 }
 
-// work: [34, d, ceil(n / wbn_block_rows())] floats of scratch.
 extern "C" int wbn_bwd_sums_f32(const void* x, const void* g, const void* mean,
-                                const void* l, const void* gamma, void* work,
+                                const void* l, const void* gamma,
                                 void* dgamma, void* dbeta, void* mmat, void* sw,
-                                int64_t n, int64_t d, void* stream) {
-  const int64_t nrb = row_blocks(n);
-  if (nrb > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 0) {
-    if (nrb > 0) {
-      wbn_bwd_sums_partial_kernel<false><<<tile_grid(n, d), kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(g),
-          static_cast<const float*>(mean), static_cast<const float*>(l),
-          static_cast<const float*>(gamma), static_cast<float*>(work), n, d,
-          nrb);
-    }
-    wbn_bwd_sums_combine_kernel<false><<<combine_blocks(d),
-                                         kCombineWarps * 32, 0, s>>>(
-        static_cast<const float*>(work), static_cast<const float*>(l),
-        static_cast<float*>(dgamma), static_cast<float*>(dbeta),
-        static_cast<float*>(mmat), static_cast<float*>(sw), d, nrb);
+                                int64_t n, int64_t d, int64_t slab,
+                                int64_t cluster, int64_t rows, int64_t smem,
+                                void* stream) {
+  if (!plan_ok(n, d, slab, cluster, rows, smem, kSums)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (d == 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t err = launch(
+      wbn_bwd_sums_kernel<false>, d, cluster, smem, stream,
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(mean), static_cast<const float*>(l),
+      static_cast<const float*>(gamma), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<float*>(mmat),
+      static_cast<float*>(sw), n, d, static_cast<int>(rows));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int wbn_dx_f32(const void* x, const void* g, const void* mask,
@@ -743,31 +1004,26 @@ extern "C" int wbn_cholesky_f32(const void* cov, float eps, void* l, int64_t d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The eval path's backward, with the statistics fixed.  work: [20, d,
-// ceil(n / wbn_block_rows())] floats of scratch.
+// The eval path's backward, with the statistics fixed: dGamma and dbeta
+// (Gamma is not read).
 extern "C" int wbn_bwd_sums_frozen_f32(const void* x, const void* g,
                                        const void* mean, const void* l,
-                                       const void* gamma, void* work,
                                        void* dgamma, void* dbeta, int64_t n,
-                                       int64_t d, void* stream) {
-  const int64_t nrb = row_blocks(n);
-  if (nrb > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 0) {
-    if (nrb > 0) {
-      wbn_bwd_sums_partial_kernel<true><<<tile_grid(n, d), kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(g),
-          static_cast<const float*>(mean), static_cast<const float*>(l),
-          static_cast<const float*>(gamma), static_cast<float*>(work), n, d,
-          nrb);
-    }
-    wbn_bwd_sums_combine_kernel<true><<<combine_blocks(d),
-                                        kCombineWarps * 32, 0, s>>>(
-        static_cast<const float*>(work), static_cast<const float*>(l),
-        static_cast<float*>(dgamma), static_cast<float*>(dbeta), nullptr,
-        nullptr, d, nrb);
+                                       int64_t d, int64_t slab,
+                                       int64_t cluster, int64_t rows,
+                                       int64_t smem, void* stream) {
+  if (!plan_ok(n, d, slab, cluster, rows, smem, kSums)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (d == 0) return static_cast<int>(cudaSuccess);
+  const cudaError_t err = launch(
+      wbn_bwd_sums_kernel<true>, d, cluster, smem, stream,
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(mean), static_cast<const float*>(l),
+      static_cast<const float*>(nullptr), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<float*>(nullptr),
+      static_cast<float*>(nullptr), n, d, static_cast<int>(rows));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int wbn_dx_frozen_f32(const void* g, const void* l,

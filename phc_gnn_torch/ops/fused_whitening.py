@@ -10,13 +10,16 @@ version, which follows the formula path of phc_gnn_tpu/ops/fused_whitening.py
 - ``wbn_stats`` replaces ``_wbn_stats_kernel`` (:184), J: over the rows where
   ``mask`` holds, ``cnt = max(sum m, 1)``, the 4 means and the biased 4x4
   covariance of every feature, and the closed-form Cholesky factor ``L`` of
-  ``cov + eps I`` (``[10, d]`` in JAX's ``_L_IDX`` order);
+  ``cov + eps I`` (``[10, d]`` in JAX's ``_L_IDX`` order); one launch of a
+  grid of thread-block clusters (``wbn_plan``);
 - ``wbn_transform`` replaces ``_wbn_transform_kernel`` (:236), K:
   ``y = Gamma L^{-1} (x - mean) + beta`` on EVERY row;
 - ``wbn_bwd_sums`` replaces ``_wbn_bwd_sums_kernel`` (:253), L, and the T/S/M
   algebra that JAX runs in XLA between L and M (:408-412): ``dGamma``,
   ``dbeta``, ``M = L^{-T} S L^{-1}`` from ``Lbar = -tril(sum w z^T)`` and
-  ``sum w``, every sum over ALL rows;
+  ``sum w``, every sum over ALL rows; one cluster launch, as J, whose sweep
+  takes the sums linear in the rows (``sum g``, ``sum g (x - mean)^T``) and
+  whose epilogue derives the rest;
 - ``wbn_dx`` replaces ``_wbn_dx_kernel`` (:304), M:
   ``dx = w + (m / cnt) (M u - sum w)``, only the mean-path term masked;
 - ``wbn_cholesky`` is the eval path's factor of a running covariance, which
@@ -37,25 +40,83 @@ run in the dtype of their inputs, so a check can run them in float64.
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
 launches its kernel or raises; it never falls back.  ``<wrapper>.launches``
 counts the launches.
+
+``wbn_plan`` computes J's and L's launch: a cluster owns a slab of features
+(all four component columns of each), its CTAs split the rows and meet
+through distributed shared memory, and each feature's outputs come from one
+rank's epilogue (``csrc/fused_whitening.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from phc_gnn_torch.ops import _build
 
-__all__ = ["L_IDX", "wbn_stats", "wbn_stats_plain", "wbn_transform",
-           "wbn_transform_plain", "wbn_bwd_sums", "wbn_bwd_sums_plain",
+__all__ = ["L_IDX", "WbnPlan", "wbn_plan", "wbn_stats", "wbn_stats_plain",
+           "wbn_transform", "wbn_transform_plain", "wbn_bwd_sums", "wbn_bwd_sums_plain",
            "wbn_dx", "wbn_dx_plain", "wbn_cholesky", "wbn_cholesky_plain",
            "fused_whitening", "eval_whitening"]
 
 # rows of the Cholesky factor [10, d] (fused_whitening.py:473-474)
 L_IDX = [(0, 0), (1, 0), (1, 1), (2, 0), (2, 1), (2, 2),
          (3, 0), (3, 1), (3, 2), (3, 3)]
+
+# J's and L's launch plan (csrc/fused_whitening.cu holds the same constants)
+WBN_SLAB = 8                 # features a cluster owns (kSlab)
+WBN_MAX_CLUSTER = 16         # CTAs a cluster: past 8, a non-portable size
+# clusters of each size that an H100 holds at once, at L's one CTA an SM
+# (cudaOccupancyMaxActiveClusters, read by tools/time_fused_whitening.py):
+# clusters of 16 and 8 fit only inside one GPC, so fewer than 132 / size
+WBN_CLUSTERS_HELD = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+WBN_MIN_ROWS = 256           # no more CTAs a cluster than blocks of these rows
+WBN_WARPS = 8                # warps a CTA (256 threads)
+WBN_MAX_SMEM = 48 * 1024     # dynamic shared memory without an opt-in
+WBN_STATS_SUMS = 15          # J: count, 4 means, 10 co-moments
+WBN_SUMS = 20                # L, both variants: sum g 4, sum g (x - mean)^T 16
+WBN_KERNELS = ("wbn_stats", "wbn_bwd_sums", "wbn_bwd_sums_frozen")
+
+
+class WbnPlan(NamedTuple):
+    """The launch of J or L: ``grid`` CTAs in clusters of ``cluster``, one
+    cluster a slab of ``slab`` features (columns ``k*d + f`` for k = 0..3);
+    the CTA of rank r owns the rows ``[r * rows_per_cta, min(n, (r + 1) *
+    rows_per_cta))``; ``smem_bytes`` of dynamic shared memory hold every
+    rank's partials, each warp's and the cluster's totals."""
+    slab: int
+    cluster: int
+    rows_per_cta: int
+    smem_bytes: int
+    grid: int
+
+
+def wbn_smem_bytes(slab: int, cluster: int, sums: int) -> int:
+    """J's and L's dynamic shared memory (``smem_floats`` of the source):
+    slots of ``sums + 4`` floats a feature (J's shift beside its partials)
+    for each of ``cluster`` ranks, each warp and the totals."""
+    return 4 * slab * (cluster + WBN_WARPS + 1) * (sums + 4)
+
+
+@functools.lru_cache(maxsize=256)
+def wbn_plan(n: int, d: int, sums: int) -> WbnPlan:
+    """The launch plan of J (``sums=15``) or L, either variant (20), at
+    ``[n, 4d]``: slabs of ``WBN_SLAB`` features in clusters of 16, 8, 4, 2
+    or 1 CTAs, the largest with no more CTAs than ``WBN_MIN_ROWS``-row
+    blocks of n whose clusters the card holds all at once at a CTA an SM
+    (``WBN_CLUSTERS_HELD``), so that they run in one wave wherever the
+    slabs are no more than the card's SMs."""
+    slabs = max(1, -(-d // WBN_SLAB))
+    cluster = WBN_MAX_CLUSTER
+    while cluster > 1 and (cluster > -(-n // WBN_MIN_ROWS)
+                           or slabs > WBN_CLUSTERS_HELD[cluster]):
+        cluster //= 2
+    return WbnPlan(WBN_SLAB, cluster, -(-n // cluster),
+                   wbn_smem_bytes(WBN_SLAB, cluster, sums), slabs * cluster)
+
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -67,21 +128,36 @@ def _lib():
     global _typed_lib
     if _typed_lib is None:
         lib = _build.load("fused_whitening")
-        lib.wbn_block_rows.argtypes = []
-        lib.wbn_block_rows.restype = _I64
-        lib.wbn_stats_f32.argtypes = [_P, _P, _F32] + [_P] * 5 + [_I64, _I64, _P]
+        lib.wbn_stats_f32.argtypes = ([_P, _P, _F32] + [_P] * 4 + [_I64] * 6
+                                      + [_P])
         lib.wbn_transform_f32.argtypes = [_P] * 6 + [_I64, _I64, _P]
-        lib.wbn_bwd_sums_f32.argtypes = [_P] * 10 + [_I64, _I64, _P]
+        lib.wbn_bwd_sums_f32.argtypes = [_P] * 9 + [_I64] * 6 + [_P]
         lib.wbn_dx_f32.argtypes = [_P] * 10 + [_I64, _I64, _P]
         lib.wbn_cholesky_f32.argtypes = [_P, _F32, _P, _I64, _P]
-        lib.wbn_bwd_sums_frozen_f32.argtypes = [_P] * 8 + [_I64, _I64, _P]
+        lib.wbn_bwd_sums_frozen_f32.argtypes = [_P] * 6 + [_I64] * 6 + [_P]
         lib.wbn_dx_frozen_f32.argtypes = [_P] * 4 + [_I64, _I64, _P]
+        lib.wbn_max_active_clusters.argtypes = [_I64] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.wbn_stats_f32, lib.wbn_transform_f32,
                    lib.wbn_bwd_sums_f32, lib.wbn_dx_f32, lib.wbn_cholesky_f32,
-                   lib.wbn_bwd_sums_frozen_f32, lib.wbn_dx_frozen_f32):
+                   lib.wbn_bwd_sums_frozen_f32, lib.wbn_dx_frozen_f32,
+                   lib.wbn_max_active_clusters):
             fn.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
+
+
+def _max_active_clusters(plan: WbnPlan, kernel: str) -> int:
+    """How many clusters of ``plan`` the current CUDA device holds at once
+    for ``kernel`` of ``WBN_KERNELS`` (``cudaOccupancyMaxActiveClusters``);
+    a grid of more clusters runs in waves.  A check of the plan for the
+    card's tests; no path calls it."""
+    out = ctypes.c_int()
+    err = _lib().wbn_max_active_clusters(WBN_KERNELS.index(kernel),
+                                         plan.cluster, plan.smem_bytes,
+                                         ctypes.byref(out))
+    _build.check_launch("wbn_max_active_clusters", err)
+    return out.value
 
 
 # ------------------------------------------------------------ plain versions
@@ -284,24 +360,28 @@ def _empty(dev, *shape):
     return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
-def _row_blocks(n: int) -> int:
-    return -(-n // _lib().wbn_block_rows())
+def _plan_args(n: int, d: int, sums: int):
+    """The plan's (slab, cluster, rows, smem) for the C entry points."""
+    if n >= 2 ** 31:
+        raise ValueError(f"the whitening kernels take fewer than 2^31 rows, "
+                         f"got {n}")
+    plan = wbn_plan(n, d, sums)
+    return plan.slab, plan.cluster, plan.rows_per_cta, plan.smem_bytes
 
 
 def wbn_stats(x, mask, eps: float):
     """``(mean [4, d], cov [4, 4, d], L [10, d], cnt [1])`` of the masked
-    rows of ``x`` [N, 4d], from row-block partials (kernel J)."""
+    rows of ``x`` [N, 4d], in one cluster launch (kernel J)."""
     if x.device.type == "cpu":
         return wbn_stats_plain(x, mask, eps)
     _check(x, [], mask)
     n, d = x.shape[0], x.shape[1] // 4
     dev = x.device
-    work = _empty(dev, (15 * _row_blocks(n) + 4) * d)
     mean, cov, l, cnt = (_empty(dev, 4, d), _empty(dev, 4, 4, d),
                          _empty(dev, 10, d), _empty(dev, 1))
     _build.check_launch("wbn_stats", _lib().wbn_stats_f32(
-        x.data_ptr(), mask.data_ptr(), eps, work.data_ptr(), mean.data_ptr(),
-        cov.data_ptr(), l.data_ptr(), cnt.data_ptr(), n, d,
+        x.data_ptr(), mask.data_ptr(), eps, mean.data_ptr(), cov.data_ptr(),
+        l.data_ptr(), cnt.data_ptr(), n, d, *_plan_args(n, d, WBN_STATS_SUMS),
         _build.stream(dev)))
     wbn_stats.launches += 1
     return mean, cov, l, cnt
@@ -329,7 +409,7 @@ wbn_transform.launches = 0
 
 def wbn_bwd_sums(x, g, gamma, mean, l, frozen: bool = False):
     """``(dGamma [4, 4, d], dbeta [4, d], M [16, d], sum w [4, d])`` over all
-    rows, from row-block partials and the T/S/M algebra in the combine
+    rows, in one cluster launch with the T/S/M algebra in its epilogue
     (kernel L).  ``frozen`` (the eval path, its statistics fixed):
     ``(dGamma, dbeta)`` alone, from L's frozen variant."""
     if x.device.type == "cpu":
@@ -338,21 +418,20 @@ def wbn_bwd_sums(x, g, gamma, mean, l, frozen: bool = False):
     _check(x, _field_checks(d, gamma, mean, l), g=g)
     dev = x.device
     if frozen:
-        work = _empty(dev, 20, d, _row_blocks(n))
         dgamma, dbeta = _empty(dev, 4, 4, d), _empty(dev, 4, d)
         _build.check_launch("wbn_bwd_sums", _lib().wbn_bwd_sums_frozen_f32(
             x.data_ptr(), g.data_ptr(), mean.data_ptr(), l.data_ptr(),
-            gamma.data_ptr(), work.data_ptr(), dgamma.data_ptr(),
-            dbeta.data_ptr(), n, d, _build.stream(dev)))
+            dgamma.data_ptr(), dbeta.data_ptr(), n, d,
+            *_plan_args(n, d, WBN_SUMS), _build.stream(dev)))
         wbn_bwd_sums.launches += 1
         return dgamma, dbeta
-    work = _empty(dev, 34, d, _row_blocks(n))
     dgamma, dbeta, mmat, sw = (_empty(dev, 4, 4, d), _empty(dev, 4, d),
                                _empty(dev, 16, d), _empty(dev, 4, d))
     _build.check_launch("wbn_bwd_sums", _lib().wbn_bwd_sums_f32(
         x.data_ptr(), g.data_ptr(), mean.data_ptr(), l.data_ptr(),
-        gamma.data_ptr(), work.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        mmat.data_ptr(), sw.data_ptr(), n, d, _build.stream(dev)))
+        gamma.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        mmat.data_ptr(), sw.data_ptr(), n, d, *_plan_args(n, d, WBN_SUMS),
+        _build.stream(dev)))
     wbn_bwd_sums.launches += 1
     return dgamma, dbeta, mmat, sw
 

@@ -319,6 +319,8 @@ def _whitening_case(dev, n, d, mask_kind, seed=8):
     if mask_kind == "flagship":
         mask = attach_csr_plan(synthetic_batch(128, 4096, 8192, seed=0)
                                ).node_mask
+    elif mask_kind == "ctas_masked":
+        mask[:3 * fw.wbn_plan(n, d, fw.WBN_STATS_SUMS).rows_per_cta] = False
     elif mask_kind != "random":
         mask[:] = False
         if mask_kind == "one_row":
@@ -332,14 +334,16 @@ def _whitening_case(dev, n, d, mask_kind, seed=8):
 
 @pytest.mark.parametrize("n,d,mask_kind", [
     (4096, 50, "flagship"), (1100, 50, "random"), (1100, 49, "random"),
-    (4096, 50, "all_masked"), (129, 49, "one_row")])
+    (4096, 50, "all_masked"), (129, 49, "one_row"), (4096, 50, "ctas_masked"),
+    (4096, 64, "random")])
 def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
     """J, K, L (with the T/S/M algebra) and M, and the eval Cholesky,
     against the plain versions run in float64 on the card: the flagship's
     [4096, 200] with its node mask, a ragged N = 1,100, d = 49, an
-    all-masked and a one-row mask.  1e-5 of each output's max: the
-    covariances here are well conditioned (chip_smoke.py holds the badly
-    conditioned cases)."""
+    all-masked and a one-row mask, the rows of J's first three CTAs masked,
+    and d = 64, whose plan takes clusters of 8.  1e-5 of each output's max: the covariances here are well
+    conditioned (chip_smoke.py holds the badly conditioned cases).  A
+    second launch of J and of L (both variants) is bit-equal."""
     x, mask, gamma, beta, g = _whitening_case(dev, n, d, mask_kind)
     wrappers = (fw.wbn_stats, fw.wbn_transform, fw.wbn_bwd_sums, fw.wbn_dx,
                 fw.wbn_cholesky)
@@ -351,6 +355,12 @@ def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
     l_eval = fw.wbn_cholesky(cov, 1e-5)
     torch.cuda.synchronize()
     assert [w.launches for w in wrappers] == [c + 1 for c in counts]
+    frozen = fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True)
+    for first, again in (
+            ((mean, cov, l, cnt), fw.wbn_stats(x, mask, 1e-5)),
+            ((dgamma, dbeta, mmat, sw), fw.wbn_bwd_sums(x, g, gamma, mean, l)),
+            (frozen, fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True))):
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
     x64, gam64, beta64, g64 = (t.double() for t in (x, gamma, beta, g))
     r_mean, r_cov, r_l, r_cnt = fw.wbn_stats_plain(x64, mask, 1e-5)
     r_sums = fw.wbn_bwd_sums_plain(x64, g64, gam64, r_mean, r_l)
@@ -366,6 +376,18 @@ def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
         else:
             assert _leaf_err(a, b) <= 1e-5
     assert float(cnt) == max(float(mask.sum()), 1.0)
+
+
+def test_whitening_plan_runs_in_one_wave_on_the_card(dev):
+    """At the quaternion path's [4096, 200], and on both sides of each width
+    where the plan steps down to clusters of 8, 4, 2 and 1, the card holds
+    every cluster of J's, L's and L frozen's plan at once."""
+    for kernel in fw.WBN_KERNELS:
+        for d in (50, 56, 57, 120, 128, 240, 241, 528, 529):
+            plan = fw.wbn_plan(4096, d, fw.WBN_STATS_SUMS
+                               if kernel == "wbn_stats" else fw.WBN_SUMS)
+            assert (fw._max_active_clusters(plan, kernel)
+                    >= plan.grid // plan.cluster), (kernel, d, plan)
 
 
 def test_fused_whitening_autograd_on_the_card(dev):

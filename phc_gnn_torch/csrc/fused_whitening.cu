@@ -10,9 +10,10 @@
 //                        :110-130), here in L's epilogue
 //   wbn_dx_f32        <- _wbn_dx_kernel         (:304, pallas_call :413)  M
 // and, for the eval path (phc_gnn_tpu/nn/norm.py:301-345, inline XLA there),
-//   wbn_cholesky_f32     the Cholesky factor of a running covariance + eps I,
-//                        with J's device function; it feeds
-//                        wbn_transform_f32 with the running mean;
+//   wbn_transform_eval_f32
+//                        K with the Cholesky factor of the running
+//                        covariance + eps I (J's device function) in its
+//                        prologue, one launch; it writes the factor too;
 //   wbn_bwd_sums_frozen_f32, wbn_dx_frozen_f32
 //                        the eval path's backward: L's and M's kernels with
 //                        the statistics fixed (kFrozen), below.
@@ -94,7 +95,35 @@
 //   column j of sum w z^T, then L^T v_j = S e_j and row j of M = L^{-T} S
 //   L^{-1}, the lanes trading columns by shuffles).  Two launches on one
 //   input give bit-equal outputs.
-//   K, M: elementwise over tiles of 32 features (one per lane) by 64 rows.
+//   M: elementwise over tiles of 32 features (one per lane) by 64 rows.
+//
+// Design of K, both routes: elementwise, bound by its bytes, but at the
+// quaternion path's [4096, 200] it moves 6.6 MB, so a launch's fixed cost
+// and one latency chain weigh as much.  A tile of 32 features by 64 rows,
+// each thread walking its 8 rows one load-compute-store at a time, would
+// leave 22 % of the lanes idle at d = 50 and run a chain of 8 latencies;
+// a Cholesky launch of its own in front of the eval route would add a
+// launch for 50 4x4 factors.  Here the threads map onto (row, feature)
+// pairs: consecutive lanes take consecutive features of a row, then the
+// next row, so at most kThreads % d lanes idle.  A thread's feature is
+// fixed: it loads Gamma, the mean and beta once, and its kTransformRows
+// rows are unrolled with all their loads in flight before the first use.
+// The factor of each feature of the CTA is computed once, by one thread,
+// into shared memory (L's six entries below the diagonal and its four
+// reciprocal diagonals): loaded from L, or, in the eval route, factored
+// from the running covariance (cholesky, as J does), whose loads go out
+// before the rows' so that the chain runs while they are in flight; the
+// eval route's first row block writes L for the frozen backward.  A CTA's
+// rows are shortened so that the CTAs come to about whole waves of the
+// card's SMs (launch_transform).  Tried on an H100
+// and dropped, each slower than the 32-feature tile there: every field
+// read from shared memory per (row, feature) pair (34 reads a pair); a
+// tile of whole rows staged with 16-byte cp.async and whitened in place
+// (its load, compute and store phases run in series); a warp per row with
+// two features a lane in 8-byte vectors (128 registers).  Every element's
+// arithmetic is the same in the same order (1 / diag, fwd_subst, Gamma z
+// from its first term, then + beta), so the eval route's y is K's fed the
+// factor it writes, bit for bit.
 //
 // Bound on an H100: bytes.  At [4096, 200] f32 (3.28 MB): J reads x and the
 // mask (3.28 MB, 0.98 us at 3.35 TB/s); K reads x and writes y (6.56 MB,
@@ -114,10 +143,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCols = 32;                  // K, M: features per tile, a warp
-constexpr int kGroups = 8;                 // K, M: row groups (warps) a block
+constexpr int kCols = 32;                  // M: features per tile, a warp
+constexpr int kGroups = 8;                 // M: row groups (warps) a block
 constexpr int kThreads = kCols * kGroups;  // every kernel of this file
-constexpr int kRows = 64;                  // K, M: rows per row block
+constexpr int kRows = 64;                  // M: rows per row block
+constexpr int kTransformRows = 4;          // K: rows a thread, in flight
 constexpr int kWarps = kThreads / 32;
 constexpr int kStatsSums = 15;             // J: count, mean 0..3, M2 5..14
 constexpr int kSums = 20;                  // L: sum g 0..3, sum g u^T 4..19
@@ -499,40 +529,127 @@ wbn_stats_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
 
 // ----------------------------------------------------------------- K
 
+// l_at of the i-th entry below the diagonal: (1,0) (2,0) (2,1) (3,0) (3,1) (3,2)
+__host__ __device__ constexpr int off_diag(int i) {
+  return i < 1 ? 1 : i < 3 ? i + 2 : i + 3;
+}
+
+// Both routes stage the factor of each feature of a CTA's chunk in shared
+// memory, computed once by thread f for feature f: kEval factors the running
+// covariance lf [4, 4, d] (cov + eps I, the Cholesky that J and the eval
+// path share) and the CTAs of row block 0 write it to l_out [10, d];
+// otherwise lf is the factor [10, d].  Shared: L's six entries below the
+// diagonal (l_at order) and its four reciprocal diagonals, 10 floats a
+// feature.
+// CTA (b, c) owns feature chunk c, its first `feats` features (fc of them
+// live), and its threads cover groups = kThreads / feats rows at a time:
+// thread t takes feature t % feats of row t / feats, so consecutive lanes
+// take consecutive features of a row, then the next row, and at most
+// kThreads % feats lanes idle whatever d is.  Its feature is fixed, so it
+// loads Gamma, the mean and beta once, into registers; its rows, groups
+// apart, up to kTransformRows, are unrolled and their loads issued first.
+// CTA b owns the rows [b * rows, (b + 1) * rows), rows <= groups *
+// kTransformRows, shortened by the launch so that the CTAs come to about
+// whole waves of the card's SMs.
+template <bool kEval>
 __global__ void __launch_bounds__(kThreads)
 wbn_transform_kernel(const float* __restrict__ x,
                      const float* __restrict__ mean,
                      const float* __restrict__ lf,
                      const float* __restrict__ gamma,
-                     const float* __restrict__ beta, float* __restrict__ y,
-                     int64_t n, int64_t d) {
-  const int lane = threadIdx.x % kCols;
-  const int rg = threadIdx.x / kCols;
-  const int64_t f = static_cast<int64_t>(blockIdx.x) * kCols + lane;
-  if (f >= d) return;  // no barrier in this kernel
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kRows;
-  const int64_t r1 = r0 + kRows < n ? r0 + kRows : n;
+                     const float* __restrict__ beta, float eps,
+                     float* __restrict__ y, float* __restrict__ l_out,
+                     int64_t n, int64_t d, int feats, int rows) {
+  extern __shared__ float factor[];  // [10][feats]
+  const int64_t f0 = static_cast<int64_t>(blockIdx.y) * feats;
+  const int fc = static_cast<int>(d - f0 < feats ? d - f0 : feats);
+  const int groups = kThreads / feats;
+  const int g = static_cast<int>(threadIdx.x) / feats;
+  const int j = static_cast<int>(threadIdx.x) - g * feats;
+  const bool mine = g < groups && j < fc;
+  const int64_t f = f0 + j;
   const int64_t dd = 4 * d;
-  float mu[4], l[10], il[4], gam[16], bet[4];
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows + g;
+  const int64_t r1 = r0 - g + rows < n ? r0 - g + rows : n;
+  // the factor's inputs for feature f0 + threadIdx.x, loaded before the
+  // rows so that the eval route's chain runs while they are in flight
+  const bool factors = threadIdx.x < fc;
+  const int64_t ff = f0 + threadIdx.x;
+  float src[10];
+  if (factors) {
+    if constexpr (kEval) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    mu[c] = mean[c * d + f];
-    bet[c] = beta[c * d + f];
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int b = a; b < 4; ++b) {
+          src[cov_at(a, b)] = lf[(a * 4 + b) * d + ff];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 10; ++i) src[i] = lf[i * d + ff];
+    }
   }
+  bool live[kTransformRows];
+  float xv[kTransformRows][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) gam[i] = gamma[i * d + f];
-  load_factor(lf, f, d, l, il);
-  for (int64_t r = r0 + rg; r < r1; r += kGroups) {
+  for (int i = 0; i < kTransformRows; ++i) {
+    const int64_t r = r0 + static_cast<int64_t>(i) * groups;
+    live[i] = mine && r < r1;
+    if (live[i]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xv[i][c] = x[r * dd + c * d + f];
+    }
+  }
+  float mu[4], bet[4], gam[16];
+  if (mine) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mu[c] = mean[c * d + f];
+      bet[c] = beta[c * d + f];
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) gam[i] = gamma[i * d + f];
+  }
+  if (factors) {
+    float lg[10], ilg[4];
+    if constexpr (kEval) {
+      cholesky(src, eps, lg);
+      if (blockIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < 10; ++i) l_out[i * d + ff] = lg[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 10; ++i) lg[i] = src[i];
+    }
+    inv_diag(lg, ilg);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) factor[i * feats + threadIdx.x] = lg[off_diag(i)];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) factor[(6 + c) * feats + threadIdx.x] = ilg[c];
+  }
+  __syncthreads();
+  if (!mine) return;
+  float l[10] = {}, il[4];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) l[off_diag(i)] = factor[i * feats + j];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) il[c] = factor[(6 + c) * feats + j];
+#pragma unroll
+  for (int i = 0; i < kTransformRows; ++i) {
+    if (!live[i]) continue;
+    const int64_t at = (r0 + static_cast<int64_t>(i) * groups) * dd + f;
     float u[4], z[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) u[c] = x[r * dd + c * d + f] - mu[c];
+    for (int c = 0; c < 4; ++c) u[c] = xv[i][c] - mu[c];
     fwd_subst(l, il, u, z);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float acc = gam[c * 4] * z[0];
 #pragma unroll
       for (int k = 1; k < 4; ++k) acc += gam[c * 4 + k] * z[k];
-      y[r * dd + c * d + f] = acc + bet[c];
+      y[at + c * d] = acc + bet[c];
     }
   }
 }
@@ -808,24 +925,6 @@ wbn_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// ----------------------------------------------------------------- eval
-
-__global__ void wbn_cholesky_kernel(const float* __restrict__ cov, float eps,
-                                    float* __restrict__ lf, int64_t d) {
-  const int64_t f = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (f >= d) return;
-  float c[10], l[10];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int k = j; k < 4; ++k) c[cov_at(j, k)] = cov[(j * 4 + k) * d + f];
-  }
-  cholesky(c, eps, l);
-#pragma unroll
-  for (int i = 0; i < 10; ++i) lf[i * d + f] = l[i];
-}
-
 int64_t row_blocks(int64_t n) { return (n + kRows - 1) / kRows; }
 
 dim3 tile_grid(int64_t n, int64_t d) {
@@ -894,6 +993,56 @@ cudaError_t launch(void (*kernel)(Params...), int64_t d, int64_t cluster,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+// K, both routes: grid (row blocks, feature chunks), chunks of equal size
+// up to kThreads features, the threads of a CTA its rows a pass times the
+// chunk's features, in whole warps.  Row blocks of at most groups *
+// kTransformRows rows.  Where those give at least one CTA each of the `sms`
+// SMs, a CTA's rows are shortened so that the CTAs come to about whole
+// waves: the count is rounded up to whole waves, the rows spread evenly
+// over it, and the count taken anew from those rows (at [4096, 200], 205
+// CTAs of 20 rows become 256 of 16).  The eval route launches one row block
+// even for n = 0, so that the factor is written.
+int launch_transform(bool eval, const void* x, const void* mean,
+                     const void* lf, const void* gamma, const void* beta,
+                     float eps, void* y, void* l_out, int64_t n, int64_t d,
+                     int64_t sms, void* stream) {
+  if (n < 0 || n >= (int64_t{1} << 31) || d < 0 || sms < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (d == 0 || (n == 0 && !eval)) return static_cast<int>(cudaGetLastError());
+  const int64_t chunks = (d + kThreads - 1) / kThreads;
+  const int feats = static_cast<int>((d + chunks - 1) / chunks);
+  const int groups = kThreads / feats;
+  const int threads = (groups * feats + 31) / 32 * 32;
+  const int64_t most = int64_t{groups} * kTransformRows;
+  int64_t blocks = (n + most - 1) / most;
+  if (blocks >= sms) blocks = (blocks + sms - 1) / sms * sms;
+  const int64_t rows = blocks > 0 ? (n + blocks - 1) / blocks : most;
+  blocks = n > 0 ? (n + rows - 1) / rows : 1;
+  if (blocks >= (int64_t{1} << 31) || chunks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
+  const size_t smem = sizeof(float) * 10 * feats;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* mf = static_cast<const float*>(mean);
+  const float* lff = static_cast<const float*>(lf);
+  const float* gf = static_cast<const float*>(gamma);
+  const float* bf = static_cast<const float*>(beta);
+  const int r = static_cast<int>(rows);
+  if (eval) {
+    wbn_transform_kernel<true><<<grid, threads, smem, s>>>(
+        xf, mf, lff, gf, bf, eps, static_cast<float*>(y),
+        static_cast<float*>(l_out), n, d, feats, r);
+  } else {
+    wbn_transform_kernel<false><<<grid, threads, smem, s>>>(
+        xf, mf, lff, gf, bf, 0.0f, static_cast<float*>(y), nullptr, n, d,
+        feats, r);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The clusters of a plan (cluster, smem) that the card holds at once, for J
@@ -942,19 +1091,24 @@ extern "C" int wbn_stats_f32(const void* x, const void* mask, float eps,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// K's launches take the SMs of the card (ops/_build.py's SMS).
 extern "C" int wbn_transform_f32(const void* x, const void* mean,
                                  const void* l, const void* gamma,
                                  const void* beta, void* y, int64_t n,
-                                 int64_t d, void* stream) {
-  if (row_blocks(n) > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0 && d > 0) {
-    wbn_transform_kernel<<<tile_grid(n, d), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(mean),
-        static_cast<const float*>(l), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<float*>(y), n, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 int64_t d, int64_t sms, void* stream) {
+  return launch_transform(false, x, mean, l, gamma, beta, 0.0f, y, nullptr, n,
+                          d, sms, stream);
+}
+
+// The eval route: K with the running covariance's factor in its prologue;
+// writes y and the factor L [10, d] for the frozen backward.
+extern "C" int wbn_transform_eval_f32(const void* x, const void* mean,
+                                      const void* cov, const void* gamma,
+                                      const void* beta, float eps, void* y,
+                                      void* l, int64_t n, int64_t d,
+                                      int64_t sms, void* stream) {
+  return launch_transform(true, x, mean, cov, gamma, beta, eps, y, l, n, d,
+                          sms, stream);
 }
 
 extern "C" int wbn_bwd_sums_f32(const void* x, const void* g, const void* mean,
@@ -990,16 +1144,6 @@ extern "C" int wbn_dx_f32(const void* x, const void* g, const void* mask,
         static_cast<const float*>(l), static_cast<const float*>(gamma),
         static_cast<const float*>(mmat), static_cast<const float*>(sw),
         static_cast<const float*>(cnt), static_cast<float*>(dx), n, d);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int wbn_cholesky_f32(const void* cov, float eps, void* l, int64_t d,
-                                void* stream) {
-  if (d > 0) {
-    wbn_cholesky_kernel<<<static_cast<unsigned>((d + 127) / 128), 128, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(cov), eps, static_cast<float*>(l), d);
   }
   return static_cast<int>(cudaGetLastError());
 }

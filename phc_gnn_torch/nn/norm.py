@@ -30,8 +30,8 @@ backward, L and M), then ``mean += 0.1 * (mu - mean)`` and
 ``cov += 0.1 * (Sigma - cov)`` with the BIASED batch covariance; the running
 cov starts as all ones (norm.py:248-255, :295-298), Gamma as 0.5 I, beta as
 0.  Eval whitens with the running stats (norm.py:301-345) through
-``fused_whitening.eval_whitening``: the Cholesky factor of ``cov + eps I``
-by ``wbn_cholesky``, then kernel K; it is differentiable in the input,
+``fused_whitening.eval_whitening``: one launch of kernel K that factors
+``cov + eps I`` in its prologue and whitens; it is differentiable in the input,
 Gamma and beta, as JAX's eval path is (the frozen variants of L and M).
 Neither path syncs with the host, so the eval forward can be captured in a
 CUDA graph.

@@ -21,14 +21,15 @@ from typing import Dict
 
 import torch
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "source_names", "library_path",
-           "check_launch", "load", "load_all", "stream"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SMS", "source_names",
+           "library_path", "check_launch", "load", "load_all", "stream"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+SMS = 132   # SMs of the H100 SXM that the launch plans are made for
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -84,9 +85,11 @@ def _compile(names) -> None:
 
 
 def stream(device) -> int:
-    """The handle of PyTorch's current CUDA stream on ``device``, which every
-    kernel of the port launches on."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current CUDA stream on ``device`` (a CUDA
+    tensor's device), which every kernel of the port launches on; read raw,
+    without the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream`` builds on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(name: str, err: int) -> None:

@@ -71,7 +71,7 @@ BN_MAX_CLUSTER = 8          # CTAs a cluster, the portable limit
 BN_MIN_ROWS = 256           # a cluster grows only while each CTA keeps these
 BN_TILE_BYTES = 200 * 1024  # dynamic shared memory a CTA, at most
 BN_STATIC_SMEM = 4096       # the reductions' static shared memory, at most
-_SMS = 132                  # H100 SXM
+_SMS = _build.SMS
 
 
 class BnPlan(NamedTuple):

@@ -13,7 +13,8 @@ version, which follows the formula path of phc_gnn_tpu/ops/fused_whitening.py
   ``cov + eps I`` (``[10, d]`` in JAX's ``_L_IDX`` order); one launch of a
   grid of thread-block clusters (``wbn_plan``);
 - ``wbn_transform`` replaces ``_wbn_transform_kernel`` (:236), K:
-  ``y = Gamma L^{-1} (x - mean) + beta`` on EVERY row;
+  ``y = Gamma L^{-1} (x - mean) + beta`` on EVERY row, its threads over
+  the (row, feature) pairs, each feature's factor staged once a CTA;
 - ``wbn_bwd_sums`` replaces ``_wbn_bwd_sums_kernel`` (:253), L, and the T/S/M
   algebra that JAX runs in XLA between L and M (:408-412): ``dGamma``,
   ``dbeta``, ``M = L^{-T} S L^{-1}`` from ``Lbar = -tril(sum w z^T)`` and
@@ -22,15 +23,16 @@ version, which follows the formula path of phc_gnn_tpu/ops/fused_whitening.py
   whose epilogue derives the rest;
 - ``wbn_dx`` replaces ``_wbn_dx_kernel`` (:304), M:
   ``dx = w + (m / cnt) (M u - sum w)``, only the mean-path term masked;
-- ``wbn_cholesky`` is the eval path's factor of a running covariance, which
-  JAX computes inline in XLA (phc_gnn_tpu/nn/norm.py:340), as a kernel of
-  its own with J's Cholesky; ``wbn_transform`` then whitens with it.
+- ``wbn_transform_eval`` is the eval path (phc_gnn_tpu/nn/norm.py:331-345,
+  inline XLA there): K's kernel with the Cholesky factor of the running
+  covariance (J's device function) in its prologue, one launch, returning
+  the factor too; counted under ``wbn_transform``.
 
 ``fused_whitening`` is an ``autograd.Function`` that returns
 ``(y, mean [4, d], cov [4, 4, d])``, differentiable in ``x``, ``gamma`` and
 ``beta``; mean and cov are detached (fused_whitening.py:432-446).
 ``eval_whitening`` is the eval path (norm.py:331-345): the running stats'
-Cholesky and K, differentiable in ``x``, ``gamma`` and ``beta`` with the
+Cholesky and K in one launch, differentiable in ``x``, ``gamma`` and ``beta`` with the
 statistics fixed, so that ``dx = w = L^{-T} Gamma^T g`` and ``dbeta``,
 ``dGamma`` are L's sums: the ``frozen`` variants of L and M, which skip the
 T/S/M algebra and the mean-path term (through the training variants, an
@@ -59,8 +61,9 @@ from phc_gnn_torch.ops import _build
 
 __all__ = ["L_IDX", "WbnPlan", "wbn_plan", "wbn_stats", "wbn_stats_plain",
            "wbn_transform", "wbn_transform_plain", "wbn_bwd_sums", "wbn_bwd_sums_plain",
-           "wbn_dx", "wbn_dx_plain", "wbn_cholesky", "wbn_cholesky_plain",
-           "fused_whitening", "eval_whitening"]
+           "wbn_dx", "wbn_dx_plain", "wbn_transform_eval",
+           "wbn_transform_eval_plain", "wbn_cholesky_plain", "fused_whitening",
+           "eval_whitening"]
 
 # rows of the Cholesky factor [10, d] (fused_whitening.py:473-474)
 L_IDX = [(0, 0), (1, 0), (1, 1), (2, 0), (2, 1), (2, 2),
@@ -130,16 +133,18 @@ def _lib():
         lib = _build.load("fused_whitening")
         lib.wbn_stats_f32.argtypes = ([_P, _P, _F32] + [_P] * 4 + [_I64] * 6
                                       + [_P])
-        lib.wbn_transform_f32.argtypes = [_P] * 6 + [_I64, _I64, _P]
+        lib.wbn_transform_f32.argtypes = [_P] * 6 + [_I64] * 3 + [_P]
         lib.wbn_bwd_sums_f32.argtypes = [_P] * 9 + [_I64] * 6 + [_P]
         lib.wbn_dx_f32.argtypes = [_P] * 10 + [_I64, _I64, _P]
-        lib.wbn_cholesky_f32.argtypes = [_P, _F32, _P, _I64, _P]
+        lib.wbn_transform_eval_f32.argtypes = [_P] * 5 + [_F32, _P, _P] + [
+            _I64] * 3 + [_P]
         lib.wbn_bwd_sums_frozen_f32.argtypes = [_P] * 6 + [_I64] * 6 + [_P]
         lib.wbn_dx_frozen_f32.argtypes = [_P] * 4 + [_I64, _I64, _P]
         lib.wbn_max_active_clusters.argtypes = [_I64] * 3 + [
             ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.wbn_stats_f32, lib.wbn_transform_f32,
-                   lib.wbn_bwd_sums_f32, lib.wbn_dx_f32, lib.wbn_cholesky_f32,
+                   lib.wbn_bwd_sums_f32, lib.wbn_dx_f32,
+                   lib.wbn_transform_eval_f32,
                    lib.wbn_bwd_sums_frozen_f32, lib.wbn_dx_frozen_f32,
                    lib.wbn_max_active_clusters):
             fn.restype = ctypes.c_int
@@ -260,6 +265,13 @@ def wbn_cholesky_plain(cov, eps: float):
     as JAX's eval path reads it (norm.py:333-340)."""
     return _stack_l(_chol_fields(
         {(j, k): cov[j, k] for j in range(4) for k in range(j, 4)}, eps))
+
+
+def wbn_transform_eval_plain(x, mean, cov, gamma, beta, eps: float):
+    """``(y, L)``: the eval Cholesky ``wbn_cholesky_plain``, then
+    ``wbn_transform_plain`` with the running ``mean``."""
+    l = wbn_cholesky_plain(cov, eps)
+    return wbn_transform_plain(x, mean, l, gamma, beta), l
 
 
 def _whiten(x, mean, l):
@@ -399,12 +411,32 @@ def wbn_transform(x, mean, l, gamma, beta):
     y = torch.empty_like(x)
     _build.check_launch("wbn_transform", _lib().wbn_transform_f32(
         x.data_ptr(), mean.data_ptr(), l.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), y.data_ptr(), n, d, _build.stream(x.device)))
+        beta.data_ptr(), y.data_ptr(), n, d, _build.SMS,
+        _build.stream(x.device)))
     wbn_transform.launches += 1
     return y
 
 
 wbn_transform.launches = 0
+
+
+def wbn_transform_eval(x, mean, cov, gamma, beta, eps: float):
+    """``(y, L)`` of the eval path in one launch of K: ``L [10, d]`` the
+    Cholesky factor of the running ``cov [4, 4, d] + eps I`` (its upper
+    triangle), ``y = Gamma L^{-1} (x - mean) + beta`` on every row.  Counted
+    under ``wbn_transform.launches``."""
+    if x.device.type == "cpu":
+        return wbn_transform_eval_plain(x, mean, cov, gamma, beta, eps)
+    n, d = x.shape[0], x.shape[1] // 4
+    _check(x, [("gamma", gamma, (4, 4, d)), ("mean", mean, (4, d)),
+               ("cov", cov, (4, 4, d)), ("beta", beta, (4, d))])
+    y, l = torch.empty_like(x), _empty(x.device, 10, d)
+    _build.check_launch("wbn_transform_eval", _lib().wbn_transform_eval_f32(
+        x.data_ptr(), mean.data_ptr(), cov.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), eps, y.data_ptr(), l.data_ptr(), n, d, _build.SMS,
+        _build.stream(x.device)))
+    wbn_transform.launches += 1
+    return y, l
 
 
 def wbn_bwd_sums(x, g, gamma, mean, l, frozen: bool = False):
@@ -470,30 +502,6 @@ def wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt, frozen: bool = False):
 wbn_dx.launches = 0
 
 
-def wbn_cholesky(cov, eps: float):
-    """``L [10, d]`` of ``cov [4, 4, d] + eps I`` from its upper triangle,
-    one thread per feature."""
-    if cov.device.type == "cpu":
-        return wbn_cholesky_plain(cov, eps)
-    if cov.dtype != torch.float32 or cov.ndim != 3 or cov.shape[:2] != (4, 4):
-        raise TypeError(f"cov must be float32 [4, 4, d], got {cov.dtype} "
-                        f"{tuple(cov.shape)}")
-    if cov.device.type != "cuda":
-        raise ValueError(f"the whitening kernels run on CPU or CUDA tensors, "
-                         f"got {cov.device}")
-    if not cov.is_contiguous():
-        raise ValueError("cov must be contiguous")
-    d = cov.shape[2]
-    l = _empty(cov.device, 10, d)
-    _build.check_launch("wbn_cholesky", _lib().wbn_cholesky_f32(
-        cov.data_ptr(), eps, l.data_ptr(), d, _build.stream(cov.device)))
-    wbn_cholesky.launches += 1
-    return l
-
-
-wbn_cholesky.launches = 0
-
-
 class _FusedWhitening(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask, gamma, beta, eps):
@@ -527,9 +535,10 @@ def fused_whitening(x, mask: Optional[torch.Tensor], gamma, beta,
 
 class _EvalWhitening(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, mean, l):
+    def forward(ctx, x, gamma, beta, mean, cov, eps):
+        y, l = wbn_transform_eval(x, mean, cov, gamma, beta, eps)
         ctx.save_for_backward(x, gamma, mean, l)
-        return wbn_transform(x, mean, l, gamma, beta)
+        return y
 
     @staticmethod
     def backward(ctx, gy):
@@ -541,15 +550,15 @@ class _EvalWhitening(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = wbn_dx(x, gy, None, gamma, mean, l, None, None, None,
                         frozen=True)
-        return dx, dgamma, dbeta, None, None
+        return dx, dgamma, dbeta, None, None, None
 
 
 def eval_whitening(x, mean, cov, gamma, beta, eps: float = 1e-5):
     """Eval-mode quaternion whitening of ``x`` [N, 4d] with the running
     ``mean`` [4, d] and ``cov`` [4, 4, d]: ``y = Gamma L^{-1} (x - mean) +
-    beta``, ``L`` the Cholesky factor of ``cov + eps I`` (the eval Cholesky,
-    then K).  Differentiable in ``x``, ``gamma`` and ``beta`` (the frozen
-    variants of L and M), not in the running stats; no host sync, so a CUDA
-    graph can capture it, forward and backward."""
-    l = wbn_cholesky(cov, eps)
-    return _EvalWhitening.apply(x, gamma, beta, mean, l)
+    beta``, ``L`` the Cholesky factor of ``cov + eps I`` (one launch of K,
+    ``wbn_transform_eval``).  Differentiable in ``x``, ``gamma`` and
+    ``beta`` (the frozen variants of L and M, fed the factor K returns), not
+    in the running stats; no host sync, so a CUDA graph can capture it,
+    forward and backward."""
+    return _EvalWhitening.apply(x, gamma, beta, mean, cov, float(eps))

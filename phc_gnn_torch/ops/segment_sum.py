@@ -31,19 +31,77 @@ A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors
 it launches the kernel or raises; it never falls back.  The kernels trust
 ``rowptr`` to be ascending and ``perm`` to index rows of ``values`` (checking
 would cost a host sync per launch); ``graph.attach_csr_plan`` builds both.
+
+``segment_sum_plan`` computes the launch (``csrc/segment_sum.cu`` checks
+it): a warp a segment, a CTA a run of consecutive segments whose CSR slice
+and mask bytes or perm entries it stages in shared memory, float4 lanes
+where the rows allow them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from phc_gnn_torch.ops import _build
 
-__all__ = ["segment_sum_perm", "segment_sum_perm_plain", "segment_sum_masked",
+__all__ = ["SegSumPlan", "segment_sum_plan", "segment_sum_perm",
+           "segment_sum_perm_plain", "segment_sum_masked",
            "segment_sum_masked_plain", "gather_nodes", "segment_sum_aggregate",
            "segment_ids", "check_masked_csr"]
+
+# the launch plan (csrc/segment_sum.cu holds the same constants)
+SEG_WARPS = 8               # warps a CTA, one a segment at a time (kWarps)
+SEG_MAX_RUN = 64            # segments a CTA, at most (kMaxRun)
+SEG_CHUNKS = (1, 2, 4)      # vectors of a row a lane holds, per column block
+SEG_STAGE_PER_SEG = 16      # staged mask bytes or perm entries a segment
+SEG_MAX_SMEM = 48 * 1024    # dynamic shared memory without an opt-in
+SEG_MIN_CTAS = 4 * _build.SMS  # runs grow only while the grid keeps 4 CTAs
+                               # an SM
+
+
+class SegSumPlan(NamedTuple):
+    """The launch of C: ``grid`` x ``col_blocks`` CTAs of ``SEG_WARPS``
+    warps; CTA (b, c) owns the segments ``[b * run, min(n, (b + 1) * run))``
+    and the columns ``[c * cols, (c + 1) * cols)``, ``cols = chunks * 32 *
+    vec``; a lane holds ``chunks`` accumulators of ``vec`` floats (4: float4
+    loads); ``stage`` mask bytes or perm entries of the run's edges sit in
+    ``smem_bytes`` of shared memory beside its ``run + 1`` row pointers."""
+    vec: int
+    chunks: int
+    col_blocks: int
+    run: int
+    stage: int
+    smem_bytes: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def segment_sum_plan(n: int, e: int, d: int, perm: bool,
+                     aligned: bool = True) -> SegSumPlan:
+    """The launch plan of C over ``n`` segments of ``e`` edges of ``d``
+    floats, in the perm role (``perm``) or the masked one: float4 lanes where
+    ``d % 4 == 0`` and the rows are 16-byte ``aligned``, else one float a
+    lane (the scalar instance); the fewest of ``SEG_CHUNKS`` vectors a lane
+    that cover a row, in column blocks past 4; runs of ``SEG_WARPS`` * 2^k
+    segments, the longest up to ``SEG_MAX_RUN`` whose grid keeps
+    ``SEG_MIN_CTAS`` CTAs; and up to ``SEG_STAGE_PER_SEG`` staged entries a
+    segment of the run, no more than ``e``."""
+    vec = 4 if aligned and d % 4 == 0 else 1
+    vectors = -(-d // vec)
+    chunks = next((c for c in SEG_CHUNKS if 32 * c >= vectors), SEG_CHUNKS[-1])
+    col_blocks = max(1, -(-vectors // (32 * chunks)))
+    run = SEG_WARPS
+    while (2 * run <= SEG_MAX_RUN
+           and -(-n // (2 * run)) * col_blocks >= SEG_MIN_CTAS):
+        run *= 2
+    stage = min(e, run * SEG_STAGE_PER_SEG)
+    smem = 4 * (run + 1) + stage * (4 if perm else 1)
+    return SegSumPlan(vec, chunks, col_blocks, run, stage, smem, -(-n // run))
+
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -54,10 +112,9 @@ def _lib():
     global _typed_lib
     if _typed_lib is None:
         lib = _build.load("segment_sum")
-        lib.segment_sum_perm_f32.argtypes = [_P, _P, _P, _P, _I64, _I64, _P]
-        lib.segment_sum_perm_f32.restype = ctypes.c_int
-        lib.segment_sum_masked_f32.argtypes = [_P, _P, _P, _P, _I64, _I64, _P]
-        lib.segment_sum_masked_f32.restype = ctypes.c_int
+        for fn in (lib.segment_sum_perm_f32, lib.segment_sum_masked_f32):
+            fn.argtypes = [_P] * 4 + [_I64] * 9 + [_P]
+            fn.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
 
@@ -120,18 +177,26 @@ def check_masked_csr(name, msgs, mask, rowptr):
                          f"{msgs.shape[0]} rows of msgs")
 
 
+def _launch(fn, values, index, rowptr, perm: bool):
+    """Launch C's entry point ``fn`` on its checked inputs into a new [N, D]
+    output, on ``segment_sum_plan``; the instance follows ``values``' width
+    and alignment."""
+    n, (e, d) = rowptr.shape[0] - 1, values.shape
+    out = torch.empty((n, d), dtype=torch.float32, device=values.device)
+    plan = segment_sum_plan(n, e, d, perm, values.data_ptr() % 16 == 0)
+    _build.check_launch(fn.__name__, fn(
+        values.data_ptr(), index.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+        n, d, *plan, _build.stream(values.device)))
+    return out
+
+
 def segment_sum_perm(values, perm, rowptr):
     """[N, D] sums of the rows ``values[perm[e]]`` over each CSR segment of
     ``rowptr`` [N + 1]."""
     if values.device.type == "cpu":
         return segment_sum_perm_plain(values, perm, rowptr)
     _check("segment_sum_perm", values, ("perm", perm, torch.int32), rowptr)
-    dev = values.device
-    n, d = rowptr.shape[0] - 1, values.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    _build.check_launch("segment_sum_perm", _lib().segment_sum_perm_f32(
-        values.data_ptr(), perm.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
-        n, d, _build.stream(dev)))
+    out = _launch(_lib().segment_sum_perm_f32, values, perm, rowptr, True)
     segment_sum_perm.launches += 1
     return out
 
@@ -145,12 +210,7 @@ def segment_sum_masked(msgs, mask, rowptr):
     if msgs.device.type == "cpu":
         return segment_sum_masked_plain(msgs, mask, rowptr)
     check_masked_csr("segment_sum_masked", msgs, mask, rowptr)
-    dev = msgs.device
-    n, d = rowptr.shape[0] - 1, msgs.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    _build.check_launch("segment_sum_masked", _lib().segment_sum_masked_f32(
-        msgs.data_ptr(), mask.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
-        n, d, _build.stream(dev)))
+    out = _launch(_lib().segment_sum_masked_f32, msgs, mask, rowptr, False)
     segment_sum_masked.launches += 1
     return out
 

@@ -113,8 +113,10 @@ def test_segment_sum_kernel_matches_plain_version(dev, case):
     g = torch.randn((e, 200), generator=torch.Generator().manual_seed(1)).to(dev)
     n0 = ssum.segment_sum_perm.launches
     out = ssum.segment_sum_perm(g, perm, rowptr)
+    again = ssum.segment_sum_perm(g, perm, rowptr)
     torch.cuda.synchronize()
-    assert ssum.segment_sum_perm.launches == n0 + 1
+    assert ssum.segment_sum_perm.launches == n0 + 2
+    assert torch.equal(out, again)
     # against a float64 sum, so that the reference's order does not matter;
     # the kernel's f32 running sum of 1,100 rows drifts ~1e-6 of the max
     want = ssum.segment_sum_perm_plain(g.double(), perm, rowptr)
@@ -304,12 +306,68 @@ def test_segment_sum_masked_kernel_matches_plain_version(dev, case):
         msgs = torch.cat([msgs, msgs, msgs[:, :112]], 1).contiguous()
     n0 = ssum.segment_sum_masked.launches
     out = ssum.segment_sum_masked(msgs, mask, rowptr)
+    again = ssum.segment_sum_masked(msgs, mask, rowptr)
     torch.cuda.synchronize()
-    assert ssum.segment_sum_masked.launches == n0 + 1
+    assert ssum.segment_sum_masked.launches == n0 + 2
+    assert torch.equal(out, again)
     want = ssum.segment_sum_masked_plain(msgs.double(), mask, rowptr)
     assert _leaf_err(out, want) <= 1e-5
     if case == "adversarial":
         assert torch.all(out[3] == 0) and torch.all(out[11] == 0)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose base lies 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("role", ["masked", "perm"])
+@pytest.mark.parametrize("width", [512, 200, 37, "unaligned", 768])
+def test_segment_sum_instances_are_sequential_sums(dev, role, width):
+    """Each instance of C (float4 lanes at 512, 200 and 768, two column
+    blocks there; one float a lane at d = 37 and on rows 4 bytes past a
+    16-byte boundary) over the adversarial nodes (an isolated node 3, a
+    node of 1,100 edges past a run's staged entries, masked edges inside
+    segments, an all-masked node 11) is bit-equal to the plain version run
+    in float32 on the CPU, a sequential sum in edge order, and to a second
+    launch; the isolated and all-masked nodes give exact 0."""
+    msgs, mask, _, rowptr = _adversarial_case(dev)
+    d = 200 if width == "unaligned" else width
+    gen = torch.Generator().manual_seed(d)
+    values = (torch.rand((msgs.shape[0], d), generator=gen) * 64 - 32).to(dev)
+    if role == "perm":
+        rng = np.random.default_rng(d)
+        senders = rng.permutation(np.repeat(np.arange(48),
+                                            np.diff(rowptr.cpu().numpy())))
+        e_mask = rng.random(senders.shape[0]) > 0.2
+        index, rowptr = (torch.from_numpy(a).to(dev)
+                         for a in build_sender_csr(senders, 48, e_mask))
+        values = values[:senders.shape[0]].contiguous()
+        fn, plain = ssum.segment_sum_perm, ssum.segment_sum_perm_plain
+    else:
+        index = mask
+        fn, plain = ssum.segment_sum_masked, ssum.segment_sum_masked_plain
+    if width == "unaligned":
+        values = _unaligned(values)
+    plan = ssum.segment_sum_plan(rowptr.shape[0] - 1, values.shape[0], d,
+                                 role == "perm", values.data_ptr() % 16 == 0)
+    assert plan.vec == (4 if isinstance(width, int) and width % 4 == 0 else 1)
+    assert plan.stage < int(rowptr[-1])
+    n0 = fn.launches
+    out, again = fn(values, index, rowptr), fn(values, index, rowptr)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), plain(values.cpu(), index.cpu(),
+                                        rowptr.cpu()))
+    assert torch.all(out[3] == 0)
+    if role == "masked":
+        assert torch.all(out[11] == 0)
 
 
 def _whitening_case(dev, n, d, mask_kind, seed=8):
@@ -337,29 +395,36 @@ def _whitening_case(dev, n, d, mask_kind, seed=8):
     (4096, 50, "all_masked"), (129, 49, "one_row"), (4096, 50, "ctas_masked"),
     (4096, 64, "random")])
 def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
-    """J, K, L (with the T/S/M algebra) and M, and the eval Cholesky,
-    against the plain versions run in float64 on the card: the flagship's
+    """J, K, L (with the T/S/M algebra) and M, and K's eval route (the
+    Cholesky in its prologue), against the plain versions run in float64
+    on the card: the flagship's
     [4096, 200] with its node mask, a ragged N = 1,100, d = 49, an
     all-masked and a one-row mask, the rows of J's first three CTAs masked,
     and d = 64, whose plan takes clusters of 8.  1e-5 of each output's max: the covariances here are well
     conditioned (chip_smoke.py holds the badly conditioned cases).  A
-    second launch of J and of L (both variants) is bit-equal."""
+    second launch of J, L (both variants), K and its eval route is
+    bit-equal, and the eval route's y is K's fed the factor it returns."""
     x, mask, gamma, beta, g = _whitening_case(dev, n, d, mask_kind)
-    wrappers = (fw.wbn_stats, fw.wbn_transform, fw.wbn_bwd_sums, fw.wbn_dx,
-                fw.wbn_cholesky)
+    wrappers = (fw.wbn_stats, fw.wbn_transform, fw.wbn_bwd_sums, fw.wbn_dx)
     counts = [w.launches for w in wrappers]
     mean, cov, l, cnt = fw.wbn_stats(x, mask, 1e-5)
     y = fw.wbn_transform(x, mean, l, gamma, beta)
     dgamma, dbeta, mmat, sw = fw.wbn_bwd_sums(x, g, gamma, mean, l)
     dx = fw.wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt)
-    l_eval = fw.wbn_cholesky(cov, 1e-5)
+    y_eval, l_eval = fw.wbn_transform_eval(x, mean, cov, gamma, beta, 1e-5)
     torch.cuda.synchronize()
-    assert [w.launches for w in wrappers] == [c + 1 for c in counts]
+    assert [w.launches for w in wrappers] == [c + 1 for c in counts[:1]] + [
+        counts[1] + 2] + [c + 1 for c in counts[2:]]
     frozen = fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True)
     for first, again in (
             ((mean, cov, l, cnt), fw.wbn_stats(x, mask, 1e-5)),
             ((dgamma, dbeta, mmat, sw), fw.wbn_bwd_sums(x, g, gamma, mean, l)),
-            (frozen, fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True))):
+            (frozen, fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True)),
+            ((y,), (fw.wbn_transform(x, mean, l, gamma, beta),)),
+            ((y_eval, l_eval), fw.wbn_transform_eval(x, mean, cov, gamma,
+                                                     beta, 1e-5)),
+            # the eval route is K fed the factor it writes
+            ((y_eval,), (fw.wbn_transform(x, mean, l_eval, gamma, beta),))):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
     x64, gam64, beta64, g64 = (t.double() for t in (x, gamma, beta, g))
     r_mean, r_cov, r_l, r_cnt = fw.wbn_stats_plain(x64, mask, 1e-5)
@@ -367,8 +432,9 @@ def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
     ref = (r_mean, r_cov, r_l, r_cnt,
            fw.wbn_transform_plain(x64, r_mean, r_l, gam64, beta64)) + r_sums + (
         fw.wbn_dx_plain(x64, g64, mask, gam64, r_mean, r_l, r_sums[2],
-                        r_sums[3], r_cnt), fw.wbn_cholesky_plain(r_cov, 1e-5))
-    got = (mean, cov, l, cnt, y, dgamma, dbeta, mmat, sw, dx, l_eval)
+                        r_sums[3], r_cnt),) + fw.wbn_transform_eval_plain(
+        x64, r_mean, r_cov, gam64, beta64, 1e-5)
+    got = (mean, cov, l, cnt, y, dgamma, dbeta, mmat, sw, dx, y_eval, l_eval)
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all()
         if float(b.abs().max()) == 0.0:
@@ -462,9 +528,9 @@ def test_segment_moments_kernel_matches_plain_version(dev, case):
 
 def test_eval_whitening_backward_on_the_card(dev):
     """The eval whitening's gradients in the input, Gamma and beta on the
-    card (the running stats' Cholesky and K, then the frozen variants of L
-    and M) against the same module on the CPU, and the frozen kernels
-    against their plain versions in float64."""
+    card (one launch of K's eval route, then the frozen variants of L and
+    M) against the same module on the CPU, and the frozen kernels against
+    their plain versions in float64."""
     x, _, gamma, beta, g = _whitening_case(dev, 1100, 50, "random")
     gen = torch.Generator().manual_seed(3)
     b = torch.randn((50, 4, 4), generator=gen)
@@ -478,19 +544,21 @@ def test_eval_whitening_backward_on_the_card(dev):
                          (norm.mean, mean), (norm.cov, cov)):
                 t.copy_(v)
         tx = x.detach().to(device).requires_grad_()
-        counts = (fw.wbn_bwd_sums.launches, fw.wbn_dx.launches)
+        counts = (fw.wbn_transform.launches, fw.wbn_bwd_sums.launches,
+                  fw.wbn_dx.launches)
         y = norm(tx, training=False)
         (y * g.to(device)).sum().backward()
         if device.type == "cuda":
             torch.cuda.synchronize()
-            assert (fw.wbn_bwd_sums.launches, fw.wbn_dx.launches) == (
-                counts[0] + 1, counts[1] + 1)
+            assert (fw.wbn_transform.launches, fw.wbn_bwd_sums.launches,
+                    fw.wbn_dx.launches) == tuple(c + 1 for c in counts)
         outs.append([t.detach().cpu() for t in (y, tx.grad, norm.gamma.grad,
                                                 norm.beta.grad)])
     for a, b in zip(*outs):
         assert _leaf_err(a, b) <= 1e-5
-    l = fw.wbn_cholesky(cov.to(dev).contiguous(), 1e-5)
     mean_d = mean.to(dev)
+    _, l = fw.wbn_transform_eval(x, mean_d, cov.to(dev).contiguous(), gamma,
+                                 beta, 1e-5)
     got = fw.wbn_bwd_sums(x, g, gamma, mean_d, l, frozen=True) + (
         fw.wbn_dx(x, g, None, gamma, mean_d, l, None, None, None,
                   frozen=True),)
@@ -501,3 +569,28 @@ def test_eval_whitening_backward_on_the_card(dev):
                         None, None, frozen=True),)
     for a, b in zip(got, want):
         assert _leaf_err(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("n,d", [(4096, 300), (0, 50), (1, 50), (129, 7)])
+def test_whitening_transform_routes_cover_every_pair(dev, n, d):
+    """K and its eval route where the pairs do not fill a CTA or a thread's
+    second pair, d = 300 past one chunk of 256 staged features, and no
+    rows at all (the eval route still writes its factor): against the plain
+    versions in float64, y bit-equal between the routes fed one factor."""
+    x, _, gamma, beta, _ = _whitening_case(dev, max(n, 1), d, "random")
+    x = x[:n].contiguous()
+    gen = torch.Generator().manual_seed(d)
+    b = torch.randn((d, 4, 4), generator=gen)
+    cov = (b @ b.transpose(1, 2) / 4 + 0.2 * torch.eye(4)).permute(
+        1, 2, 0).contiguous().to(dev)
+    mean = (torch.randn((4, d), generator=gen) * 0.3).to(dev)
+    y_eval, l = fw.wbn_transform_eval(x, mean, cov, gamma, beta, 1e-5)
+    y = fw.wbn_transform(x, mean, l, gamma, beta)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_eval)
+    want_y, want_l = fw.wbn_transform_eval_plain(
+        x.double(), mean.double(), cov.double(), gamma.double(),
+        beta.double(), 1e-5)
+    assert _leaf_err(l, want_l) <= 1e-5
+    if n:
+        assert _leaf_err(y, want_y) <= 1e-5

@@ -132,18 +132,45 @@ def test_kernel_stages_match_jax_formula():
 
 
 def test_eval_cholesky_matches_jax():
-    """``wbn_cholesky`` reads the upper triangle of a running covariance, as
-    JAX's eval path does, including the all-ones start (where cov + eps I is
-    barely positive definite)."""
+    """``wbn_transform_eval``'s factor reads the upper triangle of a running
+    covariance, as JAX's eval path does, including the all-ones start (where
+    cov + eps I is barely positive definite)."""
     rng = np.random.default_rng(5)
+    x, _, gamma, beta, _ = _inputs(20, 7, 4)
+    mean = torch.from_numpy((rng.normal(size=(4, 7)) * 0.3).astype(np.float32))
     for cov in (spd_cov(rng, 7), np.ones((4, 4, 7), np.float32)):
         want = jfw._chol_fields({(j, k): jnp.asarray(cov[j, k])
                                  for j in range(4) for k in range(j, 4)},
                                 jnp.float32(EPS))
-        got = tfw.wbn_cholesky(torch.from_numpy(cov), EPS)
-        assert torch.isfinite(got).all()
+        y, got = tfw.wbn_transform_eval(
+            torch.from_numpy(x), mean, torch.from_numpy(cov),
+            torch.from_numpy(gamma), torch.from_numpy(beta), EPS)
+        assert torch.isfinite(got).all() and torch.isfinite(y).all()
         for i, jk in enumerate(tfw.L_IDX):
             assert_leaf_close(got[i], np.asarray(want[jk]), TOL_WBN, str(jk))
+
+
+@pytest.mark.parametrize("cov_kind", ["spd", "ones"])
+def test_eval_whitening_matches_jax_eval_norm(cov_kind):
+    """``eval_whitening`` (``wbn_transform_eval``'s plain version on CPU
+    tensors) against JAX's eval ``QuaternionWhiteningNorm``
+    (phc_gnn_tpu/nn/norm.py:331-345) from the same running mean and
+    covariance, Gamma and beta: a random SPD covariance, and the all-ones
+    start."""
+    n, d = 96, 6
+    x, _, gamma, beta, _ = _inputs(n, d, 13)
+    rng = np.random.default_rng(14)
+    mean = (rng.normal(size=(4, d)) * 0.3).astype(np.float32)
+    cov = (spd_cov(rng, d) if cov_kind == "spd"
+           else np.ones((4, 4, d), np.float32))
+    jm = JaxWhiteningNorm(num_features=d)
+    v = {"params": {"gamma": gamma, "beta": beta},
+         "batch_stats": {"mean": mean, "cov": cov}}
+    want = jm.apply(v, jnp.asarray(x), training=False)
+    got = tfw.eval_whitening(*(torch.from_numpy(a) for a in (x, mean, cov,
+                                                             gamma, beta)),
+                             EPS)
+    assert_leaf_close(got, np.asarray(want), TOL_WBN, "y")
 
 
 def test_wrappers_off_the_cpu_take_the_kernels_or_raise():
@@ -154,7 +181,10 @@ def test_wrappers_off_the_cpu_take_the_kernels_or_raise():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tfw.wbn_stats(x, mask, EPS)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        tfw.wbn_cholesky(torch.empty(4, 4, 5, device="meta"), EPS)
+        tfw.wbn_transform_eval(x, torch.empty(4, 5, device="meta"),
+                               torch.empty(4, 4, 5, device="meta"),
+                               torch.empty(4, 4, 5, device="meta"),
+                               torch.empty(4, 5, device="meta"), EPS)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tfw.fused_whitening(x, mask, torch.empty(4, 4, 5, device="meta"),
                             torch.empty(4, 5, device="meta"))

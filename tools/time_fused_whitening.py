@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time the whitening reductions J (``wbn_stats``) and L (``wbn_bwd_sums``,
-with its frozen variant) on one NVIDIA GPU at the quaternion path's
-[4096, 200] (d = 50), with the flagship batch's node mask.
+"""Time the whitening kernels J (``wbn_stats``), K (``wbn_transform``, and
+the eval route that factors the running covariance in it) and L
+(``wbn_bwd_sums``, with its frozen variant) on one NVIDIA GPU at the
+quaternion path's [4096, 200] (d = 50), with the flagship batch's node
+mask.
 
     python3 tools/time_fused_whitening.py [--root DIR] [--label NAME] [--quat]
 
@@ -13,17 +15,23 @@ the clusters of 1, 2, 4, 8 and 16 CTAs that the card holds at once for each
 of J, L and L frozen (``_max_active_clusters``).
 
 Per wrapper: device us per call from one CUDA graph of 100 calls (median of
-5 replays; ``chip_smoke.py``'s timer), us per eager call, and the CUDA
+5 replays; ``chip_smoke.py``'s timer), us per eager call (200 calls between
+two CUDA events), the host us of the wrapper's call (``host_us`` of
+``tools/time_segment_sum.py``), and the CUDA
 kernels one call launches with each one's device us (``torch.profiler``
-over 20 calls).  A second launch of J, L and L frozen must be bit-equal to
-the first.  The line carries SHA-256 digests of J's and L's outputs, and of
-K's, M's (both variants) and the eval Cholesky's outputs on inputs made
-without J and L (the plain versions' statistics from the CPU), so that two
-checkouts can be shown bit-equal there.
+over 20 calls).  A second launch of J, K, the eval route, L and L frozen
+must be bit-equal to the first.  The eval route is the checkout's
+``wbn_transform_eval``, or, where it has none, its eval Cholesky
+(``wbn_cholesky``) then K: ``(y, L)`` either way.  The line carries
+SHA-256 digests of J's and L's outputs, of K's and the eval route's (K and
+the route on the plain versions' statistics from the CPU, the route from
+their covariance), and of M's (both variants) on the same statistics, so
+that two checkouts can be shown bit-equal there.
 
 With ``--quat``, it also times and profiles ``chip_smoke.py``'s quaternion
 add preset: the train step (ms, kernels per step, device busy and idle
-share) and the eval gradient (ms, kernels per call, device busy); then,
+share), the eval forward (ms from a CUDA graph, kernels per batch, device
+busy) and the eval gradient (ms, kernels per call, device busy); then,
 apart, the host us a train step spends inside the calls of ``wbn_stats``
 and ``wbn_bwd_sums`` (the host clock around each call, 30 steps).
 
@@ -71,7 +79,7 @@ def kernels_of(torch, fn, iters: int = 20) -> dict:
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not e.is_user_annotation):
             count += 1
-            found = re.search(r"wbn_\w+_kernel", e.name)
+            found = re.search(r"wbn_\w+_kernel(<\w+>)?", e.name)
             name = found.group(0) if found else e.name[:60]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     return {"kernels_per_call": count / iters,
@@ -103,6 +111,14 @@ def quat(torch, dev, fw) -> dict:
 
     grad_ms, _ = cs.time_steps(torch, eval_grad)
     g_prof = cs.device_profile(torch, eval_grad, grad_ms)
+
+    def eval_forward():
+        with torch.no_grad():
+            return frozen(batch, training=False)
+
+    fwd_ms, _ = cs.time_steps(torch, eval_forward)
+    fwd_graph_ms = cs.time_graph(torch, eval_forward, iters=10)
+    f_prof = cs.device_profile(torch, eval_forward, fwd_ms)
     # the host time of J's and L's wrappers inside the step, timed apart so
     # that the shims do not touch the numbers above
     spent = {"wbn_stats": 0.0, "wbn_bwd_sums": 0.0}
@@ -129,6 +145,9 @@ def quat(torch, dev, fw) -> dict:
             "quat_kernels_per_step": prof["kernels_per_call"],
             "quat_device_busy_ms": prof["busy_ms"],
             "quat_device_idle_share": prof["idle_share"],
+            "quat_eval_ms": fwd_ms, "quat_eval_graph_ms": fwd_graph_ms,
+            "quat_eval_kernels": f_prof["kernels_per_call"],
+            "quat_eval_device_busy_ms": f_prof["busy_ms"],
             "quat_eval_grad_ms": grad_ms,
             "quat_eval_grad_kernels": g_prof["kernels_per_call"],
             "quat_eval_grad_device_busy_ms": g_prof["busy_ms"],
@@ -152,6 +171,7 @@ def main() -> None:
         print("time_fused_whitening: no CUDA device", file=sys.stderr)
         sys.exit(1)
     from chip_smoke import time_eager, time_graph
+    from time_segment_sum import host_us
     from phc_gnn_torch.data import synthetic_batch
     from phc_gnn_torch.ops import fused_whitening as fw
 
@@ -184,22 +204,31 @@ def main() -> None:
         ..., None]
     beta = torch.randn((4, D), generator=gen) * 0.3
     mask = synthetic_batch(128, 4096, 8192, seed=0).node_mask
-    # K, M and the Cholesky on statistics made without J and L
+    # K, the eval route and M on statistics made without J and L
     p_mean, p_cov, p_l, p_cnt = fw.wbn_stats_plain(x, mask, 1e-5)
     p_sums = fw.wbn_bwd_sums_plain(x, g, gamma, p_mean, p_l)
     x, g, gamma, beta, mask, p_mean, p_cov, p_l, p_cnt = (
         t.to(dev).contiguous() for t in (x, g, gamma, beta, mask, p_mean,
                                          p_cov, p_l, p_cnt))
     p_mmat, p_sw = (t.to(dev).contiguous() for t in p_sums[2:])
-    rest = (fw.wbn_transform(x, p_mean, p_l, gamma, beta),
-            fw.wbn_dx(x, g, mask, gamma, p_mean, p_l, p_mmat, p_sw, p_cnt),
-            fw.wbn_dx(x, g, None, gamma, p_mean, p_l, None, None, None,
-                      frozen=True),
-            fw.wbn_cholesky(p_cov, 1e-5))
-    line["k_m_cholesky_sha256"] = digest(rest)
+
+    def transform():
+        return (fw.wbn_transform(x, p_mean, p_l, gamma, beta),)
+
+    def eval_route():
+        if hasattr(fw, "wbn_transform_eval"):
+            return fw.wbn_transform_eval(x, p_mean, p_cov, gamma, beta, 1e-5)
+        l = fw.wbn_cholesky(p_cov, 1e-5)
+        return fw.wbn_transform(x, p_mean, l, gamma, beta), l
+
+    line["m_sha256"] = digest((
+        fw.wbn_dx(x, g, mask, gamma, p_mean, p_l, p_mmat, p_sw, p_cnt),
+        fw.wbn_dx(x, g, None, gamma, p_mean, p_l, None, None, None,
+                  frozen=True)))
 
     mean, cov, l, cnt = fw.wbn_stats(x, mask, 1e-5)
     calls = {
+        "wbn_transform": transform, "wbn_eval_route": eval_route,
         "wbn_stats": lambda: fw.wbn_stats(x, mask, 1e-5),
         "wbn_bwd_sums": lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l),
         "wbn_bwd_sums_frozen": lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l,
@@ -212,6 +241,7 @@ def main() -> None:
         line[f"{name}_sha256"] = digest(first)
         line[f"{name}_graph_us"] = time_graph(torch, fn) * 1e3
         line[f"{name}_eager_us"] = time_eager(torch, fn) * 1e3
+        line[f"{name}_host_us"] = host_us(torch, fn)
         line[f"{name}_cuda_kernels"] = kernels_of(torch, fn)
     if args.quat:
         line.update(quat(torch, dev, fw))

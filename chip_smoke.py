@@ -43,8 +43,11 @@ Phases, each of which exits non-zero on failure:
    features (where K, L and M, fed the plain version's f32 statistics, are
    also read against float64) and the rows of J's first three CTAs masked,
    L and M in their frozen variants too (the eval whitening's backward),
-   J, L and the frozen L each one CUDA kernel a call, bit-equal on a second
-   launch, with every cluster of their plan on the card at once; for H (max
+   and the frozen L with dx (M's frozen dx written from its sweep: its
+   dGamma, dbeta bit-equal to the frozen L's, its dx to M's frozen variant
+   alone), J, L, the frozen L and the frozen L with dx each one CUDA kernel
+   a call, bit-equal on a second launch, with every cluster of their plan
+   on the card at once; for H (max
    and min) and I (mean and var) over the flagship's receiver CSR at D =
    200 with ReLU messages, exact ties, the adversarial receivers of A and B (one-edge, all-masked and isolated
    segments) and, for H, |m| >= 1e29: H bit for bit, I within TOL_SUM and
@@ -111,8 +114,10 @@ Phases, each of which exits non-zero on failure:
    at 400) on one batch against the CPU, and one dropout-free step as in 9;
 11. quaternion eval gradient: the add preset's eval forward (running stats
    fixed) differentiated in every parameter on one batch, on the card
-   (K's eval route, then the frozen variants of L and M at the 8 sites,
-   A, B, C 4) against the CPU under the rule of 5;
+   (K's eval route, then the frozen L writing dx at the 8 sites, A, B, C
+   4) against the CPU under the rule of 5; then in the input encoders'
+   tables alone (input attribution: the whitening's Gamma and beta need no
+   gradient, so each site runs M's frozen variant alone);
 12. PNA eval: the ZINC PHC-4 recipe with ``--aggr_msg pna``
    (benchmarks/run_script_zinc_phm4.sh over DATASET_DEFAULTS["zinc"],
    built by ``build_model`` with ``avg_deg`` from ``degree_histogram`` of
@@ -134,13 +139,14 @@ It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}`` and
 ``{"kernels": [...]}`` lines, then, as its last line, ``{"ok": true,
 "device": {...}}``.  In the kernels line, each kernel's ``launches_by_path``
-holds its count from each of the ten main-path runs above (``eval``: 3
+holds its count from each of the eleven main-path runs above (``eval``: 3
 flagship batches; ``train``: 10 flagship steps; ``pcba_eval``: 1 batch;
 ``pcba_train``: 10 accumulated steps; ``quat_eval``: 3 batches;
 ``quat_train``: 10 steps; ``quat_concat_eval``: 1 batch;
-``quat_eval_grad``: 1 batch; ``pna_eval``: 3 batches; ``pna_train``: 10
-steps), and ``launches`` is their sum.  Without a CUDA device it exits
-non-zero and prints no result.  It imports nothing of JAX.
+``quat_eval_grad``: 1 batch; ``quat_eval_attr``: 1 batch; ``pna_eval``: 3
+batches; ``pna_train``: 10 steps), and ``launches`` is their sum.  Without
+a CUDA device it exits non-zero and prints no result.  It imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -221,9 +227,14 @@ QUAT_EVAL_LAUNCHES = {"wbn_transform": 8, "segment_logit_max": 4,
                       "segment_softmax_aggregate": 4}
 QUAT_STEPS = 10
 # the eval whitening's backward (fine-tuning with frozen running stats):
-# per quaternion batch the eval forward's kernels, then the frozen variants
-# of L and M at the 8 sites and C's gather backward once per layer
-QUAT_EVAL_GRAD_LAUNCHES = {**QUAT_EVAL_LAUNCHES, "wbn_bwd_sums": 8, "wbn_dx": 8,
+# per quaternion batch the eval forward's kernels, then at the 8 sites the
+# frozen L writing dx in the same launch, and C's gather backward once per
+# layer
+QUAT_EVAL_GRAD_LAUNCHES = {**QUAT_EVAL_LAUNCHES, "wbn_bwd_sums": 8,
+                           "segment_sum_perm": 4}
+# ... and with the gradient in the input encoders alone (attribution), M's
+# frozen variant alone at the 8 sites
+QUAT_EVAL_ATTR_LAUNCHES = {**QUAT_EVAL_LAUNCHES, "wbn_dx": 8,
                            "segment_sum_perm": 4}
 # PNA (benchmarks/run_script_zinc_phm4.sh --aggr_msg pna): per layer the mean
 # through C's forward role, the min and the max through H, the std through I
@@ -1046,9 +1057,10 @@ def whitening_case(torch, dev, n, d, kind, node_mask=None):
 def whitening_chain(fw, x, mask, gamma, beta, g, kernels: bool, given=None):
     """J, K, L, M and K's eval route in sequence, through the kernels or
     through the plain versions (in the inputs' dtype), and the frozen
-    variants of L and M (the eval whitening's backward, J's statistics held
-    fixed): the outputs by name.  With ``given`` (J's four outputs from
-    elsewhere), K, L and M read those in place of J's."""
+    variants of L and M and the frozen L with dx (the eval whitening's
+    backward, J's statistics held fixed): the outputs by name.  With
+    ``given`` (J's four outputs from elsewhere), K, L and M read those in
+    place of J's."""
     if kernels:
         stats, transform, sums, dx_of, route = (
             fw.wbn_stats, fw.wbn_transform, fw.wbn_bwd_sums, fw.wbn_dx,
@@ -1060,13 +1072,18 @@ def whitening_chain(fw, x, mask, gamma, beta, g, kernels: bool, given=None):
     mean, cov, l, cnt = stats(x, mask, 1e-5) if given is None else given
     dgamma, dbeta, mmat, sw = sums(x, g, gamma, mean, l)
     f_dgamma, f_dbeta = sums(x, g, gamma, mean, l, frozen=True)
+    w_dgamma, w_dbeta, w_dx = sums(x, g, gamma, mean, l, frozen=True,
+                                   with_dx=True)
     y_eval, l_eval = route(x, mean, cov, gamma, beta, 1e-5)
     return {"wbn_stats": {"mean": mean, "cov": cov, "L": l, "cnt": cnt},
             "wbn_transform": {"y": transform(x, mean, l, gamma, beta),
                               "eval y": y_eval, "eval L of cov": l_eval},
             "wbn_bwd_sums": {"dgamma": dgamma, "dbeta": dbeta, "M": mmat,
                              "sum w": sw, "frozen dgamma": f_dgamma,
-                             "frozen dbeta": f_dbeta},
+                             "frozen dbeta": f_dbeta,
+                             "frozen with dx, dgamma": w_dgamma,
+                             "frozen with dx, dbeta": w_dbeta,
+                             "frozen with dx, dx": w_dx},
             "wbn_dx": {"dx": dx_of(x, g, mask, gamma, mean, l, mmat, sw, cnt),
                        "frozen dx": dx_of(x, g, None, gamma, mean, l, None,
                                           None, None, frozen=True)}}
@@ -1094,10 +1111,12 @@ def whitening_kernels(torch, dev, batch, errs):
     quaternion path's [4096, 200] (d = 50) with the flagship's node mask, a
     ragged N = 1,100, d = 49, all-masked and one-row masks, a column offset
     of 1e3 with std 0.1, nearly collinear features and the rows of J's first
-    three CTAs masked; J, K and its eval route and L (both variants)
+    three CTAs masked; J, K and its eval route and L (its three variants)
     bit-equal on a second launch, the eval route's y bit-equal to K's fed
-    the factor it returns; J, L and the eval route one CUDA kernel a call
-    each, J's and L's clusters in one wave.  Returns the timing records."""
+    the factor it returns, the frozen L with dx bit-equal to the frozen L
+    and M's frozen variant alone; J, L (each variant) and the eval route
+    one CUDA kernel a call each, J's and L's clusters in one wave.  Returns
+    the timing records."""
     from phc_gnn_torch.ops import fused_whitening as fw
 
     n, d = batch.num_nodes, DIM // 4
@@ -1112,9 +1131,10 @@ def whitening_kernels(torch, dev, batch, errs):
              f"CTAs 0-2 masked [{n}, {4 * d}] ({plan.rows_per_cta} rows a "
              f"CTA)": (n, d, "ctas masked", None)}
     wrappers = kernel_wrappers()
-    # K, L and M run twice in the chain: K and its eval route, L and M in
-    # the training variant and the frozen one
-    calls = {"wbn_stats": 1, "wbn_transform": 2, "wbn_bwd_sums": 2,
+    # K runs twice in the chain, K and its eval route; L three times, the
+    # training variant, the frozen one and the frozen one with dx; M twice,
+    # the training variant and the frozen one alone
+    calls = {"wbn_stats": 1, "wbn_transform": 2, "wbn_bwd_sums": 3,
              "wbn_dx": 2}
     for case, (cn, cd, kind, node_mask) in cases.items():
         x, mask, gamma, beta, g = whitening_case(torch, dev, cn, cd, kind,
@@ -1133,18 +1153,32 @@ def whitening_kernels(torch, dev, batch, errs):
                      fw.wbn_transform(x, mean, l_eval, gamma, beta),),
                  "wbn_bwd_sums": fw.wbn_bwd_sums(x, g, gamma, mean, l),
                  "frozen wbn_bwd_sums": fw.wbn_bwd_sums(x, g, gamma, mean, l,
-                                                        frozen=True)}
+                                                        frozen=True),
+                 "frozen wbn_bwd_sums with dx": fw.wbn_bwd_sums(
+                     x, g, gamma, mean, l, frozen=True, with_dx=True),
+                 # the frozen L with dx is the frozen L and M's frozen
+                 # variant alone, bit for bit
+                 "frozen wbn_bwd_sums with dx against the frozen L and M": (
+                     got["wbn_bwd_sums"]["frozen dgamma"],
+                     got["wbn_bwd_sums"]["frozen dbeta"],
+                     got["wbn_dx"]["frozen dx"])}
+        sums = tuple(got["wbn_bwd_sums"].values())
         firsts = {"wbn_stats": tuple(got["wbn_stats"].values()),
                   "wbn_transform": tuple(got["wbn_transform"].values()),
                   "wbn_transform fed the eval route's factor": (
                       got["wbn_transform"]["eval y"],),
-                  "wbn_bwd_sums": tuple(got["wbn_bwd_sums"].values())[:4],
-                  "frozen wbn_bwd_sums": tuple(
-                      got["wbn_bwd_sums"].values())[4:]}
+                  "wbn_bwd_sums": sums[:4],
+                  "frozen wbn_bwd_sums": sums[4:6],
+                  "frozen wbn_bwd_sums with dx": sums[6:],
+                  "frozen wbn_bwd_sums with dx against the frozen L and M":
+                      sums[6:]}
         torch.cuda.synchronize()
         for kname, outs in again.items():
             if not all(torch.equal(a, b) for a, b in zip(firsts[kname], outs)):
                 fail(f"{kname}: two launches on {case} differ")
+        print(f"kernel wbn_bwd_sums [{case}]: frozen with dx bit-equal to "
+              f"the frozen L and M's frozen variant alone, and on a second "
+              f"launch", flush=True)
         want = whitening_chain(fw, x.double(), mask, gamma.double(),
                                beta.double(), g.double(), kernels=False)
         plain = whitening_chain(fw, x, mask, gamma, beta, g, kernels=False)
@@ -1215,18 +1249,23 @@ def whitening_kernels(torch, dev, batch, errs):
              f"a call, not one")
     recs[1]["eval_route"] = route
     # the frozen variants, the eval whitening's backward: L reads x, g, the
-    # mean and L and writes dGamma and dbeta; M reads g, L and Gamma and
-    # writes dx
+    # mean and L and writes dGamma and dbeta; with dx it reads Gamma too and
+    # writes dx; M alone reads g, L and Gamma and writes dx
     recs[2]["frozen_variant"] = variant(
         torch, "wbn_bwd_sums", lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l,
                                                        frozen=True),
         2 * x_bytes + (4 + 10 + 16 + 4) * f_bytes)
+    frozen_dx = lambda: fw.wbn_bwd_sums(  # noqa: E731
+        x, g, gamma, mean, l, frozen=True, with_dx=True)
+    recs[2]["frozen_dx_variant"] = variant(
+        torch, "wbn_bwd_sums", frozen_dx,
+        3 * x_bytes + (4 + 10 + 16 + 16 + 4) * f_bytes, "frozen, with dx")
     recs[3]["frozen_variant"] = variant(
         torch, "wbn_dx", lambda: fw.wbn_dx(x, g, None, gamma, mean, l, None,
                                            None, None, frozen=True),
         2 * x_bytes + (10 + 16) * f_bytes)
-    # J, L and L frozen: one CUDA kernel a call each, all of a plan's
-    # clusters on the card at once
+    # J, L and L frozen, without and with dx: one CUDA kernel a call each,
+    # all of a plan's clusters on the card at once
     splits = {"wbn_stats": (recs[0], lambda: fw.wbn_stats(x, mask, 1e-5),
                             fw.WBN_STATS_SUMS),
               "wbn_bwd_sums": (recs[2],
@@ -1235,7 +1274,9 @@ def whitening_kernels(torch, dev, batch, errs):
               "wbn_bwd_sums_frozen": (
                   recs[2]["frozen_variant"],
                   lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True),
-                  fw.WBN_SUMS)}
+                  fw.WBN_SUMS),
+              "wbn_bwd_sums_frozen_dx": (recs[2]["frozen_dx_variant"],
+                                         frozen_dx, fw.WBN_SUMS)}
     for what, (rec, fn, sums) in splits.items():
         prof = kernels_a_call(torch, fn, 1)
         rec["cuda_kernels_us"] = {
@@ -2310,13 +2351,15 @@ def quat_concat_phase(torch, dev):
     return launches, {"agreement": worst}
 
 
-def quat_eval_grad_phase(torch, dev):
+def quat_eval_grad_phase(torch, dev, attribution: bool = False):
     """The eval whitening's backward: the L1 loss of the quaternion add
     preset's eval forward (running stats fixed, as in fine-tuning or input
     attribution) differentiated in every parameter on one batch, on the card
     and on the CPU from the same weights (the GPU's ReLU pattern replayed,
-    the CPU run repeated in float64).  Returns the launch counts of the run
-    on the card and the agreement."""
+    the CPU run repeated in float64).  With ``attribution``, in the input
+    encoders' embedding tables alone, every other parameter frozen: the
+    whitening sites then need dx and neither dGamma nor dbeta.  Returns the
+    launch counts of the run on the card and the agreement."""
     from phc_gnn_torch.data import synthetic_batch
     from phc_gnn_torch.graph import attach_csr_plan
     from phc_gnn_torch.train import masked_l1
@@ -2324,6 +2367,10 @@ def quat_eval_grad_phase(torch, dev):
     host = attach_csr_plan(synthetic_batch(seed=1, **FLAGSHIP))
     model = quat_model(torch, dev, dropout=False).eval()
     randomize_eval_state(torch, model)
+    if attribution:
+        for key, p in model.named_parameters():
+            p.requires_grad_(key.startswith(("atomencoder.", "bondencoder_")))
+    phase = "quat eval attribution" if attribution else "quat eval grad"
     cpu_model = copy.deepcopy(model).to("cpu")
     exact_model = copy.deepcopy(cpu_model).double()
 
@@ -2338,19 +2385,22 @@ def quat_eval_grad_phase(torch, dev):
     grads = grads_of(model, host.to(dev))
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {k: QUAT_EVAL_GRAD_LAUNCHES.get(k, 0) for k in launches}
-    print(f"quat eval grad: launches {launches} (expected {want})", flush=True)
+    want = {k: (QUAT_EVAL_ATTR_LAUNCHES if attribution
+                else QUAT_EVAL_GRAD_LAUNCHES).get(k, 0) for k in launches}
+    print(f"{phase}: {len(grads)} leaves; launches {launches} (expected "
+          f"{want})", flush=True)
     if launches != want:
-        fail(f"the eval whitening's backward launched {launches}, not {want}")
+        fail(f"the eval whitening's backward ({phase}) launched {launches}, "
+             f"not {want}")
     pattern = relu.recorded()
     ReluReplay(torch, pattern).install(cpu_model)
     c_grads = grads_of(cpu_model, host)
     ReluReplay(torch, pattern).install(exact_model)
     e_grads = grads_of(exact_model, host.replace(y=host.y.double()))
     worst = {}
-    hold_grads("quat eval grad", grads, c_grads, exact_errors(c_grads, e_grads),
-               worst, shift_noise=False)
-    print(f"quat eval grad: the eval forward's gradients, GPU vs CPU with the "
+    hold_grads(phase, grads, c_grads, exact_errors(c_grads, e_grads), worst,
+               shift_noise=False)
+    print(f"{phase}: the eval forward's gradients, GPU vs CPU with the "
           f"GPU's ReLU pattern: per leaf <= {worst['grad']:.3e} of the leaf's "
           f"max on {worst['grad_leaf']} (its CPU f32 error "
           f"{worst['grad_leaf_f32_err']:.3e}; {grad_rule(worst)})", flush=True)
@@ -2469,6 +2519,8 @@ def main() -> None:
     paths["quat_concat_eval"], concat = quat_concat_phase(torch, dev)
     paths["quat_eval_grad"], quat["eval_grad"] = quat_eval_grad_phase(torch,
                                                                       dev)
+    paths["quat_eval_attr"], quat["eval_attr"] = quat_eval_grad_phase(
+        torch, dev, attribution=True)
     quat.update(quat_train)
     quat["concat"] = concat
     print(json.dumps({"quat": quat}), flush=True)

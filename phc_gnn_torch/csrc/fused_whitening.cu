@@ -14,9 +14,12 @@
 //                        K with the Cholesky factor of the running
 //                        covariance + eps I (J's device function) in its
 //                        prologue, one launch; it writes the factor too;
-//   wbn_bwd_sums_frozen_f32, wbn_dx_frozen_f32
-//                        the eval path's backward: L's and M's kernels with
-//                        the statistics fixed (kFrozen), below.
+//   wbn_bwd_sums_frozen_f32
+//                        the eval path's backward: L's kernel with the
+//                        statistics fixed (kFrozen), and, given dx, writing
+//                        M's frozen dx = w from its sweep (kDx), below;
+//   wbn_dx_frozen_f32    M's frozen variant alone, for a backward that
+//                        needs dx and neither dGamma nor dbeta.
 //
 // Layout: x [N, 4d] f32, component-major: x[n, k*d + f] is component k of
 // feature f.  mean [4, d]; cov [4, 4, d] (symmetric); the Cholesky factor
@@ -95,9 +98,26 @@
 //   column j of sum w z^T, then L^T v_j = S e_j and row j of M = L^{-T} S
 //   L^{-1}, the lanes trading columns by shuffles).  Two launches on one
 //   input give bit-equal outputs.
-//   M: elementwise over tiles of 32 features (one per lane) by 64 rows.
+//   L's frozen variant with dx (the eval backward that needs dx and
+//   dGamma or dbeta): frozen, dx = w = L^{-T} Gamma^T g needs no statistic
+//   of the batch -- mean and L are the running buffers -- so no barrier
+//   waits for the sums.  Each sweep thread already holds all four
+//   components of g of its feature for every row it sums, so it loads its
+//   feature's Gamma and factor before the sweep and writes each row's w:
+//   one launch and one read of g where L then M took two of each.  The
+//   sums, the exchange and the epilogue are the frozen variant's, so dGamma
+//   and dbeta are its bit for bit.  On an H100 the dx work costs the sweep
+//   more than M alone takes (one CTA an SM, 8 warps, 32-byte store runs,
+//   and the exchange's release waits for the stores), so the fused launch
+//   saves a launch and a read of g, not M's time.  Slower there: the
+//   reciprocals computed before the rows' loads, the stores held past the
+//   exchange, dx written after the epilogue from g read again, every row's
+//   w computed without a branch.
+//   M, training: elementwise over tiles of 32 features (one per lane) by 64
+//   rows.  M's frozen variant alone takes K's (row, feature) pairs, below.
 //
-// Design of K, both routes: elementwise, bound by its bytes, but at the
+// Design of K, both routes, and of M's frozen variant alone: elementwise,
+// bound by its bytes, but at the
 // quaternion path's [4096, 200] it moves 6.6 MB, so a launch's fixed cost
 // and one latency chain weigh as much.  A tile of 32 features by 64 rows,
 // each thread walking its 8 rows one load-compute-store at a time, would
@@ -115,7 +135,9 @@
 // before the rows' so that the chain runs while they are in flight; the
 // eval route's first row block writes L for the frozen backward.  A CTA's
 // rows are shortened so that the CTAs come to about whole waves of the
-// card's SMs (launch_transform).  Tried on an H100
+// card's SMs (pairs_of).  M's frozen variant alone takes the same
+// pairs: its thread loads its feature's Gamma and factor once, and its
+// rows' g before it solves the first.  Tried on an H100
 // and dropped, each slower than the 32-feature tile there: every field
 // read from shared memory per (row, feature) pair (34 reads a pair); a
 // tile of whole rows staged with 16-byte cp.async and whitened in place
@@ -128,10 +150,11 @@
 // Bound on an H100: bytes.  At [4096, 200] f32 (3.28 MB): J reads x and the
 // mask (3.28 MB, 0.98 us at 3.35 TB/s); K reads x and writes y (6.56 MB,
 // 1.96 us); L reads x and g (6.56 MB, 1.96 us); M reads x, g and the mask and
-// writes dx (9.83 MB, 2.94 us); frozen, L reads the same and M reads g and
-// writes dx (6.56 MB, 1.96 us).  Their arithmetic (about 30, 60, 40 and 90
-// f32 operations per (row, feature)) is an order of magnitude under the
-// 67 TFLOP/s of the CUDA cores.
+// writes dx (9.83 MB, 2.94 us); frozen, L reads the same, M alone reads g
+// and writes dx (6.56 MB, 1.96 us), and L with dx reads x and g and writes
+// dx (9.84 MB, 2.94 us; L then M moved 13.1 MB in two launches).  Their
+// arithmetic (about 30, 60, 40 and 90 f32 operations per (row, feature))
+// is an order of magnitude under the 67 TFLOP/s of the CUDA cores.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -215,6 +238,22 @@ __device__ __forceinline__ void load_factor(const float* __restrict__ lf,
 #pragma unroll
   for (int i = 0; i < 10; ++i) l[i] = lf[i * d + f];
   inv_diag(l, il);
+}
+
+// w = L^{-T} Gamma^T g of one row and feature: h = Gamma^T g from its first
+// term, then bwd_subst (M's order in every kernel that writes dx)
+__device__ __forceinline__ void solve_w(const float* gam, const float* l,
+                                        const float* il, const float* gv,
+                                        float* w) {
+  float h[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float hk = gam[k] * gv[0];
+#pragma unroll
+    for (int c = 1; c < 4; ++c) hk += gam[c * 4 + k] * gv[c];
+    h[k] = hk;
+  }
+  bwd_subst(l, il, h, w);
 }
 
 // ------------------------------------------------- J and L: the clusters
@@ -694,13 +733,14 @@ __device__ __forceinline__ void quad_transpose(const float (&v)[4], int j,
 }
 
 // dGamma [4, 4, d], dbeta [4, d], M [16, d] and sum w [4, d] over all rows;
-// frozen, dGamma and dbeta alone (mmat and sw are not written).  The sweep
+// frozen, dGamma and dbeta alone (mmat and sw are not written), and with
+// kDx also M's frozen dx = w [N, 4d], row by row in the sweep.  The sweep
 // sums the 20 quantities that are linear in the rows, sum g and
 // G = sum g u^T (u = x - mean); since z = L^{-1} u and w = L^{-T} Gamma^T g,
 //   dGamma = G L^{-T},  sum w z^T = L^{-T} Gamma^T dGamma,
 //   sum w = L^{-T} Gamma^T sum g,
 // which the epilogue solves once a feature.
-template <bool kFrozen>
+template <bool kFrozen, bool kDx>
 __global__ void __launch_bounds__(kThreads, 1)
 wbn_bwd_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ mean,
@@ -708,7 +748,8 @@ wbn_bwd_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ gamma,
                     float* __restrict__ dgamma, float* __restrict__ dbeta,
                     float* __restrict__ mmat, float* __restrict__ sw,
-                    int64_t n, int64_t d, int rows) {
+                    float* __restrict__ dx, int64_t n, int64_t d, int rows) {
+  static_assert(kFrozen || !kDx, "dx = w only with the statistics fixed");
   constexpr int F = kSlab;
   cg::cluster_group cluster = cg::this_cluster();
   const Place p = place(n, d, rows);
@@ -735,6 +776,15 @@ wbn_bwd_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
   float mu[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) mu[c] = p.live ? mean[c * d + p.f] : 0.0f;
+  // with dx: this thread's feature's Gamma and factor, whose loads go out
+  // before the rows' and are first used after them
+  float wl[10], wil[4], wgam[16];
+  if constexpr (kDx) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) wl[i] = p.live ? lf[i * d + p.f] : 1.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) wgam[i] = p.live ? gamma[i * d + p.f] : 0.0f;
+  }
 
   // acc: sum g 0..3, then G row-major (4 + c * 4 + k: sum g_c u_k)
   float acc[kSums];
@@ -745,6 +795,7 @@ wbn_bwd_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
     float v[kSumsUnroll][2][4];
     bool in[kSumsUnroll];
     load_rows<kSumsUnroll, 2, false>(src, nullptr, c0, d, p, v, in);
+    if constexpr (kDx) inv_diag(wl, wil);
 #pragma unroll
     for (int r = 0; r < kSumsUnroll; ++r) {
       if (!in[r]) continue;
@@ -754,6 +805,16 @@ wbn_bwd_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           acc[4 + c * 4 + k] += v[r][1][c] * (v[r][0][k] - mu[k]);
+        }
+      }
+      if constexpr (kDx) {
+        if (p.live) {
+          float w[4];
+          solve_w(wgam, wl, wil, v[r][1], w);
+          const int64_t at =
+              (c0 + static_cast<int64_t>(r) * p.groups) * (4 * d) + p.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dx[at + c * d] = w[c];
         }
       }
     }
@@ -863,8 +924,8 @@ wbn_bwd_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
 // ----------------------------------------------------------------- M
 
-// Frozen: dx = w, and x, the mask, mean, M, sum w and cnt are not read.
-template <bool kFrozen>
+// Training: dx = w + (m / cnt) (M u - sum w) over tiles of kCols features by
+// kRows rows.
 __global__ void __launch_bounds__(kThreads)
 wbn_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
               const uint8_t* __restrict__ mask, const float* __restrict__ mean,
@@ -880,48 +941,80 @@ wbn_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int64_t r1 = r0 + kRows < n ? r0 + kRows : n;
   const int64_t dd = 4 * d;
   float mu[4], l[10], il[4], gam[16], mm[16], s[4];
-  if constexpr (!kFrozen) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      mu[c] = mean[c * d + f];
-      s[c] = sw[c * d + f];
-    }
+  for (int c = 0; c < 4; ++c) {
+    mu[c] = mean[c * d + f];
+    s[c] = sw[c * d + f];
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     gam[i] = gamma[i * d + f];
-    if constexpr (!kFrozen) mm[i] = mmat[i * d + f];
+    mm[i] = mmat[i * d + f];
   }
   load_factor(lf, f, d, l, il);
-  const float inv_cnt = kFrozen ? 0.0f : 1.0f / cnt[0];
+  const float inv_cnt = 1.0f / cnt[0];
   for (int64_t r = r0 + rg; r < r1; r += kGroups) {
-    float u[4], gv[4], h[4], w[4];
+    float u[4], gv[4], w[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      if constexpr (!kFrozen) u[c] = x[r * dd + c * d + f] - mu[c];
+      u[c] = x[r * dd + c * d + f] - mu[c];
       gv[c] = g[r * dd + c * d + f];
     }
+    solve_w(gam, l, il, gv, w);
+    const float scale = mask[r] ? inv_cnt : 0.0f;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float hk = gam[k] * gv[0];
+    for (int a = 0; a < 4; ++a) {
+      float mu_a = mm[a * 4] * u[0];
 #pragma unroll
-      for (int c = 1; c < 4; ++c) hk += gam[c * 4 + k] * gv[c];
-      h[k] = hk;
+      for (int bb = 1; bb < 4; ++bb) mu_a += mm[a * 4 + bb] * u[bb];
+      dx[r * dd + a * d + f] = w[a] + scale * (mu_a - s[a]);
     }
-    bwd_subst(l, il, h, w);
-    if constexpr (kFrozen) {
+  }
+}
+
+// The frozen variant alone, dx = w, on K's (row, feature) pairs
+// (pairs_of): thread t takes feature t % feats of CTA (b, c)'s chunk c and
+// its rows t / feats, + groups, ... of [b * rows, (b + 1) * rows), up to
+// kTransformRows, whose loads go out before its feature's Gamma and factor
+// are read once.  x, the mask, mean, M, sum w and cnt are not read.
+__global__ void __launch_bounds__(kThreads)
+wbn_dx_frozen_kernel(const float* __restrict__ g, const float* __restrict__ lf,
+                     const float* __restrict__ gamma, float* __restrict__ dx,
+                     int64_t n, int64_t d, int feats, int rows) {
+  const int64_t f0 = static_cast<int64_t>(blockIdx.y) * feats;
+  const int fc = static_cast<int>(d - f0 < feats ? d - f0 : feats);
+  const int groups = kThreads / feats;
+  const int gi = static_cast<int>(threadIdx.x) / feats;
+  const int j = static_cast<int>(threadIdx.x) - gi * feats;
+  if (gi >= groups || j >= fc) return;  // no barrier in this kernel
+  const int64_t f = f0 + j;
+  const int64_t dd = 4 * d;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * rows;
+  const int64_t r0 = base + gi;
+  const int64_t r1 = base + rows < n ? base + rows : n;
+  bool live[kTransformRows];
+  float gv[kTransformRows][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) dx[r * dd + a * d + f] = w[a];
-    } else {
-      const float scale = mask[r] ? inv_cnt : 0.0f;
+  for (int i = 0; i < kTransformRows; ++i) {
+    const int64_t r = r0 + static_cast<int64_t>(i) * groups;
+    live[i] = r < r1;
+    if (live[i]) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        float mu_a = mm[a * 4] * u[0];
-#pragma unroll
-        for (int bb = 1; bb < 4; ++bb) mu_a += mm[a * 4 + bb] * u[bb];
-        dx[r * dd + a * d + f] = w[a] + scale * (mu_a - s[a]);
-      }
+      for (int c = 0; c < 4; ++c) gv[i][c] = g[r * dd + c * d + f];
     }
+  }
+  float l[10], il[4], gam[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) gam[i] = gamma[i * d + f];
+  load_factor(lf, f, d, l, il);
+#pragma unroll
+  for (int i = 0; i < kTransformRows; ++i) {
+    if (!live[i]) continue;
+    float w[4];
+    solve_w(gam, l, il, gv[i], w);
+    const int64_t at = (r0 + static_cast<int64_t>(i) * groups) * dd + f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dx[at + c * d] = w[c];
   }
 }
 
@@ -972,9 +1065,11 @@ cudaError_t allow_clusters() {
   if (done.load() & bit) return cudaSuccess;
   const cudaFuncAttribute attr = cudaFuncAttributeNonPortableClusterSizeAllowed;
   if ((err = cudaFuncSetAttribute(wbn_stats_kernel, attr, 1)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(wbn_bwd_sums_kernel<false>, attr, 1)) !=
-          cudaSuccess ||
-      (err = cudaFuncSetAttribute(wbn_bwd_sums_kernel<true>, attr, 1)) !=
+      (err = cudaFuncSetAttribute(wbn_bwd_sums_kernel<false, false>, attr,
+                                  1)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(wbn_bwd_sums_kernel<true, false>, attr,
+                                  1)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(wbn_bwd_sums_kernel<true, true>, attr, 1)) !=
           cudaSuccess) {
     return err;
   }
@@ -993,52 +1088,66 @@ cudaError_t launch(void (*kernel)(Params...), int64_t d, int64_t cluster,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// K, both routes: grid (row blocks, feature chunks), chunks of equal size
-// up to kThreads features, the threads of a CTA its rows a pass times the
-// chunk's features, in whole warps.  Row blocks of at most groups *
-// kTransformRows rows.  Where those give at least one CTA each of the `sms`
-// SMs, a CTA's rows are shortened so that the CTAs come to about whole
-// waves: the count is rounded up to whole waves, the rows spread evenly
-// over it, and the count taken anew from those rows (at [4096, 200], 205
-// CTAs of 20 rows become 256 of 16).  The eval route launches one row block
-// even for n = 0, so that the factor is written.
-int launch_transform(bool eval, const void* x, const void* mean,
-                     const void* lf, const void* gamma, const void* beta,
-                     float eps, void* y, void* l_out, int64_t n, int64_t d,
-                     int64_t sms, void* stream) {
-  if (n < 0 || n >= (int64_t{1} << 31) || d < 0 || sms < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (d == 0 || (n == 0 && !eval)) return static_cast<int>(cudaGetLastError());
+// The grid of the (row, feature) kernels, K (both routes) and M's frozen
+// variant alone: (row blocks, feature chunks), chunks of equal size up to
+// kThreads features, the threads of a CTA its rows a pass times the chunk's
+// features, in whole warps.  Row blocks of at most groups * kTransformRows
+// rows.  Where those give at least one CTA each of the `sms` SMs, a CTA's
+// rows are shortened so that the CTAs come to about whole waves: the count
+// is rounded up to whole waves, the rows spread evenly over it, and the
+// count taken anew from those rows (at [4096, 200], 205 CTAs of 20 rows
+// become 256 of 16).  For n = 0, one row block (K's eval route writes the
+// factor there).  False where the grid is past CUDA's limits.
+struct Pairs {
+  dim3 grid;
+  int threads, feats, rows;
+};
+
+bool pairs_of(int64_t n, int64_t d, int64_t sms, Pairs& p) {
   const int64_t chunks = (d + kThreads - 1) / kThreads;
-  const int feats = static_cast<int>((d + chunks - 1) / chunks);
-  const int groups = kThreads / feats;
-  const int threads = (groups * feats + 31) / 32 * 32;
+  p.feats = static_cast<int>((d + chunks - 1) / chunks);
+  const int groups = kThreads / p.feats;
+  p.threads = (groups * p.feats + 31) / 32 * 32;
   const int64_t most = int64_t{groups} * kTransformRows;
   int64_t blocks = (n + most - 1) / most;
   if (blocks >= sms) blocks = (blocks + sms - 1) / sms * sms;
   const int64_t rows = blocks > 0 ? (n + blocks - 1) / blocks : most;
   blocks = n > 0 ? (n + rows - 1) / rows : 1;
-  if (blocks >= (int64_t{1} << 31) || chunks > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
-  const size_t smem = sizeof(float) * 10 * feats;
+  p.rows = static_cast<int>(rows);
+  p.grid = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
+  return blocks < (int64_t{1} << 31) && chunks <= 65535;
+}
+
+// n, d and sms as the (row, feature) kernels take them
+bool pairs_args_ok(int64_t n, int64_t d, int64_t sms) {
+  return n >= 0 && n < (int64_t{1} << 31) && d >= 0 && sms >= 1;
+}
+
+// K, both routes; the eval route runs for n = 0 too, so that the factor is
+// written.
+int launch_transform(bool eval, const void* x, const void* mean,
+                     const void* lf, const void* gamma, const void* beta,
+                     float eps, void* y, void* l_out, int64_t n, int64_t d,
+                     int64_t sms, void* stream) {
+  if (!pairs_args_ok(n, d, sms)) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 0 || (n == 0 && !eval)) return static_cast<int>(cudaGetLastError());
+  Pairs pr;
+  if (!pairs_of(n, d, sms, pr)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * 10 * pr.feats;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* mf = static_cast<const float*>(mean);
   const float* lff = static_cast<const float*>(lf);
   const float* gf = static_cast<const float*>(gamma);
   const float* bf = static_cast<const float*>(beta);
-  const int r = static_cast<int>(rows);
   if (eval) {
-    wbn_transform_kernel<true><<<grid, threads, smem, s>>>(
+    wbn_transform_kernel<true><<<pr.grid, pr.threads, smem, s>>>(
         xf, mf, lff, gf, bf, eps, static_cast<float*>(y),
-        static_cast<float*>(l_out), n, d, feats, r);
+        static_cast<float*>(l_out), n, d, pr.feats, pr.rows);
   } else {
-    wbn_transform_kernel<false><<<grid, threads, smem, s>>>(
+    wbn_transform_kernel<false><<<pr.grid, pr.threads, smem, s>>>(
         xf, mf, lff, gf, bf, 0.0f, static_cast<float*>(y), nullptr, n, d,
-        feats, r);
+        pr.feats, pr.rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1046,16 +1155,19 @@ int launch_transform(bool eval, const void* x, const void* mean,
 }  // namespace
 
 // The clusters of a plan (cluster, smem) that the card holds at once, for J
-// (which 0), L (1) or L's frozen variant (2): a plan whose grid has more
-// runs in waves.  A check of the plan; no launch path calls it.
+// (which 0), L (1), L's frozen variant (2) or the frozen variant with dx
+// (3): a plan whose grid has more runs in waves.  A check of the plan; no
+// launch path calls it.
 extern "C" int wbn_max_active_clusters(int64_t which, int64_t cluster,
                                        int64_t smem, int* out) {
   const void* kernel =
       which == 0 ? reinterpret_cast<const void*>(wbn_stats_kernel)
       : which == 1
-          ? reinterpret_cast<const void*>(wbn_bwd_sums_kernel<false>)
+          ? reinterpret_cast<const void*>(wbn_bwd_sums_kernel<false, false>)
       : which == 2
-          ? reinterpret_cast<const void*>(wbn_bwd_sums_kernel<true>)
+          ? reinterpret_cast<const void*>(wbn_bwd_sums_kernel<true, false>)
+      : which == 3
+          ? reinterpret_cast<const void*>(wbn_bwd_sums_kernel<true, true>)
           : nullptr;
   if (kernel == nullptr || cluster < 1 || cluster > kMaxCluster || smem < 0 ||
       smem > kMaxSmem) {
@@ -1122,12 +1234,13 @@ extern "C" int wbn_bwd_sums_f32(const void* x, const void* g, const void* mean,
   }
   if (d == 0) return static_cast<int>(cudaSuccess);
   const cudaError_t err = launch(
-      wbn_bwd_sums_kernel<false>, d, cluster, smem, stream,
+      wbn_bwd_sums_kernel<false, false>, d, cluster, smem, stream,
       static_cast<const float*>(x), static_cast<const float*>(g),
       static_cast<const float*>(mean), static_cast<const float*>(l),
       static_cast<const float*>(gamma), static_cast<float*>(dgamma),
       static_cast<float*>(dbeta), static_cast<float*>(mmat),
-      static_cast<float*>(sw), n, d, static_cast<int>(rows));
+      static_cast<float*>(sw), static_cast<float*>(nullptr), n, d,
+      static_cast<int>(rows));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -1137,8 +1250,8 @@ extern "C" int wbn_dx_f32(const void* x, const void* g, const void* mask,
                           void* dx, int64_t n, int64_t d, void* stream) {
   if (row_blocks(n) > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0 && d > 0) {
-    wbn_dx_kernel<false><<<tile_grid(n, d), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    wbn_dx_kernel<<<tile_grid(n, d), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),
         static_cast<const uint8_t*>(mask), static_cast<const float*>(mean),
         static_cast<const float*>(l), static_cast<const float*>(gamma),
@@ -1149,10 +1262,12 @@ extern "C" int wbn_dx_f32(const void* x, const void* g, const void* mask,
 }
 
 // The eval path's backward, with the statistics fixed: dGamma and dbeta
-// (Gamma is not read).
+// from L's frozen variant, which reads Gamma only to write dx where dx is
+// not null (M's frozen dx = w, in the same launch).
 extern "C" int wbn_bwd_sums_frozen_f32(const void* x, const void* g,
                                        const void* mean, const void* l,
-                                       void* dgamma, void* dbeta, int64_t n,
+                                       const void* gamma, void* dgamma,
+                                       void* dbeta, void* dx, int64_t n,
                                        int64_t d, int64_t slab,
                                        int64_t cluster, int64_t rows,
                                        int64_t smem, void* stream) {
@@ -1160,26 +1275,40 @@ extern "C" int wbn_bwd_sums_frozen_f32(const void* x, const void* g,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (d == 0) return static_cast<int>(cudaSuccess);
-  const cudaError_t err = launch(
-      wbn_bwd_sums_kernel<true>, d, cluster, smem, stream,
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(mean), static_cast<const float*>(l),
-      static_cast<const float*>(nullptr), static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), static_cast<float*>(nullptr),
-      static_cast<float*>(nullptr), n, d, static_cast<int>(rows));
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  const float* mf = static_cast<const float*>(mean);
+  const float* lf = static_cast<const float*>(l);
+  float* dgf = static_cast<float*>(dgamma);
+  float* dbf = static_cast<float*>(dbeta);
+  const int r = static_cast<int>(rows);
+  const cudaError_t err =
+      dx == nullptr
+          ? launch(wbn_bwd_sums_kernel<true, false>, d, cluster, smem, stream,
+                   xf, gf, mf, lf, static_cast<const float*>(nullptr), dgf,
+                   dbf, static_cast<float*>(nullptr),
+                   static_cast<float*>(nullptr), static_cast<float*>(nullptr),
+                   n, d, r)
+          : launch(wbn_bwd_sums_kernel<true, true>, d, cluster, smem, stream,
+                   xf, gf, mf, lf, static_cast<const float*>(gamma), dgf, dbf,
+                   static_cast<float*>(nullptr), static_cast<float*>(nullptr),
+                   static_cast<float*>(dx), n, d, r);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// M's frozen variant alone, dx = w, on K's (row, feature) pairs; its
+// launch takes the SMs of the card (ops/_build.py's SMS).
 extern "C" int wbn_dx_frozen_f32(const void* g, const void* l,
                                  const void* gamma, void* dx, int64_t n,
-                                 int64_t d, void* stream) {
-  if (row_blocks(n) > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0 && d > 0) {
-    wbn_dx_kernel<true><<<tile_grid(n, d), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        nullptr, static_cast<const float*>(g), nullptr, nullptr,
-        static_cast<const float*>(l), static_cast<const float*>(gamma),
-        nullptr, nullptr, nullptr, static_cast<float*>(dx), n, d);
-  }
+                                 int64_t d, int64_t sms, void* stream) {
+  if (!pairs_args_ok(n, d, sms)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || d == 0) return static_cast<int>(cudaGetLastError());
+  Pairs pr;
+  if (!pairs_of(n, d, sms, pr)) return static_cast<int>(cudaErrorInvalidValue);
+  wbn_dx_frozen_kernel<<<pr.grid, pr.threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(l),
+      static_cast<const float*>(gamma), static_cast<float*>(dx), n, d,
+      pr.feats, pr.rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,8 @@ cov starts as all ones (norm.py:248-255, :295-298), Gamma as 0.5 I, beta as
 0.  Eval whitens with the running stats (norm.py:301-345) through
 ``fused_whitening.eval_whitening``: one launch of kernel K that factors
 ``cov + eps I`` in its prologue and whitens; it is differentiable in the input,
-Gamma and beta, as JAX's eval path is (the frozen variants of L and M).
+Gamma and beta, as JAX's eval path is (one launch backward: the frozen
+variant of L, writing dx in its sweep, or of M where only dx is needed).
 Neither path syncs with the host, so the eval forward can be captured in a
 CUDA graph.
 """

@@ -22,7 +22,9 @@ version, which follows the formula path of phc_gnn_tpu/ops/fused_whitening.py
   takes the sums linear in the rows (``sum g``, ``sum g (x - mean)^T``) and
   whose epilogue derives the rest;
 - ``wbn_dx`` replaces ``_wbn_dx_kernel`` (:304), M:
-  ``dx = w + (m / cnt) (M u - sum w)``, only the mean-path term masked;
+  ``dx = w + (m / cnt) (M u - sum w)``, only the mean-path term masked; its
+  frozen ``dx = w`` on K's (row, feature) pairs, or written by L's frozen
+  variant (``with_dx``);
 - ``wbn_transform_eval`` is the eval path (phc_gnn_tpu/nn/norm.py:331-345,
   inline XLA there): K's kernel with the Cholesky factor of the running
   covariance (J's device function) in its prologue, one launch, returning
@@ -36,7 +38,10 @@ Cholesky and K in one launch, differentiable in ``x``, ``gamma`` and ``beta`` wi
 statistics fixed, so that ``dx = w = L^{-T} Gamma^T g`` and ``dbeta``,
 ``dGamma`` are L's sums: the ``frozen`` variants of L and M, which skip the
 T/S/M algebra and the mean-path term (through the training variants, an
-all-false mask would give ``cnt = 0`` and a NaN there).  The plain versions
+all-false mask would give ``cnt = 0`` and a NaN there).  The backward is one
+launch: L's frozen variant writes ``dx`` from its sweep where ``dx`` and
+``dGamma`` or ``dbeta`` are needed (``with_dx``), M's frozen variant alone
+runs where only ``dx`` is.  The plain versions
 run in the dtype of their inputs, so a check can run them in float64.
 
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
@@ -81,7 +86,8 @@ WBN_WARPS = 8                # warps a CTA (256 threads)
 WBN_MAX_SMEM = 48 * 1024     # dynamic shared memory without an opt-in
 WBN_STATS_SUMS = 15          # J: count, 4 means, 10 co-moments
 WBN_SUMS = 20                # L, both variants: sum g 4, sum g (x - mean)^T 16
-WBN_KERNELS = ("wbn_stats", "wbn_bwd_sums", "wbn_bwd_sums_frozen")
+WBN_KERNELS = ("wbn_stats", "wbn_bwd_sums", "wbn_bwd_sums_frozen",
+               "wbn_bwd_sums_frozen_dx")
 
 
 class WbnPlan(NamedTuple):
@@ -138,8 +144,8 @@ def _lib():
         lib.wbn_dx_f32.argtypes = [_P] * 10 + [_I64, _I64, _P]
         lib.wbn_transform_eval_f32.argtypes = [_P] * 5 + [_F32, _P, _P] + [
             _I64] * 3 + [_P]
-        lib.wbn_bwd_sums_frozen_f32.argtypes = [_P] * 6 + [_I64] * 6 + [_P]
-        lib.wbn_dx_frozen_f32.argtypes = [_P] * 4 + [_I64, _I64, _P]
+        lib.wbn_bwd_sums_frozen_f32.argtypes = [_P] * 8 + [_I64] * 6 + [_P]
+        lib.wbn_dx_frozen_f32.argtypes = [_P] * 4 + [_I64] * 3 + [_P]
         lib.wbn_max_active_clusters.argtypes = [_I64] * 3 + [
             ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.wbn_stats_f32, lib.wbn_transform_f32,
@@ -297,15 +303,28 @@ def _solve_w(g, gamma, lf, il):
     return gs, _bwd_subst(lf, hs, il)
 
 
-def wbn_bwd_sums_plain(x, g, gamma, mean, l, frozen: bool = False):
+def _check_with_dx(frozen: bool, with_dx: bool) -> None:
+    if with_dx and not frozen:
+        raise ValueError("with_dx=True needs frozen=True: the training dx "
+                         "reads M and sum w, which the sums produce")
+
+
+def wbn_bwd_sums_plain(x, g, gamma, mean, l, frozen: bool = False,
+                       with_dx: bool = False):
     """``(dGamma [4, 4, d], dbeta [4, d], M [16, d], sum w [4, d])`` over ALL
     rows (``_fused_whitening_bwd``, :496-514); row ``a*4+b`` of M is
-    ``M_ab``.  ``frozen``: ``(dGamma, dbeta)`` alone."""
+    ``M_ab``.  ``frozen``: ``(dGamma, dbeta)`` alone; ``with_dx`` (frozen
+    only): ``(dGamma, dbeta, dx)`` with the frozen ``dx = w`` of
+    ``wbn_dx_plain``."""
+    _check_with_dx(frozen, with_dx)
     _, zs, lf, il = _whiten(x, mean, l)
     gs = _slices(g)
     dbeta = torch.stack([gc.sum(0) for gc in gs])
     dgamma = torch.stack([torch.stack([(gs[c] * zs[k]).sum(0)
                                        for k in range(4)]) for c in range(4)])
+    if with_dx:
+        return dgamma, dbeta, wbn_dx_plain(x, g, None, gamma, mean, l, None,
+                                           None, None, frozen=True)
     if frozen:
         return dgamma, dbeta
     _, ws = _solve_w(g, gamma, lf, il)
@@ -439,24 +458,30 @@ def wbn_transform_eval(x, mean, cov, gamma, beta, eps: float):
     return y, l
 
 
-def wbn_bwd_sums(x, g, gamma, mean, l, frozen: bool = False):
+def wbn_bwd_sums(x, g, gamma, mean, l, frozen: bool = False,
+                 with_dx: bool = False):
     """``(dGamma [4, 4, d], dbeta [4, d], M [16, d], sum w [4, d])`` over all
     rows, in one cluster launch with the T/S/M algebra in its epilogue
     (kernel L).  ``frozen`` (the eval path, its statistics fixed):
-    ``(dGamma, dbeta)`` alone, from L's frozen variant."""
+    ``(dGamma, dbeta)`` alone, from L's frozen variant; with ``with_dx``
+    ``(dGamma, dbeta, dx)``, M's frozen ``dx = w`` written from the same
+    launch's sweep (counted here, not under ``wbn_dx``)."""
+    _check_with_dx(frozen, with_dx)
     if x.device.type == "cpu":
-        return wbn_bwd_sums_plain(x, g, gamma, mean, l, frozen)
+        return wbn_bwd_sums_plain(x, g, gamma, mean, l, frozen, with_dx)
     n, d = x.shape[0], x.shape[1] // 4
     _check(x, _field_checks(d, gamma, mean, l), g=g)
     dev = x.device
     if frozen:
         dgamma, dbeta = _empty(dev, 4, 4, d), _empty(dev, 4, d)
+        dx = torch.empty_like(x) if with_dx else None
         _build.check_launch("wbn_bwd_sums", _lib().wbn_bwd_sums_frozen_f32(
             x.data_ptr(), g.data_ptr(), mean.data_ptr(), l.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), n, d,
+            gamma.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            None if dx is None else dx.data_ptr(), n, d,
             *_plan_args(n, d, WBN_SUMS), _build.stream(dev)))
         wbn_bwd_sums.launches += 1
-        return dgamma, dbeta
+        return (dgamma, dbeta, dx) if with_dx else (dgamma, dbeta)
     dgamma, dbeta, mmat, sw = (_empty(dev, 4, 4, d), _empty(dev, 4, d),
                                _empty(dev, 16, d), _empty(dev, 4, d))
     _build.check_launch("wbn_bwd_sums", _lib().wbn_bwd_sums_f32(
@@ -474,8 +499,11 @@ wbn_bwd_sums.launches = 0
 def wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt, frozen: bool = False):
     """``dx = w + (m / cnt) (M u - sum w)``, elementwise (kernel M); ``cnt``
     is the [1] count of ``wbn_stats``.  ``frozen`` (the eval path, its
-    statistics fixed): ``dx = w``, from M's frozen variant, which reads
-    neither ``mask``, ``mmat``, ``sw`` nor ``cnt`` (they may be None)."""
+    statistics fixed, where dGamma and dbeta are not needed: with them,
+    ``wbn_bwd_sums(..., frozen=True, with_dx=True)`` writes dx in its
+    launch): ``dx = w``, from M's frozen variant on K's (row, feature)
+    pairs, which reads neither ``mask``, ``mmat``, ``sw`` nor ``cnt`` (they
+    may be None)."""
     if x.device.type == "cpu":
         return wbn_dx_plain(x, g, mask, gamma, mean, l, mmat, sw, cnt, frozen)
     n, d = x.shape[0], x.shape[1] // 4
@@ -484,7 +512,7 @@ def wbn_dx(x, g, mask, gamma, mean, l, mmat, sw, cnt, frozen: bool = False):
         dx = torch.empty_like(x)
         _build.check_launch("wbn_dx", _lib().wbn_dx_frozen_f32(
             g.data_ptr(), l.data_ptr(), gamma.data_ptr(), dx.data_ptr(), n, d,
-            _build.stream(x.device)))
+            _build.SMS, _build.stream(x.device)))
         wbn_dx.launches += 1
         return dx
     _check(x, _field_checks(d, gamma, mean, l) + [
@@ -542,12 +570,19 @@ class _EvalWhitening(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
+        """One launch whatever is needed: L's frozen variant, writing dx in
+        its sweep where x needs a gradient too; M's frozen variant where
+        only x does."""
         x, gamma, mean, l = ctx.saved_tensors
         gy = gy.contiguous()
+        need_x = ctx.needs_input_grad[0]
         dx = dgamma = dbeta = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dgamma, dbeta = wbn_bwd_sums(x, gy, gamma, mean, l, frozen=True)
-        if ctx.needs_input_grad[0]:
+            outs = wbn_bwd_sums(x, gy, gamma, mean, l, frozen=True,
+                                with_dx=need_x)
+            dgamma, dbeta = outs[:2]
+            dx = outs[2] if need_x else None
+        elif need_x:
             dx = wbn_dx(x, gy, None, gamma, mean, l, None, None, None,
                         frozen=True)
         return dx, dgamma, dbeta, None, None, None
@@ -558,7 +593,7 @@ def eval_whitening(x, mean, cov, gamma, beta, eps: float = 1e-5):
     ``mean`` [4, d] and ``cov`` [4, 4, d]: ``y = Gamma L^{-1} (x - mean) +
     beta``, ``L`` the Cholesky factor of ``cov + eps I`` (one launch of K,
     ``wbn_transform_eval``).  Differentiable in ``x``, ``gamma`` and
-    ``beta`` (the frozen variants of L and M, fed the factor K returns), not
-    in the running stats; no host sync, so a CUDA graph can capture it,
-    forward and backward."""
+    ``beta`` (one launch of the frozen variant of L, with dx, or of M, fed
+    the factor K returns), not in the running stats; no host sync, so a
+    CUDA graph can capture it, forward and backward."""
     return _EvalWhitening.apply(x, gamma, beta, mean, cov, float(eps))

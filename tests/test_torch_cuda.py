@@ -402,8 +402,11 @@ def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
     all-masked and a one-row mask, the rows of J's first three CTAs masked,
     and d = 64, whose plan takes clusters of 8.  1e-5 of each output's max: the covariances here are well
     conditioned (chip_smoke.py holds the badly conditioned cases).  A
-    second launch of J, L (both variants), K and its eval route is
-    bit-equal, and the eval route's y is K's fed the factor it returns."""
+    second launch of J, L (both variants, and the frozen one with dx), K
+    and its eval route is bit-equal, and the eval route's y is K's fed the
+    factor it returns.  The frozen L with dx gives the frozen L's dGamma
+    and dbeta and M's frozen dx bit for bit, that dx within 1e-5 of the
+    plain version in float64."""
     x, mask, gamma, beta, g = _whitening_case(dev, n, d, mask_kind)
     wrappers = (fw.wbn_stats, fw.wbn_transform, fw.wbn_bwd_sums, fw.wbn_dx)
     counts = [w.launches for w in wrappers]
@@ -416,10 +419,17 @@ def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
     assert [w.launches for w in wrappers] == [c + 1 for c in counts[:1]] + [
         counts[1] + 2] + [c + 1 for c in counts[2:]]
     frozen = fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True)
+    frozen_dx = fw.wbn_dx(x, g, None, gamma, mean, l, None, None, None,
+                          frozen=True)
+    fused = fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True, with_dx=True)
     for first, again in (
             ((mean, cov, l, cnt), fw.wbn_stats(x, mask, 1e-5)),
             ((dgamma, dbeta, mmat, sw), fw.wbn_bwd_sums(x, g, gamma, mean, l)),
             (frozen, fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True)),
+            (fused, fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True,
+                                    with_dx=True)),
+            # the fused route is the frozen L and M's frozen variant
+            (fused, frozen + (frozen_dx,)),
             ((y,), (fw.wbn_transform(x, mean, l, gamma, beta),)),
             ((y_eval, l_eval), fw.wbn_transform_eval(x, mean, cov, gamma,
                                                      beta, 1e-5)),
@@ -442,12 +452,16 @@ def test_whitening_kernels_match_plain_versions(dev, n, d, mask_kind):
         else:
             assert _leaf_err(a, b) <= 1e-5
     assert float(cnt) == max(float(mask.sum()), 1.0)
+    assert _leaf_err(fused[2], fw.wbn_dx_plain(
+        x64, g64, None, gam64, mean.double(), l.double(), None, None, None,
+        frozen=True)) <= 1e-5
 
 
 def test_whitening_plan_runs_in_one_wave_on_the_card(dev):
     """At the quaternion path's [4096, 200], and on both sides of each width
     where the plan steps down to clusters of 8, 4, 2 and 1, the card holds
-    every cluster of J's, L's and L frozen's plan at once."""
+    every cluster of J's, L's, L frozen's and L frozen with dx's plan at
+    once."""
     for kernel in fw.WBN_KERNELS:
         for d in (50, 56, 57, 120, 128, 240, 241, 528, 529):
             plan = fw.wbn_plan(4096, d, fw.WBN_STATS_SUMS
@@ -526,11 +540,15 @@ def test_segment_moments_kernel_matches_plain_version(dev, case):
     assert torch.all(var[real == 1] == 0)
 
 
-def test_eval_whitening_backward_on_the_card(dev):
-    """The eval whitening's gradients in the input, Gamma and beta on the
-    card (one launch of K's eval route, then the frozen variants of L and
-    M) against the same module on the CPU, and the frozen kernels against
-    their plain versions in float64."""
+@pytest.mark.parametrize("need_x,need_p", [(True, True), (True, False),
+                                           (False, True)])
+def test_eval_whitening_backward_on_the_card(dev, need_x, need_p):
+    """The eval whitening's gradients on the card (one launch of K's eval
+    route, then one launch backward: the frozen L writing dx where x and
+    Gamma, beta need gradients, M's frozen variant where only x does, the
+    frozen L without dx where only Gamma and beta do) against the same
+    module on the CPU, and the frozen kernels against their plain versions
+    in float64."""
     x, _, gamma, beta, g = _whitening_case(dev, 1100, 50, "random")
     gen = torch.Generator().manual_seed(3)
     b = torch.randn((50, 4, 4), generator=gen)
@@ -543,7 +561,9 @@ def test_eval_whitening_backward_on_the_card(dev):
             for t, v in ((norm.gamma, gamma), (norm.beta, beta),
                          (norm.mean, mean), (norm.cov, cov)):
                 t.copy_(v)
-        tx = x.detach().to(device).requires_grad_()
+        norm.gamma.requires_grad_(need_p)
+        norm.beta.requires_grad_(need_p)
+        tx = x.detach().to(device).requires_grad_(need_x)
         counts = (fw.wbn_transform.launches, fw.wbn_bwd_sums.launches,
                   fw.wbn_dx.launches)
         y = norm(tx, training=False)
@@ -551,9 +571,12 @@ def test_eval_whitening_backward_on_the_card(dev):
         if device.type == "cuda":
             torch.cuda.synchronize()
             assert (fw.wbn_transform.launches, fw.wbn_bwd_sums.launches,
-                    fw.wbn_dx.launches) == tuple(c + 1 for c in counts)
-        outs.append([t.detach().cpu() for t in (y, tx.grad, norm.gamma.grad,
-                                                norm.beta.grad)])
+                    fw.wbn_dx.launches) == (counts[0] + 1,
+                                            counts[1] + int(need_p),
+                                            counts[2] + int(not need_p))
+        grads = (tx.grad, norm.gamma.grad, norm.beta.grad)
+        assert [t is not None for t in grads] == [need_x, need_p, need_p]
+        outs.append([t.detach().cpu() for t in (y,) + grads if t is not None])
     for a, b in zip(*outs):
         assert _leaf_err(a, b) <= 1e-5
     mean_d = mean.to(dev)
@@ -562,23 +585,26 @@ def test_eval_whitening_backward_on_the_card(dev):
     got = fw.wbn_bwd_sums(x, g, gamma, mean_d, l, frozen=True) + (
         fw.wbn_dx(x, g, None, gamma, mean_d, l, None, None, None,
                   frozen=True),)
+    fused = fw.wbn_bwd_sums(x, g, gamma, mean_d, l, frozen=True, with_dx=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fused, got))
     x64, g64, gam64, l64 = (t.double() for t in (x, g, gamma, l))
     want = fw.wbn_bwd_sums_plain(x64, g64, gam64, mean_d.double(), l64,
-                                 frozen=True) + (
-        fw.wbn_dx_plain(x64, g64, None, gam64, mean_d.double(), l64, None,
-                        None, None, frozen=True),)
+                                 frozen=True, with_dx=True)
     for a, b in zip(got, want):
         assert _leaf_err(a, b) <= 1e-5
 
 
 @pytest.mark.parametrize("n,d", [(4096, 300), (0, 50), (1, 50), (129, 7)])
 def test_whitening_transform_routes_cover_every_pair(dev, n, d):
-    """K and its eval route where the pairs do not fill a CTA or a thread's
-    second pair, d = 300 past one chunk of 256 staged features, and no
-    rows at all (the eval route still writes its factor): against the plain
-    versions in float64, y bit-equal between the routes fed one factor."""
-    x, _, gamma, beta, _ = _whitening_case(dev, max(n, 1), d, "random")
-    x = x[:n].contiguous()
+    """K and its eval route, and M's frozen variant on the same pairs,
+    where the pairs do not fill a CTA or a thread's second pair, d = 300
+    past one chunk of 256 staged features, and no rows at all (the eval
+    route still writes its factor): against the plain versions in float64,
+    y bit-equal between the routes fed one factor, M's frozen dx bit-equal
+    to the frozen L's with dx."""
+    x, _, gamma, beta, g = _whitening_case(dev, max(n, 1), d, "random")
+    x, g = x[:n].contiguous(), g[:n].contiguous()
     gen = torch.Generator().manual_seed(d)
     b = torch.randn((d, 4, 4), generator=gen)
     cov = (b @ b.transpose(1, 2) / 4 + 0.2 * torch.eye(4)).permute(
@@ -591,6 +617,13 @@ def test_whitening_transform_routes_cover_every_pair(dev, n, d):
     want_y, want_l = fw.wbn_transform_eval_plain(
         x.double(), mean.double(), cov.double(), gamma.double(),
         beta.double(), 1e-5)
+    dx = fw.wbn_dx(x, g, None, gamma, mean, l, None, None, None, frozen=True)
+    fused = fw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True, with_dx=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, fused[2])
     assert _leaf_err(l, want_l) <= 1e-5
     if n:
         assert _leaf_err(y, want_y) <= 1e-5
+        assert _leaf_err(dx, fw.wbn_dx_plain(
+            x.double(), g.double(), None, gamma.double(), mean.double(),
+            l.double(), None, None, None, frozen=True)) <= 1e-5

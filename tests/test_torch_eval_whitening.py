@@ -4,13 +4,15 @@ JAX's eval path (phc_gnn_tpu/nn/norm.py:331-345) whitens with the running
 mean and covariance, and ``jax.grad`` differentiates it in the input, Gamma
 and beta; the running stats are batch stats and get no gradient.  The port's
 ``QuaternionWhiteningNorm`` in eval mode runs ``fused_whitening.
-eval_whitening``: the running stats' Cholesky and K forward, and the frozen
-variants of L (``dbeta``, ``dGamma``) and M (``dx = w = L^{-T} Gamma^T g``)
-backward, their plain versions on the CPU.  Held here: the module's eval
-gradients against ``jax.grad`` through the flax module, the frozen plain
-versions against autograd through the plain forward in float64, and a
-quaternion preset's eval-mode parameter gradients (fine-tuning with frozen
-running stats) against JAX's.
+eval_whitening``: the running stats' Cholesky and K forward, and one launch
+backward: the frozen variant of L (``dbeta``, ``dGamma``), writing ``dx = w
+= L^{-T} Gamma^T g`` from its sweep where the input needs a gradient too, or
+M's frozen variant alone where only the input does; their plain versions on
+the CPU.  Held here: the module's eval gradients against ``jax.grad``
+through the flax module in each of the three cases of that dispatch, the
+frozen plain versions against autograd through the plain forward in
+float64, and a quaternion preset's eval-mode parameter gradients
+(fine-tuning with frozen running stats) against JAX's.
 
 Tolerances: ``TOL_GRAD`` 1e-5 of each leaf's max (the same f32 formula,
 summed over rows in another order); ``TOL_EXACT`` 1e-12 in float64 (the
@@ -53,10 +55,32 @@ def _variables(d, seed):
                             "cov": spd_cov(rng, d)}}
 
 
+# whether x and (Gamma, beta) need a gradient, and the one wrapper call
+# the backward makes for that: (its name, its with_dx)
+DISPATCH = {"x and params": (True, True, ("wbn_bwd_sums", True)),
+            "x only": (True, False, ("wbn_dx", None)),
+            "params only": (False, True, ("wbn_bwd_sums", False))}
+
+
+@pytest.mark.parametrize("case", list(DISPATCH))
 @pytest.mark.parametrize("n,d,layout", [(96, 6, "flat"), (257, 13, "flat"),
                                         (64, 5, "stacked")])
-def test_eval_whitening_gradients_match_jax(n, d, layout):
-    """dx, dGamma and dbeta of sum(y * g) in eval mode."""
+def test_eval_whitening_gradients_match_jax(n, d, layout, case, monkeypatch):
+    """dx, dGamma and dbeta of sum(y * g) in eval mode, each where it is
+    asked for, through one call of the wrapper the dispatch picks."""
+    need_x, need_p, (wrapper, with_dx) = DISPATCH[case]
+    calls = []
+
+    def spy(name):
+        real = getattr(tfw, name)
+
+        def spied(*args, **kwargs):
+            calls.append((name, kwargs.get("with_dx")))
+            return real(*args, **kwargs)
+        return spied
+
+    for name in ("wbn_bwd_sums", "wbn_dx"):
+        monkeypatch.setattr(tfw, name, spy(name))
     rng = np.random.default_rng(n + d)
     shape = (n, 4 * d) if layout == "flat" else (n, 4, d)
     x = (rng.normal(size=shape) * 1.2 - 0.4).astype(np.float32)
@@ -72,23 +96,33 @@ def test_eval_whitening_gradients_match_jax(n, d, layout):
     dx_j, dp_j = jax.grad(f, argnums=(0, 1))(
         jnp.asarray(x), jax.tree_util.tree_map(jnp.asarray, v["params"]))
     tm = load_flax(QuaternionWhiteningNorm(d), v)
-    xt = torch.tensor(x, requires_grad=True)
+    tm.gamma.requires_grad_(need_p)
+    tm.beta.requires_grad_(need_p)
+    xt = torch.tensor(x, requires_grad=need_x)
     y = tm(xt, training=False)
     assert y.shape == shape
     (y * torch.from_numpy(g)).sum().backward()
-    assert_leaf_close(xt.grad, np.asarray(dx_j), TOL_GRAD, "dx")
-    assert_leaf_close(tm.gamma.grad, np.asarray(dp_j["gamma"]), TOL_GRAD,
-                      "dgamma")
-    assert_leaf_close(tm.beta.grad, np.asarray(dp_j["beta"]), TOL_GRAD,
-                      "dbeta")
+    assert calls == [(wrapper, with_dx)]
+    if need_x:
+        assert_leaf_close(xt.grad, np.asarray(dx_j), TOL_GRAD, "dx")
+    else:
+        assert xt.grad is None
+    if need_p:
+        assert_leaf_close(tm.gamma.grad, np.asarray(dp_j["gamma"]), TOL_GRAD,
+                          "dgamma")
+        assert_leaf_close(tm.beta.grad, np.asarray(dp_j["beta"]), TOL_GRAD,
+                          "dbeta")
+    else:
+        assert tm.gamma.grad is None and tm.beta.grad is None
     assert tm.mean.grad is None and tm.cov.grad is None
 
 
 def test_frozen_plain_versions_are_the_closed_form():
-    """In float64, the frozen variants of L and M against autograd through
-    K's plain version with the mean and L held fixed: dx = w on every row
-    (no mean-path term, whatever rows a mask would mark), and dGamma, dbeta
-    are the sums of the training variant."""
+    """In float64, the frozen variants of L and M, and L's with dx,
+    against autograd through K's plain version with the mean and L held
+    fixed: dx = w on every row (no mean-path term, whatever rows a mask
+    would mark), and dGamma, dbeta are the sums of the training variant.
+    ``with_dx`` without ``frozen`` raises."""
     rng = np.random.default_rng(5)
     n, d = 70, 7
     x = torch.tensor(rng.normal(size=(n, 4 * d)), requires_grad=True)
@@ -108,9 +142,16 @@ def test_frozen_plain_versions_are_the_closed_form():
         dx = tfw.wbn_dx(x, g, None, gamma, mean, l, None, None, None,
                         frozen=True)
         full = tfw.wbn_bwd_sums(x, g, gamma, mean, l)
+        fused = tfw.wbn_bwd_sums(x, g, gamma, mean, l, frozen=True,
+                                 with_dx=True)
+    assert len(fused) == 3
     for got, want in ((dx, x.grad), (dgamma, gamma.grad), (dbeta, beta.grad),
-                      (dgamma, full[0]), (dbeta, full[1])):
+                      (dgamma, full[0]), (dbeta, full[1]),
+                      (fused[0], gamma.grad), (fused[1], beta.grad),
+                      (fused[2], x.grad)):
         assert_leaf_close(got, want.numpy(), TOL_EXACT)
+    with pytest.raises(ValueError, match="frozen"):
+        tfw.wbn_bwd_sums(x, g, gamma, mean, l, with_dx=True)
 
 
 def test_eval_whitening_is_a_function_of_the_running_stats_alone():

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the whitening kernels J (``wbn_stats``), K (``wbn_transform``, and
-the eval route that factors the running covariance in it) and L
-(``wbn_bwd_sums``, with its frozen variant) on one NVIDIA GPU at the
-quaternion path's [4096, 200] (d = 50), with the flagship batch's node
-mask.
+the eval route that factors the running covariance in it), L
+(``wbn_bwd_sums``, with its frozen variant, and the frozen one that writes
+dx) and M's frozen variant alone (``wbn_dx(..., frozen=True)``) on one
+NVIDIA GPU at the quaternion path's [4096, 200] (d = 50), with the flagship
+batch's node mask.
 
     python3 tools/time_fused_whitening.py [--root DIR] [--label NAME] [--quat]
 
@@ -22,18 +23,26 @@ kernels one call launches with each one's device us (``torch.profiler``
 over 20 calls).  A second launch of J, K, the eval route, L and L frozen
 must be bit-equal to the first.  The eval route is the checkout's
 ``wbn_transform_eval``, or, where it has none, its eval Cholesky
-(``wbn_cholesky``) then K: ``(y, L)`` either way.  The line carries
-SHA-256 digests of J's and L's outputs, of K's and the eval route's (K and
-the route on the plain versions' statistics from the CPU, the route from
-their covariance), and of M's (both variants) on the same statistics, so
-that two checkouts can be shown bit-equal there.
+(``wbn_cholesky``) then K: ``(y, L)`` either way.  The eval backward's
+frozen L with dx is the checkout's ``wbn_bwd_sums(..., frozen=True,
+with_dx=True)``, or, where it has none, the frozen L then M's frozen
+variant: ``(dGamma, dbeta, dx)`` either way; beside it the frozen L then
+M's frozen variant alone, two launches in any checkout.  The line carries
+SHA-256 digests of each call's outputs, one an output (K and the eval
+route on the plain versions' statistics from the CPU, the route from their
+covariance; the rest on J's), and ``m_sha256`` those of M (training),
+M's frozen variant alone and the frozen L with dx on the plain versions'
+statistics, so that two checkouts can be shown bit-equal there.
 
 With ``--quat``, it also times and profiles ``chip_smoke.py``'s quaternion
 add preset: the train step (ms, kernels per step, device busy and idle
 share), the eval forward (ms from a CUDA graph, kernels per batch, device
 busy) and the eval gradient (ms, kernels per call, device busy); then,
 apart, the host us a train step spends inside the calls of ``wbn_stats``
-and ``wbn_bwd_sums`` (the host clock around each call, 30 steps).
+and ``wbn_bwd_sums`` (the host clock around each call, 30 steps).  Last,
+it compiles the checkout's ``csrc/fused_whitening.cu`` once more with
+``-Xptxas -v`` (into the checkout's build directory) and carries each
+kernel's registers, stack frame and spill bytes.
 
 Prints the card's name and power limit, then one JSON line.  Exits non-zero
 without a CUDA device.
@@ -44,6 +53,7 @@ from __future__ import annotations
 import argparse
 import functools
 import hashlib
+import inspect
 import json
 import re
 import subprocess
@@ -60,6 +70,49 @@ def digest(tensors) -> str:
     for t in tensors:
         h.update(t.detach().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def digests(tensors) -> list:
+    """``digest`` of each output alone, so that one output of a call can be
+    matched with another call's."""
+    return [digest((t,)) for t in tensors]
+
+
+def ptxas_report(build) -> dict:
+    """{kernel: registers, stack frame and spill bytes} from ``nvcc -Xptxas
+    -v`` of the checkout's ``csrc/fused_whitening.cu`` (``build`` is its
+    ``phc_gnn_torch.ops._build``); the library goes to its build directory
+    and is not loaded."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / "ptxas_report.so"
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+         str(build.CSRC_DIR / "fused_whitening.cu")],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        sys.exit(f"time_fused_whitening: nvcc -Xptxas -v failed:\n"
+                 f"{proc.stderr}")
+    report, name = {}, None
+    for row in (proc.stdout + proc.stderr).splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", row)
+        if found:
+            kernel = re.search(r"(wbn_\w+?_kernel)(I((?:Lb[01]E)+)E)?",
+                               found.group(1))
+            name = found.group(1)
+            if kernel:
+                flags = re.findall(r"Lb([01])E", kernel.group(3) or "")
+                name = kernel.group(1) + (
+                    f"<{', '.join('true' if f == '1' else 'false' for f in flags)}>"
+                    if flags else "")
+            report[name] = {}
+        elif name and "spill stores" in row:
+            stack, stores, loads = map(int, re.findall(r"(\d+) bytes", row))
+            report[name].update(stack_bytes=stack, spill_store_bytes=stores,
+                                spill_load_bytes=loads)
+        elif name and "registers" in row:
+            report[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", row).group(1))
+    return report
 
 
 def kernels_of(torch, fn, iters: int = 20) -> dict:
@@ -193,10 +246,10 @@ def main() -> None:
     if hasattr(fw, "wbn_plan"):
         line["clusters_held"] = {
             kernel: {c: fw._max_active_clusters(fw.WbnPlan(
-                fw.WBN_SLAB, c, 0, fw.wbn_smem_bytes(fw.WBN_SLAB, c, sums), 0),
-                kernel) for c in (1, 2, 4, 8, 16)}
-            for kernel, sums in zip(fw.WBN_KERNELS, (fw.WBN_STATS_SUMS,
-                                                     fw.WBN_SUMS, fw.WBN_SUMS))}
+                fw.WBN_SLAB, c, 0, fw.wbn_smem_bytes(
+                    fw.WBN_SLAB, c, fw.WBN_STATS_SUMS if kernel == "wbn_stats"
+                    else fw.WBN_SUMS), 0), kernel) for c in (1, 2, 4, 8, 16)}
+            for kernel in fw.WBN_KERNELS}
     gen = torch.Generator().manual_seed(6)
     x = torch.randn((N, 4 * D), generator=gen) * 1.5 + 0.5
     g = torch.randn((N, 4 * D), generator=gen)
@@ -221,10 +274,25 @@ def main() -> None:
         l = fw.wbn_cholesky(p_cov, 1e-5)
         return fw.wbn_transform(x, p_mean, l, gamma, beta), l
 
-    line["m_sha256"] = digest((
-        fw.wbn_dx(x, g, mask, gamma, p_mean, p_l, p_mmat, p_sw, p_cnt),
-        fw.wbn_dx(x, g, None, gamma, p_mean, p_l, None, None, None,
-                  frozen=True)))
+    def frozen_dx(l_of):
+        return (fw.wbn_dx(x, g, None, gamma, p_mean, l_of, None, None, None,
+                          frozen=True),)
+
+    def frozen_pair(mean_of, l_of):
+        return fw.wbn_bwd_sums(x, g, gamma, mean_of, l_of,
+                               frozen=True) + frozen_dx(l_of)
+
+    def frozen_with_dx(mean_of, l_of):
+        if "with_dx" in inspect.signature(fw.wbn_bwd_sums).parameters:
+            return fw.wbn_bwd_sums(x, g, gamma, mean_of, l_of, frozen=True,
+                                   with_dx=True)
+        return frozen_pair(mean_of, l_of)
+
+    line["m_sha256"] = {
+        "dx": digest((fw.wbn_dx(x, g, mask, gamma, p_mean, p_l, p_mmat, p_sw,
+                                p_cnt),)),
+        "frozen dx": digest(frozen_dx(p_l)),
+        "frozen L with dx": digests(frozen_with_dx(p_mean, p_l))}
 
     mean, cov, l, cnt = fw.wbn_stats(x, mask, 1e-5)
     calls = {
@@ -232,19 +300,24 @@ def main() -> None:
         "wbn_stats": lambda: fw.wbn_stats(x, mask, 1e-5),
         "wbn_bwd_sums": lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l),
         "wbn_bwd_sums_frozen": lambda: fw.wbn_bwd_sums(x, g, gamma, mean, l,
-                                                       frozen=True)}
+                                                       frozen=True),
+        "wbn_dx_frozen": lambda: frozen_dx(l),
+        "wbn_bwd_sums_frozen_dx": lambda: frozen_with_dx(mean, l),
+        "wbn_frozen_pair": lambda: frozen_pair(mean, l)}
     for name, fn in calls.items():
         first, again = fn(), fn()
         torch.cuda.synchronize()
         line[f"{name}_bit_equal_on_relaunch"] = all(
             torch.equal(a, b) for a, b in zip(first, again))
-        line[f"{name}_sha256"] = digest(first)
+        line[f"{name}_sha256"] = digests(first)
         line[f"{name}_graph_us"] = time_graph(torch, fn) * 1e3
         line[f"{name}_eager_us"] = time_eager(torch, fn) * 1e3
         line[f"{name}_host_us"] = host_us(torch, fn)
         line[f"{name}_cuda_kernels"] = kernels_of(torch, fn)
     if args.quat:
         line.update(quat(torch, dev, fw))
+    from phc_gnn_torch.ops import _build
+    line["ptxas"] = ptxas_report(_build)
     print(json.dumps(line), flush=True)
     if not all(line[f"{k}_bit_equal_on_relaunch"] for k in calls):
         sys.exit("time_fused_whitening: a second launch differs")

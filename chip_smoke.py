@@ -133,18 +133,54 @@ Phases, each of which exits non-zero on failure:
    pattern, its extreme edges (where the min and max send the cotangent)
    and its var > 0 pattern (std's relu) replayed on the CPU; ten steps with
    the recipe's dropout (per step H 8, I 4, C 4 in each role, D and E 6;
-   the loss falls); timed over 30 steps after 5 warm-ups and profiled.
+   the loss falls); timed over 30 steps after 5 warm-ups and profiled;
+14. scan: the scanned steps as CUDA graphs.  First the port's Adam (fused,
+   capturable, its lr a device tensor) against torch's fused Adam with a
+   float lr over two steps, bit-equal, both at LR itself (the parent's
+   update) and at the lr tensor's float32 value.
+   The main path: the flagship's ``make_scan_train_steps`` with its
+   dropout, its first call (three eager warm-ups on a side stream, the
+   capture, 8 replays over 8 batches of one bucket) under
+   ``torch.cuda.set_sync_debug_mode("error")``, the counters zeroed just
+   before and read just after; that graph timed and profiled; one graphed
+   step of it against one eager step from the same weights, outside
+   torch's deterministic algorithms, losses and outputs within
+   TOL_SCAN_ATOMICS (two eager steps show what the pooling's atomics alone
+   move).  Then,
+   under the deterministic algorithms, with dropout off: 8 graphed steps
+   held to 8 eager ``make_train_step`` calls from the same weights (losses
+   and outputs within TOL_SCAN, every parameter, running stat and Adam
+   state tensor within TOL_SCAN_STATE, bit-equality counted; an eager rerun
+   outside them shows what the atomics move over 8 steps); 4 more steps at
+   half the lr on both, beside an eager control at the old lr that must
+   land far away; a flagship whose optimizer was built on the CPU before
+   the model moved (its lr and state must follow to the card) against one
+   built on the card, 2 graphed steps.  With the flagship's dropout: the
+   graphed steps against
+   eager steps from the same generator seed (do the replays draw the eager
+   masks?) and two replays on one batch at lr 0 (their masks must differ).
+   Graphed eval (``make_scan_eval_steps``) against ``make_eval_step`` for
+   the flagship, the quaternion preset (K's eval route in a graph), PNA (H
+   and I) on 3 batches and pcba's 512-graph batch (C's masked role at
+   16,384 x 512), within TOL_SCAN.  The quaternion and PNA train steps
+   captured (J-M's cluster launches in a graph) and held to 3 eager steps.
+   Each eager and graphed step is timed and profiled: ms, kernels a step,
+   device busy and idle share, the port's kernels a step counted by name in
+   the profile (the counters do not see a replay), and no embedding
+   backward or sort.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
-``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}`` and
-``{"kernels": [...]}`` lines, then, as its last line, ``{"ok": true,
-"device": {...}}``.  In the kernels line, each kernel's ``launches_by_path``
-holds its count from each of the eleven main-path runs above (``eval``: 3
-flagship batches; ``train``: 10 flagship steps; ``pcba_eval``: 1 batch;
-``pcba_train``: 10 accumulated steps; ``quat_eval``: 3 batches;
-``quat_train``: 10 steps; ``quat_concat_eval``: 1 batch;
-``quat_eval_grad``: 1 batch; ``quat_eval_attr``: 1 batch; ``pna_eval``: 3
-batches; ``pna_train``: 10 steps), and ``launches`` is their sum.  Without
+``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
+``{"scan"}`` and ``{"kernels": [...]}`` lines, then, as its last line,
+``{"ok": true, "device": {...}}``.  In the kernels line, each kernel's
+``launches_by_path`` holds its count from each of the twelve main-path runs
+above (``eval``: 3 flagship batches; ``train``: 10 flagship steps;
+``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated steps;
+``quat_eval``: 3 batches; ``quat_train``: 10 steps; ``quat_concat_eval``: 1
+batch; ``quat_eval_grad``: 1 batch; ``quat_eval_attr``: 1 batch;
+``pna_eval``: 3 batches; ``pna_train``: 10 steps; ``scan_train``: the
+graphed flagship call, whose wrappers count the 3 warm-ups and the capture,
+not the replays), and ``launches`` is their sum.  Without
 a CUDA device it exits non-zero and prints no result.  It imports nothing
 of JAX.
 """
@@ -193,6 +229,22 @@ TOL_GRAD_CAP = 1e-3         # 10x the CPU's own f32 error against float64
 TOL_REPLAY = 1e-6            # a CUDA graph's replay against the eager
                             # forward: the same kernels, but the pooling's
                             # index_add_ adds in the order its atomics land
+TOL_SCAN_ATOMICS = 1e-5      # one graphed train step against one eager step
+                            # outside torch's deterministic algorithms,
+                            # losses and outputs normwise: on an H100 two
+                            # eager steps part by 9.3e-8 (loss) and 5.7e-7
+                            # (outputs), the graph by 0 and 7.3e-7, all the
+                            # pooling's atomics; over 10x that margin
+TOL_SCAN = 0.0               # graphed steps or evals against eager ones,
+                            # losses and outputs normwise, under torch's
+                            # deterministic algorithms: the same kernels in
+                            # the same order, bit-equal
+TOL_SCAN_STATE = 0.0         # ... and per tensor of the state after them
+LR_MOVED = 1e-3              # an lr halved for 4 steps moves some state
+                            # tensor by more than this, relative to its size
+MASKS_DIFFER = 1e-3          # two dropout draws move the outputs by more
+SCAN_STEPS = 8               # graphed flagship steps held to eager ones
+SCAN_FAMILY_STEPS = 3        # ... quaternion and PNA steps
 N_BATCHES = 3
 FLAGSHIP = dict(batch_size=128, num_nodes=4096, num_edges=8192)
 DIM = 200
@@ -1547,7 +1599,8 @@ def device_profile(torch, fn, call_ms: float, iters: int = 10) -> dict:
     """Where the time of ``fn`` goes, from torch.profiler over ``iters``
     calls: kernels per call, the device's busy time (sum of kernel
     durations) per call, its idle share of ``call_ms`` (1 - busy / call_ms)
-    and the kernels that take the most device time.  The ranges that
+    and the kernels that take the most device time, and the count of each
+    kernel name over the ``iters`` calls.  The ranges that
     ``record_function`` marks on the device's timeline (torch's
     ``Optimizer.step`` is one) span kernels and are not counted."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1557,12 +1610,14 @@ def device_profile(torch, fn, call_ms: float, iters: int = 10) -> dict:
             fn()
         torch.cuda.synchronize()
     by_name: dict = {}
+    counts: dict = {}
     n_kernels = 0
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not e.is_user_annotation):
             n_kernels += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            counts[e.name] = counts.get(e.name, 0) + 1
     if not n_kernels:
         fail("the profiler recorded no device kernels")
     busy_ms = sum(by_name.values()) / 1e3 / iters
@@ -1572,7 +1627,7 @@ def device_profile(torch, fn, call_ms: float, iters: int = 10) -> dict:
     return {"kernels_per_call": n_kernels / iters, "busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / call_ms,
             "top_us": [[name[:90], us / iters] for name, us in top],
-            "bn_pair_us": pair}
+            "bn_pair_us": pair, "counts": counts}
 
 
 def kernels_a_call(torch, fn, expected: int, iters: int = 20,
@@ -2485,6 +2540,536 @@ def pna_train_phase(torch, dev):
                           host_batch.count_edges(), worst)
 
 
+# device kernel names of each wrapper's kernel, for counting the kernels a
+# replayed CUDA graph runs (the wrappers' counters do not see a replay)
+KERNEL_NAMES = {"segment_logit_max": "segment_logit_max_kernel",
+                "segment_softmax_aggregate": "segment_softmax_aggregate_kernel",
+                "segment_sum_perm": "segment_sum_kernel<true",
+                "segment_sum_masked": "segment_sum_kernel<false",
+                "bn_forward": "bn_forward_kernel",
+                "bn_backward": "bn_backward_kernel",
+                "wbn_stats": "wbn_stats_kernel",
+                "wbn_transform": "wbn_transform_kernel",
+                "wbn_bwd_sums": "wbn_bwd_sums_kernel",
+                "wbn_dx": "wbn_dx_kernel",
+                "segment_extreme": "segment_extreme_kernel",
+                "segment_moments": "segment_moments_kernel"}
+# what the embedding lookups' backward ran (before the one-hot encoder),
+# in kernel names read in lower case
+EMBEDDING_BWD_NAMES = ("embedding", "sort")
+
+
+def kernel_families(counts: dict, per: int) -> dict:
+    """Kernels of each port wrapper in a profile's ``counts``, per call of
+    ``per`` steps."""
+    return {w: sum(n for name, n in counts.items() if sub in name) / per
+            for w, sub in KERNEL_NAMES.items()}
+
+
+def train_state(model, opt) -> dict:
+    """Every parameter, buffer and Adam state tensor of a model and its
+    optimizer, keyed by name, as CPU copies."""
+    state = {f"param {k}": p.detach() for k, p in model.named_parameters()}
+    state.update({f"buffer {k}": b for k, b in model.named_buffers()})
+    for k, p in opt.params.items():
+        for name, t in opt.adam.state[p].items():
+            state[f"adam {name} {k}"] = t
+    return {k: t.detach().cpu().clone() for k, t in state.items()}
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """The readings of two ``train_state``s: how many tensors are bit-equal,
+    and the largest difference relative to a tensor's own size."""
+    equal, worst, worst_key = 0, 0.0, None
+    for k, t in a.items():
+        if torch_equal(t, b[k]):
+            equal += 1
+            continue
+        err = leafwise(t, b[k])[1]
+        if err > worst:
+            worst, worst_key = err, k
+    return {"bit_equal": equal, "tensors": len(a), "max_rel_err": worst,
+            "max_rel_err_at": worst_key}
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def hold_scan(phase, got, tol, what):
+    """A reading ``got`` of graphed steps against eager ones (a normwise or
+    per-tensor error), printed with its tolerance; fails above it."""
+    print(f"{phase}: {what}: {got} (tolerance {tol:g})", flush=True)
+    if not got <= tol:
+        fail(f"{phase}: {what} {got} over {tol:g} against the eager steps")
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms for a comparison of graphed and
+    eager steps: the pooling's ``index_add_`` then adds in a fixed order
+    instead of the order its atomics land, which alone moves two eager runs
+    apart (``scan_train_check``'s eager control).  Everything else on the
+    path is the same kernels either way."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def scan_models(torch, build, loss_fn, weight_decay, dev, dropout):
+    """Two copies of ``build(dropout)`` at random running stats, the first
+    behind ``make_scan_train_steps``, the second behind ``make_train_step``
+    (seed 0 both), each with its own optimizer."""
+    from phc_gnn_torch.train import (make_optimizer, make_scan_train_steps,
+                                     make_train_step)
+
+    model = build(dropout)
+    randomize_eval_state(torch, model)
+    e_model = copy.deepcopy(model)
+    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
+    e_opt = make_optimizer(dict(e_model.named_parameters()),
+                           grad_clip=GRAD_CLIP)
+    steps = make_scan_train_steps(model, opt, loss_fn,
+                                  weight_decay=weight_decay, seed=0,
+                                  device=dev)
+    eager = make_train_step(e_model, e_opt, loss_fn,
+                            weight_decay=weight_decay, seed=0, device=dev)
+    return (model, opt, steps), (e_model, e_opt, eager)
+
+
+def run_eager(torch, eager, batches, lr):
+    res = [eager(b, lr) for b in batches]
+    return (torch.stack([r[0] for r in res]),
+            torch.stack([r[1] for r in res]))
+
+
+def scan_train_check(torch, dev, phase, build, loss_fn, weight_decay, lr,
+                     batches):
+    """``make_scan_train_steps`` against ``make_train_step`` from the same
+    weights with dropout off, both under ``deterministic``:
+    ``len(batches)`` graphed steps in one call against as many eager steps,
+    bit-equal expected (the same kernels in the same order).  Beside it, the
+    same eager steps twice outside ``deterministic``: what the atomics alone
+    move.  Returns the readings and the models and steps."""
+    from phc_gnn_torch.train import make_optimizer, make_train_step
+
+    base = build(False)
+    randomize_eval_state(torch, base)
+    x_runs = []
+    for _ in range(2):
+        m = copy.deepcopy(base)
+        o = make_optimizer(dict(m.named_parameters()), grad_clip=GRAD_CLIP)
+        run_eager(torch, make_train_step(m, o, loss_fn,
+                                         weight_decay=weight_decay, seed=0,
+                                         device=dev), batches, lr)
+        x_runs.append(train_state(m, o))
+    with deterministic(torch):
+        (model, opt, steps), (e_model, e_opt, eager) = scan_models(
+            torch, build, loss_fn, weight_decay, dev, False)
+        losses, outs = steps(batches, lr)
+        e_losses, e_outs = run_eager(torch, eager, batches, lr)
+        torch.cuda.synchronize()
+    info = {"steps": len(batches),
+            "eager_vs_eager_atomics": state_diff(*x_runs),
+            "loss_err": normwise(losses.cpu(), e_losses.cpu())[1],
+            "loss_bit_equal": torch_equal(losses.cpu(), e_losses.cpu()),
+            "out_err": normwise(outs.cpu(), e_outs.cpu())[1],
+            "out_bit_equal": torch_equal(outs.cpu(), e_outs.cpu()),
+            "optimizer_count": [opt.count, e_opt.count],
+            "state": state_diff(train_state(model, opt),
+                                train_state(e_model, e_opt))}
+    if opt.count != e_opt.count:
+        fail(f"{phase}: the optimizer's count {opt.count} after the graphed "
+             f"steps, {e_opt.count} after the eager ones")
+    st = info["state"]
+    print(f"{phase}: {len(batches)} graphed steps in one call against as "
+          f"many eager ones, dropout off, torch's deterministic algorithms "
+          f"on both (without them two eager runs already part by up to "
+          f"{info['eager_vs_eager_atomics']['max_rel_err']:.3e} per tensor: "
+          f"the pooling's atomics)", flush=True)
+    hold_scan(phase, info["loss_err"], TOL_SCAN,
+              f"losses normwise (bit-equal: {info['loss_bit_equal']})")
+    hold_scan(phase, info["out_err"], TOL_SCAN,
+              f"outputs normwise (bit-equal: {info['out_bit_equal']})")
+    hold_scan(phase, st["max_rel_err"], TOL_SCAN_STATE,
+              f"parameters, running stats and Adam state per tensor "
+              f"({st['bit_equal']} of {st['tensors']} bit-equal)")
+    return info, (model, opt, steps, e_model, e_opt, eager)
+
+
+def scan_atomics_check(torch, dev, build, loss_fn, batch):
+    """The main path's graph as it is timed and counted, outside
+    ``deterministic`` (the pooling's ``index_add_`` adds in the order its
+    atomics land): one graphed step of ``build(True)``, dropout on, against
+    one eager step from the same weights and generator seed, losses and
+    outputs held at ``TOL_SCAN_ATOMICS``; beside it, what the atomics alone
+    move,
+    two eager steps from those weights against each other."""
+    from phc_gnn_torch.train import make_train_step
+
+    (_, _, steps), (e_model, e_opt, eager) = scan_models(
+        torch, build, loss_fn, WEIGHT_DECAY, dev, True)
+    x_model, x_opt = copy.deepcopy((e_model, e_opt))
+    control = make_train_step(x_model, x_opt, loss_fn,
+                              weight_decay=WEIGHT_DECAY, seed=0, device=dev)
+    losses, outs = steps([batch], LR)
+    e_loss, e_out = eager(batch, LR)
+    x_loss, x_out = control(batch, LR)
+    torch.cuda.synchronize()
+    info = {"loss_err": normwise(losses[0].cpu(), e_loss.cpu())[1],
+            "out_err": normwise(outs[0].cpu(), e_out.cpu())[1],
+            "eager_vs_eager_loss_err": normwise(x_loss.cpu(),
+                                                e_loss.cpu())[1],
+            "eager_vs_eager_out_err": normwise(x_out.cpu(), e_out.cpu())[1]}
+    print(f"scan flagship, no deterministic algorithms, dropout on: one "
+          f"graphed step against one eager step; two eager steps part by "
+          f"{info['eager_vs_eager_loss_err']:.3e} in the loss and "
+          f"{info['eager_vs_eager_out_err']:.3e} normwise in the outputs "
+          f"(the pooling's atomics)", flush=True)
+    hold_scan("scan flagship", info["loss_err"], TOL_SCAN_ATOMICS,
+              "one non-deterministic graphed step's loss, relative")
+    hold_scan("scan flagship", info["out_err"], TOL_SCAN_ATOMICS,
+              "one non-deterministic graphed step's outputs normwise")
+    return info
+
+
+def scan_lr_change(torch, dev, phase, loss_fn, lr2, batches, models):
+    """An lr changed between two chunks: the graphed steps at ``lr2`` against
+    eager steps at ``lr2`` from the same state (under ``deterministic``),
+    and an eager control at the old lr, which must land far from both."""
+    from phc_gnn_torch.train import make_train_step
+
+    model, opt, steps, e_model, e_opt, eager = models
+    c_model, c_opt = copy.deepcopy((e_model, e_opt))
+    control = make_train_step(c_model, c_opt, loss_fn,
+                              weight_decay=WEIGHT_DECAY, seed=0, device=dev)
+    with deterministic(torch):
+        losses, _ = steps(batches, lr2)
+        e_losses, _ = run_eager(torch, eager, batches, lr2)
+        run_eager(torch, control, batches, LR)
+        torch.cuda.synchronize()
+    got = state_diff(train_state(model, opt), train_state(e_model, e_opt))
+    moved = state_diff(train_state(c_model, c_opt),
+                       train_state(e_model, e_opt))
+    info = {"lr": [LR, lr2], "loss_err": normwise(losses.cpu(),
+                                                  e_losses.cpu())[1],
+            "state": got, "control_at_old_lr": moved}
+    hold_scan(phase, info["loss_err"], TOL_SCAN,
+              f"losses normwise after the lr changed from {LR:g} to {lr2:g}")
+    hold_scan(phase, got["max_rel_err"], TOL_SCAN_STATE,
+              f"state per tensor after the lr change "
+              f"({got['bit_equal']} of {got['tensors']} bit-equal)")
+    print(f"{phase}: the eager control kept lr {LR:g}: its state differs by "
+          f"up to {moved['max_rel_err']:.3e} per tensor (must exceed "
+          f"{LR_MOVED:g})", flush=True)
+    if not moved["max_rel_err"] > LR_MOVED:
+        fail(f"{phase}: the lr change did not move the state apart from the "
+             f"old lr's")
+    return info
+
+
+def scan_follow_check(torch, dev, loss_fn, batches):
+    """A flagship and its optimizer built on the CPU, then bound to the card
+    by ``make_scan_train_steps``: the optimizer's lr and Adam state must
+    follow the parameters there (capturable), and its graphed steps equal
+    those of a copy whose optimizer was built on the card, under
+    ``deterministic``, dropout off."""
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_optimizer, make_scan_train_steps
+
+    host = PHCGNN(**flagship_config(False), seed=0, device="cpu")
+    h_opt = make_optimizer(dict(host.named_parameters()), grad_clip=GRAD_CLIP)
+    card = copy.deepcopy(host).to(dev)
+    c_opt = make_optimizer(dict(card.named_parameters()), grad_clip=GRAD_CLIP)
+    with deterministic(torch):
+        losses = [make_scan_train_steps(m, o, loss_fn,
+                                        weight_decay=WEIGHT_DECAY, seed=0,
+                                        device=dev)(batches, LR)[0]
+                  for m, o in ((host, h_opt), (card, c_opt))]
+        torch.cuda.synchronize()
+    on_card = all(t.device == dev for t in h_opt.state_tensors())
+    got = state_diff(train_state(host, h_opt), train_state(card, c_opt))
+    info = {"state_on_card": on_card, "capturable": h_opt.on_device,
+            "loss_err": normwise(losses[0].cpu(), losses[1].cpu())[1],
+            "state": got}
+    print(f"scan flagship: an optimizer built on the CPU before its model "
+          f"moved: its lr and state on the card {on_card}, capturable "
+          f"{h_opt.on_device}", flush=True)
+    if not (on_card and h_opt.on_device):
+        fail("scan flagship: the optimizer's state did not follow its "
+             "parameters to the card")
+    hold_scan("scan flagship", info["loss_err"], TOL_SCAN,
+              f"{len(batches)} graphed steps' losses normwise against an "
+              f"optimizer built on the card")
+    hold_scan("scan flagship", got["max_rel_err"], TOL_SCAN_STATE,
+              f"state per tensor against it ({got['bit_equal']} of "
+              f"{got['tensors']} bit-equal)")
+    return info
+
+
+def scan_dropout_check(torch, dev, build, loss_fn, batches):
+    """With the flagship's dropout, under ``deterministic``: the graphed
+    steps against eager steps from the same weights and generator seed (do
+    the replays draw the eager masks?), and two replays on one batch at lr 0
+    (the weights stay; the masks must differ)."""
+    with deterministic(torch):
+        (_, _, steps), (_, _, eager) = scan_models(
+            torch, build, loss_fn, WEIGHT_DECAY, dev, True)
+        losses, outs = steps(batches, LR)
+        e_losses, e_outs = run_eager(torch, eager, batches, LR)
+        _, twice = steps([batches[0]] * 2, 0.0)
+        torch.cuda.synchronize()
+    info = {"out_err_vs_eager": normwise(outs.cpu(), e_outs.cpu())[1],
+            "outs_bit_equal_to_eager": torch_equal(outs.cpu(), e_outs.cpu()),
+            "loss_err_vs_eager": normwise(losses.cpu(), e_losses.cpu())[1],
+            "successive_replays_out_diff": normwise(twice[0].cpu(),
+                                                    twice[1].cpu())[1]}
+    info["masks_reproduce"] = info["out_err_vs_eager"] <= TOL_SCAN
+    print(f"scan dropout: graphed steps vs eager from the same generator "
+          f"seed: outputs normwise {info['out_err_vs_eager']:.3e} "
+          f"(bit-equal: {info['outs_bit_equal_to_eager']}), losses "
+          f"{info['loss_err_vs_eager']:.3e}: the replays "
+          f"{'draw' if info['masks_reproduce'] else 'do not draw'} the eager "
+          f"steps' masks (read at {TOL_SCAN:g}); two successive replays on "
+          f"one batch at lr 0 differ by "
+          f"{info['successive_replays_out_diff']:.3e} normwise (must exceed "
+          f"{MASKS_DIFFER:g})", flush=True)
+    if not info["successive_replays_out_diff"] > MASKS_DIFFER:
+        fail("scan dropout: two successive replays drew the same masks")
+    if not info["masks_reproduce"]:
+        fail("scan dropout: the replays did not draw the eager steps' masks")
+    return info
+
+
+def scan_eval_check(torch, dev, phase, model, batches):
+    """``make_scan_eval_steps`` against ``make_eval_step`` on ``batches``,
+    under ``deterministic``."""
+    from phc_gnn_torch.train import make_eval_step, make_scan_eval_steps
+
+    with deterministic(torch):
+        eager = make_eval_step(model, device=dev)
+        want = torch.stack([eager(b) for b in batches])
+        got = make_scan_eval_steps(model, device=dev)(batches)
+        torch.cuda.synchronize()
+    err = normwise(got.cpu(), want.cpu())[1]
+    print(f"{phase}: graphed eval of {len(batches)} batches vs eager: "
+          f"normwise {err:.3e} (bit-equal: "
+          f"{torch_equal(got.cpu(), want.cpu())}; tolerance {TOL_SCAN:g})",
+          flush=True)
+    if not (got.shape == want.shape and err <= TOL_SCAN):
+        fail(f"{phase}: graphed eval disagrees with the eager forward")
+    return err
+
+
+def time_scan(torch, fn, steps: int, reps: int = 5) -> tuple:
+    """(device ms, host ms) per step of ``fn()``, which runs ``steps`` steps:
+    CUDA events around the call and the host clock until it is done,
+    medians of ``reps`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+        dev_ms.append(start.elapsed_time(end) / steps)
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def scan_profile(torch, phase, eager_fn, graph_fn, steps: int, kernels):
+    """Eager against graphed: ms a step, kernels a step, device busy and idle
+    share, the port's kernels a step (from the profile: the counters do not
+    see a replay) and whether an embedding backward or a sort ran."""
+    out = {}
+    for how, fn, per in (("eager", eager_fn, 1), ("graph", graph_fn, steps)):
+        ms, host_ms = (time_steps(torch, fn) if per == 1
+                       else time_scan(torch, fn, per))
+        prof = device_profile(torch, fn, ms * per, iters=max(1, 20 // per))
+        calls = max(1, 20 // per) * per
+        fam = kernel_families(prof["counts"], calls)
+        sorts = {n: c for n, c in prof["counts"].items()
+                 if any(k in n.lower() for k in EMBEDDING_BWD_NAMES)}
+        out[how] = {"ms": ms, "host_ms": host_ms,
+                    "kernels": prof["kernels_per_call"] / per,
+                    "busy_ms": prof["busy_ms"] / per,
+                    "idle_share": prof["idle_share"],
+                    "port_kernels": {k: v for k, v in fam.items() if v},
+                    "embedding_bwd_or_sort_kernels": sorts,
+                    "top_us": [[n, us / per] for n, us in prof["top_us"]]}
+        print(f"{phase} {how}: {ms:.3f} ms a step (host {host_ms:.3f} ms), "
+              f"{out[how]['kernels']:g} kernels, device busy "
+              f"{out[how]['busy_ms']:.3f} ms (idle "
+              f"{100 * prof['idle_share']:.1f} %); the port's kernels a step "
+              f"{out[how]['port_kernels']}; embedding backward or sort "
+              f"kernels {sorts or 'none'}", flush=True)
+        missing = [k for k in kernels if not fam.get(k)]
+        if missing:
+            fail(f"{phase} {how}: no {missing} kernel in the profile")
+        if sorts:
+            fail(f"{phase} {how}: the profile holds {sorts}")
+    return out
+
+
+def scan_phase(torch, dev):
+    """The scanned train and eval steps as CUDA graphs (module docstring,
+    phase 14); returns the wrappers' counts of the graphed flagship run and
+    the readings."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import (make_eval_step, make_scan_eval_steps,
+                                     masked_l1)
+
+    host = [attach_csr_plan(synthetic_batch(seed=s, **FLAGSHIP))
+            for s in range(SCAN_STEPS)]
+    batches = [b.to(dev) for b in host]
+
+    def loss_fn(out, b):
+        return masked_l1(out, b.y)
+
+    def flagship(dropout):
+        return PHCGNN(**flagship_config(dropout), seed=0, device=dev)
+
+    info = {"adam": adam_bit_equal(torch, dev)}
+    # the main path: the flagship's graphed steps as they train, dropout on
+    (_, _, steps), (_, _, eager) = scan_models(torch, flagship, loss_fn,
+                                               WEIGHT_DECAY, dev, True)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, _ = steps(batches, LR)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"scan flagship: the first call of make_scan_train_steps (3 eager "
+          f"warm-ups, the capture, {SCAN_STEPS} replays) ran under "
+          f"set_sync_debug_mode('error'); the wrappers' counters over it "
+          f"{launches}; losses {[round(float(x), 5) for x in losses]}",
+          flush=True)
+    if not bool(torch.isfinite(losses).all()):
+        fail("scan flagship: non-finite loss")
+    info["flagship_profile"] = scan_profile(
+        torch, "scan flagship train", lambda: eager(batches[0], LR),
+        lambda: steps(batches, LR), SCAN_STEPS, TRAIN_LAUNCHES)
+
+    info["atomics"] = scan_atomics_check(torch, dev, flagship, loss_fn,
+                                         batches[0])
+    info["flagship"], models = scan_train_check(
+        torch, dev, "scan flagship", flagship, loss_fn, WEIGHT_DECAY, LR,
+        batches)
+    info["lr_change"] = scan_lr_change(torch, dev, "scan flagship", loss_fn,
+                                       LR / 2, batches[:SCAN_STEPS // 2],
+                                       models)
+    info["follow"] = scan_follow_check(torch, dev, loss_fn, batches[:2])
+    info["dropout"] = scan_dropout_check(torch, dev, flagship, loss_fn,
+                                         batches)
+
+    evals = batches[:N_BATCHES]
+    for name, build in (("flagship", lambda: flagship(True)),
+                        ("quat", lambda: quat_model(torch, dev)),
+                        ("pna", lambda: pna_model(torch, dev)[0])):
+        m = build()
+        randomize_eval_state(torch, m)
+        info[f"{name}_eval"] = {"err": scan_eval_check(
+            torch, dev, f"scan {name} eval", m, evals)}
+    served = flagship(True)
+    randomize_eval_state(torch, served)
+    one = make_eval_step(served, device=dev)
+    scan = make_scan_eval_steps(served, device=dev)
+    info["flagship_eval"]["profile"] = scan_profile(
+        torch, "scan flagship eval", lambda: one(evals[0]),
+        lambda: scan(evals), len(evals),
+        ("segment_logit_max", "segment_softmax_aggregate"))
+    pcba, _, _ = pcba_model(torch, dev)
+    randomize_eval_state(torch, pcba)
+    info["pcba_eval"] = {"err": scan_eval_check(
+        torch, dev, "scan pcba eval", pcba,
+        [pcba_batch(torch, 0, PCBA_EVAL).to(dev)])}
+
+    _, pna_loss, pna_cfg = pna_model(torch, dev)
+    for name, build, fn, wd, lr, want in (
+            ("quat", lambda d: quat_model(torch, dev, dropout=d), loss_fn,
+             WEIGHT_DECAY, LR, QUAT_TRAIN_LAUNCHES),
+            ("pna", lambda d: pna_model(torch, dev, d)[0], pna_loss,
+             pna_cfg.weightdecay, pna_cfg.lr, PNA_TRAIN_LAUNCHES)):
+        info[name], _ = scan_train_check(
+            torch, dev, f"scan {name}", build, fn, wd, lr,
+            batches[:SCAN_FAMILY_STEPS])
+        (_, _, st), (_, _, ea) = scan_models(torch, build, fn, wd, dev, True)
+        info[name]["profile"] = scan_profile(
+            torch, f"scan {name} train", lambda: ea(batches[0], lr),
+            lambda: st(batches, lr), SCAN_STEPS, want)
+    print(json.dumps({"scan": info}), flush=True)
+    return launches
+
+
+def adam_bit_equal(torch, dev):
+    """The port's Adam (fused, capturable, the lr a device tensor) against
+    torch's fused Adam with a float lr, as the port ran it before: two steps
+    from the same parameters and gradients must give bit-equal parameters
+    and moments, both at LR itself (the parent's update) and at the lr
+    tensor's own value, LR rounded to float32 (as JAX's
+    ``jnp.float32(lr)``): the fused kernel computes in float32, so a float
+    lr reaches it rounded to that same value."""
+    from phc_gnn_torch.train import make_optimizer
+
+    gen = torch.Generator().manual_seed(3)
+    shapes = [(4, 50, 50), (200,), (), (100, 50)]
+    ps = [torch.randn(s, generator=gen).to(dev).requires_grad_()
+          for s in shapes]
+    grads = [[torch.randn(s, generator=gen).to(dev) for s in shapes]
+             for _ in range(2)]
+    opt = make_optimizer({str(i): p for i, p in enumerate(ps)})
+    lr32 = float(torch.tensor(LR, dtype=torch.float32))
+    refs = {}
+    for name, lr in (("lr32", lr32), ("lr", LR)):
+        qs = [p.detach().clone().requires_grad_() for p in ps]
+        refs[name] = (qs, torch.optim.Adam(qs, lr=lr, eps=1e-8, fused=True))
+    for g in grads:
+        opt.step(g, LR)
+        for qs, ref in refs.values():
+            for q, gq in zip(qs, g):
+                q.grad = gq.clone()
+            ref.step()
+    torch.cuda.synchronize()
+    out = {}
+    for name, (qs, ref) in refs.items():
+        pairs = [(p.detach().cpu(), q.detach().cpu()) for p, q in zip(ps, qs)]
+        pairs += [(opt.adam.state[p][k].cpu(), ref.state[q][k].cpu())
+                  for p, q in zip(ps, qs)
+                  for k in ("exp_avg", "exp_avg_sq", "step")]
+        out[name] = {
+            "bit_equal": all(torch_equal(a, b) for a, b in pairs),
+            "params_differing": sum(int((a != b).sum()) for a, b in pairs[
+                :len(ps)]),
+            "params": sum(p.numel() for p in ps),
+            "max_abs_diff": max(float((a - b).abs().max())
+                                for a, b in pairs)}
+    r32, r = out["lr32"], out["lr"]
+    print(f"scan: the port's Adam (fused, capturable, lr a device tensor) vs "
+          f"torch's fused Adam with a float lr, two steps (torch "
+          f"{torch.__version__}): against lr={LR!r} (the parent's update) "
+          f"bit-equal {r['bit_equal']}, {r['params_differing']} of "
+          f"{r['params']} parameter elements differ, by up to "
+          f"{r['max_abs_diff']:.3e}; against lr={lr32!r} (LR in float32) "
+          f"bit-equal {r32['bit_equal']}, {r32['params_differing']} "
+          f"differ", flush=True)
+    for name, got in out.items():
+        if not got["bit_equal"]:
+            fail(f"the capturable Adam's update differs from the float-lr "
+                 f"Adam's at {name}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2528,6 +3113,7 @@ def main() -> None:
     paths["pna_train"], pna_train = pna_train_phase(torch, dev)
     pna.update(pna_train)
     print(json.dumps({"pna": pna}), flush=True)
+    paths["scan_train"] = scan_phase(torch, dev)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -4,7 +4,12 @@ The port names its modules, parameters and buffers after the flax tree, so a
 flax path ``a/b/c`` becomes the key ``a.b.c``; ``params`` and
 ``batch_stats`` land in one state_dict (batch-norm ``mean``/``var`` are
 buffers).  One leaf changes layout: flax ``nn.Dense`` keeps ``kernel`` as
-(in, out) where ``torch.nn.Linear`` keeps ``weight`` as (out, in).
+(in, out) where ``torch.nn.Linear`` keeps ``weight`` as (out, in); that
+covers the pooling's and head's real transformers and the continuous-input
+encoders' ``linear``.  The encoders' trees map one to one:
+``encoder_<c>.integer.embedding_<i>`` of a ``PHMEncoder``, and
+``encoder.integer.embedding_<i>`` or ``encoder.linear`` of a
+``NaivePHMEncoder``.
 
 ``adam_state_from_optax`` carries optax's Adam moments across the same way
 (``count``, and the ``mu`` and ``nu`` trees, keyed like the params), so a run

@@ -6,7 +6,9 @@ from phc_gnn_torch.graph.batch import (
     batch_graphs,
     build_csr_rowptr,
     build_sender_csr,
+    stack_batches,
+    unstack_batches,
 )
 
 __all__ = ["GraphsTuple", "attach_csr_plan", "batch_graphs", "build_csr_rowptr",
-           "build_sender_csr"]
+           "build_sender_csr", "stack_batches", "unstack_batches"]

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 __all__ = ["GraphsTuple", "batch_graphs", "build_csr_rowptr", "build_sender_csr",
-           "attach_csr_plan"]
+           "attach_csr_plan", "stack_batches", "unstack_batches"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +72,61 @@ class GraphsTuple:
             f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
             for f in dataclasses.fields(self)
             if getattr(self, f.name) is not None})
+
+    def tensors(self):
+        """``(name, tensor)`` of every field that holds a tensor."""
+        return [(f.name, getattr(self, f.name))
+                for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None]
+
+    def shape_key(self) -> tuple:
+        """Every tensor field's name, shape and dtype: batches with equal
+        keys fit the same static buffers (``copy_``)."""
+        return tuple((name, tuple(t.shape), t.dtype)
+                     for name, t in self.tensors())
+
+    def empty_like(self, device) -> "GraphsTuple":
+        """A batch of new, uninitialised tensors of this batch's shapes and
+        dtypes on ``device``: static buffers for ``copy_``.  Each is a fresh
+        allocation, so it starts on a 16-byte boundary (the caching
+        allocator's blocks are 512-byte aligned), as the kernels' plans
+        assume of an eager batch's tensors."""
+        return dataclasses.replace(self, **{
+            name: torch.empty(t.shape, dtype=t.dtype, device=device)
+            for name, t in self.tensors()})
+
+    def copy_(self, src: "GraphsTuple") -> "GraphsTuple":
+        """Copy ``src``'s tensors into this batch's own, in place (CSR plans
+        included), without a host sync; raises unless ``src`` has the same
+        ``shape_key``."""
+        if src.shape_key() != self.shape_key():
+            raise ValueError(f"batch of shapes {src.shape_key()} does not fit "
+                             f"buffers of shapes {self.shape_key()}")
+        for name, t in self.tensors():
+            t.copy_(getattr(src, name), non_blocking=True)
+        return self
+
+
+def stack_batches(batches: Sequence[GraphsTuple]) -> GraphsTuple:
+    """Same-shape batches stacked along a new leading step axis [S, ...] (the
+    scanned steps' input layout in JAX); ``unstack_batches`` undoes it."""
+    if not batches:
+        raise ValueError("no batches to stack")
+    key = batches[0].shape_key()
+    for b in batches[1:]:
+        if b.shape_key() != key:
+            raise ValueError(f"batches of different shapes: {b.shape_key()} "
+                             f"and {key}")
+    return dataclasses.replace(batches[0], **{
+        name: torch.stack([getattr(b, name) for b in batches])
+        for name, _ in batches[0].tensors()})
+
+
+def unstack_batches(stacked: GraphsTuple) -> list:
+    """The batches of a stack made by ``stack_batches``, as views."""
+    fields = stacked.tensors()
+    return [dataclasses.replace(stacked, **{name: t[i] for name, t in fields})
+            for i in range(stacked.senders.shape[0])]
 
 
 def batch_graphs(

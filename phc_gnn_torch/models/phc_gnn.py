@@ -39,7 +39,7 @@ from phc_gnn_torch.graph.pooling import PHMGlobalSumPooling, PHMSoftAttentionPoo
 from phc_gnn_torch.nn.activations import get_activation
 from phc_gnn_torch.nn.downstream import PHMDownstreamNet
 from phc_gnn_torch.nn.dropout import phm_dropout
-from phc_gnn_torch.nn.encoder import PHMEncoder
+from phc_gnn_torch.nn.encoder import NaivePHMEncoder, PHMEncoder
 from phc_gnn_torch.nn.norm import PHMNorm
 
 __all__ = ["PHCGNN"]
@@ -90,10 +90,9 @@ class PHCGNN(nn.Module):
             raise NotImplementedError(
                 "compute_dtype and remat are not ported yet "
                 "(ROADMAP.md, section 1, item 11)")
-        if unique_phm or naive_encoder:
+        if unique_phm:
             raise NotImplementedError(
-                "unique_phm and naive_encoder are not ported yet (ROADMAP.md, "
-                "section 1, item 10)")
+                "unique_phm is not ported yet (ROADMAP.md, section 1, item 10)")
         if sc_type not in ("first", "last"):
             raise ValueError(f"sc_type must be 'first' or 'last', got {sc_type!r}")
         if pooling not in ("globalsum", "softattention"):
@@ -115,14 +114,16 @@ class PHCGNN(nn.Module):
         self.act = get_activation(activation)
         embed = atom_encoded_dim
 
-        self.atomencoder = PHMEncoder(embed // n, atom_input_dims, n, gen)
+        encoder = NaivePHMEncoder if naive_encoder else PHMEncoder
+        self.atomencoder = encoder(embed // n, atom_input_dims, n,
+                                   generator=gen)
         for i, d in enumerate(mp_layers):
             # the input width (in the add-skip family every width is the
             # embedding's), which the bond encoder emits too
             in_dim = embed if i == 0 else mp_layers[i - 1] + (
                 embed if self.concat else 0)
-            self.add_module(f"bondencoder_{i}", PHMEncoder(
-                in_dim // n, bond_input_dims, n, gen))
+            self.add_module(f"bondencoder_{i}", encoder(
+                in_dim // n, bond_input_dims, n, generator=gen))
             self.add_module(f"conv_{i}", PHMMessagePassing(
                 in_dim, d, n, learn_phm, bias, add_self_loops, norm_mp,
                 activation, w_init, c_init, aggr=msg_aggr, mlp=mlp_mp,

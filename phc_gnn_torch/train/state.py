@@ -1,22 +1,29 @@
 """Training and serving entry points: the train step, the accumulated train
-step and the eval step.
+step, the eval step and their scanned forms over S same-shape batches.
 
 Counterparts of ``make_loss_and_aux``, ``make_train_step``,
-``make_accum_train_step`` and ``make_eval_step`` in
-phc_gnn_tpu/train/state.py:52-170.  The port's model owns its parameters and
-running stats, and the optimizer owns its moments, so a step takes the
-batches (and the learning rate) alone.
+``make_accum_train_step``, ``make_eval_step``, ``make_scan_train_steps`` and
+``make_scan_eval_steps`` in phc_gnn_tpu/train/state.py:52-214.  The port's
+model owns its parameters and running stats, and the optimizer owns its
+moments and its learning-rate tensor, so a step takes the batches (and the
+learning rate) alone.
+
+JAX runs the S steps of a scan in one jitted program.  On the card the port
+captures one step in a CUDA graph over static batch buffers and replays it
+S times (``_GraphedStep``), so a step costs one graph launch and a few
+copies of host work instead of ~1,000 kernel launches.  On the CPU (asked
+for with ``device="cpu"``) the same steps run eagerly in a loop.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from phc_gnn_torch.device import resolve_device
-from phc_gnn_torch.graph.batch import GraphsTuple
+from phc_gnn_torch.graph.batch import GraphsTuple, unstack_batches
 from phc_gnn_torch.nn.regularization import (
     multiplication_rule_regularization,
     phm_weight_regularization,
@@ -25,7 +32,11 @@ from phc_gnn_torch.parallel.dp import loss_weight
 from phc_gnn_torch.train.optim import Adam
 
 __all__ = ["make_loss_and_grads", "make_train_step", "make_accum_train_step",
-           "make_eval_step"]
+           "make_eval_step", "make_scan_train_steps", "make_scan_eval_steps"]
+
+# eager calls of a step before its capture: the kernels' builds, their
+# cudaFuncSetAttribute calls and the caching allocator settle on them
+WARMUP_CALLS = 3
 
 LossFn = Callable[[torch.Tensor, GraphsTuple], torch.Tensor]
 
@@ -37,17 +48,22 @@ def make_loss_and_grads(model: nn.Module, loss_fn: LossFn,
     forward, the masked task loss plus the reference's lr-scaled weight and
     rule regularization (``loss += lr*wd*phm_weight_reg + lr*wd2*rule_reg``,
     train_hiv.py:180-191), and the gradients of every parameter that
-    requires one, keyed by name.  The forward updates the batch-norm running
-    stats; ``loss`` and ``out`` come back detached."""
+    requires one, keyed by name.  ``lr`` is a float or a 0-d tensor; the
+    regularization multiplies a tensor (a float is made one on the device),
+    so that a CUDA graph reads the lr at each replay instead of freezing it.
+    The forward updates the batch-norm running stats; ``loss`` and ``out``
+    come back detached."""
     named = dict(model.named_parameters())
     trainable = {k: p for k, p in named.items() if p.requires_grad}
 
-    def loss_and_grads(batch: GraphsTuple, lr: float,
+    def loss_and_grads(batch: GraphsTuple, lr: Union[float, torch.Tensor],
                        generator: torch.Generator = None
                        ) -> Tuple[torch.Tensor, torch.Tensor,
                                   Dict[str, torch.Tensor]]:
         out = model(batch, training=True, generator=generator)
         loss = loss_fn(out, batch)
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.full((), lr, dtype=torch.float32, device=out.device)
         if weight_decay > 0.0:
             loss = loss + lr * weight_decay * phm_weight_regularization(
                 named, p=reg_p)
@@ -75,22 +91,37 @@ def make_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
     masks come from a generator on the device seeded with ``seed``.  The
     batch needs its CSR plan (``graph.attach_csr_plan``) on a CUDA device."""
     dev = _bind(model, optimizer, device)
+    one_step = _one_step(model, optimizer, loss_fn, weight_decay,
+                         weight_decay2, reg_p,
+                         torch.Generator(device=dev).manual_seed(seed))
+
+    def step(batch: GraphsTuple, lr: Union[float, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        optimizer.set_lr(lr)
+        return one_step(batch.to(dev, non_blocking=True))
+
+    return step
+
+
+def _one_step(model, optimizer, loss_fn, weight_decay, weight_decay2, reg_p,
+              gen):
+    """``step(batch) -> (loss, out)`` at the optimizer's lr tensor: the
+    forward, backward and update of one batch on the device."""
     loss_and_grads = make_loss_and_grads(model, loss_fn, weight_decay,
                                          weight_decay2, reg_p)
-    gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def step(batch: GraphsTuple, lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        batch = batch.to(dev, non_blocking=True)
-        loss, out, grads = loss_and_grads(batch, lr, gen)
-        optimizer.step(list(grads.values()), lr)
+    def step(batch: GraphsTuple) -> Tuple[torch.Tensor, torch.Tensor]:
+        loss, out, grads = loss_and_grads(batch, optimizer.lr, gen)
+        optimizer.step(list(grads.values()), optimizer.lr)
         return loss, out
 
     return step
 
 
 def _bind(model: nn.Module, optimizer: Adam, device) -> torch.device:
-    """Move ``model`` to ``device`` and check that ``optimizer`` holds its
-    trainable parameters, in order."""
+    """Move ``model`` to ``device``, check that ``optimizer`` holds its
+    trainable parameters, in order, and move the optimizer's lr and state
+    after them."""
     dev = resolve_device(device)
     model.to(dev)
     trainable = {k: p for k, p in model.named_parameters() if p.requires_grad}
@@ -98,6 +129,7 @@ def _bind(model: nn.Module, optimizer: Adam, device) -> torch.device:
             or any(optimizer.params[k] is not p for k, p in trainable.items())):
         raise ValueError("the optimizer was not built on this model's "
                          "parameters")
+    optimizer.follow_params()
     return dev
 
 
@@ -129,10 +161,11 @@ def make_accum_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
     gen = torch.Generator(device=dev).manual_seed(seed)
     stats = [b for b in model.buffers() if b.is_floating_point()]
 
-    def step(batches: Sequence[GraphsTuple], lr: float
+    def step(batches: Sequence[GraphsTuple], lr: Union[float, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         if not batches:
             raise ValueError("the accumulated step needs at least one batch")
+        optimizer.set_lr(lr)
         start = [s.clone() for s in stats]
         gsum = ssum = None
         lsum = wsum = bsum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -141,7 +174,7 @@ def make_accum_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
             batch = batch.to(dev, non_blocking=True)
             for s, s0 in zip(stats, start):
                 s.copy_(s0)
-            loss, out, grads = loss_and_grads(batch, lr, gen)
+            loss, out, grads = loss_and_grads(batch, optimizer.lr, gen)
             w = loss_weight(batch, loss_name)
             w_bn = batch.node_mask.sum(dtype=torch.float32)
             wg = torch._foreach_mul(list(grads.values()), w)
@@ -159,7 +192,7 @@ def make_accum_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
         torch._foreach_div_(gsum, wsum)
         torch._foreach_div_(ssum, bsum.clamp_min(1e-9))
         torch._foreach_copy_(stats, ssum)
-        optimizer.step(gsum, lr)
+        optimizer.step(gsum, optimizer.lr)
         return lsum / wsum, torch.stack(outs)
 
     return step
@@ -181,3 +214,156 @@ def make_eval_step(model: nn.Module, device: Union[str, torch.device] = "cuda"
             return model(batch, training=False)
 
     return step
+
+
+def _as_list(batches) -> List[GraphsTuple]:
+    """A sequence of batches, or a stack of them (``stack_batches``), as a
+    non-empty list of one bucket shape (``GraphsTuple.shape_key``)."""
+    out = (unstack_batches(batches) if isinstance(batches, GraphsTuple)
+           else list(batches))
+    if not out:
+        raise ValueError("the scanned steps need at least one batch")
+    key = out[0].shape_key()
+    for b in out[1:]:
+        if b.shape_key() != key:
+            raise ValueError(f"a scanned chunk holds batches of two bucket "
+                             f"shapes: {b.shape_key()} and {key}")
+    return out
+
+
+class _GraphedStep:
+    """One step captured in a CUDA graph over static batch buffers, for one
+    bucket shape.  ``run(batches)`` copies each batch into the buffers,
+    replays the graph and copies the results into slot i of the outputs.
+
+    Capture: the step runs ``WARMUP_CALLS`` times eagerly on a side stream
+    (the kernels' builds and the allocator settle), then once under
+    capture; ``restore`` undoes what the eager calls changed.  The buffers
+    are fresh allocations, 16-byte aligned, as the kernels' plans
+    (``ops/segment_sum.py::segment_sum_plan``) assume.  The capture runs no
+    host sync (``capture_begin`` and ``capture_end`` directly, without
+    ``torch.cuda.graph``'s device synchronize), so a caller can hold the
+    whole first call to ``torch.cuda.set_sync_debug_mode("error")``.  A
+    failed capture raises; nothing runs the step eagerly in its place."""
+
+    def __init__(self, fn, batch: GraphsTuple, dev: torch.device,
+                 generator=None, restore=None):
+        self.static = batch.empty_like(dev).copy_(batch)
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_CALLS):
+                    fn(self.static)
+                self.graph = torch.cuda.CUDAGraph()
+                if generator is not None:
+                    # each replay draws the next dropout masks of the
+                    # generator, as the eager step would
+                    self.graph.register_generator_state(generator)
+                self.graph.capture_begin()
+                try:
+                    self.result = fn(self.static)
+                finally:
+                    self.graph.capture_end()
+        finally:
+            current.wait_stream(side)
+            if restore is not None:
+                restore()
+
+    def run(self, batches: List[GraphsTuple]):
+        """Replay the step on each batch; the results stacked, [S, ...]."""
+        outs = [torch.empty((len(batches),) + r.shape, dtype=r.dtype,
+                            device=r.device) for r in self.result]
+        for i, batch in enumerate(batches):
+            self.static.copy_(batch)
+            self.graph.replay()
+            for out, r in zip(outs, self.result):
+                out[i].copy_(r)
+        return outs
+
+
+def make_scan_train_steps(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
+                          weight_decay: float = 0.0, weight_decay2: float = 0.0,
+                          reg_p: int = 2, seed: int = 0,
+                          device: Union[str, torch.device] = "cuda"
+                          ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """``steps(batches, lr) -> (losses [S], outs [S, G, T])``: S train
+    steps, one after another, over S same-shape batches (a sequence, or a
+    stack from ``graph.stack_batches``) at one learning rate ``lr`` (a
+    float or a 0-d tensor), as device tensors with no host sync
+    (phc_gnn_tpu/train/state.py:173-199).  Arguments as
+    ``make_train_step``; each step computes what one ``make_train_step``
+    call computes, with the dropout masks drawn in the same order from a
+    generator seeded with ``seed``.
+
+    On CUDA the first call for a bucket shape (every tensor field's shape
+    and dtype) captures one step in a CUDA graph (``_GraphedStep``); the
+    model, the optimizer and the generator come out of the capture as they
+    went in.  Each batch is then copied into the graph's static buffers and
+    the graph replayed.  The optimizer's ``count`` advances by S on the
+    host.  On the CPU the steps run eagerly."""
+    dev = _bind(model, optimizer, device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    one_step = _one_step(model, optimizer, loss_fn, weight_decay,
+                         weight_decay2, reg_p, gen)
+    graphs: Dict[tuple, _GraphedStep] = {}
+
+    def capture(batch: GraphsTuple) -> _GraphedStep:
+        state = ([p.data for p in model.parameters()] + list(model.buffers())
+                 + optimizer.state_tensors())
+        saved = [t.clone() for t in state]
+        count, rng = optimizer.count, gen.get_state()
+
+        def restore():
+            torch._foreach_copy_(state, saved)
+            optimizer.count = count
+            gen.set_state(rng)
+
+        return _GraphedStep(one_step, batch, dev, gen, restore)
+
+    def steps(batches, lr: Union[float, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        batches = _as_list(batches)
+        optimizer.set_lr(lr)
+        if dev.type != "cuda":
+            losses, outs = zip(*(one_step(b.to(dev)) for b in batches))
+            return torch.stack(losses), torch.stack(outs)
+        key = batches[0].shape_key()
+        if key not in graphs:
+            graphs[key] = capture(batches[0].to(dev, non_blocking=True))
+        losses, outs = graphs[key].run(batches)
+        optimizer.count += len(batches)
+        return losses, outs
+
+    return steps
+
+
+def make_scan_eval_steps(model: nn.Module,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> Callable[..., torch.Tensor]:
+    """``steps(batches) -> outs [S, G, T]``: the eval forward of S
+    same-shape batches (a sequence or a stack), a device tensor
+    (phc_gnn_tpu/train/state.py:202-214).  Moves ``model`` to ``device`` in
+    eval mode, as ``make_eval_step``.  On CUDA one forward is captured in a
+    CUDA graph per bucket shape and replayed for each batch; on the CPU the
+    forwards run eagerly."""
+    dev = resolve_device(device)
+    model.to(dev).eval()
+    graphs: Dict[tuple, _GraphedStep] = {}
+
+    def forward(batch: GraphsTuple) -> Tuple[torch.Tensor]:
+        return (model(batch, training=False),)
+
+    def steps(batches) -> torch.Tensor:
+        batches = _as_list(batches)
+        with torch.inference_mode():
+            if dev.type != "cuda":
+                return torch.stack([forward(b.to(dev))[0] for b in batches])
+            key = batches[0].shape_key()
+            if key not in graphs:
+                graphs[key] = _GraphedStep(
+                    forward, batches[0].to(dev, non_blocking=True), dev)
+            return graphs[key].run(batches)[0]
+
+    return steps

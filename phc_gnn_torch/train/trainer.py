@@ -1,10 +1,12 @@
-"""Model and loss from an experiment configuration.
+"""Model and loss from an experiment configuration, and the grouping of
+batches into scanned chunks.
 
-Counterparts of ``build_model`` and ``build_loss`` in
-phc_gnn_tpu/train/trainer.py:47-83, so that a configuration builds the
-port's model by name as the CLI builds the JAX one.  The rest of the
-trainer (epoch loops, evaluation, checkpoints) waits for ROADMAP.md,
-section 1, item 13.
+Counterparts of ``build_model``, ``build_loss`` and ``iter_scan_chunks`` in
+phc_gnn_tpu/train/trainer.py:47-98, so that a configuration builds the
+port's model by name as the CLI builds the JAX one, and a loader's batches
+go to ``make_scan_train_steps`` and ``make_scan_eval_steps`` as JAX's
+trainer sends them.  The rest of the trainer (epoch loops, evaluation,
+checkpoints) waits for ROADMAP.md, section 1, items 4 and 5.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from phc_gnn_torch.train.loss import (
     masked_mse,
 )
 
-__all__ = ["build_model", "build_loss"]
+__all__ = ["build_model", "build_loss", "iter_scan_chunks"]
 
 
 def build_model(cfg: ExperimentConfig, atom_input_dims, bond_input_dims,
@@ -70,3 +72,20 @@ def build_loss(cfg: ExperimentConfig) -> Callable:
         return lambda out, batch: masked_cross_entropy(
             out, batch.y[:, 0].to(torch.int32), batch.graph_mask)
     raise ValueError(f"unknown loss {cfg.loss!r}")
+
+
+def iter_scan_chunks(batches, chunk_size: int):
+    """Group an iterable of GraphsTuples into same-shape chunks of at most
+    ``chunk_size``: consecutive batches of one ``(num_nodes, num_edges,
+    num_graphs)`` bucket, a new chunk at each change of bucket (shared by the
+    scanned train and eval loops)."""
+    chunk, shape_key = [], None
+    for batch in batches:
+        key = (batch.num_nodes, batch.num_edges, batch.num_graphs)
+        if chunk and (key != shape_key or len(chunk) >= chunk_size):
+            yield chunk
+            chunk = []
+        shape_key = key
+        chunk.append(batch)
+    if chunk:
+        yield chunk

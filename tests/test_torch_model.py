@@ -116,9 +116,12 @@ def test_training_and_later_slice_configs_raise():
     for over in (dict(edge_axis="ep"),
                  dict(node_axis="dp"), dict(remat=True),
                  dict(compute_dtype=torch.bfloat16),
-                 dict(unique_phm=True), dict(naive_encoder=True),
-                 dict(real_trafo="sum")):
+                 dict(unique_phm=True), dict(real_trafo="sum")):
         with pytest.raises(NotImplementedError):
             PHCGNN(**_config(32, 2, **over), device="cpu")
+    # the naive encoder came with the encoder slice
+    # (tests/test_torch_encoder.py holds it to JAX)
+    naive = PHCGNN(**_config(32, 2, naive_encoder=True), device="cpu")
+    assert hasattr(naive.atomencoder, "encoder")
     mean = PHCGNN(**_config(32, 2, msg_aggr="mean"), device="cpu")
     assert mean.conv_0.conv.aggr == "mean"

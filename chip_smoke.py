@@ -87,16 +87,29 @@ Phases, each of which exits non-zero on failure:
    ``make_eval_step`` on a 512-graph batch (synthetic_batch(512, 16384,
    32768) with 9 atom and 3 bond features); only C's forward role runs, 7
    times.  Held to the CPU path, timed and profiled;
-7. pcba train: ``train.make_accum_train_step`` over K = 4 sub-batches of
-   synthetic_batch(128, 4096, 8192, seed=0..3) with 0/1 labels of 128 tasks,
-   a share missing (NaN), under the masked BCE, Adam after a clip of 2.0, lr
-   1e-3.  One dropout-free step on the GPU against the CPU (loss, outputs,
-   each accumulated gradient with the GPU's ReLU pattern replayed, under
-   the rule of 5, running stats, the Adam update given equal gradients);
-   then ten steps with the configuration's dropout, counters zeroed just
-   before and read just after: per step F, G and C's two roles 28 times
-   each, D and E 8; the loss stays finite and falls.  Timed and
-   profiled;
+7. pcba train: the eager body of ``train.make_accum_train_step`` over K
+   = 4 sub-batches of synthetic_batch(128, 4096, 8192, seed=0..3) with 0/1
+   labels of 128 tasks, a share missing (NaN), under the masked BCE, Adam
+   after a clip of 2.0, lr 1e-3.  One dropout-free step on the GPU against
+   the CPU (loss, outputs, each accumulated gradient with the GPU's ReLU
+   pattern replayed, under the rule of 5, running stats, the Adam update
+   given equal gradients); then ten steps with the configuration's
+   dropout, counters zeroed just before and read just after: per step F, G
+   and C's two roles 28 times each, D and E 8; the loss stays finite and
+   falls.  Timed and profiled.  Then the step as users call it, one CUDA
+   graph of the whole accumulated step: its first call (3 eager warm-ups,
+   the capture, one replay) under ``set_sync_debug_mode("error")``, the
+   counters zeroed just before and read just after (PCBA_LAUNCHES four
+   times); a replay's kernels counted by name in the profiler's trace, F
+   and G told from D and E by their grid (28, 28, 8, 8, C 28 in each
+   role); the graph timed and profiled beside the eager body, and the peak
+   device memory of each; under torch's deterministic algorithms the graph
+   held to the eager body at TOL_SCAN (losses, outputs, every parameter,
+   running stat and Adam tensor) over 3 calls and one more at half the lr
+   with dropout off, over 3 calls with dropout (do the replays draw the
+   eager masks?), and over 2 calls with a fully masked sub-batch among the
+   four; outside them one graphed call against one eager call within
+   TOL_SCAN_ATOMICS, beside two eager calls;
 8. quaternion eval: scripts/bench_presets.py's whitening configuration
    (``build("add", "q-batch-norm")``) through the port's
    ``QuaternionSkipConnectAdd``: the flagship's widths with
@@ -173,9 +186,11 @@ It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
 ``{"scan"}`` and ``{"kernels": [...]}`` lines, then, as its last line,
 ``{"ok": true, "device": {...}}``.  In the kernels line, each kernel's
-``launches_by_path`` holds its count from each of the twelve main-path runs
-above (``eval``: 3 flagship batches; ``train``: 10 flagship steps;
-``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated steps;
+``launches_by_path`` holds its count from each of the thirteen main-path
+runs above (``eval``: 3 flagship batches; ``train``: 10 flagship steps;
+``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated steps of the eager
+body; ``pcba_graph``: the graphed accumulated step's first call, whose
+wrappers count the 3 warm-ups and the capture, not the replay;
 ``quat_eval``: 3 batches; ``quat_train``: 10 steps; ``quat_concat_eval``: 1
 batch; ``quat_eval_grad``: 1 batch; ``quat_eval_attr``: 1 batch;
 ``pna_eval``: 3 batches; ``pna_train``: 10 steps; ``scan_train``: the
@@ -266,6 +281,8 @@ PCBA = dict(batch_size=128, num_nodes=4096, num_edges=8192, **PCBA_FEATS)
 PCBA_EVAL = dict(batch_size=512, num_nodes=16384, num_edges=32768,
                  **PCBA_FEATS)
 PCBA_STEPS = 10
+PCBA_GRAPH_STEPS = 3        # graphed accumulated steps held to the eager body
+PCBA_REPLAYS = 5            # replays profiled for the kernels' grids
 # the quaternion family with whitening batch norm (scripts/bench_presets.py
 # build(family, "q-batch-norm")): per train step J, K, L, M at the 8
 # whitening sites (4 in the convs' MLPs, 4 after the convs), A, B and C once
@@ -2084,8 +2101,11 @@ def pcba_agreement(torch, dev, host_batches, batches):
     """One dropout-free accumulated step (K = 4) on the GPU and on the CPU
     from the same weights and running stats: the loss, the outputs, the
     accumulated gradients (with the GPU's ReLU pattern replayed), the
-    running stats, and the Adam update given the CPU's gradients."""
-    from phc_gnn_torch.train import make_accum_train_step, make_optimizer
+    running stats, and the Adam update given the CPU's gradients.  Both run
+    the step's eager body: the optimizer's spy and the ReLU recorder read
+    tensors as they are computed, which a graph's replay does not redo."""
+    from phc_gnn_torch.train import make_optimizer
+    from phc_gnn_torch.train.state import _eager_accum_train_step
 
     model, loss_fn, cfg = pcba_model(torch, dev, dropout=False)
     randomize_eval_state(torch, model)
@@ -2105,8 +2125,8 @@ def pcba_agreement(torch, dev, host_batches, batches):
             real_step(grads, lr)
 
         opt.step = spy
-        step = make_accum_train_step(m, opt, loss_fn, loss_name=cfg.loss,
-                                     device=device)
+        step = _eager_accum_train_step(m, opt, loss_fn, loss_name=cfg.loss,
+                                       device=device)
         loss, outs = step(bs, LR)
         return loss, outs, seen
 
@@ -2148,9 +2168,12 @@ def pcba_agreement(torch, dev, host_batches, batches):
 
 
 def pcba_train_phase(torch, dev):
-    """The pcba accumulated train step through the kernels; returns the
-    launch counts of the main-path run and the timings."""
-    from phc_gnn_torch.train import make_accum_train_step, make_optimizer
+    """The pcba accumulated train step's eager body through the kernels
+    (on the card ``make_accum_train_step`` replays a CUDA graph of it, whose
+    kernels the wrappers' counters do not see: ``pcba_graph_phase``);
+    returns the launch counts of the main-path run and the timings."""
+    from phc_gnn_torch.train import make_optimizer
+    from phc_gnn_torch.train.state import _eager_accum_train_step
 
     host = [pcba_batch(torch, s, PCBA) for s in range(PCBA_K)]
     batches = [b.to(dev) for b in host]
@@ -2159,9 +2182,9 @@ def pcba_train_phase(torch, dev):
     model, loss_fn, cfg = pcba_model(torch, dev)
     opt = make_optimizer(dict(model.named_parameters()),
                          grad_clip=cfg.grad_clipping)
-    step = make_accum_train_step(model, opt, loss_fn,
-                                 weight_decay=cfg.weightdecay,
-                                 loss_name=cfg.loss, seed=0, device=dev)
+    step = _eager_accum_train_step(model, opt, loss_fn,
+                                   weight_decay=cfg.weightdecay,
+                                   loss_name=cfg.loss, seed=0, device=dev)
     reset_launches()
     losses = [step(batches, cfg.lr)[0] for _ in range(PCBA_STEPS)]
     torch.cuda.synchronize()
@@ -2198,6 +2221,271 @@ def pcba_train_phase(torch, dev):
           f"({real_edges} real edges); {prof['kernels_per_call']:g} kernels "
           f"per step, device busy {prof['busy_ms']:.3f} ms (idle "
           f"{100 * prof['idle_share']:.1f} %)", flush=True)
+    return launches, info
+
+
+def pcba_dummy(torch, seed: int):
+    """A host pcba sub-batch fully masked (no real node, edge or graph, no
+    label), as the JAX trainer pads the last group of K
+    (phc_gnn_tpu/train/state.py:123), with its CSR plans."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+
+    b = synthetic_batch(seed=seed, **PCBA)
+    return attach_csr_plan(b.replace(
+        node_mask=torch.zeros_like(b.node_mask),
+        edge_mask=torch.zeros_like(b.edge_mask),
+        graph_mask=torch.zeros_like(b.graph_mask),
+        y=torch.full_like(b.y, float("nan"))))
+
+
+def pcba_accum_pair(torch, dev, dropout: bool):
+    """Two copies of the pcba model at random running stats, the first
+    behind ``make_accum_train_step`` (one CUDA graph on the card), the
+    second behind its eager body, each with its own optimizer, generator
+    seed 0 both.  Returns the two ``(model, optimizer, step)`` and the
+    configuration."""
+    from phc_gnn_torch.train import make_accum_train_step, make_optimizer
+    from phc_gnn_torch.train.state import _eager_accum_train_step
+
+    model, loss_fn, cfg = pcba_model(torch, dev, dropout)
+    randomize_eval_state(torch, model)
+    out = []
+    for m, make in ((model, make_accum_train_step),
+                    (copy.deepcopy(model), _eager_accum_train_step)):
+        opt = make_optimizer(dict(m.named_parameters()),
+                             grad_clip=cfg.grad_clipping)
+        out.append((m, opt, make(m, opt, loss_fn,
+                                 weight_decay=cfg.weightdecay,
+                                 loss_name=cfg.loss, seed=0, device=dev)))
+    return out, cfg
+
+
+def pcba_graph_check(torch, dev, what, batches, dropout, lrs):
+    """``make_accum_train_step``'s graph against its eager body from the
+    same weights and generator seed, under ``deterministic``: one call at
+    each lr of ``lrs`` on both; the losses and outputs of every call, and
+    every parameter, running stat and Adam tensor after them, bit-equal
+    expected (the same kernels in the same order)."""
+    with deterministic(torch):
+        ((model, opt, graphed), (e_model, e_opt, eager)), _ = \
+            pcba_accum_pair(torch, dev, dropout)
+        got = [graphed(batches, lr) for lr in lrs]
+        want = [eager(batches, lr) for lr in lrs]
+        torch.cuda.synchronize()
+    losses = torch.stack([g[0] for g in got]).cpu()
+    e_losses = torch.stack([w[0] for w in want]).cpu()
+    outs = torch.stack([g[1] for g in got]).cpu()
+    e_outs = torch.stack([w[1] for w in want]).cpu()
+    info = {"calls": len(lrs), "lrs": list(lrs),
+            "losses": [float(x) for x in losses],
+            "loss_err": normwise(losses, e_losses)[1],
+            "loss_bit_equal": torch_equal(losses, e_losses),
+            "out_err": normwise(outs, e_outs)[1],
+            "out_bit_equal": torch_equal(outs, e_outs),
+            "optimizer_count": [opt.count, e_opt.count],
+            "state": state_diff(train_state(model, opt),
+                                train_state(e_model, e_opt))}
+    phase = f"pcba graph, {what}"
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"{phase}: non-finite loss {info['losses']}")
+    if opt.count != e_opt.count or opt.count != len(lrs):
+        fail(f"{phase}: the optimizer's count {opt.count} after the graphed "
+             f"calls, {e_opt.count} after the eager ones")
+    st = info["state"]
+    hold_scan(phase, info["loss_err"], TOL_SCAN,
+              f"losses normwise over {len(lrs)} calls at lr {list(lrs)} "
+              f"(bit-equal: {info['loss_bit_equal']})")
+    hold_scan(phase, info["out_err"], TOL_SCAN,
+              f"outputs [K, G, T] normwise (bit-equal: "
+              f"{info['out_bit_equal']})")
+    hold_scan(phase, st["max_rel_err"], TOL_SCAN_STATE,
+              f"parameters, running stats and Adam state per tensor "
+              f"({st['bit_equal']} of {st['tensors']} bit-equal)")
+    return info
+
+
+def pcba_atomics_check(torch, dev, batches):
+    """One graphed accumulated step (dropout on) against one call of the
+    eager body from the same weights and generator seed, outside
+    ``deterministic`` (the pooling's ``index_add_`` adds in the order its
+    atomics land): the loss and the outputs within ``TOL_SCAN_ATOMICS``;
+    beside it, two eager calls from those weights against each other."""
+    from phc_gnn_torch.train.state import _eager_accum_train_step
+
+    from phc_gnn_torch.train.trainer import build_loss
+
+    ((_, _, graphed), (e_model, e_opt, eager)), cfg = pcba_accum_pair(
+        torch, dev, True)
+    x_model, x_opt = copy.deepcopy((e_model, e_opt))
+    control = _eager_accum_train_step(
+        x_model, x_opt, build_loss(cfg), weight_decay=cfg.weightdecay,
+        loss_name=cfg.loss, seed=0, device=dev)
+    loss, outs = graphed(batches, cfg.lr)
+    e_loss, e_outs = eager(batches, cfg.lr)
+    x_loss, x_outs = control(batches, cfg.lr)
+    torch.cuda.synchronize()
+    info = {"loss_err": normwise(loss.cpu(), e_loss.cpu())[1],
+            "out_err": normwise(outs.cpu(), e_outs.cpu())[1],
+            "eager_vs_eager_loss_err": normwise(x_loss.cpu(),
+                                                e_loss.cpu())[1],
+            "eager_vs_eager_out_err": normwise(x_outs.cpu(),
+                                               e_outs.cpu())[1]}
+    print(f"pcba graph, no deterministic algorithms, dropout on: two eager "
+          f"calls part by {info['eager_vs_eager_loss_err']:.3e} in the loss "
+          f"and {info['eager_vs_eager_out_err']:.3e} normwise in the outputs "
+          f"(the pooling's atomics)", flush=True)
+    hold_scan("pcba graph", info["loss_err"], TOL_SCAN_ATOMICS,
+              "one non-deterministic graphed step's loss, relative")
+    hold_scan("pcba graph", info["out_err"], TOL_SCAN_ATOMICS,
+              "one non-deterministic graphed step's outputs normwise")
+    return info
+
+
+def kernels_by_grid(torch, fn, iters: int) -> dict:
+    """CUDA kernels of ``iters`` calls of ``fn`` by (name, grid's x), read
+    from the profiler's trace (its kernel events carry the launch's
+    grid)."""
+    import os
+    import tempfile
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    counts: dict = {}
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        grid = ev.get("args", {}).get("grid")
+        key = (ev.get("name", ""), grid[0] if grid else None)
+        counts[key] = counts.get(key, 0) + 1
+    if not counts:
+        fail("the profiler's trace holds no kernel event")
+    return counts
+
+
+def pcba_replay_kernels(torch, fn) -> dict:
+    """The port's kernels a replay of the pcba graph, counted by name in
+    the profiler's trace, F and G told from D and E (the same kernels) by
+    their grid: ``bn_plan`` at the convs' [4096, 512].  Held to
+    ``PCBA_LAUNCHES``; a count below it is profiled again (the profiler
+    can lose an event), one above it fails at once."""
+    from phc_gnn_torch.ops.fused_bn import bn_plan
+
+    rows, feats = PCBA["num_nodes"], PCBA_DIM
+    blocked = {"bn_forward": bn_plan(rows, feats, 1).grid,
+               "bn_backward": bn_plan(rows, feats, 2).grid}
+    want = dict(PCBA_LAUNCHES)
+    for _ in range(3):
+        counts = kernels_by_grid(torch, fn, PCBA_REPLAYS)
+        got = {k: 0.0 for k in want}
+        for (name, grid), n in counts.items():
+            for wrapper, sub in KERNEL_NAMES.items():
+                if sub not in name:
+                    continue
+                if wrapper in blocked and grid == blocked[wrapper]:
+                    wrapper += "_blocked"
+                got[wrapper] = got.get(wrapper, 0.0) + n / PCBA_REPLAYS
+        over = {k: v for k, v in got.items() if v > want.get(k, 0)}
+        if over:
+            fail(f"pcba graph: a replay ran {over}, more than {want}")
+        if got == want:
+            break
+        print(f"pcba graph: a replay read {got}, below {want}: an event "
+              f"lost; profiled again", flush=True)
+    else:
+        fail(f"pcba graph: a replay ran {got}, not {want}")
+    print(f"pcba graph: the port's kernels a replay, by name and grid (F and "
+          f"G on grids of {blocked['bn_forward']} and "
+          f"{blocked['bn_backward']} CTAs): {got}", flush=True)
+    return got
+
+
+def pcba_graph_phase(torch, dev):
+    """``make_accum_train_step`` as one CUDA graph (module docstring, phase
+    7); returns the wrappers' counts of its first call (the warm-ups and
+    the capture; a replay is counted by name in the profile) and the
+    readings."""
+    from phc_gnn_torch.train.state import WARMUP_CALLS
+
+    host = [pcba_batch(torch, s, PCBA) for s in range(PCBA_K)]
+    batches = [b.to(dev) for b in host]
+    ((_, _, graphed), (_, _, eager)), cfg = pcba_accum_pair(torch, dev, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager(batches, cfg.lr)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, outs = graphed(batches, cfg.lr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    graph_peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: PCBA_LAUNCHES.get(k, 0) * (WARMUP_CALLS + 1)
+            for k in launches}
+    print(f"pcba graph: the first call of make_accum_train_step ({WARMUP_CALLS}"
+          f" eager warm-ups, the capture, one replay) ran under "
+          f"set_sync_debug_mode('error'); the wrappers' counters over it "
+          f"{launches} (expected {want}); loss {float(loss):.5f}", flush=True)
+    if launches != want:
+        fail(f"the pcba graph's first call launched {launches}, not {want}")
+    if outs.shape != (PCBA_K, PCBA["batch_size"] + 1, PCBA_TASKS):
+        fail(f"pcba graph: outputs of shape {tuple(outs.shape)}")
+    if not (bool(torch.isfinite(loss)) and bool(torch.isfinite(outs).all())):
+        fail("pcba graph: non-finite loss or outputs")
+
+    def call():
+        return graphed(batches, cfg.lr)
+
+    info = {"replay_kernels": pcba_replay_kernels(torch, call)}
+    # the eager body's time and profile are pcba_train_phase's
+    step_ms, host_ms = time_steps(torch, call)
+    prof = device_profile(torch, call, step_ms, iters=20)
+    real_edges = sum(b.count_edges() for b in host)
+    info.update(
+        step_ms=step_ms, step_host_ms=host_ms,
+        real_edges_per_step=real_edges,
+        real_edges_per_s=real_edges / (step_ms / 1e3),
+        kernels_per_step=prof["kernels_per_call"],
+        device_busy_ms_per_step=prof["busy_ms"],
+        device_idle_share=prof["idle_share"],
+        top_kernels_us_per_step=prof["top_us"],
+        peak_mem_bytes={"graph_first_call": graph_peak,
+                        "eager_step": eager_peak},
+        reserved_bytes=torch.cuda.memory_reserved(dev))
+    print(f"pcba graph: {step_ms:.3f} ms per accumulated step of {PCBA_K} x "
+          f"128 graphs from one CUDA graph (CUDA events, median of 30 after "
+          f"5; host clock {host_ms:.3f} ms), {info['real_edges_per_s']:.4g} "
+          f"real edges/s; {prof['kernels_per_call']:g} kernels per step, "
+          f"device busy {prof['busy_ms']:.3f} ms (idle "
+          f"{100 * prof['idle_share']:.1f} %); peak device memory "
+          f"(max_memory_allocated) {graph_peak / 2**30:.3f} GiB over the "
+          f"first call (warm-ups, capture, replay), "
+          f"{eager_peak / 2**30:.3f} GiB over one eager step", flush=True)
+
+    info["deterministic"] = pcba_graph_check(
+        torch, dev, "dropout off", batches, False,
+        (LR,) * PCBA_GRAPH_STEPS + (LR / 2,))
+    info["dropout"] = pcba_graph_check(
+        torch, dev, "dropout on", batches, True, (LR,) * PCBA_GRAPH_STEPS)
+    masked = [batches[0], pcba_dummy(torch, 1).to(dev)] + batches[2:]
+    info["masked_sub_batch"] = pcba_graph_check(
+        torch, dev, "a fully masked sub-batch, dropout on", masked, True,
+        (LR,) * 2)
+    info["atomics"] = pcba_atomics_check(torch, dev, batches)
     return launches, info
 
 
@@ -3093,27 +3381,39 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s for {names} "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel)", flush=True)
 
-    records = kernel_phase(torch, dev)
-    paths = {"eval": slice_phase(torch, dev), "train": train_phase(torch, dev)}
-    paths["pcba_eval"], pcba = pcba_eval_phase(torch, dev)
-    paths["pcba_train"], pcba_train = pcba_train_phase(torch, dev)
+    seconds = {}
+
+    def timed(name, phase, *args, **kwargs):
+        t = time.perf_counter()
+        out = phase(torch, dev, *args, **kwargs)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    records = timed("kernels", kernel_phase)
+    paths = {"eval": timed("eval", slice_phase),
+             "train": timed("train", train_phase)}
+    paths["pcba_eval"], pcba = timed("pcba_eval", pcba_eval_phase)
+    paths["pcba_train"], pcba_train = timed("pcba_train", pcba_train_phase)
     pcba.update(pcba_train)
+    paths["pcba_graph"], pcba["graph"] = timed("pcba_graph", pcba_graph_phase)
     print(json.dumps({"pcba": pcba}), flush=True)
-    paths["quat_eval"], quat = quat_eval_phase(torch, dev)
-    paths["quat_train"], quat_train = quat_train_phase(torch, dev)
-    paths["quat_concat_eval"], concat = quat_concat_phase(torch, dev)
-    paths["quat_eval_grad"], quat["eval_grad"] = quat_eval_grad_phase(torch,
-                                                                      dev)
-    paths["quat_eval_attr"], quat["eval_attr"] = quat_eval_grad_phase(
-        torch, dev, attribution=True)
+    paths["quat_eval"], quat = timed("quat_eval", quat_eval_phase)
+    paths["quat_train"], quat_train = timed("quat_train", quat_train_phase)
+    paths["quat_concat_eval"], concat = timed("quat_concat",
+                                              quat_concat_phase)
+    paths["quat_eval_grad"], quat["eval_grad"] = timed(
+        "quat_eval_grad", quat_eval_grad_phase)
+    paths["quat_eval_attr"], quat["eval_attr"] = timed(
+        "quat_eval_attr", quat_eval_grad_phase, attribution=True)
     quat.update(quat_train)
     quat["concat"] = concat
     print(json.dumps({"quat": quat}), flush=True)
-    paths["pna_eval"], pna = pna_eval_phase(torch, dev)
-    paths["pna_train"], pna_train = pna_train_phase(torch, dev)
+    paths["pna_eval"], pna = timed("pna_eval", pna_eval_phase)
+    paths["pna_train"], pna_train = timed("pna_train", pna_train_phase)
     pna.update(pna_train)
     print(json.dumps({"pna": pna}), flush=True)
-    paths["scan_train"] = scan_phase(torch, dev)
+    paths["scan_train"] = timed("scan", scan_phase)
+    print(json.dumps({"phase_seconds": seconds}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

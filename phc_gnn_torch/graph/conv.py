@@ -134,14 +134,15 @@ def _check_fixed_aggr(aggr: str) -> None:
                          f"{sorted(AGGREGATORS)}, softmax or pna")
 
 
-def _linear_out(transform, aggr, x, add_self_loops: bool, same_dim: bool):
+def _linear_out(transform, aggr, x, add_self_loops: bool, same_dim: bool,
+                phm_rule=None):
     """``transform(aggr) + x`` with ``same_dim``, else ``transform(aggr +
     x)``; without self loops ``transform(aggr)`` (conv.py:144-151)."""
     if not add_self_loops:
-        return transform(aggr)
+        return transform(aggr, phm_rule)
     if same_dim:
-        return transform(aggr) + x
-    return transform(aggr + x)
+        return transform(aggr, phm_rule) + x
+    return transform(aggr + x, phm_rule)
 
 
 class PHMConv(nn.Module):
@@ -154,7 +155,8 @@ class PHMConv(nn.Module):
                  add_self_loops: bool = True, w_init: str = "phm",
                  c_init: str = "standard", aggr: str = "sum",
                  same_dim: bool = True, msg_encoder: str = "identity",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         _check_fixed_aggr(aggr)
         self.add_self_loops = add_self_loops
@@ -162,17 +164,18 @@ class PHMConv(nn.Module):
         self.aggr = aggr
         self.msg_encoder = msg_encoder
         self.transform = PHMLinear(in_features, out_features, phm_dim, bias,
-                                   w_init, c_init, learn_phm, generator)
+                                   w_init, c_init, learn_phm, generator,
+                                   shared_rule)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None):
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
                          snd_rowptr)
         aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
                            rowptr)
         return _linear_out(self.transform, aggr, x, self.add_self_loops,
-                           self.same_dim)
+                           self.same_dim, phm_rule)
 
 
 class PHMGINEConv(nn.Module):
@@ -185,7 +188,8 @@ class PHMGINEConv(nn.Module):
                  activation: str = "relu", w_init: str = "phm",
                  c_init: str = "standard", aggr: str = "sum",
                  msg_encoder: str = "identity",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         _check_fixed_aggr(aggr)
         self.add_self_loops = add_self_loops
@@ -193,18 +197,20 @@ class PHMGINEConv(nn.Module):
         self.msg_encoder = msg_encoder
         self.transform = PHMMLP(in_features, out_features, phm_dim, bias,
                                 learn_phm, activation, norm, w_init, c_init,
-                                factor=1.0, generator=generator)
+                                factor=1.0, generator=generator,
+                                shared_rule=shared_rule)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None):
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
                          snd_rowptr)
         aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
                            rowptr)
         if self.add_self_loops:
             aggr = aggr + x
-        return self.transform(aggr, training=training, mask=node_mask)
+        return self.transform(aggr, training=training, mask=node_mask,
+                              phm_rule=phm_rule)
 
 
 class PHMConvSoftmax(nn.Module):
@@ -218,7 +224,8 @@ class PHMConvSoftmax(nn.Module):
                  c_init: str = "standard", same_dim: bool = True,
                  msg_encoder: str = "identity", initial_beta: float = 1.0,
                  learn_beta: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         self.add_self_loops = add_self_loops
         self.same_dim = same_dim
@@ -226,17 +233,18 @@ class PHMConvSoftmax(nn.Module):
         self.beta = nn.Parameter(torch.tensor(float(initial_beta)),
                                  requires_grad=learn_beta)
         self.transform = PHMLinear(in_features, out_features, phm_dim, bias,
-                                   w_init, c_init, learn_phm, generator)
+                                   w_init, c_init, learn_phm, generator,
+                                   shared_rule)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None):
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
                          snd_rowptr)
         aggr = _softmax_aggr(msgs, receivers, x.shape[0], self.beta,
                              edge_mask, rowptr)
         return _linear_out(self.transform, aggr, x, self.add_self_loops,
-                           self.same_dim)
+                           self.same_dim, phm_rule)
 
 
 class PHMGINEConvSoftmax(nn.Module):
@@ -249,7 +257,8 @@ class PHMGINEConvSoftmax(nn.Module):
                  activation: str = "relu", w_init: str = "phm",
                  c_init: str = "standard", msg_encoder: str = "identity",
                  initial_beta: float = 1.0, learn_beta: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         self.add_self_loops = add_self_loops
         self.msg_encoder = msg_encoder
@@ -257,18 +266,20 @@ class PHMGINEConvSoftmax(nn.Module):
                                  requires_grad=learn_beta)
         self.transform = PHMMLP(in_features, out_features, phm_dim, bias,
                                 learn_phm, activation, norm, w_init, c_init,
-                                factor=1.0, generator=generator)
+                                factor=1.0, generator=generator,
+                                shared_rule=shared_rule)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None):
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
                          snd_rowptr)
         aggr = _softmax_aggr(msgs, receivers, x.shape[0], self.beta,
                              edge_mask, rowptr)
         if self.add_self_loops:
             aggr = aggr + x
-        return self.transform(aggr, training=training, mask=node_mask)
+        return self.transform(aggr, training=training, mask=node_mask,
+                              phm_rule=phm_rule)
 
 
 class PHMPNAConvSimple(nn.Module):
@@ -289,7 +300,8 @@ class PHMPNAConvSimple(nn.Module):
                  scalers: Sequence[str] = ("identity", "amplification",
                                            "attenuation"),
                  post_layers: int = 1, msg_encoder: str = "relu",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         if avg_deg is None:
             raise ValueError("the PNA conv needs avg_deg, the dataset's "
@@ -312,18 +324,18 @@ class PHMPNAConvSimple(nn.Module):
         self.act = get_activation(activation)
         in_dim = len(self.aggregators) * len(self.scalers) * in_features
         self.post_0 = PHMLinear(in_dim, out_features, phm_dim, bias, w_init,
-                                c_init, learn_phm, generator)
+                                c_init, learn_phm, generator, shared_rule)
         for i in range(1, post_layers):
             if self.has_norm:
                 self.add_module(f"post_norm_{i}", PHMNorm(
                     out_features, phm_dim, "naive-batch-norm"))
             self.add_module(f"post_{i}", PHMLinear(
                 out_features, out_features, phm_dim, bias, w_init, c_init,
-                learn_phm, generator))
+                learn_phm, generator, shared_rule))
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None):
         num_nodes = x.shape[0]
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
                          snd_rowptr)
@@ -333,12 +345,12 @@ class PHMPNAConvSimple(nn.Module):
                        for a in self.aggregators], self.phm_dim)
         out = phm_cat([SCALERS[s](out, deg, self.avg_deg)
                        for s in self.scalers], self.phm_dim)
-        out = self.post_0(out)
+        out = self.post_0(out, phm_rule)
         for i in range(1, self.post_layers):
             if self.has_norm:
                 out = getattr(self, f"post_norm_{i}")(out, training=training,
                                                       mask=node_mask)
-            out = getattr(self, f"post_{i}")(self.act(out))
+            out = getattr(self, f"post_{i}")(self.act(out), phm_rule)
         return out
 
 
@@ -350,7 +362,8 @@ class PHMMessagePassing(nn.Module):
     ``PHMPNAConvSimple`` from ``avg_deg``, ``aggregators``, ``scalers`` and
     ``post_layers`` with the message encoder "relu", whatever
     ``msg_encoder``, ``mlp``, ``add_self_loops`` and ``same_dim`` say, as
-    flax's does."""
+    flax's does.  With ``shared_rule`` the conv's PHM layers own no rule and
+    ``forward`` takes the network's as ``phm_rule``."""
 
     def __init__(self, in_features: int, out_features: int, phm_dim: int,
                  learn_phm: bool = True, bias: bool = True,
@@ -364,39 +377,40 @@ class PHMMessagePassing(nn.Module):
                  aggregators: Sequence[str] = ("mean", "min", "max", "std"),
                  scalers: Sequence[str] = ("identity", "amplification",
                                            "attenuation"),
-                 post_layers: int = 1):
+                 post_layers: int = 1, shared_rule: bool = False):
         super().__init__()
         aggr = "sum" if aggr == "add" else aggr
         if aggr == "pna":
             self.conv = PHMPNAConvSimple(
                 in_features, out_features, phm_dim, avg_deg, learn_phm, bias,
                 activation, norm, w_init, c_init, aggregators, scalers,
-                post_layers, msg_encoder="relu", generator=generator)
+                post_layers, msg_encoder="relu", generator=generator,
+                shared_rule=shared_rule)
         elif aggr == "softmax" and not mlp:
             self.conv = PHMConvSoftmax(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, w_init, c_init, same_dim, msg_encoder,
-                initial_beta, learn_beta, generator)
+                initial_beta, learn_beta, generator, shared_rule)
         elif aggr == "softmax":
             self.conv = PHMGINEConvSoftmax(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, norm, activation, w_init, c_init, msg_encoder,
-                initial_beta, learn_beta, generator)
+                initial_beta, learn_beta, generator, shared_rule)
         elif mlp:
             self.conv = PHMGINEConv(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, norm, activation, w_init, c_init, aggr,
-                msg_encoder, generator)
+                msg_encoder, generator, shared_rule)
         else:
             self.conv = PHMConv(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, w_init, c_init, aggr, same_dim, msg_encoder,
-                generator)
+                generator, shared_rule)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None):
         return self.conv(x, senders, receivers, edge_attr, edge_mask,
                          training=training, node_mask=node_mask,
                          rowptr=rowptr, snd_perm=snd_perm,
-                         snd_rowptr=snd_rowptr)
+                         snd_rowptr=snd_rowptr, phm_rule=phm_rule)

@@ -35,18 +35,21 @@ class PHMSoftAttentionPooling(nn.Module):
     def __init__(self, embed_dim: int, phm_dim: int, learn_phm: bool = True,
                  bias: bool = True, w_init: str = "phm",
                  c_init: str = "standard", real_trafo: str = "linear",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         self.embed_dim = embed_dim
         self.phm_dim = phm_dim
         self.linear = PHMLinear(embed_dim, embed_dim, phm_dim, bias, w_init,
-                                c_init, learn_phm, generator)
+                                c_init, learn_phm, generator, shared_rule)
         self.real_trafo = RealTransformer(real_trafo, embed_dim, phm_dim,
                                           bias=True, generator=generator)
 
-    def forward(self, x, graph_ids, num_graphs: int, node_mask=None):
+    def forward(self, x, graph_ids, num_graphs: int, node_mask=None,
+                phm_rule=None):
+        """``phm_rule``: the network's shared rule (``shared_rule``)."""
         n = self.phm_dim
-        gate = torch.sigmoid(self.real_trafo(self.linear(x)))
+        gate = torch.sigmoid(self.real_trafo(self.linear(x, phm_rule)))
         xs = x.reshape(x.shape[0], n, self.embed_dim // n)
         gated = (gate[:, None, :] * xs).reshape(x.shape[0], self.embed_dim)
         return seg.segment_sum(gated, graph_ids, num_graphs, node_mask)

@@ -1,4 +1,4 @@
-"""The PHM weight matrix and the PHM matrix product.
+"""Kronecker products, the PHM weight matrix and the PHM matrix product.
 
 ``y = x @ H + b`` with ``H = sum_i A[i] (x) W[i]``: ``H`` is built once per
 call as a small ``(in, out)`` matrix (``n * in * out`` multiply-adds, small
@@ -12,7 +12,28 @@ from typing import Optional
 
 import torch
 
-__all__ = ["phm_weight_matrix", "phm_matmul"]
+__all__ = ["kron", "batched_kron", "phm_weight_matrix", "phm_matmul"]
+
+
+def kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kronecker product of two 2-D matrices (kron.py:19-25; reference:
+    phc/hypercomplex/kronecker.py:4-32)."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"kron takes two matrices, got {a.ndim}-D and "
+                         f"{b.ndim}-D")
+    return torch.einsum("ab,cd->acbd", a, b).reshape(
+        a.shape[0] * b.shape[0], a.shape[1] * b.shape[1])
+
+
+def batched_kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched Kronecker product: a (g, m, n), b (g, p, q) -> (g, m*p, n*q)
+    (kron.py:28-35; reference: phc/hypercomplex/kronecker.py:35-48)."""
+    if a.ndim != 3 or b.ndim != 3:
+        raise ValueError(f"batched_kron takes two stacks of matrices, got "
+                         f"{a.ndim}-D and {b.ndim}-D")
+    g, m, n = a.shape
+    _, p, q = b.shape
+    return torch.einsum("gmn,gpq->gmpnq", a, b).reshape(g, m * p, n * q)
 
 
 def phm_weight_matrix(rule: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,12 @@ embed``.  Module names follow the flax tree (``atomencoder``,
 one.  ``msg_aggr="pna"`` takes ``avg_deg`` (the training split's degree
 statistics, ``data.datasets.avg_deg_from_histogram``) and the
 ``pna_aggregators``, ``pna_scalers`` and ``pna_post_layers`` of every conv.
+``unique_phm`` shares one contribution tensor, ``phm_rule_shared`` (n, n,
+n), across the network (phc_gnn.py:123-132): every PHM layer of the convs,
+the pooling and the head takes it as its rule and owns none; it is drawn
+U(-1, 1) for ``c_init="random"``, else it is the fixed rule, and without
+``learn_phm`` no gradient reaches it.  As in JAX, the rule regularization
+(``nn/regularization.py``, parameters named ``phm_rule``) does not count it.
 
 The model is initialised from ``seed`` on a CPU ``torch.Generator`` and then
 moved to ``device`` (default "cuda"; without CUDA it raises unless
@@ -41,6 +47,7 @@ from phc_gnn_torch.nn.downstream import PHMDownstreamNet
 from phc_gnn_torch.nn.dropout import phm_dropout
 from phc_gnn_torch.nn.encoder import NaivePHMEncoder, PHMEncoder
 from phc_gnn_torch.nn.norm import PHMNorm
+from phc_gnn_torch.nn.phm_linear import init_rule
 
 __all__ = ["PHCGNN"]
 
@@ -90,9 +97,6 @@ class PHCGNN(nn.Module):
             raise NotImplementedError(
                 "compute_dtype and remat are not ported yet "
                 "(ROADMAP.md, section 1, item 11)")
-        if unique_phm:
-            raise NotImplementedError(
-                "unique_phm is not ported yet (ROADMAP.md, section 1, item 10)")
         if sc_type not in ("first", "last"):
             raise ValueError(f"sc_type must be 'first' or 'last', got {sc_type!r}")
         if pooling not in ("globalsum", "softattention"):
@@ -113,6 +117,12 @@ class PHCGNN(nn.Module):
         self.num_layers = len(mp_layers)
         self.act = get_activation(activation)
         embed = atom_encoded_dim
+        self.learn_phm = learn_phm
+        # one rule for the whole network (phc_gnn.py:123-132); the layers
+        # then own none
+        self.phm_rule_shared = (nn.Parameter(init_rule(gen, c_init, n),
+                                             requires_grad=learn_phm)
+                                if unique_phm else None)
 
         encoder = NaivePHMEncoder if naive_encoder else PHMEncoder
         self.atomencoder = encoder(embed // n, atom_input_dims, n,
@@ -130,7 +140,8 @@ class PHCGNN(nn.Module):
                 same_dim=not self.concat, msg_encoder=msg_encoder,
                 initial_beta=initial_beta, learn_beta=learn_beta,
                 generator=gen, avg_deg=avg_deg, aggregators=pna_aggregators,
-                scalers=pna_scalers, post_layers=pna_post_layers))
+                scalers=pna_scalers, post_layers=pna_post_layers,
+                shared_rule=unique_phm))
             if norm_mp not in (None, "None"):
                 self.add_module(f"norm_{i}", PHMNorm(d, n, norm_mp))
         self.has_norm = norm_mp not in (None, "None")
@@ -141,17 +152,21 @@ class PHCGNN(nn.Module):
         else:
             self.pooling = PHMSoftAttentionPooling(
                 final_dim, n, learn_phm, bias, w_init, c_init, real_trafo,
-                generator=gen)
+                generator=gen, shared_rule=unique_phm)
         self.downstream = PHMDownstreamNet(
             final_dim, tuple(downstream_layers), target_dim, n, activation,
             bias, norm_dn, w_init, c_init, learn_phm, real_trafo,
-            dropout=dropout_dn, same_dropout=same_dropout, generator=gen)
+            dropout=dropout_dn, same_dropout=same_dropout, generator=gen,
+            shared_rule=unique_phm)
         self.to(dev)
 
     def forward(self, graphs: GraphsTuple, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[G, target_dim] predictions; in training, ``generator`` draws the
         dropout masks and the batch-norm running stats are updated."""
+        rule = self.phm_rule_shared
+        if rule is not None and not self.learn_phm:
+            rule = rule.detach()
         atom = self.atomencoder(graphs.nodes)
         atom = atom.reshape(atom.shape[0], -1)  # flat [N, n*d]
         x = atom
@@ -164,7 +179,8 @@ class PHCGNN(nn.Module):
                 x, graphs.senders, graphs.receivers, edge_emb,
                 graphs.edge_mask, training=training,
                 node_mask=graphs.node_mask, rowptr=graphs.rowptr,
-                snd_perm=graphs.snd_perm, snd_rowptr=graphs.snd_rowptr)
+                snd_perm=graphs.snd_perm, snd_rowptr=graphs.snd_rowptr,
+                phm_rule=rule)
             if self.has_norm:
                 h = getattr(self, f"norm_{i}")(h, training=training,
                                                mask=graphs.node_mask)
@@ -172,7 +188,12 @@ class PHCGNN(nn.Module):
                             generator, training=training,
                             same=self.same_dropout)
             x = torch.cat([h, skip], dim=-1) if self.concat else h + skip
-        pooled = self.pooling(x, graphs.graph_ids, graphs.num_graphs,
-                              graphs.node_mask)
+        if isinstance(self.pooling, PHMGlobalSumPooling):
+            pooled = self.pooling(x, graphs.graph_ids, graphs.num_graphs,
+                                  graphs.node_mask)
+        else:
+            pooled = self.pooling(x, graphs.graph_ids, graphs.num_graphs,
+                                  graphs.node_mask, phm_rule=rule)
         return self.downstream(pooled, training=training,
-                               mask=graphs.graph_mask, generator=generator)
+                               mask=graphs.graph_mask, generator=generator,
+                               phm_rule=rule)

@@ -32,7 +32,8 @@ class PHMDownstreamNet(nn.Module):
                  learn_phm: bool = True, real_trafo: str = "linear",
                  dropout: Union[float, Sequence[float]] = 0.1,
                  same_dropout: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         n = phm_dim
         self.dropout = ([float(dropout)] * len(hidden_layers)
@@ -49,7 +50,7 @@ class PHMDownstreamNet(nn.Module):
         for i in range(self.num_layers):
             self.add_module(f"affine_{i}", PHMLinear(
                 sizes[i], sizes[i + 1], n, bias, w_init, c_init, learn_phm,
-                generator))
+                generator, shared_rule))
             if i < self.num_layers - 1 and self.has_norm:
                 self.add_module(f"norm_{i}", PHMNorm(sizes[i + 1], n, norm))
         self.real_trafo = RealTransformer(real_trafo, n * out_features, n,
@@ -57,10 +58,12 @@ class PHMDownstreamNet(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``generator`` draws the dropout masks in training."""
+                generator: Optional[torch.Generator] = None,
+                phm_rule: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training; ``phm_rule``
+        is the network's shared rule (``shared_rule``)."""
         for i in range(self.num_layers):
-            x = getattr(self, f"affine_{i}")(x)
+            x = getattr(self, f"affine_{i}")(x, phm_rule)
             if i < self.num_layers - 1:  # hidden layers only
                 if self.has_norm:
                     x = getattr(self, f"norm_{i}")(x, training=training,

@@ -9,8 +9,9 @@ and layouts:
                                  for the rest (phm_linear.py:65-74).
 
 Every module takes the ``torch.Generator`` its parameters are drawn from.
-A rule shared across the network (``unique_phm``) is not ported yet
-(ROADMAP.md, section 1, item 10).
+A rule shared across the network (``unique_phm``) is passed as the
+``phm_rule`` argument of ``forward``; a layer built with ``shared_rule=True``
+owns no rule of its own (phm_linear.py:86-104).
 """
 
 from __future__ import annotations
@@ -64,21 +65,34 @@ class PHMLinear(nn.Module):
     def __init__(self, in_features: int, out_features: int, phm_dim: int,
                  bias: bool = True, w_init: str = "phm",
                  c_init: str = "standard", learn_phm: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         n = phm_dim
         if in_features % n or out_features % n:
             raise ValueError(f"PHMLinear({in_features}, {out_features}) needs "
                              f"sizes divisible by phm_dim={n}")
         gen = generator if generator is not None else torch.Generator()
+        self.learn_phm = learn_phm
         self.W = nn.Parameter(init_w(gen, w_init,
                                      (n, in_features // n, out_features // n)))
-        self.phm_rule = nn.Parameter(init_rule(gen, c_init, n),
-                                     requires_grad=learn_phm)
+        self.phm_rule = (None if shared_rule else nn.Parameter(
+            init_rule(gen, c_init, n), requires_grad=learn_phm))
         self.b = nn.Parameter(phm_bias(n, out_features)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return phm_matmul(x, self.phm_rule, self.W, self.b)
+    def forward(self, x: torch.Tensor,
+                phm_rule: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``phm_rule`` is the network's shared rule, which a layer built
+        with ``shared_rule=True`` needs; without ``learn_phm`` no gradient
+        reaches it."""
+        if phm_rule is None:
+            if self.phm_rule is None:
+                raise ValueError("a PHMLinear built with shared_rule=True "
+                                 "needs the phm_rule argument")
+            phm_rule = self.phm_rule
+        elif not self.learn_phm:
+            phm_rule = phm_rule.detach()
+        return phm_matmul(x, phm_rule, self.W, self.b)
 
 
 class PHMMLP(nn.Module):
@@ -90,38 +104,43 @@ class PHMMLP(nn.Module):
                  activation: str = "relu", norm: Optional[str] = None,
                  w_init: str = "phm", c_init: str = "standard",
                  factor: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shared_rule: bool = False):
         super().__init__()
         hidden = int(factor * out_features)
         self.linear1 = PHMLinear(in_features, hidden, phm_dim, bias, w_init,
-                                 c_init, learn_phm, generator)
+                                 c_init, learn_phm, generator, shared_rule)
         self.norm = (PHMNorm(hidden, phm_dim, norm)
                      if norm not in (None, "None") else None)
         self.act = get_activation(activation)
         self.linear2 = PHMLinear(hidden, out_features, phm_dim, bias, w_init,
-                                 c_init, learn_phm, generator)
+                                 c_init, learn_phm, generator, shared_rule)
 
     def forward(self, x: torch.Tensor, training: bool = False,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.linear1(x)
+                mask: Optional[torch.Tensor] = None,
+                phm_rule: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.linear1(x, phm_rule)
         if self.norm is not None:
             x = self.norm(x, training=training, mask=mask)
-        return self.linear2(self.act(x))
+        return self.linear2(self.act(x), phm_rule)
 
 
 class RealTransformer(nn.Module):
-    """H^d -> R^(d/n) head, type 'linear': a dense layer ``affine`` on the
-    flat vector (reference: phc/hypercomplex/layers.py:372-420).  The 'sum',
-    'mean' and 'norm' types are not ported yet (ROADMAP.md, section 1, item
-    10)."""
+    """H^d -> R^(d/n) head: 'linear', a dense layer ``affine`` on the flat
+    vector; or 'sum', 'mean' or 'norm' (the 2-norm) over the component axis
+    of ``[..., n, d]``, which have no parameters (reference:
+    phc/hypercomplex/layers.py:372-420; phm_linear.py:152-177)."""
 
     def __init__(self, trafo_type: str, in_features: int, phm_dim: int,
                  bias: bool = True, generator: Optional[torch.Generator] = None):
         super().__init__()
+        if trafo_type not in ("linear", "sum", "mean", "norm"):
+            raise ValueError(f"unknown real_trafo {trafo_type!r}: linear, "
+                             f"sum, mean or norm")
+        self.trafo_type = trafo_type
+        self.phm_dim = phm_dim
         if trafo_type != "linear":
-            raise NotImplementedError(
-                f"real_trafo {trafo_type!r} is not ported yet (ROADMAP.md, "
-                f"section 1, item 10)")
+            return
         # xavier-uniform (gain 1) + zero bias (reference layers.py:393-397);
         # torch keeps the weight as (out, in), flax's kernel is (in, out)
         out = in_features // phm_dim
@@ -134,5 +153,15 @@ class RealTransformer(nn.Module):
                 self.affine.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.affine(x)
-
+        if self.trafo_type == "linear":
+            return self.affine(x)
+        n = self.phm_dim
+        xs = x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
+        if self.trafo_type == "sum":
+            return xs.sum(dim=-2)
+        if self.trafo_type == "mean":
+            return xs.mean(dim=-2)
+        # jnp.linalg.norm's formula, so that the gradient at 0 is JAX's
+        # too: NaN where a whole component vector is 0 (torch's
+        # vector_norm gives 0 there)
+        return torch.sqrt((xs * xs).sum(dim=-2))

@@ -8,11 +8,13 @@ model owns its parameters and running stats, and the optimizer owns its
 moments and its learning-rate tensor, so a step takes the batches (and the
 learning rate) alone.
 
-JAX runs the S steps of a scan in one jitted program.  On the card the port
-captures one step in a CUDA graph over static batch buffers and replays it
-S times (``_GraphedStep``), so a step costs one graph launch and a few
-copies of host work instead of ~1,000 kernel launches.  On the CPU (asked
-for with ``device="cpu"``) the same steps run eagerly in a loop.
+JAX runs the S steps of a scan, and the K sub-batches of an accumulated
+step, in one jitted program.  On the card the port captures one step (or
+one accumulated step of K sub-batches) in a CUDA graph over static batch
+buffers and replays it (``_GraphedStep``), so a step costs one graph launch
+and a few copies of host work instead of ~1,000 kernel launches (~3,000 for
+pcba's K = 4).  On the CPU (asked for with ``device="cpu"``) the same steps
+run eagerly.
 """
 
 from __future__ import annotations
@@ -137,12 +139,13 @@ def make_accum_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
                           weight_decay: float = 0.0, weight_decay2: float = 0.0,
                           reg_p: int = 2, loss_name: str = "l1", seed: int = 0,
                           device: Union[str, torch.device] = "cuda"
-                          ) -> Callable[[Sequence[GraphsTuple], float],
-                                        Tuple[torch.Tensor, torch.Tensor]]:
+                          ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """Gradient accumulation: ``step(batches, lr)`` takes ONE optimizer step
-    from the exact load-weighted mean gradient of K same-shape sub-batches
-    (phc_gnn_tpu/train/state.py:116-170) and returns ``(loss, outs [K, G,
-    T])`` as device tensors, with no host sync.
+    from the exact load-weighted mean gradient of K sub-batches of one
+    bucket shape (a sequence, or a stack from ``graph.stack_batches``;
+    phc_gnn_tpu/train/state.py:116-170) and returns ``(loss, outs [K, G,
+    T])`` as device tensors, with no host sync.  Sub-batches of two bucket
+    shapes raise a ``ValueError``.
 
     Each sub-batch k runs the training forward and backward from the SAME
     parameters and the SAME running stats; with ``w_k = loss_weight(batch,
@@ -150,28 +153,81 @@ def make_accum_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
     the loss is weighted the same way, so a fully masked sub-batch weighs 0.
     The clip and the Adam update act on that mean.  The running stats become
     ``sum n_k stats_k / max(sum n_k, 1e-9)``, ``n_k`` the sub-batch's real
-    nodes (state.py:144-163): the norms update their buffers in place, so
-    the step keeps the stats it started from, restores them before each
-    sub-batch and writes the weighted mean at the end.  Arguments as
-    ``make_train_step``; the batches need their CSR plans on a CUDA
-    device."""
+    nodes (state.py:144-163).  Arguments as ``make_train_step``; the dropout
+    masks are drawn sub-batch after sub-batch from one generator seeded with
+    ``seed``; the batches need their CSR plans on a CUDA device.
+
+    JAX runs the step as one jitted program.  On CUDA the first call for a
+    (K, bucket shape) captures the whole step (the K forwards and backwards,
+    the weighted sums, the clip and the Adam step) in one CUDA graph over K
+    sets of static batch buffers (``_GraphedStep``); the model, the
+    optimizer and the generator come out of the capture as they went in.
+    Each call then copies the K sub-batches into the buffers and replays the
+    graph, and the optimizer's ``count`` advances by one on the host.  On
+    the CPU the step runs eagerly."""
+    dev, gen, body = _accum_body(model, optimizer, loss_fn, weight_decay,
+                                 weight_decay2, reg_p, loss_name, seed, device)
+    graphs: Dict[tuple, _GraphedStep] = {}
+
+    def step(batches, lr: Union[float, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        batches = _as_list(batches, "the accumulated step")
+        optimizer.set_lr(lr)
+        if dev.type != "cuda":
+            return body(*(b.to(dev) for b in batches))
+        key = (len(batches),) + batches[0].shape_key()
+        if key not in graphs:
+            graphs[key] = _capture_train(
+                body, [b.to(dev, non_blocking=True) for b in batches], dev,
+                model, optimizer, gen)
+        loss, outs = graphs[key].run([batches])
+        optimizer.count += 1
+        return loss[0], outs[0]
+
+    return step
+
+
+def _eager_accum_train_step(model: nn.Module, optimizer: Adam,
+                            loss_fn: LossFn, weight_decay: float = 0.0,
+                            weight_decay2: float = 0.0, reg_p: int = 2,
+                            loss_name: str = "l1", seed: int = 0,
+                            device: Union[str, torch.device] = "cuda"
+                            ) -> Callable[..., Tuple[torch.Tensor,
+                                                     torch.Tensor]]:
+    """``make_accum_train_step``'s step run eagerly on any device: the body
+    its CUDA graph captures, for the checks and the bench that hold the
+    graph to it."""
+    dev, _, body = _accum_body(model, optimizer, loss_fn, weight_decay,
+                               weight_decay2, reg_p, loss_name, seed, device)
+
+    def step(batches, lr: Union[float, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        batches = _as_list(batches, "the accumulated step")
+        optimizer.set_lr(lr)
+        return body(*(b.to(dev, non_blocking=True) for b in batches))
+
+    return step
+
+
+def _accum_body(model, optimizer, loss_fn, weight_decay, weight_decay2, reg_p,
+                loss_name, seed, device):
+    """``(dev, generator, body)``: ``body(*batches) -> (loss, outs)``, the
+    accumulated step on device batches at the optimizer's lr tensor.  The
+    norms update their buffers in place, so the body keeps the stats it
+    started from, restores them before each sub-batch and writes the
+    weighted mean at the end."""
     dev = _bind(model, optimizer, device)
     loss_and_grads = make_loss_and_grads(model, loss_fn, weight_decay,
                                          weight_decay2, reg_p)
     gen = torch.Generator(device=dev).manual_seed(seed)
     stats = [b for b in model.buffers() if b.is_floating_point()]
 
-    def step(batches: Sequence[GraphsTuple], lr: Union[float, torch.Tensor]
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if not batches:
-            raise ValueError("the accumulated step needs at least one batch")
-        optimizer.set_lr(lr)
+    def body(*batches: GraphsTuple) -> Tuple[torch.Tensor, torch.Tensor]:
         start = [s.clone() for s in stats]
         gsum = ssum = None
         lsum = wsum = bsum = torch.zeros((), dtype=torch.float32, device=dev)
         outs = []
         for batch in batches:
-            batch = batch.to(dev, non_blocking=True)
             for s, s0 in zip(stats, start):
                 s.copy_(s0)
             loss, out, grads = loss_and_grads(batch, optimizer.lr, gen)
@@ -195,7 +251,7 @@ def make_accum_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
         optimizer.step(gsum, optimizer.lr)
         return lsum / wsum, torch.stack(outs)
 
-    return step
+    return dev, gen, body
 
 
 def make_eval_step(model: nn.Module, device: Union[str, torch.device] = "cuda"
@@ -216,27 +272,30 @@ def make_eval_step(model: nn.Module, device: Union[str, torch.device] = "cuda"
     return step
 
 
-def _as_list(batches) -> List[GraphsTuple]:
+def _as_list(batches, what: str = "the scanned steps") -> List[GraphsTuple]:
     """A sequence of batches, or a stack of them (``stack_batches``), as a
-    non-empty list of one bucket shape (``GraphsTuple.shape_key``)."""
+    non-empty list of one bucket shape (``GraphsTuple.shape_key``); ``what``
+    names the caller in the errors."""
     out = (unstack_batches(batches) if isinstance(batches, GraphsTuple)
            else list(batches))
     if not out:
-        raise ValueError("the scanned steps need at least one batch")
+        raise ValueError(f"{what} need at least one batch")
     key = out[0].shape_key()
     for b in out[1:]:
         if b.shape_key() != key:
-            raise ValueError(f"a scanned chunk holds batches of two bucket "
-                             f"shapes: {b.shape_key()} and {key}")
+            raise ValueError(f"{what} take batches of one bucket shape, "
+                             f"not two shapes: {b.shape_key()} and {key}")
     return out
 
 
 class _GraphedStep:
-    """One step captured in a CUDA graph over static batch buffers, for one
-    bucket shape.  ``run(batches)`` copies each batch into the buffers,
-    replays the graph and copies the results into slot i of the outputs.
+    """One call of ``fn(*batches)`` captured in a CUDA graph over static
+    buffers for its batches (one for a scanned step or forward, K for the
+    accumulated step), for one bucket shape.  ``run(groups)`` copies each
+    group of batches into the buffers, replays the graph and copies the
+    results into slot i of the outputs.
 
-    Capture: the step runs ``WARMUP_CALLS`` times eagerly on a side stream
+    Capture: ``fn`` runs ``WARMUP_CALLS`` times eagerly on a side stream
     (the kernels' builds and the allocator settle), then once under
     capture; ``restore`` undoes what the eager calls changed.  The buffers
     are fresh allocations, 16-byte aligned, as the kernels' plans
@@ -246,16 +305,16 @@ class _GraphedStep:
     whole first call to ``torch.cuda.set_sync_debug_mode("error")``.  A
     failed capture raises; nothing runs the step eagerly in its place."""
 
-    def __init__(self, fn, batch: GraphsTuple, dev: torch.device,
+    def __init__(self, fn, batches: Sequence[GraphsTuple], dev: torch.device,
                  generator=None, restore=None):
-        self.static = batch.empty_like(dev).copy_(batch)
+        self.static = [b.empty_like(dev).copy_(b) for b in batches]
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
         try:
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_CALLS):
-                    fn(self.static)
+                    fn(*self.static)
                 self.graph = torch.cuda.CUDAGraph()
                 if generator is not None:
                     # each replay draws the next dropout masks of the
@@ -263,7 +322,7 @@ class _GraphedStep:
                     self.graph.register_generator_state(generator)
                 self.graph.capture_begin()
                 try:
-                    self.result = fn(self.static)
+                    self.result = fn(*self.static)
                 finally:
                     self.graph.capture_end()
         finally:
@@ -271,16 +330,37 @@ class _GraphedStep:
             if restore is not None:
                 restore()
 
-    def run(self, batches: List[GraphsTuple]):
-        """Replay the step on each batch; the results stacked, [S, ...]."""
-        outs = [torch.empty((len(batches),) + r.shape, dtype=r.dtype,
+    def run(self, groups: Sequence[Sequence[GraphsTuple]]):
+        """Replay the call on each group of batches; the results stacked,
+        [len(groups), ...]."""
+        outs = [torch.empty((len(groups),) + r.shape, dtype=r.dtype,
                             device=r.device) for r in self.result]
-        for i, batch in enumerate(batches):
-            self.static.copy_(batch)
+        for i, group in enumerate(groups):
+            for static, batch in zip(self.static, group):
+                static.copy_(batch)
             self.graph.replay()
             for out, r in zip(outs, self.result):
                 out[i].copy_(r)
         return outs
+
+
+def _capture_train(fn, batches: Sequence[GraphsTuple], dev: torch.device,
+                   model: nn.Module, optimizer: Adam,
+                   gen: torch.Generator) -> _GraphedStep:
+    """``_GraphedStep`` of a train step ``fn``, whose warm-ups and capture
+    train: the parameters, buffers and Adam state, the optimizer's
+    ``count`` and the generator come out of the capture as they went in."""
+    state = ([p.data for p in model.parameters()] + list(model.buffers())
+             + optimizer.state_tensors())
+    saved = [t.clone() for t in state]
+    count, rng = optimizer.count, gen.get_state()
+
+    def restore():
+        torch._foreach_copy_(state, saved)
+        optimizer.count = count
+        gen.set_state(rng)
+
+    return _GraphedStep(fn, batches, dev, gen, restore)
 
 
 def make_scan_train_steps(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
@@ -309,19 +389,6 @@ def make_scan_train_steps(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
                          weight_decay2, reg_p, gen)
     graphs: Dict[tuple, _GraphedStep] = {}
 
-    def capture(batch: GraphsTuple) -> _GraphedStep:
-        state = ([p.data for p in model.parameters()] + list(model.buffers())
-                 + optimizer.state_tensors())
-        saved = [t.clone() for t in state]
-        count, rng = optimizer.count, gen.get_state()
-
-        def restore():
-            torch._foreach_copy_(state, saved)
-            optimizer.count = count
-            gen.set_state(rng)
-
-        return _GraphedStep(one_step, batch, dev, gen, restore)
-
     def steps(batches, lr: Union[float, torch.Tensor]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         batches = _as_list(batches)
@@ -331,8 +398,10 @@ def make_scan_train_steps(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
             return torch.stack(losses), torch.stack(outs)
         key = batches[0].shape_key()
         if key not in graphs:
-            graphs[key] = capture(batches[0].to(dev, non_blocking=True))
-        losses, outs = graphs[key].run(batches)
+            graphs[key] = _capture_train(
+                one_step, [batches[0].to(dev, non_blocking=True)], dev, model,
+                optimizer, gen)
+        losses, outs = graphs[key].run([(b,) for b in batches])
         optimizer.count += len(batches)
         return losses, outs
 
@@ -363,7 +432,7 @@ def make_scan_eval_steps(model: nn.Module,
             key = batches[0].shape_key()
             if key not in graphs:
                 graphs[key] = _GraphedStep(
-                    forward, batches[0].to(dev, non_blocking=True), dev)
-            return graphs[key].run(batches)[0]
+                    forward, [batches[0].to(dev, non_blocking=True)], dev)
+            return graphs[key].run([(b,) for b in batches])[0]
 
     return steps

@@ -115,10 +115,16 @@ def test_training_and_later_slice_configs_raise():
                if p.requires_grad)
     for over in (dict(edge_axis="ep"),
                  dict(node_axis="dp"), dict(remat=True),
-                 dict(compute_dtype=torch.bfloat16),
-                 dict(unique_phm=True), dict(real_trafo="sum")):
+                 dict(compute_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError):
             PHCGNN(**_config(32, 2, **over), device="cpu")
+    # unique_phm and the real transformer's sum, mean and norm came with the
+    # twelfth slice (tests/test_torch_options.py holds them to JAX)
+    shared = PHCGNN(**_config(32, 2, unique_phm=True, real_trafo="norm"),
+                    device="cpu")
+    assert shared.phm_rule_shared.shape == (4, 4, 4)
+    assert not any(k.endswith(".phm_rule") for k, _ in
+                   shared.named_parameters())
     # the naive encoder came with the encoder slice
     # (tests/test_torch_encoder.py holds it to JAX)
     naive = PHCGNN(**_config(32, 2, naive_encoder=True), device="cpu")

@@ -84,15 +84,20 @@ def test_phm_mlp_with_eval_norm_matches():
 
 
 def test_real_transformer_linear_matches():
-    """flax Dense kernel (in, out) lands transposed in Linear.weight."""
+    """flax Dense kernel (in, out) lands transposed in Linear.weight; the
+    'sum', 'mean' and 'norm' types (no parameters) match flax's too."""
     jm = jlin.RealTransformer("linear", 32, N4)
     x = _x(6, 32, seed=3)
     v = jm.init(jax.random.key(3), jnp.asarray(x))
     tm = load_flax(RealTransformer("linear", 32, N4), v)
     assert_close(tm(torch.from_numpy(x)), np.asarray(jm.apply(v, jnp.asarray(x))), REL)
     for trafo in ("sum", "mean", "norm"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            RealTransformer(trafo, 32, N4)
+        jm = jlin.RealTransformer(trafo, 32, N4)
+        v = jm.init(jax.random.key(3), jnp.asarray(x))
+        tm = load_flax(RealTransformer(trafo, 32, N4), v)
+        got = tm(torch.from_numpy(x))
+        assert got.shape == (6, 8)
+        assert_close(got, np.asarray(jm.apply(v, jnp.asarray(x))), REL)
 
 
 def test_phm_encoder_matches_with_index_clip():

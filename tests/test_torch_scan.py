@@ -1,6 +1,7 @@
 """The port's scanned train and eval steps (``make_scan_train_steps``,
-``make_scan_eval_steps``), the batch buffers they need, ``iter_scan_chunks``
-and the bench entry point, on the CPU.
+``make_scan_eval_steps``), the batch buffers they need and
+``iter_scan_chunks``, on the CPU (the bench entry point's tests are in
+``tests/test_torch_bench.py``).
 
 On the CPU the scanned steps run eagerly (on the card they replay a CUDA
 graph, which ``chip_smoke.py`` holds to the eager steps).  They must equal
@@ -21,9 +22,6 @@ running means of the norms after them, which read those biases, by
 ``MEAN_SLACK`` more than ``REL_OUT``.
 """
 
-import subprocess
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +38,6 @@ from phc_gnn_tpu.train.state import TrainState
 from phc_gnn_tpu.train.state import make_scan_eval_steps as jax_scan_eval
 from phc_gnn_tpu.train.state import make_scan_train_steps as jax_scan_train
 from phc_gnn_tpu.train.trainer import iter_scan_chunks as jax_iter_scan_chunks
-from phc_gnn_torch import bench
 from phc_gnn_torch.convert import from_flax_variables
 from phc_gnn_torch.data import ZINC_ATOM_DIMS, ZINC_BOND_DIMS, synthetic_batch
 from phc_gnn_torch.graph import attach_csr_plan, stack_batches, unstack_batches
@@ -339,33 +336,3 @@ def test_iter_scan_chunks_groups_as_jax(chunk_size):
     want = ids(jax_iter_scan_chunks(ref, chunk_size), ref)
     assert ids(iter_scan_chunks(port, chunk_size), port) == want
     assert sum(want, []) == list(range(len(shapes)))
-
-
-def test_bench_runs_small_on_the_cpu():
-    """``phc_gnn_torch.bench.run`` at a tiny size on the CPU returns
-    bench.py's keys, and the graphed and eager step and eval ms."""
-    out = bench.run("cpu", dim=16, layers=2, head=(16, 8), batch_size=4,
-                    num_nodes=128, num_edges=256, k1=1, k2=3)
-    assert out["unit"] == "edges/s" and out["value"] > 0
-    detail = out["detail"]
-    for key in ("steps_per_s", "step_ms", "eval_ms", "eval_edges_per_s",
-                "real_edges_per_batch", "padded_nodes", "padded_edges",
-                "dispatch_overhead_ms", "roofline_ms", "roofline_fraction",
-                "eager_step_ms", "eager_eval_ms", "device", "power_limit_w"):
-        assert key in detail, key
-    assert detail["device"] == "cpu" and detail["power_limit_w"] is None
-    assert (detail["padded_nodes"], detail["padded_edges"]) == (128, 256)
-    assert 0 < detail["real_edges_per_batch"] <= 256
-    assert detail["roofline_ms"] > 0
-
-
-def test_bench_imports_no_jax():
-    """The bench module, and with it the port's training path, loads no
-    JAX."""
-    code = ("import sys, phc_gnn_torch.bench, phc_gnn_torch.train; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'phc_gnn_tpu'))]; "
-            "assert not bad, bad")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr

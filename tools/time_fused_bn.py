@@ -74,18 +74,22 @@ def blocked_route(fused_bn):
 
 def pcba_step(torch, dev) -> dict:
     """The pcba accumulated train step of the checkout's ``chip_smoke.py``,
-    timed and profiled as its pcba phase does."""
+    eager, timed and profiled as its pcba phase does (the step's eager body,
+    ``train.state._eager_accum_train_step``, where the checkout has it:
+    there ``make_accum_train_step`` replays a CUDA graph)."""
     import chip_smoke as cs
-    from phc_gnn_torch.train import make_accum_train_step, make_optimizer
+    from phc_gnn_torch.train import make_optimizer, state
+
+    make = getattr(state, "_eager_accum_train_step",
+                   state.make_accum_train_step)
 
     batches = [cs.pcba_batch(torch, s, cs.PCBA).to(dev)
                for s in range(cs.PCBA_K)]
     model, loss_fn, cfg = cs.pcba_model(torch, dev)
     opt = make_optimizer(dict(model.named_parameters()),
                          grad_clip=cfg.grad_clipping)
-    step = make_accum_train_step(model, opt, loss_fn,
-                                 weight_decay=cfg.weightdecay,
-                                 loss_name=cfg.loss, seed=0, device=dev)
+    step = make(model, opt, loss_fn, weight_decay=cfg.weightdecay,
+                loss_name=cfg.loss, seed=0, device=dev)
     step_ms, host_ms = cs.time_steps(torch, lambda: step(batches, cfg.lr))
     prof = cs.device_profile(torch, lambda: step(batches, cfg.lr), step_ms)
     return {"pcba_step_ms": step_ms, "pcba_step_host_ms": host_ms,

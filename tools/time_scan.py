@@ -12,8 +12,10 @@ weights, batch and training setup are ``chip_smoke.py``'s flagship (width
 with weight decay 0.1, clip 2.0, lr 1e-3), or with ``--model pcba`` its
 pcba model (``pcba_model``: width 512, 7 layers, 128 tasks, dropout on),
 its accumulated step over K = 4 batches of ``PCBA`` and its eval forward
-on the 512-graph ``PCBA_EVAL`` batch, both eager (pcba's step is not
-graphed).
+on the 512-graph ``PCBA_EVAL`` batch, both eager (the accumulated step's
+eager body, ``train.state._eager_accum_train_step``, where the checkout has
+it: there ``make_accum_train_step`` replays a CUDA graph of it, profiled
+beside as ``graph_step``).
 
 Per checkout, one JSON line: the eager train step's ms (CUDA events, median
 of 30 after 5), its CUDA kernels, device busy ms and idle share
@@ -23,7 +25,8 @@ the encoders' lookups and their backward (names holding ``embedding``,
 forward; and, where the checkout has ``make_scan_train_steps``, the graphed
 step over 8 batches and the graphed eval over 3 (ms a step from CUDA
 events, kernels and busy from the profile).  For pcba, the eager
-accumulated step and eval alone.  Exits non-zero without a CUDA device.
+accumulated step and eval, and the graphed accumulated step where the
+checkout has one.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -105,19 +108,26 @@ def flagship(torch, cs, train, dev) -> dict:
 
 
 def pcba(torch, cs, train, dev) -> dict:
-    """pcba's eager accumulated train step (K batches) and eval forward."""
+    """pcba's eager accumulated train step (K batches) and eval forward, and
+    the graphed step where the checkout has one."""
+    from phc_gnn_torch.train import state
+
     host = [cs.pcba_batch(torch, s, cs.PCBA) for s in range(cs.PCBA_K)]
     batches = [b.to(dev) for b in host]
-    model, loss_fn, cfg = cs.pcba_model(torch, dev)
-    opt = train.make_optimizer(dict(model.named_parameters()),
-                               grad_clip=cfg.grad_clipping)
-    step = train.make_accum_train_step(model, opt, loss_fn,
-                                       weight_decay=cfg.weightdecay,
-                                       loss_name=cfg.loss, seed=0, device=dev)
+    eager = getattr(state, "_eager_accum_train_step", None)
+    makers = {"eager_step": eager or train.make_accum_train_step}
+    if eager is not None:
+        makers["graph_step"] = train.make_accum_train_step
     line = {}
-    ms, _ = cs.time_steps(torch, lambda: step(batches, cfg.lr))
-    line["eager_step"] = profile(torch, cs, lambda: step(batches, cfg.lr),
-                                 ms, 10)
+    for name, make in makers.items():
+        model, loss_fn, cfg = cs.pcba_model(torch, dev)
+        opt = train.make_optimizer(dict(model.named_parameters()),
+                                   grad_clip=cfg.grad_clipping)
+        step = make(model, opt, loss_fn, weight_decay=cfg.weightdecay,
+                    loss_name=cfg.loss, seed=0, device=dev)
+        ms, _ = cs.time_steps(torch, lambda: step(batches, cfg.lr))
+        line[name] = profile(torch, cs, lambda: step(batches, cfg.lr), ms,
+                             10)
     served, _, _ = cs.pcba_model(torch, dev)
     cs.randomize_eval_state(torch, served)
     ev = train.make_eval_step(served, device=dev)

@@ -181,13 +181,39 @@ Phases, each of which exits non-zero on failure:
    device busy and idle share, the port's kernels a step counted by name in
    the profile (the counters do not see a replay), and no embedding
    backward or sort.
+15. harness: the port's training CLI in-process
+   (``cli.common.run_benchmark``: the loader with its native packer and CSR
+   plans, prefetch to the card, the Trainer, checkpoints).  The synthetic
+   recipe (``DATASET_DEFAULTS["synthetic"]``: the flagship's convs,
+   ``scan_chunk`` 16, 4,096 / 512 / 512 graphs, bucket 3,456 / 7,424) for
+   3 epochs: the wrappers' counters over the run hold 4 times a step's and
+   an eval batch's launches (each graph's 3 warm-ups and capture), epoch
+   2's train loop and the evaluation after it are profiled (per step A, B,
+   C 4, D, E 10; per eval batch A, B 4, C, D, E none; device busy and idle
+   share), the losses finite and falling; each epoch's steps/s, real
+   edges/s and host ms (packing, plans, the move to the card, the loop's
+   wait, the step's call).  Exact resume: 2 epochs then a resume for 1
+   against 3 straight, dropout on, torch's deterministic algorithms on,
+   every checkpointed tensor, the scheduler's JSON and every scalars row
+   (timings aside) bit-equal.  The molpcba recipe
+   (benchmarks/run_script_pcba_phm2.sh's flags, ``grad_accum`` 4) for 1
+   epoch on ``data.parity``'s pcba task (6,000 / 800 / 800 graphs, 8 tasks
+   with NaN holes): counters 4 times the accumulated step's (F, G, C's two
+   roles 28, D, E 8) and an eval batch's (one graph a (K, bucket)), the
+   epoch's profile per step, the last group (3 real sub-batches and a
+   dummy) held to the eager body over its real sub-batches within
+   TOL_GROUP, the graphed step timed.  The ZINC recipe
+   (run_script_zinc_phm4.sh's flags) for 3 epochs on the zinc parity task
+   under deterministic algorithms (C in both roles, no A or B; epoch 1
+   timed, epoch 2 profiled), then ``cli.inference`` restores run 1's best
+   export and reproduces ``test_bestval`` bit for bit.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
-``{"scan"}`` and ``{"kernels": [...]}`` lines, then, as its last line,
-``{"ok": true, "device": {...}}``.  In the kernels line, each kernel's
-``launches_by_path`` holds its count from each of the thirteen main-path
-runs above (``eval``: 3 flagship batches; ``train``: 10 flagship steps;
+``{"scan"}``, ``{"harness"}`` and ``{"kernels": [...]}`` lines, then, as
+its last line, ``{"ok": true, "device": {...}}``.  In the kernels line,
+each kernel's ``launches_by_path`` holds its count from each of the
+sixteen main-path runs above (``eval``: 3 flagship batches; ``train``: 10 flagship steps;
 ``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated steps of the eager
 body; ``pcba_graph``: the graphed accumulated step's first call, whose
 wrappers count the 3 warm-ups and the capture, not the replay;
@@ -195,7 +221,9 @@ wrappers count the 3 warm-ups and the capture, not the replay;
 batch; ``quat_eval_grad``: 1 batch; ``quat_eval_attr``: 1 batch;
 ``pna_eval``: 3 batches; ``pna_train``: 10 steps; ``scan_train``: the
 graphed flagship call, whose wrappers count the 3 warm-ups and the capture,
-not the replays), and ``launches`` is their sum.  Without
+not the replays; ``harness_synthetic``, ``harness_pcba``, ``harness_zinc``:
+the three CLI runs of the harness, whose wrappers count each graph's
+warm-ups and capture), and ``launches`` is their sum.  Without
 a CUDA device it exits non-zero and prints no result.  It imports nothing
 of JAX.
 """
@@ -205,6 +233,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3358,6 +3387,513 @@ def adam_bit_equal(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------- harness
+
+# benchmarks/run_script_pcba_phm2.sh's flags; 1 epoch on data.parity's
+# pcba task, whose labels have 8 tasks
+HARNESS_PCBA = ["--phm_dim", "2", "--type", "add", "--aggr_msg", "sum",
+                "--mlp_mp", "false", "--input_embed_dim", "512",
+                "--mp_units", ",".join(["512"] * PCBA_LAYERS),
+                "--d_units", "768,256",
+                "--dropout_mpnn", ",".join(["0.3"] * PCBA_LAYERS),
+                "--dropout_dn", "0.4,0.2", "--batch_size", "128",
+                "--grad_accum", str(PCBA_K), "--max_nodes", "4096",
+                "--max_edges", "8192", "--eval_batch_size", "512",
+                "--lr", "1e-3", "--patience", "5", "--factor", "0.75",
+                "--weightdecay", "0.0", "--target_dim", "8", "--epochs", "1"]
+# benchmarks/run_script_zinc_phm4.sh's flags on data.parity's zinc, 3 epochs:
+# epoch 1 timed as it runs, epoch 2 profiled (a profile slows the replays)
+HARNESS_ZINC = ["--phm_dim", "4", "--type", "add", "--sc_type", "last",
+                "--aggr_msg", "sum", "--mlp_mp", "true",
+                "--input_embed_dim", "200", "--mp_units", "200,200,200,200",
+                "--d_units", "128,64", "--dropout_mpnn", "0.0,0.0,0.0,0.0",
+                "--dropout_dn", "0.2,0.1", "--batch_size", "128",
+                "--lr", "1e-3", "--patience", "20", "--factor", "0.5",
+                "--min_lr", "1e-7", "--weightdecay", "0.0", "--epochs", "3"]
+HARNESS_EPOCHS = 3          # the synthetic recipe's epochs
+HARNESS_PROFILED = 2        # ... the epoch whose train loop is profiled
+HARNESS_BUCKET = (3456, 7424)  # its train bucket (JAX's compute_bucket_spec)
+SYNTH_STEP = dict(TRAIN_LAUNCHES)
+SYNTH_EVAL = {"segment_logit_max": 4, "segment_softmax_aggregate": 4}
+ZINC_STEP = {"segment_sum_masked": 4, "segment_sum_perm": 4,
+             "bn_forward": 10, "bn_backward": 10}
+ZINC_EVAL = {"segment_sum_masked": 4}
+PROFILE_LOST = 0.02         # a profile may lose a few kernel events (§7)
+TOL_GROUP = 1e-6            # the dummy-padded group's loss against the
+                            # eager body over its real sub-batches: the
+                            # pooling's atomics alone part them
+
+
+def capture_calls() -> int:
+    """Calls of a step the wrappers' counters see when a graph is made:
+    its eager warm-ups and its capture (a replay launches nothing the
+    counters see)."""
+    from phc_gnn_torch.train.state import WARMUP_CALLS
+
+    return WARMUP_CALLS + 1
+
+
+def add_counts(*parts) -> dict:
+    """The sum of several launch-count dicts, each times its factor:
+    ``add_counts((4, SYNTH_STEP), (4, SYNTH_EVAL))``."""
+    out = {name: 0 for name in kernel_wrappers()}
+    for factor, counts in parts:
+        for k, n in counts.items():
+            out[k] += factor * n
+    return out
+
+
+def hold_counters(phase, got, want):
+    print(f"{phase}: the wrappers' launches over the run (warm-ups and "
+          f"captures): {got}", flush=True)
+    if got != want:
+        fail(f"{phase}: the wrappers launched {got}, not {want}")
+
+
+def busy_union_ms(torch, prof) -> tuple:
+    """(device busy ms as the union of the device events' intervals, the
+    port's kernels counted by name, device events) of a finished
+    ``torch.profiler`` run: overlapping copies and kernels count once."""
+    spans, names = [], {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
+            spans.append((e.time_range.start, e.time_range.end))
+            names[e.name] = names.get(e.name, 0) + 1
+    if not spans:
+        fail("the profiler recorded no device activity")
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / 1e3, names, len(spans)
+
+
+@contextlib.contextmanager
+def profiled(torch):
+    """``torch.profiler`` over the block, the device's activity alone (no
+    host op is traced, so the loop and its loader thread run as they
+    would); the result dict gets ``wall_ms``, ``busy_ms`` (union),
+    ``idle_share``, ``events`` and the kernels by name ``counts`` when the
+    block ends."""
+    out = {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield out
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["busy_ms"], out["counts"], out["events"] = busy_union_ms(torch, prof)
+    out["idle_share"] = 1.0 - out["busy_ms"] / out["wall_ms"]
+
+
+def hold_profile(phase, counts, per_step, steps):
+    """The port's kernels in a profile (``kernel_families`` of its counts
+    over ``steps`` steps) against ``per_step``: zero where it says none,
+    else at most the count and at least 1 - PROFILE_LOST of it."""
+    got = kernel_families(counts, 1)
+    for name, n in got.items():
+        want = per_step.get(name, 0) * steps
+        if n > want or n < want * (1 - PROFILE_LOST):
+            fail(f"{phase}: the profile read {n:g} {name} kernels over "
+                 f"{steps} steps, not {want}")
+    per = {k: v / steps for k, v in got.items() if v}
+    print(f"{phase}: the port's kernels a step, by name in the profile: "
+          f"{per}", flush=True)
+    return per
+
+
+@contextlib.contextmanager
+def observe_trainer(torch, profile_epoch=None):
+    """Watch every ``Trainer`` built inside the block: each train epoch's
+    stats (host seconds, steps, real edges and ``Trainer.epoch_log``'s
+    host ms: packing, plans, the move to the card, the loop's wait, the
+    step's call), and with ``profile_epoch`` a profile of that epoch's
+    train loop and of the evaluation after it."""
+    from phc_gnn_torch.train.trainer import Trainer
+
+    rec = {"epochs": [], "train_profile": None, "eval_profile": None}
+    train_epoch, evaluate = Trainer._train_epoch, Trainer.evaluate
+    pending = []
+
+    def watched_train(self, epoch_seed, lr):
+        epoch = len(self.epoch_log)
+        if epoch != profile_epoch:
+            out = train_epoch(self, epoch_seed, lr)
+        else:
+            with profiled(torch) as prof:
+                out = train_epoch(self, epoch_seed, lr)
+            rec["train_profile"] = dict(prof, steps=out["steps"])
+            pending.append(True)
+        rec["epochs"].append({"epoch": epoch, **{
+            k: v for k, v in out.items() if k != "train_metric"}})
+        return out
+
+    def watched_eval(self, batches):
+        if not pending:
+            return evaluate(self, batches)
+        pending.clear()
+        batches = list(batches)
+        with profiled(torch) as prof:
+            out = evaluate(self, batches)
+        rec["eval_profile"] = dict(prof, batches=len(batches))
+        return out
+
+    Trainer._train_epoch, Trainer.evaluate = watched_train, watched_eval
+    try:
+        yield rec
+    finally:
+        Trainer._train_epoch, Trainer.evaluate = train_epoch, evaluate
+
+
+def scalars(save_dir, run=1) -> list:
+    import os
+
+    with open(os.path.join(save_dir, f"run_{run}", "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def harness_synthetic(torch, tmp):
+    """The synthetic recipe through the CLI: 3 epochs at the flagship's
+    convs; counters over the run, the profile of epoch 2's train loop and
+    of the evaluation after it, the losses."""
+    import os
+
+    from phc_gnn_torch.cli.common import run_benchmark
+
+    from phc_gnn_torch.cli.common import load_splits
+    from phc_gnn_torch.data import compute_bucket_spec
+
+    bucket = compute_bucket_spec(load_splits("synthetic", "")[0]["train"],
+                                 FLAGSHIP["batch_size"])
+    if (bucket.num_nodes, bucket.num_edges) != HARNESS_BUCKET:
+        fail(f"harness synthetic: the train bucket is {bucket}, not "
+             f"{HARNESS_BUCKET}")
+    save = os.path.join(tmp, "synthetic")
+    reset_launches()
+    with observe_trainer(torch, HARNESS_PROFILED) as rec:
+        run_benchmark("synthetic", ["--epochs", str(HARNESS_EPOCHS),
+                                    "--save_dir", save])
+    launches = read_launches()
+    hold_counters("harness synthetic", launches,
+                  add_counts((capture_calls(), SYNTH_STEP),
+                             (capture_calls(), SYNTH_EVAL)))
+    rows = scalars(save)
+    if len(rows) != HARNESS_EPOCHS:
+        fail(f"harness synthetic: {len(rows)} epochs, not {HARNESS_EPOCHS}")
+    for r in rows:
+        if not all(math.isfinite(r[k]) for k in ("train_loss", "valid_loss",
+                                                 "valid_metric")):
+            fail(f"harness synthetic: a loss is not finite: {r}")
+    if not rows[2]["train_loss"] < rows[0]["train_loss"]:
+        fail(f"harness synthetic: the train loss did not fall: "
+             f"{[r['train_loss'] for r in rows]}")
+    tp, ep = rec["train_profile"], rec["eval_profile"]
+    steps = tp["steps"]
+    per_step = hold_profile("harness synthetic train loop", tp["counts"],
+                            SYNTH_STEP, steps)
+    per_batch = hold_profile("harness synthetic eval", ep["counts"],
+                             SYNTH_EVAL, ep["batches"])
+    epochs = []
+    for r, e in zip(rows, rec["epochs"]):
+        epochs.append({"epoch": r["epoch"], "wall_s": r["wall_s"],
+                       "steps_per_s": r["steps_per_s"],
+                       "edges_per_s": r["edges_per_s"],
+                       "train_loop_s": e["seconds"], "steps": e["steps"],
+                       "real_edges": e["edges"],
+                       "ms_per_step": 1e3 * e["seconds"] / e["steps"],
+                       "loader_ms_per_batch": e["loader_ms"],
+                       "plan_ms_per_batch": e["plan_ms"],
+                       "move_ms_per_batch": e["move_ms"],
+                       "wait_ms_per_batch": e["wait_ms"],
+                       "step_host_ms": e["step_host_ms"],
+                       "train_loss": r["train_loss"],
+                       "valid_loss": r["valid_loss"]})
+        print(f"harness synthetic epoch {r['epoch']}"
+              f"{' (graph captures inside)' if r['epoch'] == 0 else ''}: "
+              f"{epochs[-1]}", flush=True)
+    out = {"epochs": epochs, "launches": launches,
+           "train_loop_profiled": {
+               "epoch": HARNESS_PROFILED, "steps": steps,
+               "wall_ms": tp["wall_ms"], "busy_ms": tp["busy_ms"],
+               "idle_share": tp["idle_share"],
+               "device_events_per_step": tp["events"] / steps,
+               "port_kernels_per_step": per_step},
+           "eval_profiled": {"batches": ep["batches"],
+                             "wall_ms": ep["wall_ms"],
+                             "busy_ms": ep["busy_ms"],
+                             "idle_share": ep["idle_share"],
+                             "port_kernels_per_batch": per_batch}}
+    print(f"harness synthetic: epoch {HARNESS_PROFILED}'s train loop "
+          f"{tp['wall_ms']:.3f} ms for {steps} steps, device busy "
+          f"{tp['busy_ms']:.3f} ms, idle {tp['idle_share']:.2%}", flush=True)
+    return launches, out
+
+
+def checkpoint_tensors(torch, path) -> dict:
+    """Every entry of a saved checkpoint, flattened to ``a/b/c`` keys."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    out = {}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}{k}/")
+        else:
+            out[prefix] = tree
+    walk(state, "")
+    return out
+
+
+def harness_resume(torch, tmp):
+    """2 epochs, then a resume for 1, against 3 epochs straight, dropout
+    on, both under torch's deterministic algorithms: every checkpointed
+    entry, the scheduler's JSON and every scalars row (timings aside) must
+    be bit-equal."""
+    import os
+
+    from phc_gnn_torch.cli.common import run_benchmark
+
+    resumed, straight = (os.path.join(tmp, "resumed"),
+                         os.path.join(tmp, "straight"))
+    with deterministic(torch):
+        run_benchmark("synthetic", ["--epochs", "2", "--save_dir", resumed])
+        run_benchmark("synthetic", ["--epochs", "3", "--save_dir", resumed,
+                                    "--resume"])
+        run_benchmark("synthetic", ["--epochs", "3", "--save_dir", straight])
+    step = os.path.join("run_1", "ckpt", "step_3.pt")
+    got = checkpoint_tensors(torch, os.path.join(resumed, step))
+    want = checkpoint_tensors(torch, os.path.join(straight, step))
+    if sorted(got) != sorted(want):
+        fail("harness resume: the checkpoints hold different entries")
+    differ = [k for k, w in want.items()
+              if not (torch_equal(got[k], w) if isinstance(w, torch.Tensor)
+                      else got[k] == w)]
+    if differ:
+        fail(f"harness resume: {len(differ)} of {len(want)} checkpoint "
+             f"entries differ from the straight run's, e.g. {differ[:5]}")
+    for name in ("trainer_state.json", "val_test.json"):
+        with open(os.path.join(resumed, "run_1", name)) as f:
+            a = json.load(f)
+        with open(os.path.join(straight, "run_1", name)) as f:
+            b = json.load(f)
+        if a != b:
+            fail(f"harness resume: {name} differs: {a} against {b}")
+    timing = ("wall_s", "steps_per_s", "edges_per_s")
+    rows_a, rows_b = scalars(resumed), scalars(straight)
+    if [{k: v for k, v in r.items() if k not in timing} for r in rows_a] != \
+            [{k: v for k, v in r.items() if k not in timing} for r in rows_b]:
+        fail(f"harness resume: the scalars rows differ: {rows_a} against "
+             f"{rows_b}")
+    n_tensors = sum(isinstance(w, torch.Tensor) for w in want.values())
+    print(f"harness resume: 2 + 1 epochs against 3, bit-equal: {n_tensors} "
+          f"tensors, the scheduler, {len(rows_a)} scalars rows", flush=True)
+    return {"bit_equal_tensors": n_tensors, "entries": len(want),
+            "rows": len(rows_a)}
+
+
+@contextlib.contextmanager
+def record_accum_calls(torch):
+    """Record the calls of the accumulated steps that ``Trainer`` builds
+    inside the block: their count, and for a group padded with a dummy
+    (``make_dummy_batch``'s, tagged as made) the state before the call
+    (device copies of the parameters, buffers and Adam tensors, Adam's
+    count, the generator's state), its batches, lr and loss.  Other calls
+    pass through untouched, so the epoch runs as it would."""
+    from phc_gnn_torch.train import trainer as tr
+
+    make, dummy = tr.make_accum_train_step, tr.make_dummy_batch
+    rec = {"calls": 0}
+    dummies = set()
+
+    def tagged_dummy(batch):
+        out = dummy(batch)
+        dummies.add(id(out))
+        return out
+
+    def recording(model, optimizer, loss_fn, **kw):
+        step = make(model, optimizer, loss_fn, **kw)
+        state = ([p.data for p in model.parameters()] + list(model.buffers())
+                 + optimizer.state_tensors())
+        rec.update(model=model, opt=optimizer, loss_fn=loss_fn, kw=kw,
+                   state=state, step=step)
+
+        def call(batches, lr):
+            rec["calls"] += 1
+            if not any(id(b) in dummies for b in batches):
+                return step(batches, lr)
+            rec.update(before=[t.clone() for t in state],
+                       count=optimizer.count,
+                       generator=step.generator.get_state(),
+                       batches=list(batches), lr=lr)
+            loss, outs = step(batches, lr)
+            rec["loss"] = loss
+            return loss, outs
+
+        call.generator = step.generator
+        return call
+
+    tr.make_accum_train_step, tr.make_dummy_batch = recording, tagged_dummy
+    try:
+        yield rec
+    finally:
+        tr.make_accum_train_step, tr.make_dummy_batch = make, dummy
+
+
+def harness_pcba(torch, tmp):
+    """The molpcba recipe through the CLI on the pcba parity task, 1 epoch:
+    counters over the run (one graph a (K, bucket): 4 x the step's), the
+    profile of the epoch's train loop (its 3 eager warm-ups, the capture
+    and the replays), the dummy-padded last group against the eager body
+    over its real sub-batches, the graphed step's ms."""
+    import os
+
+    from phc_gnn_torch.cli.common import run_benchmark
+    from phc_gnn_torch.data.parity import generate_parity_dataset
+    from phc_gnn_torch.train.state import _eager_accum_train_step
+
+    t0 = time.perf_counter()
+    root = generate_parity_dataset("pcba", os.path.join(tmp, "data"), seed=0)
+    data_s = time.perf_counter() - t0
+    save = os.path.join(tmp, "pcba")
+    reset_launches()
+    with record_accum_calls(torch) as rec, \
+            observe_trainer(torch, 0) as obs:
+        run_benchmark("pcba", HARNESS_PCBA + ["--data_root", root,
+                                              "--save_dir", save])
+    launches = read_launches()
+    hold_counters("harness pcba", launches,
+                  add_counts((capture_calls(), PCBA_LAUNCHES),
+                             (capture_calls(), PCBA_EVAL_LAUNCHES)))
+    rows = scalars(save)
+    if not all(math.isfinite(r[k]) for r in rows
+               for k in ("train_loss", "valid_loss", "valid_metric")):
+        fail(f"harness pcba: a loss or metric is not finite: {rows}")
+    tp = obs["train_profile"]
+    per_step = hold_profile("harness pcba train loop", tp["counts"],
+                            {"segment_sum_masked": 28,
+                             "segment_sum_perm": 28, "bn_forward": 36,
+                             "bn_backward": 36},
+                            rec["calls"] + capture_calls() - 1)
+    # the padded group: 3 real sub-batches and a dummy
+    if "batches" not in rec:
+        fail("harness pcba: no group was padded with a dummy")
+    real = [b for b in rec["batches"] if bool(b.graph_mask.any())]
+    if len(real) != PCBA_K - 1:
+        fail(f"harness pcba: the last group holds {len(real)} real "
+             f"sub-batches, not {PCBA_K - 1}")
+    groups = rec["calls"]
+    graph_loss = float(rec["loss"])
+    torch._foreach_copy_(rec["state"], rec["before"])
+    rec["opt"].count = rec["count"]
+    eager = _eager_accum_train_step(rec["model"], rec["opt"], rec["loss_fn"],
+                                    **rec["kw"])
+    eager.generator.set_state(rec["generator"])
+    eager_loss = float(eager(real, rec["lr"])[0])
+    rel = abs(graph_loss - eager_loss) / abs(eager_loss)
+    print(f"harness pcba: the padded last group's loss {graph_loss!r} "
+          f"against the eager body over its {len(real)} real sub-batches "
+          f"{eager_loss!r}: {rel:.3g} relative (tolerance {TOL_GROUP:g})",
+          flush=True)
+    if not rel <= TOL_GROUP:
+        fail(f"harness pcba: the padded group's loss is {rel:.3g} from the "
+             f"eager body's over its real sub-batches")
+    # the graphed accumulated step, synced, as the card runs it (the run
+    # is over: these calls train the model on)
+    step_ms, step_host_ms = time_steps(
+        torch, lambda: rec["step"](rec["batches"], rec["lr"]))
+    print(f"harness pcba: the graphed accumulated step {step_ms:.3f} ms "
+          f"(host {step_host_ms:.3f}); the epoch {rows[0]['steps_per_s']} "
+          f"sub-batches/s", flush=True)
+    out = {"data_s": data_s, "groups": groups, "launches": launches,
+           "rows": rows, "group_loss": graph_loss,
+           "group_loss_eager": eager_loss, "group_loss_rel_err": rel,
+           "epoch0": obs["epochs"][0], "step_ms": step_ms,
+           "step_host_ms": step_host_ms,
+           "epoch0_profiled": {
+               "wall_ms": tp["wall_ms"], "busy_ms": tp["busy_ms"],
+               "idle_share": tp["idle_share"],
+               "port_kernels_per_step": per_step},
+           "steps_per_s": rows[0]["steps_per_s"],
+           "edges_per_s": rows[0]["edges_per_s"]}
+    return launches, out
+
+
+def harness_zinc(torch, tmp):
+    """The ZINC recipe through the CLI on the zinc parity task, 3 epochs,
+    under torch's deterministic algorithms: C in both roles and no softmax
+    kernel (counters over the run), epoch 1's train loop timed, epoch 2's
+    profiled; then ``cli.inference`` restores run 1's best export and must
+    reproduce ``test_bestval`` bit for bit."""
+    import io
+    import os
+
+    from phc_gnn_torch.cli import inference
+    from phc_gnn_torch.cli.common import run_benchmark
+    from phc_gnn_torch.data.parity import generate_parity_dataset
+
+    root = generate_parity_dataset("zinc", os.path.join(tmp, "zinc_data"),
+                                   seed=0)
+    save = os.path.join(tmp, "zinc")
+    argv = HARNESS_ZINC + ["--data_root", root, "--save_dir", save]
+    reset_launches()
+    with deterministic(torch), observe_trainer(torch, 2) as obs:
+        run_benchmark("zinc", argv)
+    launches = read_launches()
+    hold_counters("harness zinc", launches,
+                  add_counts((capture_calls(), ZINC_STEP),
+                             (capture_calls(), ZINC_EVAL)))
+    rows = scalars(save)
+    if not all(math.isfinite(r[k]) for r in rows
+               for k in ("train_loss", "valid_loss", "valid_metric")):
+        fail(f"harness zinc: a loss or metric is not finite: {rows}")
+    tp = obs["train_profile"]
+    per_step = hold_profile("harness zinc train loop", tp["counts"],
+                            ZINC_STEP, tp["steps"])
+    with open(os.path.join(save, "run_1", "val_test.json")) as f:
+        val_test = json.load(f)
+    with deterministic(torch), contextlib.redirect_stdout(io.StringIO()):
+        result = inference.main(["zinc", "--run", "1"] + argv)
+    if result["mae"] != val_test["test_bestval"]:
+        fail(f"harness inference: {result['mae']!r} is not test_bestval "
+             f"{val_test['test_bestval']!r}")
+    print(f"harness inference: the best export's test mae "
+          f"{result['mae']!r} == test_bestval, bit for bit", flush=True)
+    e1 = obs["epochs"][1]
+    out = {"launches": launches, "rows": rows, "val_test": val_test,
+           "inference": result,
+           "epoch1": {**e1, "ms_per_step": 1e3 * e1["seconds"] / e1["steps"]},
+           "train_loop_profiled": {
+               "epoch": 2, "steps": tp["steps"], "wall_ms": tp["wall_ms"],
+               "busy_ms": tp["busy_ms"], "idle_share": tp["idle_share"],
+               "port_kernels_per_step": per_step}}
+    print(f"harness zinc: epoch 1 {out['epoch1']}, profiled train loop "
+          f"busy {tp['busy_ms']:.3f} of {tp['wall_ms']:.3f} ms", flush=True)
+    return launches, out
+
+
+def harness_phase(torch, dev):
+    """15. harness: the port's CLI in-process on the synthetic recipe, an
+    exact resume, the molpcba and ZINC recipes on the parity datasets, and
+    inference; a ``{"harness"}`` line.  Returns the launches of each run."""
+    import tempfile
+
+    paths, harness = {}, {}
+    with tempfile.TemporaryDirectory(prefix="phc_harness_") as tmp:
+        paths["harness_synthetic"], harness["synthetic"] = harness_synthetic(
+            torch, tmp)
+        harness["resume"] = harness_resume(torch, tmp)
+        paths["harness_pcba"], harness["pcba"] = harness_pcba(torch, tmp)
+        paths["harness_zinc"], harness["zinc"] = harness_zinc(torch, tmp)
+    print(json.dumps({"harness": harness}), flush=True)
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -3413,6 +3949,7 @@ def main() -> None:
     pna.update(pna_train)
     print(json.dumps({"pna": pna}), flush=True)
     paths["scan_train"] = timed("scan", scan_phase)
+    paths.update(timed("harness", harness_phase))
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}

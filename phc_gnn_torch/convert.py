@@ -11,6 +11,10 @@ encoders' ``linear``.  The encoders' trees map one to one:
 ``encoder.integer.embedding_<i>`` or ``encoder.linear`` of a
 ``NaivePHMEncoder``.
 
+``from_flax_params`` fills the parameters alone from a flax ``params``
+tree and keeps the model's running stats: the trainer's ``init_from``
+warm start, as JAX's keeps its fresh ``batch_stats``.
+
 ``adam_state_from_optax`` carries optax's Adam moments across the same way
 (``count``, and the ``mu`` and ``nu`` trees, keyed like the params), so a run
 started in JAX can continue in the port.
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_flax_variables", "adam_state_from_optax"]
+__all__ = ["from_flax_variables", "from_flax_params", "adam_state_from_optax"]
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -57,6 +61,22 @@ def from_flax_variables(variables: Mapping, model: nn.Module) -> "OrderedDict[st
     for col in ("params", "batch_stats"):
         flat.update(_port_keys(variables.get(col, {})))
     return _match(flat, model.state_dict())
+
+
+def from_flax_params(params: Mapping, model: nn.Module
+                     ) -> "OrderedDict[str, torch.Tensor]":
+    """The state_dict of ``model`` with its parameters filled from a flax
+    ``params`` tree and its buffers (the running stats) kept as they are:
+    the warm start of JAX's trainer (``init_from``,
+    phc_gnn_tpu/train/trainer.py:506-519), which replaces the params and
+    keeps the fresh ``batch_stats``.  Raises ``KeyError`` on a leaf the
+    model lacks or a parameter the tree lacks, and ``ValueError`` on a shape
+    mismatch.  The result lies on the CPU."""
+    state = model.state_dict()
+    named = OrderedDict((k, state[k]) for k, _ in model.named_parameters())
+    out = OrderedDict((k, t.detach().cpu().clone()) for k, t in state.items())
+    out.update(_match(_port_keys(params), named))
+    return out
 
 
 def _port_keys(tree: Mapping) -> Dict[str, np.ndarray]:

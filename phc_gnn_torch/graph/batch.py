@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 __all__ = ["GraphsTuple", "batch_graphs", "build_csr_rowptr", "build_sender_csr",
-           "attach_csr_plan", "stack_batches", "unstack_batches"]
+           "attach_csr_plan", "pad_graph_batch", "stack_batches",
+           "unstack_batches"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +211,35 @@ def batch_graphs(
         receivers=t(receivers), graph_ids=t(graph_ids),
         node_mask=t(node_mask), edge_mask=t(edge_mask),
         graph_mask=t(graph_mask), y=t(y) if y is not None else None)
+
+
+def pad_graph_batch(batch: GraphsTuple, num_nodes: int, num_edges: int,
+                    num_graphs: int) -> GraphsTuple:
+    """Pad an existing batch up to larger static sizes (a bucket promote;
+    phc_gnn_tpu/graph/batch.py:170-190), with the batcher's fills: padding
+    edges point at the new last node, padding nodes belong to the new last
+    graph, masks False, labels NaN.  The CSR plans do not survive re-padding
+    and are dropped, as JAX drops its scan plan; ``attach_csr_plan`` makes
+    the new batch's."""
+    def pad_to(t, size, fill=0):
+        pad = size - t.shape[0]
+        if pad <= 0:
+            return t
+        tail = torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype,
+                          device=t.device)
+        return torch.cat([t, tail])
+
+    return GraphsTuple(
+        nodes=pad_to(batch.nodes, num_nodes),
+        edges=pad_to(batch.edges, num_edges),
+        senders=pad_to(batch.senders, num_edges, num_nodes - 1),
+        receivers=pad_to(batch.receivers, num_edges, num_nodes - 1),
+        graph_ids=pad_to(batch.graph_ids, num_nodes, num_graphs - 1),
+        node_mask=pad_to(batch.node_mask, num_nodes, False),
+        edge_mask=pad_to(batch.edge_mask, num_edges, False),
+        graph_mask=pad_to(batch.graph_mask, num_graphs, False),
+        y=(pad_to(batch.y, num_graphs, float("nan"))
+           if batch.y is not None else None))
 
 
 def build_csr_rowptr(receivers: np.ndarray, num_nodes: int,

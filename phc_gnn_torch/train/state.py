@@ -164,7 +164,8 @@ def make_accum_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
     optimizer and the generator come out of the capture as they went in.
     Each call then copies the K sub-batches into the buffers and replays the
     graph, and the optimizer's ``count`` advances by one on the host.  On
-    the CPU the step runs eagerly."""
+    the CPU the step runs eagerly.  ``step.generator`` is the dropout
+    generator, as ``make_scan_train_steps``'s."""
     dev, gen, body = _accum_body(model, optimizer, loss_fn, weight_decay,
                                  weight_decay2, reg_p, loss_name, seed, device)
     graphs: Dict[tuple, _GraphedStep] = {}
@@ -184,6 +185,7 @@ def make_accum_train_step(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
         optimizer.count += 1
         return loss[0], outs[0]
 
+    step.generator = gen
     return step
 
 
@@ -196,9 +198,9 @@ def _eager_accum_train_step(model: nn.Module, optimizer: Adam,
                                                      torch.Tensor]]:
     """``make_accum_train_step``'s step run eagerly on any device: the body
     its CUDA graph captures, for the checks and the bench that hold the
-    graph to it."""
-    dev, _, body = _accum_body(model, optimizer, loss_fn, weight_decay,
-                               weight_decay2, reg_p, loss_name, seed, device)
+    graph to it.  ``step.generator`` is its dropout generator."""
+    dev, gen, body = _accum_body(model, optimizer, loss_fn, weight_decay,
+                                 weight_decay2, reg_p, loss_name, seed, device)
 
     def step(batches, lr: Union[float, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -206,6 +208,7 @@ def _eager_accum_train_step(model: nn.Module, optimizer: Adam,
         optimizer.set_lr(lr)
         return body(*(b.to(dev, non_blocking=True) for b in batches))
 
+    step.generator = gen
     return step
 
 
@@ -382,7 +385,9 @@ def make_scan_train_steps(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
     model, the optimizer and the generator come out of the capture as they
     went in.  Each batch is then copied into the graph's static buffers and
     the graph replayed.  The optimizer's ``count`` advances by S on the
-    host.  On the CPU the steps run eagerly."""
+    host.  On the CPU the steps run eagerly.  ``steps.generator`` is the
+    dropout generator, which a caller reseeds or restores (``manual_seed``,
+    ``set_state``: in place, so the captured graphs follow it)."""
     dev = _bind(model, optimizer, device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     one_step = _one_step(model, optimizer, loss_fn, weight_decay,
@@ -405,6 +410,7 @@ def make_scan_train_steps(model: nn.Module, optimizer: Adam, loss_fn: LossFn,
         optimizer.count += len(batches)
         return losses, outs
 
+    steps.generator = gen
     return steps
 
 

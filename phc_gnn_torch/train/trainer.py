@@ -1,30 +1,61 @@
-"""Model and loss from an experiment configuration, and the grouping of
-batches into scanned chunks.
+"""Training harness: the model and loss from a configuration, epoch loops,
+evaluation, plateau scheduling, checkpoints and resume, and the n_runs
+loop with its mean and std summary.
 
-Counterparts of ``build_model``, ``build_loss`` and ``iter_scan_chunks`` in
-phc_gnn_tpu/train/trainer.py:47-98, so that a configuration builds the
-port's model by name as the CLI builds the JAX one, and a loader's batches
-go to ``make_scan_train_steps`` and ``make_scan_eval_steps`` as JAX's
-trainer sends them.  The rest of the trainer (epoch loops, evaluation,
-checkpoints) waits for ROADMAP.md, section 1, items 4 and 5.
+Counterparts of ``build_model``, ``build_loss``, ``iter_scan_chunks`` and
+``Trainer`` in phc_gnn_tpu/train/trainer.py:47-98, 127-770: the
+single-device paths of JAX's trainer over padded batch streams (a
+redesign of the reference's train scripts' shared machinery,
+train_hiv.py:165-629).  Artifacts per run, under JAX's names:
+``scalars.jsonl`` (a row an epoch), ``val_test.json`` (best_val, the test
+at best-val and at last), ``trainer_state.json`` (the scheduler),
+``arrays.npy``, checkpoints and the best-validation export under
+``ckpt/``; ``params.json`` and ``summary.json`` per experiment.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import contextlib
+import copy
+import json
+import logging
+import os
+import pickle
+import time
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
+                    Union)
 
+import numpy as np
 import torch
+from torch import nn
 
+from phc_gnn_torch.convert import from_flax_params
+from phc_gnn_torch.data.prefetch import prefetch
+from phc_gnn_torch.device import resolve_device
+from phc_gnn_torch.graph.batch import GraphsTuple
 from phc_gnn_torch.models.phc_gnn import PHCGNN
+from phc_gnn_torch.parallel.dp import make_dummy_batch
+from phc_gnn_torch.train.checkpoint import CheckpointManager
 from phc_gnn_torch.train.config import ExperimentConfig
+from phc_gnn_torch.train.evaluators import get_evaluator
 from phc_gnn_torch.train.loss import (
     masked_bce_with_logits,
     masked_cross_entropy,
     masked_l1,
     masked_mse,
 )
+from phc_gnn_torch.train.optim import ReduceLROnPlateau, make_optimizer
+from phc_gnn_torch.train.state import (
+    make_accum_train_step,
+    make_scan_eval_steps,
+    make_scan_train_steps,
+    make_train_step,
+)
+from phc_gnn_torch.utils.profiling import trace_context
 
-__all__ = ["build_model", "build_loss", "iter_scan_chunks"]
+__all__ = ["Trainer", "build_model", "build_loss", "iter_scan_chunks"]
+
+log = logging.getLogger("phc_gnn_torch")
 
 
 def build_model(cfg: ExperimentConfig, atom_input_dims, bond_input_dims,
@@ -89,3 +120,455 @@ def iter_scan_chunks(batches, chunk_size: int):
         chunk.append(batch)
     if chunk:
         yield chunk
+
+
+def _trim_jsonl(path: str, start_epoch: int):
+    """Drop rows with epoch >= start_epoch (resume) or the whole file
+    (fresh run) so re-runs never leave duplicate epoch rows."""
+    if not os.path.exists(path):
+        return
+    if start_epoch == 0:
+        os.remove(path)
+        return
+    rows = []
+    with open(path) as f:
+        for line in f:
+            try:
+                rows.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue  # truncated trailing line from a killed process
+    with open(path, "w") as f:
+        for r in rows:
+            if r.get("epoch", -1) < start_epoch:
+                f.write(json.dumps(r) + "\n")
+
+
+def _host_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """CPU copies of the model's parameters and buffers (its state_dict)."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+
+
+class Trainer:
+    """One experiment: ``cfg.n_runs`` independent (re-seeded) trainings of
+    one model, on ``device`` (default "cuda"; without CUDA this raises
+    unless ``device="cpu"``).
+
+    ``train_batches(seed)``, ``valid_batches()`` and ``test_batches()``
+    return fresh iterables of CPU batches carrying their CSR plans
+    (``data.PaddedLoader(..., csr_plan=True)``); the train loader shuffles
+    with the epoch's seed.  The model's weights when given are run 1's
+    start; run i > 1 starts from ``init_state(cfg.seed + i - 1)``, a
+    state_dict (the CLI passes ``build_model``'s at that seed), or, without
+    ``init_state``, from run 1's start again.
+
+    Paths (JAX's single-device ones): with ``cfg.grad_accum`` K > 1 each
+    group of K same-shape batches takes one step of
+    ``make_accum_train_step`` (one CUDA graph a (K, bucket)), the epoch's
+    last partial group padded with ``make_dummy_batch``; otherwise the
+    batches go to ``make_scan_train_steps`` in chunks of
+    ``max(cfg.scan_chunk, 1)`` (``iter_scan_chunks``), one graph replay a
+    batch.  Evaluation goes through ``make_scan_eval_steps`` the same way.
+    With ``cfg.prefetch_depth`` > 0 a background thread packs the batches
+    and moves them to the device.  Losses, outputs and labels stay on the
+    device until an epoch ends, then are fetched once.
+
+    Everything that loads weights (a run's start, ``init_from``, a resume,
+    the best-validation state) copies into the model's and the optimizer's
+    existing tensors, which the captured graphs read; the scheduler's lr
+    reaches them through ``Adam.set_lr``.  ``cfg.rng_impl`` (JAX's choice
+    of PRNG) is not read: the dropout masks come from one
+    ``torch.Generator`` on the device, seeded with the run's seed.
+    ``epoch_log`` holds, per epoch trained, its train loop's seconds,
+    steps and real edges, and where its host time went: a batch's ms
+    packing (``loader_ms``, plans included) and of them on the plans
+    (``plan_ms``), timed in the thread that packs; moving it to the device
+    (``move_ms``, in the prefetch thread) and waiting for it
+    (``wait_ms``, in the loop); a step's ms in the step's call
+    (``step_host_ms``: the copies into the graph's buffers, the replay's
+    launch)."""
+
+    def __init__(self, cfg: ExperimentConfig, model: PHCGNN,
+                 train_batches: Callable[[int], Iterable[GraphsTuple]],
+                 valid_batches: Callable[[], Iterable[GraphsTuple]],
+                 test_batches: Optional[Callable[[], Iterable[GraphsTuple]]] = None,
+                 device: Union[str, torch.device] = "cuda",
+                 init_state: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None):
+        dp = int(getattr(cfg, "dp", 1) or 1)
+        ep = int(getattr(cfg, "ep", 1) or 1)
+        nd = int(getattr(cfg, "num_devices", 1) or 1)
+        if max(dp, ep, nd) > 1:
+            raise NotImplementedError(
+                f"dp={dp}, ep={ep}, num_devices={nd}: the multi-device paths "
+                "are not ported yet (ROADMAP.md, section 1, item 14)")
+        if str(getattr(cfg, "agg_kernel", "auto")) == "xla":
+            raise NotImplementedError(
+                "agg_kernel='xla' has no counterpart in the port: its "
+                "aggregations run the CUDA kernels over the CSR plans "
+                "(ROADMAP.md, section 1, item 14)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.train_batches = train_batches
+        self.valid_batches = valid_batches
+        self.test_batches = test_batches
+        self.init_state = init_state
+        self.evaluator = get_evaluator(cfg.metric)
+        self.loss_fn = build_loss(cfg)
+        self.opt = make_optimizer(dict(model.named_parameters()),
+                                  cfg.grad_clipping)
+        self.chunk = max(int(getattr(cfg, "scan_chunk", 0) or 0), 1)
+        self.accum = int(getattr(cfg, "grad_accum", 1) or 1)
+        kw = dict(weight_decay=cfg.weightdecay,
+                  weight_decay2=cfg.weightdecay2, reg_p=cfg.regularization,
+                  seed=cfg.seed, device=self.device)
+        if self.accum > 1:
+            if getattr(cfg, "scan_chunk", 0):
+                log.info("scan_chunk is ignored under grad_accum")
+            self.train_step = make_accum_train_step(
+                model, self.opt, self.loss_fn, loss_name=cfg.loss, **kw)
+        else:
+            self.train_step = make_scan_train_steps(model, self.opt,
+                                                    self.loss_fn, **kw)
+        self.eval_steps = make_scan_eval_steps(model, device=self.device)
+        self._start = _host_state(model)
+        self.epoch_log: List[dict] = []
+
+    # -- helpers ------------------------------------------------------------
+    def _batches(self, batches):
+        depth = int(getattr(self.cfg, "prefetch_depth", 0) or 0)
+        return prefetch(batches, depth=depth, device=self.device) if depth \
+            else batches
+
+    def _groups(self, batches: Iterable[GraphsTuple], size: int):
+        """Group batches into groups of ``size`` of one bucket shape (a
+        bucket ladder's shapes queue apart, each flushed when full); each
+        shape's last partial group is padded with fully masked dummies
+        (zero loss weight: exact, no data dropped).  Yields
+        ``(real_batches, group)``."""
+        queues: dict = {}  # shape key -> pending batches (insertion ordered)
+        for batch in batches:
+            group = queues.setdefault(batch.shape_key(), [])
+            group.append(batch)
+            if len(group) == size:
+                full = list(group)
+                group.clear()
+                yield full, full
+        for group in queues.values():
+            if group:
+                full = group + [make_dummy_batch(group[0])] * (
+                    size - len(group))
+                yield group, full
+
+    @contextlib.contextmanager
+    def _weights(self, state: Mapping[str, torch.Tensor]):
+        """The model holds ``state`` inside the block and its own weights
+        again after it."""
+        own = _host_state(self.model)
+        self.model.load_state_dict(state)
+        try:
+            yield
+        finally:
+            self.model.load_state_dict(own)
+
+    def _reset(self, run_idx: int, seed: int) -> None:
+        """The run's start: its initial weights, Adam's state zeroed and
+        the dropout generator seeded."""
+        state = (self.init_state(seed)
+                 if run_idx > 1 and self.init_state is not None
+                 else self._start)
+        self.model.load_state_dict(state)
+        zeros = {k: torch.zeros_like(p) for k, p in self.opt.params.items()}
+        self.opt.load_state(0, zeros, zeros)
+        self.train_step.generator.manual_seed(seed)
+
+    def _full_state(self, epoch: int) -> dict:
+        """What a checkpoint holds: the model's state_dict, Adam's count,
+        moments and lr, the dropout generator's state, torch's default CPU
+        and CUDA generators' states, and the epoch."""
+        opt = self.opt
+        cpu = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+        adam = {"count": opt.count, "lr": cpu(opt.lr),
+                "mu": {k: cpu(opt.adam.state[p]["exp_avg"])
+                       for k, p in opt.params.items()},
+                "nu": {k: cpu(opt.adam.state[p]["exp_avg_sq"])
+                       for k, p in opt.params.items()}}
+        rng = {"cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return {"epoch": epoch, "model": _host_state(self.model),
+                "adam": adam, "generator": self.train_step.generator.get_state(),
+                "rng": rng}
+
+    def _restore(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        adam = state["adam"]
+        self.opt.load_state(adam["count"], adam["mu"], adam["nu"])
+        self.opt.set_lr(adam["lr"].to(self.opt.lr.device))
+        self.train_step.generator.set_state(state["generator"])
+        torch.set_rng_state(state["rng"]["cpu"])
+        if "cuda" in state["rng"] and self.device.type == "cuda":
+            torch.cuda.set_rng_state(state["rng"]["cuda"], self.device)
+
+    # -- evaluation ---------------------------------------------------------
+    def evaluate(self, batches: Iterable[GraphsTuple]) -> dict:
+        """The loss and the metric of the model's current weights over
+        ``batches``; everything stays on the device until one fetch at the
+        end."""
+        y_true, y_pred, masks, losses, weights = [], [], [], [], []
+        for chunk in iter_scan_chunks(self._batches(batches), self.chunk):
+            outs = self.eval_steps(chunk)
+            for i, b in enumerate(chunk):
+                out = outs[i]
+                # the fields a loss reads, where the output is
+                b = b.replace(y=b.y.to(out.device),
+                              graph_mask=b.graph_mask.to(out.device))
+                w = b.graph_mask.sum(dtype=torch.float32)
+                losses.append(self.loss_fn(out, b) * w)
+                weights.append(w)
+                y_true.append(b.y)
+                y_pred.append(out)
+                masks.append(b.graph_mask)
+        mask = torch.cat(masks).cpu().numpy()
+        metric = self.evaluator(torch.cat(y_true).cpu().numpy()[mask],
+                                torch.cat(y_pred).cpu().numpy()[mask])
+        loss = float(torch.stack(losses).sum()
+                     / torch.stack(weights).sum().clamp_min(1))
+        return {"loss": loss, self.cfg.metric: metric}
+
+    # -- one epoch ----------------------------------------------------------
+    def _train_epoch(self, epoch_seed: int, lr: float) -> dict:
+        """One pass over the train split at ``lr``: the mean train loss
+        (weighted by real graphs), the metric, the steps, the real edges,
+        the seconds until the losses were on the host, and the host ms of
+        ``epoch_log``."""
+        t0 = time.time()
+        loader = self.train_batches(epoch_seed)
+        losses, y_true, y_pred, masks, emasks = [], [], [], [], []
+
+        def consume(batch, loss, out):
+            losses.append(loss)
+            y_true.append(batch.y)
+            y_pred.append(out)
+            masks.append(batch.graph_mask)
+            emasks.append(batch.edge_mask)
+
+        batches = self._batches(loader)
+        step_s = 0.0
+        if self.accum > 1:
+            # gradient accumulation: one optimizer step a group of K
+            # (exact weighted-mean grads; dummy pads contribute nothing)
+            for real, group in self._groups(batches, self.accum):
+                t = time.perf_counter()
+                loss, outs = self.train_step(group, lr)
+                step_s += time.perf_counter() - t
+                for i, b in enumerate(real):
+                    consume(b, loss, outs[i])
+        else:
+            for chunk in iter_scan_chunks(batches, self.chunk):
+                t = time.perf_counter()
+                step_losses, outs = self.train_step(chunk, lr)
+                step_s += time.perf_counter() - t
+                for i, b in enumerate(chunk):
+                    consume(b, step_losses[i], outs[i])
+        dev = losses[0].device
+        g = torch.stack(masks).to(dev).sum(1, dtype=torch.float32)
+        loss = (torch.stack(losses) * g).sum() / g.sum().clamp_min(1)
+        edges = torch.cat(emasks).sum()
+        train_loss, edges = float(loss), int(edges)  # the epoch's one sync
+        seconds = max(time.time() - t0, 1e-9)
+        mask = torch.cat(masks).cpu().numpy()
+        metric = self.evaluator(torch.cat(y_true).cpu().numpy()[mask],
+                                torch.cat(y_pred).cpu().numpy()[mask])
+        n = max(getattr(loader, "batches", 0), 1)
+        return {"train_loss": train_loss, "train_metric": metric,
+                "steps": len(losses), "edges": edges, "seconds": seconds,
+                "loader_ms": 1e3 * getattr(loader, "pack_s", 0.0) / n,
+                "plan_ms": 1e3 * getattr(loader, "plan_s", 0.0) / n,
+                "move_ms": 1e3 * getattr(batches, "move_s", 0.0) / n,
+                "wait_ms": 1e3 * getattr(batches, "wait_s", 0.0) / n,
+                "step_host_ms": 1e3 * step_s / len(losses)}
+
+    # -- single run ---------------------------------------------------------
+    def _profile(self, run_dir: str, seed: int) -> None:
+        """``torch.profiler`` trace of ``cfg.profile_steps`` train steps
+        (one warm-up first) on a throwaway copy of the model and a fresh
+        optimizer, written to ``run_dir/profile``; the run's own model,
+        optimizer and generator are untouched."""
+        cfg = self.cfg
+        logdir = os.path.join(run_dir, "profile")
+        model = copy.deepcopy(self.model)
+        opt = make_optimizer(dict(model.named_parameters()),
+                             cfg.grad_clipping)
+        step = make_train_step(model, opt, self.loss_fn, cfg.weightdecay,
+                               cfg.weightdecay2, cfg.regularization,
+                               seed=seed, device=self.device)
+        sample = next(iter(self.train_batches(seed)))
+        step(sample, cfg.lr)
+        with trace_context(logdir):
+            for _ in range(cfg.profile_steps):
+                step(sample, cfg.lr)
+        log.info("profiler trace (%d steps) -> %s", cfg.profile_steps, logdir)
+
+    def do_run(self, run_idx: int, resume: bool = False) -> dict:
+        cfg = self.cfg
+        run_dir = os.path.join(cfg.save_dir, f"run_{run_idx}")
+        os.makedirs(run_dir, exist_ok=True)
+        seed = cfg.seed + run_idx - 1
+        self._reset(run_idx, seed)
+        if getattr(cfg, "init_from", ""):
+            # warm start from a pickled flax params tree (numpy leaves); the
+            # fresh running stats and optimizer state stay
+            with open(cfg.init_from, "rb") as f:
+                loaded = pickle.load(f)
+            self.model.load_state_dict(from_flax_params(loaded, self.model))
+            log.info("warm-started params from %s", cfg.init_from)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        log.info("run %d: %d params, seed %d", run_idx, n_params, seed)
+        if int(getattr(cfg, "profile_steps", 0) or 0) > 0:
+            self._profile(run_dir, seed)
+
+        ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+        scheduler = ReduceLROnPlateau(
+            lr=cfg.lr, mode=cfg.scheduler_mode, factor=cfg.factor,
+            patience=cfg.patience, min_lr=cfg.min_lr)
+        sched_path = os.path.join(run_dir, "trainer_state.json")
+        start_epoch = 0
+        mode = cfg.scheduler_mode
+        best_val = -np.inf if mode == "max" else np.inf
+        best_state = None
+        if resume and ckpt.latest_step() is not None:
+            self._restore(ckpt.restore())
+            start_epoch = int(ckpt.latest_step())
+            if os.path.exists(sched_path):
+                # exact resume: scheduler lr/best/patience + best-val metric
+                with open(sched_path) as f:
+                    saved = json.load(f)
+                scheduler.lr = saved["lr"]
+                scheduler.best = saved["sched_best"]
+                scheduler.num_bad = saved["num_bad"]
+                best_val = saved["best_val"]
+            log.info("resumed run %d at epoch %d (lr %.2e, best_val %.4f)",
+                     run_idx, start_epoch, scheduler.lr, best_val)
+        _trim_jsonl(os.path.join(run_dir, "scalars.jsonl"), start_epoch)
+        _trim_jsonl(os.path.join(run_dir, "weights.jsonl"), start_epoch)
+        if resume and ckpt.has_best():
+            # test@bestval must use the best export's weights, not the latest
+            best_state = ckpt.restore_best()
+            if not np.isfinite(best_val):
+                # a checkpoint without scheduler state: recover the best
+                # metric so the first resumed epoch cannot overwrite a
+                # better export
+                with self._weights(best_state):
+                    best_val = self.evaluate(self.valid_batches())[cfg.metric]
+                log.info("recovered best_val %.4f from best export", best_val)
+        scalars_path = os.path.join(run_dir, "scalars.jsonl")
+        t_start = time.time()
+        lr = scheduler.lr
+        history = {"lr": [], "train_loss": [], "train_metric": [],
+                   "valid_loss": [], "valid_metric": []}
+
+        for epoch in range(start_epoch, cfg.epochs):
+            tr = self._train_epoch(seed * 10007 + epoch, lr)
+            self.epoch_log.append({"run": run_idx, "epoch": epoch, **{
+                k: v for k, v in tr.items()
+                if k not in ("train_loss", "train_metric")}})
+            val = self.evaluate(self.valid_batches())
+            val_metric = val[cfg.metric]
+
+            improved = ((val_metric > best_val) if mode == "max"
+                        else (val_metric < best_val))
+            if improved and np.isfinite(val_metric):
+                best_val = val_metric
+                # slim export: parameters and running stats only
+                best_state = _host_state(self.model)
+                ckpt.export_best(best_state)
+            lr = scheduler.step(val_metric)
+            ckpt.save(epoch + 1, self._full_state(epoch + 1))
+            with open(sched_path, "w") as f:
+                json.dump({"lr": scheduler.lr, "sched_best": scheduler.best,
+                           "num_bad": scheduler.num_bad,
+                           "best_val": float(best_val)}, f)
+
+            if cfg.log_weights:
+                # the reference's TensorBoard weight histograms analogue
+                # (train_hiv.py:313-323): per-parameter summary stats
+                stats = {}
+                for name, p in self.model.named_parameters():
+                    a = p.detach().cpu().numpy()
+                    stats[name.replace(".", "/")] = {
+                        "mean": float(np.mean(a)), "std": float(np.std(a)),
+                        "min": float(np.min(a)), "max": float(np.max(a))}
+                with open(os.path.join(run_dir, "weights.jsonl"), "a") as f:
+                    f.write(json.dumps({"epoch": epoch, "params": stats})
+                            + "\n")
+
+            row = {"epoch": epoch, "lr": lr, "train_loss": tr["train_loss"],
+                   "train_metric": tr["train_metric"],
+                   "valid_loss": val["loss"], "valid_metric": val_metric,
+                   "wall_s": round(time.time() - t_start, 1),
+                   "steps_per_s": round(tr["steps"] / tr["seconds"], 2),
+                   "edges_per_s": round(tr["edges"] / tr["seconds"], 1)}
+            with open(scalars_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
+            for k in history:
+                history[k].append(row[k])
+            log.info("run %d epoch %d: train %.4f/%.4f valid %.4f/%.4f lr "
+                     "%.2e", run_idx, epoch, tr["train_loss"],
+                     tr["train_metric"], val["loss"], val_metric, lr)
+
+            # Benchmarking-GNNs stopping rules (train_zinc.py:366-381)
+            if lr < cfg.min_lr * (1 + 1e-9) and cfg.scheduler_mode == "min":
+                log.info("stopping: lr below min_lr")
+                break
+            if (cfg.max_time_hours
+                    and time.time() - t_start > cfg.max_time_hours * 3600):
+                log.info("stopping: max_time reached")
+                break
+
+        if not np.isfinite(best_val):
+            # no epoch ran (e.g. resume at completion): score the weights
+            best_val = self.evaluate(self.valid_batches())[cfg.metric]
+            best_state = _host_state(self.model)
+
+        # the test at the last weights, then at the best-validation ones
+        # (copied in for the evaluation and the last put back after)
+        result = {"best_val": float(best_val)}
+        if self.test_batches is not None:
+            test_last = self.evaluate(self.test_batches())
+            with self._weights(best_state):
+                test_best = self.evaluate(self.test_batches())
+            result["test_bestval"] = float(test_best[cfg.metric])
+            result["test_last"] = float(test_last[cfg.metric])
+        with open(os.path.join(run_dir, "val_test.json"), "w") as f:
+            json.dump(result, f, indent=2)
+        np.save(os.path.join(run_dir, "arrays.npy"), history, allow_pickle=True)
+        return result
+
+    # -- n_runs ---------------------------------------------------------------
+    def run(self, resume: bool = False) -> dict:
+        """n_runs independent trainings; KeyboardInterrupt finishes the
+        current run's bookkeeping (checkpoints are saved every epoch, so a
+        resumed invocation continues exactly)."""
+        os.makedirs(self.cfg.save_dir, exist_ok=True)
+        with open(os.path.join(self.cfg.save_dir, "params.json"), "w") as f:
+            f.write(self.cfg.to_json())
+        results: List[dict] = []
+        for i in range(1, self.cfg.n_runs + 1):
+            try:
+                results.append(self.do_run(i, resume=resume))
+            except KeyboardInterrupt:
+                log.info("interrupted during run %d; checkpoints are saved "
+                         "per epoch: rerun with resume=True to continue", i)
+                break
+        if not results:
+            log.info("no completed runs; nothing to summarize")
+            return {}
+        summary = {}
+        for key in results[0]:
+            vals = [r[key] for r in results]
+            summary[key] = {"mean": float(np.mean(vals)),
+                            "std": float(np.std(vals)), "runs": vals}
+        with open(os.path.join(self.cfg.save_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        return summary

@@ -16,12 +16,13 @@ from phc_gnn_tpu.data import synthetic_batch as jax_synthetic_batch
 from phc_gnn_tpu.models import PHCGNN as JaxPHCGNN
 from phc_gnn_tpu.ops.stream_scan import attach_scan_plan
 from phc_gnn_torch import resolve_device
-from phc_gnn_torch.convert import from_flax_variables
+from phc_gnn_torch.convert import from_flax_params, from_flax_variables
 from phc_gnn_torch.data import ZINC_ATOM_DIMS, ZINC_BOND_DIMS, synthetic_batch
 from phc_gnn_torch.graph import attach_csr_plan
 from phc_gnn_torch.models import PHCGNN
 from phc_gnn_torch.train import make_eval_step
-from torch_parity import assert_close, load_flax, numpy_tree, randomize
+from torch_parity import (assert_close, load_flax, numpy_tree, port_flat,
+                          randomize)
 
 REL = 1e-4
 
@@ -85,6 +86,54 @@ def test_converter_maps_every_flagship_key():
     wrong["batch_stats"]["norm_1"]["bn"]["var"] = np.ones((4, 49), np.float32)
     with pytest.raises(ValueError, match="norm_1.bn.var"):
         from_flax_variables(wrong, model)
+
+
+def test_converter_params_only_keeps_buffers():
+    """``from_flax_params`` (the trainer's ``init_from``): a flax params
+    tree without ``batch_stats`` fills every parameter and keeps the
+    model's own running stats, as JAX's warm start keeps its fresh ones;
+    the model's forward then equals JAX's at those params and stats.  A
+    missing or mis-shaped parameter raises."""
+    cfg = _config(32, 2)
+    jm = JaxPHCGNN(**cfg)
+    jb = jax_synthetic_batch(8, 256, 512, seed=3)
+    v = randomize(jm.init(jax.random.key(0), jb, training=False), seed=5)
+    model = PHCGNN(**cfg, device="cpu")
+    with torch.no_grad():
+        for b in model.buffers():
+            b.uniform_(0.5, 1.5)
+    own = {k: b.clone() for k, b in model.named_buffers()}
+    with pytest.raises(KeyError):
+        from_flax_variables({"params": v["params"]}, model)
+    sd = from_flax_params(v["params"], model)
+    assert list(sd) == list(model.state_dict())
+    for k, b in own.items():
+        assert torch.equal(sd[k], b), k
+    flat = port_flat(v["params"])
+    assert sorted(flat) == sorted(k for k, _ in model.named_parameters())
+    for k, leaf in flat.items():
+        np.testing.assert_array_equal(sd[k].numpy(), leaf, err_msg=k)
+    model.load_state_dict(sd)
+    stats = {}
+    for k, b in own.items():
+        *path, leaf = k.split(".")
+        node = stats
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = b.numpy()
+    want = np.asarray(jm.apply({"params": v["params"], "batch_stats": stats},
+                               jb, training=False))
+    assert_close(make_eval_step(model, device="cpu")(synthetic_batch(
+        8, 256, 512, seed=3)), want, REL)
+    missing = randomize(v)["params"]
+    del missing["conv_1"]["conv"]["beta"]
+    with pytest.raises(KeyError, match="conv_1.conv.beta"):
+        from_flax_params(missing, model)
+    wrong = randomize(v)["params"]
+    wrong["pooling"]["real_trafo"]["affine"]["kernel"] = np.ones((3, 3),
+                                                                 np.float32)
+    with pytest.raises(ValueError, match="pooling.real_trafo.affine.weight"):
+        from_flax_params(wrong, model)
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

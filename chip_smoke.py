@@ -51,7 +51,13 @@ Phases, each of which exits non-zero on failure:
    and min) and I (mean and var) over the flagship's receiver CSR at D =
    200 with ReLU messages, exact ties, the adversarial receivers of A and B (one-edge, all-masked and isolated
    segments) and, for H, |m| >= 1e29: H bit for bit, I within TOL_SUM and
-   var 0 exactly on one-edge segments.  Each is timed with CUDA events, eagerly and
+   var 0 exactly on one-edge segments; and the bf16 instances of A, B (both
+   variants) and C (both roles, the flagship's and pcba's shapes with
+   the eval shape, width 37, bf16 rows off 16-byte alignment, the
+   adversarial cases) on bf16 rows against their plain versions on the
+   same rows (TOL_MAX, TOL_AGG, TOL_SUM: the conversion is exact), C
+   bit-equal to the sequential f32 sum, and every bf16 output bit-equal to
+   the float32 instance fed the upcast rows.  Each is timed with CUDA events, eagerly and
    from a CUDA graph, beside its plain version, its bound and, where one
    exists, one PyTorch call that computes the same function; D + E are
    timed at [4096, 512] beside F and G, as data for the size gate between
@@ -207,13 +213,59 @@ Phases, each of which exits non-zero on failure:
    under deterministic algorithms (C in both roles, no A or B; epoch 1
    timed, epoch 2 profiled), then ``cli.inference`` restores run 1's best
    export and reproduces ``test_bestval`` bit for bit.
+16. bf16 flagship: ``compute_dtype=torch.bfloat16`` at width 200.  One
+   dropout-free training forward and backward on the card and on the CPU,
+   each in float32 and bf16 from one random state.  Each conv, norm, the
+   pooling and the head, fed the CPU bf16 run's own inputs (forward and
+   the VJP of a seeded cotangent): the card's bf16 module within
+   BF16_MODULE_FACTOR of the CPU bf16 module's distance from the CPU f32
+   module (2-norms; the gradients over the input and the leaves that are
+   not rounding noise), and the card's f32 modules in their place fail
+   that check (the control).  The whole model: the card's bf16 output and
+   gradients from its f32 ones within BF16_OWN_BAND of the CPU bf16
+   model's distance from the CPU f32 model, the bf16 output's largest
+   entry error and the loss within BF16_F32_BOUND of the f32 ones, the
+   card's bf16 run against the CPU's within the gross BF16_WHOLE_FACTOR
+   of that distance (two bf16 runs whose f32 sums differ in order part by
+   nearly as much as bf16 from f32, so an f32 model passes this bound
+   too); parameters' gradients float32 and finite, the output float32.  Three
+   eager steps with dropout, counted (A, B, C's gather backward in their
+   bf16 instances 4 a step, D and E 10, no float32 A, B or C); the graphed
+   steps' first call under ``set_sync_debug_mode("error")``, counted;
+   graphed steps held bit-equal to eager ones under the deterministic
+   algorithms as in 14; eager and graphed ms, kernels, busy and idle of
+   the f32 and the bf16 step in the same process, the graphs timed again in
+   turns, and the peak memory of each graph's first call (its own: above
+   what was allocated before it, as every peak of 16-18);
+17. bf16 pcba: ``make_accum_train_step`` (K = 4, one CUDA graph) in bf16
+   and float32: each first call under ``set_sync_debug_mode("error")``, the
+   bf16 one counted (C's two roles in their bf16 instances 28 each, F, G
+   28, D, E 8), its peak memory; the graphed step timed in turns (f32,
+   bf16, bf16, f32) and profiled;
+18. remat: the flagship and pcba with ``remat=True`` against
+   ``remat=False`` from one random state, under the deterministic
+   algorithms with dropout off: one eager forward and backward (loss,
+   every gradient and running stat bit-equal, the stats moved, so updated
+   once), then 3 graphed steps (``make_scan_train_steps``, or pcba's
+   ``make_accum_train_step``: captured with the recompute inside) with
+   every parameter, running stat and Adam tensor bit-equal; with dropout
+   one eager step counted (the convs' forward kernels twice: A, B 8, C 4,
+   D 14, E 10; pcba's C masked 56), and each model's peak memory over an
+   eager step and over its graph's first call, its eager and graphed ms;
+19. harness bf16: the ZINC recipe through the CLI with ``--compute_dtype
+   bf16`` for 2 epochs on the zinc parity task: C's bf16 instances alone
+   (counted over each graph's warm-ups and capture), the losses finite and
+   falling.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
-``{"scan"}``, ``{"harness"}`` and ``{"kernels": [...]}`` lines, then, as
-its last line, ``{"ok": true, "device": {...}}``.  In the kernels line,
+``{"scan"}``, ``{"bf16"}``, ``{"remat"}``, ``{"harness"}``,
+``{"harness_bf16"}``, ``{"phase_seconds"}`` and ``{"kernels": [...]}``
+lines, then, as its last line, ``{"ok": true, "device": {...}}``.  The
+kernels line lists the bf16 instances of A, B and C as kernels of their
+own (``<name>_bf16``, counted by the wrappers' ``launches_bf16``).  In it,
 each kernel's ``launches_by_path`` holds its count from each of the
-sixteen main-path runs above (``eval``: 3 flagship batches; ``train``: 10 flagship steps;
+main-path runs above (``eval``: 3 flagship batches; ``train``: 10 flagship steps;
 ``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated steps of the eager
 body; ``pcba_graph``: the graphed accumulated step's first call, whose
 wrappers count the 3 warm-ups and the capture, not the replay;
@@ -223,7 +275,11 @@ batch; ``quat_eval_grad``: 1 batch; ``quat_eval_attr``: 1 batch;
 graphed flagship call, whose wrappers count the 3 warm-ups and the capture,
 not the replays; ``harness_synthetic``, ``harness_pcba``, ``harness_zinc``:
 the three CLI runs of the harness, whose wrappers count each graph's
-warm-ups and capture), and ``launches`` is their sum.  Without
+warm-ups and capture; ``bf16_train``: 3 eager bf16 flagship steps;
+``bf16_scan``: the bf16 graphed steps' first call; ``bf16_pcba``: the bf16
+accumulated graph's first call; ``remat_flagship``, ``remat_pcba``: one
+eager step each with remat; ``harness_bf16``: the bf16 CLI run), and
+``launches`` is their sum.  Without
 a CUDA device it exits non-zero and prints no result.  It imports nothing
 of JAX.
 """
@@ -361,6 +417,44 @@ PCBA_LAUNCHES = {"segment_sum_masked": 28, "segment_sum_perm": 28,
                  "bn_forward_blocked": 28, "bn_backward_blocked": 28,
                  "bn_forward": 8, "bn_backward": 8}
 PCBA_EVAL_LAUNCHES = {"segment_sum_masked": PCBA_LAYERS}
+# compute_dtype=bf16: A, B and C read bf16 messages through their bf16
+# instances (counted apart, "<wrapper>_bf16"); the norms upcast, so D-G run
+# as in float32
+BF16_KERNELS = ("segment_logit_max", "segment_softmax_aggregate",
+                "segment_sum_perm", "segment_sum_masked")
+BF16_TRAIN_LAUNCHES = {"segment_logit_max_bf16": 4,
+                       "segment_softmax_aggregate_bf16": 4,
+                       "segment_sum_perm_bf16": 4, "bn_forward": 10,
+                       "bn_backward": 10}
+PCBA_BF16_LAUNCHES = {"segment_sum_masked_bf16": 28,
+                      "segment_sum_perm_bf16": 28, "bn_forward_blocked": 28,
+                      "bn_backward_blocked": 28, "bn_forward": 8,
+                      "bn_backward": 8}
+BF16_STEPS = 3              # eager bf16 flagship steps counted
+BF16_SCAN_STEPS = 4         # graphed bf16 steps held to eager ones
+# the flagship's modules held one by one at the CPU bf16 run's own inputs
+BF16_MODULES = tuple(n for i in range(4) for n in (f"conv_{i}", f"norm_{i}")
+                     ) + ("pooling", "downstream")
+BF16_MODULE_FACTOR = 0.25   # a card bf16 module against the CPU's bf16
+                            # module, as a share of the CPU bf16 module's
+                            # distance from the CPU f32 module (2-norms of
+                            # the output and of the gradients)
+BF16_OWN_BAND = (0.5, 2.0)  # the card's bf16 model from its f32 model, as a
+                            # share of the CPU bf16 model's distance from
+                            # the CPU f32 model (output and gradients)
+BF16_WHOLE_FACTOR = 1.0     # the card's whole bf16 model from the CPU's, the
+                            # same share: a gross bound only (an f32 model
+                            # passes it; two bf16 runs part layer by layer)
+BF16_F32_BOUND = 0.05       # tests/test_bf16.py: a bf16 output within 5 % of
+                            # the f32 one
+# remat=True: the backward recomputes each conv, so its forward kernels run
+# twice a step: A, B 4 + 4, D 10 + the 4 MLP norms inside the convs; pcba's
+# sum aggregation 28 + 28 (its norms sit outside the convs)
+REMAT_TRAIN_LAUNCHES = {"segment_logit_max": 8, "segment_softmax_aggregate": 8,
+                        "segment_sum_perm": 4, "bn_forward": 14,
+                        "bn_backward": 10}
+PCBA_REMAT_LAUNCHES = {**PCBA_LAUNCHES, "segment_sum_masked": 56}
+REMAT_STEPS = 3             # graphed steps held bit-equal to remat=False
 # the flags of benchmarks/run_script_pcba_phm2.sh over DATASET_DEFAULTS["pcba"]
 PCBA_SCRIPT = dict(dataset="pcba", phm_dim=2, model_type="add", aggr_msg="sum",
                    mlp_mp=False, input_embed_dim=PCBA_DIM,
@@ -474,13 +568,24 @@ def kernel_wrappers():
             "segment_moments": sr.segment_moments}
 
 
+def counter_names() -> list:
+    """Every launch counter: the wrappers', then the bf16 instances' of A,
+    B and C (``<wrapper>_bf16``)."""
+    return list(kernel_wrappers()) + [f"{n}_bf16" for n in BF16_KERNELS]
+
+
 def reset_launches() -> None:
-    for wrapper in kernel_wrappers().values():
+    for name, wrapper in kernel_wrappers().items():
         wrapper.launches = 0
+        if name in BF16_KERNELS:
+            wrapper.launches_bf16 = 0
 
 
 def read_launches() -> dict:
-    return {name: w.launches for name, w in kernel_wrappers().items()}
+    wrappers = kernel_wrappers()
+    out = {name: w.launches for name, w in wrappers.items()}
+    out.update({f"{n}_bf16": wrappers[n].launches_bf16 for n in BF16_KERNELS})
+    return out
 
 
 def adversarial_counts(rng, n: int = 64):
@@ -1487,6 +1592,223 @@ def segment_reduce_kernels(torch, dev, batch, errs):
     return [rec_h, rec_i]
 
 
+def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
+    """A, B (both variants) and C (both roles) on bf16 rows against their
+    plain versions on the same bf16 rows (which upcast, so the float32
+    tolerances hold), at the flagship's and pcba's shapes and on the
+    adversarial cases of the float32 checks; each bf16 output also against
+    the float32 instance fed the upcast rows (the conversion is exact, so
+    the same bits are expected).  Returns the timing records of the four
+    bf16 instances, their bounds at the bf16 input bytes."""
+    from phc_gnn_torch.ops import segment_softmax as ss
+    from phc_gnn_torch.ops import segment_sum as ssum
+
+    gen = torch.Generator().manual_seed(7)
+    msgs = torch.randn((batch.num_edges, DIM), generator=gen).to(dev).to(
+        torch.bfloat16)
+    beta = torch.tensor(1.37, device=dev)
+    adv_m, adv_k, adv_b, adv_rp = adversarial_case(torch, dev, DIM)
+    same_bits = {}
+    cases = {"main": (msgs, batch.edge_mask, beta, batch.rowptr),
+             "adversarial": (adv_m.to(torch.bfloat16), adv_k, adv_b, adv_rp),
+             "d = 37": (msgs[:, :37].contiguous(), batch.edge_mask, beta,
+                        batch.rowptr)}
+    for name, (m, k, b, rp) in cases.items():
+        before = (ss.segment_logit_max.launches_bf16,
+                  ss.segment_softmax_aggregate.launches_bf16)
+        smax = ss.segment_logit_max(m, k, b, rp)
+        out, w, den = ss.segment_softmax_aggregate(m, k, b, rp, smax,
+                                                   emit_w=True)
+        out_nw = ss.segment_softmax_aggregate(m, k, b, rp, smax)
+        torch.cuda.synchronize()
+        if (ss.segment_logit_max.launches_bf16 != before[0] + 1
+                or ss.segment_softmax_aggregate.launches_bf16
+                != before[1] + 2):
+            fail(f"bf16 {name}: the bf16 launch counters did not move")
+        smax_ref = ss.segment_logit_max_plain(m, k, b, rp)
+        out_ref, w_ref, den_ref = ss.segment_softmax_aggregate_plain(
+            m, k, b, rp, smax_ref, emit_w=True)
+        check(errs, "segment_logit_max_bf16", name, smax, smax_ref, TOL_MAX,
+              identity=ss.NEG, own_scale=False)
+        for what, got, want in (("out", out, out_ref),
+                                ("eval out", out_nw, out_ref), ("w", w, w_ref)):
+            check(errs, "segment_softmax_aggregate_bf16", f"{name}, {what}",
+                  got, want, TOL_AGG, own_scale=False)
+        check(errs, "segment_softmax_aggregate_bf16", f"{name}, den", den,
+              den_ref, TOL_AGG)
+        up = m.float()
+        smax32 = ss.segment_logit_max(up, k, b, rp)
+        same_bits[f"A {name}"] = torch_equal(smax, smax32)
+        same_bits[f"B {name}"] = all(map(torch_equal, (out, w, den),
+                                         ss.segment_softmax_aggregate(
+                                             up, k, b, rp, smax32, True)))
+
+    g = torch.randn((batch.num_edges, DIM), generator=gen).to(dev).to(
+        torch.bfloat16)
+    p_g = torch.randn((pcba.num_edges, PCBA_DIM), generator=gen).to(dev).to(
+        torch.bfloat16)
+    adv_g, adv_perm, adv_srp = adversarial_senders(torch, dev, DIM)
+    # rows one element past a 16-byte boundary take the scalar instance
+    off = torch.empty(g.numel() + 1, dtype=torch.bfloat16,
+                      device=dev)[1:].view(g.shape)
+    off.copy_(g)
+    perm_cases = {"main": (g, batch.snd_perm, batch.snd_rowptr),
+                  f"pcba [{pcba.num_edges}, {PCBA_DIM}]": (
+                      p_g, pcba.snd_perm, pcba.snd_rowptr),
+                  "d = 37": (g[:, :37].contiguous(), batch.snd_perm,
+                             batch.snd_rowptr),
+                  "rows off 16-byte alignment": (off, batch.snd_perm,
+                                                 batch.snd_rowptr),
+                  "adversarial": (adv_g.to(torch.bfloat16), adv_perm,
+                                  adv_srp)}
+    pm = torch.randn((pcba.num_edges, PCBA_DIM), generator=gen).to(dev).to(
+        torch.bfloat16)
+    e_m = torch.randn((pcba_eval.num_edges, PCBA_DIM), generator=gen).to(dev).to(
+        torch.bfloat16)
+    masked_cases = {f"pcba [{pcba.num_edges}, {PCBA_DIM}]": (
+                        pm, pcba.edge_mask, pcba.rowptr),
+                    f"eval [{pcba_eval.num_edges}, {PCBA_DIM}]": (
+                        e_m, pcba_eval.edge_mask, pcba_eval.rowptr),
+                    "flagship": (msgs, batch.edge_mask, batch.rowptr),
+                    "d = 37": (pm[:, :37].contiguous(), pcba.edge_mask,
+                               pcba.rowptr),
+                    "adversarial": (adv_m.to(torch.bfloat16), adv_k, adv_rp)}
+    for kname, fn, plain, role_cases in (
+            ("segment_sum_perm", ssum.segment_sum_perm,
+             ssum.segment_sum_perm_plain, perm_cases),
+            ("segment_sum_masked", ssum.segment_sum_masked,
+             ssum.segment_sum_masked_plain, masked_cases)):
+        for name, (v, idx, rp) in role_cases.items():
+            before = fn.launches_bf16
+            out = fn(v, idx, rp)
+            torch.cuda.synchronize()
+            if fn.launches_bf16 != before + 1:
+                fail(f"bf16 {name}: the bf16 launch counter of {kname} did "
+                     f"not move")
+            check(errs, f"{kname}_bf16", name, out,
+                  plain(v.double(), idx, rp), TOL_SUM)
+            hold_sequential(torch, f"{kname}_bf16", name, out, fn(v, idx, rp),
+                            plain(v.cpu(), idx.cpu(), rp.cpu()))
+            same_bits[f"C {kname} {name}"] = torch_equal(
+                out, fn(v.float(), idx, rp))
+    print(f"bf16 kernels: bit-equal to the float32 instance fed the upcast "
+          f"rows: {same_bits}", flush=True)
+    if not all(same_bits.values()):
+        fail("a bf16 instance differs from the float32 instance on the "
+             "upcast rows")
+
+    # timings at the main paths' shapes, bounds at the bf16 input bytes
+    n, d = batch.rowptr.shape[0] - 1, DIM
+    e_seg = int(batch.rowptr[-1])
+    seg = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  (batch.rowptr[1:] - batch.rowptr[:-1]).long())
+    k = batch.edge_mask
+    logits = torch.where(k[:e_seg, None], beta * msgs[:e_seg].float(), ss.NEG)
+    index = seg[:, None].expand(e_seg, d).contiguous()
+    init = torch.full((n, d), ss.NEG, device=dev)
+    in_bytes = e_seg * d * 2 + e_seg + (n + 1) * 4 + 4
+    nd_bytes = n * d * 4
+    smax = ss.segment_logit_max(msgs, k, beta, batch.rowptr)
+    src = "phc_gnn_torch/csrc/segment_softmax.cu"
+    rp = batch.rowptr
+    rec_a = record(torch, "segment_logit_max_bf16", src,
+                   "phc_gnn_tpu/ops/stream_scan.py:415", errs,
+                   lambda: ss.segment_logit_max(msgs, k, beta, rp),
+                   lambda: ss.segment_logit_max_plain(msgs, k, beta, rp),
+                   lambda: init.scatter_reduce(0, index, logits, "amax"),
+                   in_bytes + nd_bytes, 2 * e_seg * d)
+    rec_b = record(torch, "segment_softmax_aggregate_bf16", src,
+                   "phc_gnn_tpu/ops/stream_scan.py:521", errs,
+                   lambda: ss.segment_softmax_aggregate(msgs, k, beta, rp,
+                                                        smax),
+                   lambda: ss.segment_softmax_aggregate_plain(msgs, k, beta,
+                                                              rp, smax),
+                   None, in_bytes + 2 * nd_bytes, 6 * e_seg * d + n * d)
+    rec_b["train_variant"] = variant(
+        torch, "segment_softmax_aggregate_bf16",
+        lambda: ss.segment_softmax_aggregate(msgs, k, beta, rp, smax,
+                                             emit_w=True),
+        in_bytes + 3 * nd_bytes + msgs.shape[0] * d * 4,
+        "training variant, w and den")
+    rec_b["train_variant"]["replaces"] = "phc_gnn_tpu/ops/stream_scan.py:439"
+
+    def c_record(kname, fn, plain, v, idx, rp, real_rows, seg_of_real, role):
+        """C's bf16 instance: the library call is one ``index_add_`` of the
+        real rows, upcast outside the call (a bf16 ``index_add_`` would sum
+        in bf16)."""
+        n, d = rp.shape[0] - 1, v.shape[1]
+        e_real = real_rows.shape[0]
+        rows32 = v[real_rows].float()
+        zeros = torch.zeros((n, d), device=dev)
+        nbytes = e_real * d * 2 + idx.numel() * idx.element_size() \
+            + (n + 1) * 4 + n * d * 4
+        rec = record(torch, f"{kname}_bf16",
+                     "phc_gnn_torch/csrc/segment_sum.cu",
+                     "phc_gnn_tpu/ops/stream_scan.py:373", errs,
+                     lambda: fn(v, idx, rp), lambda: plain(v, idx, rp),
+                     lambda: zeros.clone().index_add_(0, seg_of_real, rows32),
+                     nbytes, e_real * d)
+        rec["role"] = role
+        return rec
+
+    e_real = int(batch.snd_rowptr[-1])
+    real = batch.snd_perm[:e_real].long()
+    rec_cp = c_record("segment_sum_perm", ssum.segment_sum_perm,
+                      ssum.segment_sum_perm_plain, g, batch.snd_perm,
+                      batch.snd_rowptr, real, batch.senders[real].long(),
+                      "gather backward (_gather_sb_bwd :854), the messages' "
+                      "bf16 cotangent")
+    p_real = pcba.snd_perm[:int(pcba.snd_rowptr[-1])].long()
+    p_lib = torch.zeros((pcba.num_nodes, PCBA_DIM), device=dev)
+    p_rows = p_g[p_real].float()
+    p_seg = pcba.senders[p_real].long()
+    p_fn = lambda: ssum.segment_sum_perm(  # noqa: E731
+        p_g, pcba.snd_perm, pcba.snd_rowptr)
+    p_bytes = (p_real.shape[0] * PCBA_DIM * 2 + pcba.num_edges * 4
+               + (pcba.num_nodes + 1) * 4 + pcba.num_nodes * PCBA_DIM * 4)
+    rec_cp["pcba_shape"] = {
+        "ms": time_eager(torch, p_fn), "graph_ms": time_graph(torch, p_fn),
+        "bound_ms": p_bytes / HBM_BYTES_PER_S * 1e3, "bytes": p_bytes,
+        "library_graph_ms": time_graph(
+            torch, lambda: p_lib.clone().index_add_(0, p_seg, p_rows))}
+    m_seg = torch.repeat_interleave(
+        torch.arange(pcba.num_nodes, device=dev),
+        (pcba.rowptr[1:] - pcba.rowptr[:-1]).long())
+    m_real = pcba.edge_mask[:m_seg.shape[0]].nonzero()[:, 0]
+    rec_cm = c_record("segment_sum_masked", ssum.segment_sum_masked,
+                      ssum.segment_sum_masked_plain, pm, pcba.edge_mask,
+                      pcba.rowptr, m_real, m_seg[m_real],
+                      "forward of the sum aggregation (_seg_sum_streamed "
+                      ":698) and the mean's sum (:974), bf16 messages")
+    e_seg_ids = torch.repeat_interleave(
+        torch.arange(pcba_eval.num_nodes, device=dev),
+        (pcba_eval.rowptr[1:] - pcba_eval.rowptr[:-1]).long())
+    e_real = pcba_eval.edge_mask[:e_seg_ids.shape[0]].nonzero()[:, 0]
+    e_rows = e_m[e_real].float()
+    e_lib = torch.zeros((pcba_eval.num_nodes, PCBA_DIM), device=dev)
+    e_fn = lambda: ssum.segment_sum_masked(  # noqa: E731
+        e_m, pcba_eval.edge_mask, pcba_eval.rowptr)
+    e_bytes = (e_real.shape[0] * PCBA_DIM * 2 + pcba_eval.num_edges
+               + (pcba_eval.num_nodes + 1) * 4
+               + pcba_eval.num_nodes * PCBA_DIM * 4)
+    rec_cm["eval_shape"] = {
+        "ms": time_eager(torch, e_fn), "graph_ms": time_graph(torch, e_fn),
+        "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3, "bytes": e_bytes,
+        "library_graph_ms": time_graph(
+            torch, lambda: e_lib.clone().index_add_(0, e_seg_ids[e_real],
+                                                    e_rows))}
+    for rec, shape, key in ((rec_cp, "pcba's", "pcba_shape"),
+                            (rec_cm, "the eval", "eval_shape")):
+        r = rec[key]
+        print(f"kernel {rec['name']} at {shape} shape: {r['ms'] * 1e3:.2f} us "
+              f"per call, {r['graph_ms'] * 1e3:.2f} us device, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us, library "
+              f"{r['library_graph_ms'] * 1e3:.2f} us device", flush=True)
+    for rec in (rec_a, rec_b, rec_cp, rec_cm):
+        rec["bit_equal_to_f32_on_upcast_rows"] = True
+    return [rec_a, rec_b, rec_cp, rec_cm]
+
+
 def kernel_phase(torch, dev):
     """Kernels vs plain versions at the main-path and adversarial shapes;
     returns the per-kernel records (launches filled in later)."""
@@ -1503,7 +1825,8 @@ def kernel_phase(torch, dev):
             + batch_norm_kernels(torch, dev, batch, errs)
             + blocked_bn_kernels(torch, dev, pcba, errs)
             + whitening_kernels(torch, dev, batch, errs)
-            + segment_reduce_kernels(torch, dev, batch, errs))
+            + segment_reduce_kernels(torch, dev, batch, errs)
+            + bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs))
 
 
 def flagship_config(dropout: bool = True) -> dict:
@@ -1570,8 +1893,9 @@ def slice_phase(torch, dev):
     outs = [step(b) for b in batches]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {name: (4 * N_BATCHES if name.startswith("segment_softmax")
-                   or name == "segment_logit_max" else 0)
+    want = {name: (4 * N_BATCHES if name in ("segment_logit_max",
+                                             "segment_softmax_aggregate")
+                   else 0)
             for name in launches}
     print(f"slice: launches on the eval path {launches} (expected {want}: A "
           f"and B once per layer, 4 layers x {N_BATCHES} batches; the "
@@ -2044,15 +2368,19 @@ def train_phase(torch, dev):
     return launches
 
 
-def pcba_model(torch, dev, dropout: bool = True):
+def pcba_model(torch, dev, dropout: bool = True, compute_dtype: str = "f32",
+               remat: bool = False):
     """The pcba model from its configuration through ``build_model``, at
-    random weights from seed 0; with ``dropout=False`` every rate is 0.
-    Returns ``(model, loss_fn, cfg)``."""
+    random weights from seed 0; with ``dropout=False`` every rate is 0; in
+    ``compute_dtype`` ("f32" or "bf16", the CLI's flag); with ``remat``
+    each conv rematerialized (a model argument without a flag, as in JAX:
+    ``PHCGNN`` reads it at each forward).  Returns ``(model, loss_fn,
+    cfg)``."""
     from phc_gnn_torch.data import ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS
     from phc_gnn_torch.train.config import DATASET_DEFAULTS, ExperimentConfig
     from phc_gnn_torch.train.trainer import build_loss, build_model
 
-    over = dict(PCBA_SCRIPT)
+    over = dict(PCBA_SCRIPT, compute_dtype=compute_dtype)
     if not dropout:
         over.update(dropout_mpnn=(0.0,) * PCBA_LAYERS, dropout_dn=(0.0, 0.0))
     cfg = ExperimentConfig(**{**DATASET_DEFAULTS["pcba"], **over})
@@ -2061,6 +2389,7 @@ def pcba_model(torch, dev, dropout: bool = True):
         fail(f"the pcba configuration changed: {cfg}")
     model = build_model(cfg, ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS, seed=0,
                         device=dev)
+    model.remat = remat
     return model, build_loss(cfg), cfg
 
 
@@ -2418,7 +2747,7 @@ def pcba_replay_kernels(torch, fn) -> dict:
         got = {k: 0.0 for k in want}
         for (name, grid), n in counts.items():
             for wrapper, sub in KERNEL_NAMES.items():
-                if sub not in name:
+                if sub not in name.replace(" ", ""):
                     continue
                 if wrapper in blocked and grid == blocked[wrapper]:
                     wrapper += "_blocked"
@@ -2859,10 +3188,21 @@ def pna_train_phase(torch, dev):
 
 # device kernel names of each wrapper's kernel, for counting the kernels a
 # replayed CUDA graph runs (the wrappers' counters do not see a replay)
-KERNEL_NAMES = {"segment_logit_max": "segment_logit_max_kernel",
-                "segment_softmax_aggregate": "segment_softmax_aggregate_kernel",
-                "segment_sum_perm": "segment_sum_kernel<true",
-                "segment_sum_masked": "segment_sum_kernel<false",
+# (read with the spaces taken out of the demangled names: A, B and C are
+# templates on the rows' element type)
+KERNEL_NAMES = {"segment_logit_max": "segment_logit_max_kernel<float",
+                "segment_softmax_aggregate":
+                    "segment_softmax_aggregate_kernel<float",
+                "segment_sum_perm": "segment_sum_kernel<float,true",
+                "segment_sum_masked": "segment_sum_kernel<float,false",
+                "segment_logit_max_bf16":
+                    "segment_logit_max_kernel<__nv_bfloat16",
+                "segment_softmax_aggregate_bf16":
+                    "segment_softmax_aggregate_kernel<__nv_bfloat16",
+                "segment_sum_perm_bf16":
+                    "segment_sum_kernel<__nv_bfloat16,true",
+                "segment_sum_masked_bf16":
+                    "segment_sum_kernel<__nv_bfloat16,false",
                 "bn_forward": "bn_forward_kernel",
                 "bn_backward": "bn_backward_kernel",
                 "wbn_stats": "wbn_stats_kernel",
@@ -2879,7 +3219,8 @@ EMBEDDING_BWD_NAMES = ("embedding", "sort")
 def kernel_families(counts: dict, per: int) -> dict:
     """Kernels of each port wrapper in a profile's ``counts``, per call of
     ``per`` steps."""
-    return {w: sum(n for name, n in counts.items() if sub in name) / per
+    return {w: sum(n for name, n in counts.items()
+                   if sub in name.replace(" ", "")) / per
             for w, sub in KERNEL_NAMES.items()}
 
 
@@ -3326,7 +3667,601 @@ def scan_phase(torch, dev):
             torch, f"scan {name} train", lambda: ea(batches[0], lr),
             lambda: st(batches, lr), SCAN_STEPS, want)
     print(json.dumps({"scan": info}), flush=True)
-    return launches
+    return launches, info
+
+
+def rel_dist(a, b) -> float:
+    """||a - b|| / ||b|| (2-norms, in float64 on the CPU): the run's overall
+    deviation.  The largest entry's error is no measure between two bf16
+    runs: one bf16 rounding that flips between the card and the CPU (their
+    f32 sums in other orders) moves an entry by a bf16 step, as much as
+    bf16 moves it from f32."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def max_dist(a, b) -> float:
+    """max |a - b| / max |b|, in float64 on the CPU."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def grad_dist(torch, a: dict, b: dict, f32: dict) -> float:
+    """``rel_dist`` of gradients ``a`` against ``b``, all leaves as one
+    vector but those whose float32 gradient ``f32`` is rounding noise (at
+    most TOL_NOISE of the largest: the biases that a batch norm follows,
+    whose bf16 gradients are sums of thousands of roundings)."""
+    top = max(float(g.abs().max()) for g in f32.values())
+    keep = [k for k, g in f32.items()
+            if float(g.abs().max()) > TOL_NOISE * top]
+    flat = [torch.cat([x[k].double().cpu().reshape(-1) for k in keep])
+            for x in (a, b)]
+    return rel_dist(*flat)
+
+
+@contextlib.contextmanager
+def own_peak(torch, dev):
+    """The block's own peak device memory: ``max_memory_allocated`` over
+    it less what was allocated when it began (the earlier phases' models
+    and graph pools), in the dict it yields, as ``bytes``."""
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    yield out
+    torch.cuda.synchronize()
+    out["bytes"] = torch.cuda.max_memory_allocated(dev) - base
+
+
+def bf16_flagship(torch, dev, dropout: bool):
+    from phc_gnn_torch.models import PHCGNN
+
+    return PHCGNN(**flagship_config(dropout), compute_dtype=torch.bfloat16,
+                  seed=0, device=dev)
+
+
+def to_device(torch, tree, dev, dtype=None):
+    """``tree`` (a module's recorded args and kwargs) with its tensors
+    detached on ``dev``; with ``dtype``, its bf16 tensors cast to it."""
+    from torch.utils._pytree import tree_map
+
+    def move(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.detach().to(dev)
+        return t.to(dtype) if dtype is not None and t.dtype == torch.bfloat16 \
+            else t
+    return tree_map(move, tree)
+
+
+def record_inputs(torch, model, names):
+    """Forward hooks that keep the args and kwargs of each module ``names``
+    of ``model`` in its next forward, copied to the CPU; (store, handles)."""
+    store = {}
+
+    def hook(name):
+        def keep(module, args, kwargs, output):
+            store[name] = to_device(torch, (args, kwargs), "cpu")
+        return keep
+    handles = [model.get_submodule(n).register_forward_hook(
+        hook(n), with_kwargs=True) for n in names]
+    return store, handles
+
+
+def module_vjp(torch, module, inputs, dev, dtype=None):
+    """The training output of ``module`` at its recorded ``inputs`` moved
+    to ``dev`` (bf16 tensors cast to ``dtype`` where given), and the VJP of
+    a seeded cotangent: (out, {"input": dx, <param>: grad}), on the CPU."""
+    args, kwargs = to_device(torch, inputs, dev, dtype)
+    x = args[0].requires_grad_(True)
+    out = module(x, *args[1:], **kwargs)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    params = {k: p for k, p in module.named_parameters() if p.requires_grad}
+    grads = torch.autograd.grad(out, [x, *params.values()],
+                                cot.to(dev, out.dtype), allow_unused=True)
+    return out.detach().cpu(), {
+        k: (torch.zeros_like(v) if g is None else g).detach().cpu()
+        for (k, v), g in zip((("input", x), *params.items()), grads)}
+
+
+def bf16_module_ratios(torch, dev, cpu_vjps, inputs, under_test,
+                       dtype=None):
+    """Per module of BF16_MODULES at the CPU bf16 run's recorded inputs:
+    ``under_test``'s module (on the card, inputs cast to ``dtype`` where
+    given, torch's deterministic algorithms on) against the CPU bf16
+    model's, as a share of the CPU bf16 module's distance from the CPU f32
+    module fed the same inputs upcast (``cpu_vjps[name]``: the two
+    ``module_vjp``; 2-norms, the gradients those of the input and the
+    parameters but the leaves whose f32 gradient is rounding noise)."""
+    ratios = {}
+    for name in BF16_MODULES:
+        want, wit = cpu_vjps[name]
+        with deterministic(torch):
+            got = module_vjp(torch, under_test.get_submodule(name),
+                             inputs[name], dev, dtype)
+        ratios[name] = {
+            "out": rel_dist(got[0], want[0]) / max(
+                rel_dist(want[0], wit[0]), 1e-30),
+            "grads": grad_dist(torch, got[1], want[1], wit[1]) / max(
+                grad_dist(torch, want[1], wit[1], wit[1]), 1e-30)}
+    return ratios
+
+
+def bf16_agreement(torch, dev, host_batch, batch, loss_fn):
+    """One dropout-free training forward and backward of the flagship from
+    one random state in four models: the card's and the CPU's, each in
+    float32 and bf16.
+
+    Held, per module of BF16_MODULES fed the CPU bf16 run's own inputs
+    (forward and the VJP of a seeded cotangent): the card's bf16 module
+    within BF16_MODULE_FACTOR of the CPU bf16 module's distance from the
+    CPU f32 module.  The same check with the card's f32 model in the bf16
+    model's place (the control) must fail on every module, so the check
+    tells a bf16 module from one that skipped its casts.  Whole model: the
+    card's bf16 output and gradients from the card's f32 ones within
+    BF16_OWN_BAND of the CPU bf16 model's distance from the CPU f32 model
+    (the card's run rounds as a bf16 run does), and the card's bf16 output
+    and loss within BF16_F32_BOUND of the card's f32 ones.  The whole
+    model's card bf16 against CPU bf16 is held only within the gross
+    BF16_WHOLE_FACTOR: two bf16 runs whose float32 sums differ in order
+    alone move apart by nearly as much as bf16 moves from f32 (each cast
+    turns the other's last-bit differences into bf16 steps, layer by
+    layer), so an f32 model passes it too."""
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_loss_and_grads
+
+    base = PHCGNN(**flagship_config(False), seed=0, device="cpu")
+    randomize_eval_state(torch, base)
+    state = base.state_dict()
+    runs, models = {}, {}
+    for where, b in (("card", batch), ("cpu", host_batch)):
+        for dtype in ("f32", "bf16"):
+            m = PHCGNN(**flagship_config(False), seed=0, device=dev
+                       if where == "card" else "cpu",
+                       compute_dtype=torch.bfloat16 if dtype == "bf16"
+                       else None)
+            m.load_state_dict(state)
+            models[where, dtype] = m
+            store, handles = (record_inputs(torch, m, BF16_MODULES)
+                              if (where, dtype) == ("cpu", "bf16")
+                              else ({}, []))
+            loss, out, grads = make_loss_and_grads(
+                m, loss_fn, WEIGHT_DECAY)(b, LR)
+            for h in handles:
+                h.remove()
+            if store:
+                inputs = store
+            runs[where, dtype] = (loss.cpu(), out.cpu(),
+                                  {k: g.cpu() for k, g in grads.items()})
+    if any(g.dtype != torch.float32 or not bool(torch.isfinite(g).all())
+           for g in runs["card", "bf16"][2].values()):
+        fail("bf16 flagship: a gradient is not float32 or not finite")
+    if runs["card", "bf16"][1].dtype != torch.float32:
+        fail("bf16 flagship: the output is not float32")
+
+    cpu_vjps = {name: (module_vjp(torch, models["cpu", "bf16"].get_submodule(
+        name), inputs[name], "cpu"), module_vjp(
+            torch, models["cpu", "f32"].get_submodule(name), inputs[name],
+            "cpu", torch.float32)) for name in BF16_MODULES}
+    info = {"modules": bf16_module_ratios(torch, dev, cpu_vjps, inputs,
+                                          models["card", "bf16"]),
+            "control_card_f32": bf16_module_ratios(
+                torch, dev, cpu_vjps, inputs, models["card", "f32"],
+                torch.float32)}
+    worst = {w: max(r[w] for r in info["modules"].values())
+             for w in ("out", "grads")}
+    print(f"bf16 flagship per module (inputs of the CPU bf16 run, a seeded "
+          f"cotangent): the card's bf16 module from the CPU's bf16 module as "
+          f"a share of the CPU bf16 module's distance from f32, out / grads "
+          f"{ {k: (round(v['out'], 4), round(v['grads'], 4)) for k, v in info['modules'].items()} } "
+          f"(worst {worst['out']:.4g} / {worst['grads']:.4g}, limit "
+          f"{BF16_MODULE_FACTOR:g}); the control, the card's f32 modules in "
+          f"their place, "
+          f"{ {k: (round(v['out'], 4), round(v['grads'], 4)) for k, v in info['control_card_f32'].items()} }",
+          flush=True)
+    for name, r in info["modules"].items():
+        for what in ("out", "grads"):
+            if not r[what] <= BF16_MODULE_FACTOR:
+                fail(f"bf16 flagship {name} {what}: the card's bf16 module "
+                     f"is {r[what]:.3g} times the CPU bf16 module's own "
+                     f"distance from f32 away from the CPU's bf16 module "
+                     f"(limit {BF16_MODULE_FACTOR:g})")
+    for name, r in info["control_card_f32"].items():
+        if r["out"] <= BF16_MODULE_FACTOR and r["grads"] <= BF16_MODULE_FACTOR:
+            fail(f"bf16 flagship {name}: the card's f32 module passes the "
+                 f"bf16 module check, which so cannot tell bf16 from f32")
+
+    for what, i in (("out", 1), ("loss", 0)):
+        c16, p16, p32 = (runs["card", "bf16"][i], runs["cpu", "bf16"][i],
+                         runs["cpu", "f32"][i])
+        info[what] = {
+            "card_bf16_vs_cpu_bf16": rel_dist(c16, p16),
+            "witness_cpu_bf16_vs_cpu_f32": rel_dist(p16, p32),
+            "card_bf16_vs_card_f32": rel_dist(c16, runs["card", "f32"][i])}
+    f32 = runs["cpu", "f32"][2]
+    info["grads"] = {
+        "card_bf16_vs_cpu_bf16": grad_dist(torch, runs["card", "bf16"][2],
+                                           runs["cpu", "bf16"][2], f32),
+        "witness_cpu_bf16_vs_cpu_f32": grad_dist(
+            torch, runs["cpu", "bf16"][2], f32, f32),
+        "card_bf16_vs_card_f32": grad_dist(torch, runs["card", "bf16"][2],
+                                           runs["card", "f32"][2], f32)}
+    for what in ("out", "loss", "grads"):
+        r = info[what]
+        wit = max(r["witness_cpu_bf16_vs_cpu_f32"], 1e-30)
+        r["own_ratio"] = r["card_bf16_vs_card_f32"] / wit
+        r["cpu_ratio"] = r["card_bf16_vs_cpu_bf16"] / wit
+        print(f"bf16 flagship {what}, whole model: the card's bf16 run "
+              f"{r['card_bf16_vs_card_f32']:.3e} from its f32 run, the CPU's "
+              f"{r['witness_cpu_bf16_vs_cpu_f32']:.3e} (ratio "
+              f"{r['own_ratio']:.3g}"
+              + (f", band {BF16_OWN_BAND}" if what != "loss" else
+                 ", not held: a mean whose signed roundings cancel")
+              + f"); the card's bf16 run {r['card_bf16_vs_cpu_bf16']:.3e} "
+              f"from the CPU's bf16 run (ratio {r['cpu_ratio']:.3g}"
+              + (f", gross limit {BF16_WHOLE_FACTOR:g})" if what != "loss"
+                 else ", not held)"), flush=True)
+    lo, hi = BF16_OWN_BAND
+    for what in ("out", "grads"):
+        if not info[what]["cpu_ratio"] <= BF16_WHOLE_FACTOR:
+            fail(f"bf16 flagship {what}: the card's bf16 run is "
+                 f"{info[what]['cpu_ratio']:.3g} times the CPU bf16 run's "
+                 f"distance from f32 away from the CPU's bf16 run")
+        if not lo <= info[what]["own_ratio"] <= hi:
+            fail(f"bf16 flagship {what}: the card's bf16 run is "
+                 f"{info[what]['own_ratio']:.3g} times the CPU bf16 run's "
+                 f"distance from f32 away from the card's f32 run, outside "
+                 f"{BF16_OWN_BAND}")
+    if not info["loss"]["card_bf16_vs_card_f32"] <= BF16_F32_BOUND:
+        fail("bf16 flagship: the bf16 loss is more than 5 % from the f32 one")
+    if not max_dist(runs["card", "bf16"][1],
+                    runs["card", "f32"][1]) <= BF16_F32_BOUND:
+        fail("bf16 flagship: the bf16 output is more than 5 % from the f32 "
+             "one")
+    return info
+
+
+def bf16_phase(torch, dev, f32_profile):
+    """16. bf16 flagship: compute_dtype=bf16 at width 200 (module
+    docstring); ``f32_profile`` is the scan phase's ``scan_profile`` of the
+    f32 flagship's eager and graphed steps, which this phase's bf16 ones
+    are read beside; returns the counts of its eager steps and of its
+    graphed steps' first call, and the readings (``seconds`` of its
+    parts)."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import (make_optimizer, make_scan_train_steps,
+                                     make_train_step, masked_l1)
+
+    host = [attach_csr_plan(synthetic_batch(seed=s, **FLAGSHIP))
+            for s in range(SCAN_STEPS)]
+    batches = [b.to(dev) for b in host]
+
+    def loss_fn(out, b):
+        return masked_l1(out, b.y)
+
+    clock = [time.perf_counter()]
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - clock[0]
+        clock[0] = time.perf_counter()
+
+    info = {"agreement": bf16_agreement(torch, dev, host[0], batches[0],
+                                        loss_fn), "seconds": seconds}
+    lap("agreement")
+    paths = {}
+    model = bf16_flagship(torch, dev, True)
+    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
+    step = make_train_step(model, opt, loss_fn, weight_decay=WEIGHT_DECAY,
+                           device=dev)
+    step(batches[0], LR)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = [step(b, LR)[0] for b in batches[:BF16_STEPS]]
+    torch.cuda.synchronize()
+    paths["bf16_train"] = read_launches()
+    hold_counters("bf16 flagship eager", paths["bf16_train"],
+                  add_counts((BF16_STEPS, BF16_TRAIN_LAUNCHES)))
+    if not all(bool(torch.isfinite(x)) for x in losses):
+        fail("bf16 flagship: a non-finite loss")
+    lap("eager")
+
+    steps = {}
+    peaks = {}
+    for dtype in ("f32", "bf16"):
+        m = PHCGNN(**flagship_config(True), seed=0, device=dev,
+                   compute_dtype=torch.bfloat16 if dtype == "bf16" else None)
+        e_m = copy.deepcopy(m)
+        o = make_optimizer(dict(m.named_parameters()), grad_clip=GRAD_CLIP)
+        e_o = make_optimizer(dict(e_m.named_parameters()),
+                             grad_clip=GRAD_CLIP)
+        steps[dtype] = (make_scan_train_steps(m, o, loss_fn,
+                                              weight_decay=WEIGHT_DECAY,
+                                              seed=0, device=dev),
+                        make_train_step(e_m, e_o, loss_fn,
+                                        weight_decay=WEIGHT_DECAY, device=dev))
+        reset_launches()
+        with own_peak(torch, dev) as peak:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                scan_losses, _ = steps[dtype][0](batches, LR)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        peaks[dtype] = peak["bytes"]
+        if dtype == "bf16":
+            paths["bf16_scan"] = read_launches()
+            hold_counters("bf16 flagship graphed", paths["bf16_scan"],
+                          add_counts((capture_calls(), BF16_TRAIN_LAUNCHES)))
+        if not bool(torch.isfinite(scan_losses).all()):
+            fail(f"bf16 flagship: a non-finite graphed loss ({dtype})")
+    info["peak_mem_bytes_first_graphed_call"] = peaks
+    lap("graphs")
+    info["graphed_vs_eager"], _ = scan_train_check(
+        torch, dev, "bf16 flagship", lambda d: bf16_flagship(torch, dev, d),
+        loss_fn, WEIGHT_DECAY, LR, batches[:BF16_SCAN_STEPS])
+    lap("graphed_vs_eager")
+    # f32 (the scan phase's reading), then bf16, then each graph again:
+    # their time in turns
+    info["profile_f32"] = f32_profile
+    graph, eager = steps["bf16"]
+    info["profile_bf16"] = scan_profile(
+        torch, "bf16 phase, bf16 flagship train",
+        lambda: eager(batches[0], LR), lambda: graph(batches, LR),
+        SCAN_STEPS, BF16_TRAIN_LAUNCHES)
+    lap("profile")
+    info["graph_ms_again"] = {
+        dtype: time_scan(torch, lambda: steps[dtype][0](batches, LR),
+                         SCAN_STEPS)[0] for dtype in ("bf16", "f32")}
+    print(f"bf16 flagship: graphed step ms, in turns f32 "
+          f"{info['profile_f32']['graph']['ms']:.3f}, bf16 "
+          f"{info['profile_bf16']['graph']['ms']:.3f}, bf16 "
+          f"{info['graph_ms_again']['bf16']:.3f}, f32 "
+          f"{info['graph_ms_again']['f32']:.3f}; peak memory of the first "
+          f"graphed call {peaks}", flush=True)
+    lap("turns")
+    return paths, info
+
+
+def bf16_pcba_phase(torch, dev):
+    """17. bf16 pcba: ``make_accum_train_step`` (one CUDA graph, K = 4) in
+    bf16 against float32 in turns; returns the counts of the bf16 graph's
+    first call and the readings."""
+    host = [pcba_batch(torch, s, PCBA) for s in range(PCBA_K)]
+    batches = [b.to(dev) for b in host]
+    from phc_gnn_torch.train import make_accum_train_step, make_optimizer
+
+    graphs, info, launches, lr = {}, {}, None, PCBA_SCRIPT["lr"]
+    for dtype in ("f32", "bf16"):
+        model, loss_fn, cfg = pcba_model(torch, dev, compute_dtype=dtype)
+        opt = make_optimizer(dict(model.named_parameters()),
+                             grad_clip=cfg.grad_clipping)
+        graphs[dtype] = make_accum_train_step(
+            model, opt, loss_fn, weight_decay=cfg.weightdecay,
+            loss_name=cfg.loss, seed=0, device=dev)
+        reset_launches()
+        with own_peak(torch, dev) as peak:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss, outs = graphs[dtype](batches, lr)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        info[dtype] = {"peak_mem_bytes_first_call": peak["bytes"],
+                       "loss": float(loss)}
+        if not (bool(torch.isfinite(loss))
+                and bool(torch.isfinite(outs).all())):
+            fail(f"bf16 pcba: a non-finite loss or output ({dtype})")
+        if dtype == "bf16":
+            launches = read_launches()
+            hold_counters("bf16 pcba graphed", launches,
+                          add_counts((capture_calls(), PCBA_BF16_LAUNCHES)))
+    for dtype in ("f32", "bf16", "bf16", "f32"):
+        ms, host_ms = time_steps(torch, lambda: graphs[dtype](batches, lr))
+        info[dtype].setdefault("step_ms", []).append(ms)
+    for dtype in ("f32", "bf16"):
+        call = lambda: graphs[dtype](batches, lr)  # noqa: E731
+        prof = device_profile(torch, call, min(info[dtype]["step_ms"]),
+                              iters=10)
+        info[dtype].update(kernels_per_step=prof["kernels_per_call"],
+                           device_busy_ms_per_step=prof["busy_ms"],
+                           device_idle_share=prof["idle_share"],
+                           top_kernels_us_per_step=prof["top_us"][:6])
+        print(f"bf16 pcba {dtype}: graphed accumulated step ms (in turns) "
+              f"{info[dtype]['step_ms']}, {prof['kernels_per_call']:g} "
+              f"kernels, device busy {prof['busy_ms']:.3f} ms (idle "
+              f"{100 * prof['idle_share']:.1f} %), peak memory of the first "
+              f"call {info[dtype]['peak_mem_bytes_first_call'] / 2**30:.3f} "
+              f"GiB; top kernels {prof['top_us'][:4]}", flush=True)
+    return launches, info
+
+
+def remat_pair(torch, dev, family: str, dropout: bool):
+    """(remat=False, remat=True) models of ``family`` from one random state,
+    their loss function and lr."""
+    if family == "flagship":
+        from phc_gnn_torch.models import PHCGNN
+        from phc_gnn_torch.train import masked_l1
+
+        models = [PHCGNN(**flagship_config(dropout), remat=r, seed=0,
+                         device=dev) for r in (False, True)]
+        loss_fn, lr, wd = (lambda out, b: masked_l1(out, b.y)), LR, \
+            WEIGHT_DECAY
+    else:
+        models, loss_fn, cfg = [], None, None
+        for r in (False, True):
+            m, loss_fn, cfg = pcba_model(torch, dev, dropout, remat=r)
+            models.append(m)
+        lr, wd = cfg.lr, cfg.weightdecay
+    randomize_eval_state(torch, models[0])
+    models[1].load_state_dict(models[0].state_dict())
+    return models, loss_fn, lr, wd
+
+
+def remat_phase(torch, dev):
+    """18. remat: the flagship and pcba with ``remat=True`` against
+    ``remat=False`` (module docstring); returns the counts of the eager
+    flagship step and pcba's first graphed call with remat, and the
+    readings."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.train import (make_accum_train_step,
+                                     make_loss_and_grads, make_optimizer,
+                                     make_scan_train_steps, make_train_step)
+
+    flag = [attach_csr_plan(synthetic_batch(seed=s, **FLAGSHIP)).to(dev)
+            for s in range(REMAT_STEPS)]
+    pcba = [pcba_batch(torch, s, PCBA).to(dev) for s in range(PCBA_K)]
+    info, paths = {}, {}
+    for family in ("flagship", "pcba"):
+        out = info[family] = {}
+        # gradients and running stats of one eager forward and backward
+        with deterministic(torch):
+            (m0, m1), loss_fn, lr, wd = remat_pair(torch, dev, family, False)
+            before = {k: b.clone() for k, b in m0.named_buffers()}
+            b0 = flag[0] if family == "flagship" else pcba[0]
+            r0 = make_loss_and_grads(m0, loss_fn, wd)(b0, lr)
+            r1 = make_loss_and_grads(m1, loss_fn, wd)(b0, lr)
+            torch.cuda.synchronize()
+        grads_equal = all(torch_equal(r0[2][k], r1[2][k]) for k in r0[2])
+        stats_equal = all(torch_equal(b, dict(m1.named_buffers())[k])
+                          for k, b in m0.named_buffers())
+        moved = any(not torch_equal(b, before[k])
+                    for k, b in m0.named_buffers())
+        out["eager"] = {"loss_bit_equal": torch_equal(r0[0], r1[0]),
+                        "grads_bit_equal": grads_equal,
+                        "running_stats_bit_equal": stats_equal,
+                        "running_stats_moved": moved}
+        print(f"remat {family}: one eager forward and backward, remat=True "
+              f"against False under deterministic algorithms: "
+              f"{out['eager']}", flush=True)
+        if not all(out["eager"].values()):
+            fail(f"remat {family}: not bit-equal to remat=False (or the "
+                 f"running stats did not move): {out['eager']}")
+        # graphed steps, bit-equal
+        with deterministic(torch):
+            (m0, m1), loss_fn, lr, wd = remat_pair(torch, dev, family, False)
+            results = []
+            for m in (m0, m1):
+                o = make_optimizer(dict(m.named_parameters()),
+                                   grad_clip=GRAD_CLIP)
+                if family == "flagship":
+                    st = make_scan_train_steps(m, o, loss_fn, weight_decay=wd,
+                                               seed=0, device=dev)
+                    losses, outs = st(flag, lr)
+                else:
+                    st = make_accum_train_step(m, o, loss_fn, weight_decay=wd,
+                                               loss_name="bce", seed=0,
+                                               device=dev)
+                    runs = [st(pcba, lr) for _ in range(REMAT_STEPS)]
+                    losses = torch.stack([r[0] for r in runs])
+                    outs = torch.stack([r[1] for r in runs])
+                torch.cuda.synchronize()
+                results.append((losses.cpu(), outs.cpu(), train_state(m, o)))
+        st_diff = state_diff(results[0][2], results[1][2])
+        out["graphed"] = {"losses_bit_equal": torch_equal(results[0][0],
+                                                          results[1][0]),
+                          "outputs_bit_equal": torch_equal(results[0][1],
+                                                           results[1][1]),
+                          "state": st_diff}
+        print(f"remat {family}: {REMAT_STEPS} graphed steps, remat=True "
+              f"against False under deterministic algorithms: "
+              f"{out['graphed']}", flush=True)
+        if not (out["graphed"]["losses_bit_equal"]
+                and out["graphed"]["outputs_bit_equal"]
+                and st_diff["bit_equal"] == st_diff["tensors"]):
+            fail(f"remat {family}: the graphed steps are not bit-equal to "
+                 f"remat=False")
+        # counts, peak memory and step ms, dropout on
+        (m0, m1), loss_fn, lr, wd = remat_pair(torch, dev, family, True)
+        for name, m in (("remat_off", m0), ("remat_on", m1)):
+            o = make_optimizer(dict(m.named_parameters()),
+                               grad_clip=GRAD_CLIP)
+            if family == "flagship":
+                eager = make_train_step(m, o, loss_fn, weight_decay=wd,
+                                        device=dev)
+                call = lambda: eager(flag[0], lr)  # noqa: E731
+            else:
+                from phc_gnn_torch.train.state import _eager_accum_train_step
+                eager = _eager_accum_train_step(m, o, loss_fn,
+                                                weight_decay=wd,
+                                                loss_name="bce", device=dev)
+                call = lambda: eager(pcba, lr)  # noqa: E731
+            call()
+            reset_launches()
+            with own_peak(torch, dev) as peak:
+                call()
+            launches = read_launches()
+            peak_eager = peak["bytes"]
+            if name == "remat_on":
+                want = (REMAT_TRAIN_LAUNCHES if family == "flagship"
+                        else PCBA_REMAT_LAUNCHES)
+                paths[f"remat_{family}"] = launches
+                hold_counters(f"remat {family} eager step", launches,
+                              add_counts((1, want)))
+            eager_ms, _ = time_steps(torch, call, warmup=2, iters=10)
+            o2 = make_optimizer(dict(m.named_parameters()),
+                                grad_clip=GRAD_CLIP)
+            if family == "flagship":
+                graph = make_scan_train_steps(m, o2, loss_fn, weight_decay=wd,
+                                              seed=0, device=dev)
+                gcall = lambda: graph(flag, lr)  # noqa: E731
+                per = len(flag)
+            else:
+                graph = make_accum_train_step(m, o2, loss_fn,
+                                              weight_decay=wd,
+                                              loss_name="bce", seed=0,
+                                              device=dev)
+                gcall = lambda: graph(pcba, lr)  # noqa: E731
+                per = 1
+            with own_peak(torch, dev) as peak:
+                gcall()
+            peak_graph = peak["bytes"]
+            graph_ms, _ = time_scan(torch, gcall, per)
+            out[name] = {"peak_mem_bytes_eager_step": peak_eager,
+                         "peak_mem_bytes_first_graphed_call": peak_graph,
+                         "eager_step_ms": eager_ms, "graph_step_ms": graph_ms}
+            print(f"remat {family} {name}: peak memory "
+                  f"{peak_eager / 2**30:.3f} GiB over an eager step, {peak_graph / 2**30:.3f} GiB "
+                  f"over the graph's first call; eager {eager_ms:.3f} ms, "
+                  f"graphed {graph_ms:.3f} ms a step", flush=True)
+    return paths, info
+
+
+def harness_bf16(torch, dev):
+    """19. harness bf16: the ZINC recipe through the CLI with
+    ``--compute_dtype bf16`` on the zinc parity task for 2 epochs; the
+    losses finite and falling, the bf16 instances of C launched."""
+    import os
+    import tempfile
+
+    from phc_gnn_torch.cli.common import run_benchmark
+    from phc_gnn_torch.data.parity import generate_parity_dataset
+
+    with tempfile.TemporaryDirectory(prefix="phc_bf16_") as tmp:
+        root = generate_parity_dataset("zinc", os.path.join(tmp, "data"),
+                                       seed=0)
+        save = os.path.join(tmp, "zinc_bf16")
+        reset_launches()
+        run_benchmark("zinc", HARNESS_ZINC + [
+            "--epochs", "2", "--compute_dtype", "bf16", "--data_root", root,
+            "--save_dir", save])
+        launches = read_launches()
+        rows = scalars(save)
+    hold_counters("harness bf16", launches, add_counts(
+        (capture_calls(), {f"{k}_bf16" if k.startswith("segment") else k: n
+                           for k, n in ZINC_STEP.items()}),
+        (capture_calls(), {f"{k}_bf16": n for k, n in ZINC_EVAL.items()})))
+    losses = [r["train_loss"] for r in rows]
+    if not all(math.isfinite(r[k]) for r in rows
+               for k in ("train_loss", "valid_loss", "valid_metric")):
+        fail(f"harness bf16: a loss or metric is not finite: {rows}")
+    if not losses[-1] < losses[0]:
+        fail(f"harness bf16: the train loss did not fall: {losses}")
+    print(f"harness bf16: the ZINC recipe with --compute_dtype bf16, train "
+          f"losses {losses}, valid {[r['valid_loss'] for r in rows]}",
+          flush=True)
+    return launches, {"rows": rows, "launches": launches}
 
 
 def adam_bit_equal(torch, dev):
@@ -3436,7 +4371,7 @@ def capture_calls() -> int:
 def add_counts(*parts) -> dict:
     """The sum of several launch-count dicts, each times its factor:
     ``add_counts((4, SYNTH_STEP), (4, SYNTH_EVAL))``."""
-    out = {name: 0 for name in kernel_wrappers()}
+    out = {name: 0 for name in counter_names()}
     for factor, counts in parts:
         for k, n in counts.items():
             out[k] += factor * n
@@ -3948,8 +4883,17 @@ def main() -> None:
     paths["pna_train"], pna_train = timed("pna_train", pna_train_phase)
     pna.update(pna_train)
     print(json.dumps({"pna": pna}), flush=True)
-    paths["scan_train"] = timed("scan", scan_phase)
+    paths["scan_train"], scan = timed("scan", scan_phase)
+    bf16_paths, bf16 = timed("bf16", bf16_phase, scan["flagship_profile"])
+    paths.update(bf16_paths)
+    paths["bf16_pcba"], bf16["pcba"] = timed("bf16_pcba", bf16_pcba_phase)
+    print(json.dumps({"bf16": bf16}), flush=True)
+    remat_paths, remat = timed("remat", remat_phase)
+    paths.update(remat_paths)
+    print(json.dumps({"remat": remat}), flush=True)
     paths.update(timed("harness", harness_phase))
+    paths["harness_bf16"], harness_b = timed("harness_bf16", harness_bf16)
+    print(json.dumps({"harness_bf16": harness_b}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}

@@ -12,6 +12,9 @@ One JSON line a configuration, each at its published widths, uncut:
   its MLP, dropout 0.1 / (0.2, 0.1), ``sc_type="last"``, a (200, 100) -> 1
   head, masked L1, weight decay 0.1, a global-norm clip of 2.0, Adam at lr
   1e-3, on ``synthetic_batch(128, 4096, 8192, seed=0)`` with its CSR plans;
+- ``flagship-bf16``: the flagship with ``compute_dtype=torch.bfloat16``
+  (parameters and Adam float32, activations bf16, the aggregation kernels
+  fed bf16 messages), as scripts/bench_bf16_streams.py times JAX's;
 - ``concat`` and ``quat-wbn``: ``build("concat", "naive-batch-norm")`` and
   ``build("add", "q-batch-norm")`` of scripts/bench_presets.py:29-47 (the
   concat skip with ``sc_type="first"``; the quaternion whitening at the 8
@@ -146,9 +149,10 @@ def _l1(out, b):
     return masked_l1(out, b.y)
 
 
-def _preset(skip: str, norm: str, description: str):
+def _preset(skip: str, norm: str, description: str,
+            compute_dtype: Optional[torch.dtype] = None):
     """scripts/bench_presets.py's ``build(sc, norm)`` (``add`` with
-    naive-batch-norm is the flagship)."""
+    naive-batch-norm is the flagship), in ``compute_dtype``."""
     def build(w: Widths, dev) -> Setup:
         model = PHCGNN(
             phm_dim=4, atom_input_dims=ZINC_ATOM_DIMS,
@@ -157,7 +161,8 @@ def _preset(skip: str, norm: str, description: str):
             downstream_layers=tuple(w.head), target_dim=1,
             dropout_dn=(0.2, 0.1), msg_aggr="softmax", mlp_mp=True,
             sc_type="last" if skip == "add" else "first", skip_connect=skip,
-            norm_mp=norm, norm_dn="naive-batch-norm", seed=0, device=dev)
+            norm_mp=norm, norm_dn="naive-batch-norm",
+            compute_dtype=compute_dtype, seed=0, device=dev)
         batch = _batch(*FLAGSHIP_BATCH, w)
         return Setup(model, _l1, "l1", WEIGHT_DECAY, LR, GRAD_CLIP, [batch],
                      False, batch, description)
@@ -217,6 +222,10 @@ CONFIGS = {
     "flagship": (_preset("add", "naive-batch-norm",
                          "PHC-GNN n=4 train step, ZINC config"),
                  (200, 4, (200, 100))),
+    "flagship-bf16": (_preset("add", "naive-batch-norm",
+                              "PHC-GNN n=4 train step, ZINC config, bf16 "
+                              "activations", torch.bfloat16),
+                      (200, 4, (200, 100))),
     "concat": (_preset("concat", "naive-batch-norm",
                        "PHC-GNN n=4 concat-skip train step, ZINC config"),
                (200, 4, (200, 100))),

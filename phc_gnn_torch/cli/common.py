@@ -53,7 +53,8 @@ from phc_gnn_torch.train.trainer import Trainer, build_model
 from phc_gnn_torch.utils.logging import set_logging
 
 __all__ = ["DATASETS", "get_parser", "str2bool", "config_from_args",
-           "label_dim", "load_splits", "prepare", "run_benchmark"]
+           "label_dim", "load_splits", "prepare", "build_trainer",
+           "run_benchmark"]
 
 log = logging.getLogger("phc_gnn_torch")
 
@@ -181,8 +182,8 @@ def get_parser(dataset: str) -> argparse.ArgumentParser:
                         "to run_dir/profile")
     p.add_argument("--compute_dtype", type=str, default=cfg.compute_dtype,
                    choices=["f32", "bf16"],
-                   help="activation compute dtype (bf16 is not ported yet "
-                        "and raises)")
+                   help="activation compute dtype; parameters and the "
+                        "optimizer state stay f32")
     p.add_argument("--rng_impl", type=str, default=cfg.rng_impl,
                    choices=["threefry2x32", "rbg"],
                    help="JAX's dropout PRNG; not read by the port")
@@ -291,10 +292,12 @@ def prepare(dataset: str, args, cfg: ExperimentConfig) -> dict:
                 eval_bucket=eval_bucket)
 
 
-def run_benchmark(dataset: str, argv=None) -> dict:
-    """Parse ``argv`` (default: the process's), train ``cfg.n_runs`` runs
-    on ``--device`` and return the summary."""
-    args = get_parser(dataset).parse_args(argv)
+def build_trainer(dataset: str, args) -> Trainer:
+    """The ``Trainer`` of the parsed ``args`` on ``--device``: the splits'
+    loaders, run 1's model and the per-run re-seeded starts; ``save_dir``
+    and its ``run.log`` are made.  ``trainer.evaluate(
+    trainer.valid_batches())`` scores the model's current weights as a
+    run's epochs do."""
     cfg = config_from_args(dataset, args)
     os.makedirs(cfg.save_dir, exist_ok=True)
     set_logging(os.path.join(cfg.save_dir, "run.log"))
@@ -319,9 +322,15 @@ def run_benchmark(dataset: str, argv=None) -> dict:
         return build_model(cfg, d["atom_dims"], d["bond_dims"],
                            avg_deg=d["avg_deg"], seed=seed, device="cpu")
 
-    trainer = Trainer(cfg, build(cfg.seed), train_batches, valid_batches,
-                      test_batches, device=args.device,
-                      init_state=lambda seed: build(seed).state_dict())
-    summary = trainer.run(resume=getattr(args, "resume", False))
+    return Trainer(cfg, build(cfg.seed), train_batches, valid_batches,
+                   test_batches, device=args.device,
+                   init_state=lambda seed: build(seed).state_dict())
+
+
+def run_benchmark(dataset: str, argv=None) -> dict:
+    """Parse ``argv`` (default: the process's), train ``cfg.n_runs`` runs
+    on ``--device`` and return the summary."""
+    args = get_parser(dataset).parse_args(argv)
+    summary = build_trainer(dataset, args).run(resume=args.resume)
     log.info("summary: %s", summary)
     return summary

@@ -2,8 +2,9 @@
 //
 // Replaces the two Pallas kernels of the softmax aggregation in
 // phc_gnn_tpu/ops/stream_scan.py:
-//   segment_logit_max_f32         <- _softmax_suffix_max_kernel (:415)
-//   segment_softmax_aggregate_f32 <- _softmax_fused_kernel (:439) and its
+//   segment_logit_max_{f32,bf16}  <- _softmax_suffix_max_kernel (:415)
+//   segment_softmax_aggregate_{f32,bf16}
+//                                 <- _softmax_fused_kernel (:439) and its
 //                                    eval variant _softmax_fused_kernel_nw
 //                                    (:521), plus the XLA epilogue that
 //                                    gathers at last_edge and divides
@@ -39,15 +40,75 @@
 // running max and sums in registers; at these sizes launch latency
 // dominates either bound.
 // beta is read from device memory so that no launch waits on the host.
+//
+// bf16 messages (the model's compute_dtype=bf16; stream_scan.py :435, :465
+// convert the block at its load): the _bf16 entry points run the same
+// kernels on __nv_bfloat16 rows, converted with the intrinsics at the load,
+// every max, exp and sum in f32, and write the same f32 outputs; where d is
+// even and the rows 4-byte aligned a thread takes a pair of lanes, one
+// __nv_bfloat162 load, and moves the pair's f32 segmax, out, w and den as
+// one float2 each (tools/time_softmax.py times both bf16 instances).  The
+// conversion is exact, so a bf16 launch gives the bits of the f32 kernel
+// fed the upcast messages, and it reads half the message bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float kNeg = -0x1p100f;  // -2^100
 
-__global__ void segment_logit_max_kernel(const float* __restrict__ msgs,
+// kVec lanes of row e, as floats: thread p holds lanes [p * kVec, p * kVec
+// + kVec) of a row of dv = d / kVec packed elements.  ``load`` reads them
+// from the message rows; ``read`` and ``store`` move the same lanes of a
+// float32 array (segmax, out, w, den) in one access, so that a pair of
+// lanes is one 8-byte load or store, not two 4-byte ones at an 8-byte
+// stride.
+template <typename T, int kVec>
+struct Row;
+
+template <typename T>
+struct Row<T, 1> {
+  __device__ static void load(const T* rows, int64_t e, int64_t dv,
+                              int64_t p, float (&m)[1]) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      m[0] = __bfloat162float(rows[e * dv + p]);
+    } else {
+      m[0] = rows[e * dv + p];
+    }
+  }
+  __device__ static void read(const float* a, int64_t i, float (&v)[1]) {
+    v[0] = a[i];
+  }
+  __device__ static void store(float* a, int64_t i, const float (&v)[1]) {
+    a[i] = v[0];
+  }
+};
+
+template <>
+struct Row<__nv_bfloat16, 2> {
+  __device__ static void load(const __nv_bfloat16* rows, int64_t e,
+                              int64_t dv, int64_t p, float (&m)[2]) {
+    const float2 f = __bfloat1622float2(
+        reinterpret_cast<const __nv_bfloat162*>(rows)[e * dv + p]);
+    m[0] = f.x;
+    m[1] = f.y;
+  }
+  __device__ static void read(const float* a, int64_t i, float (&v)[2]) {
+    const float2 f = reinterpret_cast<const float2*>(a)[i];
+    v[0] = f.x;
+    v[1] = f.y;
+  }
+  __device__ static void store(float* a, int64_t i, const float (&v)[2]) {
+    reinterpret_cast<float2*>(a)[i] = make_float2(v[0], v[1]);
+  }
+};
+
+template <typename T, int kVec>
+__global__ void segment_logit_max_kernel(const T* __restrict__ msgs,
                                          const uint8_t* __restrict__ mask,
                                          const float* __restrict__ beta_ptr,
                                          const int32_t* __restrict__ rowptr,
@@ -57,17 +118,26 @@ __global__ void segment_logit_max_kernel(const float* __restrict__ msgs,
   const float beta = *beta_ptr;
   const int32_t lo = rowptr[n];
   const int32_t hi = rowptr[n + 1];
-  for (int64_t j = threadIdx.x; j < d; j += blockDim.x) {
-    float acc = kNeg;
+  const int64_t dv = d / kVec;
+  for (int64_t p = threadIdx.x; p < dv; p += blockDim.x) {
+    float acc[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) acc[k] = kNeg;
     for (int32_t e = lo; e < hi; ++e) {
-      if (mask[e]) acc = fmaxf(acc, beta * msgs[e * d + j]);
+      if (mask[e]) {
+        float m[kVec];
+        Row<T, kVec>::load(msgs, e, dv, p, m);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) acc[k] = fmaxf(acc[k], beta * m[k]);
+      }
     }
-    segmax[n * d + j] = acc;
+    Row<T, kVec>::store(segmax, n * dv + p, acc);
   }
 }
 
+template <typename T, int kVec>
 __global__ void segment_softmax_aggregate_kernel(
-    const float* __restrict__ msgs, const uint8_t* __restrict__ mask,
+    const T* __restrict__ msgs, const uint8_t* __restrict__ mask,
     const float* __restrict__ beta_ptr, const int32_t* __restrict__ rowptr,
     const float* __restrict__ segmax, float* __restrict__ out,
     float* __restrict__ w_out, float* __restrict__ den_out, int64_t d) {
@@ -75,26 +145,79 @@ __global__ void segment_softmax_aggregate_kernel(
   const float beta = *beta_ptr;
   const int32_t lo = rowptr[n];
   const int32_t hi = rowptr[n + 1];
-  for (int64_t j = threadIdx.x; j < d; j += blockDim.x) {
-    const float smax = segmax[n * d + j];
-    float num = 0.0f;
-    float den = 0.0f;
-    for (int32_t e = lo; e < hi; ++e) {
-      const float m = msgs[e * d + j];
-      const float w = mask[e] ? expf(beta * m - smax) : 0.0f;
-      num += w * m;
-      den += w;
-      if (w_out != nullptr) w_out[e * d + j] = w;
+  const int64_t dv = d / kVec;
+  for (int64_t p = threadIdx.x; p < dv; p += blockDim.x) {
+    float smax[kVec];
+    float num[kVec];
+    float den[kVec];
+    Row<T, kVec>::read(segmax, n * dv + p, smax);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      num[k] = 0.0f;
+      den[k] = 0.0f;
     }
-    den = fmaxf(den, 1e-16f);
-    out[n * d + j] = num / den;
-    if (den_out != nullptr) den_out[n * d + j] = den;
+    for (int32_t e = lo; e < hi; ++e) {
+      float m[kVec];
+      Row<T, kVec>::load(msgs, e, dv, p, m);
+      const bool live = mask[e] != 0;
+      float w[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        w[k] = live ? expf(beta * m[k] - smax[k]) : 0.0f;
+        num[k] += w[k] * m[k];
+        den[k] += w[k];
+      }
+      if (w_out != nullptr) Row<T, kVec>::store(w_out, e * dv + p, w);
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      den[k] = fmaxf(den[k], 1e-16f);
+      num[k] = num[k] / den[k];
+    }
+    Row<T, kVec>::store(out, n * dv + p, num);
+    if (den_out != nullptr) Row<T, kVec>::store(den_out, n * dv + p, den);
   }
 }
 
-int threads_for(int64_t d) {
-  int64_t t = ((d + 31) / 32) * 32;
+int threads_for(int64_t lanes) {
+  int64_t t = ((lanes + 31) / 32) * 32;
   return static_cast<int>(t < 32 ? 32 : (t > 1024 ? 1024 : t));
+}
+
+// Pairs of bf16 lanes where the rows allow them: d even, the rows 4-byte
+// aligned and the float32 segmax the caller passes 8-byte aligned (the
+// outputs are the wrapper's own allocations).
+bool pairs_ok(const void* msgs, const void* segmax, int64_t d) {
+  return d % 2 == 0 && reinterpret_cast<uintptr_t>(msgs) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(segmax) % 8 == 0;
+}
+
+template <typename T, int kVec>
+int launch_max(const void* msgs, const void* mask, const void* beta,
+               const void* rowptr, void* segmax, int64_t num_nodes, int64_t d,
+               void* stream) {
+  segment_logit_max_kernel<T, kVec><<<static_cast<unsigned>(num_nodes),
+                                      threads_for(d / kVec), 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(msgs), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(beta), static_cast<const int32_t*>(rowptr),
+      static_cast<float*>(segmax), d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kVec>
+int launch_aggregate(const void* msgs, const void* mask, const void* beta,
+                     const void* rowptr, const void* segmax, void* out,
+                     void* w_out, void* den_out, int64_t num_nodes, int64_t d,
+                     void* stream) {
+  segment_softmax_aggregate_kernel<T, kVec>
+      <<<static_cast<unsigned>(num_nodes), threads_for(d / kVec), 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(msgs), static_cast<const uint8_t*>(mask),
+          static_cast<const float*>(beta), static_cast<const int32_t*>(rowptr),
+          static_cast<const float*>(segmax), static_cast<float*>(out),
+          static_cast<float*>(w_out), static_cast<float*>(den_out), d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -103,15 +226,22 @@ extern "C" int segment_logit_max_f32(const void* msgs, const void* mask,
                                      const void* beta, const void* rowptr,
                                      void* segmax, int64_t num_nodes,
                                      int64_t d, void* stream) {
-  if (num_nodes > 0 && d > 0) {
-    segment_logit_max_kernel<<<static_cast<unsigned>(num_nodes),
-                               threads_for(d), 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(msgs), static_cast<const uint8_t*>(mask),
-        static_cast<const float*>(beta), static_cast<const int32_t*>(rowptr),
-        static_cast<float*>(segmax), d);
+  if (num_nodes <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  return launch_max<float, 1>(msgs, mask, beta, rowptr, segmax, num_nodes, d,
+                              stream);
+}
+
+extern "C" int segment_logit_max_bf16(const void* msgs, const void* mask,
+                                      const void* beta, const void* rowptr,
+                                      void* segmax, int64_t num_nodes,
+                                      int64_t d, void* stream) {
+  if (num_nodes <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  if (pairs_ok(msgs, segmax, d)) {
+    return launch_max<__nv_bfloat16, 2>(msgs, mask, beta, rowptr, segmax,
+                                        num_nodes, d, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_max<__nv_bfloat16, 1>(msgs, mask, beta, rowptr, segmax,
+                                      num_nodes, d, stream);
 }
 
 extern "C" int segment_softmax_aggregate_f32(const void* msgs,
@@ -122,14 +252,26 @@ extern "C" int segment_softmax_aggregate_f32(const void* msgs,
                                              void* w_out, void* den_out,
                                              int64_t num_nodes,
                                              int64_t d, void* stream) {
-  if (num_nodes > 0 && d > 0) {
-    segment_softmax_aggregate_kernel<<<static_cast<unsigned>(num_nodes),
-                                       threads_for(d), 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(msgs), static_cast<const uint8_t*>(mask),
-        static_cast<const float*>(beta), static_cast<const int32_t*>(rowptr),
-        static_cast<const float*>(segmax), static_cast<float*>(out),
-        static_cast<float*>(w_out), static_cast<float*>(den_out), d);
+  if (num_nodes <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  return launch_aggregate<float, 1>(msgs, mask, beta, rowptr, segmax, out,
+                                    w_out, den_out, num_nodes, d, stream);
+}
+
+extern "C" int segment_softmax_aggregate_bf16(const void* msgs,
+                                              const void* mask,
+                                              const void* beta,
+                                              const void* rowptr,
+                                              const void* segmax, void* out,
+                                              void* w_out, void* den_out,
+                                              int64_t num_nodes,
+                                              int64_t d, void* stream) {
+  if (num_nodes <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  if (pairs_ok(msgs, segmax, d)) {
+    return launch_aggregate<__nv_bfloat16, 2>(msgs, mask, beta, rowptr,
+                                              segmax, out, w_out, den_out,
+                                              num_nodes, d, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_aggregate<__nv_bfloat16, 1>(msgs, mask, beta, rowptr, segmax,
+                                            out, w_out, den_out, num_nodes, d,
+                                            stream);
 }

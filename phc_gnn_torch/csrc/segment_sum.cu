@@ -5,11 +5,20 @@
 // pallas_call :590), which the TPU runs as a segmented prefix sum with gates
 // and a carry between blocks, each segment's total read at its last edge:
 //
-// 1. segment_sum_perm_f32: the gather backward _gather_sb_bwd (:854-867),
-//    over the sender-sorted CSR, the rows found through a permutation;
-// 2. segment_sum_masked_f32: the forward of the sum aggregation
-//    _seg_sum_streamed (:698-744), over the receiver CSR, masked edges
-//    zeroed (:741-742).
+// 1. segment_sum_perm_{f32,bf16}: the gather backward _gather_sb_bwd
+//    (:854-867), over the sender-sorted CSR, the rows found through a
+//    permutation;
+// 2. segment_sum_masked_{f32,bf16}: the forward of the sum aggregation
+//    _seg_sum_streamed (:698-744) and of the mean's sum (:974), over the
+//    receiver CSR, masked edges zeroed (:741-742).
+//
+// The _bf16 entry points read __nv_bfloat16 rows (the model's
+// compute_dtype=bf16: its messages, and in 1 the messages' bf16 cotangent,
+// which JAX casts to f32 before its scan, :861), convert them with the
+// intrinsics at the load (as _scan_kernel converts its block, :375-380),
+// add in f32 and write f32.  The conversion is exact, so a bf16 launch gives
+// the bits of the f32 kernel fed the upcast rows, and reads half the row
+// bytes.
 //
 // Semantics of 1:  dx[n, j] = sum over e in [rowptr[n], rowptr[n+1]) of
 //                             g[perm[e], j]
@@ -44,10 +53,12 @@
 //   of them, in shared memory; an edge past the staged ones (a segment
 //   longer than the molecules') reads its entry from global memory.
 //   Warp w takes the run's segments w, w + kWarps, ...; a lane holds
-//   `chunks` accumulators of kVec floats: float4 where d % 4 == 0 and the
-//   rows are 16-byte aligned, a float otherwise (the wrapper picks the
-//   instance from d and the pointers, the plan says which), so a warp reads
-//   512 bytes of a row per instruction.  Wider rows take column blocks
+//   `chunks` accumulators of kVec floats, loaded 16 bytes at a time where
+//   d % kVec == 0 and the rows are 16-byte aligned (kVec = 4 f32 or 8 bf16
+//   elements, the bf16 ones converted in pairs), one element otherwise
+//   (the wrapper picks the instance from d, the element size and the
+//   pointers, the plan says which), so a warp reads 512 bytes of a row per
+//   instruction.  Wider rows take column blocks
 //   (blockIdx.y), each the same run over its columns.
 //   The edge loop is unrolled by kUnroll: the entries of kUnroll edges come
 //   from shared memory, every row load of the group is issued (a masked
@@ -60,6 +71,7 @@
 //   an SM has ~16 warps with their segments' rows in flight, ~50 KB at
 //   pcba's eval shape, while other CTAs stage.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,43 +83,83 @@ constexpr int kUnroll = 4;                // edges whose rows are in flight
 constexpr int kMaxRun = 64;               // segments a CTA
 constexpr int kMaxSmem = 48 * 1024;       // without an opt-in
 
-__device__ __forceinline__ void add_to(float4& acc, const float4& v) {
-  acc.x += v.x;
-  acc.y += v.y;
-  acc.z += v.z;
-  acc.w += v.w;
-}
-
-__device__ __forceinline__ void add_to(float& acc, float v) { acc += v; }
-
-template <int kVec>
+// kVec elements of T a lane loads at once (Raw), added into kVec f32
+// accumulators.
+template <typename T, int kVec>
 struct Lanes;
 
 template <>
-struct Lanes<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+struct Lanes<float, 4> {
+  using Raw = float4;
+  __device__ static Raw zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static void add(float (&acc)[4], const Raw& v) {
+    acc[0] += v.x;
+    acc[1] += v.y;
+    acc[2] += v.z;
+    acc[3] += v.w;
+  }
 };
 
 template <>
-struct Lanes<1> {
-  using T = float;
-  __device__ static T zero() { return 0.0f; }
+struct Lanes<float, 1> {
+  using Raw = float;
+  __device__ static Raw zero() { return 0.0f; }
+  __device__ static void add(float (&acc)[1], Raw v) { acc[0] += v; }
 };
+
+template <>
+struct Lanes<__nv_bfloat16, 8> {
+  using Raw = uint4;  // 8 bf16, as 4 __nv_bfloat162
+  __device__ static Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  __device__ static void add(float (&acc)[8], const Raw& v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      acc[2 * k] += f.x;
+      acc[2 * k + 1] += f.y;
+    }
+  }
+};
+
+template <>
+struct Lanes<__nv_bfloat16, 1> {
+  using Raw = __nv_bfloat16;
+  __device__ static Raw zero() { return __ushort_as_bfloat16(0); }
+  __device__ static void add(float (&acc)[1], Raw v) {
+    acc[0] += __bfloat162float(v);
+  }
+};
+
+// kVec f32 sums into out[0 .. kVec): 16-byte stores where kVec allows.
+template <int kVec>
+__device__ __forceinline__ void store(float* out, const float (&acc)[kVec]) {
+  if constexpr (kVec % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < kVec; k += 4) {
+      *reinterpret_cast<float4*>(out + k) =
+          make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) out[k] = acc[k];
+  }
+}
 
 // kPerm: the rows are g[perm[e]] and every edge of a segment counts (1);
 // otherwise the rows are g[e] and only the edges whose mask holds (2).
 // Shared memory: rowptr[s0 .. s0 + segs] (int32), then the staged entries
 // (perm int32 or mask bytes).
-template <bool kPerm, int kVec, int kChunks>
+template <typename T, bool kPerm, int kVec, int kChunks>
 __global__ void __launch_bounds__(kThreads)
-segment_sum_kernel(const float* __restrict__ g,
+segment_sum_kernel(const T* __restrict__ g,
                    const int32_t* __restrict__ perm,
                    const uint8_t* __restrict__ mask,
                    const int32_t* __restrict__ rowptr,
                    float* __restrict__ out, int64_t n, int64_t d, int run,
                    int stage) {
-  using V = typename Lanes<kVec>::T;
+  using L = Lanes<T, kVec>;
+  using V = typename L::Raw;
   extern __shared__ __align__(16) unsigned char smem[];
   int32_t* srp = reinterpret_cast<int32_t*>(smem);
   int32_t* sperm = srp + run + 1;
@@ -134,7 +186,6 @@ segment_sum_kernel(const float* __restrict__ g,
   const int64_t dv = d / kVec;  // vectors a row
   const int64_t c0 = static_cast<int64_t>(blockIdx.y) * (kChunks * 32) + lane;
   const V* __restrict__ gv = reinterpret_cast<const V*>(g);
-  V* __restrict__ ov = reinterpret_cast<V*>(out);
   bool col_live[kChunks];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) col_live[c] = c0 + c * 32 < dv;
@@ -142,9 +193,12 @@ segment_sum_kernel(const float* __restrict__ g,
   for (int i = warp; i < segs; i += kWarps) {
     const int32_t lo = srp[i];
     const int32_t hi = srp[i + 1];
-    V acc[kChunks];
+    float acc[kChunks][kVec];
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) acc[c] = Lanes<kVec>::zero();
+    for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) acc[c][k] = 0.0f;
+    }
     for (int32_t e = lo; e < hi; e += kUnroll) {
       bool live[kUnroll];
       int64_t row[kUnroll];
@@ -168,41 +222,44 @@ segment_sum_kernel(const float* __restrict__ g,
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
           v[u][c] = live[u] && col_live[c] ? gv[row[u] * dv + c0 + c * 32]
-                                           : Lanes<kVec>::zero();
+                                           : L::zero();
         }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
-          if (live[u]) add_to(acc[c], v[u][c]);
+          if (live[u]) L::add(acc[c], v[u][c]);
         }
       }
     }
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      if (col_live[c]) ov[(s0 + i) * dv + c0 + c * 32] = acc[c];
+      if (col_live[c]) store<kVec>(out + ((s0 + i) * dv + c0 + c * 32) * kVec,
+                                   acc[c]);
     }
   }
 }
 
-// The plan of segment_sum_plan, checked: float4 lanes only where d % 4 == 0
-// and g and out are 16-byte aligned, the fewest chunks a lane that cover a
+// The plan of segment_sum_plan, checked: 16-byte lanes (kWide elements of
+// the rows' type) only where d % kWide == 0 and g and out are 16-byte
+// aligned, else one element a lane; the fewest chunks a lane that cover a
 // row (more than one column block only at 4 chunks), column blocks that
 // cover d, runs of whole warps that cover n, and the shared memory of its
 // rowptr slice and staged entries.
 bool plan_ok(const void* g, const void* out, int64_t n, int64_t d,
-             bool perm, int64_t vec, int64_t chunks, int64_t col_blocks,
-             int64_t run, int64_t stage, int64_t smem, int64_t grid) {
-  if (vec == 4) {
-    if (d % 4 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+             bool perm, int64_t wide, int64_t vec, int64_t chunks,
+             int64_t col_blocks, int64_t run, int64_t stage, int64_t smem,
+             int64_t grid) {
+  if (vec == wide) {
+    if (d % wide != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(out) % 16 != 0) {
       return false;
     }
   } else if (vec != 1) {
     return false;
   }
-  const int64_t cols = chunks * 32 * vec;  // floats a column block
+  const int64_t cols = chunks * 32 * vec;  // elements a column block
   return (chunks == 1 || chunks == 2 || chunks == 4) && n > 0 && d > 0 &&
          (chunks == 1 || 16 * chunks * vec < d) &&
          (col_blocks == 1 || chunks == 4) && col_blocks >= 1 && col_blocks <= 65535 && col_blocks * cols >= d &&
@@ -212,13 +269,13 @@ bool plan_ok(const void* g, const void* out, int64_t n, int64_t d,
          smem == 4 * (run + 1) + stage * (perm ? 4 : 1) && smem <= kMaxSmem;
 }
 
-template <bool kPerm, int kVec, int kChunks>
-cudaError_t launch_instance(const float* g, const int32_t* perm,
+template <typename T, bool kPerm, int kVec, int kChunks>
+cudaError_t launch_instance(const T* g, const int32_t* perm,
                             const uint8_t* mask, const int32_t* rowptr,
                             float* out, int64_t n, int64_t d,
                             int64_t col_blocks, int64_t run, int64_t stage,
                             int64_t smem, int64_t grid, void* stream) {
-  segment_sum_kernel<kPerm, kVec, kChunks>
+  segment_sum_kernel<T, kPerm, kVec, kChunks>
       <<<dim3(static_cast<unsigned>(grid), static_cast<unsigned>(col_blocks)),
          kThreads, static_cast<size_t>(smem),
          static_cast<cudaStream_t>(stream)>>>(g, perm, mask, rowptr, out, n, d,
@@ -227,30 +284,31 @@ cudaError_t launch_instance(const float* g, const int32_t* perm,
   return cudaGetLastError();
 }
 
-template <bool kPerm>
+template <typename T, bool kPerm>
 int launch(const void* g, const void* perm, const void* mask,
            const void* rowptr, void* out, int64_t n, int64_t d, int64_t vec,
            int64_t chunks, int64_t col_blocks, int64_t run, int64_t stage,
            int64_t smem, int64_t grid, void* stream) {
+  constexpr int kWide = 16 / sizeof(T);  // elements in 16 bytes
   if (n == 0 || d == 0) return static_cast<int>(cudaSuccess);
-  if (!plan_ok(g, out, n, d, kPerm, vec, chunks, col_blocks, run, stage, smem,
-               grid)) {
+  if (!plan_ok(g, out, n, d, kPerm, kWide, vec, chunks, col_blocks, run,
+               stage, smem, grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* gf = static_cast<const float*>(g);
+  const T* gt = static_cast<const T*>(g);
   const int32_t* pi = static_cast<const int32_t*>(perm);
   const uint8_t* mb = static_cast<const uint8_t*>(mask);
   const int32_t* rp = static_cast<const int32_t*>(rowptr);
   float* of = static_cast<float*>(out);
 #define SEGMENT_SUM_CASE(V, C)                                               \
   if (vec == V && chunks == C) {                                             \
-    return static_cast<int>(launch_instance<kPerm, V, C>(                    \
-        gf, pi, mb, rp, of, n, d, col_blocks, run, stage, smem, grid,        \
+    return static_cast<int>(launch_instance<T, kPerm, V, C>(                 \
+        gt, pi, mb, rp, of, n, d, col_blocks, run, stage, smem, grid,        \
         stream));                                                            \
   }
-  SEGMENT_SUM_CASE(4, 1)
-  SEGMENT_SUM_CASE(4, 2)
-  SEGMENT_SUM_CASE(4, 4)
+  SEGMENT_SUM_CASE(kWide, 1)
+  SEGMENT_SUM_CASE(kWide, 2)
+  SEGMENT_SUM_CASE(kWide, 4)
   SEGMENT_SUM_CASE(1, 1)
   SEGMENT_SUM_CASE(1, 2)
   SEGMENT_SUM_CASE(1, 4)
@@ -263,25 +321,19 @@ int launch(const void* g, const void* perm, const void* mask,
 // The plan arguments (vec, chunks, col_blocks, run, stage, smem, grid) are
 // those of ops/segment_sum.py::segment_sum_plan; a plan this file cannot run
 // returns cudaErrorInvalidValue and launches nothing.
-extern "C" int segment_sum_perm_f32(const void* g, const void* perm,
-                                    const void* rowptr, void* out,
-                                    int64_t num_segments, int64_t d,
-                                    int64_t vec, int64_t chunks,
-                                    int64_t col_blocks, int64_t run,
-                                    int64_t stage, int64_t smem, int64_t grid,
-                                    void* stream) {
-  return launch<true>(g, perm, nullptr, rowptr, out, num_segments, d, vec,
-                      chunks, col_blocks, run, stage, smem, grid, stream);
-}
-
-extern "C" int segment_sum_masked_f32(const void* msgs, const void* mask,
-                                      const void* rowptr, void* out,
-                                      int64_t num_segments, int64_t d,
-                                      int64_t vec, int64_t chunks,
-                                      int64_t col_blocks, int64_t run,
-                                      int64_t stage, int64_t smem,
-                                      int64_t grid, void* stream) {
-  return launch<false>(msgs, nullptr, mask, rowptr, out, num_segments, d, vec,
-                       chunks, col_blocks, run, stage, smem, grid, stream);
-}
-
+#define SEGMENT_SUM_ENTRY(NAME, T, PERM)                                      \
+  extern "C" int NAME(const void* g, const void* index, const void* rowptr,   \
+                      void* out, int64_t num_segments, int64_t d,             \
+                      int64_t vec, int64_t chunks, int64_t col_blocks,        \
+                      int64_t run, int64_t stage, int64_t smem, int64_t grid, \
+                      void* stream) {                                         \
+    return launch<T, PERM>(g, PERM ? index : nullptr,                         \
+                           PERM ? nullptr : index, rowptr, out, num_segments, \
+                           d, vec, chunks, col_blocks, run, stage, smem,      \
+                           grid, stream);                                     \
+  }
+SEGMENT_SUM_ENTRY(segment_sum_perm_f32, float, true)
+SEGMENT_SUM_ENTRY(segment_sum_masked_f32, float, false)
+SEGMENT_SUM_ENTRY(segment_sum_perm_bf16, __nv_bfloat16, true)
+SEGMENT_SUM_ENTRY(segment_sum_masked_bf16, __nv_bfloat16, false)
+#undef SEGMENT_SUM_ENTRY

@@ -76,6 +76,11 @@ SCALERS = {
 def softmax_aggregate(messages: torch.Tensor, receivers: torch.Tensor,
                       num_nodes: int, beta,
                       edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax-weighted sum per node and lane.  A float32 ``beta`` promotes
+    bf16 messages to float32, as JAX's ``beta * messages`` does (torch's
+    0-d tensor would not); the sums run in that dtype."""
+    if torch.is_tensor(beta):
+        messages = messages.to(torch.promote_types(messages.dtype, beta.dtype))
     logits = beta * messages
     if edge_mask is not None:
         logits = torch.where(edge_mask[:, None], logits, -1e30)

@@ -29,6 +29,12 @@ gather backward, a CUDA batch without one raises.  The two routes differ at
 ties: over the plan every edge that attains a min or max gets the whole
 cotangent (JAX's streamed VJP), the composite splits it (JAX's XLA
 ``segment_max``).
+
+``dtype`` is the compute dtype of every PHM linear of a conv (the model's
+``compute_dtype``, None for float32).  Under bf16 the node features, edge
+embeddings and messages are bf16, the plan's aggregations read the bf16
+messages and return float32 (ops/), so ``aggr + x`` promotes to float32
+as JAX's does, and each linear casts its input back to bf16.
 """
 
 from __future__ import annotations
@@ -156,7 +162,7 @@ class PHMConv(nn.Module):
                  c_init: str = "standard", aggr: str = "sum",
                  same_dim: bool = True, msg_encoder: str = "identity",
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_fixed_aggr(aggr)
         self.add_self_loops = add_self_loops
@@ -165,7 +171,7 @@ class PHMConv(nn.Module):
         self.msg_encoder = msg_encoder
         self.transform = PHMLinear(in_features, out_features, phm_dim, bias,
                                    w_init, c_init, learn_phm, generator,
-                                   shared_rule)
+                                   shared_rule, dtype)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
@@ -189,7 +195,7 @@ class PHMGINEConv(nn.Module):
                  c_init: str = "standard", aggr: str = "sum",
                  msg_encoder: str = "identity",
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         _check_fixed_aggr(aggr)
         self.add_self_loops = add_self_loops
@@ -198,7 +204,7 @@ class PHMGINEConv(nn.Module):
         self.transform = PHMMLP(in_features, out_features, phm_dim, bias,
                                 learn_phm, activation, norm, w_init, c_init,
                                 factor=1.0, generator=generator,
-                                shared_rule=shared_rule)
+                                shared_rule=shared_rule, dtype=dtype)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
@@ -225,7 +231,7 @@ class PHMConvSoftmax(nn.Module):
                  msg_encoder: str = "identity", initial_beta: float = 1.0,
                  learn_beta: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.add_self_loops = add_self_loops
         self.same_dim = same_dim
@@ -234,7 +240,7 @@ class PHMConvSoftmax(nn.Module):
                                  requires_grad=learn_beta)
         self.transform = PHMLinear(in_features, out_features, phm_dim, bias,
                                    w_init, c_init, learn_phm, generator,
-                                   shared_rule)
+                                   shared_rule, dtype)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
@@ -258,7 +264,7 @@ class PHMGINEConvSoftmax(nn.Module):
                  c_init: str = "standard", msg_encoder: str = "identity",
                  initial_beta: float = 1.0, learn_beta: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.add_self_loops = add_self_loops
         self.msg_encoder = msg_encoder
@@ -267,7 +273,7 @@ class PHMGINEConvSoftmax(nn.Module):
         self.transform = PHMMLP(in_features, out_features, phm_dim, bias,
                                 learn_phm, activation, norm, w_init, c_init,
                                 factor=1.0, generator=generator,
-                                shared_rule=shared_rule)
+                                shared_rule=shared_rule, dtype=dtype)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
@@ -301,7 +307,7 @@ class PHMPNAConvSimple(nn.Module):
                                            "attenuation"),
                  post_layers: int = 1, msg_encoder: str = "relu",
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if avg_deg is None:
             raise ValueError("the PNA conv needs avg_deg, the dataset's "
@@ -324,14 +330,15 @@ class PHMPNAConvSimple(nn.Module):
         self.act = get_activation(activation)
         in_dim = len(self.aggregators) * len(self.scalers) * in_features
         self.post_0 = PHMLinear(in_dim, out_features, phm_dim, bias, w_init,
-                                c_init, learn_phm, generator, shared_rule)
+                                c_init, learn_phm, generator, shared_rule,
+                                dtype)
         for i in range(1, post_layers):
             if self.has_norm:
                 self.add_module(f"post_norm_{i}", PHMNorm(
                     out_features, phm_dim, "naive-batch-norm"))
             self.add_module(f"post_{i}", PHMLinear(
                 out_features, out_features, phm_dim, bias, w_init, c_init,
-                learn_phm, generator, shared_rule))
+                learn_phm, generator, shared_rule, dtype))
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
@@ -377,7 +384,8 @@ class PHMMessagePassing(nn.Module):
                  aggregators: Sequence[str] = ("mean", "min", "max", "std"),
                  scalers: Sequence[str] = ("identity", "amplification",
                                            "attenuation"),
-                 post_layers: int = 1, shared_rule: bool = False):
+                 post_layers: int = 1, shared_rule: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         aggr = "sum" if aggr == "add" else aggr
         if aggr == "pna":
@@ -385,27 +393,27 @@ class PHMMessagePassing(nn.Module):
                 in_features, out_features, phm_dim, avg_deg, learn_phm, bias,
                 activation, norm, w_init, c_init, aggregators, scalers,
                 post_layers, msg_encoder="relu", generator=generator,
-                shared_rule=shared_rule)
+                shared_rule=shared_rule, dtype=dtype)
         elif aggr == "softmax" and not mlp:
             self.conv = PHMConvSoftmax(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, w_init, c_init, same_dim, msg_encoder,
-                initial_beta, learn_beta, generator, shared_rule)
+                initial_beta, learn_beta, generator, shared_rule, dtype)
         elif aggr == "softmax":
             self.conv = PHMGINEConvSoftmax(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, norm, activation, w_init, c_init, msg_encoder,
-                initial_beta, learn_beta, generator, shared_rule)
+                initial_beta, learn_beta, generator, shared_rule, dtype)
         elif mlp:
             self.conv = PHMGINEConv(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, norm, activation, w_init, c_init, aggr,
-                msg_encoder, generator, shared_rule)
+                msg_encoder, generator, shared_rule, dtype)
         else:
             self.conv = PHMConv(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, w_init, c_init, aggr, same_dim, msg_encoder,
-                generator, shared_rule)
+                generator, shared_rule, dtype)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,

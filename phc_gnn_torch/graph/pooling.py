@@ -30,18 +30,22 @@ class PHMGlobalSumPooling(nn.Module):
 
 class PHMSoftAttentionPooling(nn.Module):
     """sigmoid(RealTransformer(PHMLinear(x))) gate [N, d], broadcast over the
-    n components, then the masked global sum."""
+    n components, then the masked global sum.  Under a bf16 ``dtype`` the
+    gate's ``PHMLinear`` runs in bf16 and its 'linear' real transformer in
+    its float32 parameters, so the gate, the gated product and the sum are
+    float32, as in JAX (pooling.py:44-60)."""
 
     def __init__(self, embed_dim: int, phm_dim: int, learn_phm: bool = True,
                  bias: bool = True, w_init: str = "phm",
                  c_init: str = "standard", real_trafo: str = "linear",
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.embed_dim = embed_dim
         self.phm_dim = phm_dim
         self.linear = PHMLinear(embed_dim, embed_dim, phm_dim, bias, w_init,
-                                c_init, learn_phm, generator, shared_rule)
+                                c_init, learn_phm, generator, shared_rule,
+                                dtype)
         self.real_trafo = RealTransformer(real_trafo, embed_dim, phm_dim,
                                           bias=True, generator=generator)
 

@@ -49,9 +49,14 @@ def phm_weight_matrix(rule: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def phm_matmul(x: torch.Tensor, rule: torch.Tensor, w: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """PHM linear transform ``y = x @ (sum_i rule[i] (x) w[i]) + b`` on
-    x: (N, n * in/n); returns (N, n * out/n).  The bias rides in the GEMM
-    (``addmm``), one launch fewer per layer."""
+    x: (N, n * in/n); returns (N, n * out/n), all in the factors' one dtype.
+    In float32 the bias rides in the GEMM (``addmm``), one launch fewer per
+    layer.  In bf16 (the model's ``compute_dtype``) the product is rounded
+    to bf16 before the bias is added, as JAX's ``matmul`` then ``+ b``
+    rounds it (kron.py:62-66); ``addmm`` would round once."""
     h = phm_weight_matrix(rule, w)
     if bias is None:
         return x @ h
+    if x.dtype == torch.bfloat16:
+        return x @ h + bias
     return torch.addmm(bias, x, h)

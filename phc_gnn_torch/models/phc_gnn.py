@@ -28,14 +28,29 @@ moved to ``device`` (default "cuda"; without CUDA it raises unless
 ``device="cpu"``).  The training forward (phc_gnn.py:202-266) takes a
 ``torch.Generator`` on that device for its dropout masks; it updates the
 batch-norm running stats in place.
+
+``compute_dtype=torch.bfloat16`` runs the activations in bf16 from the
+encoders' outputs on (phc_gnn.py:199-200, :225-226) while the parameters,
+and so the gradients and Adam's state, stay float32: every PHM linear
+computes in bf16, the norms in float32 cast back, the aggregation kernels
+read bf16 messages and return float32, and the head's real transformer
+takes float32 (``nn/``, ``graph/``, ``ops/`` say where).  The output is
+float32.  ``remat=True`` rematerializes each conv as ``nn.remat`` does
+(phc_gnn.py:233-240): ``torch.utils.checkpoint`` (non-reentrant) keeps its
+inputs and recomputes the rest, the softmax weights ``w`` included, in the
+backward; the recompute leaves the running stats as the forward left them
+(``nn.norm.frozen_running_stats``) and draws no random numbers, so it does
+not touch the RNG state, which a CUDA graph's capture could not read.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from phc_gnn_torch.data.features import ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS
 from phc_gnn_torch.device import resolve_device
@@ -46,10 +61,18 @@ from phc_gnn_torch.nn.activations import get_activation
 from phc_gnn_torch.nn.downstream import PHMDownstreamNet
 from phc_gnn_torch.nn.dropout import phm_dropout
 from phc_gnn_torch.nn.encoder import NaivePHMEncoder, PHMEncoder
-from phc_gnn_torch.nn.norm import PHMNorm
+from phc_gnn_torch.nn.norm import PHMNorm, frozen_running_stats
 from phc_gnn_torch.nn.phm_linear import init_rule
 
 __all__ = ["PHCGNN"]
+
+COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
+
+
+def _remat_contexts():
+    """``checkpoint``'s contexts: none around the forward, the running
+    stats frozen around the recompute."""
+    return contextlib.nullcontext(), frozen_running_stats()
 
 
 class PHCGNN(nn.Module):
@@ -93,10 +116,9 @@ class PHCGNN(nn.Module):
             raise NotImplementedError(
                 "edge partitioning and the node-sharded halo path are not "
                 "ported yet (ROADMAP.md, section 1, item 14)")
-        if compute_dtype is not None or remat:
-            raise NotImplementedError(
-                "compute_dtype and remat are not ported yet "
-                "(ROADMAP.md, section 1, item 11)")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be None, torch.float32 or "
+                             f"torch.bfloat16, got {compute_dtype!r}")
         if sc_type not in ("first", "last"):
             raise ValueError(f"sc_type must be 'first' or 'last', got {sc_type!r}")
         if pooling not in ("globalsum", "softattention"):
@@ -109,6 +131,10 @@ class PHCGNN(nn.Module):
             raise ValueError("dropout_mpnn needs one rate per layer")
         n = phm_dim
         gen = torch.Generator().manual_seed(seed)
+        # float32 computes as None does: the casts would change nothing
+        dtype = None if compute_dtype == torch.float32 else compute_dtype
+        self.compute_dtype = dtype
+        self.remat = remat
         self.phm_dim = n
         self.sc_type = sc_type
         self.concat = skip_connect == "concat"
@@ -141,7 +167,7 @@ class PHCGNN(nn.Module):
                 initial_beta=initial_beta, learn_beta=learn_beta,
                 generator=gen, avg_deg=avg_deg, aggregators=pna_aggregators,
                 scalers=pna_scalers, post_layers=pna_post_layers,
-                shared_rule=unique_phm))
+                shared_rule=unique_phm, dtype=dtype))
             if norm_mp not in (None, "None"):
                 self.add_module(f"norm_{i}", PHMNorm(d, n, norm_mp))
         self.has_norm = norm_mp not in (None, "None")
@@ -152,12 +178,12 @@ class PHCGNN(nn.Module):
         else:
             self.pooling = PHMSoftAttentionPooling(
                 final_dim, n, learn_phm, bias, w_init, c_init, real_trafo,
-                generator=gen, shared_rule=unique_phm)
+                generator=gen, shared_rule=unique_phm, dtype=dtype)
         self.downstream = PHMDownstreamNet(
             final_dim, tuple(downstream_layers), target_dim, n, activation,
             bias, norm_dn, w_init, c_init, learn_phm, real_trafo,
             dropout=dropout_dn, same_dropout=same_dropout, generator=gen,
-            shared_rule=unique_phm)
+            shared_rule=unique_phm, dtype=dtype)
         self.to(dev)
 
     def forward(self, graphs: GraphsTuple, training: bool = False,
@@ -167,20 +193,32 @@ class PHCGNN(nn.Module):
         rule = self.phm_rule_shared
         if rule is not None and not self.learn_phm:
             rule = rule.detach()
+        dtype = self.compute_dtype
         atom = self.atomencoder(graphs.nodes)
         atom = atom.reshape(atom.shape[0], -1)  # flat [N, n*d]
+        if dtype is not None:
+            atom = atom.to(dtype)
         x = atom
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
             skip = atom if (self.concat or self.sc_type == "first"
                             or i == 0) else x
             edge_emb = getattr(self, f"bondencoder_{i}")(graphs.edges)
             edge_emb = edge_emb.reshape(edge_emb.shape[0], -1)
-            h = getattr(self, f"conv_{i}")(
-                x, graphs.senders, graphs.receivers, edge_emb,
-                graphs.edge_mask, training=training,
-                node_mask=graphs.node_mask, rowptr=graphs.rowptr,
-                snd_perm=graphs.snd_perm, snd_rowptr=graphs.snd_rowptr,
-                phm_rule=rule)
+            if dtype is not None:
+                edge_emb = edge_emb.to(dtype)
+            conv = getattr(self, f"conv_{i}")
+            args = (x, graphs.senders, graphs.receivers, edge_emb,
+                    graphs.edge_mask)
+            kw = dict(training=training, node_mask=graphs.node_mask,
+                      rowptr=graphs.rowptr, snd_perm=graphs.snd_perm,
+                      snd_rowptr=graphs.snd_rowptr, phm_rule=rule)
+            if remat:
+                h = checkpoint(conv, *args, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=_remat_contexts, **kw)
+            else:
+                h = conv(*args, **kw)
             if self.has_norm:
                 h = getattr(self, f"norm_{i}")(h, training=training,
                                                mask=graphs.node_mask)

@@ -3,7 +3,9 @@
 Counterpart of phc_gnn_tpu/nn/downstream.py: PHM layers ``affine_<i>``
 (input -> hidden... -> n * target_dim), each hidden one followed by
 ``norm_<i>``, the activation and, in training, dropout (downstream.py:55-69),
-closed by a RealTransformer.
+closed by a RealTransformer.  Under a bf16 ``dtype`` the PHM layers run in
+bf16 and the RealTransformer takes their output cast to float32
+(downstream.py:72).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from phc_gnn_torch.nn.activations import get_activation
 from phc_gnn_torch.nn.dropout import phm_dropout
 from phc_gnn_torch.nn.norm import PHMNorm
 from phc_gnn_torch.nn.phm_linear import PHMLinear, RealTransformer
+from phc_gnn_torch.ops.segment_sum import upcast
 
 __all__ = ["PHMDownstreamNet"]
 
@@ -33,7 +36,7 @@ class PHMDownstreamNet(nn.Module):
                  dropout: Union[float, Sequence[float]] = 0.1,
                  same_dropout: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         n = phm_dim
         self.dropout = ([float(dropout)] * len(hidden_layers)
@@ -50,7 +53,7 @@ class PHMDownstreamNet(nn.Module):
         for i in range(self.num_layers):
             self.add_module(f"affine_{i}", PHMLinear(
                 sizes[i], sizes[i + 1], n, bias, w_init, c_init, learn_phm,
-                generator, shared_rule))
+                generator, shared_rule, dtype))
             if i < self.num_layers - 1 and self.has_norm:
                 self.add_module(f"norm_{i}", PHMNorm(sizes[i + 1], n, norm))
         self.real_trafo = RealTransformer(real_trafo, n * out_features, n,
@@ -71,4 +74,4 @@ class PHMDownstreamNet(nn.Module):
                 x = self.act(x)
                 x = phm_dropout(x, self.dropout[i], self.phm_dim, generator,
                                 training=training, same=self.same_dropout)
-        return self.real_trafo(x)
+        return self.real_trafo(upcast(x))

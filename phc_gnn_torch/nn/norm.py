@@ -36,20 +36,50 @@ Gamma and beta, as JAX's eval path is (one launch backward: the frozen
 variant of L, writing dx in its sweep, or of M where only dx is needed).
 Neither path syncs with the host, so the eval forward can be captured in a
 CUDA graph.
+
+Under the model's bf16 ``compute_dtype`` every norm computes in float32, as
+JAX's do (norm.py:58-59, :133, :243, :299, :345): the input is upcast, the
+float32 kernels run unchanged, and the output is cast back to the input's
+dtype; the gradient reaching the input is cast the same way.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from phc_gnn_torch.ops import fused_bn, fused_whitening
+from phc_gnn_torch.ops.segment_sum import upcast
 
-__all__ = ["PHMNorm", "QuaternionWhiteningNorm"]
+__all__ = ["PHMNorm", "QuaternionWhiteningNorm", "frozen_running_stats"]
 
 _MOMENTUM = 0.1  # torch BatchNorm1d's, as JAX's _BatchNorm uses it
+
+
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Inside the block, training-mode norms normalise with their batch
+    statistics as always but leave their running statistics as they are:
+    the recompute of a rematerialized layer (``PHCGNN(remat=True)``), whose
+    forward already updated them once, as JAX's ``nn.remat`` keeps one
+    update.  Thread-local: the recompute runs in the backward's thread."""
+    before = getattr(_STATE, "frozen", False)
+    _STATE.frozen = True
+    try:
+        yield
+    finally:
+        _STATE.frozen = before
+
+
+def _update_stats() -> bool:
+    return not getattr(_STATE, "frozen", False)
 
 
 class _BatchNorm(nn.Module):
@@ -65,9 +95,11 @@ class _BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        in_dtype = x.dtype
+        x = upcast(x)
         if not training:
-            return (x - self.mean) * torch.rsqrt(self.var + self.eps) \
-                * self.scale + self.bias
+            return ((x - self.mean) * torch.rsqrt(self.var + self.eps)
+                    * self.scale + self.bias).to(in_dtype)
         if mask is None:
             mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
         kernel = (fused_bn.fused_masked_bn
@@ -76,12 +108,13 @@ class _BatchNorm(nn.Module):
         y, mean, var = kernel(
             x.reshape(x.shape[0], -1), mask, self.scale.reshape(-1),
             self.bias.reshape(-1), self.eps)
-        with torch.no_grad():
-            cnt = mask.sum(dtype=torch.float32).clamp_min(1.0)
-            var_u = var * (cnt / (cnt - 1.0).clamp_min(1.0))
-            self.mean.lerp_(mean.view(self.mean.shape), _MOMENTUM)
-            self.var.lerp_(var_u.view(self.var.shape), _MOMENTUM)
-        return y.view(x.shape)
+        if _update_stats():
+            with torch.no_grad():
+                cnt = mask.sum(dtype=torch.float32).clamp_min(1.0)
+                var_u = var * (cnt / (cnt - 1.0).clamp_min(1.0))
+                self.mean.lerp_(mean.view(self.mean.shape), _MOMENTUM)
+                self.var.lerp_(var_u.view(self.var.shape), _MOMENTUM)
+        return y.view(x.shape).to(in_dtype)
 
 
 class QuaternionWhiteningNorm(nn.Module):
@@ -103,17 +136,19 @@ class QuaternionWhiteningNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        flat = x.reshape(x.shape[0], -1)
+        in_dtype = x.dtype
+        flat = upcast(x.reshape(x.shape[0], -1))
         if training:
             y, mean, cov = fused_whitening.fused_whitening(
                 flat, mask, self.gamma, self.beta, self.eps)
-            with torch.no_grad():
-                self.mean.lerp_(mean, _MOMENTUM)
-                self.cov.lerp_(cov, _MOMENTUM)
-            return y.view(x.shape)
+            if _update_stats():
+                with torch.no_grad():
+                    self.mean.lerp_(mean, _MOMENTUM)
+                    self.cov.lerp_(cov, _MOMENTUM)
+            return y.view(x.shape).to(in_dtype)
         return fused_whitening.eval_whitening(
             flat, self.mean, self.cov, self.gamma, self.beta,
-            self.eps).view(x.shape)
+            self.eps).view(x.shape).to(in_dtype)
 
 
 class PHMNorm(nn.Module):

@@ -12,6 +12,11 @@ Every module takes the ``torch.Generator`` its parameters are drawn from.
 A rule shared across the network (``unique_phm``) is passed as the
 ``phm_rule`` argument of ``forward``; a layer built with ``shared_rule=True``
 owns no rule of its own (phm_linear.py:86-104).
+
+``dtype`` is the compute dtype (``torch.bfloat16`` under the model's
+``compute_dtype``; None keeps the input's): the parameters stay float32 and
+``PHMLinear`` casts the input, ``W``, the rule and ``b`` to it before the
+product (phm_linear.py:105-110), so its output is in ``dtype``.
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ class PHMLinear(nn.Module):
                  bias: bool = True, w_init: str = "phm",
                  c_init: str = "standard", learn_phm: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         n = phm_dim
         if in_features % n or out_features % n:
@@ -74,6 +79,7 @@ class PHMLinear(nn.Module):
                              f"sizes divisible by phm_dim={n}")
         gen = generator if generator is not None else torch.Generator()
         self.learn_phm = learn_phm
+        self.dtype = dtype
         self.W = nn.Parameter(init_w(gen, w_init,
                                      (n, in_features // n, out_features // n)))
         self.phm_rule = (None if shared_rule else nn.Parameter(
@@ -92,7 +98,11 @@ class PHMLinear(nn.Module):
             phm_rule = self.phm_rule
         elif not self.learn_phm:
             phm_rule = phm_rule.detach()
-        return phm_matmul(x, phm_rule, self.W, self.b)
+        w, b = self.W, self.b
+        if self.dtype is not None:
+            x, w, phm_rule = (t.to(self.dtype) for t in (x, w, phm_rule))
+            b = b.to(self.dtype) if b is not None else None
+        return phm_matmul(x, phm_rule, w, b)
 
 
 class PHMMLP(nn.Module):
@@ -105,16 +115,18 @@ class PHMMLP(nn.Module):
                  w_init: str = "phm", c_init: str = "standard",
                  factor: float = 1.0,
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False):
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         hidden = int(factor * out_features)
         self.linear1 = PHMLinear(in_features, hidden, phm_dim, bias, w_init,
-                                 c_init, learn_phm, generator, shared_rule)
+                                 c_init, learn_phm, generator, shared_rule,
+                                 dtype)
         self.norm = (PHMNorm(hidden, phm_dim, norm)
                      if norm not in (None, "None") else None)
         self.act = get_activation(activation)
         self.linear2 = PHMLinear(hidden, out_features, phm_dim, bias, w_init,
-                                 c_init, learn_phm, generator, shared_rule)
+                                 c_init, learn_phm, generator, shared_rule,
+                                 dtype)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 mask: Optional[torch.Tensor] = None,
@@ -129,7 +141,9 @@ class RealTransformer(nn.Module):
     """H^d -> R^(d/n) head: 'linear', a dense layer ``affine`` on the flat
     vector; or 'sum', 'mean' or 'norm' (the 2-norm) over the component axis
     of ``[..., n, d]``, which have no parameters (reference:
-    phc/hypercomplex/layers.py:372-420; phm_linear.py:152-177)."""
+    phc/hypercomplex/layers.py:372-420; phm_linear.py:152-177).  'linear'
+    computes in its parameters' float32, a bf16 input promoted as flax's
+    ``nn.Dense`` promotes it; the others keep the input's dtype."""
 
     def __init__(self, trafo_type: str, in_features: int, phm_dim: int,
                  bias: bool = True, generator: Optional[torch.Generator] = None):
@@ -154,7 +168,7 @@ class RealTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.trafo_type == "linear":
-            return self.affine(x)
+            return self.affine(x.to(self.affine.weight.dtype))
         n = self.phm_dim
         xs = x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
         if self.trafo_type == "sum":

@@ -37,6 +37,12 @@ read off ``rowptr``.
 
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors
 it launches the kernel or raises; it never falls back.
+
+H and I read float32 only.  Under the model's bf16 ``compute_dtype`` the
+aggregations cast the messages to float32 before them, as JAX's glue does
+(stream_scan.py:1016, :1083), and the mean feeds its bf16 messages to C's
+bf16 instance; every output is float32 and every backward returns ``dm``
+in the messages' dtype (:997, :1040, :1111).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ import torch
 
 from phc_gnn_torch.ops import _build
 from phc_gnn_torch.ops.segment_sum import (check_masked_csr, segment_ids,
-                                           segment_sum_masked)
+                                           segment_sum_masked, upcast)
 
 __all__ = ["segment_extreme", "segment_extreme_plain", "segment_moments",
            "segment_moments_plain", "segment_extreme_aggregate",
@@ -55,6 +61,7 @@ __all__ = ["segment_extreme", "segment_extreme_plain", "segment_moments",
            "segment_std_aggregate", "STD_EPS"]
 
 STD_EPS = 1e-5  # sqrt(relu(var) + eps) (stream_scan.py:1133)
+
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -113,7 +120,7 @@ def segment_extreme(msgs, mask, rowptr, minimum: bool = False):
     (kernel H)."""
     if msgs.device.type == "cpu":
         return segment_extreme_plain(msgs, mask, rowptr, minimum)
-    check_masked_csr("segment_extreme", msgs, mask, rowptr)
+    check_masked_csr("segment_extreme", msgs, mask, rowptr, (torch.float32,))
     dev = msgs.device
     n, d = rowptr.shape[0] - 1, msgs.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -133,7 +140,7 @@ def segment_moments(msgs, mask, rowptr):
     segment without one (kernel I)."""
     if msgs.device.type == "cpu":
         return segment_moments_plain(msgs, mask, rowptr)
-    check_masked_csr("segment_moments", msgs, mask, rowptr)
+    check_masked_csr("segment_moments", msgs, mask, rowptr, (torch.float32,))
     dev = msgs.device
     n, d = rowptr.shape[0] - 1, msgs.shape[1]
     mean = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -151,16 +158,16 @@ segment_moments.launches = 0
 class _SegmentExtreme(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, receivers, mask, rowptr, minimum):
-        out = segment_extreme(msgs, mask, rowptr, minimum)
+        out = segment_extreme(upcast(msgs), mask, rowptr, minimum)
         ctx.save_for_backward(msgs, out, receivers, mask)
         return out
 
     @staticmethod
     def backward(ctx, g):
         msgs, out, receivers, mask = ctx.saved_tensors
-        hit = mask[:, None] & (msgs == out.index_select(0, receivers))
+        hit = mask[:, None] & (upcast(msgs) == out.index_select(0, receivers))
         dm = torch.where(hit, g.index_select(0, receivers), 0.0)
-        return dm, None, None, None, None
+        return dm.to(msgs.dtype), None, None, None, None
 
 
 def segment_extreme_aggregate(msgs, receivers, mask, rowptr,
@@ -176,13 +183,14 @@ class _SegmentMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, receivers, mask, rowptr, cnt):
         ctx.save_for_backward(receivers, mask, cnt)
+        ctx.msgs_dtype = msgs.dtype
         return segment_sum_masked(msgs, mask, rowptr) / cnt[:, None]
 
     @staticmethod
     def backward(ctx, g):
         receivers, mask, cnt = ctx.saved_tensors
         dm = (g / cnt[:, None]).index_select(0, receivers) * mask[:, None]
-        return dm, None, None, None, None
+        return dm.to(ctx.msgs_dtype), None, None, None, None
 
 
 def segment_mean_aggregate(msgs, receivers, mask, rowptr, counts):
@@ -196,17 +204,17 @@ def segment_mean_aggregate(msgs, receivers, mask, rowptr, counts):
 class _SegmentVar(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, receivers, mask, rowptr, cnt):
-        mean, var = segment_moments(msgs, mask, rowptr)
+        mean, var = segment_moments(upcast(msgs), mask, rowptr)
         ctx.save_for_backward(msgs, mean, cnt, receivers, mask)
         return var
 
     @staticmethod
     def backward(ctx, g):
         msgs, mean, cnt, receivers, mask = ctx.saved_tensors
-        dm = (2.0 * (msgs - mean.index_select(0, receivers))
+        dm = (2.0 * (upcast(msgs) - mean.index_select(0, receivers))
               * (g / cnt[:, None]).index_select(0, receivers)
               * mask[:, None])
-        return dm, None, None, None, None
+        return dm.to(msgs.dtype), None, None, None, None
 
 
 def segment_var_aggregate(msgs, receivers, mask, rowptr, counts):

@@ -29,10 +29,17 @@ kernels trust ``rowptr`` to be ascending with ``rowptr[-1] <= E`` (checking
 it would cost a host sync per launch); ``attach_csr_plan`` validates the
 receivers it is built from.
 
+The messages may be float32 or bfloat16 (the model's ``compute_dtype``):
+a bf16 launch converts each row at its load and computes in float32, as
+JAX's kernels convert their blocks (stream_scan.py:435, :465); ``segmax``,
+``out``, ``w`` and ``den`` are float32 either way, and the backward returns
+``dm`` in the messages' dtype (:813).  The plain versions upcast first.
+
 Both kernels are bound by the bytes they move (see the source's note).  A
 wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
 launches its kernel or raises; it never falls back.  ``<wrapper>.launches``
-counts the launches.
+counts the launches of the float32 instance, ``<wrapper>.launches_bf16``
+those of the bf16 one.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import ctypes
 import torch
 
 from phc_gnn_torch.ops import _build
+from phc_gnn_torch.ops.segment_sum import ROW_DTYPES, count_launch
 
 __all__ = [
     "NEG",
@@ -63,11 +71,13 @@ def _lib():
     global _typed_lib
     if _typed_lib is None:
         lib = _build.load("segment_softmax")
-        lib.segment_logit_max_f32.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _P]
-        lib.segment_logit_max_f32.restype = ctypes.c_int
-        lib.segment_softmax_aggregate_f32.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P]
-        lib.segment_softmax_aggregate_f32.restype = ctypes.c_int
+        for t in ("f32", "bf16"):
+            fn = getattr(lib, f"segment_logit_max_{t}")
+            fn.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _P]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"segment_softmax_aggregate_{t}")
+            fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P]
+            fn.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
 
@@ -119,8 +129,8 @@ def _check(msgs, mask, beta, rowptr):
     if dev.type != "cuda":
         raise ValueError(f"segment softmax kernels run on CPU or CUDA "
                          f"tensors, got {dev}")
-    if msgs.dtype != torch.float32 or msgs.ndim != 2:
-        raise TypeError(f"msgs must be a 2-D float32 tensor, got "
+    if msgs.dtype not in ROW_DTYPES or msgs.ndim != 2:
+        raise TypeError(f"msgs must be a 2-D float32 or bfloat16 tensor, got "
                         f"{msgs.dtype} {tuple(msgs.shape)}")
     if mask.dtype != torch.bool or mask.shape != msgs.shape[:1]:
         raise TypeError(f"mask must be bool [{msgs.shape[0]}], got "
@@ -137,29 +147,36 @@ def _check(msgs, mask, beta, rowptr):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _suffix(msgs) -> str:
+    return "bf16" if msgs.dtype == torch.bfloat16 else "f32"
+
+
 def segment_logit_max(msgs, mask, beta, rowptr):
-    """[N, D] max over each segment of ``where(mask, beta * m, -2^100)``."""
+    """[N, D] float32 max over each segment of ``where(mask, beta * m,
+    -2^100)``."""
     if msgs.device.type == "cpu":
         return segment_logit_max_plain(msgs, mask, beta, rowptr)
     _check(msgs, mask, beta, rowptr)
     n, d = rowptr.shape[0] - 1, msgs.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=msgs.device)
-    _build.check_launch("segment_logit_max", _lib().segment_logit_max_f32(
+    fn = getattr(_lib(), f"segment_logit_max_{_suffix(msgs)}")
+    _build.check_launch("segment_logit_max", fn(
         msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
         out.data_ptr(), n, d, _build.stream(msgs.device)))
-    segment_logit_max.launches += 1
+    count_launch(segment_logit_max, msgs)
     return out
 
 
 segment_logit_max.launches = 0
+segment_logit_max.launches_bf16 = 0
 
 
 def segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax,
                               emit_w: bool = False):
-    """[N, D] softmax-weighted segment sum given ``segmax`` from
+    """[N, D] float32 softmax-weighted segment sum given ``segmax`` from
     ``segment_logit_max``; with ``emit_w`` the triple ``(out, w, den)``,
     adding the per-edge weights ``w`` [E, D] (0 on masked and padding-tail
-    edges) and ``den = max(sum w, 1e-16)`` [N, D]."""
+    edges) and ``den = max(sum w, 1e-16)`` [N, D], both float32."""
     if msgs.device.type == "cpu":
         return segment_softmax_aggregate_plain(msgs, mask, beta, rowptr,
                                                segmax, emit_w)
@@ -175,16 +192,18 @@ def segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax,
         w = torch.zeros((msgs.shape[0], d), dtype=torch.float32,
                         device=msgs.device)
         den = torch.empty_like(out)
-    err = _lib().segment_softmax_aggregate_f32(
+    fn = getattr(_lib(), f"segment_softmax_aggregate_{_suffix(msgs)}")
+    err = fn(
         msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
         segmax.data_ptr(), out.data_ptr(), w.data_ptr() if emit_w else None,
         den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
     _build.check_launch("segment_softmax_aggregate", err)
-    segment_softmax_aggregate.launches += 1
+    count_launch(segment_softmax_aggregate, msgs)
     return (out, w, den) if emit_w else out
 
 
 segment_softmax_aggregate.launches = 0
+segment_softmax_aggregate.launches_bf16 = 0
 
 
 class _SegmentSoftmax(torch.autograd.Function):

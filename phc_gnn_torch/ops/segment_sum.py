@@ -28,14 +28,22 @@ Around them:
   before the scan, :741-742).
 
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors
-it launches the kernel or raises; it never falls back.  The kernels trust
+it launches the kernel or raises; it never falls back.  ``<wrapper>.launches``
+counts the launches of the float32 instance, ``<wrapper>.launches_bf16``
+those of the bf16 one.  The kernels trust
 ``rowptr`` to be ascending and ``perm`` to index rows of ``values`` (checking
 would cost a host sync per launch); ``graph.attach_csr_plan`` builds both.
 
 ``segment_sum_plan`` computes the launch (``csrc/segment_sum.cu`` checks
 it): a warp a segment, a CTA a run of consecutive segments whose CSR slice
-and mask bytes or perm entries it stages in shared memory, float4 lanes
-where the rows allow them.
+and mask bytes or perm entries it stages in shared memory, 16-byte lanes
+(4 float32 or 8 bf16 elements) where the rows allow them.
+
+The rows may be float32 or bfloat16 (the model's ``compute_dtype``): a
+bf16 launch converts each row at its load and sums in float32, as JAX's
+scan converts its block (stream_scan.py:375-380); every output is float32.
+The plain versions upcast bf16 rows first, so that they sum in float32 as
+the kernel does (torch's bf16 ``index_add_`` would sum in bf16).
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ from phc_gnn_torch.ops import _build
 __all__ = ["SegSumPlan", "segment_sum_plan", "segment_sum_perm",
            "segment_sum_perm_plain", "segment_sum_masked",
            "segment_sum_masked_plain", "gather_nodes", "segment_sum_aggregate",
-           "segment_ids", "check_masked_csr"]
+           "segment_ids", "check_masked_csr", "count_launch", "ROW_DTYPES",
+           "upcast"]
 
 # the launch plan (csrc/segment_sum.cu holds the same constants)
 SEG_WARPS = 8               # warps a CTA, one a segment at a time (kWarps)
@@ -67,9 +76,10 @@ class SegSumPlan(NamedTuple):
     """The launch of C: ``grid`` x ``col_blocks`` CTAs of ``SEG_WARPS``
     warps; CTA (b, c) owns the segments ``[b * run, min(n, (b + 1) * run))``
     and the columns ``[c * cols, (c + 1) * cols)``, ``cols = chunks * 32 *
-    vec``; a lane holds ``chunks`` accumulators of ``vec`` floats (4: float4
-    loads); ``stage`` mask bytes or perm entries of the run's edges sit in
-    ``smem_bytes`` of shared memory beside its ``run + 1`` row pointers."""
+    vec``; a lane holds ``chunks`` accumulators of ``vec`` elements (16
+    bytes of them loaded at once where ``vec`` > 1); ``stage`` mask bytes or
+    perm entries of the run's edges sit in ``smem_bytes`` of shared memory
+    beside its ``run + 1`` row pointers."""
     vec: int
     chunks: int
     col_blocks: int
@@ -81,16 +91,19 @@ class SegSumPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def segment_sum_plan(n: int, e: int, d: int, perm: bool,
-                     aligned: bool = True) -> SegSumPlan:
+                     aligned: bool = True, elem_bytes: int = 4) -> SegSumPlan:
     """The launch plan of C over ``n`` segments of ``e`` edges of ``d``
-    floats, in the perm role (``perm``) or the masked one: float4 lanes where
-    ``d % 4 == 0`` and the rows are 16-byte ``aligned``, else one float a
-    lane (the scalar instance); the fewest of ``SEG_CHUNKS`` vectors a lane
-    that cover a row, in column blocks past 4; runs of ``SEG_WARPS`` * 2^k
-    segments, the longest up to ``SEG_MAX_RUN`` whose grid keeps
-    ``SEG_MIN_CTAS`` CTAs; and up to ``SEG_STAGE_PER_SEG`` staged entries a
-    segment of the run, no more than ``e``."""
-    vec = 4 if aligned and d % 4 == 0 else 1
+    elements of ``elem_bytes`` bytes (4: float32, 2: bf16), in the perm role
+    (``perm``) or the masked one: 16-byte lanes of ``16 // elem_bytes``
+    elements where ``d`` is a multiple of it and the rows are 16-byte
+    ``aligned``, else one element a lane (the scalar instance); the fewest
+    of ``SEG_CHUNKS`` vectors a lane that cover a row, in column blocks past
+    4; runs of ``SEG_WARPS`` * 2^k segments, the longest up to
+    ``SEG_MAX_RUN`` whose grid keeps ``SEG_MIN_CTAS`` CTAs; and up to
+    ``SEG_STAGE_PER_SEG`` staged entries a segment of the run, no more than
+    ``e``."""
+    wide = 16 // elem_bytes
+    vec = wide if aligned and d % wide == 0 else 1
     vectors = -(-d // vec)
     chunks = next((c for c in SEG_CHUNKS if 32 * c >= vectors), SEG_CHUNKS[-1])
     col_blocks = max(1, -(-vectors // (32 * chunks)))
@@ -112,7 +125,8 @@ def _lib():
     global _typed_lib
     if _typed_lib is None:
         lib = _build.load("segment_sum")
-        for fn in (lib.segment_sum_perm_f32, lib.segment_sum_masked_f32):
+        for fn in (lib.segment_sum_perm_f32, lib.segment_sum_masked_f32,
+                   lib.segment_sum_perm_bf16, lib.segment_sum_masked_bf16):
             fn.argtypes = [_P] * 4 + [_I64] * 9 + [_P]
             fn.restype = ctypes.c_int
         _typed_lib = lib
@@ -127,10 +141,19 @@ def segment_ids(rowptr):
     return torch.repeat_interleave(torch.arange(n, device=rowptr.device), counts)
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 where it is narrower (bf16 rows, which the kernels
+    and JAX's glue sum in float32); float32 and float64 (the checks'
+    witness) stay as they are."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def segment_sum_perm_plain(values, perm, rowptr):
-    """The kernel's function in ``values``' dtype (the checks pass float64,
-    so that the order of the sums does not matter)."""
+    """The kernel's function in ``values``' dtype, bf16 rows summed in
+    float32 (the checks pass float64, so that the order of the sums does
+    not matter)."""
     seg = segment_ids(rowptr)
+    values = upcast(values)
     rows = values.index_select(0, perm[:seg.shape[0]].long())
     out = torch.zeros((rowptr.shape[0] - 1, values.shape[1]),
                       dtype=values.dtype, device=values.device)
@@ -138,23 +161,29 @@ def segment_sum_perm_plain(values, perm, rowptr):
 
 
 def segment_sum_masked_plain(msgs, mask, rowptr):
-    """The forward kernel's function in ``msgs``' dtype (the checks pass
-    float64)."""
+    """The forward kernel's function in ``msgs``' dtype, bf16 rows summed in
+    float32 (the checks pass float64)."""
     seg = segment_ids(rowptr)
+    msgs = upcast(msgs)
     rows = torch.where(mask[:seg.shape[0], None], msgs[:seg.shape[0]], 0)
     out = torch.zeros((rowptr.shape[0] - 1, msgs.shape[1]), dtype=msgs.dtype,
                       device=msgs.device)
     return out.index_add_(0, seg, rows)
 
 
-def _check(name, values, index, rowptr):
+ROW_DTYPES = (torch.float32, torch.bfloat16)  # the rows C, A and B read
+
+
+def _check(name, values, index, rowptr, dtypes=ROW_DTYPES):
     """Device, dtype, shape and contiguity of a segment-sum launch;
-    ``index`` is ``(name, tensor, dtype)``."""
+    ``index`` is ``(name, tensor, dtype)``; the rows' dtype one of
+    ``dtypes``."""
     dev = values.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {dev}")
-    if values.dtype != torch.float32 or values.ndim != 2:
-        raise TypeError(f"values must be a 2-D float32 tensor, got "
+    if values.dtype not in dtypes or values.ndim != 2:
+        names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
+        raise TypeError(f"values must be a 2-D {names} tensor, got "
                         f"{values.dtype} {tuple(values.shape)}")
     iname, itensor, idtype = index
     for tname, t, dtype in ((iname, itensor, idtype),
@@ -168,54 +197,70 @@ def _check(name, values, index, rowptr):
             raise ValueError(f"{tname} must be contiguous")
 
 
-def check_masked_csr(name, msgs, mask, rowptr):
+def check_masked_csr(name, msgs, mask, rowptr, dtypes=ROW_DTYPES):
     """``_check`` of a launch over the receiver CSR that reads ``mask`` [E]
-    beside ``msgs`` [E, D]: C's forward role, and kernels H and I."""
-    _check(name, msgs, ("mask", mask, torch.bool), rowptr)
+    beside ``msgs`` [E, D]: C's forward role (float32 or bf16 rows), and
+    kernels H and I (float32 only)."""
+    _check(name, msgs, ("mask", mask, torch.bool), rowptr, dtypes)
     if mask.shape[0] != msgs.shape[0]:
         raise ValueError(f"mask has {mask.shape[0]} entries for "
                          f"{msgs.shape[0]} rows of msgs")
 
 
-def _launch(fn, values, index, rowptr, perm: bool):
-    """Launch C's entry point ``fn`` on its checked inputs into a new [N, D]
-    output, on ``segment_sum_plan``; the instance follows ``values``' width
-    and alignment."""
+def _launch(role, values, index, rowptr, perm: bool):
+    """Launch C's entry point ``segment_sum_<role>_<f32|bf16>`` on its
+    checked inputs into a new float32 [N, D] output, on
+    ``segment_sum_plan``; the instance follows ``values``' dtype, width and
+    alignment."""
     n, (e, d) = rowptr.shape[0] - 1, values.shape
+    bf16 = values.dtype == torch.bfloat16
+    fn = getattr(_lib(), f"segment_sum_{role}_{'bf16' if bf16 else 'f32'}")
     out = torch.empty((n, d), dtype=torch.float32, device=values.device)
-    plan = segment_sum_plan(n, e, d, perm, values.data_ptr() % 16 == 0)
+    plan = segment_sum_plan(n, e, d, perm, values.data_ptr() % 16 == 0,
+                            values.element_size())
     _build.check_launch(fn.__name__, fn(
         values.data_ptr(), index.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
         n, d, *plan, _build.stream(values.device)))
     return out
 
 
+def count_launch(wrapper, values) -> None:
+    """One launch of ``wrapper``'s instance for ``values``' dtype: its
+    ``launches_bf16`` for bf16 rows, else its ``launches``."""
+    if values.dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def segment_sum_perm(values, perm, rowptr):
-    """[N, D] sums of the rows ``values[perm[e]]`` over each CSR segment of
-    ``rowptr`` [N + 1]."""
+    """[N, D] float32 sums of the rows ``values[perm[e]]`` (float32 or
+    bf16) over each CSR segment of ``rowptr`` [N + 1]."""
     if values.device.type == "cpu":
         return segment_sum_perm_plain(values, perm, rowptr)
     _check("segment_sum_perm", values, ("perm", perm, torch.int32), rowptr)
-    out = _launch(_lib().segment_sum_perm_f32, values, perm, rowptr, True)
-    segment_sum_perm.launches += 1
+    out = _launch("perm", values, perm, rowptr, True)
+    count_launch(segment_sum_perm, values)
     return out
 
 
 segment_sum_perm.launches = 0
+segment_sum_perm.launches_bf16 = 0
 
 
 def segment_sum_masked(msgs, mask, rowptr):
-    """[N, D] sums of the rows ``msgs[e]`` whose ``mask[e]`` holds over each
-    CSR segment of ``rowptr`` [N + 1]."""
+    """[N, D] float32 sums of the rows ``msgs[e]`` (float32 or bf16) whose
+    ``mask[e]`` holds over each CSR segment of ``rowptr`` [N + 1]."""
     if msgs.device.type == "cpu":
         return segment_sum_masked_plain(msgs, mask, rowptr)
     check_masked_csr("segment_sum_masked", msgs, mask, rowptr)
-    out = _launch(_lib().segment_sum_masked_f32, msgs, mask, rowptr, False)
-    segment_sum_masked.launches += 1
+    out = _launch("masked", msgs, mask, rowptr, False)
+    count_launch(segment_sum_masked, msgs)
     return out
 
 
 segment_sum_masked.launches = 0
+segment_sum_masked.launches_bf16 = 0
 
 
 class _GatherNodes(torch.autograd.Function):
@@ -227,8 +272,13 @@ class _GatherNodes(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # a bf16 cotangent goes into C's bf16 instance as it is: JAX casts
+        # it to f32 first (stream_scan.py:861), an exact conversion, so the
+        # sums are the same; dx comes back in x's dtype (:867)
         snd_perm, snd_rowptr = ctx.saved_tensors
-        dx = segment_sum_perm(g.float().contiguous(), snd_perm, snd_rowptr)
+        if g.dtype not in ROW_DTYPES:
+            g = g.float()
+        dx = segment_sum_perm(g.contiguous(), snd_perm, snd_rowptr)
         return dx.to(ctx.x_dtype), None, None, None
 
 
@@ -246,18 +296,20 @@ class _SegmentSumAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, receivers, mask, rowptr):
         ctx.save_for_backward(receivers, mask)
+        ctx.msgs_dtype = msgs.dtype
         return segment_sum_masked(msgs, mask, rowptr)
 
     @staticmethod
     def backward(ctx, g):
         receivers, mask = ctx.saved_tensors
         dm = torch.where(mask[:, None], g.index_select(0, receivers), 0.0)
-        return dm, None, None, None
+        return dm.to(ctx.msgs_dtype), None, None, None
 
 
 def segment_sum_aggregate(msgs, receivers, mask, rowptr):
     """The masked sum of the receiver-sorted ``msgs`` [E, D] per receiver,
-    [N, D] for ``rowptr`` [N + 1] (``segment_sum_masked``, kernel C on the
-    card); its backward gives each real edge its receiver's cotangent and a
-    masked edge 0."""
+    float32 [N, D] for ``rowptr`` [N + 1] (``segment_sum_masked``, kernel C
+    on the card); its backward gives each real edge its receiver's
+    cotangent and a masked edge 0, in ``msgs``' dtype (stream_scan.py:
+    715-720)."""
     return _SegmentSumAggregate.apply(msgs, receivers, mask, rowptr)

@@ -26,7 +26,8 @@ KEYS = ("config", "steps_per_s", "step_ms", "eager_step_ms",
         "device", "power_limit_w")
 EVAL_KEYS = ("eval_ms", "eval_edges_per_s", "eager_eval_ms")
 # (sub-batches of a train call, padded nodes of one, serves an eval)
-SHAPES = {"flagship": (1, 128, True), "concat": (1, 128, True),
+SHAPES = {"flagship": (1, 128, True), "flagship-bf16": (1, 128, True),
+          "concat": (1, 128, True),
           "quat-wbn": (1, 128, True), "pna": (1, 128, True),
           "pcba": (4, 128, True), "pcba-16k": (1, 512, False),
           "pcba-k2": (2, 256, False)}

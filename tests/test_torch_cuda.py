@@ -627,3 +627,54 @@ def test_whitening_transform_routes_cover_every_pair(dev, n, d):
         assert _leaf_err(dx, fw.wbn_dx_plain(
             x.double(), g.double(), None, gamma.double(), mean.double(),
             l.double(), None, None, None, frozen=True)) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["flagship", "adversarial", "d37"])
+def test_bf16_instances_match_the_f32_instances(dev, case):
+    """A, B (both variants) and C (both roles) on bf16 rows: float32
+    outputs, bit-equal to the float32 instances fed the exactly upcast rows,
+    within the float32 checks' tolerances of their plain versions; each
+    launch counted by ``launches_bf16`` and not by ``launches``."""
+    m, k, b, rp = (_flagship_case(dev, 1.37) if case != "adversarial"
+                   else _adversarial_case(dev))
+    if case == "d37":
+        m = m[:, :37].contiguous()
+    m = m.to(torch.bfloat16)
+    counts = [(w.launches, w.launches_bf16) for w in (
+        ss.segment_logit_max, ss.segment_softmax_aggregate,
+        ssum.segment_sum_masked, ssum.segment_sum_perm)]
+    smax = ss.segment_logit_max(m, k, b, rp)
+    got = ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True)
+    masked = ssum.segment_sum_masked(m, k, rp)
+    perm = torch.arange(m.shape[0], dtype=torch.int32, device=dev)
+    summed = ssum.segment_sum_perm(m, perm, rp)
+    torch.cuda.synchronize()
+    after = [(w.launches, w.launches_bf16) for w in (
+        ss.segment_logit_max, ss.segment_softmax_aggregate,
+        ssum.segment_sum_masked, ssum.segment_sum_perm)]
+    assert after == [(n, n16 + 1) for n, n16 in counts]
+    up = m.float()
+    smax32 = ss.segment_logit_max(up, k, b, rp)
+    assert torch.equal(smax, smax32)
+    for g, w in zip(got, ss.segment_softmax_aggregate(up, k, b, rp, smax32,
+                                                      emit_w=True)):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    assert torch.equal(masked, ssum.segment_sum_masked(up, k, rp))
+    assert torch.equal(summed, ssum.segment_sum_perm(up, perm, rp))
+    assert _rel_err(smax, ss.segment_logit_max_plain(m, k, b, rp)) <= 1e-6
+    want = ss.segment_softmax_aggregate_plain(m, k, b, rp, smax)
+    assert _rel_err(got[0], want) <= 1e-5
+    assert _leaf_err(masked, ssum.segment_sum_masked_plain(
+        m.double(), k, rp)) <= 1e-5
+
+
+def test_wrappers_take_only_f32_or_bf16(dev):
+    """float16 rows are refused by A, B and C, and H and I take float32
+    alone (the aggregations upcast bf16 messages before them)."""
+    m, k, b, rp = _flagship_case(dev, 1.0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ss.segment_logit_max(m.half(), k, b, rp)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ssum.segment_sum_masked(m.half(), k, rp)
+    with pytest.raises(TypeError, match="float32"):
+        sr.segment_extreme(m.to(torch.bfloat16), k, rp)

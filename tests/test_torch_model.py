@@ -154,7 +154,8 @@ def test_training_and_later_slice_configs_raise():
     """Every configuration of a later slice raises; the training forward,
     which raised before the training slice, now runs (its parity with JAX is
     in tests/test_torch_train.py), and so does the mean aggregation since
-    the PNA slice (tests/test_torch_pna.py)."""
+    the PNA slice (tests/test_torch_pna.py), and ``remat`` and the bf16
+    ``compute_dtype``; another compute dtype raises."""
     model = PHCGNN(**_config(32, 2), device="cpu")
     out = model(attach_csr_plan(synthetic_batch(4, 128, 256)), training=True,
                 generator=torch.Generator().manual_seed(0))
@@ -162,11 +163,18 @@ def test_training_and_later_slice_configs_raise():
     out.sum().backward()
     assert all(p.grad is not None for p in model.parameters()
                if p.requires_grad)
-    for over in (dict(edge_axis="ep"),
-                 dict(node_axis="dp"), dict(remat=True),
-                 dict(compute_dtype=torch.bfloat16)):
+    for over in (dict(edge_axis="ep"), dict(node_axis="dp")):
         with pytest.raises(NotImplementedError):
             PHCGNN(**_config(32, 2, **over), device="cpu")
+    # remat and the bf16 compute dtype build and run (tests/test_torch_remat.py
+    # and tests/test_torch_bf16.py hold them to JAX)
+    for over in (dict(remat=True), dict(compute_dtype=torch.bfloat16)):
+        other = PHCGNN(**_config(32, 2, **over), device="cpu")
+        out = other(attach_csr_plan(synthetic_batch(4, 128, 256)),
+                    training=True, generator=torch.Generator().manual_seed(0))
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PHCGNN(**_config(32, 2, compute_dtype=torch.float16), device="cpu")
     # unique_phm and the real transformer's sum, mean and norm came with the
     # twelfth slice (tests/test_torch_options.py holds them to JAX)
     shared = PHCGNN(**_config(32, 2, unique_phm=True, real_trafo="norm"),

@@ -5,14 +5,17 @@ The kernel itself runs only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).  Here the plan is held to what the kernel needs of it:
 every segment and every column owned by exactly one CTA, runs of whole
 warps, shared memory under the 48 KB a CTA gets without an opt-in, the
-float4 instance only where the width and the rows' alignment allow it, and
-a grid of several CTAs an SM at the main paths' shapes.  ``_walk`` follows
+16-byte instance (4 float32 or 8 bf16 elements a lane) only where the
+width and the rows' alignment allow it, and a grid of several CTAs an SM
+at the main paths' shapes, for float32 rows and for bf16 rows (the
+model's ``compute_dtype``).  ``_walk`` follows
 the kernel's walk on a plan in float32 -- a CTA's run of segments, its
 staged mask bytes or perm entries (an edge past them read from the arrays
 themselves), a warp a segment, edges in groups of four with every live
 row's load before the adds, the adds in edge order from 0 -- and is held
 bit for bit to a sequential float32 sum in edge order and within 1e-5 to
-the plain version in float64.  Needs no JAX:
+the plain version in float64; on bf16 rows, whose conversion to float32 is
+exact, the walk is the float32 walk of the converted rows.  Needs no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_segment_sum_plan.py
 """
@@ -43,8 +46,9 @@ def _ctas(plan, n):
 
 @pytest.mark.parametrize("n,e,d", SHAPES)
 def test_plan_covers_every_segment_and_column_once(n, e, d):
-    for perm in (False, True):
-        plan = ssum.segment_sum_plan(n, e, d, perm)
+    for perm, elem_bytes in ((False, 4), (True, 4), (False, 2), (True, 2)):
+        plan = ssum.segment_sum_plan(n, e, d, perm, True, elem_bytes)
+        assert plan.vec in (1, 16 // elem_bytes)
         vectors = -(-d // plan.vec)
         owned = np.zeros((n, plan.col_blocks * plan.chunks * 32), np.int64)
         for segs, cols in _ctas(plan, n):
@@ -65,11 +69,24 @@ def test_plan_covers_every_segment_and_column_once(n, e, d):
 
 
 def test_instance_follows_the_width_and_alignment():
-    """float4 lanes where d % 4 == 0 and the rows are 16-byte aligned, one
-    float a lane otherwise; the fewest chunks of 32 vectors that cover a
-    row, column blocks past 4: 512 floats are 4 float4 chunks, 200 floats
-    2 (the second 18 lanes live), 37 floats 2 scalar chunks, 768 floats 2
-    blocks of 4 float4 chunks."""
+    """16-byte lanes where d is a multiple of their elements and the rows
+    are 16-byte aligned, one element a lane otherwise; the fewest chunks of
+    32 vectors that cover a row, column blocks past 4: 512 floats are 4
+    float4 chunks, 200 floats 2 (the second 18 lanes live), 37 floats 2
+    scalar chunks, 768 floats 2 blocks of 4 float4 chunks.  In bf16 a lane
+    loads 8 elements: 512 are 2 chunks, 200 one (25 lanes live), 768 one
+    block of 4 chunks, and 4 or 6 take the scalar instance."""
+    bf16 = dict(elem_bytes=2)
+    assert ssum.segment_sum_plan(4096, 8192, 512, False, **bf16)[:3] == (
+        8, 2, 1)
+    assert ssum.segment_sum_plan(4096, 8192, 200, True, **bf16)[:3] == (
+        8, 1, 1)
+    assert ssum.segment_sum_plan(4096, 8192, 200, True, False, 2)[:3] == (
+        1, 4, 2)
+    assert ssum.segment_sum_plan(100, 400, 768, False, **bf16)[:3] == (
+        8, 4, 1)
+    assert ssum.segment_sum_plan(10, 40, 8, True, **bf16)[:3] == (8, 1, 1)
+    assert ssum.segment_sum_plan(10, 40, 4, True, **bf16)[:3] == (1, 1, 1)
     assert ssum.segment_sum_plan(4096, 8192, 512, False)[:3] == (4, 4, 1)
     assert ssum.segment_sum_plan(4096, 8192, 200, True)[:3] == (4, 2, 1)
     assert ssum.segment_sum_plan(4096, 8192, 200, True, False)[:3] == (1, 4, 2)
@@ -175,6 +192,19 @@ def test_kernel_walk_on_the_plan_matches_plain(role, d):
     assert plan.stage < int(rowptr[-1])  # node 7 reads past the staged ones
     got = _walk(values, entries, rowptr, plan, perm)
     assert np.array_equal(got, _sequential(values, entries, rowptr, perm))
+    # bf16 rows: their own plan, the walk of the exactly converted rows,
+    # and the plain version's float32 output from the bf16 rows themselves
+    rows16 = torch.from_numpy(values).to(torch.bfloat16)
+    up = rows16.float().numpy()
+    plan16 = ssum.segment_sum_plan(n, values.shape[0], d, perm, True, 2)
+    got16 = _walk(up, entries, rowptr, plan16, perm)
+    assert np.array_equal(got16, _sequential(up, entries, rowptr, perm))
+    te16, tr16 = torch.from_numpy(entries), torch.from_numpy(rowptr)
+    plain16 = (ssum.segment_sum_perm_plain(rows16, te16, tr16) if perm else
+               ssum.segment_sum_masked_plain(rows16, te16, tr16))
+    assert plain16.dtype == torch.float32
+    assert (np.abs(plain16.numpy() - got16).max()
+            <= 1e-5 * np.abs(got16).max())
     assert (got[3] == 0).all()
     if not perm:
         assert (got[11] == 0).all()

@@ -256,11 +256,35 @@ Phases, each of which exits non-zero on failure:
    bf16`` for 2 epochs on the zinc parity task: C's bf16 instances alone
    (counted over each graph's warm-ups and capture), the losses finite and
    falling.
+20. halo: the multi-rank paths.  First C's halo role
+   (``halo_gather_split_bwd``: the gather backward over a node shard's
+   augmented ``[NS + S*H]`` rows, split into the local and the halo
+   cotangents) against its plain version on shard 0 of the flagship batch
+   cut in 2 and 4 and on pcba's width 512 cut in 2, in f32 and on bf16
+   rows (bit-equal to the f32 instance on the upcast rows), and on an empty
+   halo, every edge remote and a run of masked edges on the last local
+   row; each bit-equal on relaunch and to the sequential f32 sum; timed
+   (per call, device from a CUDA graph, bound, one ``index_add_``).  Then
+   gloo rank processes (``spawn``) that share the card, each on cuda:0
+   with the flagship at full width from one random state, dropout off,
+   torch's deterministic algorithms on: the np step on 2 and on 4 node
+   shards (rank 0's counters zeroed just before and read just after: A,
+   B and the halo role 4, D and E 2 in the head), the dp step with a
+   dummy rank, and dp 2 x ep 2; each rank's ReLU pattern is recorded and
+   the single-device step on the card replays it, and rank 0's loss, its
+   reduced gradients (per leaf), its running stats and its Adam update
+   are held to that step, every rank's parameters bit-equal; the ranks'
+   step ms (time-sliced on one card: not a scaling number).  Last the
+   Trainer (``cli.common.build_trainer`` under the ranks' process group)
+   on dp 2 x ep 2 ranks for an epoch of the synthetic recipe, dropout off,
+   against the single-device Trainer with ``grad_accum`` 2, which forms
+   the same load-weighted groups: the epoch's train loss.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
 ``{"scan"}``, ``{"bf16"}``, ``{"remat"}``, ``{"harness"}``,
-``{"harness_bf16"}``, ``{"phase_seconds"}`` and ``{"kernels": [...]}``
+``{"harness_bf16"}``, ``{"halo"}``, ``{"phase_seconds"}`` and
+``{"kernels": [...]}``
 lines, then, as its last line, ``{"ok": true, "device": {...}}``.  The
 kernels line lists the bf16 instances of A, B and C as kernels of their
 own (``<name>_bf16``, counted by the wrappers' ``launches_bf16``).  In it,
@@ -278,8 +302,11 @@ the three CLI runs of the harness, whose wrappers count each graph's
 warm-ups and capture; ``bf16_train``: 3 eager bf16 flagship steps;
 ``bf16_scan``: the bf16 graphed steps' first call; ``bf16_pcba``: the bf16
 accumulated graph's first call; ``remat_flagship``, ``remat_pcba``: one
-eager step each with remat; ``harness_bf16``: the bf16 CLI run), and
-``launches`` is their sum.  Without
+eager step each with remat; ``harness_bf16``: the bf16 CLI run;
+``halo_np2``, ``halo_np4``, ``halo_dp_dummy``, ``halo_dp_ep``: rank 0's
+counts over one multi-rank step; ``halo_trainer``: rank 0's over its
+Trainer run), and ``launches`` is their sum; C's halo role has a row of
+its own (``halo_gather_split_bwd``).  Without
 a CUDA device it exits non-zero and prints no result.  It imports nothing
 of JAX.
 """
@@ -565,7 +592,8 @@ def kernel_wrappers():
             "wbn_bwd_sums": fw.wbn_bwd_sums,
             "wbn_dx": fw.wbn_dx,
             "segment_extreme": sr.segment_extreme,
-            "segment_moments": sr.segment_moments}
+            "segment_moments": sr.segment_moments,
+            "halo_gather_split_bwd": ssum.halo_gather_split_bwd}
 
 
 def counter_names() -> list:
@@ -4829,6 +4857,546 @@ def harness_phase(torch, dev):
     return paths
 
 
+# ------------------------------------------------------------------- 20. halo
+
+HALO_SHARDS = (2, 4)
+# one np flagship train step on one rank: A and B once a conv, C's halo role
+# as each conv's gather backward (C's gather role not at all), and D and E
+# in the head alone (the layers' norms take the cross-shard inline formula)
+HALO_STEP_LAUNCHES = {"segment_logit_max": 4, "segment_softmax_aggregate": 4,
+                      "halo_gather_split_bwd": 4, "bn_forward": 2,
+                      "bn_backward": 2}
+HALO_TIMED_STEPS = 5        # a rank's steps timed on the shared card
+HALO_PAD_RUN = 1800         # masked edges on the last local row (a batch's
+                            # padding tail is about that long)
+# the Trainer's epoch: 120-graph batches make 35 of them, so the last dp
+# group is padded with a dummy; an lr of 1e-9 leaves the weights where they
+# are, so the two runs' losses differ by rounding alone, not by where Adam
+# takes two runs whose gradients part in the last bits (at lr 5e-4 the
+# epoch's train losses of the two runs part by ~2e-3 on an H100: Adam's
+# steps are signs where a gradient is rounding noise, and they compound)
+HALO_TRAINER = ["--epochs", "1", "--dropout_mpnn", "0,0,0,0",
+                "--dropout_dn", "0,0", "--seed", "0", "--batch_size", "120",
+                "--lr", "1e-9"]
+TOL_TRAINER = 1e-5          # ... their epoch's train and valid loss
+
+
+def halo_adversarial(torch, dev, case: str, d: int):
+    """A node shard's sender plan over NS = 64 local rows and S * H = 2 * 16
+    halo rows, with a cotangent on every edge: ``empty halo`` (every sender
+    local, so the halo rows' sums are 0), ``all remote`` (every sender a
+    halo row, the local sums 0) or ``padding run`` (real edges, and
+    HALO_PAD_RUN masked edges whose sender is the last local row, in one
+    run); returns ``(g, perm, rowptr, ns)``."""
+    import numpy as np
+    from phc_gnn_torch.graph.batch import build_sender_csr
+
+    rng = np.random.default_rng(13)
+    ns, rows, e = 64, 96, 600
+    lo, hi = {"empty halo": (0, ns), "all remote": (ns, rows),
+              "padding run": (0, rows)}[case]
+    senders = rng.integers(lo, hi, size=e)
+    mask = rng.random(e) > 0.2
+    if case == "padding run":
+        senders = np.concatenate([senders, np.full(HALO_PAD_RUN, ns - 1)])
+        mask = np.concatenate([mask, np.zeros(HALO_PAD_RUN, bool)])
+    perm, rowptr = build_sender_csr(senders.astype(np.int32), rows, mask)
+    g = rng.normal(size=(senders.shape[0], d)).astype(np.float32)
+    return (torch.from_numpy(g).to(dev), torch.from_numpy(perm).to(dev),
+            torch.from_numpy(rowptr).to(dev), ns)
+
+
+def halo_library(torch, dev, g, shard):
+    """One ``index_add_`` of the real edges' cotangent rows into the
+    augmented rows, its bytes (the cotangent rows, the sender plan, the
+    output, each once) and its adds."""
+    rows, d = shard.snd_rowptr.shape[0] - 1, g.shape[1]
+    e_real = int(shard.snd_rowptr[-1])
+    real = shard.snd_perm[:e_real].long()
+    g_real, s_real = g[real], shard.senders[real].long()
+    zeros = torch.zeros((rows, d), device=dev)
+    nbytes = (e_real * d * g.element_size() + e_real * 4 + (rows + 1) * 4
+              + rows * d * 4)
+    return (lambda: zeros.clone().index_add_(0, s_real, g_real.float())), \
+        nbytes, e_real * d
+
+
+def halo_kernel(torch, dev, errs):
+    """C's halo role (``halo_gather_split_bwd``) against its plain version
+    on the card: shard 0 of the flagship batch cut in 2 and 4 (the main
+    path's shapes), pcba's width 512 in 2, f32 and bf16 (bf16 rows against
+    the plain version on the same rows and bit-equal to the f32 instance
+    fed the upcast rows), and the adversarial plans; each output bit-equal
+    on a second launch and to the sequential f32 sum in edge order.
+    Returns its timing record at the flagship's 2-shard shape, with the
+    other shapes beside it."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.ops import segment_sum as ssum
+    from phc_gnn_torch.parallel import partition_nodes
+
+    kname = "halo_gather_split_bwd"
+    wrapper = ssum.halo_gather_split_bwd
+    gen = torch.Generator().manual_seed(21)
+    shards = {s: partition_nodes(synthetic_batch(seed=0, **FLAGSHIP), s)[0]
+              .to(dev) for s in HALO_SHARDS}
+    pcba = partition_nodes(pcba_batch(torch, 0, PCBA), 2)[0].to(dev)
+    cases = {}
+    for s, sh in shards.items():
+        g = torch.randn((sh.num_edges, DIM), generator=gen).to(dev)
+        cases[f"flagship S={s}"] = (g, sh.snd_perm, sh.snd_rowptr,
+                                    sh.num_nodes)
+    cases["pcba S=2 [512]"] = (
+        torch.randn((pcba.num_edges, PCBA_DIM), generator=gen).to(dev),
+        pcba.snd_perm, pcba.snd_rowptr, pcba.num_nodes)
+    for case in ("empty halo", "all remote", "padding run"):
+        cases[case] = halo_adversarial(torch, dev, case, DIM)
+    for name, (g, perm, rowptr, ns) in list(cases.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            gv = g.to(dtype)
+            label = f"{name}, {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            before = (wrapper.launches, wrapper.launches_bf16)
+            dx, dxr = wrapper(gv, perm, rowptr, ns)
+            torch.cuda.synchronize()
+            if (wrapper.launches, wrapper.launches_bf16) == before:
+                fail(f"{kname} {label}: its launch counter did not move")
+            out = torch.cat([dx, dxr])
+            want = torch.cat(ssum.halo_gather_split_bwd_plain(
+                gv.double() if dtype == torch.float32 else gv, perm, rowptr,
+                ns))
+            check(errs, kname, label, out, want, TOL_SUM)
+            hold_sequential(torch, kname, label, out,
+                            torch.cat(wrapper(gv, perm, rowptr, ns)),
+                            torch.cat(ssum.halo_gather_split_bwd_plain(
+                                gv.cpu(), perm.cpu(), rowptr.cpu(), ns)))
+            if dtype == torch.bfloat16 and not torch.equal(
+                    out, torch.cat(wrapper(gv.float(), perm, rowptr, ns))):
+                fail(f"{kname} {label}: differs from the f32 instance on the "
+                     f"upcast rows")
+            if name == "empty halo" and not bool((dxr == 0).all()):
+                fail(f"{kname} {label}: an empty halo row is not 0")
+            if name == "all remote" and not bool((dx == 0).all()):
+                fail(f"{kname} {label}: a local row without edges is not 0")
+
+    def timing(g, sh):
+        library, nbytes, flops = halo_library(torch, dev, g, sh)
+        fn = lambda: wrapper(g, sh.snd_perm, sh.snd_rowptr,  # noqa: E731
+                             sh.num_nodes)
+        plain = lambda: ssum.halo_gather_split_bwd_plain(  # noqa: E731
+            g, sh.snd_perm, sh.snd_rowptr, sh.num_nodes)
+        return fn, plain, library, nbytes, flops
+
+    g2 = cases["flagship S=2"][0]
+    rec = record(torch, kname, "phc_gnn_torch/csrc/segment_sum.cu",
+                 "phc_gnn_tpu/ops/stream_scan.py:912", errs,
+                 *timing(g2, shards[2]))
+    rec["shape"] = {"edges": shards[2].num_edges, "rows":
+                    shards[2].snd_rowptr.shape[0] - 1, "d": DIM}
+    for label, g, sh in (("S4", cases["flagship S=4"][0], shards[4]),
+                         ("bf16", g2.to(torch.bfloat16), shards[2]),
+                         ("bf16_S4", cases["flagship S=4"][0].to(
+                             torch.bfloat16), shards[4]),
+                         ("pcba", cases["pcba S=2 [512]"][0], pcba)):
+        fn, _, library, nbytes, _ = timing(g, sh)
+        rec[label] = {"ms": time_eager(torch, fn),
+                      "graph_ms": time_graph(torch, fn),
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bytes": nbytes,
+                      "library_graph_ms": time_graph(torch, library),
+                      "rows": sh.snd_rowptr.shape[0] - 1,
+                      "edges": sh.num_edges, "d": g.shape[1]}
+        print(f"kernel {kname} at {label}: {rec[label]['ms'] * 1e3:.2f} us "
+              f"per call, {rec[label]['graph_ms'] * 1e3:.2f} us device, bound "
+              f"{rec[label]['bound_ms'] * 1e3:.2f} us, library "
+              f"{rec[label]['library_graph_ms'] * 1e3:.2f} us device",
+              flush=True)
+    return rec
+
+
+def halo_numpy(tree):
+    """Tensors (and dicts and lists of them) as numpy, for the queue."""
+    if isinstance(tree, dict):
+        return {k: halo_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [halo_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy() if hasattr(tree, "detach") else tree
+
+
+def halo_rank_main(rank, world, port, jobs, out):
+    """A rank process of the halo phase: it joins the gloo group over
+    ``tcp://localhost:<port>`` and runs each job ``(name, kwargs)``, a
+    ``rank_*`` function of this module, in turn; its results go to
+    ``out`` as numpy."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+        from phc_gnn_torch.parallel import initialize
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # as in the parent's checks: the pooling's index_add_ in a fixed order
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        initialize("gloo", f"tcp://localhost:{port}", world, rank)
+        try:
+            res = [globals()[name](torch, rank, **kw) for name, kw in jobs]
+            out.put((rank, halo_numpy(res), None))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        out.put((rank, None, traceback.format_exc()))
+
+
+def run_halo_ranks(world: int, jobs, timeout: float = 600.0) -> list:
+    """Start ``world`` rank processes (``spawn``), run ``jobs`` on each and
+    return their results in rank order; fails with a rank's traceback."""
+    import multiprocessing
+    import queue
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=halo_rank_main,
+                         args=(r, world, port, jobs, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, err = {}, None
+    try:
+        for _ in procs:
+            rank, res, tb = out.get(timeout=timeout)
+            if tb is not None:
+                err = f"rank {rank} of {world} failed:\n{tb}"
+                break
+            results[rank] = res
+    except queue.Empty:
+        err = f"a rank of {world} gave no result in {timeout:.0f} s"
+    finally:
+        for p in procs:
+            p.join(timeout=60 if err is None else 5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if err is not None:
+        fail(f"halo: {err}")
+    return [results[r] for r in range(world)]
+
+
+def halo_batch(torch, seed, shape):
+    """The flagship batch of ``seed`` with its plans (a fully masked dummy
+    of seed 0's where ``seed`` is None), on the host."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.parallel import make_dummy_batch
+
+    batch = attach_csr_plan(synthetic_batch(
+        seed=0 if seed is None else seed, **shape))
+    return make_dummy_batch(batch) if seed is None else batch
+
+
+def rank_step(torch, rank, mesh, state, cfg, seeds, shape, device,
+              timed=0):
+    """One train step of the flagship with dropout off on the ``(dp, ep)``
+    ``mesh`` from ``state``: rank (d, e) holds shard e of the batch of
+    ``seeds[d]`` (None: a dummy), the ReLU pattern recorded, the wrappers'
+    counters zeroed just before and read just after.  Returns the loss,
+    the reduced gradients that reached Adam, the running stats and the
+    parameters after the step, the ReLU masks, the counts and, after
+    ``timed`` more steps, their host ms a step (the card is shared)."""
+    from phc_gnn_torch import parallel as P
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_optimizer
+    from phc_gnn_torch.train.loss import masked_l1
+
+    dev = torch.device(device)
+    dp, ep = mesh
+    grid = P.make_mesh(dp, ep, "gloo")
+    model = PHCGNN(**cfg, seed=0, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    if ep > 1:
+        model.set_node_axis("ep")
+    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
+    seen = {}
+    adam_step = opt.step
+
+    def recording_step(grads, lr):
+        seen["grads"] = [g.detach().clone() for g in grads]
+        adam_step(grads, lr)
+
+    opt.step = recording_step
+    d, e = divmod(rank, ep)
+    mine = halo_batch(torch, seeds[d], shape)
+    if ep > 1:
+        mine = P.partition_nodes(mine, ep)[e]
+    loss_fn = lambda out, b: masked_l1(out, b.y)  # noqa: E731
+    kw = dict(weight_decay=WEIGHT_DECAY, device=dev)
+    step = (P.make_np_train_step(model, opt, loss_fn, grid, **kw) if dp == 1
+            else P.make_dp_train_step(model, opt, loss_fn, grid,
+                                      loss_name="l1", **kw) if ep == 1
+            else P.make_dp_np_train_step(model, opt, loss_fn, grid,
+                                         loss_name="l1", **kw))
+    relu = ReluReplay(torch).install(model)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    reset_launches()
+    with relu.patched():
+        loss, out = step(mine, LR)
+    sync()
+    launches = read_launches()
+    res = {"loss": float(loss), "out": out,
+           "grads": dict(zip(opt.params, seen["grads"])),
+           "stats": {k: b.clone() for k, b in model.named_buffers()},
+           "params": {k: p.detach().clone() for k, p in
+                      model.named_parameters()},
+           "relu": relu.recorded()["relu"], "launches": launches,
+           "rows": mine.num_nodes, "halo_rows":
+           0 if mine.halo_send is None else mine.halo_send.numel()}
+    if timed:
+        times = []
+        for _ in range(timed):
+            sync()
+            t = time.perf_counter()
+            step(mine, LR)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        res["step_ms"] = times
+    return res
+
+
+def rank_trainer(torch, rank, argv, device):
+    """The training CLI's Trainer on this rank (``cli.common.build_trainer``
+    under the process group: the ``(dp, ep)`` mesh from ``--dp`` ``--ep``),
+    run; returns the rows of ``scalars.jsonl`` that rank 0 wrote (None on
+    the other ranks) and the counters over the run."""
+    from phc_gnn_torch.cli.common import build_trainer, get_parser
+
+    args = get_parser("synthetic").parse_args(argv)
+    reset_launches()
+    build_trainer("synthetic", args, device=device).run()
+    launches = read_launches()
+    return {"rows": scalars(args.save_dir) if rank == 0 else None,
+            "launches": launches}
+
+
+def halo_relu(results, mesh, row: int, n_nodes: int):
+    """The ReLU masks of dp row ``row`` in the single-device call order: a
+    node mask is its shards' masks joined in order (shard s holds the
+    nodes [s * NS, (s + 1) * NS)) cut to the batch's rows; a head mask is
+    rank (row, 0)'s, the same on every shard."""
+    import numpy as np
+    import torch
+
+    dp, ep = mesh
+    ranks = [results[row * ep + e] for e in range(ep)]
+    masks = []
+    for i, m in enumerate(ranks[0]["relu"]):
+        if m.shape[0] == ranks[0]["rows"]:
+            m = np.concatenate([r["relu"][i] for r in ranks])[:n_nodes]
+        masks.append(torch.from_numpy(m))
+    return masks
+
+
+def halo_reference(torch, dev, base, seeds, shape, results, mesh):
+    """The single-device flagship step on the card for the real batches of
+    ``seeds``, each with its dp row's ReLU pattern (``halo_relu``), from
+    ``base``'s state, combined as the dp reduction combines them: the
+    loss and gradients by ``loss_weight``, the running stats by real
+    nodes.  Returns ``(loss, grads, stats)``."""
+    from phc_gnn_torch.parallel import loss_weight
+    from phc_gnn_torch.train import make_loss_and_grads
+    from phc_gnn_torch.train.loss import masked_l1
+
+    parts = []
+    for row, seed in enumerate(seeds):
+        if seed is None:
+            continue
+        batch = halo_batch(torch, seed, shape).to(dev)
+        model = copy.deepcopy(base)
+        relu = ReluReplay(torch, {"relu": halo_relu(
+            results, mesh, row, batch.num_nodes)}).install(model)
+        with relu.patched():
+            loss, _, grads = make_loss_and_grads(
+                model, lambda out, b: masked_l1(out, b.y), WEIGHT_DECAY)(
+                batch, LR)
+        parts.append((loss_weight(batch, "l1"),
+                      batch.node_mask.sum(dtype=torch.float32), loss, grads,
+                      dict(model.named_buffers())))
+    wsum = sum(p[0] for p in parts)
+    nsum = sum(p[1] for p in parts)
+    loss = sum(p[0] * p[2] for p in parts) / wsum
+    grads = {k: sum(p[0] * p[3][k] for p in parts) / wsum for k in parts[0][3]}
+    stats = {k: sum(p[1] * p[4][k] for p in parts) / nsum for k in parts[0][4]}
+    return loss, grads, stats
+
+
+def hold_halo(torch, dev, phase, base, results, mesh, seeds, shape):
+    """A multi-rank step held to the single-device step on the card: every
+    rank's parameters bit-equal; rank 0's loss (TOL_MODEL), each reduced
+    gradient leaf (TOL_GRAD of the leaf's max; the biases a norm follows
+    below TOL_NOISE of the largest gradient), the running stats (TOL_BN)
+    against ``halo_reference``; and its Adam update, one fused Adam step
+    from the same state and gradients on the card (TOL_UPDATE of the
+    step)."""
+    import numpy as np
+    from phc_gnn_torch.train import make_optimizer
+
+    r0 = results[0]
+    for r in results[1:]:
+        for k, p in r["params"].items():
+            if not np.array_equal(p, r0["params"][k]):
+                fail(f"{phase}: the ranks' {k} differ after the step")
+    loss, grads, stats = halo_reference(torch, dev, base, seeds, shape,
+                                        results, mesh)
+    worst = {}
+    _, worst["loss"] = leafwise(torch.tensor(r0["loss"]), loss)
+    top = max(float(g.abs().max()) for g in grads.values())
+    grad_errs, noise = {}, 0.0
+    for k, g in grads.items():
+        got = torch.from_numpy(r0["grads"][k])
+        if shift_invariant(k):
+            noise = max(noise, float(got.abs().max()) / top,
+                        float(g.abs().max()) / top)
+        else:
+            grad_errs[k] = leafwise(got, g)[1]
+    worst["grad"] = max(grad_errs.values())
+    worst["grad_leaf"] = max(grad_errs, key=grad_errs.get)
+    worst["noise_grad"] = noise
+    worst["running_stats"] = max(
+        leafwise(torch.from_numpy(r0["stats"][k]), s)[1]
+        for k, s in stats.items())
+    model = copy.deepcopy(base)
+    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
+    opt.step([torch.from_numpy(r0["grads"][k]).to(dev) for k in opt.params],
+             LR)
+    before = dict(base.named_parameters())
+    upd, same = 0.0, True
+    for k, p in model.named_parameters():
+        got = torch.from_numpy(r0["params"][k]).double()
+        want = p.detach().cpu().double()
+        same = same and torch.equal(got, want)
+        step = float((want - before[k].detach().cpu().double()).abs().max())
+        err = float((got - want).abs().max())
+        upd = max(upd, err / step if step > 0 else err)
+    worst["update"], worst["update_bit_equal"] = upd, same
+    print(f"{phase}: against the single-device step on the card with the "
+          f"ranks' ReLU pattern: loss rel err {worst['loss']:.3e} (tolerance "
+          f"{TOL_MODEL:g}), gradients per leaf <= {worst['grad']:.3e} on "
+          f"{worst['grad_leaf']} (tolerance {TOL_GRAD:g}), the biases a norm "
+          f"follows <= {noise:.3e} of the largest gradient (tolerance "
+          f"{TOL_NOISE:g}), running stats <= {worst['running_stats']:.3e} "
+          f"(tolerance {TOL_BN:g}); the ranks' Adam update against one Adam "
+          f"step on their gradients {upd:.3e} (tolerance {TOL_UPDATE:g}, "
+          f"bit-equal: {same}); every rank's parameters bit-equal",
+          flush=True)
+    if not (worst["loss"] <= TOL_MODEL and worst["grad"] <= TOL_GRAD
+            and noise <= TOL_NOISE and worst["running_stats"] <= TOL_BN
+            and upd <= TOL_UPDATE):
+        fail(f"{phase}: disagrees with the single-device step: {worst}")
+    return worst
+
+
+def halo_phase(torch, dev):
+    """20. halo: C's halo role against its plain version, then the
+    multi-rank paths on gloo ranks that share the card, in two starts of
+    rank processes: on 2 ranks the flagship's np step on 2 shards and the
+    dp step with a dummy rank; on 4 the np step on 4 shards, dp x ep, and
+    the Trainer on dp 2 x ep 2 against the single-device Trainer with
+    ``grad_accum`` 2.  Returns (the launch counts of its main-path runs,
+    its kernel record, its summary)."""
+    import os
+    import tempfile
+
+    from phc_gnn_torch.cli.common import run_benchmark
+    from phc_gnn_torch.models import PHCGNN
+
+    seconds = {}
+    t = time.perf_counter()
+    rec = halo_kernel(torch, dev, {})
+    seconds["kernel"] = time.perf_counter() - t
+    cfg = flagship_config(dropout=False)
+    base = PHCGNN(**cfg, seed=0, device=dev)
+    randomize_eval_state(torch, base)
+    state = {k: v.detach().cpu().numpy() for k, v in base.state_dict().items()}
+    job = dict(state=state, cfg=cfg, shape=FLAGSHIP, device=str(dev))
+    summary, paths = {"gloo_on_cuda": "the collectives take the card's "
+                      "tensors (no host staging)"}, {}
+    want = {k: HALO_STEP_LAUNCHES.get(k, 0) for k in counter_names()}
+
+    def hold_np(res, s):
+        phase = f"halo np S={s}"
+        if res[0]["launches"] != want:
+            fail(f"{phase}: rank 0 launched {res[0]['launches']}, not {want}")
+        paths[f"halo_np{s}"] = res[0]["launches"]
+        summary[f"np{s}"] = hold_halo(torch, dev, phase, base, res, (1, s),
+                                      [0], FLAGSHIP)
+        summary[f"np{s}"]["step_ms"] = res[0]["step_ms"]
+        summary[f"np{s}"]["halo_rows"] = res[0]["halo_rows"]
+
+    with deterministic(torch), tempfile.TemporaryDirectory(
+            prefix="phc_halo_") as tmp:
+        t = time.perf_counter()
+        res = run_halo_ranks(2, [
+            ("rank_step", dict(job, mesh=(1, 2), seeds=[0],
+                               timed=HALO_TIMED_STEPS)),
+            ("rank_step", dict(job, mesh=(2, 1), seeds=[0, None]))])
+        seconds["ranks_2"] = time.perf_counter() - t
+        hold_np([r[0] for r in res], 2)
+        paths["halo_dp_dummy"] = res[0][1]["launches"]
+        summary["dp_dummy"] = hold_halo(
+            torch, dev, "halo dp 2, a dummy rank", base, [r[1] for r in res],
+            (2, 1), [0, None], FLAGSHIP)
+        argv = HALO_TRAINER + ["--device", dev.type]
+        t = time.perf_counter()
+        res = run_halo_ranks(4, [
+            ("rank_step", dict(job, mesh=(1, 4), seeds=[0],
+                               timed=HALO_TIMED_STEPS)),
+            ("rank_step", dict(job, mesh=(2, 2), seeds=[0, 1],
+                               timed=HALO_TIMED_STEPS)),
+            ("rank_trainer", dict(argv=argv + [
+                "--dp", "2", "--ep", "2",
+                "--save_dir", os.path.join(tmp, "ranks")], device=str(dev)))])
+        seconds["ranks_4"] = time.perf_counter() - t
+        hold_np([r[0] for r in res], 4)
+        steps = [r[1] for r in res]
+        paths["halo_dp_ep"] = steps[0]["launches"]
+        summary["dp_ep"] = hold_halo(torch, dev, "halo dp 2 x ep 2", base,
+                                     steps, (2, 2), [0, 1], FLAGSHIP)
+        summary["dp_ep"]["step_ms"] = steps[0]["step_ms"]
+        trainer = res[0][2]
+        paths["halo_trainer"] = trainer["launches"]
+        t = time.perf_counter()
+        single = os.path.join(tmp, "single")
+        run_benchmark("synthetic", argv + ["--grad_accum", "2",
+                                           "--save_dir", single])
+        want_rows = scalars(single)
+        seconds["single_trainer"] = time.perf_counter() - t
+    rows = trainer["rows"]
+    rel = {k: abs(rows[0][k] - want_rows[0][k]) / abs(want_rows[0][k])
+           for k in ("train_loss", "valid_loss")}
+    print(f"halo trainer: the synthetic recipe, 1 epoch ({HALO_TRAINER}), on "
+          f"dp 2 x ep 2 ranks: train loss {rows[0]['train_loss']:.7f}, valid "
+          f"{rows[0]['valid_loss']:.7f}; the single-device Trainer with "
+          f"grad_accum 2: {want_rows[0]['train_loss']:.7f}, "
+          f"{want_rows[0]['valid_loss']:.7f} (rel err {rel['train_loss']:.3e}, "
+          f"{rel['valid_loss']:.3e}, tolerance {TOL_TRAINER:g}); the halo role "
+          f"launched {trainer['launches']['halo_gather_split_bwd']} times on "
+          f"rank 0", flush=True)
+    if not (max(rel.values()) <= TOL_TRAINER
+            and trainer["launches"]["halo_gather_split_bwd"] > 0):
+        fail(f"halo trainer: {rows} against {want_rows}")
+    summary["trainer"] = {"rows": rows, "single_rows": want_rows,
+                          "rel_err": rel, "launches": trainer["launches"]}
+    summary["seconds"] = seconds
+    print(f"halo: seconds {seconds}", flush=True)
+    return paths, rec, summary
+
+
 def main() -> None:
     import torch
 
@@ -4894,6 +5462,10 @@ def main() -> None:
     paths.update(timed("harness", harness_phase))
     paths["harness_bf16"], harness_b = timed("harness_bf16", harness_bf16)
     print(json.dumps({"harness_bf16": harness_b}), flush=True)
+    halo_paths, halo_rec, halo = timed("halo", halo_phase)
+    paths.update(halo_paths)
+    records.append(halo_rec)
+    print(json.dumps({"halo": halo}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}

@@ -16,10 +16,15 @@ from __future__ import annotations
 
 import argparse
 import functools
+import json
 import logging
 import os
+import socket
+import sys
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from phc_gnn_torch.data import (
     ATOM_FEATURE_DIMS,
@@ -48,17 +53,21 @@ from phc_gnn_torch.data.features import (
 )
 from phc_gnn_torch.data.transforms import (add_virtual_node,
                                            grow_vocab_for_virtual_node)
+from phc_gnn_torch.parallel.multihost import (initialize, is_primary,
+                                              world_from_env)
 from phc_gnn_torch.train.config import DATASET_DEFAULTS, ExperimentConfig
 from phc_gnn_torch.train.trainer import Trainer, build_model
 from phc_gnn_torch.utils.logging import set_logging
 
-__all__ = ["DATASETS", "get_parser", "str2bool", "config_from_args",
+__all__ = ["DATASETS", "RANK_BACKENDS", "get_parser", "str2bool", "config_from_args",
            "label_dim", "load_splits", "prepare", "build_trainer",
            "run_benchmark"]
 
 log = logging.getLogger("phc_gnn_torch")
 
 DATASETS = tuple(DATASET_DEFAULTS)
+# the process group's backend of the ranks of --dp x --ep > 1, by --device
+RANK_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
 def str2bool(v) -> bool:
@@ -161,15 +170,16 @@ def get_parser(dataset: str) -> argparse.ArgumentParser:
                    default=getattr(cfg, "grad_accum", 1),
                    help="accumulate exact weighted grads over K same-shape "
                         "sub-batches before one optimizer step")
-    # multi-device (no reference counterpart; not ported yet, > 1 raises)
+    # multi-rank (no reference counterpart): one process a rank
     p.add_argument("--dp", type=int, default=cfg.dp,
-                   help="data-parallel mesh axis (devices)")
+                   help="data-parallel mesh axis (ranks)")
     p.add_argument("--ep", type=int, default=cfg.ep,
-                   help="graph-parallel mesh axis (devices)")
+                   help="graph-parallel mesh axis (ranks)")
     p.add_argument("--ep_scheme", type=str, default=cfg.ep_scheme,
                    choices=["halo", "replicated"],
                    help="graph-parallel design: node-sharded halo exchange "
-                        "(north star) or replicated-node edge partitioning")
+                        "(north star) or replicated-node edge partitioning "
+                        "(not ported; raises)")
     p.add_argument("--resume", action="store_true",
                    help="resume each run from its latest checkpoint")
     p.add_argument("--agg_kernel", type=str, default=cfg.agg_kernel,
@@ -190,10 +200,12 @@ def get_parser(dataset: str) -> argparse.ArgumentParser:
     # activation
     p.add_argument("--activation", type=str, default=cfg.activation,
                    choices=["relu", "lrelu", "elu", "selu", "swish"])
-    # the port's one addition
+    # the port's additions
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
-                   help="where to train: cuda (raises without a card) or cpu")
+                   help="where to train: cuda (raises without a card; with "
+                        "dp*ep > 1 one GPU a rank, cuda:<local rank>, over "
+                        "NCCL) or cpu (with dp*ep > 1 over gloo)")
     return p
 
 
@@ -292,15 +304,17 @@ def prepare(dataset: str, args, cfg: ExperimentConfig) -> dict:
                 eval_bucket=eval_bucket)
 
 
-def build_trainer(dataset: str, args) -> Trainer:
-    """The ``Trainer`` of the parsed ``args`` on ``--device``: the splits'
-    loaders, run 1's model and the per-run re-seeded starts; ``save_dir``
-    and its ``run.log`` are made.  ``trainer.evaluate(
+def build_trainer(dataset: str, args, device=None) -> Trainer:
+    """The ``Trainer`` of the parsed ``args`` on ``device`` (default
+    ``--device``): the splits' loaders, run 1's model and the per-run
+    re-seeded starts; ``save_dir`` and its ``run.log`` are made.  ``trainer.evaluate(
     trainer.valid_batches())`` scores the model's current weights as a
     run's epochs do."""
     cfg = config_from_args(dataset, args)
     os.makedirs(cfg.save_dir, exist_ok=True)
-    set_logging(os.path.join(cfg.save_dir, "run.log"))
+    # the primary rank alone keeps run.log; the others log to stdout
+    set_logging(os.path.join(cfg.save_dir, "run.log") if is_primary()
+                else None, logging.INFO if is_primary() else logging.WARNING)
     log.info("config: %s", cfg.to_json())
     d = prepare(dataset, args, cfg)
     splits, transform = d["splits"], d["transform"]
@@ -323,14 +337,90 @@ def build_trainer(dataset: str, args) -> Trainer:
                            avg_deg=d["avg_deg"], seed=seed, device="cpu")
 
     return Trainer(cfg, build(cfg.seed), train_batches, valid_batches,
-                   test_batches, device=args.device,
+                   test_batches, device=device or args.device,
                    init_state=lambda seed: build(seed).state_dict())
 
 
 def run_benchmark(dataset: str, argv=None) -> dict:
     """Parse ``argv`` (default: the process's), train ``cfg.n_runs`` runs
-    on ``--device`` and return the summary."""
+    on ``--device`` and return the summary.
+
+    With ``--dp`` x ``--ep`` > 1 the training runs on that many ranks, one
+    process each, over the backend that ``--device`` names
+    (``RANK_BACKENDS``: NCCL for one GPU a rank, gloo for CPU tensors):
+    under ``torch.distributed.run`` (its
+    environment names the rank) this process is one of them; where no
+    process group exists this process starts them (``torch.multiprocessing``,
+    start method ``spawn``), waits for them and returns the summary that
+    rank 0 wrote.  With ``--device cuda`` rank r trains on ``cuda:<local
+    rank>``, so the host needs a card a rank; the kernels are built in
+    this process before the ranks start."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = get_parser(dataset).parse_args(argv)
-    summary = build_trainer(dataset, args).run(resume=args.resume)
+    world = args.dp * args.ep
+    if world > 1 and not dist.is_initialized():
+        env = world_from_env()
+        if env is None:
+            return _spawn_ranks(dataset, args, argv, world)
+        if env[1] != world:
+            raise ValueError(f"torch.distributed.run started {env[1]} ranks "
+                             f"for --dp {args.dp} --ep {args.ep}")
+        _check_cards(args, world)
+        initialize(RANK_BACKENDS[args.device])
+    return _train(dataset, args)
+
+
+def _rank_device(args) -> str:
+    """``cuda:<local rank>`` for ``--device cuda`` under a process group,
+    else ``--device``."""
+    if args.device != "cuda" or not dist.is_initialized():
+        return args.device
+    return f"cuda:{int(os.environ.get('LOCAL_RANK', dist.get_rank()))}"
+
+
+def _train(dataset: str, args) -> dict:
+    trainer = build_trainer(dataset, args, device=_rank_device(args))
+    summary = trainer.run(resume=args.resume)
     log.info("summary: %s", summary)
     return summary
+
+
+def _check_cards(args, world: int) -> None:
+    if args.device == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < world:
+            raise RuntimeError(
+                f"--device cuda runs one rank a GPU: {world} ranks "
+                f"(--dp {args.dp} --ep {args.ep}) need {world} GPUs, this "
+                f"host has {have}")
+
+
+def _rank_main(rank: int, dataset: str, argv, world: int, port: int,
+               backend: str) -> None:
+    initialize(backend, f"tcp://localhost:{port}", world, rank)
+    try:
+        _train(dataset, get_parser(dataset).parse_args(argv))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(dataset: str, args, argv, world: int) -> dict:
+    """Start ``world`` rank processes of this command and return rank 0's
+    summary (``summary.json`` under ``--save_dir``)."""
+    _check_cards(args, world)
+    if args.device == "cuda":
+        # one build, before the ranks: their first launches would race to it
+        from phc_gnn_torch.ops import _build
+        _build.load_all()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    backend = RANK_BACKENDS[args.device]
+    log.info("starting %d ranks (dp %d x ep %d) on %s over %s", world,
+             args.dp, args.ep, args.device, backend)
+    torch.multiprocessing.start_processes(
+        _rank_main, args=(dataset, argv, world, port, backend),
+        nprocs=world, join=True, start_method="spawn")
+    cfg = config_from_args(dataset, args)
+    with open(os.path.join(cfg.save_dir, "summary.json")) as f:
+        return json.load(f)

@@ -48,6 +48,10 @@ class GraphsTuple:
     # are snd_perm[snd_rowptr[n]:snd_rowptr[n+1]]; masked edges are in none
     snd_perm: Optional[torch.Tensor] = None    # [E_pad] int32
     snd_rowptr: Optional[torch.Tensor] = None  # [N_pad + 1] int32
+    # a node shard's halo send lists (parallel.partition_nodes): row t holds
+    # the local rows this shard sends to shard t; its sender plan then
+    # covers the augmented rows [N_pad + S*H]
+    halo_send: Optional[torch.Tensor] = None  # [S, H] int32
 
     @property
     def num_nodes(self) -> int:

@@ -56,25 +56,37 @@ from phc_gnn_torch.ops.segment_reduce import (segment_extreme_aggregate,
                                               segment_std_aggregate,
                                               segment_var_aggregate)
 from phc_gnn_torch.ops.segment_softmax import segment_softmax
-from phc_gnn_torch.ops.segment_sum import gather_nodes, segment_sum_aggregate
+from phc_gnn_torch.ops.segment_sum import (gather_nodes, halo_gather_split,
+                                           segment_sum_aggregate)
 
 __all__ = ["PHMConv", "PHMGINEConv", "PHMConvSoftmax", "PHMGINEConvSoftmax",
            "PHMPNAConvSimple", "PHMMessagePassing"]
 
 
 def _messages(x, senders, edge_attr, msg_encoder: str, snd_perm=None,
-              snd_rowptr=None):
+              snd_rowptr=None, x_remote=None):
     """Edge messages: msg_encoder(x[senders] + edge_attr) (conv.py:49-76).
     With the batch's sender plan the gather's backward is kernel C; a CUDA
-    gather that needs a gradient and has no plan raises."""
-    if snd_rowptr is not None:
-        gathered = gather_nodes(x, senders, snd_perm, snd_rowptr)
-    elif (x.device.type != "cpu" and torch.is_grad_enabled()
-            and x.requires_grad):
+    gather that needs a gradient and has no plan raises.  ``x_remote``
+    [S*H, d] holds the halo rows of a node shard (parallel/halo.py):
+    ``senders`` then index ``concat([x, x_remote])``, and the backward is C's
+    halo role over the shard's augmented sender plan."""
+    if (snd_rowptr is None and x.device.type != "cpu"
+            and torch.is_grad_enabled()
+            and (x.requires_grad
+                 or (x_remote is not None and x_remote.requires_grad))):
         raise ValueError(
             f"the message gather's backward on {x.device} runs kernel C over "
             f"the batch's sender plan: build the batch with "
-            f"graph.attach_csr_plan")
+            f"graph.attach_csr_plan (a node shard with "
+            f"parallel.partition_nodes)")
+    if x_remote is not None:
+        gathered = (halo_gather_split(x, x_remote, senders, snd_perm,
+                                      snd_rowptr)
+                    if snd_rowptr is not None
+                    else torch.cat([x, x_remote]).index_select(0, senders))
+    elif snd_rowptr is not None:
+        gathered = gather_nodes(x, senders, snd_perm, snd_rowptr)
     else:
         gathered = x.index_select(0, senders)
     return get_activation(msg_encoder)(gathered + edge_attr)
@@ -175,9 +187,9 @@ class PHMConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None, phm_rule=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr)
+                         snd_rowptr, x_remote)
         aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
                            rowptr)
         return _linear_out(self.transform, aggr, x, self.add_self_loops,
@@ -208,9 +220,9 @@ class PHMGINEConv(nn.Module):
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None, phm_rule=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr)
+                         snd_rowptr, x_remote)
         aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
                            rowptr)
         if self.add_self_loops:
@@ -244,9 +256,9 @@ class PHMConvSoftmax(nn.Module):
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None, phm_rule=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr)
+                         snd_rowptr, x_remote)
         aggr = _softmax_aggr(msgs, receivers, x.shape[0], self.beta,
                              edge_mask, rowptr)
         return _linear_out(self.transform, aggr, x, self.add_self_loops,
@@ -277,9 +289,9 @@ class PHMGINEConvSoftmax(nn.Module):
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None, phm_rule=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr)
+                         snd_rowptr, x_remote)
         aggr = _softmax_aggr(msgs, receivers, x.shape[0], self.beta,
                              edge_mask, rowptr)
         if self.add_self_loops:
@@ -342,10 +354,10 @@ class PHMPNAConvSimple(nn.Module):
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None, phm_rule=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
         num_nodes = x.shape[0]
         msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr)
+                         snd_rowptr, x_remote)
         deg = node_degrees(receivers, num_nodes, edge_mask)
         out = phm_cat([_fixed_aggr(msgs, receivers, num_nodes, edge_mask, a,
                                    rowptr, deg[:, 0])
@@ -417,8 +429,9 @@ class PHMMessagePassing(nn.Module):
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
-                snd_perm=None, snd_rowptr=None, phm_rule=None):
+                snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
         return self.conv(x, senders, receivers, edge_attr, edge_mask,
                          training=training, node_mask=node_mask,
                          rowptr=rowptr, snd_perm=snd_perm,
-                         snd_rowptr=snd_rowptr, phm_rule=phm_rule)
+                         snd_rowptr=snd_rowptr, phm_rule=phm_rule,
+                         x_remote=x_remote)

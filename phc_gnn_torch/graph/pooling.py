@@ -1,7 +1,10 @@
 """Graph readout pooling: global sum and soft-attention.
 
 Counterpart of phc_gnn_tpu/graph/pooling.py (reference:
-phc/hypercomplex/pooling.py:10-77).
+phc/hypercomplex/pooling.py:10-77).  With ``axis_name`` (a node-sharded
+model's ``node_axis``) each shard sums its own nodes and the ``[G, d]``
+partial sums are ``psum``-ed over the shards (pooling.py:27-60), so every
+shard holds the whole batch's pooled rows.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from torch import nn
 
 from phc_gnn_torch.graph import segment as seg
 from phc_gnn_torch.nn.phm_linear import PHMLinear, RealTransformer
+from phc_gnn_torch.parallel import mesh
 
 __all__ = ["PHMGlobalSumPooling", "PHMSoftAttentionPooling"]
 
@@ -24,8 +28,16 @@ class PHMGlobalSumPooling(nn.Module):
         super().__init__()
         self.phm_dim = phm_dim
 
-    def forward(self, x, graph_ids, num_graphs: int, node_mask=None):
-        return seg.segment_sum(x, graph_ids, num_graphs, node_mask)
+    def forward(self, x, graph_ids, num_graphs: int, node_mask=None,
+                axis_name: Optional[str] = None):
+        return _graph_sum(x, graph_ids, num_graphs, node_mask, axis_name)
+
+
+def _graph_sum(x, graph_ids, num_graphs: int, node_mask, axis_name):
+    """The masked sum of ``x`` per graph, over the node shards of
+    ``axis_name`` where it is set."""
+    out = seg.segment_sum(x, graph_ids, num_graphs, node_mask)
+    return out if axis_name is None else mesh.psum(out, mesh.axis(axis_name))
 
 
 class PHMSoftAttentionPooling(nn.Module):
@@ -50,10 +62,11 @@ class PHMSoftAttentionPooling(nn.Module):
                                           bias=True, generator=generator)
 
     def forward(self, x, graph_ids, num_graphs: int, node_mask=None,
-                phm_rule=None):
-        """``phm_rule``: the network's shared rule (``shared_rule``)."""
+                phm_rule=None, axis_name: Optional[str] = None):
+        """``phm_rule``: the network's shared rule (``shared_rule``); the
+        gate is per node, so only the final sum crosses the shards."""
         n = self.phm_dim
         gate = torch.sigmoid(self.real_trafo(self.linear(x, phm_rule)))
         xs = x.reshape(x.shape[0], n, self.embed_dim // n)
         gated = (gate[:, None, :] * xs).reshape(x.shape[0], self.embed_dim)
-        return seg.segment_sum(gated, graph_ids, num_graphs, node_mask)
+        return _graph_sum(gated, graph_ids, num_graphs, node_mask, axis_name)

@@ -29,6 +29,16 @@ moved to ``device`` (default "cuda"; without CUDA it raises unless
 ``torch.Generator`` on that device for its dropout masks; it updates the
 batch-norm running stats in place.
 
+``node_axis="ep"`` (``set_node_axis``) is the node-sharded halo path
+(phc_gnn.py:208-264) for batches cut by ``parallel.partition_nodes``,
+inside a step of parallel/halo.py: before each conv the shard sends the
+boundary rows of ``x`` that other shards' edges read and receives theirs
+(``parallel.halo.halo_exchange``), the conv gathers from both
+(``ops.segment_sum.halo_gather_split``), the layers' norms take their
+statistics over all shards, the node dropout of each shard draws its own
+masks while the head's is shared, and the pooling sums over the shards.
+``edge_axis`` (the replicated scheme) raises.
+
 ``compute_dtype=torch.bfloat16`` runs the activations in bf16 from the
 encoders' outputs on (phc_gnn.py:199-200, :225-226) while the parameters,
 and so the gradients and Adam's state, stay float32: every PHM linear
@@ -46,6 +56,7 @@ not touch the RNG state, which a CUDA graph's capture could not read.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 from typing import Dict, Optional, Sequence, Union
 
 import torch
@@ -63,10 +74,29 @@ from phc_gnn_torch.nn.dropout import phm_dropout
 from phc_gnn_torch.nn.encoder import NaivePHMEncoder, PHMEncoder
 from phc_gnn_torch.nn.norm import PHMNorm, frozen_running_stats
 from phc_gnn_torch.nn.phm_linear import init_rule
+from phc_gnn_torch.parallel import mesh
+from phc_gnn_torch.parallel.halo import halo_exchange
 
 __all__ = ["PHCGNN"]
 
 COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
+
+
+def _shard_generator(generator: torch.Generator, shard: int
+                     ) -> torch.Generator:
+    """The node dropout generator of node shard ``shard`` for one forward
+    (phc_gnn.py:210-218, which folds the shard index into the layers'
+    keys): seeded from the shared ``generator``'s state and ``shard``, so
+    each shard draws its own rows' masks; the shared generator then takes
+    one draw, so that the next forward's seeds differ, and goes on to the
+    head's dropout, which every shard draws alike (its ``[G, d]`` rows are
+    replicated)."""
+    digest = hashlib.blake2b(generator.get_state().numpy().tobytes()
+                             + shard.to_bytes(4, "little"),
+                             digest_size=8).digest()
+    torch.empty(1, device=generator.device).uniform_(generator=generator)
+    return torch.Generator(device=generator.device).manual_seed(
+        int.from_bytes(digest, "little") >> 1)
 
 
 def _remat_contexts():
@@ -112,10 +142,11 @@ class PHCGNN(nn.Module):
         if skip_connect not in ("add", "concat"):
             raise ValueError(f"skip_connect must be 'add' or 'concat', got "
                              f"{skip_connect!r}")
-        if edge_axis is not None or node_axis is not None:
+        if edge_axis is not None:
             raise NotImplementedError(
-                "edge partitioning and the node-sharded halo path are not "
-                "ported yet (ROADMAP.md, section 1, item 14)")
+                "edge partitioning, the replicated scheme "
+                "(ep_scheme='replicated'), is not ported yet (ROADMAP.md, "
+                "section 1, item 15)")
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be None, torch.float32 or "
                              f"torch.bfloat16, got {compute_dtype!r}")
@@ -184,7 +215,27 @@ class PHCGNN(nn.Module):
             bias, norm_dn, w_init, c_init, learn_phm, real_trafo,
             dropout=dropout_dn, same_dropout=same_dropout, generator=gen,
             shared_rule=unique_phm, dtype=dtype)
+        self.set_node_axis(node_axis)
         self.to(dev)
+
+    def set_node_axis(self, node_axis: Optional[str]) -> "PHCGNN":
+        """Shard the nodes over the mesh axis ``node_axis`` ("ep"), or not
+        (None), in place, as JAX's ``model.clone(node_axis=...)``: the norms
+        of the message-passing layers take their statistics over the shards
+        (``stat_axis``); the head's norms, on the replicated ``[G, d]``
+        rows, do not.  A batch that carries ``halo_send``
+        (``parallel.partition_nodes``) then runs the halo path in a step of
+        ``parallel/halo.py``, which binds the axis."""
+        self.node_axis = node_axis
+        for i in range(self.num_layers):
+            layers = [getattr(self, f"conv_{i}")]
+            if self.has_norm:
+                layers.append(getattr(self, f"norm_{i}"))
+            for layer in layers:
+                for m in layer.modules():
+                    if hasattr(m, "stat_axis"):
+                        m.stat_axis = node_axis
+        return self
 
     def forward(self, graphs: GraphsTuple, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -200,6 +251,12 @@ class PHCGNN(nn.Module):
             atom = atom.to(dtype)
         x = atom
         remat = self.remat and torch.is_grad_enabled()
+        halo = self.node_axis is not None and graphs.halo_send is not None
+        ax = mesh.axis(self.node_axis) if halo else None
+        node_gen = generator
+        if (halo and training and generator is not None
+                and any(self.dropout_mpnn)):
+            node_gen = _shard_generator(generator, ax.index)
         for i in range(self.num_layers):
             skip = atom if (self.concat or self.sc_type == "first"
                             or i == 0) else x
@@ -213,6 +270,9 @@ class PHCGNN(nn.Module):
             kw = dict(training=training, node_mask=graphs.node_mask,
                       rowptr=graphs.rowptr, snd_perm=graphs.snd_perm,
                       snd_rowptr=graphs.snd_rowptr, phm_rule=rule)
+            if halo:
+                # the boundary rows of x that the other shards' edges read
+                kw["x_remote"] = halo_exchange(x, graphs.halo_send, ax)
             if remat:
                 h = checkpoint(conv, *args, use_reentrant=False,
                                preserve_rng_state=False,
@@ -223,15 +283,17 @@ class PHCGNN(nn.Module):
                 h = getattr(self, f"norm_{i}")(h, training=training,
                                                mask=graphs.node_mask)
             h = phm_dropout(self.act(h), self.dropout_mpnn[i], self.phm_dim,
-                            generator, training=training,
+                            node_gen, training=training,
                             same=self.same_dropout)
             x = torch.cat([h, skip], dim=-1) if self.concat else h + skip
+        pool_axis = self.node_axis if halo else None
         if isinstance(self.pooling, PHMGlobalSumPooling):
             pooled = self.pooling(x, graphs.graph_ids, graphs.num_graphs,
-                                  graphs.node_mask)
+                                  graphs.node_mask, axis_name=pool_axis)
         else:
             pooled = self.pooling(x, graphs.graph_ids, graphs.num_graphs,
-                                  graphs.node_mask, phm_rule=rule)
+                                  graphs.node_mask, phm_rule=rule,
+                                  axis_name=pool_axis)
         return self.downstream(pooled, training=training,
                                mask=graphs.graph_mask, generator=generator,
                                phm_rule=rule)

@@ -37,6 +37,16 @@ variant of L, writing dx in its sweep, or of M where only dx is needed).
 Neither path syncs with the host, so the eval forward can be captured in a
 CUDA graph.
 
+``stat_axis`` (a mesh axis name, set by ``PHCGNN(node_axis=...)`` on the
+norms of its layers) takes the training statistics over the node shards of
+that axis: the masked count and sums are ``psum``-ed (``parallel.mesh``,
+differentiable: its backward sums the cotangents over the shards, as JAX's
+psum transposes to a psum), so every shard normalises with the statistics
+of the whole batch.  As in JAX (norm.py:83-121, :284-321: the kernels only
+where ``stat_axis`` is None) that path is the inline formula, two passes
+for the naive norms and the component-slice whitening with its closed-form
+Cholesky, not kernels D-G or J-M.
+
 Under the model's bf16 ``compute_dtype`` every norm computes in float32, as
 JAX's do (norm.py:58-59, :133, :243, :299, :345): the input is upcast, the
 float32 kernels run unchanged, and the output is cast back to the input's
@@ -54,6 +64,7 @@ from torch import nn
 
 from phc_gnn_torch.ops import fused_bn, fused_whitening
 from phc_gnn_torch.ops.segment_sum import upcast
+from phc_gnn_torch.parallel import mesh
 
 __all__ = ["PHMNorm", "QuaternionWhiteningNorm", "frozen_running_stats"]
 
@@ -85,9 +96,11 @@ def _update_stats() -> bool:
 class _BatchNorm(nn.Module):
     """BN core over the leading batch axis; feature shape = input.shape[1:]."""
 
-    def __init__(self, feat_shape: Tuple[int, ...], eps: float = 1e-5):
+    def __init__(self, feat_shape: Tuple[int, ...], eps: float = 1e-5,
+                 stat_axis: Optional[str] = None):
         super().__init__()
         self.eps = eps
+        self.stat_axis = stat_axis
         self.register_buffer("mean", torch.zeros(feat_shape))
         self.register_buffer("var", torch.ones(feat_shape))
         self.scale = nn.Parameter(torch.ones(feat_shape))
@@ -102,19 +115,38 @@ class _BatchNorm(nn.Module):
                     * self.scale + self.bias).to(in_dtype)
         if mask is None:
             mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        if self.stat_axis is not None:
+            return self._cross_shard(x, mask).to(in_dtype)
         kernel = (fused_bn.fused_masked_bn
                   if x.numel() * 4 <= fused_bn.FUSED_BN_VMEM_LIMIT
                   else fused_bn.fused_masked_bn_blocked)
         y, mean, var = kernel(
             x.reshape(x.shape[0], -1), mask, self.scale.reshape(-1),
             self.bias.reshape(-1), self.eps)
+        self._update(mean, var, mask.sum(dtype=torch.float32).clamp_min(1.0))
+        return y.view(x.shape).to(in_dtype)
+
+    def _cross_shard(self, x, mask):
+        """The training forward over the node shards of ``stat_axis``: the
+        two-pass masked mean and biased var of the whole batch
+        (norm.py:96-121)."""
+        ax = mesh.axis(self.stat_axis)
+        m = mask.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+        cnt = mesh.all_reduce(m.sum(), ax).clamp_min(1.0)
+        mean = mesh.psum((x * m).sum(0), ax) / cnt
+        xc = (x - mean) * m
+        var = mesh.psum((xc * xc).sum(0), ax) / cnt
+        self._update(mean.detach(), var.detach(), cnt)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+
+    def _update(self, mean, var, cnt):
+        """The running stats' step toward the batch's ``mean`` and the
+        unbiased ``var`` of ``cnt`` rows, unless frozen."""
         if _update_stats():
             with torch.no_grad():
-                cnt = mask.sum(dtype=torch.float32).clamp_min(1.0)
                 var_u = var * (cnt / (cnt - 1.0).clamp_min(1.0))
                 self.mean.lerp_(mean.view(self.mean.shape), _MOMENTUM)
                 self.var.lerp_(var_u.view(self.var.shape), _MOMENTUM)
-        return y.view(x.shape).to(in_dtype)
 
 
 class QuaternionWhiteningNorm(nn.Module):
@@ -124,10 +156,12 @@ class QuaternionWhiteningNorm(nn.Module):
     ``beta`` (4, d), buffers ``mean`` (4, d) and ``cov`` (4, 4, d), named as
     the flax module's."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 stat_axis: Optional[str] = None):
         super().__init__()
         d = num_features
         self.eps = eps
+        self.stat_axis = stat_axis
         self.register_buffer("mean", torch.zeros(4, d))
         self.register_buffer("cov", torch.ones(4, 4, d))
         self.gamma = nn.Parameter(
@@ -138,6 +172,8 @@ class QuaternionWhiteningNorm(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         in_dtype = x.dtype
         flat = upcast(x.reshape(x.shape[0], -1))
+        if training and self.stat_axis is not None:
+            return self._cross_shard(flat, mask).view(x.shape).to(in_dtype)
         if training:
             y, mean, cov = fused_whitening.fused_whitening(
                 flat, mask, self.gamma, self.beta, self.eps)
@@ -150,24 +186,56 @@ class QuaternionWhiteningNorm(nn.Module):
             flat, self.mean, self.cov, self.gamma, self.beta,
             self.eps).view(x.shape).to(in_dtype)
 
+    def _cross_shard(self, x, mask):
+        """The training forward over the node shards of ``stat_axis``
+        (norm.py:284-321): the masked means and biased covariance of the
+        whole batch from psum-ed component-slice sums, the closed-form
+        Cholesky of ``cov + eps I``, ``z = L^{-1} (x - mean)`` and
+        ``y = Gamma z + beta`` on every row."""
+        ax = mesh.axis(self.stat_axis)
+        fw = fused_whitening
+        c = fw._slices(x)
+        if mask is None:
+            mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        m = mask[:, None].to(x.dtype)
+        cnt = mesh.all_reduce(m.sum(), ax).clamp_min(1.0)
+        mean = mesh.psum(torch.stack([(ck * m).sum(0) for ck in c]), ax) / cnt
+        cm = [(ck - mu) * m for ck, mu in zip(c, mean)]
+        pairs = [(j, k) for j in range(4) for k in range(j, 4)]
+        sums = mesh.psum(torch.stack([(cm[j] * cm[k]).sum(0)
+                                      for j, k in pairs]), ax) / cnt
+        cov = dict(zip(pairs, sums))
+        if _update_stats():
+            with torch.no_grad():
+                self.mean.lerp_(mean, _MOMENTUM)
+                self.cov.lerp_(fw._stack_cov(cov), _MOMENTUM)
+        lf = fw._chol_fields(cov, self.eps)
+        zs = fw._fwd_subst(lf, [ck - mu for ck, mu in zip(c, mean)],
+                           fw._inv_diag(lf))
+        return torch.cat([sum(self.gamma[cc, k] * zs[k] for k in range(4))
+                          + self.beta[cc] for cc in range(4)], dim=1)
+
 
 class PHMNorm(nn.Module):
     """Norm dispatch on ``norm_type``; ``num_features`` is the flat size
     ``n * d``."""
 
     def __init__(self, num_features: int, phm_dim: int,
-                 norm_type: str = "naive-batch-norm", eps: float = 1e-5):
+                 norm_type: str = "naive-batch-norm", eps: float = 1e-5,
+                 stat_axis: Optional[str] = None):
         super().__init__()
         self.norm_type = norm_type
         if norm_type == "q-batch-norm":
             if phm_dim != 4:
                 raise ValueError(f"q-batch-norm requires phm_dim=4, got "
                                  f"{phm_dim}")
-            self.qbn = QuaternionWhiteningNorm(num_features // 4, eps)
+            self.qbn = QuaternionWhiteningNorm(num_features // 4, eps,
+                                               stat_axis)
         elif norm_type == "naive-batch-norm":
-            self.bn = _BatchNorm((phm_dim, num_features // phm_dim), eps)
+            self.bn = _BatchNorm((phm_dim, num_features // phm_dim), eps,
+                                 stat_axis)
         elif norm_type == "naive-naive-batch-norm":
-            self.bn = _BatchNorm((num_features,), eps)
+            self.bn = _BatchNorm((num_features,), eps, stat_axis)
         else:
             raise ValueError(f"unknown norm_type {norm_type!r}")
 

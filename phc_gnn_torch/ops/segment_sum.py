@@ -15,6 +15,13 @@ counter of its own:
   ``graph.batch.build_csr_rowptr``, in which masked edges among real ones
   stay inside their segment.
 
+- ``halo_gather_split_bwd``, C's halo role, as ``_halo_gs_bwd``
+  (:912-927) runs it: the perm role over the sender CSR of a node shard's
+  augmented ``[NS + S*H]`` rows (its own NS nodes, then the halo rows
+  received from each of S shards), split into the local and the halo
+  cotangents.  The same kernel and plan as ``segment_sum_perm``, with
+  ``NS + S*H`` segments; counted on its own wrapper.
+
 Around them:
 
 - ``gather_nodes`` is ``x[senders]`` (``gather_nodes_streamed``, :873): its
@@ -22,6 +29,9 @@ Around them:
   ``segment_sum_perm`` over the batch's sender CSR
   (``graph.batch.build_sender_csr``), in which masked edges belong to no
   segment.
+- ``halo_gather_split`` is ``halo_gather_split_streamed`` (:931): the
+  gather ``concat([x, x_remote])[senders]`` of a node shard, whose backward
+  is ``halo_gather_split_bwd``.
 - ``segment_sum_aggregate`` is ``segment_sum_streamed`` (:726): its forward
   is ``segment_sum_masked``, its backward JAX's VJP, the gather
   ``g[receivers]`` (:715-720), 0 on masked edges (JAX zeroes their messages
@@ -58,7 +68,9 @@ from phc_gnn_torch.ops import _build
 
 __all__ = ["SegSumPlan", "segment_sum_plan", "segment_sum_perm",
            "segment_sum_perm_plain", "segment_sum_masked",
-           "segment_sum_masked_plain", "gather_nodes", "segment_sum_aggregate",
+           "segment_sum_masked_plain", "gather_nodes", "halo_gather_split",
+           "halo_gather_split_bwd", "halo_gather_split_bwd_plain",
+           "segment_sum_aggregate",
            "segment_ids", "check_masked_csr", "count_launch", "ROW_DTYPES",
            "upcast"]
 
@@ -233,15 +245,21 @@ def count_launch(wrapper, values) -> None:
         wrapper.launches += 1
 
 
+def _perm_sum(wrapper, values, perm, rowptr):
+    """C's perm role for ``wrapper``: the plain version on the CPU, else one
+    launch counted on ``wrapper``."""
+    if values.device.type == "cpu":
+        return segment_sum_perm_plain(values, perm, rowptr)
+    _check(wrapper.__name__, values, ("perm", perm, torch.int32), rowptr)
+    out = _launch("perm", values, perm, rowptr, True)
+    count_launch(wrapper, values)
+    return out
+
+
 def segment_sum_perm(values, perm, rowptr):
     """[N, D] float32 sums of the rows ``values[perm[e]]`` (float32 or
     bf16) over each CSR segment of ``rowptr`` [N + 1]."""
-    if values.device.type == "cpu":
-        return segment_sum_perm_plain(values, perm, rowptr)
-    _check("segment_sum_perm", values, ("perm", perm, torch.int32), rowptr)
-    out = _launch("perm", values, perm, rowptr, True)
-    count_launch(segment_sum_perm, values)
-    return out
+    return _perm_sum(segment_sum_perm, values, perm, rowptr)
 
 
 segment_sum_perm.launches = 0
@@ -290,6 +308,63 @@ def gather_nodes(x, senders, snd_perm, snd_rowptr):
         raise ValueError(f"snd_rowptr has {snd_rowptr.shape[0]} entries for "
                          f"{x.shape[0]} rows of x")
     return _GatherNodes.apply(x, senders, snd_perm, snd_rowptr)
+
+
+def halo_gather_split_bwd_plain(g, snd_perm, snd_rowptr, ns: int):
+    """``halo_gather_split_bwd``'s function in ``g``'s dtype, bf16 rows
+    summed in float32 (the checks pass float64)."""
+    dsrc = segment_sum_perm_plain(g, snd_perm, snd_rowptr)
+    return dsrc[:ns], dsrc[ns:]
+
+
+def halo_gather_split_bwd(g, snd_perm, snd_rowptr, ns: int):
+    """``(dx [ns, D], dx_remote [R - ns, D])``, float32: the rows of ``g``
+    [E, D] (float32 or bf16) summed per sender over the sender CSR
+    ``snd_rowptr`` [R + 1] of a node shard's ``R = NS + S*H`` augmented rows,
+    split at ``ns`` into the shard's own rows and its halo rows (kernel C
+    on the card, ``_halo_gs_bwd``)."""
+    dsrc = _perm_sum(halo_gather_split_bwd, g, snd_perm, snd_rowptr)
+    return dsrc[:ns], dsrc[ns:]
+
+
+halo_gather_split_bwd.launches = 0
+halo_gather_split_bwd.launches_bf16 = 0
+
+
+class _HaloGatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, x_remote, senders, snd_perm, snd_rowptr):
+        ctx.save_for_backward(snd_perm, snd_rowptr)
+        ctx.dtypes = (x.dtype, x_remote.dtype)
+        ctx.ns = x.shape[0]
+        return torch.cat([x, x_remote]).index_select(0, senders)
+
+    @staticmethod
+    def backward(ctx, g):
+        # JAX casts g to float32 first (stream_scan.py:922), exact for bf16,
+        # and casts the sums back to x's dtype (:925)
+        snd_perm, snd_rowptr = ctx.saved_tensors
+        if g.dtype not in ROW_DTYPES:
+            g = g.float()
+        dx, dxr = halo_gather_split_bwd(g.contiguous(), snd_perm, snd_rowptr,
+                                        ctx.ns)
+        return (dx.to(ctx.dtypes[0]), dxr.to(ctx.dtypes[1]), None, None,
+                None)
+
+
+def halo_gather_split(x, x_remote, senders, snd_perm, snd_rowptr):
+    """``concat([x, x_remote])[senders]`` for a node shard: ``senders``
+    index its augmented rows, ``x`` [NS, D] its own nodes and ``x_remote``
+    [S*H, D] the halo rows the exchange received
+    (``parallel.halo.halo_exchange``).  The backward sums the cotangent
+    rows per augmented row over the sender CSR ``snd_rowptr`` [NS + S*H + 1]
+    (``halo_gather_split_bwd``) and returns the local part to ``x`` and the
+    halo part to ``x_remote``, whose backward sends it back."""
+    rows = x.shape[0] + x_remote.shape[0]
+    if snd_rowptr.shape[0] != rows + 1:
+        raise ValueError(f"snd_rowptr has {snd_rowptr.shape[0]} entries for "
+                         f"{x.shape[0]} + {x_remote.shape[0]} rows")
+    return _HaloGatherSplit.apply(x, x_remote, senders, snd_perm, snd_rowptr)
 
 
 class _SegmentSumAggregate(torch.autograd.Function):

@@ -34,7 +34,10 @@ from phc_gnn_torch.data.prefetch import prefetch
 from phc_gnn_torch.device import resolve_device
 from phc_gnn_torch.graph.batch import GraphsTuple
 from phc_gnn_torch.models.phc_gnn import PHCGNN
-from phc_gnn_torch.parallel.dp import make_dummy_batch
+from phc_gnn_torch.parallel.dp import (fold_seed, grid_eval_step,
+                                       grid_train_step, make_dummy_batch)
+from phc_gnn_torch.parallel.halo import SlotOverflow, partition_nodes
+from phc_gnn_torch.parallel.mesh import make_mesh
 from phc_gnn_torch.train.checkpoint import CheckpointManager
 from phc_gnn_torch.train.config import ExperimentConfig
 from phc_gnn_torch.train.evaluators import get_evaluator
@@ -162,7 +165,21 @@ class Trainer:
     state_dict (the CLI passes ``build_model``'s at that seed), or, without
     ``init_state``, from run 1's start again.
 
-    Paths (JAX's single-device ones): with ``cfg.grad_accum`` K > 1 each
+    With ``cfg.dp`` or ``cfg.ep`` > 1 (``num_devices`` is an alias of dp)
+    the Trainer runs on every rank of a ``(dp, ep)`` mesh
+    (``parallel.make_mesh`` over the default process group, which the
+    caller sets up: ``cli.train`` does), the multi-rank paths of JAX's
+    trainer (:164-250, :300-442): each rank reads the same batches, takes
+    member ``d`` of each group of ``dp`` batches of one bucket shape (the
+    last group padded with ``make_dummy_batch``) and, with ep > 1, its
+    node shard of it (``_partition``, ``ep_scheme="halo"``; the replicated
+    scheme raises), and steps with ``parallel.dp.grid_train_step``; the
+    outputs of a group reach every rank, so every rank computes the same
+    metrics, and only the primary (rank 0) writes files.  ``grad_accum``
+    and ``profile_steps`` are single-device there, as JAX keeps
+    ``grad_accum``.
+
+    Paths on one device (JAX's): with ``cfg.grad_accum`` K > 1 each
     group of K same-shape batches takes one step of
     ``make_accum_train_step`` (one CUDA graph a (K, bucket)), the epoch's
     last partial group padded with ``make_dummy_batch``; otherwise the
@@ -194,18 +211,24 @@ class Trainer:
                  test_batches: Optional[Callable[[], Iterable[GraphsTuple]]] = None,
                  device: Union[str, torch.device] = "cuda",
                  init_state: Optional[Callable[[int], Mapping[str, torch.Tensor]]] = None):
-        dp = int(getattr(cfg, "dp", 1) or 1)
-        ep = int(getattr(cfg, "ep", 1) or 1)
+        self.dp = int(getattr(cfg, "dp", 1) or 1)
+        self.ep = int(getattr(cfg, "ep", 1) or 1)
+        # the deprecated num_devices alias maps onto dp
         nd = int(getattr(cfg, "num_devices", 1) or 1)
-        if max(dp, ep, nd) > 1:
-            raise NotImplementedError(
-                f"dp={dp}, ep={ep}, num_devices={nd}: the multi-device paths "
-                "are not ported yet (ROADMAP.md, section 1, item 14)")
+        if nd > 1 and self.dp == 1:
+            log.warning("num_devices=%d is deprecated; using it as dp", nd)
+            self.dp = nd
         if str(getattr(cfg, "agg_kernel", "auto")) == "xla":
             raise NotImplementedError(
                 "agg_kernel='xla' has no counterpart in the port: its "
                 "aggregations run the CUDA kernels over the CSR plans "
                 "(ROADMAP.md, section 1, item 14)")
+        self.ep_scheme = str(getattr(cfg, "ep_scheme", "halo") or "halo")
+        if self.ep > 1 and self.ep_scheme != "halo":
+            raise NotImplementedError(
+                f"ep_scheme={self.ep_scheme!r}: the replicated scheme "
+                "(parallel/edge_partition.py) is not ported yet (ROADMAP.md, "
+                "section 1, item 15); ep_scheme='halo' is")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -219,9 +242,15 @@ class Trainer:
                                   cfg.grad_clipping)
         self.chunk = max(int(getattr(cfg, "scan_chunk", 0) or 0), 1)
         self.accum = int(getattr(cfg, "grad_accum", 1) or 1)
+        self.mesh = None
+        self._np_slots = (None, None)  # the halo partition's rungs
+        self.epoch_log: List[dict] = []
         kw = dict(weight_decay=cfg.weightdecay,
                   weight_decay2=cfg.weightdecay2, reg_p=cfg.regularization,
                   seed=cfg.seed, device=self.device)
+        if self.dp * self.ep > 1:
+            self._parallel_steps(model, kw)
+            return
         if self.accum > 1:
             if getattr(cfg, "scan_chunk", 0):
                 log.info("scan_chunk is ignored under grad_accum")
@@ -232,7 +261,31 @@ class Trainer:
                                                     self.loss_fn, **kw)
         self.eval_steps = make_scan_eval_steps(model, device=self.device)
         self._start = _host_state(model)
-        self.epoch_log: List[dict] = []
+
+    @property
+    def primary(self) -> bool:
+        """True on the rank that writes the run's files (rank 0), and on
+        one device."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _parallel_steps(self, model: PHCGNN, kw: dict) -> None:
+        """The multi-rank paths (JAX's trainer.py:164-250): this rank's
+        ``(dp, ep)`` mesh over the default process group (``cli.train``
+        sets it up), the model sharded over ``ep`` (``set_node_axis``),
+        one train step a batch (the scanned chunks of JAX are the same
+        steps one after another) and the eval forward; ``grad_accum``
+        stays single-device, as in JAX."""
+        if self.accum > 1:
+            log.info("grad_accum is single-device; ignored under dp/ep")
+            self.accum = 1
+        self.mesh = make_mesh(self.dp, self.ep)
+        if self.ep > 1:
+            model.set_node_axis("ep")
+        self.train_step = grid_train_step(
+            model, self.opt, self.loss_fn, self.mesh, loss_name=self.cfg.loss,
+            **kw)
+        self.eval_step = grid_eval_step(model, self.mesh, self.device)
+        self._start = _host_state(model)
 
     # -- helpers ------------------------------------------------------------
     def _batches(self, batches):
@@ -260,6 +313,49 @@ class Trainer:
                     size - len(group))
                 yield group, full
 
+    def _partition(self, batch: GraphsTuple) -> GraphsTuple:
+        """This rank's node shard of ``batch`` (JAX's trainer.py:331-360):
+        the per-shard edge and halo widths stay on coarse rungs (multiples
+        of 512 and 64), grown when a batch needs more, so consecutive
+        batches share their shapes.  Every rank of a dp row partitions the
+        same batches, so their rungs move together."""
+        es, h = self._np_slots
+        if es is not None:
+            try:
+                return partition_nodes(batch, self.ep, edge_slots=es,
+                                       halo_slots=h)[self.mesh.ep.index]
+            except SlotOverflow as o:
+                need_es, need_h = o.needed_edge_slots, o.needed_halo_slots
+        else:
+            nat = partition_nodes(batch, self.ep, csr_plan=False)
+            need_es, need_h = nat[0].num_edges, nat[0].halo_send.shape[1]
+        es = -(-max(need_es, es or 0) // 512) * 512
+        h = -(-max(need_h, h or 0) // 64) * 64
+        self._np_slots = (es, h)
+        log.info("halo partition rungs -> edge_slots=%d halo_slots=%d", es, h)
+        return partition_nodes(batch, self.ep, edge_slots=es,
+                               halo_slots=h)[self.mesh.ep.index]
+
+    def _dp_groups(self, batches: Iterable[GraphsTuple]):
+        """``(real batches, this rank's batch or node shard)`` per step
+        (JAX's ``_dp_groups`` and ``_prep_dp_group``, :322-390): groups of
+        ``dp`` batches of one bucket shape, the last padded with
+        ``make_dummy_batch``; this rank takes member ``d`` and, with
+        ep > 1, its shard of it."""
+        groups = (self._groups(batches, self.dp) if self.dp > 1
+                  else (([b], [b]) for b in batches))
+        for real, group in groups:
+            mine = group[self.mesh.dp.index]
+            yield real, (self._partition(mine) if self.ep > 1 else mine)
+
+    def _parallel_items(self, batches: Iterable[GraphsTuple]):
+        """``_dp_groups`` with the partitioning in the prefetch thread
+        (JAX's ``_parallel_train_epoch``, :392-441: it costs about a step's
+        time a batch); the step moves each shard to the device."""
+        depth = int(getattr(self.cfg, "prefetch_depth", 0) or 0)
+        items = self._dp_groups(batches)
+        return prefetch(items, depth=depth) if depth else items
+
     @contextlib.contextmanager
     def _weights(self, state: Mapping[str, torch.Tensor]):
         """The model holds ``state`` inside the block and its own weights
@@ -280,7 +376,8 @@ class Trainer:
         self.model.load_state_dict(state)
         zeros = {k: torch.zeros_like(p) for k, p in self.opt.params.items()}
         self.opt.load_state(0, zeros, zeros)
-        self.train_step.generator.manual_seed(seed)
+        self.train_step.generator.manual_seed(
+            seed if self.mesh is None else fold_seed(seed, self.mesh.dp.index))
 
     def _full_state(self, epoch: int) -> dict:
         """What a checkpoint holds: the model's state_dict, Adam's count,
@@ -316,8 +413,17 @@ class Trainer:
         ``batches``; everything stays on the device until one fetch at the
         end."""
         y_true, y_pred, masks, losses, weights = [], [], [], [], []
-        for chunk in iter_scan_chunks(self._batches(batches), self.chunk):
-            outs = self.eval_steps(chunk)
+        if self.mesh is not None:
+            # every rank evaluates its batch or shard; the outputs of the
+            # dp batches come back to every rank, a dummy's dropped
+            groups = (
+                (real, outs if self.dp > 1 else outs[None])
+                for real, outs in ((real, self.eval_step(mine)) for real, mine
+                                   in self._parallel_items(batches)))
+        else:
+            groups = ((chunk, self.eval_steps(chunk)) for chunk in
+                      iter_scan_chunks(self._batches(batches), self.chunk))
+        for chunk, outs in groups:
             for i, b in enumerate(chunk):
                 out = outs[i]
                 # the fields a loss reads, where the output is
@@ -353,9 +459,19 @@ class Trainer:
             masks.append(batch.graph_mask)
             emasks.append(batch.edge_mask)
 
-        batches = self._batches(loader)
+        batches = (self._parallel_items(loader) if self.mesh is not None
+                   else self._batches(loader))
         step_s = 0.0
-        if self.accum > 1:
+        if self.mesh is not None:
+            # one step a dp group; every rank gets the group's outputs
+            for real, mine in batches:
+                t = time.perf_counter()
+                loss, outs = self.train_step(mine, lr)
+                step_s += time.perf_counter() - t
+                outs = outs if self.dp > 1 else outs[None]
+                for i, b in enumerate(real):
+                    consume(b, loss, outs[i])
+        elif self.accum > 1:
             # gradient accumulation: one optimizer step a group of K
             # (exact weighted-mean grads; dummy pads contribute nothing)
             for real, group in self._groups(batches, self.accum):
@@ -426,7 +542,11 @@ class Trainer:
         n_params = sum(p.numel() for p in self.model.parameters())
         log.info("run %d: %d params, seed %d", run_idx, n_params, seed)
         if int(getattr(cfg, "profile_steps", 0) or 0) > 0:
-            self._profile(run_dir, seed)
+            if self.mesh is None:
+                self._profile(run_dir, seed)
+            else:
+                log.info("profile_steps is single-device; ignored under "
+                         "dp/ep")
 
         ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
         scheduler = ReduceLROnPlateau(
@@ -450,8 +570,11 @@ class Trainer:
                 best_val = saved["best_val"]
             log.info("resumed run %d at epoch %d (lr %.2e, best_val %.4f)",
                      run_idx, start_epoch, scheduler.lr, best_val)
-        _trim_jsonl(os.path.join(run_dir, "scalars.jsonl"), start_epoch)
-        _trim_jsonl(os.path.join(run_dir, "weights.jsonl"), start_epoch)
+        # one rank (the primary) writes the run's files
+        write = self.primary
+        if write:
+            _trim_jsonl(os.path.join(run_dir, "scalars.jsonl"), start_epoch)
+            _trim_jsonl(os.path.join(run_dir, "weights.jsonl"), start_epoch)
         if resume and ckpt.has_best():
             # test@bestval must use the best export's weights, not the latest
             best_state = ckpt.restore_best()
@@ -482,15 +605,18 @@ class Trainer:
                 best_val = val_metric
                 # slim export: parameters and running stats only
                 best_state = _host_state(self.model)
-                ckpt.export_best(best_state)
+                if write:
+                    ckpt.export_best(best_state)
             lr = scheduler.step(val_metric)
-            ckpt.save(epoch + 1, self._full_state(epoch + 1))
-            with open(sched_path, "w") as f:
-                json.dump({"lr": scheduler.lr, "sched_best": scheduler.best,
-                           "num_bad": scheduler.num_bad,
-                           "best_val": float(best_val)}, f)
+            if write:
+                ckpt.save(epoch + 1, self._full_state(epoch + 1))
+                with open(sched_path, "w") as f:
+                    json.dump({"lr": scheduler.lr,
+                               "sched_best": scheduler.best,
+                               "num_bad": scheduler.num_bad,
+                               "best_val": float(best_val)}, f)
 
-            if cfg.log_weights:
+            if cfg.log_weights and write:
                 # the reference's TensorBoard weight histograms analogue
                 # (train_hiv.py:313-323): per-parameter summary stats
                 stats = {}
@@ -509,8 +635,9 @@ class Trainer:
                    "wall_s": round(time.time() - t_start, 1),
                    "steps_per_s": round(tr["steps"] / tr["seconds"], 2),
                    "edges_per_s": round(tr["edges"] / tr["seconds"], 1)}
-            with open(scalars_path, "a") as f:
-                f.write(json.dumps(row) + "\n")
+            if write:
+                with open(scalars_path, "a") as f:
+                    f.write(json.dumps(row) + "\n")
             for k in history:
                 history[k].append(row[k])
             log.info("run %d epoch %d: train %.4f/%.4f valid %.4f/%.4f lr "
@@ -540,9 +667,11 @@ class Trainer:
                 test_best = self.evaluate(self.test_batches())
             result["test_bestval"] = float(test_best[cfg.metric])
             result["test_last"] = float(test_last[cfg.metric])
-        with open(os.path.join(run_dir, "val_test.json"), "w") as f:
-            json.dump(result, f, indent=2)
-        np.save(os.path.join(run_dir, "arrays.npy"), history, allow_pickle=True)
+        if write:
+            with open(os.path.join(run_dir, "val_test.json"), "w") as f:
+                json.dump(result, f, indent=2)
+            np.save(os.path.join(run_dir, "arrays.npy"), history,
+                    allow_pickle=True)
         return result
 
     # -- n_runs ---------------------------------------------------------------
@@ -551,8 +680,10 @@ class Trainer:
         current run's bookkeeping (checkpoints are saved every epoch, so a
         resumed invocation continues exactly)."""
         os.makedirs(self.cfg.save_dir, exist_ok=True)
-        with open(os.path.join(self.cfg.save_dir, "params.json"), "w") as f:
-            f.write(self.cfg.to_json())
+        if self.primary:
+            with open(os.path.join(self.cfg.save_dir, "params.json"),
+                      "w") as f:
+                f.write(self.cfg.to_json())
         results: List[dict] = []
         for i in range(1, self.cfg.n_runs + 1):
             try:
@@ -569,6 +700,8 @@ class Trainer:
             vals = [r[key] for r in results]
             summary[key] = {"mean": float(np.mean(vals)),
                             "std": float(np.std(vals)), "runs": vals}
-        with open(os.path.join(self.cfg.save_dir, "summary.json"), "w") as f:
-            json.dump(summary, f, indent=2)
+        if self.primary:
+            with open(os.path.join(self.cfg.save_dir, "summary.json"),
+                      "w") as f:
+                json.dump(summary, f, indent=2)
         return summary

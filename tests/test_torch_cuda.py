@@ -125,6 +125,40 @@ def test_segment_sum_kernel_matches_plain_version(dev, case):
         assert torch.all(out[3] == 0)
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_role_matches_plain_version(dev, shards, dtype):
+    """Kernel C's halo role on shard 0 of the flagship batch cut in
+    ``shards``: the cotangent rows summed per augmented row (the shard's
+    own, then its halo rows), split at NS; bit-equal on relaunch, within
+    1e-5 of each leaf's max of a float64 sum (bf16 rows: of the plain
+    version on the same rows), and the counter moves on its own wrapper."""
+    from phc_gnn_torch.parallel import partition_nodes
+
+    sh = partition_nodes(synthetic_batch(128, 4096, 8192, seed=0),
+                         shards)[0].to(dev)
+    g = torch.randn((sh.num_edges, 200),
+                    generator=torch.Generator().manual_seed(2)).to(dev, dtype)
+    n0 = (ssum.halo_gather_split_bwd.launches,
+          ssum.halo_gather_split_bwd.launches_bf16,
+          ssum.segment_sum_perm.launches)
+    dx, dxr = ssum.halo_gather_split_bwd(g, sh.snd_perm, sh.snd_rowptr,
+                                         sh.num_nodes)
+    again = torch.cat(ssum.halo_gather_split_bwd(g, sh.snd_perm,
+                                                 sh.snd_rowptr, sh.num_nodes))
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (ssum.halo_gather_split_bwd.launches,
+            ssum.halo_gather_split_bwd.launches_bf16,
+            ssum.segment_sum_perm.launches) == (n0[0] + 2 * (not bf16),
+                                                n0[1] + 2 * bf16, n0[2])
+    out = torch.cat([dx, dxr])
+    assert dx.shape[0] == sh.num_nodes and torch.equal(out, again)
+    want = torch.cat(ssum.halo_gather_split_bwd_plain(
+        g if bf16 else g.double(), sh.snd_perm, sh.snd_rowptr, sh.num_nodes))
+    assert _leaf_err(out, want) <= 1e-5
+
+
 @pytest.mark.parametrize("shape", [(4096, 200), (129, 100), (129, 768),
                                    (109_375, 8), (4096, 213), (4096, 203),
                                    (1, 200)])

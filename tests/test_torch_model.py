@@ -155,7 +155,9 @@ def test_training_and_later_slice_configs_raise():
     which raised before the training slice, now runs (its parity with JAX is
     in tests/test_torch_train.py), and so does the mean aggregation since
     the PNA slice (tests/test_torch_pna.py), and ``remat`` and the bf16
-    ``compute_dtype``; another compute dtype raises."""
+    ``compute_dtype``, and ``node_axis`` since the halo slice
+    (tests/test_torch_halo.py); ``edge_axis`` (the replicated scheme) and
+    another compute dtype raise."""
     model = PHCGNN(**_config(32, 2), device="cpu")
     out = model(attach_csr_plan(synthetic_batch(4, 128, 256)), training=True,
                 generator=torch.Generator().manual_seed(0))
@@ -163,9 +165,10 @@ def test_training_and_later_slice_configs_raise():
     out.sum().backward()
     assert all(p.grad is not None for p in model.parameters()
                if p.requires_grad)
-    for over in (dict(edge_axis="ep"), dict(node_axis="dp")):
-        with pytest.raises(NotImplementedError):
-            PHCGNN(**_config(32, 2, **over), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        PHCGNN(**_config(32, 2, edge_axis="ep"), device="cpu")
+    assert PHCGNN(**_config(32, 2, node_axis="ep"),
+                  device="cpu").node_axis == "ep"
     # remat and the bf16 compute dtype build and run (tests/test_torch_remat.py
     # and tests/test_torch_bf16.py hold them to JAX)
     for over in (dict(remat=True), dict(compute_dtype=torch.bfloat16)):

@@ -310,7 +310,10 @@ def test_inference_reproduces_test_bestval(tmp_path, capsys):
 
 @pytest.mark.parametrize("case", ["dp", "ep", "num_devices", "xla", "cuda"])
 def test_trainer_raises(case, monkeypatch):
-    """The paths the port does not have raise, naming their ROADMAP item;
+    """The paths the port does not have raise, naming their ROADMAP item
+    (``agg_kernel="xla"``; under ep the replicated scheme); ``dp``, ``ep``
+    and ``num_devices`` above 1 run on ranks (tests/test_torch_dp.py) and
+    raise without a process group, naming the call that makes one;
     ``device="cuda"`` without a card raises."""
     from phc_gnn_torch.train.config import ExperimentConfig
     from phc_gnn_torch.train.trainer import build_model
@@ -324,10 +327,16 @@ def test_trainer_raises(case, monkeypatch):
         return
     if case == "xla":
         cfg.agg_kernel = "xla"
-    else:
-        setattr(cfg, case, 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            Trainer(cfg, model, None, None, device="cpu")
+        return
+    setattr(cfg, case, 2)
+    with pytest.raises(RuntimeError, match="initialize"):
         Trainer(cfg, model, None, None, device="cpu")
+    if case == "ep":
+        cfg.ep_scheme = "replicated"
+        with pytest.raises(NotImplementedError, match="item 15"):
+            Trainer(cfg, model, None, None, device="cpu")
 
 
 @pytest.mark.parametrize("fn", ["row_diff", "col_diff"])

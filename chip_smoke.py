@@ -52,11 +52,14 @@ Phases, each of which exits non-zero on failure:
    200 with ReLU messages, exact ties, the adversarial receivers of A and B (one-edge, all-masked and isolated
    segments) and, for H, |m| >= 1e29: H bit for bit, I within TOL_SUM and
    var 0 exactly on one-edge segments; and the bf16 instances of A, B (both
-   variants) and C (both roles, the flagship's and pcba's shapes with
-   the eval shape, width 37, bf16 rows off 16-byte alignment, the
-   adversarial cases) on bf16 rows against their plain versions on the
-   same rows (TOL_MAX, TOL_AGG, TOL_SUM: the conversion is exact), C
-   bit-equal to the sequential f32 sum, and every bf16 output bit-equal to
+   variants), A fused into B (both variants) and C (both roles, the flagship's and
+   pcba's shapes with the eval shape, width 37, bf16 rows off 16-byte
+   alignment, the adversarial cases; C's bulk instance, rows staged by the
+   TMA's bulk copy, wherever the rows allow it) on bf16 rows against their
+   plain versions on the same rows (TOL_MAX, TOL_AGG, TOL_SUM: the
+   conversion is exact), C bit-equal to the sequential f32 sum and its two
+   instances to each other, the fused kernel's ``out``, ``w`` and ``den``
+   bit-equal to A bf16 then B bf16, and every bf16 output bit-equal to
    the float32 instance fed the upcast rows.  Each is timed with CUDA events, eagerly and
    from a CUDA graph, beside its plain version, its bound and, where one
    exists, one PyTorch call that computes the same function; D + E are
@@ -229,8 +232,10 @@ Phases, each of which exits non-zero on failure:
    of that distance (two bf16 runs whose f32 sums differ in order part by
    nearly as much as bf16 from f32, so an f32 model passes this bound
    too); parameters' gradients float32 and finite, the output float32.  Three
-   eager steps with dropout, counted (A, B, C's gather backward in their
-   bf16 instances 4 a step, D and E 10, no float32 A, B or C); the graphed
+   eager steps with dropout, counted (the fused softmax and C's gather
+   backward in its bf16 instance 4 a step, D and E 10, no A, B or float32
+   C), then the dropout-free bf16 model served on 3 batches (the fused
+   softmax 4 a batch, no A or B); the graphed
    steps' first call under ``set_sync_debug_mode("error")``, counted;
    graphed steps held bit-equal to eager ones under the deterministic
    algorithms as in 14; eager and graphed ms, kernels, busy and idle of
@@ -239,9 +244,13 @@ Phases, each of which exits non-zero on failure:
    what was allocated before it, as every peak of 16-18);
 17. bf16 pcba: ``make_accum_train_step`` (K = 4, one CUDA graph) in bf16
    and float32: each first call under ``set_sync_debug_mode("error")``, the
-   bf16 one counted (C's two roles in their bf16 instances 28 each, F, G
-   28, D, E 8), its peak memory; the graphed step timed in turns (f32,
-   bf16, bf16, f32) and profiled;
+   bf16 one counted (C's two roles in their bf16 instances 28 each, the
+   sum aggregation's on C's bulk instance by the plan, F, G 28, D, E 8),
+   its peak memory; the eval forward of both on the 512-graph
+   batch, the bf16 one counted (C's bf16 instance 7, its bulk instance by
+   the plan; ``bf16_kernels`` holds the two instances bit-equal at this
+   shape); the graphed step timed in turns (f32, bf16, bf16, f32) and
+   profiled;
 18. remat: the flagship and pcba with ``remat=True`` against
    ``remat=False`` from one random state, under the deterministic
    algorithms with dropout off: one eager forward and backward (loss,
@@ -286,8 +295,11 @@ It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"harness_bf16"}``, ``{"halo"}``, ``{"phase_seconds"}`` and
 ``{"kernels": [...]}``
 lines, then, as its last line, ``{"ok": true, "device": {...}}``.  The
-kernels line lists the bf16 instances of A, B and C as kernels of their
-own (``<name>_bf16``, counted by the wrappers' ``launches_bf16``).  In it,
+kernels line lists the bf16 kernels as kernels of their own
+(``<name>_bf16``, counted by the wrappers' ``launches_bf16``): A fused into
+B (``segment_softmax_fused_bf16``, with A bf16 and B bf16, which no main
+path runs any more, timed beside it under ``parent_pair``) and C's two
+roles.  In it,
 each kernel's ``launches_by_path`` holds its count from each of the
 main-path runs above (``eval``: 3 flagship batches; ``train``: 10 flagship steps;
 ``pcba_eval``: 1 batch; ``pcba_train``: 10 accumulated steps of the eager
@@ -300,9 +312,10 @@ graphed flagship call, whose wrappers count the 3 warm-ups and the capture,
 not the replays; ``harness_synthetic``, ``harness_pcba``, ``harness_zinc``:
 the three CLI runs of the harness, whose wrappers count each graph's
 warm-ups and capture; ``bf16_train``: 3 eager bf16 flagship steps;
-``bf16_scan``: the bf16 graphed steps' first call; ``bf16_pcba``: the bf16
-accumulated graph's first call; ``remat_flagship``, ``remat_pcba``: one
-eager step each with remat; ``harness_bf16``: the bf16 CLI run;
+``bf16_eval``: 3 bf16 flagship batches served; ``bf16_scan``: the bf16
+graphed steps' first call; ``bf16_pcba``: the bf16 accumulated graph's
+first call; ``bf16_pcba_eval``: 1 bf16 pcba batch; ``remat_flagship``,
+``remat_pcba``: one eager step each with remat; ``harness_bf16``: the bf16 CLI run;
 ``halo_np2``, ``halo_np4``, ``halo_dp_dummy``, ``halo_dp_ep``: rank 0's
 counts over one multi-rank step; ``halo_trainer``: rank 0's over its
 Trainer run), and ``launches`` is their sum; C's halo role has a row of
@@ -444,19 +457,29 @@ PCBA_LAUNCHES = {"segment_sum_masked": 28, "segment_sum_perm": 28,
                  "bn_forward_blocked": 28, "bn_backward_blocked": 28,
                  "bn_forward": 8, "bn_backward": 8}
 PCBA_EVAL_LAUNCHES = {"segment_sum_masked": PCBA_LAYERS}
-# compute_dtype=bf16: A, B and C read bf16 messages through their bf16
-# instances (counted apart, "<wrapper>_bf16"); the norms upcast, so D-G run
-# as in float32
+# compute_dtype=bf16: C reads bf16 messages through its bf16 instances
+# (counted apart, "<wrapper>_bf16"), and the softmax aggregation through the
+# fused kernel (A's function then B's in one launch), not A and B, whose
+# bf16 instances stay public and held; the norms upcast, so D-G run as in
+# float32
 BF16_KERNELS = ("segment_logit_max", "segment_softmax_aggregate",
-                "segment_sum_perm", "segment_sum_masked")
-BF16_TRAIN_LAUNCHES = {"segment_logit_max_bf16": 4,
-                       "segment_softmax_aggregate_bf16": 4,
+                "segment_softmax_fused", "segment_sum_perm",
+                "segment_sum_masked")
+BF16_TRAIN_LAUNCHES = {"segment_softmax_fused_bf16": 4,
+                       "segment_logit_max_bf16": 0,
+                       "segment_softmax_aggregate_bf16": 0,
                        "segment_sum_perm_bf16": 4, "bn_forward": 10,
                        "bn_backward": 10}
+BF16_EVAL_LAUNCHES = {"segment_softmax_fused_bf16": 4,
+                      "segment_logit_max_bf16": 0,
+                      "segment_softmax_aggregate_bf16": 0}
 PCBA_BF16_LAUNCHES = {"segment_sum_masked_bf16": 28,
                       "segment_sum_perm_bf16": 28, "bn_forward_blocked": 28,
                       "bn_backward_blocked": 28, "bn_forward": 8,
                       "bn_backward": 8}
+# ... and pcba's bf16 eval forward on its 512-graph batch: the sum
+# aggregation on C's bulk instance (by the plan, as in the train step)
+PCBA_BF16_EVAL_LAUNCHES = {"segment_sum_masked_bf16": PCBA_LAYERS}
 BF16_STEPS = 3              # eager bf16 flagship steps counted
 BF16_SCAN_STEPS = 4         # graphed bf16 steps held to eager ones
 # the flagship's modules held one by one at the CPU bf16 run's own inputs
@@ -572,7 +595,8 @@ def time_graph(torch, fn, iters: int = 100, reps: int = 5) -> float:
 def kernel_wrappers():
     """The launch-counting wrapper of every kernel of the port, A to G with
     C's two roles, J to M (K with its eval route, L and M with their frozen
-    variants), H and I."""
+    variants), H and I, and A fused into B on bf16 rows (whose float32
+    counter stays 0: float32 messages run A then B)."""
     from phc_gnn_torch.ops import fused_bn
     from phc_gnn_torch.ops import fused_whitening as fw
     from phc_gnn_torch.ops import segment_reduce as sr
@@ -581,6 +605,7 @@ def kernel_wrappers():
 
     return {"segment_logit_max": ss.segment_logit_max,
             "segment_softmax_aggregate": ss.segment_softmax_aggregate,
+            "segment_softmax_fused": ss.segment_softmax_fused,
             "segment_sum_perm": ssum.segment_sum_perm,
             "segment_sum_masked": ssum.segment_sum_masked,
             "bn_forward": fused_bn.bn_forward,
@@ -1621,13 +1646,19 @@ def segment_reduce_kernels(torch, dev, batch, errs):
 
 
 def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
-    """A, B (both variants) and C (both roles) on bf16 rows against their
-    plain versions on the same bf16 rows (which upcast, so the float32
+    """A, B (both variants), A fused into B (both variants) and C (both
+    roles, both instances) on bf16 rows against their plain
+    versions on the same bf16 rows (which upcast, so the float32
     tolerances hold), at the flagship's and pcba's shapes and on the
     adversarial cases of the float32 checks; each bf16 output also against
     the float32 instance fed the upcast rows (the conversion is exact, so
-    the same bits are expected).  Returns the timing records of the four
-    bf16 instances, their bounds at the bf16 input bytes."""
+    the same bits are expected), the fused kernel's ``out``, ``w`` and
+    ``den`` against A bf16 then B bf16, and C's two instances (the bulk
+    one and the one without it) against each other wherever the rows
+    allow the bulk one.  Returns the timing records of the three bf16 kernels
+    of the main paths (the fused softmax with A bf16 and B bf16 timed
+    beside it, C's two roles with both instances), their bounds at the
+    bf16 input bytes."""
     from phc_gnn_torch.ops import segment_softmax as ss
     from phc_gnn_torch.ops import segment_sum as ssum
 
@@ -1637,10 +1668,16 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
     beta = torch.tensor(1.37, device=dev)
     adv_m, adv_k, adv_b, adv_rp = adversarial_case(torch, dev, DIM)
     same_bits = {}
+    # rows one element past a 4-byte boundary take one lane a thread
+    off16 = torch.empty(msgs.numel() + 1, dtype=torch.bfloat16,
+                        device=dev)[1:].view(msgs.shape)
+    off16.copy_(msgs)
     cases = {"main": (msgs, batch.edge_mask, beta, batch.rowptr),
              "adversarial": (adv_m.to(torch.bfloat16), adv_k, adv_b, adv_rp),
              "d = 37": (msgs[:, :37].contiguous(), batch.edge_mask, beta,
-                        batch.rowptr)}
+                        batch.rowptr),
+             "rows off alignment": (off16, batch.edge_mask, beta,
+                                    batch.rowptr)}
     for name, (m, k, b, rp) in cases.items():
         before = (ss.segment_logit_max.launches_bf16,
                   ss.segment_softmax_aggregate.launches_bf16)
@@ -1666,10 +1703,26 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
               den_ref, TOL_AGG)
         up = m.float()
         smax32 = ss.segment_logit_max(up, k, b, rp)
+        f32 = ss.segment_softmax_aggregate(up, k, b, rp, smax32, True)
         same_bits[f"A {name}"] = torch_equal(smax, smax32)
-        same_bits[f"B {name}"] = all(map(torch_equal, (out, w, den),
-                                         ss.segment_softmax_aggregate(
-                                             up, k, b, rp, smax32, True)))
+        same_bits[f"B {name}"] = all(map(torch_equal, (out, w, den), f32))
+        # A fused into B in both variants, against A then B and f32
+        before = ss.segment_softmax_fused.launches_bf16
+        fused = ss.segment_softmax_fused(m, k, b, rp, emit_w=True)
+        fused_nw = ss.segment_softmax_fused(m, k, b, rp)
+        torch.cuda.synchronize()
+        if ss.segment_softmax_fused.launches_bf16 != before + 2:
+            fail(f"bf16 {name}: the fused kernel's counter did not move")
+        for what, got, want in (("out", fused[0], out_ref),
+                                ("eval out", fused_nw, out_ref),
+                                ("w", fused[1], w_ref)):
+            check(errs, "segment_softmax_fused_bf16", f"{name}, {what}", got,
+                  want, TOL_AGG, own_scale=False)
+        check(errs, "segment_softmax_fused_bf16", f"{name}, den", fused[2],
+              den_ref, TOL_AGG)
+        same_bits[f"fused {name} = A then B"] = all(
+            map(torch_equal, (*fused, fused_nw), (out, w, den, out_nw)))
+        same_bits[f"fused {name} = f32"] = all(map(torch_equal, fused, f32))
 
     g = torch.randn((batch.num_edges, DIM), generator=gen).to(dev).to(
         torch.bfloat16)
@@ -1719,6 +1772,14 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
                             plain(v.cpu(), idx.cpu(), rp.cpu()))
             same_bits[f"C {kname} {name}"] = torch_equal(
                 out, fn(v.float(), idx, rp))
+            role = kname.rsplit("_", 1)[1]
+            if ssum.segment_sum_plan(rp.shape[0] - 1, v.shape[0], v.shape[1],
+                                     role == "perm",
+                                     v.data_ptr() % 16 == 0, 2, True).bulk:
+                both = [ssum.segment_sum_instance(role, v, idx, rp, bulk)
+                        for bulk in (True, True, False)]
+                same_bits[f"C two instances {kname} {name}"] = all(
+                    torch_equal(out, x) for x in both)
     print(f"bf16 kernels: bit-equal to the float32 instance fed the upcast "
           f"rows: {same_bits}", flush=True)
     if not all(same_bits.values()):
@@ -1739,6 +1800,33 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
     smax = ss.segment_logit_max(msgs, k, beta, batch.rowptr)
     src = "phc_gnn_torch/csrc/segment_softmax.cu"
     rp = batch.rowptr
+    rec_f = record(torch, "segment_softmax_fused_bf16", src,
+                   "phc_gnn_tpu/ops/stream_scan.py:521", errs,
+                   lambda: ss.segment_softmax_fused(msgs, k, beta, rp),
+                   lambda: ss.segment_softmax_aggregate_plain(
+                       msgs, k, beta, rp,
+                       ss.segment_logit_max_plain(msgs, k, beta, rp)),
+                   None, in_bytes + nd_bytes, 8 * e_seg * d + n * d)
+    rec_f["replaces_too"] = ("phc_gnn_tpu/ops/stream_scan.py:415 (A), :439 "
+                             "(B's training variant)")
+    rec_f["train_variant"] = variant(
+        torch, "segment_softmax_fused_bf16",
+        lambda: ss.segment_softmax_fused(msgs, k, beta, rp, emit_w=True),
+        in_bytes + 2 * nd_bytes + msgs.shape[0] * d * 4,
+        "training variant, w and den")
+    rec_f["train_variant"]["replaces"] = "phc_gnn_tpu/ops/stream_scan.py:439"
+    # the parent pair in the same call: A bf16 then B bf16, as graphs of
+    # the two calls
+    rec_f["parent_pair_graph_ms"] = {
+        "eval": time_graph(torch, lambda: ss.segment_softmax_aggregate(
+            msgs, k, beta, rp, ss.segment_logit_max(msgs, k, beta, rp))),
+        "train": time_graph(torch, lambda: ss.segment_softmax_aggregate(
+            msgs, k, beta, rp, ss.segment_logit_max(msgs, k, beta, rp),
+            emit_w=True))}
+    print(f"kernel segment_softmax_fused_bf16: A bf16 then B bf16 in the "
+          f"same call {rec_f['parent_pair_graph_ms']['eval'] * 1e3:.2f} us "
+          f"device (eval), {rec_f['parent_pair_graph_ms']['train'] * 1e3:.2f}"
+          f" us (training)", flush=True)
     rec_a = record(torch, "segment_logit_max_bf16", src,
                    "phc_gnn_tpu/ops/stream_scan.py:415", errs,
                    lambda: ss.segment_logit_max(msgs, k, beta, rp),
@@ -1759,6 +1847,10 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
         in_bytes + 3 * nd_bytes + msgs.shape[0] * d * 4,
         "training variant, w and den")
     rec_b["train_variant"]["replaces"] = "phc_gnn_tpu/ops/stream_scan.py:439"
+    # A bf16 and B bf16 run on no main path now (the fused kernel does their
+    # work): their records sit in the fused kernel's, not in the line
+    rec_f["parent_pair"] = {"segment_logit_max_bf16": rec_a,
+                            "segment_softmax_aggregate_bf16": rec_b}
 
     def c_record(kname, fn, plain, v, idx, rp, real_rows, seg_of_real, role):
         """C's bf16 instance: the library call is one ``index_add_`` of the
@@ -1832,9 +1924,29 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
               f"per call, {r['graph_ms'] * 1e3:.2f} us device, bound "
               f"{r['bound_ms'] * 1e3:.2f} us, library "
               f"{r['library_graph_ms'] * 1e3:.2f} us device", flush=True)
-    for rec in (rec_a, rec_b, rec_cp, rec_cm):
+    # C's two instances at each shape: the plan's (above) beside the bulk
+    # instance and the one without it, device ms from a CUDA graph
+    for rec, role, shapes in (
+            (rec_cp, "perm", {"flagship": (g, batch.snd_perm,
+                                           batch.snd_rowptr),
+                              "pcba": (p_g, pcba.snd_perm,
+                                       pcba.snd_rowptr)}),
+            (rec_cm, "masked", {"pcba": (pm, pcba.edge_mask, pcba.rowptr),
+                                "eval": (e_m, pcba_eval.edge_mask,
+                                         pcba_eval.rowptr)})):
+        rec["instances_graph_ms"] = {
+            shape: {key: time_graph(torch, lambda: ssum.segment_sum_instance(
+                role, v, idx, rp, bulk)) for key, bulk in (("bulk", True),
+                                                          ("nobulk", False))}
+            for shape, (v, idx, rp) in shapes.items()}
+        print(f"kernel {rec['name']}: device us of the bulk instance and of "
+              f"the one without it: " + str({
+                  shape: {k: round(v * 1e3, 2) for k, v in t.items()}
+                  for shape, t in rec["instances_graph_ms"].items()}),
+              flush=True)
+    for rec in (rec_f, rec_a, rec_b, rec_cp, rec_cm):
         rec["bit_equal_to_f32_on_upcast_rows"] = True
-    return [rec_a, rec_b, rec_cp, rec_cm]
+    return [rec_f, rec_cp, rec_cm]
 
 
 def kernel_phase(torch, dev):
@@ -2774,8 +2886,8 @@ def pcba_replay_kernels(torch, fn) -> dict:
         counts = kernels_by_grid(torch, fn, PCBA_REPLAYS)
         got = {k: 0.0 for k in want}
         for (name, grid), n in counts.items():
-            for wrapper, sub in KERNEL_NAMES.items():
-                if sub not in name.replace(" ", ""):
+            for wrapper in KERNEL_NAMES:
+                if not kernel_of(wrapper, name):
                     continue
                 if wrapper in blocked and grid == blocked[wrapper]:
                     wrapper += "_blocked"
@@ -3217,7 +3329,8 @@ def pna_train_phase(torch, dev):
 # device kernel names of each wrapper's kernel, for counting the kernels a
 # replayed CUDA graph runs (the wrappers' counters do not see a replay)
 # (read with the spaces taken out of the demangled names: A, B and C are
-# templates on the rows' element type)
+# templates on the rows' element type; a wrapper whose instances are kernels
+# of other names has a tuple, C on bf16 rows its bulk instance)
 KERNEL_NAMES = {"segment_logit_max": "segment_logit_max_kernel<float",
                 "segment_softmax_aggregate":
                     "segment_softmax_aggregate_kernel<float",
@@ -3227,10 +3340,13 @@ KERNEL_NAMES = {"segment_logit_max": "segment_logit_max_kernel<float",
                     "segment_logit_max_kernel<__nv_bfloat16",
                 "segment_softmax_aggregate_bf16":
                     "segment_softmax_aggregate_kernel<__nv_bfloat16",
-                "segment_sum_perm_bf16":
+                "segment_softmax_fused_bf16": "segment_softmax_fused_kernel<",
+                "segment_sum_perm_bf16": (
                     "segment_sum_kernel<__nv_bfloat16,true",
-                "segment_sum_masked_bf16":
+                    "segment_sum_bulk_kernel<true"),
+                "segment_sum_masked_bf16": (
                     "segment_sum_kernel<__nv_bfloat16,false",
+                    "segment_sum_bulk_kernel<false"),
                 "bn_forward": "bn_forward_kernel",
                 "bn_backward": "bn_backward_kernel",
                 "wbn_stats": "wbn_stats_kernel",
@@ -3244,12 +3360,20 @@ KERNEL_NAMES = {"segment_logit_max": "segment_logit_max_kernel<float",
 EMBEDDING_BWD_NAMES = ("embedding", "sort")
 
 
+def kernel_of(wrapper: str, name: str) -> bool:
+    """Whether the device kernel ``name`` is one of ``wrapper``'s
+    (``KERNEL_NAMES``)."""
+    subs = KERNEL_NAMES[wrapper]
+    name = name.replace(" ", "")
+    return any(sub in name for sub in
+               ((subs,) if isinstance(subs, str) else subs))
+
+
 def kernel_families(counts: dict, per: int) -> dict:
     """Kernels of each port wrapper in a profile's ``counts``, per call of
     ``per`` steps."""
-    return {w: sum(n for name, n in counts.items()
-                   if sub in name.replace(" ", "")) / per
-            for w, sub in KERNEL_NAMES.items()}
+    return {w: sum(n for name, n in counts.items() if kernel_of(w, name))
+            / per for w in KERNEL_NAMES}
 
 
 def train_state(model, opt) -> dict:
@@ -3595,9 +3719,15 @@ def scan_profile(torch, phase, eager_fn, graph_fn, steps: int, kernels):
               f"{100 * prof['idle_share']:.1f} %); the port's kernels a step "
               f"{out[how]['port_kernels']}; embedding backward or sort "
               f"kernels {sorts or 'none'}", flush=True)
-        missing = [k for k in kernels if not fam.get(k)]
+        want = kernels if isinstance(kernels, dict) else dict.fromkeys(
+            kernels, 1)
+        missing = [k for k, n in want.items() if n and not fam.get(k)]
         if missing:
             fail(f"{phase} {how}: no {missing} kernel in the profile")
+        extra = [k for k, n in want.items() if not n and fam.get(k)]
+        if extra:
+            fail(f"{phase} {how}: {extra} kernels in the profile, which "
+                 f"this path must not launch")
         if sorts:
             fail(f"{phase} {how}: the profile holds {sorts}")
     return out
@@ -3994,6 +4124,22 @@ def bf16_phase(torch, dev, f32_profile):
                   add_counts((BF16_STEPS, BF16_TRAIN_LAUNCHES)))
     if not all(bool(torch.isfinite(x)) for x in losses):
         fail("bf16 flagship: a non-finite loss")
+    # the bf16 flagship served: its eval forward on N_BATCHES batches, the
+    # fused softmax once a layer, neither A nor B
+    from phc_gnn_torch.train import make_eval_step
+    served = bf16_flagship(torch, dev, False)
+    randomize_eval_state(torch, served)
+    serve = make_eval_step(served, device=dev)
+    serve(batches[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    evals = [serve(b) for b in batches[:N_BATCHES]]
+    torch.cuda.synchronize()
+    paths["bf16_eval"] = read_launches()
+    hold_counters("bf16 flagship eval", paths["bf16_eval"],
+                  add_counts((N_BATCHES, BF16_EVAL_LAUNCHES)))
+    if not all(bool(torch.isfinite(x).all()) for x in evals):
+        fail("bf16 flagship: a non-finite eval output")
     lap("eager")
 
     steps = {}
@@ -4054,8 +4200,11 @@ def bf16_phase(torch, dev, f32_profile):
 
 def bf16_pcba_phase(torch, dev):
     """17. bf16 pcba: ``make_accum_train_step`` (one CUDA graph, K = 4) in
-    bf16 against float32 in turns; returns the counts of the bf16 graph's
-    first call and the readings."""
+    bf16 against float32 in turns; then the eval forward of both on the
+    512-graph batch (C's bulk instance in bf16, by the plan), its distance
+    from the f32 forward printed; returns the
+    counts of the bf16 graph's first call and of the bf16 eval forward, and
+    the readings."""
     host = [pcba_batch(torch, s, PCBA) for s in range(PCBA_K)]
     batches = [b.to(dev) for b in host]
     from phc_gnn_torch.train import make_accum_train_step, make_optimizer
@@ -4084,6 +4233,35 @@ def bf16_pcba_phase(torch, dev):
             launches = read_launches()
             hold_counters("bf16 pcba graphed", launches,
                           add_counts((capture_calls(), PCBA_BF16_LAUNCHES)))
+    from phc_gnn_torch.ops import segment_sum as ssum
+    from phc_gnn_torch.train import make_eval_step
+
+    eval_batch = pcba_batch(torch, 0, PCBA_EVAL).to(dev)
+    n, e = PCBA_EVAL["num_nodes"], PCBA_EVAL["num_edges"]
+    if not ssum.segment_sum_plan(n, e, PCBA_DIM, False, True, 2).bulk:
+        fail("bf16 pcba eval: the plan does not take C's bulk instance")
+    evals = {}
+    for dtype in ("f32", "bf16"):
+        served, _, _ = pcba_model(torch, dev, compute_dtype=dtype)
+        randomize_eval_state(torch, served)
+        serve = make_eval_step(served, device=dev)
+        serve(eval_batch)
+        torch.cuda.synchronize()
+        reset_launches()
+        evals[dtype] = serve(eval_batch)
+        torch.cuda.synchronize()
+        if dtype == "bf16":
+            eval_launches = read_launches()
+            hold_counters("bf16 pcba eval", eval_launches,
+                          add_counts((1, PCBA_BF16_EVAL_LAUNCHES)))
+        info[dtype]["eval_ms"] = time_steps(torch,
+                                            lambda: serve(eval_batch))[0]
+    if not bool(torch.isfinite(evals["bf16"]).all()):
+        fail("bf16 pcba eval: a non-finite output")
+    info["eval_rel_dist_bf16_vs_f32"] = rel_dist(evals["bf16"], evals["f32"])
+    print(f"bf16 pcba eval: ms f32 {info['f32']['eval_ms']:.3f}, bf16 "
+          f"{info['bf16']['eval_ms']:.3f}; the bf16 output from the f32 one (2-norm) "
+          f"{info['eval_rel_dist_bf16_vs_f32']:.3e}", flush=True)
     for dtype in ("f32", "bf16", "bf16", "f32"):
         ms, host_ms = time_steps(torch, lambda: graphs[dtype](batches, lr))
         info[dtype].setdefault("step_ms", []).append(ms)
@@ -4101,7 +4279,7 @@ def bf16_pcba_phase(torch, dev):
               f"{100 * prof['idle_share']:.1f} %), peak memory of the first "
               f"call {info[dtype]['peak_mem_bytes_first_call'] / 2**30:.3f} "
               f"GiB; top kernels {prof['top_us'][:4]}", flush=True)
-    return launches, info
+    return {"bf16_pcba": launches, "bf16_pcba_eval": eval_launches}, info
 
 
 def remat_pair(torch, dev, family: str, dropout: bool):
@@ -4926,10 +5104,11 @@ def halo_kernel(torch, dev, errs):
     on the card: shard 0 of the flagship batch cut in 2 and 4 (the main
     path's shapes), pcba's width 512 in 2, f32 and bf16 (bf16 rows against
     the plain version on the same rows and bit-equal to the f32 instance
-    fed the upcast rows), and the adversarial plans; each output bit-equal
-    on a second launch and to the sequential f32 sum in edge order.
-    Returns its timing record at the flagship's 2-shard shape, with the
-    other shapes beside it."""
+    fed the upcast rows, and to C's bulk instance on them), and the
+    adversarial plans; each output bit-equal on a second launch and to the
+    sequential f32 sum in edge order.  Returns its timing record at the
+    flagship's 2-shard shape, with the other shapes beside it (on bf16 rows
+    both of C's instances)."""
     from phc_gnn_torch.data import synthetic_batch
     from phc_gnn_torch.ops import segment_sum as ssum
     from phc_gnn_torch.parallel import partition_nodes
@@ -4972,6 +5151,10 @@ def halo_kernel(torch, dev, errs):
                     out, torch.cat(wrapper(gv.float(), perm, rowptr, ns))):
                 fail(f"{kname} {label}: differs from the f32 instance on the "
                      f"upcast rows")
+            if dtype == torch.bfloat16 and not all(
+                    torch.equal(out, ssum.segment_sum_instance(
+                        "perm", gv, perm, rowptr, True)) for _ in range(2)):
+                fail(f"{kname} {label}: C's bulk instance differs")
             if name == "empty halo" and not bool((dxr == 0).all()):
                 fail(f"{kname} {label}: an empty halo row is not 0")
             if name == "all remote" and not bool((dx == 0).all()):
@@ -5004,11 +5187,19 @@ def halo_kernel(torch, dev, errs):
                       "library_graph_ms": time_graph(torch, library),
                       "rows": sh.snd_rowptr.shape[0] - 1,
                       "edges": sh.num_edges, "d": g.shape[1]}
+        if g.dtype == torch.bfloat16:
+            rec[label]["instances_graph_ms"] = {
+                key: time_graph(torch, lambda: ssum.segment_sum_instance(
+                    "perm", g, sh.snd_perm, sh.snd_rowptr, bulk))
+                for key, bulk in (("bulk", True), ("nobulk", False))}
         print(f"kernel {kname} at {label}: {rec[label]['ms'] * 1e3:.2f} us "
               f"per call, {rec[label]['graph_ms'] * 1e3:.2f} us device, bound "
               f"{rec[label]['bound_ms'] * 1e3:.2f} us, library "
-              f"{rec[label]['library_graph_ms'] * 1e3:.2f} us device",
-              flush=True)
+              f"{rec[label]['library_graph_ms'] * 1e3:.2f} us device"
+              + (", C's bulk instance / the one without it " + " / ".join(
+                  f"{v * 1e3:.2f}" for v in
+                  rec[label]["instances_graph_ms"].values()) + " us device"
+                 if "instances_graph_ms" in rec[label] else ""), flush=True)
     return rec
 
 
@@ -5454,7 +5645,8 @@ def main() -> None:
     paths["scan_train"], scan = timed("scan", scan_phase)
     bf16_paths, bf16 = timed("bf16", bf16_phase, scan["flagship_profile"])
     paths.update(bf16_paths)
-    paths["bf16_pcba"], bf16["pcba"] = timed("bf16_pcba", bf16_pcba_phase)
+    pcba_paths, bf16["pcba"] = timed("bf16_pcba", bf16_pcba_phase)
+    paths.update(pcba_paths)
     print(json.dumps({"bf16": bf16}), flush=True)
     remat_paths, remat = timed("remat", remat_phase)
     paths.update(remat_paths)

@@ -50,6 +50,21 @@
 // one float2 each (tools/time_softmax.py times both bf16 instances).  The
 // conversion is exact, so a bf16 launch gives the bits of the f32 kernel
 // fed the upcast messages, and it reads half the message bytes.
+//
+// segment_softmax_fused_bf16: A fused into B on bf16 rows, one launch for
+// both (the model's bf16 path runs it instead of A then B).  A bf16 launch
+// of A then B is latency, not bytes: a block a receiver walks ~1.6 edges
+// through rowptr, mask and row loads in series, twice, and B reads the
+// 3.3 MB segmax that A wrote.  The fused kernel is B's bf16 kernel with A's
+// loop over the segment in front of its own, a block a receiver segment
+// and a pair of lanes a thread where B's bf16 kernel takes pairs: segmax
+// stays in registers, and the second loop reads the segment's rows from
+// L1.  (A run of segments a CTA with its rows staged in shared memory by
+// one TMA bulk copy timed slower at the flagship's shape: its CTA waits
+// for the whole run's copy behind rowptr before any warp starts.)  Each
+// lane's arithmetic is A's then B's, the same expressions in the same edge
+// order, so out, w and den are bit-equal to A bf16 then B bf16 and to the
+// f32 kernels fed the upcast rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -179,6 +194,62 @@ __global__ void segment_softmax_aggregate_kernel(
   }
 }
 
+// A then B over one segment, a thread a group of kVec lanes, a block a
+// segment: the fused kernel.
+template <int kVec>
+__global__ void segment_softmax_fused_kernel(
+    const __nv_bfloat16* __restrict__ msgs, const uint8_t* __restrict__ mask,
+    const float* __restrict__ beta_ptr, const int32_t* __restrict__ rowptr,
+    float* __restrict__ out, float* __restrict__ w_out,
+    float* __restrict__ den_out, int64_t d) {
+  using R = Row<__nv_bfloat16, kVec>;
+  const int64_t n = blockIdx.x;
+  const float beta = *beta_ptr;
+  const int32_t lo = rowptr[n];
+  const int32_t hi = rowptr[n + 1];
+  const int64_t dv = d / kVec;
+  for (int64_t p = threadIdx.x; p < dv; p += blockDim.x) {
+    float smax[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) smax[k] = kNeg;
+    for (int32_t e = lo; e < hi; ++e) {
+      if (mask[e]) {
+        float m[kVec];
+        R::load(msgs, e, dv, p, m);
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) smax[k] = fmaxf(smax[k], beta * m[k]);
+      }
+    }
+    float num[kVec];
+    float den[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      num[k] = 0.0f;
+      den[k] = 0.0f;
+    }
+    for (int32_t e = lo; e < hi; ++e) {
+      float m[kVec];
+      R::load(msgs, e, dv, p, m);
+      const bool live = mask[e] != 0;
+      float w[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        w[k] = live ? expf(beta * m[k] - smax[k]) : 0.0f;
+        num[k] += w[k] * m[k];
+        den[k] += w[k];
+      }
+      if (w_out != nullptr) R::store(w_out, e * dv + p, w);
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      den[k] = fmaxf(den[k], 1e-16f);
+      num[k] = num[k] / den[k];
+    }
+    R::store(out, n * dv + p, num);
+    if (den_out != nullptr) R::store(den_out, n * dv + p, den);
+  }
+}
+
 int threads_for(int64_t lanes) {
   int64_t t = ((lanes + 31) / 32) * 32;
   return static_cast<int>(t < 32 ? 32 : (t > 1024 ? 1024 : t));
@@ -274,4 +345,40 @@ extern "C" int segment_softmax_aggregate_bf16(const void* msgs,
   return launch_aggregate<__nv_bfloat16, 1>(msgs, mask, beta, rowptr, segmax,
                                             out, w_out, den_out, num_nodes, d,
                                             stream);
+}
+
+namespace {
+
+template <int kVec>
+int launch_fused(const void* msgs, const void* mask, const void* beta,
+                 const void* rowptr, void* out, void* w_out, void* den_out,
+                 int64_t num_nodes, int64_t d, void* stream) {
+  segment_softmax_fused_kernel<kVec>
+      <<<static_cast<unsigned>(num_nodes), threads_for(d / kVec), 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(msgs),
+          static_cast<const uint8_t*>(mask), static_cast<const float*>(beta),
+          static_cast<const int32_t*>(rowptr), static_cast<float*>(out),
+          static_cast<float*>(w_out), static_cast<float*>(den_out), d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// w_out and den_out are null in the eval variant; pairs of lanes as in
+// segment_softmax_aggregate_bf16 (out stands for segmax, which this launch
+// does not read: the outputs are the wrapper's own allocations).
+extern "C" int segment_softmax_fused_bf16(const void* msgs, const void* mask,
+                                          const void* beta,
+                                          const void* rowptr, void* out,
+                                          void* w_out, void* den_out,
+                                          int64_t num_nodes, int64_t d,
+                                          void* stream) {
+  if (num_nodes <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
+  if (pairs_ok(msgs, out, d)) {
+    return launch_fused<2>(msgs, mask, beta, rowptr, out, w_out, den_out,
+                           num_nodes, d, stream);
+  }
+  return launch_fused<1>(msgs, mask, beta, rowptr, out, w_out, den_out,
+                         num_nodes, d, stream);
 }

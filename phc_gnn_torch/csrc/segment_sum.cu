@@ -70,10 +70,110 @@
 //   With runs sized so that the grid holds several CTAs an SM (the plan),
 //   an SM has ~16 warps with their segments' rows in flight, ~50 KB at
 //   pcba's eval shape, while other CTAs stage.
+//
+// The bulk instance, bf16 rows (segment_sum_bulk_kernel; the plan's `bulk`
+// flag, its `stage` the rows a CTA stages): on bf16 rows a lane's 16 bytes
+// are 8 elements, so a row of 200 is 25 lanes' loads and the rows a warp
+// has in flight, kUnroll of its own segment's ~1.6, carry half the bytes
+// of f32 rows behind the same latency chain: the card cannot keep the
+// ~15 KB an SM that it needs in flight.
+// So the rows go to shared memory by the TMA's bulk copy, held by the copy
+// engine and not by registers, each warp on its own: no CTA-wide staging or
+// barrier stands between a warp and its rows.  A warp owns `run / kWarps`
+// segments of the run; its lanes read their bounds from rowptr, a prefix
+// sum places their rows in the warp's stage, and each segment's copies
+// complete on its own mbarrier (namespace bulk below):
+//   2 (masked): a segment's rows are one contiguous range; its lane copies
+//   them in one bulk copy as soon as it has the bounds, and the warp loads
+//   the segment's mask bytes, one a lane, into a ballot while the copy
+//   flies.  Masked rows inside the range are copied too (few: the padding
+//   tail lies outside every segment); the adds skip them.
+//   1 (perm): the warp loads a segment's perm entries, one a lane, then
+//   lane k issues the bulk copy of the segment's k-th gathered row (d * 2
+//   bytes) onto the segment's barrier.
+// Then the warp waits for each segment's barrier and sums from shared
+// memory in edge order, 8 elements a lane, as the instance above does; an
+// edge past the stage (or a mask bit past the 32nd) is read from device
+// memory.  Same sums, same order, same bits.
+// It runs where the rows are 16-byte aligned, d % 8 == 0 and a row fits
+// one column block (d <= 1024).  The plan takes it where it timed faster
+// than the instance above (tools/time_segment_sum.py --dtype bf16 times
+// both): the masked role on rows of 1 KB (pcba's width, 512), where the
+// mask's load leaves the chain; either role from runs of 16 segments
+// (16,384 nodes: pcba's eval batch, and the gather backward of a train
+// step on pcba's 16k bucket).  In the perm role at runs of 8 (4,096-node
+// batches, at widths 200 and 512) and in the halo role the copy's longer
+// latency costs more than it saves.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Hopper's 1-D bulk copy from global to shared memory, completed on an
+// mbarrier (sm_90a), for the bulk instance.  A barrier is used for one
+// phase: a thread initialises it for one arrival (init), announces the
+// bytes the phase waits for and arrives (arrive_expect), before any copy
+// is issued; then threads issue copies (copy), each completing its bytes
+// on the barrier, and every thread that reads the rows waits for phase 0
+// (wait).  A copy's size is a multiple of 16 bytes and both of its
+// addresses are 16-byte aligned; the bytes of a phase stay under the
+// barrier's transaction count, 2^20 - 1.
+namespace bulk {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(arrivals)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void copy(void* dst, const void* src,
+                                     uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Raise a kernel's dynamic shared memory limit to `bytes`: a launch above
+// 48 KB needs the opt-in.  The launcher calls it once per kernel instance
+// (a function-local static) and returns its error.
+inline cudaError_t opt_in(const void* kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace bulk
 
 namespace {
 
@@ -82,6 +182,14 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 4;                // edges whose rows are in flight
 constexpr int kMaxRun = 64;               // segments a CTA
 constexpr int kMaxSmem = 48 * 1024;       // without an opt-in
+constexpr int kMaxPer = kMaxRun / kWarps;  // segments a warp, at most
+constexpr int kMaxBulkSmem = 200 * 1024;  // the bulk instance's opt-in
+
+// The bulk instance's mbarriers, one a segment of a run, padded to 16
+// bytes.
+__host__ __device__ constexpr int64_t bar_bytes(int64_t run) {
+  return (8 * run + 15) / 16 * 16;
+}
 
 // kVec elements of T a lane loads at once (Raw), added into kVec f32
 // accumulators.
@@ -241,16 +349,185 @@ segment_sum_kernel(const T* __restrict__ g,
   }
 }
 
+// The bulk instance (see the note at the top).  Shared memory: an mbarrier
+// for each segment of the run (8 bytes each, padded to 16), then one stage
+// a warp of `stage / kWarps` rows of d bf16.  Warp w owns the run's
+// segments w, w + kWarps, ... (`per` of them); lane j of the warp reads
+// the bounds of its j-th segment, and a prefix sum over the lanes places
+// each segment's rows in the warp's stage, in order, until the stage is
+// full; a segment's rows past it are read from device memory.
+template <bool kPerm, int kChunks>
+__global__ void __launch_bounds__(kThreads)
+segment_sum_bulk_kernel(const __nv_bfloat16* __restrict__ g,
+                        const int32_t* __restrict__ perm,
+                        const uint8_t* __restrict__ mask,
+                        const int32_t* __restrict__ rowptr,
+                        float* __restrict__ out, int64_t n, int64_t d,
+                        int run, int stage) {
+  using L = Lanes<__nv_bfloat16, 8>;
+  using V = typename L::Raw;
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int per = run / kWarps;  // segments a warp
+  const int cap = stage / kWarps;  // rows a warp stages, at most 32
+  const int64_t row_bytes = d * 2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem) + warp * per;
+  unsigned char* rows = smem + bar_bytes(run) +
+                        static_cast<int64_t>(warp) * cap * row_bytes;
+  // the warp's first segment; its j-th is s0 + j * kWarps
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * run + warp;
+
+  // lane j < per: its segment's edges and its rows' place in the stage
+  const int64_t sj = s0 + static_cast<int64_t>(lane) * kWarps;
+  const bool mine = lane < per && sj < n;
+  int32_t lo = 0;
+  int cnt = 0;
+  if (mine) {
+    lo = rowptr[sj];
+    cnt = rowptr[sj + 1] - lo;
+  }
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < kMaxPer; o <<= 1) {
+    const int v = __shfl_up_sync(kAll, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int off = incl - cnt;
+  const int room = cap - off;
+  const int held = room <= 0 ? 0 : (cnt < room ? cnt : room);
+  if (mine) {
+    bulk::init(&bars[lane], 1);
+    bulk::arrive_expect(&bars[lane], static_cast<uint32_t>(held * row_bytes));
+    if constexpr (!kPerm) {
+      if (held > 0) {
+        bulk::copy(rows + off * row_bytes, g + static_cast<int64_t>(lo) * d,
+                   static_cast<uint32_t>(held * row_bytes), &bars[lane]);
+      }
+    }
+  }
+  // each segment's first 32 entries, one a lane: its perm entries (1), or
+  // its mask bits, which lane j keeps for its segment j (2)
+  int32_t ent[kMaxPer];
+  uint32_t my_bits = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxPer; ++j) {
+    const int32_t lo_j = __shfl_sync(kAll, lo, j);
+    const int cnt_j = __shfl_sync(kAll, cnt, j);
+    ent[j] = 0;
+    if (j < per) {
+      if constexpr (kPerm) {
+        if (lane < cnt_j) ent[j] = perm[lo_j + lane];
+      } else {
+        const uint32_t b =
+            __ballot_sync(kAll, lane < cnt_j && mask[lo_j + lane] != 0);
+        if (lane == j) my_bits = b;
+      }
+    }
+  }
+  __syncwarp();
+  if constexpr (kPerm) {
+    // one bulk copy a gathered row, lane k the segment's k-th
+#pragma unroll
+    for (int j = 0; j < kMaxPer; ++j) {
+      const int off_j = __shfl_sync(kAll, off, j);
+      const int held_j = __shfl_sync(kAll, held, j);
+      if (j < per && lane < held_j) {
+        bulk::copy(rows + (off_j + lane) * row_bytes,
+                   g + static_cast<int64_t>(ent[j]) * d,
+                   static_cast<uint32_t>(row_bytes), &bars[j]);
+      }
+    }
+  }
+
+  const int64_t dv = d / 8;  // 16-byte vectors a row
+  const V* __restrict__ gv = reinterpret_cast<const V*>(g);
+  const V* sv = reinterpret_cast<const V*>(rows);
+  bool col_live[kChunks];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) col_live[c] = lane + c * 32 < dv;
+
+  for (int j = 0; j < per; ++j) {
+    const int64_t s = s0 + static_cast<int64_t>(j) * kWarps;
+    if (s >= n) break;
+    const int32_t lo_j = __shfl_sync(kAll, lo, j);
+    const int cnt_j = __shfl_sync(kAll, cnt, j);
+    const int off_j = __shfl_sync(kAll, off, j);
+    const int held_j = __shfl_sync(kAll, held, j);
+    const uint32_t bits_j = __shfl_sync(kAll, my_bits, j);
+    bulk::wait(&bars[j], 0);
+    float acc[kChunks][8];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[c][k] = 0.0f;
+    }
+    for (int k0 = 0; k0 < cnt_j; k0 += kUnroll) {
+      bool live[kUnroll];
+      bool in_stage[kUnroll];
+      int64_t row[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + u;  // the edge's place in its segment
+        const int64_t e = static_cast<int64_t>(lo_j) + k;
+        live[u] = k < cnt_j;
+        in_stage[u] = k < held_j;
+        row[u] = in_stage[u] ? off_j + k : e;
+        if (live[u]) {
+          if constexpr (kPerm) {
+            if (!in_stage[u]) row[u] = perm[e];
+          } else {
+            live[u] = (k < 32 ? (bits_j >> k) & 1u : mask[e] != 0) != 0;
+          }
+        }
+      }
+      V v[kUnroll][kChunks];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          const int64_t at = row[u] * dv + lane + c * 32;
+          v[u][c] = live[u] && col_live[c] ? (in_stage[u] ? sv[at] : gv[at])
+                                           : L::zero();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          if (live[u]) L::add(acc[c], v[u][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (col_live[c]) store<8>(out + (s * dv + lane + c * 32) * 8, acc[c]);
+    }
+  }
+}
+
 // The plan of segment_sum_plan, checked: 16-byte lanes (kWide elements of
 // the rows' type) only where d % kWide == 0 and g and out are 16-byte
 // aligned, else one element a lane; the fewest chunks a lane that cover a
 // row (more than one column block only at 4 chunks), column blocks that
 // cover d, runs of whole warps that cover n, and the shared memory of its
-// rowptr slice and staged entries.
+// rowptr slice and staged entries.  The bulk instance (bulk != 0): bf16
+// rows 16-byte aligned with d % 8 == 0 in one column block, `stage` staged
+// rows a CTA, a whole number a warp and at most 32 of them, and the shared
+// memory of the barriers and the rows under the opt-in.
 bool plan_ok(const void* g, const void* out, int64_t n, int64_t d,
              bool perm, int64_t wide, int64_t vec, int64_t chunks,
              int64_t col_blocks, int64_t run, int64_t stage, int64_t smem,
-             int64_t grid) {
+             int64_t grid, int64_t bulk) {
+  if (bulk != 0) {
+    return wide == 8 && vec == 8 && stage > 0 && stage % kWarps == 0 &&
+           stage / kWarps <= 32 && col_blocks == 1 &&
+           chunks * 32 * vec >= d &&
+           smem == bar_bytes(run) + stage * d * 2 && smem <= kMaxBulkSmem &&
+           plan_ok(g, out, n, d, perm, wide, vec, chunks, col_blocks, run,
+                   0, 4 * (run + 1), grid, 0);
+  }
   if (vec == wide) {
     if (d % wide != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(out) % 16 != 0) {
@@ -284,15 +561,33 @@ cudaError_t launch_instance(const T* g, const int32_t* perm,
   return cudaGetLastError();
 }
 
+template <bool kPerm, int kChunks>
+cudaError_t launch_bulk(const __nv_bfloat16* g, const int32_t* perm,
+                        const uint8_t* mask, const int32_t* rowptr,
+                        float* out, int64_t n, int64_t d, int64_t run,
+                        int64_t stage, int64_t smem, int64_t grid,
+                        void* stream) {
+  static const cudaError_t opted = bulk::opt_in(
+      reinterpret_cast<const void*>(&segment_sum_bulk_kernel<kPerm, kChunks>),
+      kMaxBulkSmem);
+  if (opted != cudaSuccess) return opted;
+  segment_sum_bulk_kernel<kPerm, kChunks>
+      <<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem),
+         static_cast<cudaStream_t>(stream)>>>(g, perm, mask, rowptr, out, n,
+                                              d, static_cast<int>(run),
+                                              static_cast<int>(stage));
+  return cudaGetLastError();
+}
+
 template <typename T, bool kPerm>
 int launch(const void* g, const void* perm, const void* mask,
            const void* rowptr, void* out, int64_t n, int64_t d, int64_t vec,
            int64_t chunks, int64_t col_blocks, int64_t run, int64_t stage,
-           int64_t smem, int64_t grid, void* stream) {
+           int64_t smem, int64_t grid, int64_t bulk, void* stream) {
   constexpr int kWide = 16 / sizeof(T);  // elements in 16 bytes
   if (n == 0 || d == 0) return static_cast<int>(cudaSuccess);
   if (!plan_ok(g, out, n, d, kPerm, kWide, vec, chunks, col_blocks, run,
-               stage, smem, grid)) {
+               stage, smem, grid, bulk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const T* gt = static_cast<const T*>(g);
@@ -300,6 +595,20 @@ int launch(const void* g, const void* perm, const void* mask,
   const uint8_t* mb = static_cast<const uint8_t*>(mask);
   const int32_t* rp = static_cast<const int32_t*>(rowptr);
   float* of = static_cast<float*>(out);
+  if constexpr (kWide == 8) {
+    if (bulk != 0) {
+#define SEGMENT_SUM_BULK_CASE(C)                                             \
+  if (chunks == C) {                                                         \
+    return static_cast<int>(launch_bulk<kPerm, C>(                           \
+        gt, pi, mb, rp, of, n, d, run, stage, smem, grid, stream));          \
+  }
+      SEGMENT_SUM_BULK_CASE(1)
+      SEGMENT_SUM_BULK_CASE(2)
+      SEGMENT_SUM_BULK_CASE(4)
+#undef SEGMENT_SUM_BULK_CASE
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
 #define SEGMENT_SUM_CASE(V, C)                                               \
   if (vec == V && chunks == C) {                                             \
     return static_cast<int>(launch_instance<T, kPerm, V, C>(                 \
@@ -318,19 +627,19 @@ int launch(const void* g, const void* perm, const void* mask,
 
 }  // namespace
 
-// The plan arguments (vec, chunks, col_blocks, run, stage, smem, grid) are
-// those of ops/segment_sum.py::segment_sum_plan; a plan this file cannot run
-// returns cudaErrorInvalidValue and launches nothing.
+// The plan arguments (vec, chunks, col_blocks, run, stage, smem, grid,
+// bulk) are those of ops/segment_sum.py::segment_sum_plan; a plan this file
+// cannot run returns cudaErrorInvalidValue and launches nothing.
 #define SEGMENT_SUM_ENTRY(NAME, T, PERM)                                      \
   extern "C" int NAME(const void* g, const void* index, const void* rowptr,   \
                       void* out, int64_t num_segments, int64_t d,             \
                       int64_t vec, int64_t chunks, int64_t col_blocks,        \
                       int64_t run, int64_t stage, int64_t smem, int64_t grid, \
-                      void* stream) {                                         \
+                      int64_t bulk, void* stream) {                           \
     return launch<T, PERM>(g, PERM ? index : nullptr,                         \
                            PERM ? nullptr : index, rowptr, out, num_segments, \
                            d, vec, chunks, col_blocks, run, stage, smem,      \
-                           grid, stream);                                     \
+                           grid, bulk, stream);                               \
   }
 SEGMENT_SUM_ENTRY(segment_sum_perm_f32, float, true)
 SEGMENT_SUM_ENTRY(segment_sum_masked_f32, float, false)

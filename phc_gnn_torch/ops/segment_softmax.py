@@ -13,7 +13,15 @@ PyTorch version over the same CSR and mask semantics:
   ``w = mask * exp(beta * m - segmax)``; its training variant also writes
   the per-edge ``w`` and the per-node ``den`` that the backward reads.
 
-``segment_softmax`` runs the two in sequence.  Where a gradient is wanted it
+- ``segment_softmax_fused`` runs A's function and then B's in one launch
+  on bf16 messages (``segment_softmax_fused_bf16``), with or without ``w``
+  and ``den``: ``segmax`` never reaches device memory, and each row is
+  read from it once.  A block a receiver segment runs A's loop then B's
+  over the segment's rows (the second reads them from L1).  Its plain
+  version is A's then B's.
+
+``segment_softmax`` runs the two in sequence on float32 messages, the
+fused kernel on bf16 ones.  Where a gradient is wanted it
 goes through an ``autograd.Function`` whose backward is the closed form of
 ``_softmax_agg_streamed_bwd`` (stream_scan.py:794-815) in plain torch ops, as
 JAX leaves it to XLA: one gather of ``[den, g, out * g]`` at the receivers,
@@ -39,7 +47,7 @@ Both kernels are bound by the bytes they move (see the source's note).  A
 wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
 launches its kernel or raises; it never falls back.  ``<wrapper>.launches``
 counts the launches of the float32 instance, ``<wrapper>.launches_bf16``
-those of the bf16 one.
+those of the bf16 one (the fused kernel has a bf16 instance alone).
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ __all__ = [
     "segment_logit_max_plain",
     "segment_softmax_aggregate",
     "segment_softmax_aggregate_plain",
+    "segment_softmax_fused",
     "segment_softmax",
 ]
 
@@ -78,6 +87,8 @@ def _lib():
             fn = getattr(lib, f"segment_softmax_aggregate_{t}")
             fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P]
             fn.restype = ctypes.c_int
+        lib.segment_softmax_fused_bf16.argtypes = [_P] * 7 + [_I64] * 2 + [_P]
+        lib.segment_softmax_fused_bf16.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
 
@@ -206,12 +217,54 @@ segment_softmax_aggregate.launches = 0
 segment_softmax_aggregate.launches_bf16 = 0
 
 
+def segment_softmax_fused(msgs, mask, beta, rowptr, emit_w: bool = False):
+    """``segment_softmax_aggregate`` of ``segment_logit_max`` on bf16
+    messages in one launch (on the CPU their plain versions in sequence):
+    ``out``, or with ``emit_w`` the triple ``(out, w, den)``, all float32
+    (``w`` zeroed, so that edges past ``rowptr[-1]`` hold 0), bit-equal to
+    the two kernels in sequence."""
+    if msgs.device.type == "cpu":
+        segmax = segment_logit_max_plain(msgs, mask, beta, rowptr)
+        return segment_softmax_aggregate_plain(msgs, mask, beta, rowptr,
+                                               segmax, emit_w)
+    _check(msgs, mask, beta, rowptr)
+    if msgs.dtype != torch.bfloat16:
+        raise TypeError("the fused softmax kernel reads bfloat16 messages; "
+                        "float32 ones run segment_logit_max, then "
+                        "segment_softmax_aggregate")
+    n, (e, d) = rowptr.shape[0] - 1, msgs.shape
+    out = torch.empty((n, d), dtype=torch.float32, device=msgs.device)
+    w = den = None
+    if emit_w:
+        w = torch.zeros((e, d), dtype=torch.float32, device=msgs.device)
+        den = torch.empty_like(out)
+    err = _lib().segment_softmax_fused_bf16(
+        msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
+        out.data_ptr(), w.data_ptr() if emit_w else None,
+        den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
+    _build.check_launch("segment_softmax_fused", err)
+    count_launch(segment_softmax_fused, msgs)
+    return (out, w, den) if emit_w else out
+
+
+segment_softmax_fused.launches = 0
+segment_softmax_fused.launches_bf16 = 0
+
+
+def _forward(msgs, mask, beta, rowptr, emit_w: bool = False):
+    """The softmax aggregation's kernels: the fused one on bf16 messages,
+    A then B on float32 ones."""
+    if msgs.dtype == torch.bfloat16:
+        return segment_softmax_fused(msgs, mask, beta, rowptr, emit_w)
+    segmax = segment_logit_max(msgs, mask, beta, rowptr)
+    return segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax,
+                                     emit_w)
+
+
 class _SegmentSoftmax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, mask, beta, rowptr, receivers):
-        segmax = segment_logit_max(msgs, mask, beta, rowptr)
-        out, w, den = segment_softmax_aggregate(msgs, mask, beta, rowptr,
-                                                segmax, emit_w=True)
+        out, w, den = _forward(msgs, mask, beta, rowptr, emit_w=True)
         ctx.save_for_backward(msgs, beta, w, den, out, receivers)
         return out
 
@@ -235,7 +288,8 @@ class _SegmentSoftmax(torch.autograd.Function):
 
 def segment_softmax(msgs, mask, beta, rowptr, receivers=None):
     """Softmax aggregation ``sum_e softmax(beta * m)_e * m_e`` per node, per
-    lane: the two kernels in sequence (their plain versions on the CPU).
+    lane: the two kernels in sequence on float32 messages, the fused kernel
+    on bf16 ones (their plain versions on the CPU).
     Differentiable in ``msgs`` and ``beta``; the backward gathers at
     ``receivers`` [E], which a gradient needs."""
     if torch.is_grad_enabled() and (msgs.requires_grad or beta.requires_grad):
@@ -243,5 +297,4 @@ def segment_softmax(msgs, mask, beta, rowptr, receivers=None):
             raise ValueError("the softmax backward gathers at the receivers: "
                              "pass receivers")
         return _SegmentSoftmax.apply(msgs, mask, beta, rowptr, receivers)
-    segmax = segment_logit_max(msgs, mask, beta, rowptr)
-    return segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax)
+    return _forward(msgs, mask, beta, rowptr)

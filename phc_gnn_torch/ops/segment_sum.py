@@ -47,7 +47,20 @@ would cost a host sync per launch); ``graph.attach_csr_plan`` builds both.
 ``segment_sum_plan`` computes the launch (``csrc/segment_sum.cu`` checks
 it): a warp a segment, a CTA a run of consecutive segments whose CSR slice
 and mask bytes or perm entries it stages in shared memory, 16-byte lanes
-(4 float32 or 8 bf16 elements) where the rows allow them.
+(4 float32 or 8 bf16 elements) where the rows allow them.  On bf16 rows
+16-byte aligned with ``d % 8 == 0`` and ``d <= 1024`` it has a bulk
+instance: each warp's segments' first rows (``stage`` a CTA) come into
+shared memory by the TMA's bulk copy, one copy of a segment's contiguous
+range (masked role) or one a gathered row (perm role), before the warp
+sums them.  The plan takes it where it timed faster than the instance
+without it: in the masked role on rows of ``SEG_BULK_MIN_ROW_BYTES`` or
+more (pcba's sum aggregation, train and eval), and in either role where
+the runs reach ``SEG_BULK_MIN_RUN`` segments (16,384 segments: pcba's
+eval batch, and the gather backward of a train step on pcba's 16k
+bucket); not in the perm role at runs of 8 (the flagship's and pcba's
+4,096-node batches), nor in the halo role.  ``segment_sum_instance``
+launches either instance, uncounted, for the checks and the timing
+tools.
 
 The rows may be float32 or bfloat16 (the model's ``compute_dtype``): a
 bf16 launch converts each row at its load and sums in float32, as JAX's
@@ -60,7 +73,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,7 +81,8 @@ from phc_gnn_torch.ops import _build
 
 __all__ = ["SegSumPlan", "segment_sum_plan", "segment_sum_perm",
            "segment_sum_perm_plain", "segment_sum_masked",
-           "segment_sum_masked_plain", "gather_nodes", "halo_gather_split",
+           "segment_sum_masked_plain", "segment_sum_instance",
+           "gather_nodes", "halo_gather_split",
            "halo_gather_split_bwd", "halo_gather_split_bwd_plain",
            "segment_sum_aggregate",
            "segment_ids", "check_masked_csr", "count_launch", "ROW_DTYPES",
@@ -82,6 +96,17 @@ SEG_STAGE_PER_SEG = 16      # staged mask bytes or perm entries a segment
 SEG_MAX_SMEM = 48 * 1024    # dynamic shared memory without an opt-in
 SEG_MIN_CTAS = 4 * _build.SMS  # runs grow only while the grid keeps 4 CTAs
                                # an SM
+SEG_BULK_ROWS_PER_SEG = 4   # rows the bulk instance stages a segment of a run
+SEG_BULK_MAX_WARP_ROWS = 32  # ... a warp at most (a lane a gathered row)
+SEG_BULK_MIN_RUN = 16       # runs from which the plan takes it
+SEG_BULK_MIN_ROW_BYTES = 1024  # ... and rows, in the masked role
+SEG_MAX_BULK_SMEM = 200 * 1024  # the dynamic shared memory it opts in to
+
+
+def seg_bulk_bar_bytes(run: int) -> int:
+    """The bulk instance's mbarriers, one a segment of a run, padded to 16
+    bytes (``bar_bytes``)."""
+    return -(-8 * run // 16) * 16
 
 
 class SegSumPlan(NamedTuple):
@@ -91,7 +116,10 @@ class SegSumPlan(NamedTuple):
     vec``; a lane holds ``chunks`` accumulators of ``vec`` elements (16
     bytes of them loaded at once where ``vec`` > 1); ``stage`` mask bytes or
     perm entries of the run's edges sit in ``smem_bytes`` of shared memory
-    beside its ``run + 1`` row pointers."""
+    beside its ``run + 1`` row pointers.  ``bulk``, the bulk instance:
+    ``stage`` rows a CTA, ``stage / SEG_WARPS`` a warp for its segments,
+    sit there after the segments' mbarriers (``seg_bulk_bar_bytes``); the
+    entries stay in registers."""
     vec: int
     chunks: int
     col_blocks: int
@@ -99,11 +127,13 @@ class SegSumPlan(NamedTuple):
     stage: int
     smem_bytes: int
     grid: int
+    bulk: bool = False
 
 
 @functools.lru_cache(maxsize=256)
 def segment_sum_plan(n: int, e: int, d: int, perm: bool,
-                     aligned: bool = True, elem_bytes: int = 4) -> SegSumPlan:
+                     aligned: bool = True, elem_bytes: int = 4,
+                     bulk: Optional[bool] = None) -> SegSumPlan:
     """The launch plan of C over ``n`` segments of ``e`` edges of ``d``
     elements of ``elem_bytes`` bytes (4: float32, 2: bf16), in the perm role
     (``perm``) or the masked one: 16-byte lanes of ``16 // elem_bytes``
@@ -113,7 +143,13 @@ def segment_sum_plan(n: int, e: int, d: int, perm: bool,
     4; runs of ``SEG_WARPS`` * 2^k segments, the longest up to
     ``SEG_MAX_RUN`` whose grid keeps ``SEG_MIN_CTAS`` CTAs; and up to
     ``SEG_STAGE_PER_SEG`` staged entries a segment of the run, no more than
-    ``e``."""
+    ``e``.  bf16 rows with 16-byte lanes in one column block take the bulk
+    instance where ``bulk`` is True, or by default (``bulk=None``) where
+    the run reaches ``SEG_BULK_MIN_RUN`` or, in the masked role, a row
+    ``SEG_BULK_MIN_ROW_BYTES``: ``SEG_BULK_ROWS_PER_SEG`` rows a segment
+    of the run, no more than ``SEG_BULK_MAX_WARP_ROWS`` a warp nor than
+    fit ``SEG_MAX_BULK_SMEM``; ``bulk=False`` keeps the instance without
+    it."""
     wide = 16 // elem_bytes
     vec = wide if aligned and d % wide == 0 else 1
     vectors = -(-d // vec)
@@ -123,9 +159,23 @@ def segment_sum_plan(n: int, e: int, d: int, perm: bool,
     while (2 * run <= SEG_MAX_RUN
            and -(-n // (2 * run)) * col_blocks >= SEG_MIN_CTAS):
         run *= 2
+    entry = 4 if perm else 1
+    grid = -(-n // run)
+    if bulk is None:
+        bulk = run >= SEG_BULK_MIN_RUN or (
+            not perm and d * elem_bytes >= SEG_BULK_MIN_ROW_BYTES)
+    if bulk and elem_bytes == 2 and vec == wide and col_blocks == 1:
+        bars = seg_bulk_bar_bytes(run)
+        per_warp = min(run // SEG_WARPS * SEG_BULK_ROWS_PER_SEG,
+                       SEG_BULK_MAX_WARP_ROWS,
+                       (SEG_MAX_BULK_SMEM - bars) // (SEG_WARPS * 2 * d))
+        if per_warp > 0:
+            rows = SEG_WARPS * per_warp
+            return SegSumPlan(vec, chunks, col_blocks, run, rows,
+                              bars + rows * 2 * d, grid, True)
     stage = min(e, run * SEG_STAGE_PER_SEG)
-    smem = 4 * (run + 1) + stage * (4 if perm else 1)
-    return SegSumPlan(vec, chunks, col_blocks, run, stage, smem, -(-n // run))
+    return SegSumPlan(vec, chunks, col_blocks, run, stage,
+                      4 * (run + 1) + stage * entry, grid)
 
 
 _P = ctypes.c_void_p
@@ -139,7 +189,7 @@ def _lib():
         lib = _build.load("segment_sum")
         for fn in (lib.segment_sum_perm_f32, lib.segment_sum_masked_f32,
                    lib.segment_sum_perm_bf16, lib.segment_sum_masked_bf16):
-            fn.argtypes = [_P] * 4 + [_I64] * 9 + [_P]
+            fn.argtypes = [_P] * 4 + [_I64] * 10 + [_P]
             fn.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
@@ -219,21 +269,37 @@ def check_masked_csr(name, msgs, mask, rowptr, dtypes=ROW_DTYPES):
                          f"{msgs.shape[0]} rows of msgs")
 
 
-def _launch(role, values, index, rowptr, perm: bool):
+def _launch(role, values, index, rowptr, bulk: Optional[bool] = None):
     """Launch C's entry point ``segment_sum_<role>_<f32|bf16>`` on its
     checked inputs into a new float32 [N, D] output, on
     ``segment_sum_plan``; the instance follows ``values``' dtype, width and
-    alignment."""
+    alignment, and ``bulk``."""
     n, (e, d) = rowptr.shape[0] - 1, values.shape
     bf16 = values.dtype == torch.bfloat16
     fn = getattr(_lib(), f"segment_sum_{role}_{'bf16' if bf16 else 'f32'}")
     out = torch.empty((n, d), dtype=torch.float32, device=values.device)
-    plan = segment_sum_plan(n, e, d, perm, values.data_ptr() % 16 == 0,
-                            values.element_size())
+    plan = segment_sum_plan(n, e, d, role == "perm",
+                            values.data_ptr() % 16 == 0,
+                            values.element_size(), bulk)
     _build.check_launch(fn.__name__, fn(
         values.data_ptr(), index.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
         n, d, *plan, _build.stream(values.device)))
     return out
+
+
+def segment_sum_instance(role: str, values, index, rowptr,
+                         bulk: Optional[bool] = None):
+    """C in ``role`` ("perm": ``index`` is perm; "masked": the mask) on a
+    CUDA tensor, on the instance ``bulk`` asks for (True: the bulk instance
+    where the rows allow it; False: the instance without it; None: the
+    plan's choice), counted on no wrapper: the checks and the timing tools
+    hold and time the two instances with it."""
+    if role == "perm":
+        _check("segment_sum_perm", values, ("perm", index, torch.int32),
+               rowptr)
+    else:
+        check_masked_csr("segment_sum_masked", values, index, rowptr)
+    return _launch(role, values, index, rowptr, bulk)
 
 
 def count_launch(wrapper, values) -> None:
@@ -251,7 +317,7 @@ def _perm_sum(wrapper, values, perm, rowptr):
     if values.device.type == "cpu":
         return segment_sum_perm_plain(values, perm, rowptr)
     _check(wrapper.__name__, values, ("perm", perm, torch.int32), rowptr)
-    out = _launch("perm", values, perm, rowptr, True)
+    out = _launch("perm", values, perm, rowptr)
     count_launch(wrapper, values)
     return out
 
@@ -272,7 +338,7 @@ def segment_sum_masked(msgs, mask, rowptr):
     if msgs.device.type == "cpu":
         return segment_sum_masked_plain(msgs, mask, rowptr)
     check_masked_csr("segment_sum_masked", msgs, mask, rowptr)
-    out = _launch("masked", msgs, mask, rowptr, False)
+    out = _launch("masked", msgs, mask, rowptr)
     count_launch(segment_sum_masked, msgs)
     return out
 

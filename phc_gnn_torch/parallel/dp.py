@@ -26,7 +26,7 @@ With dp = 1 the gradients are averaged over the ep shards and the stats,
 the whole batch's already, stay as they are (halo.py:351-370).
 
 As JAX's, the dp steps keep ``grad_accum`` single-device: the Trainer
-ignores it under dp and ep (ROADMAP.md, item 14).
+ignores it under dp and ep.
 """
 
 from __future__ import annotations

@@ -222,7 +222,7 @@ class Trainer:
             raise NotImplementedError(
                 "agg_kernel='xla' has no counterpart in the port: its "
                 "aggregations run the CUDA kernels over the CSR plans "
-                "(ROADMAP.md, section 1, item 14)")
+                "(ROADMAP.md, section 1, item 15 (a))")
         self.ep_scheme = str(getattr(cfg, "ep_scheme", "halo") or "halo")
         if self.ep > 1 and self.ep_scheme != "halo":
             raise NotImplementedError(

@@ -702,6 +702,110 @@ def test_bf16_instances_match_the_f32_instances(dev, case):
         m.double(), k, rp)) <= 1e-5
 
 
+def _off_by_one(t):
+    """A contiguous copy of ``t`` one element past its allocation's base:
+    bf16 rows 2 bytes off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case", ["flagship", "adversarial", "d37",
+                                  "unaligned"])
+def test_fused_softmax_is_the_pair_bit_for_bit(dev, case):
+    """The fused kernel on bf16 messages: ``out``, ``w`` and ``den`` of its
+    training variant and ``out`` of its eval variant bit-equal to A bf16
+    then B bf16 and to float32 A then B fed the upcast rows; the softmax
+    aggregation on bf16 messages launches it once, counted on
+    ``segment_softmax_fused.launches_bf16``, and neither A nor B."""
+    m, k, b, rp = (_flagship_case(dev, 1.37) if case != "adversarial"
+                   else _adversarial_case(dev))
+    if case == "d37":
+        m = m[:, :37].contiguous()
+    m = m.to(torch.bfloat16)
+    if case == "unaligned":
+        m = _off_by_one(m)
+    smax = ss.segment_logit_max(m, k, b, rp)
+    pair = ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True)
+    pair_nw = ss.segment_softmax_aggregate(m, k, b, rp, smax)
+    up = m.float()
+    f32 = ss.segment_softmax_aggregate(
+        up, k, b, rp, ss.segment_logit_max(up, k, b, rp), emit_w=True)
+    got = ss.segment_softmax_fused(m, k, b, rp, emit_w=True)
+    got_nw = ss.segment_softmax_fused(m, k, b, rp)
+    torch.cuda.synchronize()
+    for g, p, f in zip(got, pair, f32):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, p) and torch.equal(g, f)
+    assert torch.equal(got_nw, pair_nw)
+    counters = (ss.segment_logit_max, ss.segment_softmax_aggregate,
+                ss.segment_softmax_fused)
+    before = [(w.launches, w.launches_bf16) for w in counters]
+    out = ss.segment_softmax(m, k, b, rp)
+    torch.cuda.synchronize()
+    after = [(w.launches, w.launches_bf16) for w in counters]
+    assert after == before[:2] + [(before[2][0], before[2][1] + 1)]
+    assert torch.equal(out, pair_nw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ss.segment_softmax_fused(up, k, b, rp)
+
+
+@pytest.mark.parametrize("role", ["masked", "perm"])
+@pytest.mark.parametrize("width", [200, 512, 768, "senders"])
+def test_segment_sum_bulk_instance_is_the_sequential_sum(dev, role, width):
+    """C's bulk instance on bf16 rows (rows staged by the TMA's bulk copy)
+    at widths 200, 512 and 768 over the adversarial nodes (node 7's 1,100
+    edges past its stage), and on the adversarial senders of
+    ``chip_smoke.py`` (perm role; the masked role there reads the same
+    receivers at 200): bit-equal to the plain version run in float32 on the
+    CPU, a sequential sum in edge order, to a second launch, to the
+    instance without the bulk copy and to the float32 instance fed the
+    upcast rows; by default the plan takes it here (runs of 8) only in the
+    masked role on rows of 1 KB or more."""
+    msgs, mask, _, rowptr = _adversarial_case(dev)
+    d = 200 if width == "senders" else width
+    gen = torch.Generator().manual_seed(d + 1)
+    values = (torch.rand((msgs.shape[0], d), generator=gen) * 64 - 32).to(dev)
+    index = mask
+    if role == "perm":
+        rng = np.random.default_rng(d + 1)
+        counts = np.diff(rowptr.cpu().numpy())
+        if width == "senders":
+            counts = rng.integers(1, 6, size=64)
+            counts[3], counts[7] = 0, 1100
+        senders = rng.permutation(np.repeat(np.arange(counts.shape[0]),
+                                            counts))
+        e_mask = rng.random(senders.shape[0]) > 0.2
+        senders = np.concatenate([senders, np.full(40, counts.shape[0] - 1)])
+        e_mask = np.concatenate([e_mask, np.zeros(40, bool)])
+        index, rowptr = (torch.from_numpy(a).to(dev) for a in build_sender_csr(
+            senders.astype(np.int32), counts.shape[0], e_mask))
+        values = (torch.rand((senders.shape[0], d), generator=gen) * 64
+                  - 32).to(dev)
+    values = values.to(torch.bfloat16)
+    n, e = rowptr.shape[0] - 1, values.shape[0]
+    plan = ssum.segment_sum_plan(n, e, d, role == "perm", True, 2, True)
+    assert plan.bulk and plan.stage < 1100
+    assert ssum.segment_sum_plan(n, e, d, role == "perm", True,
+                                 2).bulk == (role == "masked" and d >= 512)
+    fn = ssum.segment_sum_perm if role == "perm" else ssum.segment_sum_masked
+    plain = (ssum.segment_sum_perm_plain if role == "perm"
+             else ssum.segment_sum_masked_plain)
+    counts = (fn.launches, fn.launches_bf16)
+    out = ssum.segment_sum_instance(role, values, index, rowptr, True)
+    again = ssum.segment_sum_instance(role, values, index, rowptr, True)
+    nobulk = ssum.segment_sum_instance(role, values, index, rowptr, False)
+    f32 = fn(values.float(), index, rowptr)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (counts[0] + 1, counts[1])
+    assert torch.equal(out, again) and torch.equal(out, nobulk)
+    assert torch.equal(out, f32)
+    assert torch.equal(out.cpu(), plain(values.cpu(), index.cpu(),
+                                        rowptr.cpu()))
+    assert torch.all(out[3] == 0)
+
+
 def test_wrappers_take_only_f32_or_bf16(dev):
     """float16 rows are refused by A, B and C, and H and I take float32
     alone (the aggregations upcast bf16 messages before them)."""

@@ -8,9 +8,16 @@ warps, shared memory under the 48 KB a CTA gets without an opt-in, the
 16-byte instance (4 float32 or 8 bf16 elements a lane) only where the
 width and the rows' alignment allow it, and a grid of several CTAs an SM
 at the main paths' shapes, for float32 rows and for bf16 rows (the
-model's ``compute_dtype``).  ``_walk`` follows
-the kernel's walk on a plan in float32 -- a CTA's run of segments, its
-staged mask bytes or perm entries (an edge past them read from the arrays
+model's ``compute_dtype``).  The bulk instance on bf16 rows (its rows
+staged by the TMA's bulk copy) appears only where ``d * 2 % 16 == 0``, the
+rows are 16-byte aligned and a row fits one column block, and by default
+only where the runs reach ``SEG_BULK_MIN_RUN`` or, in the masked role,
+the rows ``SEG_BULK_MIN_ROW_BYTES``; its stage of rows fits the shared
+memory it opts in to, and ``_walk_bulk`` follows its walk (a warp's
+segments' rows staged in order until the warp's stage is full, the rest
+read from the arrays) bit for bit to the sequential sum.  ``_walk``
+follows the kernel's walk on a plan in float32 -- a CTA's run of
+segments, its staged mask bytes or perm entries (an edge past them read from the arrays
 themselves), a warp a segment, edges in groups of four with every live
 row's load before the adds, the adds in edge order from 0 -- and is held
 bit for bit to a sequential float32 sum in edge order and within 1e-5 to
@@ -44,10 +51,23 @@ def _ctas(plan, n):
                    range(c * cols, (c + 1) * cols))
 
 
+def _bulk_rows(run, d):
+    """The rows the bulk instance stages a CTA: ``SEG_BULK_ROWS_PER_SEG`` a
+    segment, a warp's share at most ``SEG_BULK_MAX_WARP_ROWS`` and within
+    the opt-in."""
+    fit = ((ssum.SEG_MAX_BULK_SMEM - ssum.seg_bulk_bar_bytes(run))
+           // (ssum.SEG_WARPS * 2 * d))
+    return ssum.SEG_WARPS * min(
+        run // ssum.SEG_WARPS * ssum.SEG_BULK_ROWS_PER_SEG,
+        ssum.SEG_BULK_MAX_WARP_ROWS, fit)
+
+
 @pytest.mark.parametrize("n,e,d", SHAPES)
 def test_plan_covers_every_segment_and_column_once(n, e, d):
-    for perm, elem_bytes in ((False, 4), (True, 4), (False, 2), (True, 2)):
-        plan = ssum.segment_sum_plan(n, e, d, perm, True, elem_bytes)
+    for perm, elem_bytes, bulk in ((False, 4, None), (True, 4, None),
+                                   (False, 2, None), (True, 2, None),
+                                   (False, 2, True), (True, 2, True)):
+        plan = ssum.segment_sum_plan(n, e, d, perm, True, elem_bytes, bulk)
         assert plan.vec in (1, 16 // elem_bytes)
         vectors = -(-d // plan.vec)
         owned = np.zeros((n, plan.col_blocks * plan.chunks * 32), np.int64)
@@ -62,6 +82,17 @@ def test_plan_covers_every_segment_and_column_once(n, e, d):
         assert plan.col_blocks == 1 or plan.chunks == ssum.SEG_CHUNKS[-1]
         assert plan.run % ssum.SEG_WARPS == 0
         assert plan.run <= ssum.SEG_MAX_RUN and plan.chunks in ssum.SEG_CHUNKS
+        if plan.bulk:
+            # the bulk instance: a whole number of rows a warp, at most a
+            # row a lane, the barriers and rows under the opt-in
+            assert elem_bytes == 2 and plan.vec == 8 and plan.col_blocks == 1
+            assert plan.stage == _bulk_rows(plan.run, d)
+            assert plan.stage % ssum.SEG_WARPS == 0
+            assert plan.stage // ssum.SEG_WARPS <= ssum.SEG_BULK_MAX_WARP_ROWS
+            assert plan.smem_bytes == (ssum.seg_bulk_bar_bytes(plan.run)
+                                       + plan.stage * 2 * d)
+            assert plan.smem_bytes <= ssum.SEG_MAX_BULK_SMEM
+            continue
         assert plan.stage == min(e, plan.run * ssum.SEG_STAGE_PER_SEG)
         assert plan.smem_bytes == 4 * (plan.run + 1) + plan.stage * (
             4 if perm else 1)
@@ -96,6 +127,59 @@ def test_instance_follows_the_width_and_alignment():
     assert ssum.segment_sum_plan(10, 40, 6, True)[:3] == (1, 1, 1)
 
 
+@pytest.mark.parametrize("d", [8, 16, 200, 512, 768, 1024, 1032, 4, 37, 6])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_bulk_instance_only_where_the_rows_allow_it(d, aligned):
+    """The bulk instance needs 16-byte rows (``d * 2 % 16 == 0``), 16-byte
+    aligned rows and one column block (``d <= 1024``); float32 rows never
+    take it; by default it runs from runs of ``SEG_BULK_MIN_RUN`` segments
+    (16,384 segments: pcba's eval batch and its 16k bucket's gather) and,
+    in the masked role, on rows of ``SEG_BULK_MIN_ROW_BYTES`` (pcba's
+    width); ``bulk=False`` keeps the instance without it."""
+    allowed = d * 2 % 16 == 0 and aligned and d <= 1024
+    for n, e in ((4096, 8192), (16384, 32768)):
+        for perm in (False, True):
+            forced = ssum.segment_sum_plan(n, e, d, perm, aligned, 2, True)
+            assert forced.bulk == allowed
+            default = ssum.segment_sum_plan(n, e, d, perm, aligned, 2)
+            assert default.bulk == (allowed and (
+                default.run >= ssum.SEG_BULK_MIN_RUN
+                or (not perm and 2 * d >= ssum.SEG_BULK_MIN_ROW_BYTES)))
+            assert ssum.segment_sum_plan(n, e, d, perm, aligned, 2,
+                                         False).bulk is False
+            assert ssum.segment_sum_plan(n, e, d, perm, aligned, 4,
+                                         True).bulk is False
+    # the main paths' shapes: pcba's sum aggregation (train and eval) and
+    # the gather backward of a train step on its 16k bucket take it; the
+    # flagship's gather, its sum at width 200, the gather backward of
+    # pcba's 4,096-node train batch and the halo role do not
+    for n, e, d, perm in ((16384, 32768, 512, False),
+                          (16384, 32768, 512, True),
+                          (4096, 8192, 512, False)):
+        assert ssum.segment_sum_plan(n, e, d, perm, True, 2).bulk
+    for n, e, d, perm in ((4096, 8192, 512, True), (4096, 8192, 200, True),
+                          (4096, 8192, 200, False), (2064, 4480, 200, True),
+                          (1032, 2240, 200, True)):
+        assert not ssum.segment_sum_plan(n, e, d, perm, True, 2).bulk
+
+
+def test_bulk_stage_fits_its_shared_memory():
+    """At the widest row the instance takes (1,024 bf16, 2 KB) and the
+    longest runs the stage shrinks to fit ``SEG_MAX_BULK_SMEM`` (a row
+    more a warp would not); at pcba's eval shape it holds 4 rows a segment
+    of a run of 16, 8 a warp, 64 KB beside 16 barriers."""
+    wide = ssum.segment_sum_plan(10 ** 7, 4 * 10 ** 7, 1024, True, True, 2,
+                                 True)
+    assert wide.run == ssum.SEG_MAX_RUN and wide.bulk
+    assert wide.stage < wide.run * ssum.SEG_BULK_ROWS_PER_SEG
+    assert wide.smem_bytes <= ssum.SEG_MAX_BULK_SMEM
+    assert (wide.smem_bytes + ssum.SEG_WARPS * 2 * 1024
+            > ssum.SEG_MAX_BULK_SMEM)
+    pcba = ssum.segment_sum_plan(16384, 32768, 512, False, True, 2)
+    assert (pcba.run, pcba.stage, pcba.smem_bytes, pcba.grid, pcba.bulk) == (
+        16, 64, 128 + 64 * 1024, 1024, True)
+
+
 def test_runs_keep_several_ctas_an_sm():
     """Runs grow from one segment a warp while the grid keeps
     ``SEG_MIN_CTAS`` CTAs: at pcba's eval shape runs of 16 (1,024 CTAs),
@@ -103,7 +187,7 @@ def test_runs_keep_several_ctas_an_sm():
     could not keep them takes runs of 8, and the largest runs fit the
     shared memory."""
     assert ssum.segment_sum_plan(16384, 32768, 512, False)[3:] == (
-        16, 256, 4 * 17 + 256, 1024)
+        16, 256, 4 * 17 + 256, 1024, False)
     assert ssum.segment_sum_plan(4096, 8192, 512, True).grid == 512
     assert ssum.segment_sum_plan(4096, 8192, 200, True).run == 8
     assert ssum.segment_sum_plan(129, 300, 100, False).run == 8
@@ -141,6 +225,47 @@ def _walk(values, entries, rowptr, plan, perm):
     return out
 
 
+def _walk_bulk(values, entries, rowptr, plan, perm):
+    """The bulk instance's walk on ``plan`` in float32: warp w of CTA b
+    owns the run's segments w, w + SEG_WARPS, ...; a prefix sum over them
+    places their rows in the warp's stage of ``stage / SEG_WARPS`` rows,
+    in order, until it is full; the first 32 mask bits of a segment come
+    from its ballot, the rest, and the rows past the stage, from the
+    arrays."""
+    n = rowptr.shape[0] - 1
+    out = np.full((n, values.shape[1]), np.nan, np.float32)
+    cap = plan.stage // ssum.SEG_WARPS
+    for b in range(plan.grid):
+        for w in range(ssum.SEG_WARPS):
+            segs = [s for s in range(b * plan.run + w, (b + 1) * plan.run,
+                                     ssum.SEG_WARPS) if s < n]
+            stage, off = [], 0
+            for s in segs:
+                lo, hi = int(rowptr[s]), int(rowptr[s + 1])
+                held = max(0, min(hi - lo, cap - off))
+                stage.append((off, held, [
+                    values[entries[e]] if perm else values[e]
+                    for e in range(lo, lo + held)]))
+                off += hi - lo
+            rows = {}
+            for off_s, _, staged in stage:
+                for i, row in enumerate(staged):
+                    rows[off_s + i] = row
+            for s, (off_s, held, _) in zip(segs, stage):
+                lo, hi = int(rowptr[s]), int(rowptr[s + 1])
+                ballot = entries[lo:lo + 32] if not perm else None
+                acc = np.zeros(values.shape[1], np.float32)
+                for k in range(hi - lo):  # groups of four: the same order
+                    e = lo + k
+                    if not perm and not (ballot[k] if k < 32 else entries[e]):
+                        continue
+                    row = (rows[off_s + k] if k < held else
+                           values[entries[e]] if perm else values[e])
+                    acc = acc + row
+                out[s] = acc
+    return out
+
+
 def _sequential(values, entries, rowptr, perm):
     """A sequential float32 sum of each segment's rows in edge order."""
     n = rowptr.shape[0] - 1
@@ -169,7 +294,7 @@ def _adversarial(rng, n=48):
 
 
 @pytest.mark.parametrize("role", ["masked", "perm"])
-@pytest.mark.parametrize("d", [8, 37])
+@pytest.mark.parametrize("d", [8, 37, 200])
 def test_kernel_walk_on_the_plan_matches_plain(role, d):
     """Receivers (masked role) or senders in no order (perm role) with an
     isolated node, a node of 1,100 edges, masked edges inside segments and
@@ -199,6 +324,15 @@ def test_kernel_walk_on_the_plan_matches_plain(role, d):
     plan16 = ssum.segment_sum_plan(n, values.shape[0], d, perm, True, 2)
     got16 = _walk(up, entries, rowptr, plan16, perm)
     assert np.array_equal(got16, _sequential(up, entries, rowptr, perm))
+    # the bulk instance, where the width allows it: node 7's 1,100 edges
+    # run past its staged rows and entries, which the walk then reads from
+    # the arrays, in the same order
+    bulk = ssum.segment_sum_plan(n, values.shape[0], d, perm, True, 2, True)
+    assert bulk.bulk == (d % 8 == 0)
+    if bulk.bulk:
+        assert bulk.stage // ssum.SEG_WARPS < 1100
+        assert np.array_equal(_walk_bulk(up, entries, rowptr, bulk, perm),
+                              got16)
     te16, tr16 = torch.from_numpy(entries), torch.from_numpy(rowptr)
     plain16 = (ssum.segment_sum_perm_plain(rows16, te16, tr16) if perm else
                ssum.segment_sum_masked_plain(rows16, te16, tr16))

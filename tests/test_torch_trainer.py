@@ -327,7 +327,7 @@ def test_trainer_raises(case, monkeypatch):
         return
     if case == "xla":
         cfg.agg_kernel = "xla"
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match=r"item 15 \(a\)"):
             Trainer(cfg, model, None, None, device="cpu")
         return
     setattr(cfg, case, 2)

@@ -3,6 +3,7 @@
 and, where the checkout has them, as CUDA graphs.
 
     python3 tools/time_scan.py [--root DIR] [--label NAME] [--model pcba]
+                               [--dtype bf16]
 
 ``--root`` names the checkout whose ``phc_gnn_torch`` and ``chip_smoke.py``
 are run (default: this one), so that two versions can be profiled in turns
@@ -15,7 +16,8 @@ its accumulated step over K = 4 batches of ``PCBA`` and its eval forward
 on the 512-graph ``PCBA_EVAL`` batch, both eager (the accumulated step's
 eager body, ``train.state._eager_accum_train_step``, where the checkout has
 it: there ``make_accum_train_step`` replays a CUDA graph of it, profiled
-beside as ``graph_step``).
+beside as ``graph_step``).  ``--dtype bf16`` builds either model with
+``compute_dtype`` bf16 (default float32).
 
 Per checkout, one JSON line: the eager train step's ms (CUDA events, median
 of 30 after 5), its CUDA kernels, device busy ms and idle share
@@ -61,7 +63,7 @@ def profile(torch, cs, fn, call_ms: float, iters: int, per: int = 1) -> dict:
             "top_us": [[n, us / per] for n, us in prof["top_us"]]}
 
 
-def flagship(torch, cs, train, dev) -> dict:
+def flagship(torch, cs, train, dev, dtype: str) -> dict:
     """The flagship's eager and graphed train step and eval forward."""
     from phc_gnn_torch.data import synthetic_batch
     from phc_gnn_torch.graph import attach_csr_plan
@@ -74,8 +76,10 @@ def flagship(torch, cs, train, dev) -> dict:
     def loss_fn(out, b):
         return train.masked_l1(out, b.y)
 
+    kw = {"compute_dtype": torch.bfloat16} if dtype == "bf16" else {}
+
     def build():
-        model = PHCGNN(**cs.flagship_config(), seed=0, device=dev)
+        model = PHCGNN(**cs.flagship_config(), seed=0, device=dev, **kw)
         opt = train.make_optimizer(dict(model.named_parameters()),
                                    grad_clip=cs.GRAD_CLIP)
         return model, opt
@@ -87,7 +91,7 @@ def flagship(torch, cs, train, dev) -> dict:
     line = {}
     ms, _ = cs.time_steps(torch, lambda: step(b0, cs.LR))
     line["eager_step"] = profile(torch, cs, lambda: step(b0, cs.LR), ms, 10)
-    served = PHCGNN(**cs.flagship_config(), seed=0, device=dev)
+    served = PHCGNN(**cs.flagship_config(), seed=0, device=dev, **kw)
     cs.randomize_eval_state(torch, served)
     ev = train.make_eval_step(served, device=dev)
     ms, _ = cs.time_steps(torch, lambda: ev(b0))
@@ -107,7 +111,7 @@ def flagship(torch, cs, train, dev) -> dict:
     return line
 
 
-def pcba(torch, cs, train, dev) -> dict:
+def pcba(torch, cs, train, dev, dtype: str) -> dict:
     """pcba's eager accumulated train step (K batches) and eval forward, and
     the graphed step where the checkout has one."""
     from phc_gnn_torch.train import state
@@ -115,12 +119,13 @@ def pcba(torch, cs, train, dev) -> dict:
     host = [cs.pcba_batch(torch, s, cs.PCBA) for s in range(cs.PCBA_K)]
     batches = [b.to(dev) for b in host]
     eager = getattr(state, "_eager_accum_train_step", None)
+    kw = {"compute_dtype": dtype} if dtype == "bf16" else {}
     makers = {"eager_step": eager or train.make_accum_train_step}
     if eager is not None:
         makers["graph_step"] = train.make_accum_train_step
     line = {}
     for name, make in makers.items():
-        model, loss_fn, cfg = cs.pcba_model(torch, dev)
+        model, loss_fn, cfg = cs.pcba_model(torch, dev, **kw)
         opt = train.make_optimizer(dict(model.named_parameters()),
                                    grad_clip=cfg.grad_clipping)
         step = make(model, opt, loss_fn, weight_decay=cfg.weightdecay,
@@ -128,7 +133,7 @@ def pcba(torch, cs, train, dev) -> dict:
         ms, _ = cs.time_steps(torch, lambda: step(batches, cfg.lr))
         line[name] = profile(torch, cs, lambda: step(batches, cfg.lr), ms,
                              10)
-    served, _, _ = cs.pcba_model(torch, dev)
+    served, _, _ = cs.pcba_model(torch, dev, **kw)
     cs.randomize_eval_state(torch, served)
     ev = train.make_eval_step(served, device=dev)
     b = cs.pcba_batch(torch, 0, cs.PCBA_EVAL).to(dev)
@@ -143,6 +148,8 @@ def main() -> None:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--model", choices=("flagship", "pcba"),
                     default="flagship")
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="the model's compute_dtype")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -165,11 +172,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke.py
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    line = {"label": args.label, "model": args.model}
+    line = {"label": args.label, "model": args.model, "dtype": args.dtype}
     if args.model == "pcba":
-        line.update(pcba(torch, cs, train, dev))
+        line.update(pcba(torch, cs, train, dev, args.dtype))
     else:
-        line.update(flagship(torch, cs, train, dev))
+        line.update(flagship(torch, cs, train, dev, args.dtype))
     print(json.dumps(line), flush=True)
 
 

@@ -1,30 +1,42 @@
 #!/usr/bin/env python3
-"""Time the softmax aggregation's kernels A and B on one NVIDIA GPU at the
-flagship's shape, in each instance the wrappers can launch.
+"""Time the softmax aggregation's kernels on one NVIDIA GPU at the
+flagship's shape: A and B in each instance the wrappers can launch, and
+the bf16 path the model runs (A then B, or the fused kernel).
 
-    python3 tools/time_softmax.py
+    python3 tools/time_softmax.py [--root DIR] [--label NAME]
 
 Messages [E, 200] over the receiver CSR of ``attach_csr_plan`` on
 ``synthetic_batch(128, 4096, 8192)`` (``chip_smoke.py``'s flagship batch).
-Per instance: ``segment_logit_max`` (A), ``segment_softmax_aggregate`` in
-its eval variant (B) and in its training variant (B, writing ``w`` and
-``den``), each as device us per call from one CUDA graph of 100 calls
-(median of 5 replays, ``chip_smoke.py``'s timer).  The instances:
+Every time is device us per call from one CUDA graph of 100 calls (median
+of 5 replays, ``chip_smoke.py``'s timer).
 
-- ``f32``: float32 messages;
-- ``bf16 pairs``: bfloat16 messages, rows 4-byte aligned, so a thread takes
-  a pair of lanes (``__nv_bfloat162`` loads);
-- ``bf16 scalar``: the same bfloat16 messages one element past a 4-byte
-  boundary, so the wrapper's entry point takes the one-lane instance.
+``--root`` names the checkout whose ``phc_gnn_torch`` is timed (default:
+this one), so that two versions can be timed in turns on one card, one
+process each: parent, change, change, parent.  Lines:
 
-Both bf16 instances' outputs are held bit-equal to the f32 instance fed the
-upcast messages (the conversion is exact).  Prints the card's name and
-power limit, then one JSON line per instance; exits non-zero without a
+- one per instance of A and B: ``segment_logit_max`` (A),
+  ``segment_softmax_aggregate`` in its eval variant (B) and in its
+  training variant (B, writing ``w`` and ``den``); the instances are
+  ``f32`` (float32 messages), ``bf16 pairs`` (bfloat16 messages, rows
+  4-byte aligned, a thread a pair of lanes) and ``bf16 scalar`` (the same
+  messages one element past a 4-byte boundary, one lane a thread); both
+  bf16 instances held bit-equal to f32 fed the upcast messages;
+- ``bf16 path``: what the checkout's model runs on bf16 messages, its eval
+  forward (``segment_softmax`` without a gradient) and its training
+  forward (``out``, ``w`` and ``den``: ``segment_softmax_fused`` where the
+  checkout has it, else A then B's training variant), each timed as one
+  call, with a SHA-256 of its outputs, so that two checkouts can be shown
+  bit-equal; beside it A then B timed as a pair of calls in the same
+  graph.
+
+Prints the card's name and power limit first; exits non-zero without a
 CUDA device or if an output differs.
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -34,8 +46,20 @@ REPO = Path(__file__).resolve().parent.parent
 D = 200
 
 
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def main() -> None:
-    sys.path.insert(0, str(REPO))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(REPO))
+    ap.add_argument("--label", default="this checkout")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    sys.path.insert(1, str(REPO))
     import torch
 
     if not torch.cuda.is_available():
@@ -46,6 +70,10 @@ def main() -> None:
     from phc_gnn_torch.graph import attach_csr_plan
     from phc_gnn_torch.ops import segment_softmax as ss
 
+    if not Path(ss.__file__).resolve().is_relative_to(
+            Path(args.root).resolve()):
+        sys.exit(f"time_softmax: imported {ss.__file__}, not from "
+                 f"{args.root}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -73,7 +101,7 @@ def main() -> None:
             want = got
         same = all(torch.equal(x, y) for x, y in zip(got, want))
         ok &= same
-        line = {"instance": name, "edges": b.num_edges,
+        line = {"label": args.label, "instance": name, "edges": b.num_edges,
                 "nodes": b.num_nodes, "d": D,
                 "A_us": time_graph(torch, lambda: ss.segment_logit_max(
                     m, mask, beta, rowptr)) * 1e3,
@@ -85,8 +113,38 @@ def main() -> None:
                         m, mask, beta, rowptr, smax, emit_w=True)) * 1e3,
                 "bit_equal_to_f32": same}
         print(json.dumps(line), flush=True)
+
+    m = m16
+    fused = getattr(ss, "segment_softmax_fused", None)
+
+    def pair(emit_w):
+        smax = ss.segment_logit_max(m, mask, beta, rowptr)
+        return ss.segment_softmax_aggregate(m, mask, beta, rowptr, smax,
+                                            emit_w)
+
+    def path_train():
+        return (fused(m, mask, beta, rowptr, emit_w=True) if fused
+                else pair(True))
+
+    def path_eval():
+        return ss.segment_softmax(m, mask, beta, rowptr)
+
+    got = (*path_train(), path_eval())
+    ref = (*pair(True), pair(False))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+    ok &= same
+    print(json.dumps({
+        "label": args.label, "instance": "bf16 path",
+        "runs": "fused" if fused else "A then B",
+        "eval_us": time_graph(torch, path_eval) * 1e3,
+        "train_us": time_graph(torch, path_train) * 1e3,
+        "pair_eval_us": time_graph(torch, lambda: pair(False)) * 1e3,
+        "pair_train_us": time_graph(torch, lambda: pair(True)) * 1e3,
+        "sha256": digest(got), "bit_equal_to_pair": same}), flush=True)
+
     if not ok:
-        sys.exit("time_softmax: an instance's output differs from f32's")
+        sys.exit("time_softmax: an output differs")
 
 
 if __name__ == "__main__":

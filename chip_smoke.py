@@ -287,12 +287,32 @@ Phases, each of which exits non-zero on failure:
    Trainer (``cli.common.build_trainer`` under the ranks' process group)
    on dp 2 x ep 2 ranks for an epoch of the synthetic recipe, dropout off,
    against the single-device Trainer with ``grad_accum`` 2, which forms
-   the same load-weighted groups: the epoch's train loss.
+   the same load-weighted groups: the epoch's train loss.  The replicated
+   scheme (``PHCGNN.set_edge_axis``, ``parallel.edge_shard``) inside the same
+   two starts: on 2 ranks the ep step on 2 edge shards, on 4 dp 2 x ep 2
+   and its Trainer, each held as above to the single-device step on the
+   composite route (every mask of rank (d, 0) replayed: the nodes are
+   replicated), rank 0's counters D and E 10 a step and no A, B or C; the
+   np step on 2 shards run again with the card synced before each
+   collective and the host clock around it: the collectives' share of a
+   rank's step.
+21. xla: the flagship at full width on the composite route
+   (``PHCGNN(composite=True)``, what ``agg_kernel="xla"`` builds, batches
+   without CSR plans).  The graphed steps (``make_scan_train_steps`` over
+   8 batches, dropout on), first call under ``set_sync_debug_mode("error")``,
+   counted (D and E 10 a step, no A, B or C); one dropout-free step
+   against the CPU's composites (the rule of 5) and against the plan route
+   on the card (the composite run's ReLU pattern replayed); 3 graphed steps
+   against eager ones under the deterministic algorithms as in 14; the
+   eval forward on 3 batches against the CPU and the plan route, graphed
+   against eager; PNA's eval on the route against the CPU and the plan
+   route; then the graphed step and eval on both routes in turns (plan,
+   xla, xla, plan): ms, kernels, busy and idle, the port's kernels a step.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
 ``{"scan"}``, ``{"bf16"}``, ``{"remat"}``, ``{"harness"}``,
-``{"harness_bf16"}``, ``{"halo"}``, ``{"phase_seconds"}`` and
+``{"harness_bf16"}``, ``{"halo"}``, ``{"xla"}``, ``{"phase_seconds"}`` and
 ``{"kernels": [...]}``
 lines, then, as its last line, ``{"ok": true, "device": {...}}``.  The
 kernels line lists the bf16 kernels as kernels of their own
@@ -318,7 +338,9 @@ first call; ``bf16_pcba_eval``: 1 bf16 pcba batch; ``remat_flagship``,
 ``remat_pcba``: one eager step each with remat; ``harness_bf16``: the bf16 CLI run;
 ``halo_np2``, ``halo_np4``, ``halo_dp_dummy``, ``halo_dp_ep``: rank 0's
 counts over one multi-rank step; ``halo_trainer``: rank 0's over its
-Trainer run), and ``launches`` is their sum; C's halo role has a row of
+Trainer run; ``ep_ep2``, ``ep_dp_ep``, ``ep_trainer``: the same for the
+replicated scheme; ``xla_train``: the composite route's graphed call;
+``xla_eval``, ``xla_pna_eval``: 3 batches each), and ``launches`` is their sum; C's halo role has a row of
 its own (``halo_gather_split_bwd``).  Without
 a CUDA device it exits non-zero and prints no result.  It imports nothing
 of JAX.
@@ -2359,7 +2381,7 @@ def hold_to_cpu(torch, dev, phase, grads, c_grads, f32_err, model, cpu_model,
 
 
 def agreement(torch, dev, host_batch, batch, loss_fn, build=None,
-              phase="train", weight_decay=WEIGHT_DECAY):
+              phase="train", weight_decay=WEIGHT_DECAY, f32_out=None):
     """One forward and backward with dropout off on the GPU and on the CPU,
     from the same weights: the loss, the output, the gradients, the running
     stats; then the Adam update given the CPU's gradients on both.  The
@@ -2373,7 +2395,8 @@ def agreement(torch, dev, host_batch, batch, loss_fn, build=None,
     within rounding of 0 can switch between the devices, and then one row's
     whole contribution to a weight's gradient moves: a difference of the
     inputs, not of the arithmetic under test.  The switches are counted
-    over the real rows and printed."""
+    over the real rows and printed.  ``f32_out``, a dict, receives the
+    CPU's own f32 error of each gradient leaf."""
     from phc_gnn_torch.models import PHCGNN
     from phc_gnn_torch.train import make_loss_and_grads
 
@@ -2403,6 +2426,8 @@ def agreement(torch, dev, host_batch, batch, loss_fn, build=None,
                                             weight_decay)(
             host_batch.replace(y=host_batch.y.double()), LR)
     f32_err = exact_errors(c_grads, e_grads)
+    if f32_out is not None:
+        f32_out.update(f32_err)
     with torch.no_grad(), own.patched():  # the CPU's own patterns
         own_model(host_batch, training=True)
     moved = switches(host_batch, pattern, own.recorded())
@@ -5044,6 +5069,9 @@ HALO_SHARDS = (2, 4)
 HALO_STEP_LAUNCHES = {"segment_logit_max": 4, "segment_softmax_aggregate": 4,
                       "halo_gather_split_bwd": 4, "bn_forward": 2,
                       "bn_backward": 2}
+# one replicated flagship train step on one rank: the composites and D and
+# E at every norm (each rank normalises all the nodes, on the card)
+EP_STEP_LAUNCHES = {"bn_forward": 10, "bn_backward": 10}
 HALO_TIMED_STEPS = 5        # a rank's steps timed on the shared card
 HALO_PAD_RUN = 1800         # masked edges on the last local row (a batch's
                             # padding tail is about that long)
@@ -5288,15 +5316,58 @@ def halo_batch(torch, seed, shape):
     return make_dummy_batch(batch) if seed is None else batch
 
 
+def time_collectives(torch, step, mine, steps: int, sync) -> dict:
+    """``steps`` more train steps with ``torch.distributed``'s
+    ``all_reduce`` and ``all_to_all_single`` wrapped: the card synced
+    before each call (what the step queued is not the collective's), the
+    host clock around it.  Returns the host ms a step in the collectives
+    and in the whole step (the syncs included), and the calls a step."""
+    import torch.distributed as dist
+
+    real = {"all_reduce": dist.all_reduce,
+            "all_to_all_single": dist.all_to_all_single}
+    spent = [0.0, 0]
+
+    def wrap(fn):
+        def collective(*args, **kw):
+            sync()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t
+                spent[1] += 1
+        return collective
+
+    try:
+        for name, fn in real.items():
+            setattr(dist, name, wrap(fn))
+        sync()
+        t = time.perf_counter()
+        for _ in range(steps):
+            step(mine, LR)
+        sync()
+        total = time.perf_counter() - t
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    return {"collective_ms": spent[0] * 1e3 / steps,
+            "step_ms": total * 1e3 / steps, "calls": spent[1] / steps,
+            "share": spent[0] / total}
+
+
 def rank_step(torch, rank, mesh, state, cfg, seeds, shape, device,
-              timed=0):
+              timed=0, scheme="halo", collectives=False):
     """One train step of the flagship with dropout off on the ``(dp, ep)``
     ``mesh`` from ``state``: rank (d, e) holds shard e of the batch of
-    ``seeds[d]`` (None: a dummy), the ReLU pattern recorded, the wrappers'
-    counters zeroed just before and read just after.  Returns the loss,
-    the reduced gradients that reached Adam, the running stats and the
-    parameters after the step, the ReLU masks, the counts and, after
-    ``timed`` more steps, their host ms a step (the card is shared)."""
+    ``seeds[d]`` (None: a dummy), a node shard (``scheme="halo"``) or an
+    edge shard (``"replicated"``, the model's edges over ep), the ReLU
+    pattern recorded, the wrappers' counters zeroed just before and read
+    just after.  Returns the loss, the reduced gradients that reached
+    Adam, the running stats and the parameters after the step, the ReLU
+    masks, the counts and, after ``timed`` more steps, their host ms a
+    step (the card is shared); with ``collectives`` as many steps again
+    with the collectives timed (``time_collectives``)."""
     from phc_gnn_torch import parallel as P
     from phc_gnn_torch.models import PHCGNN
     from phc_gnn_torch.train import make_optimizer
@@ -5307,8 +5378,9 @@ def rank_step(torch, rank, mesh, state, cfg, seeds, shape, device,
     grid = P.make_mesh(dp, ep, "gloo")
     model = PHCGNN(**cfg, seed=0, device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    replicated = scheme == "replicated"
     if ep > 1:
-        model.set_node_axis("ep")
+        (model.set_edge_axis if replicated else model.set_node_axis)("ep")
     opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
     seen = {}
     adam_step = opt.step
@@ -5321,14 +5393,20 @@ def rank_step(torch, rank, mesh, state, cfg, seeds, shape, device,
     d, e = divmod(rank, ep)
     mine = halo_batch(torch, seeds[d], shape)
     if ep > 1:
-        mine = P.partition_nodes(mine, ep)[e]
+        mine = (P.edge_shard(mine, ep, e) if replicated
+                else P.partition_nodes(mine, ep)[e])
     loss_fn = lambda out, b: masked_l1(out, b.y)  # noqa: E731
     kw = dict(weight_decay=WEIGHT_DECAY, device=dev)
-    step = (P.make_np_train_step(model, opt, loss_fn, grid, **kw) if dp == 1
-            else P.make_dp_train_step(model, opt, loss_fn, grid,
-                                      loss_name="l1", **kw) if ep == 1
-            else P.make_dp_np_train_step(model, opt, loss_fn, grid,
-                                         loss_name="l1", **kw))
+    if replicated:
+        step = (P.make_ep_train_step(model, opt, loss_fn, grid, **kw)
+                if dp == 1 else P.make_dp_ep_train_step(
+                    model, opt, loss_fn, grid, loss_name="l1", **kw))
+    else:
+        step = (P.make_np_train_step(model, opt, loss_fn, grid, **kw)
+                if dp == 1 else P.make_dp_train_step(
+                    model, opt, loss_fn, grid, loss_name="l1", **kw)
+                if ep == 1 else P.make_dp_np_train_step(
+                    model, opt, loss_fn, grid, loss_name="l1", **kw))
     relu = ReluReplay(torch).install(model)
 
     def sync():
@@ -5357,6 +5435,9 @@ def rank_step(torch, rank, mesh, state, cfg, seeds, shape, device,
             sync()
             times.append((time.perf_counter() - t) * 1e3)
         res["step_ms"] = times
+        if collectives:
+            res["collectives"] = time_collectives(torch, step, mine, timed,
+                                                  sync)
     return res
 
 
@@ -5375,11 +5456,12 @@ def rank_trainer(torch, rank, argv, device):
             "launches": launches}
 
 
-def halo_relu(results, mesh, row: int, n_nodes: int):
+def halo_relu(results, mesh, row: int, n_nodes: int, replicated=False):
     """The ReLU masks of dp row ``row`` in the single-device call order: a
     node mask is its shards' masks joined in order (shard s holds the
-    nodes [s * NS, (s + 1) * NS)) cut to the batch's rows; a head mask is
-    rank (row, 0)'s, the same on every shard."""
+    nodes [s * NS, (s + 1) * NS)) cut to the batch's rows; a head mask,
+    and under the replicated scheme every mask (each rank holds every
+    node), is rank (row, 0)'s."""
     import numpy as np
     import torch
 
@@ -5387,18 +5469,20 @@ def halo_relu(results, mesh, row: int, n_nodes: int):
     ranks = [results[row * ep + e] for e in range(ep)]
     masks = []
     for i, m in enumerate(ranks[0]["relu"]):
-        if m.shape[0] == ranks[0]["rows"]:
+        if m.shape[0] == ranks[0]["rows"] and not replicated:
             m = np.concatenate([r["relu"][i] for r in ranks])[:n_nodes]
         masks.append(torch.from_numpy(m))
     return masks
 
 
-def halo_reference(torch, dev, base, seeds, shape, results, mesh):
+def halo_reference(torch, dev, base, seeds, shape, results, mesh,
+                   replicated=False):
     """The single-device flagship step on the card for the real batches of
     ``seeds``, each with its dp row's ReLU pattern (``halo_relu``), from
-    ``base``'s state, combined as the dp reduction combines them: the
-    loss and gradients by ``loss_weight``, the running stats by real
-    nodes.  Returns ``(loss, grads, stats)``."""
+    ``base``'s state (on the composite route for the replicated scheme),
+    combined as the dp reduction combines them: the loss and gradients by
+    ``loss_weight``, the running stats by real nodes.  Returns ``(loss,
+    grads, stats)``."""
     from phc_gnn_torch.parallel import loss_weight
     from phc_gnn_torch.train import make_loss_and_grads
     from phc_gnn_torch.train.loss import masked_l1
@@ -5408,9 +5492,9 @@ def halo_reference(torch, dev, base, seeds, shape, results, mesh):
         if seed is None:
             continue
         batch = halo_batch(torch, seed, shape).to(dev)
-        model = copy.deepcopy(base)
+        model = copy.deepcopy(base).set_composite(replicated)
         relu = ReluReplay(torch, {"relu": halo_relu(
-            results, mesh, row, batch.num_nodes)}).install(model)
+            results, mesh, row, batch.num_nodes, replicated)}).install(model)
         with relu.patched():
             loss, _, grads = make_loss_and_grads(
                 model, lambda out, b: masked_l1(out, b.y), WEIGHT_DECAY)(
@@ -5426,7 +5510,8 @@ def halo_reference(torch, dev, base, seeds, shape, results, mesh):
     return loss, grads, stats
 
 
-def hold_halo(torch, dev, phase, base, results, mesh, seeds, shape):
+def hold_halo(torch, dev, phase, base, results, mesh, seeds, shape,
+              replicated=False):
     """A multi-rank step held to the single-device step on the card: every
     rank's parameters bit-equal; rank 0's loss (TOL_MODEL), each reduced
     gradient leaf (TOL_GRAD of the leaf's max; the biases a norm follows
@@ -5443,7 +5528,7 @@ def hold_halo(torch, dev, phase, base, results, mesh, seeds, shape):
             if not np.array_equal(p, r0["params"][k]):
                 fail(f"{phase}: the ranks' {k} differ after the step")
     loss, grads, stats = halo_reference(torch, dev, base, seeds, shape,
-                                        results, mesh)
+                                        results, mesh, replicated)
     worst = {}
     _, worst["loss"] = leafwise(torch.tensor(r0["loss"]), loss)
     top = max(float(g.abs().max()) for g in grads.values())
@@ -5492,14 +5577,36 @@ def hold_halo(torch, dev, phase, base, results, mesh, seeds, shape):
     return worst
 
 
+def hold_trainer(phase, got, want_rows, kernel):
+    """A multi-rank Trainer's epoch (rank 0's rows) against the
+    single-device Trainer's: train and valid loss within TOL_TRAINER, and
+    ``kernel`` launched on rank 0."""
+    rows = got["rows"]
+    rel = {k: abs(rows[0][k] - want_rows[0][k]) / abs(want_rows[0][k])
+           for k in ("train_loss", "valid_loss")}
+    print(f"{phase}: the synthetic recipe, 1 epoch ({HALO_TRAINER}), on dp 2 "
+          f"x ep 2 ranks: train loss {rows[0]['train_loss']:.7f}, valid "
+          f"{rows[0]['valid_loss']:.7f}; the single-device Trainer with "
+          f"grad_accum 2: {want_rows[0]['train_loss']:.7f}, "
+          f"{want_rows[0]['valid_loss']:.7f} (rel err {rel['train_loss']:.3e}, "
+          f"{rel['valid_loss']:.3e}, tolerance {TOL_TRAINER:g}); {kernel} "
+          f"launched {got['launches'][kernel]} times on rank 0", flush=True)
+    if not (max(rel.values()) <= TOL_TRAINER and got["launches"][kernel] > 0):
+        fail(f"{phase}: {rows} against {want_rows}")
+    return {"rows": rows, "single_rows": want_rows, "rel_err": rel,
+            "launches": got["launches"]}
+
+
 def halo_phase(torch, dev):
     """20. halo: C's halo role against its plain version, then the
     multi-rank paths on gloo ranks that share the card, in two starts of
-    rank processes: on 2 ranks the flagship's np step on 2 shards and the
-    dp step with a dummy rank; on 4 the np step on 4 shards, dp x ep, and
-    the Trainer on dp 2 x ep 2 against the single-device Trainer with
-    ``grad_accum`` 2.  Returns (the launch counts of its main-path runs,
-    its kernel record, its summary)."""
+    rank processes: on 2 ranks the flagship's np step on 2 shards (and the
+    collectives' share of it), the dp step with a dummy rank and the
+    replicated scheme's ep step on 2 edge shards; on 4 the np step on 4
+    shards, dp x ep in both schemes, and the Trainer on dp 2 x ep 2 in
+    both schemes against the single-device Trainer with ``grad_accum`` 2
+    (the composite route for the replicated one).  Returns (the launch
+    counts of its main-path runs, its kernel record, its summary)."""
     import os
     import tempfile
 
@@ -5518,6 +5625,17 @@ def halo_phase(torch, dev):
     summary, paths = {"gloo_on_cuda": "the collectives take the card's "
                       "tensors (no host staging)"}, {}
     want = {k: HALO_STEP_LAUNCHES.get(k, 0) for k in counter_names()}
+    want_ep = {k: EP_STEP_LAUNCHES.get(k, 0) for k in counter_names()}
+
+    def hold_ep(res, mesh, seeds, name):
+        phase = f"replicated {name}"
+        if res[0]["launches"] != want_ep:
+            fail(f"{phase}: rank 0 launched {res[0]['launches']}, not "
+                 f"{want_ep}")
+        paths[f"ep_{name}"] = res[0]["launches"]
+        summary[f"ep_{name}"] = hold_halo(torch, dev, phase, base, res, mesh,
+                                          seeds, FLAGSHIP, replicated=True)
+        summary[f"ep_{name}"]["step_ms"] = res[0]["step_ms"]
 
     def hold_np(res, s):
         phase = f"halo np S={s}"
@@ -5528,21 +5646,29 @@ def halo_phase(torch, dev):
                                       [0], FLAGSHIP)
         summary[f"np{s}"]["step_ms"] = res[0]["step_ms"]
         summary[f"np{s}"]["halo_rows"] = res[0]["halo_rows"]
+        if "collectives" in res[0]:
+            summary[f"np{s}"]["collectives"] = res[0]["collectives"]
 
     with deterministic(torch), tempfile.TemporaryDirectory(
             prefix="phc_halo_") as tmp:
         t = time.perf_counter()
         res = run_halo_ranks(2, [
             ("rank_step", dict(job, mesh=(1, 2), seeds=[0],
-                               timed=HALO_TIMED_STEPS)),
-            ("rank_step", dict(job, mesh=(2, 1), seeds=[0, None]))])
+                               timed=HALO_TIMED_STEPS, collectives=True)),
+            ("rank_step", dict(job, mesh=(2, 1), seeds=[0, None])),
+            ("rank_step", dict(job, mesh=(1, 2), seeds=[0],
+                               timed=HALO_TIMED_STEPS,
+                               scheme="replicated"))])
         seconds["ranks_2"] = time.perf_counter() - t
         hold_np([r[0] for r in res], 2)
         paths["halo_dp_dummy"] = res[0][1]["launches"]
         summary["dp_dummy"] = hold_halo(
             torch, dev, "halo dp 2, a dummy rank", base, [r[1] for r in res],
             (2, 1), [0, None], FLAGSHIP)
+        hold_ep([r[2] for r in res], (1, 2), [0], "ep2")
         argv = HALO_TRAINER + ["--device", dev.type]
+        rep_argv = argv + ["--dp", "2", "--ep", "2", "--ep_scheme",
+                           "replicated"]
         t = time.perf_counter()
         res = run_halo_ranks(4, [
             ("rank_step", dict(job, mesh=(1, 4), seeds=[0],
@@ -5551,7 +5677,13 @@ def halo_phase(torch, dev):
                                timed=HALO_TIMED_STEPS)),
             ("rank_trainer", dict(argv=argv + [
                 "--dp", "2", "--ep", "2",
-                "--save_dir", os.path.join(tmp, "ranks")], device=str(dev)))])
+                "--save_dir", os.path.join(tmp, "ranks")], device=str(dev))),
+            ("rank_step", dict(job, mesh=(2, 2), seeds=[0, 1],
+                               timed=HALO_TIMED_STEPS,
+                               scheme="replicated")),
+            ("rank_trainer", dict(argv=rep_argv + [
+                "--save_dir", os.path.join(tmp, "ep_ranks")],
+                device=str(dev)))])
         seconds["ranks_4"] = time.perf_counter() - t
         hold_np([r[0] for r in res], 4)
         steps = [r[1] for r in res]
@@ -5561,31 +5693,257 @@ def halo_phase(torch, dev):
         summary["dp_ep"]["step_ms"] = steps[0]["step_ms"]
         trainer = res[0][2]
         paths["halo_trainer"] = trainer["launches"]
+        hold_ep([r[3] for r in res], (2, 2), [0, 1], "dp_ep")
+        ep_trainer = res[0][4]
+        paths["ep_trainer"] = ep_trainer["launches"]
         t = time.perf_counter()
         single = os.path.join(tmp, "single")
         run_benchmark("synthetic", argv + ["--grad_accum", "2",
                                            "--save_dir", single])
         want_rows = scalars(single)
+        single_x = os.path.join(tmp, "single_xla")
+        run_benchmark("synthetic", argv + ["--grad_accum", "2", "--agg_kernel",
+                                           "xla", "--save_dir", single_x])
+        want_x = scalars(single_x)
         seconds["single_trainer"] = time.perf_counter() - t
-    rows = trainer["rows"]
-    rel = {k: abs(rows[0][k] - want_rows[0][k]) / abs(want_rows[0][k])
-           for k in ("train_loss", "valid_loss")}
-    print(f"halo trainer: the synthetic recipe, 1 epoch ({HALO_TRAINER}), on "
-          f"dp 2 x ep 2 ranks: train loss {rows[0]['train_loss']:.7f}, valid "
-          f"{rows[0]['valid_loss']:.7f}; the single-device Trainer with "
-          f"grad_accum 2: {want_rows[0]['train_loss']:.7f}, "
-          f"{want_rows[0]['valid_loss']:.7f} (rel err {rel['train_loss']:.3e}, "
-          f"{rel['valid_loss']:.3e}, tolerance {TOL_TRAINER:g}); the halo role "
-          f"launched {trainer['launches']['halo_gather_split_bwd']} times on "
-          f"rank 0", flush=True)
-    if not (max(rel.values()) <= TOL_TRAINER
-            and trainer["launches"]["halo_gather_split_bwd"] > 0):
-        fail(f"halo trainer: {rows} against {want_rows}")
-    summary["trainer"] = {"rows": rows, "single_rows": want_rows,
-                          "rel_err": rel, "launches": trainer["launches"]}
+    summary["trainer"] = hold_trainer("halo trainer", trainer, want_rows,
+                                      "halo_gather_split_bwd")
+    summary["ep_trainer"] = hold_trainer("replicated trainer", ep_trainer,
+                                         want_x, "bn_forward")
     summary["seconds"] = seconds
+    summary["step_ms_note"] = ("each rank's host ms a step on one shared "
+                               "card: not a scaling number")
     print(f"halo: seconds {seconds}", flush=True)
     return paths, rec, summary
+
+
+# -------------------------------------------------------------------- 21. xla
+
+# one flagship train step on the composite route: no A, B or C (the
+# aggregations and the gather's backward run in plain PyTorch), D and E as on
+# the plan route; its eval forward and PNA's launch none of the port's kernels
+XLA_STEP_LAUNCHES = {"bn_forward": 10, "bn_backward": 10}
+XLA_TURNS = ("plan", "xla", "xla", "plan")
+XLA_PROFILED_CALLS = 2      # graphed calls profiled a turn
+
+
+def xla_batches(torch, dev, n: int, plan: bool):
+    """The flagship batches of seeds 0..n-1, with their CSR plans for the
+    plan route or without (the composite route reads none): ``(host,
+    on the card)``."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+
+    host = [synthetic_batch(seed=s, **FLAGSHIP) for s in range(n)]
+    if plan:
+        host = [attach_csr_plan(b) for b in host]
+    return host, [b.to(dev) for b in host]
+
+
+def xla_flagship(torch, dev, dropout: bool):
+    """The flagship on the composite route (``agg_kernel="xla"``)."""
+    from phc_gnn_torch.models import PHCGNN
+
+    return PHCGNN(**flagship_config(dropout), composite=True, seed=0,
+                  device=dev)
+
+
+def route_agreement(torch, phase, model, batch, plan_batch, loss_fn, f32_err):
+    """One dropout-free forward and backward of ``model`` (on the composite
+    route) against a copy on the plan route, both on the card: the
+    composite run's ReLU pattern replayed on the plan run (a ReLU within
+    rounding of 0 can switch between the routes' sums), then the loss and
+    the output (TOL_MODEL), every gradient leaf under the rule of 5
+    (``hold_grads``: TOL_GRAD of its max, or COND_GRAD times ``f32_err``,
+    the CPU's own f32 error of the leaf against float64, up to
+    TOL_GRAD_CAP: a softmax beta's gradient is a sum that cancels; the
+    biases a norm follows below TOL_NOISE of the largest gradient) and the
+    running stats (TOL_BN).  The flagship's softmax takes its max
+    detached, so JAX's two tie rules (the composite splits a tied
+    extreme's cotangent, the plan route does not) do not meet here."""
+    from phc_gnn_torch.train import make_loss_and_grads
+
+    plan = copy.deepcopy(model).set_composite(False)
+    relu = ReluReplay(torch).install(model)
+    with relu.patched():
+        loss, out, grads = make_loss_and_grads(model, loss_fn, WEIGHT_DECAY)(
+            batch, LR)
+    p_relu = ReluReplay(torch, relu.recorded()).install(plan)
+    with p_relu.patched():
+        p_loss, p_out, p_grads = make_loss_and_grads(
+            plan, loss_fn, WEIGHT_DECAY)(plan_batch, LR)
+    torch.cuda.synchronize()
+    worst = {}
+    _, worst["loss"] = leafwise(loss, p_loss)
+    _, worst["out"] = normwise(out.cpu(), p_out.cpu())
+    if not (worst["loss"] <= TOL_MODEL and worst["out"] <= TOL_MODEL):
+        fail(f"{phase}: loss or output disagrees with the plan route: "
+             f"{worst}")
+    hold_grads(phase, grads, p_grads, f32_err, worst)
+    bufs = dict(plan.named_buffers())
+    worst["running_stats"] = max(leafwise(b, bufs[k])[1]
+                                 for k, b in model.named_buffers())
+    print(f"{phase}: one dropout-free step on the card, composite route "
+          f"against the plan route with its ReLU pattern: loss rel err "
+          f"{worst['loss']:.3e}, output normwise {worst['out']:.3e} "
+          f"(tolerance {TOL_MODEL:g}), gradients per leaf <= "
+          f"{worst['grad']:.3e} on {worst['grad_leaf']} (its CPU f32 error "
+          f"{worst['grad_leaf_f32_err']:.3e}; {grad_rule(worst)}), the "
+          f"biases a norm follows <= {worst['noise_grad']:.3e} of the "
+          f"largest gradient (tolerance {TOL_NOISE:g}), running stats <= "
+          f"{worst['running_stats']:.3e} (tolerance {TOL_BN:g})", flush=True)
+    if not worst["running_stats"] <= TOL_BN:
+        fail(f"{phase}: running stats disagree with the plan route: "
+             f"{worst}")
+    return worst
+
+
+def eval_against_plan(torch, phase, model, batches, plan_batches):
+    """The eval forward of ``model`` (composite route) against a copy on
+    the plan route on the card, batch by batch, normwise (TOL_MODEL)."""
+    from phc_gnn_torch.train import make_eval_step
+
+    plan = make_eval_step(copy.deepcopy(model).set_composite(False),
+                          device=batches[0].senders.device)
+    step = make_eval_step(model, device=batches[0].senders.device)
+    errs = [normwise(step(b).cpu(), plan(pb).cpu())[1]
+            for b, pb in zip(batches, plan_batches)]
+    print(f"{phase}: composite route against the plan route on the card, "
+          f"normwise per batch {[f'{e:.3e}' for e in errs]} (tolerance "
+          f"{TOL_MODEL:g})", flush=True)
+    if not max(errs) <= TOL_MODEL:
+        fail(f"{phase}: the composite eval disagrees with the plan route")
+    return max(errs)
+
+
+def xla_turns(torch, dev, loss_fn, batches, plan_batches):
+    """The flagship's graphed steps (``SCAN_STEPS`` a call) and graphed
+    eval (``N_BATCHES`` a call) on the plan route and the composite route
+    in one process, in turns (XLA_TURNS), from one random state: ms a step
+    or batch (CUDA events, ``time_scan``), and from a profile of
+    XLA_PROFILED_CALLS calls the kernels a step, device busy and idle, the
+    port's kernels a step by name and the top kernels."""
+    from phc_gnn_torch.train import (make_optimizer, make_scan_eval_steps,
+                                     make_scan_train_steps)
+
+    base = xla_flagship(torch, dev, True)
+    randomize_eval_state(torch, base)
+    out = {"plan": [], "xla": []}
+    for route in XLA_TURNS:
+        model = copy.deepcopy(base).set_composite(route == "xla")
+        opt = make_optimizer(dict(model.named_parameters()),
+                             grad_clip=GRAD_CLIP)
+        steps = make_scan_train_steps(model, opt, loss_fn,
+                                      weight_decay=WEIGHT_DECAY, seed=0,
+                                      device=dev)
+        evals = make_scan_eval_steps(model, device=dev)
+        bs = batches if route == "xla" else plan_batches
+        rec = {}
+        for what, fn, per in (
+                ("step", lambda: steps(bs, LR), len(bs)),
+                ("eval", lambda: evals(bs[:N_BATCHES]), N_BATCHES)):
+            ms, host_ms = time_scan(torch, fn, per)
+            prof = device_profile(torch, fn, ms * per,
+                                  iters=XLA_PROFILED_CALLS)
+            calls = XLA_PROFILED_CALLS * per
+            fam = kernel_families(prof["counts"], calls)
+            rec[what] = {"ms": ms, "host_ms": host_ms,
+                         "kernels": prof["kernels_per_call"] / per,
+                         "busy_ms": prof["busy_ms"] / per,
+                         "idle_share": prof["idle_share"],
+                         "port_kernels": {k: v for k, v in fam.items() if v},
+                         "top_us": [[n, us / per] for n, us in
+                                    prof["top_us"][:8]]}
+            print(f"xla turn {route} {what}: {ms:.3f} ms per {what} (host "
+                  f"{host_ms:.3f}), {rec[what]['kernels']:g} kernels, busy "
+                  f"{rec[what]['busy_ms']:.3f} ms (idle "
+                  f"{100 * prof['idle_share']:.1f} %); the port's kernels a "
+                  f"{what} {rec[what]['port_kernels']}", flush=True)
+        out[route].append(rec)
+        if route == "xla":
+            got = rec["step"]["port_kernels"]
+            if got != {k: float(v) for k, v in XLA_STEP_LAUNCHES.items()}:
+                fail(f"xla turn: the graphed step ran {got} of the port's "
+                     f"kernels a step, not {XLA_STEP_LAUNCHES}")
+            if rec["eval"]["port_kernels"]:
+                fail(f"xla turn: the graphed eval ran "
+                     f"{rec['eval']['port_kernels']}")
+        del steps, evals, model, opt
+    return out
+
+
+def xla_phase(torch, dev):
+    """21. xla: the flagship at full width on the composite route
+    (``agg_kernel="xla"``, batches without CSR plans); returns the launch
+    counts of its main-path runs and the readings."""
+    from phc_gnn_torch.train import (make_optimizer, make_scan_train_steps,
+                                     masked_l1)
+
+    def loss_fn(out, b):
+        return masked_l1(out, b.y)
+
+    def build(dropout):
+        return xla_flagship(torch, dev, dropout)
+
+    host, batches = xla_batches(torch, dev, SCAN_STEPS, plan=False)
+    _, plan_batches = xla_batches(torch, dev, SCAN_STEPS, plan=True)
+    info, paths = {}, {}
+    # the main path: the graphed steps as they train, dropout on
+    model = build(True)
+    randomize_eval_state(torch, model)
+    opt = make_optimizer(dict(model.named_parameters()), grad_clip=GRAD_CLIP)
+    steps = make_scan_train_steps(model, opt, loss_fn,
+                                  weight_decay=WEIGHT_DECAY, seed=0,
+                                  device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, _ = steps(batches, LR)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    paths["xla_train"] = read_launches()
+    hold_counters("xla flagship graphed steps", paths["xla_train"],
+                  add_counts((capture_calls(), XLA_STEP_LAUNCHES)))
+    print(f"xla flagship: the first graphed call under "
+          f"set_sync_debug_mode('error'), losses "
+          f"{[round(float(x), 5) for x in losses]}", flush=True)
+    if not bool(torch.isfinite(losses).all()):
+        fail("xla flagship: non-finite loss")
+    del steps, model, opt
+    f32_err = {}
+    info["vs_cpu"] = agreement(torch, dev, host[0], batches[0], loss_fn,
+                               build=build, phase="xla train vs CPU",
+                               f32_out=f32_err)
+    m = build(False)
+    randomize_eval_state(torch, m)  # the weights agreement's model had
+    info["vs_plan"] = route_agreement(torch, "xla train vs plan route", m,
+                                      batches[0], plan_batches[0], loss_fn,
+                                      f32_err)
+    info["scan"], _ = scan_train_check(torch, dev, "xla scan", build,
+                                       loss_fn, WEIGHT_DECAY, LR,
+                                       batches[:SCAN_FAMILY_STEPS])
+    served = build(True)
+    randomize_eval_state(torch, served)
+    paths["xla_eval"], _, _ = eval_vs_cpu(torch, dev, served,
+                                          host[:N_BATCHES], "xla eval", {})
+    info["eval_vs_plan"] = eval_against_plan(
+        torch, "xla eval", served, batches[:N_BATCHES],
+        plan_batches[:N_BATCHES])
+    info["eval_scan"] = scan_eval_check(torch, dev, "xla graphed eval",
+                                        served, batches[:N_BATCHES])
+    pna, _, _ = pna_model(torch, dev)
+    randomize_eval_state(torch, pna)
+    pna.set_composite(True)
+    paths["xla_pna_eval"], _, _ = eval_vs_cpu(
+        torch, dev, pna, host[:N_BATCHES], "xla pna eval", {})
+    info["pna_eval_vs_plan"] = eval_against_plan(
+        torch, "xla pna eval", pna, batches[:N_BATCHES],
+        plan_batches[:N_BATCHES])
+    info["turns"] = xla_turns(torch, dev, loss_fn, batches, plan_batches)
+    print(json.dumps({"xla": info}), flush=True)
+    return paths, info
 
 
 def main() -> None:
@@ -5658,6 +6016,8 @@ def main() -> None:
     paths.update(halo_paths)
     records.append(halo_rec)
     print(json.dumps({"halo": halo}), flush=True)
+    xla_paths, _ = timed("xla", xla_phase)
+    paths.update(xla_paths)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}

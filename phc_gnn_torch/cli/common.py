@@ -5,8 +5,9 @@ The same flags, names and defaults as the JAX package's CLI for the seven
 datasets (the reference's per-script argparse surface,
 benchmarks/train_hiv.py:43-159), plus ``--device`` (default ``cuda``).
 Datasets are read by the port's dependency-free readers from
-``--data_root``; the buckets are sized as JAX sizes them; every batch
-carries its CSR plans, which the kernels need on the card.
+``--data_root``; the buckets are sized as JAX sizes them; a batch carries
+its CSR plans where the model's kernels read them (``use_csr_plan``): not
+under ``--agg_kernel xla``, the composite route, nor under ``--ep``.
 ``run_benchmark`` writes ``run.log``, ``params.json``, ``summary.json``
 and, per run, ``scalars.jsonl``, ``val_test.json`` and the checkpoints
 under ``--save_dir``.
@@ -60,8 +61,8 @@ from phc_gnn_torch.train.trainer import Trainer, build_model
 from phc_gnn_torch.utils.logging import set_logging
 
 __all__ = ["DATASETS", "RANK_BACKENDS", "get_parser", "str2bool", "config_from_args",
-           "label_dim", "load_splits", "prepare", "build_trainer",
-           "run_benchmark"]
+           "label_dim", "load_splits", "prepare", "use_csr_plan",
+           "build_trainer", "run_benchmark"]
 
 log = logging.getLogger("phc_gnn_torch")
 
@@ -178,15 +179,14 @@ def get_parser(dataset: str) -> argparse.ArgumentParser:
     p.add_argument("--ep_scheme", type=str, default=cfg.ep_scheme,
                    choices=["halo", "replicated"],
                    help="graph-parallel design: node-sharded halo exchange "
-                        "(north star) or replicated-node edge partitioning "
-                        "(not ported; raises)")
+                        "(north star) or replicated-node edge partitioning")
     p.add_argument("--resume", action="store_true",
                    help="resume each run from its latest checkpoint")
     p.add_argument("--agg_kernel", type=str, default=cfg.agg_kernel,
                    choices=["auto", "stream", "xla"],
                    help="segment aggregation: auto and stream run the CUDA "
-                        "kernels over the CSR plans; xla has no counterpart "
-                        "in the port and raises")
+                        "kernels over the CSR plans; xla the plain PyTorch "
+                        "composites, with no plan")
     p.add_argument("--profile_steps", type=int, default=cfg.profile_steps,
                    help=">0: torch.profiler trace of K train steps written "
                         "to run_dir/profile")
@@ -304,6 +304,14 @@ def prepare(dataset: str, args, cfg: ExperimentConfig) -> dict:
                 eval_bucket=eval_bucket)
 
 
+def use_csr_plan(cfg) -> bool:
+    """Whether the loaders attach the CSR plans: where the model reads them,
+    on the plan route (``agg_kernel`` "auto" or "stream") without ep, as
+    JAX attaches its scan plans (benchmarks/common.py:283-290); the ep
+    schemes cut their shards from the raw batch."""
+    return cfg.agg_kernel != "xla" and cfg.ep == 1
+
+
 def build_trainer(dataset: str, args, device=None) -> Trainer:
     """The ``Trainer`` of the parsed ``args`` on ``device`` (default
     ``--device``): the splits' loaders, run 1's model and the per-run
@@ -318,19 +326,20 @@ def build_trainer(dataset: str, args, device=None) -> Trainer:
     log.info("config: %s", cfg.to_json())
     d = prepare(dataset, args, cfg)
     splits, transform = d["splits"], d["transform"]
+    plan = use_csr_plan(cfg)
 
     def train_batches(seed):
         return PaddedLoader(splits["train"], d["bucket"], shuffle=True,
-                            seed=seed, transform=transform, csr_plan=True,
+                            seed=seed, transform=transform, csr_plan=plan,
                             sub_buckets=cfg.sub_buckets)
 
     def valid_batches():
         return PaddedLoader(splits["valid"], d["eval_bucket"],
-                            transform=transform, csr_plan=True)
+                            transform=transform, csr_plan=plan)
 
     def test_batches():
         return PaddedLoader(splits["test"], d["eval_bucket"],
-                            transform=transform, csr_plan=True)
+                            transform=transform, csr_plan=plan)
 
     def build(seed):
         return build_model(cfg, d["atom_dims"], d["bond_dims"],

@@ -17,7 +17,8 @@ import json
 import os
 import sys
 
-from phc_gnn_torch.cli.common import (config_from_args, get_parser, prepare)
+from phc_gnn_torch.cli.common import (config_from_args, get_parser, prepare,
+                                     use_csr_plan)
 from phc_gnn_torch.data import PaddedLoader
 from phc_gnn_torch.train.checkpoint import CheckpointManager
 from phc_gnn_torch.train.trainer import Trainer, build_model
@@ -36,7 +37,8 @@ def main(argv=None) -> dict:
 
     def batches():
         return PaddedLoader(d["splits"]["test"], d["eval_bucket"],
-                            transform=d["transform"], csr_plan=True)
+                            transform=d["transform"],
+                            csr_plan=use_csr_plan(cfg))
 
     model = build_model(cfg, d["atom_dims"], d["bond_dims"],
                         avg_deg=d["avg_deg"], seed=cfg.seed, device="cpu")

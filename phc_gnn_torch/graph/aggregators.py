@@ -5,9 +5,13 @@ Counterpart of phc_gnn_tpu/graph/aggregators.py: ``AGGREGATORS`` maps
 [N, D] for sum, mean, min, max, var and std (graph/segment.py);
 ``softmax_aggregate`` (:71-96) is ``out = segment_sum(softmax(beta * m) * m)``
 per node and lane, computed as a numerator over a denominator.  They are the
-CPU path of a batch without a CSR plan, and the reference that the segment
-kernels (ops/segment_softmax.py, ops/segment_sum.py, ops/segment_reduce.py)
-are held to.  ``SCALERS`` (:38-68) rescale a node array by its in-degree from
+CPU path of a batch without a CSR plan, the composite route on any device
+(``agg_kernel="xla"``), and the reference that the segment kernels
+(ops/segment_softmax.py, ops/segment_sum.py, ops/segment_reduce.py) are held
+to.  Each takes ``axis_name``, the mesh axis of an edge partition
+(graph/segment.py): the aggregations and ``node_degrees`` reduce over it, and
+the softmax takes the ``pmax`` of its detached segment max and the ``psum``
+of its numerator and denominator (aggregators.py:72-95).  ``SCALERS`` (:38-68) rescale a node array by its in-degree from
 ``node_degrees`` against the dataset's ``avg_deg`` statistics
 (data/datasets.py), and ``phm_cat`` (:99-105) concatenates flat PHM tensors
 component block by component block.
@@ -20,6 +24,7 @@ from typing import Optional, Sequence
 import torch
 
 from phc_gnn_torch.graph import segment as seg
+from phc_gnn_torch.parallel import mesh
 
 __all__ = ["AGGREGATORS", "SCALERS", "softmax_aggregate", "phm_cat",
            "node_degrees"]
@@ -35,9 +40,11 @@ AGGREGATORS = {
 
 
 def node_degrees(receivers: torch.Tensor, num_nodes: int,
-                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 edge_mask: Optional[torch.Tensor] = None,
+                 axis_name: Optional[str] = None) -> torch.Tensor:
     """In-degree per node over the real edges, float [N, 1]."""
-    return seg.segment_count(receivers, num_nodes, edge_mask)[:, None]
+    return seg.segment_count(receivers, num_nodes, edge_mask,
+                             axis_name=axis_name)[:, None]
 
 
 def scale_identity(x, deg, avg_deg):
@@ -75,7 +82,8 @@ SCALERS = {
 
 def softmax_aggregate(messages: torch.Tensor, receivers: torch.Tensor,
                       num_nodes: int, beta,
-                      edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      edge_mask: Optional[torch.Tensor] = None,
+                      axis_name: Optional[str] = None) -> torch.Tensor:
     """Softmax-weighted sum per node and lane.  A float32 ``beta`` promotes
     bf16 messages to float32, as JAX's ``beta * messages`` does (torch's
     0-d tensor would not); the sums run in that dtype."""
@@ -88,12 +96,15 @@ def softmax_aggregate(messages: torch.Tensor, receivers: torch.Tensor,
     seg_max = torch.full((num_nodes, messages.shape[1]), float("-inf"),
                          dtype=logits.dtype, device=logits.device)
     seg_max = seg_max.scatter_reduce(0, idx, logits.detach(), "amax")
+    if axis_name is not None:
+        seg_max = mesh.pmax(seg_max, mesh.axis(axis_name))
     seg_max = torch.where(seg_max <= -1e29, 0.0, seg_max)
     expd = torch.exp(logits - seg_max[receivers.long()])
     if edge_mask is not None:
         expd = torch.where(edge_mask[:, None], expd, 0.0)
-    numer = seg.segment_sum(expd * messages, receivers, num_nodes)
-    denom = seg.segment_sum(expd, receivers, num_nodes)
+    numer = seg.segment_sum(expd * messages, receivers, num_nodes,
+                            axis_name=axis_name)
+    denom = seg.segment_sum(expd, receivers, num_nodes, axis_name=axis_name)
     return numer / denom.clamp_min(1e-16)
 
 

@@ -25,10 +25,15 @@ The aggregations run the segment kernels over the batch's receiver CSR plan
 sum and mean; kernels H and I in ops/segment_reduce.py for min, max, var and
 std), and the message gather's backward runs kernel C over its sender plan;
 a CPU batch without a plan takes the plain composites and autograd's own
-gather backward, a CUDA batch without one raises.  The two routes differ at
-ties: over the plan every edge that attains a min or max gets the whole
-cotangent (JAX's streamed VJP), the composite splits it (JAX's XLA
-``segment_max``).
+gather backward, a CUDA batch without one raises.  A conv on the composite
+route (``composite``, which ``PHCGNN`` sets from ``agg_kernel="xla"``, or
+``edge_axis``) takes the composites of graph/aggregators.py on any device
+and reads no plan, as JAX's XLA route does (conv.py:79-109); the gather's
+backward is then autograd's ``index_add_``.  ``edge_axis`` names the mesh
+axis of an edge partition (parallel/edge_partition.py): the composites and
+PNA's degree count reduce over it.  The two routes differ at ties: over the
+plan every edge that attains a min or max gets the whole cotangent (JAX's
+streamed VJP), the composite splits it (JAX's XLA ``segment_max``).
 
 ``dtype`` is the compute dtype of every PHM linear of a conv (the model's
 ``compute_dtype``, None for float32).  Under bf16 the node features, edge
@@ -64,14 +69,17 @@ __all__ = ["PHMConv", "PHMGINEConv", "PHMConvSoftmax", "PHMGINEConvSoftmax",
 
 
 def _messages(x, senders, edge_attr, msg_encoder: str, snd_perm=None,
-              snd_rowptr=None, x_remote=None):
+              snd_rowptr=None, x_remote=None, composite: bool = False):
     """Edge messages: msg_encoder(x[senders] + edge_attr) (conv.py:49-76).
     With the batch's sender plan the gather's backward is kernel C; a CUDA
-    gather that needs a gradient and has no plan raises.  ``x_remote``
+    gather that needs a gradient and has no plan raises, unless the conv
+    is on the ``composite`` route, which reads no plan.  ``x_remote``
     [S*H, d] holds the halo rows of a node shard (parallel/halo.py):
     ``senders`` then index ``concat([x, x_remote])``, and the backward is C's
     halo role over the shard's augmented sender plan."""
-    if (snd_rowptr is None and x.device.type != "cpu"
+    if composite:
+        snd_perm = snd_rowptr = None
+    elif (snd_rowptr is None and x.device.type != "cpu"
             and torch.is_grad_enabled()
             and (x.requires_grad
                  or (x_remote is not None and x_remote.requires_grad))):
@@ -79,7 +87,8 @@ def _messages(x, senders, edge_attr, msg_encoder: str, snd_perm=None,
             f"the message gather's backward on {x.device} runs kernel C over "
             f"the batch's sender plan: build the batch with "
             f"graph.attach_csr_plan (a node shard with "
-            f"parallel.partition_nodes)")
+            f"parallel.partition_nodes), or take the composite route "
+            f"(agg_kernel='xla')")
     if x_remote is not None:
         gathered = (halo_gather_split(x, x_remote, senders, snd_perm,
                                       snd_rowptr)
@@ -93,18 +102,22 @@ def _messages(x, senders, edge_attr, msg_encoder: str, snd_perm=None,
 
 
 def _softmax_aggr(msgs, receivers, num_nodes: int, beta, edge_mask,
-                  rowptr: Optional[torch.Tensor] = None):
+                  rowptr: Optional[torch.Tensor] = None,
+                  composite: bool = False, edge_axis: Optional[str] = None):
     """Softmax aggregation through the segment kernels over the CSR plan
     (their plain versions for CPU tensors), differentiable in ``msgs`` and
-    ``beta`` (conv.py:79-93).  Without a plan only CPU tensors are served, by
-    the plain composite; a CUDA batch without one raises."""
-    if rowptr is None:
-        if msgs.device.type != "cpu":
+    ``beta`` (conv.py:79-93).  On the ``composite`` route, and for a CPU
+    batch without a plan, the plain composite, over ``edge_axis`` where it
+    is set; a CUDA batch without a plan off that route raises."""
+    if composite or rowptr is None:
+        if not composite and msgs.device.type != "cpu":
             raise ValueError(
                 f"softmax aggregation on {msgs.device} runs the segment "
                 f"kernels, which walk the batch's CSR plan: build the batch "
-                f"with graph.attach_csr_plan")
-        return softmax_aggregate(msgs, receivers, num_nodes, beta, edge_mask)
+                f"with graph.attach_csr_plan, or take the composite route "
+                f"(agg_kernel='xla')")
+        return softmax_aggregate(msgs, receivers, num_nodes, beta, edge_mask,
+                                 axis_name=edge_axis)
     if edge_mask is None:
         edge_mask = torch.ones(msgs.shape[0], dtype=torch.bool,
                                device=msgs.device)
@@ -113,20 +126,24 @@ def _softmax_aggr(msgs, receivers, num_nodes: int, beta, edge_mask,
 
 def _fixed_aggr(msgs, receivers, num_nodes: int, edge_mask, aggr: str,
                 rowptr: Optional[torch.Tensor] = None,
-                counts: Optional[torch.Tensor] = None):
+                counts: Optional[torch.Tensor] = None,
+                composite: bool = False, edge_axis: Optional[str] = None):
     """Fixed-reduce aggregation (conv.py:96-109) over the CSR plan, through
     kernel C (sum, mean) and kernels H (min, max) and I (var, std), their
     plain versions for CPU tensors; differentiable in ``msgs``.  ``counts``
     [N], the real edges of each receiver, serves mean, var and std (computed
-    here if not given).  Without a plan only CPU tensors are served, by the
-    plain composites; a CUDA batch without one raises."""
-    if rowptr is None:
-        if msgs.device.type != "cpu":
+    here if not given).  On the ``composite`` route, and for a CPU batch
+    without a plan, the plain composites, over ``edge_axis`` where it is
+    set; a CUDA batch without a plan off that route raises."""
+    if composite or rowptr is None:
+        if not composite and msgs.device.type != "cpu":
             raise ValueError(
                 f"{aggr} aggregation on {msgs.device} runs the segment "
                 f"kernels, which walk the batch's CSR plan: build the batch "
-                f"with graph.attach_csr_plan")
-        return AGGREGATORS[aggr](msgs, receivers, num_nodes, edge_mask)
+                f"with graph.attach_csr_plan, or take the composite route "
+                f"(agg_kernel='xla')")
+        return AGGREGATORS[aggr](msgs, receivers, num_nodes, edge_mask,
+                                 axis_name=edge_axis)
     if edge_mask is None:
         edge_mask = torch.ones(msgs.shape[0], dtype=torch.bool,
                                device=msgs.device)
@@ -152,6 +169,40 @@ def _check_fixed_aggr(aggr: str) -> None:
                          f"{sorted(AGGREGATORS)}, softmax or pna")
 
 
+class _Conv(nn.Module):
+    """What every conv shares: its aggregation route.  ``edge_axis`` is
+    the mesh axis of an edge partition, or None; ``composite`` takes the
+    composites on every device (``agg_kernel="xla"``), and so does
+    ``edge_axis``, as JAX reads no plan under it (conv.py:85, :101).  A
+    model sets both on its convs (``PHCGNN.set_edge_axis``,
+    ``set_composite``)."""
+
+    def __init__(self, edge_axis: Optional[str] = None,
+                 composite: bool = False):
+        super().__init__()
+        self.edge_axis = edge_axis
+        self.composite = composite
+
+    @property
+    def composite_route(self) -> bool:
+        return self.composite or self.edge_axis is not None
+
+    def messages(self, x, senders, edge_attr, snd_perm, snd_rowptr,
+                 x_remote):
+        return _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
+                         snd_rowptr, x_remote, self.composite_route)
+
+    def fixed_aggr(self, msgs, receivers, num_nodes, edge_mask, aggr, rowptr,
+                   counts=None):
+        return _fixed_aggr(msgs, receivers, num_nodes, edge_mask, aggr,
+                           rowptr, counts, self.composite_route,
+                           self.edge_axis)
+
+    def softmax_aggr(self, msgs, receivers, num_nodes, edge_mask, rowptr):
+        return _softmax_aggr(msgs, receivers, num_nodes, self.beta, edge_mask,
+                             rowptr, self.composite_route, self.edge_axis)
+
+
 def _linear_out(transform, aggr, x, add_self_loops: bool, same_dim: bool,
                 phm_rule=None):
     """``transform(aggr) + x`` with ``same_dim``, else ``transform(aggr +
@@ -163,7 +214,7 @@ def _linear_out(transform, aggr, x, add_self_loops: bool, same_dim: bool,
     return transform(aggr + x, phm_rule)
 
 
-class PHMConv(nn.Module):
+class PHMConv(_Conv):
     """Fixed-reduce conv with a PHM linear ``transform``; ``same_dim``
     places the self loop after it or before it (reference:
     messagepassing.py:19-88)."""
@@ -174,8 +225,9 @@ class PHMConv(nn.Module):
                  c_init: str = "standard", aggr: str = "sum",
                  same_dim: bool = True, msg_encoder: str = "identity",
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
-        super().__init__()
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None,
+                 edge_axis: Optional[str] = None, composite: bool = False):
+        super().__init__(edge_axis, composite)
         _check_fixed_aggr(aggr)
         self.add_self_loops = add_self_loops
         self.same_dim = same_dim
@@ -188,15 +240,15 @@ class PHMConv(nn.Module):
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
                 snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
-        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr, x_remote)
-        aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
-                           rowptr)
+        msgs = self.messages(x, senders, edge_attr, snd_perm, snd_rowptr,
+                             x_remote)
+        aggr = self.fixed_aggr(msgs, receivers, x.shape[0], edge_mask,
+                               self.aggr, rowptr)
         return _linear_out(self.transform, aggr, x, self.add_self_loops,
                            self.same_dim, phm_rule)
 
 
-class PHMGINEConv(nn.Module):
+class PHMGINEConv(_Conv):
     """GIN-E conv with a fixed aggregation: aggregate -> +self -> PHM MLP
     (reference: messagepassing.py:91-161)."""
 
@@ -207,8 +259,9 @@ class PHMGINEConv(nn.Module):
                  c_init: str = "standard", aggr: str = "sum",
                  msg_encoder: str = "identity",
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
-        super().__init__()
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None,
+                 edge_axis: Optional[str] = None, composite: bool = False):
+        super().__init__(edge_axis, composite)
         _check_fixed_aggr(aggr)
         self.add_self_loops = add_self_loops
         self.aggr = aggr
@@ -221,17 +274,17 @@ class PHMGINEConv(nn.Module):
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
                 snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
-        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr, x_remote)
-        aggr = _fixed_aggr(msgs, receivers, x.shape[0], edge_mask, self.aggr,
-                           rowptr)
+        msgs = self.messages(x, senders, edge_attr, snd_perm, snd_rowptr,
+                             x_remote)
+        aggr = self.fixed_aggr(msgs, receivers, x.shape[0], edge_mask,
+                               self.aggr, rowptr)
         if self.add_self_loops:
             aggr = aggr + x
         return self.transform(aggr, training=training, mask=node_mask,
                               phm_rule=phm_rule)
 
 
-class PHMConvSoftmax(nn.Module):
+class PHMConvSoftmax(_Conv):
     """Softmax aggregation with a learnable beta and a PHM linear
     ``transform``; ``same_dim`` places the self loop as in ``PHMConv``
     (reference: messagepassing.py:164-245)."""
@@ -243,8 +296,9 @@ class PHMConvSoftmax(nn.Module):
                  msg_encoder: str = "identity", initial_beta: float = 1.0,
                  learn_beta: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
-        super().__init__()
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None,
+                 edge_axis: Optional[str] = None, composite: bool = False):
+        super().__init__(edge_axis, composite)
         self.add_self_loops = add_self_loops
         self.same_dim = same_dim
         self.msg_encoder = msg_encoder
@@ -257,15 +311,15 @@ class PHMConvSoftmax(nn.Module):
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
                 snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
-        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr, x_remote)
-        aggr = _softmax_aggr(msgs, receivers, x.shape[0], self.beta,
-                             edge_mask, rowptr)
+        msgs = self.messages(x, senders, edge_attr, snd_perm, snd_rowptr,
+                             x_remote)
+        aggr = self.softmax_aggr(msgs, receivers, x.shape[0], edge_mask,
+                                 rowptr)
         return _linear_out(self.transform, aggr, x, self.add_self_loops,
                            self.same_dim, phm_rule)
 
 
-class PHMGINEConvSoftmax(nn.Module):
+class PHMGINEConvSoftmax(_Conv):
     """GIN-E conv with softmax aggregation: aggregate -> +self -> PHM MLP
     (reference: messagepassing.py:248-327)."""
 
@@ -276,8 +330,9 @@ class PHMGINEConvSoftmax(nn.Module):
                  c_init: str = "standard", msg_encoder: str = "identity",
                  initial_beta: float = 1.0, learn_beta: bool = True,
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
-        super().__init__()
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None,
+                 edge_axis: Optional[str] = None, composite: bool = False):
+        super().__init__(edge_axis, composite)
         self.add_self_loops = add_self_loops
         self.msg_encoder = msg_encoder
         self.beta = nn.Parameter(torch.tensor(float(initial_beta)),
@@ -290,17 +345,17 @@ class PHMGINEConvSoftmax(nn.Module):
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,
                 snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
-        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr, x_remote)
-        aggr = _softmax_aggr(msgs, receivers, x.shape[0], self.beta,
-                             edge_mask, rowptr)
+        msgs = self.messages(x, senders, edge_attr, snd_perm, snd_rowptr,
+                             x_remote)
+        aggr = self.softmax_aggr(msgs, receivers, x.shape[0], edge_mask,
+                                 rowptr)
         if self.add_self_loops:
             aggr = aggr + x
         return self.transform(aggr, training=training, mask=node_mask,
                               phm_rule=phm_rule)
 
 
-class PHMPNAConvSimple(nn.Module):
+class PHMPNAConvSimple(_Conv):
     """Simplified principal-neighbourhood-aggregation conv: multi-aggregate
     -> phm_cat -> degree scalers -> phm_cat -> PHM linear stack (reference:
     messagepassing.py:339-453).  ``avg_deg`` holds the dataset's degree
@@ -319,8 +374,9 @@ class PHMPNAConvSimple(nn.Module):
                                            "attenuation"),
                  post_layers: int = 1, msg_encoder: str = "relu",
                  generator: Optional[torch.Generator] = None,
-                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None):
-        super().__init__()
+                 shared_rule: bool = False, dtype: Optional[torch.dtype] = None,
+                 edge_axis: Optional[str] = None, composite: bool = False):
+        super().__init__(edge_axis, composite)
         if avg_deg is None:
             raise ValueError("the PNA conv needs avg_deg, the dataset's "
                              "degree statistics")
@@ -356,11 +412,12 @@ class PHMPNAConvSimple(nn.Module):
                 training: bool = False, node_mask=None, rowptr=None,
                 snd_perm=None, snd_rowptr=None, phm_rule=None, x_remote=None):
         num_nodes = x.shape[0]
-        msgs = _messages(x, senders, edge_attr, self.msg_encoder, snd_perm,
-                         snd_rowptr, x_remote)
-        deg = node_degrees(receivers, num_nodes, edge_mask)
-        out = phm_cat([_fixed_aggr(msgs, receivers, num_nodes, edge_mask, a,
-                                   rowptr, deg[:, 0])
+        msgs = self.messages(x, senders, edge_attr, snd_perm, snd_rowptr,
+                             x_remote)
+        deg = node_degrees(receivers, num_nodes, edge_mask,
+                           axis_name=self.edge_axis)
+        out = phm_cat([self.fixed_aggr(msgs, receivers, num_nodes, edge_mask,
+                                       a, rowptr, deg[:, 0])
                        for a in self.aggregators], self.phm_dim)
         out = phm_cat([SCALERS[s](out, deg, self.avg_deg)
                        for s in self.scalers], self.phm_dim)
@@ -382,7 +439,8 @@ class PHMMessagePassing(nn.Module):
     ``post_layers`` with the message encoder "relu", whatever
     ``msg_encoder``, ``mlp``, ``add_self_loops`` and ``same_dim`` say, as
     flax's does.  With ``shared_rule`` the conv's PHM layers own no rule and
-    ``forward`` takes the network's as ``phm_rule``."""
+    ``forward`` takes the network's as ``phm_rule``.  ``edge_axis`` and
+    ``composite`` set the conv's aggregation route (``_Conv``)."""
 
     def __init__(self, in_features: int, out_features: int, phm_dim: int,
                  learn_phm: bool = True, bias: bool = True,
@@ -397,35 +455,39 @@ class PHMMessagePassing(nn.Module):
                  scalers: Sequence[str] = ("identity", "amplification",
                                            "attenuation"),
                  post_layers: int = 1, shared_rule: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 edge_axis: Optional[str] = None, composite: bool = False):
         super().__init__()
         aggr = "sum" if aggr == "add" else aggr
+        route = dict(edge_axis=edge_axis, composite=composite)
         if aggr == "pna":
             self.conv = PHMPNAConvSimple(
                 in_features, out_features, phm_dim, avg_deg, learn_phm, bias,
                 activation, norm, w_init, c_init, aggregators, scalers,
                 post_layers, msg_encoder="relu", generator=generator,
-                shared_rule=shared_rule, dtype=dtype)
+                shared_rule=shared_rule, dtype=dtype, **route)
         elif aggr == "softmax" and not mlp:
             self.conv = PHMConvSoftmax(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, w_init, c_init, same_dim, msg_encoder,
-                initial_beta, learn_beta, generator, shared_rule, dtype)
+                initial_beta, learn_beta, generator, shared_rule, dtype,
+                **route)
         elif aggr == "softmax":
             self.conv = PHMGINEConvSoftmax(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, norm, activation, w_init, c_init, msg_encoder,
-                initial_beta, learn_beta, generator, shared_rule, dtype)
+                initial_beta, learn_beta, generator, shared_rule, dtype,
+                **route)
         elif mlp:
             self.conv = PHMGINEConv(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, norm, activation, w_init, c_init, aggr,
-                msg_encoder, generator, shared_rule, dtype)
+                msg_encoder, generator, shared_rule, dtype, **route)
         else:
             self.conv = PHMConv(
                 in_features, out_features, phm_dim, learn_phm, bias,
                 add_self_loops, w_init, c_init, aggr, same_dim, msg_encoder,
-                generator, shared_rule, dtype)
+                generator, shared_rule, dtype, **route)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask=None,
                 training: bool = False, node_mask=None, rowptr=None,

@@ -37,7 +37,16 @@ boundary rows of ``x`` that other shards' edges read and receives theirs
 (``ops.segment_sum.halo_gather_split``), the layers' norms take their
 statistics over all shards, the node dropout of each shard draws its own
 masks while the head's is shared, and the pooling sums over the shards.
-``edge_axis`` (the replicated scheme) raises.
+
+``composite=True`` (``set_composite``; ``train.trainer.build_model`` sets it
+from ``agg_kernel="xla"``) runs every aggregation through the composites of
+graph/aggregators.py on any device, as JAX's XLA route does, and reads no
+CSR plan: the batches need none.  ``edge_axis="ep"`` (``set_edge_axis``) is
+the replicated scheme (parallel/edge_partition.py, phc_gnn.py:184-191): each
+rank holds an edge shard of the batch (``parallel.edge_shard``) and every
+node; the convs take the composite route, their reductions combined over the
+axis, and ignore the batch's plans, while the norms, the dropout and the
+pooling stay local, as the nodes are replicated.
 
 ``compute_dtype=torch.bfloat16`` runs the activations in bf16 from the
 encoders' outputs on (phc_gnn.py:199-200, :225-226) while the parameters,
@@ -130,7 +139,7 @@ class PHCGNN(nn.Module):
                  skip_connect: str = "add", initial_beta: float = 1.0,
                  learn_beta: bool = True, edge_axis: Optional[str] = None,
                  node_axis: Optional[str] = None, compute_dtype=None,
-                 remat: bool = False,
+                 remat: bool = False, composite: bool = False,
                  avg_deg: Optional[Dict[str, float]] = None,
                  pna_aggregators: Sequence[str] = ("mean", "min", "max", "std"),
                  pna_scalers: Sequence[str] = ("identity", "amplification",
@@ -142,11 +151,6 @@ class PHCGNN(nn.Module):
         if skip_connect not in ("add", "concat"):
             raise ValueError(f"skip_connect must be 'add' or 'concat', got "
                              f"{skip_connect!r}")
-        if edge_axis is not None:
-            raise NotImplementedError(
-                "edge partitioning, the replicated scheme "
-                "(ep_scheme='replicated'), is not ported yet (ROADMAP.md, "
-                "section 1, item 15)")
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be None, torch.float32 or "
                              f"torch.bfloat16, got {compute_dtype!r}")
@@ -216,6 +220,8 @@ class PHCGNN(nn.Module):
             dropout=dropout_dn, same_dropout=same_dropout, generator=gen,
             shared_rule=unique_phm, dtype=dtype)
         self.set_node_axis(node_axis)
+        self.set_composite(composite)
+        self.set_edge_axis(edge_axis)
         self.to(dev)
 
     def set_node_axis(self, node_axis: Optional[str]) -> "PHCGNN":
@@ -235,6 +241,30 @@ class PHCGNN(nn.Module):
                 for m in layer.modules():
                     if hasattr(m, "stat_axis"):
                         m.stat_axis = node_axis
+        return self
+
+    def _convs(self):
+        return [getattr(self, f"conv_{i}").conv
+                for i in range(self.num_layers)]
+
+    def set_edge_axis(self, edge_axis: Optional[str]) -> "PHCGNN":
+        """Partition the edges over the mesh axis ``edge_axis`` ("ep"), or
+        not (None), in place, as JAX's ``model.clone(edge_axis=...)``: every
+        conv reduces its aggregations over the axis and takes the composite
+        route, which it keeps while ``edge_axis`` is set.  A step of
+        parallel/edge_partition.py binds the axis."""
+        self.edge_axis = edge_axis
+        for conv in self._convs():
+            conv.edge_axis = edge_axis
+        return self
+
+    def set_composite(self, composite: bool) -> "PHCGNN":
+        """Take the composite route (``agg_kernel="xla"``) or the plan
+        route, in place.  Under ``edge_axis`` the convs take the composites
+        either way."""
+        self.composite = composite
+        for conv in self._convs():
+            conv.composite = composite
         return self
 
     def forward(self, graphs: GraphsTuple, training: bool = False,

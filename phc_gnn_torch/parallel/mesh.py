@@ -28,7 +28,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Axis", "Mesh", "make_mesh", "bind", "axis", "all_reduce",
-           "psum", "all_to_all", "all_gather", "BACKENDS"]
+           "psum", "pmax", "pmin", "all_to_all", "all_gather", "BACKENDS"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -126,10 +126,12 @@ def axis(name: str) -> Axis:
     return _BOUND[name]
 
 
-def all_reduce(t: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """The sum of ``t`` over ``ax``, in place; ``t`` at size 1."""
+def all_reduce(t: torch.Tensor, ax: Axis,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of ``t`` over ``ax``, in place; ``t`` at size
+    1."""
     if ax.size > 1:
-        dist.all_reduce(t, group=ax.group)
+        dist.all_reduce(t, op=op, group=ax.group)
     return t
 
 
@@ -152,6 +154,35 @@ def psum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     if ax.size == 1:
         return x
     return _Psum.apply(x, ax)
+
+
+class _Pextreme(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, op, name):
+        ctx.name = name
+        return all_reduce(x.clone(), ax, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            f"Differentiation rule for {ctx.name!r} not implemented: "
+            f"jax.lax.{ctx.name} has no derivative, and the port follows it "
+            f"(a max or min over an edge-partitioned axis cannot be "
+            f"trained through; the softmax's max is taken detached)")
+
+
+def pmax(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """``jax.lax.pmax``: the elementwise max of ``x`` over ``ax``.  It has
+    no derivative, as JAX's has none: where ``x`` needs a gradient the
+    backward raises, whatever the axis's size, as JAX's differentiation
+    raises on a mesh of one device too."""
+    return _Pextreme.apply(x, ax, dist.ReduceOp.MAX, "pmax")
+
+
+def pmin(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """``jax.lax.pmin``: the elementwise min of ``x`` over ``ax``; no
+    derivative, as ``pmax``."""
+    return _Pextreme.apply(x, ax, dist.ReduceOp.MIN, "pmin")
 
 
 def all_to_all(buf: torch.Tensor, ax: Axis) -> torch.Tensor:

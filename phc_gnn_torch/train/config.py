@@ -1,10 +1,13 @@
 """Structured experiment configuration: a copy of
 phc_gnn_tpu/train/config.py (``ExperimentConfig`` with the reference's ~40
 argparse flags under the same names and defaults, and ``DATASET_DEFAULTS``),
-so that a configuration names the same model in both packages.  The fields
-that only the JAX package's TPU runner reads (``agg_kernel``, ``rng_impl``,
-``prefetch_depth``, ``scan_chunk``, ...) are kept for the copy's sake; the
-port's ``train.trainer.build_model`` reads the model's.
+so that a configuration names the same model in both packages.  The port
+reads what its counterparts do: ``train.trainer.build_model`` the model's
+fields and ``agg_kernel`` ("xla" puts the model on the composite route,
+"auto" and "stream" on the plan route, the port's counterpart of
+"stream"); the Trainer ``scan_chunk``, ``grad_accum``, ``prefetch_depth``,
+``dp``, ``ep`` and ``ep_scheme``; the CLI the data fields.  ``rng_impl``
+(JAX's choice of PRNG) is kept for the copy's sake and not read.
 """
 
 from __future__ import annotations
@@ -95,8 +98,9 @@ class ExperimentConfig:
     ep: int = 1                    # graph-parallel mesh axis (devices)
     ep_scheme: str = "halo"        # graph-parallel design: halo (node-sharded
                                    # + boundary exchange) | replicated
-    agg_kernel: str = "auto"       # segment aggregation kernel: auto (stream
-                                   # on TPU, xla elsewhere) | stream | xla
+    agg_kernel: str = "auto"       # segment aggregation kernel: auto (JAX:
+                                   # stream on TPU, xla elsewhere; the port:
+                                   # the plan route) | stream | xla
     compute_dtype: str = "f32"     # activation compute dtype: f32 | bf16
                                    # (params/BN stats stay f32; measured
                                    # -3.5% step time on TPU v5e, KERNELS.md)

@@ -36,6 +36,7 @@ from phc_gnn_torch.graph.batch import GraphsTuple
 from phc_gnn_torch.models.phc_gnn import PHCGNN
 from phc_gnn_torch.parallel.dp import (fold_seed, grid_eval_step,
                                        grid_train_step, make_dummy_batch)
+from phc_gnn_torch.parallel.edge_partition import edge_shard
 from phc_gnn_torch.parallel.halo import SlotOverflow, partition_nodes
 from phc_gnn_torch.parallel.mesh import make_mesh
 from phc_gnn_torch.train.checkpoint import CheckpointManager
@@ -70,7 +71,10 @@ def build_model(cfg: ExperimentConfig, atom_input_dims, bond_input_dims,
     conv's degree statistics (``cfg.aggr_msg == "pna"``), which the CLI
     takes from the training split's in-degree histogram
     (``data.datasets.avg_deg_from_histogram(degree_histogram(graphs))``).
-    ``cfg.aggr_node`` is not read, as in JAX."""
+    ``cfg.agg_kernel == "xla"`` puts the model on the composite route
+    (``PHCGNN(composite=True)``: no CSR plan read, on any device); "auto"
+    and "stream" keep the plan route.  ``cfg.aggr_node`` is not read, as in
+    JAX."""
     dropout_mpnn = tuple(cfg.dropout_mpnn)
     if len(dropout_mpnn) == 1 and len(cfg.mp_units) > 1:
         dropout_mpnn = dropout_mpnn * len(cfg.mp_units)
@@ -88,6 +92,7 @@ def build_model(cfg: ExperimentConfig, atom_input_dims, bond_input_dims,
         norm_dn=cfg.norm_dn, msg_encoder=cfg.msg_encoder, sc_type=cfg.sc_type,
         skip_connect=cfg.model_type, initial_beta=cfg.initial_beta,
         learn_beta=cfg.learn_beta, avg_deg=avg_deg,
+        composite=str(getattr(cfg, "agg_kernel", "auto")) == "xla",
         compute_dtype=(torch.bfloat16
                        if str(getattr(cfg, "compute_dtype", "f32")) == "bf16"
                        else None),
@@ -158,8 +163,10 @@ class Trainer:
     unless ``device="cpu"``).
 
     ``train_batches(seed)``, ``valid_batches()`` and ``test_batches()``
-    return fresh iterables of CPU batches carrying their CSR plans
-    (``data.PaddedLoader(..., csr_plan=True)``); the train loader shuffles
+    return fresh iterables of CPU batches, carrying their CSR plans
+    (``data.PaddedLoader(..., csr_plan=True)``) where the model reads them:
+    on one rank or dp ranks, and not on the composite route (``PHCGNN(
+    composite=True)``, ``agg_kernel="xla"``); the train loader shuffles
     with the epoch's seed.  The model's weights when given are run 1's
     start; run i > 1 starts from ``init_state(cfg.seed + i - 1)``, a
     state_dict (the CLI passes ``build_model``'s at that seed), or, without
@@ -172,8 +179,10 @@ class Trainer:
     trainer (:164-250, :300-442): each rank reads the same batches, takes
     member ``d`` of each group of ``dp`` batches of one bucket shape (the
     last group padded with ``make_dummy_batch``) and, with ep > 1, its
-    node shard of it (``_partition``, ``ep_scheme="halo"``; the replicated
-    scheme raises), and steps with ``parallel.dp.grid_train_step``; the
+    node shard of it (``ep_scheme="halo"``) or its edge shard
+    (``"replicated"``: ``parallel.edge_shard``, the model's edges over ep,
+    one step a batch as in JAX; ``_partition``), and steps with
+    ``parallel.dp.grid_train_step``; the
     outputs of a group reach every rank, so every rank computes the same
     metrics, and only the primary (rank 0) writes files.  ``grad_accum``
     and ``profile_steps`` are single-device there, as JAX keeps
@@ -218,17 +227,10 @@ class Trainer:
         if nd > 1 and self.dp == 1:
             log.warning("num_devices=%d is deprecated; using it as dp", nd)
             self.dp = nd
-        if str(getattr(cfg, "agg_kernel", "auto")) == "xla":
-            raise NotImplementedError(
-                "agg_kernel='xla' has no counterpart in the port: its "
-                "aggregations run the CUDA kernels over the CSR plans "
-                "(ROADMAP.md, section 1, item 15 (a))")
         self.ep_scheme = str(getattr(cfg, "ep_scheme", "halo") or "halo")
-        if self.ep > 1 and self.ep_scheme != "halo":
-            raise NotImplementedError(
-                f"ep_scheme={self.ep_scheme!r}: the replicated scheme "
-                "(parallel/edge_partition.py) is not ported yet (ROADMAP.md, "
-                "section 1, item 15); ep_scheme='halo' is")
+        if self.ep_scheme not in ("halo", "replicated"):
+            raise ValueError(f"ep_scheme must be 'halo' or 'replicated', "
+                             f"got {self.ep_scheme!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -271,16 +273,19 @@ class Trainer:
     def _parallel_steps(self, model: PHCGNN, kw: dict) -> None:
         """The multi-rank paths (JAX's trainer.py:164-250): this rank's
         ``(dp, ep)`` mesh over the default process group (``cli.train``
-        sets it up), the model sharded over ``ep`` (``set_node_axis``),
-        one train step a batch (the scanned chunks of JAX are the same
-        steps one after another) and the eval forward; ``grad_accum``
-        stays single-device, as in JAX."""
+        sets it up), the model's nodes sharded over ``ep``
+        (``set_node_axis``) or, under the replicated scheme, its edges
+        (``set_edge_axis``), one train step a batch (the scanned chunks of
+        JAX are the same steps one after another) and the eval forward on
+        the same shards; ``grad_accum`` stays single-device, as in JAX."""
         if self.accum > 1:
             log.info("grad_accum is single-device; ignored under dp/ep")
             self.accum = 1
         self.mesh = make_mesh(self.dp, self.ep)
-        if self.ep > 1:
+        if self.ep > 1 and self.ep_scheme == "halo":
             model.set_node_axis("ep")
+        elif self.ep > 1:
+            model.set_edge_axis("ep")
         self.train_step = grid_train_step(
             model, self.opt, self.loss_fn, self.mesh, loss_name=self.cfg.loss,
             **kw)
@@ -314,16 +319,22 @@ class Trainer:
                 yield group, full
 
     def _partition(self, batch: GraphsTuple) -> GraphsTuple:
-        """This rank's node shard of ``batch`` (JAX's trainer.py:331-360):
-        the per-shard edge and halo widths stay on coarse rungs (multiples
-        of 512 and 64), grown when a batch needs more, so consecutive
-        batches share their shapes.  Every rank of a dp row partitions the
-        same batches, so their rungs move together."""
+        """This rank's shard of ``batch`` (JAX's trainer.py:331-360): under
+        the replicated scheme its edge shard; under the halo scheme its
+        node shard, with its CSR plans unless the model is on the
+        composite route, the per-shard edge and halo widths on coarse rungs
+        (multiples of 512 and 64), grown when a batch needs more, so
+        consecutive batches share their shapes.  Every rank of a dp row
+        partitions the same batches, so their rungs move together."""
+        if self.ep_scheme == "replicated":
+            return edge_shard(batch, self.ep, self.mesh.ep.index)
+        plan = not self.model.composite
         es, h = self._np_slots
         if es is not None:
             try:
                 return partition_nodes(batch, self.ep, edge_slots=es,
-                                       halo_slots=h)[self.mesh.ep.index]
+                                       halo_slots=h, csr_plan=plan)[
+                    self.mesh.ep.index]
             except SlotOverflow as o:
                 need_es, need_h = o.needed_edge_slots, o.needed_halo_slots
         else:
@@ -333,8 +344,8 @@ class Trainer:
         h = -(-max(need_h, h or 0) // 64) * 64
         self._np_slots = (es, h)
         log.info("halo partition rungs -> edge_slots=%d halo_slots=%d", es, h)
-        return partition_nodes(batch, self.ep, edge_slots=es,
-                               halo_slots=h)[self.mesh.ep.index]
+        return partition_nodes(batch, self.ep, edge_slots=es, halo_slots=h,
+                               csr_plan=plan)[self.mesh.ep.index]
 
     def _dp_groups(self, batches: Iterable[GraphsTuple]):
         """``(real batches, this rank's batch or node shard)`` per step

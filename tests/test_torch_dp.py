@@ -207,12 +207,20 @@ def test_trainer_on_dp2_ep2_matches_jax(tmp_path):
 
 
 def test_multi_rank_paths_that_refuse():
-    """The replicated scheme raises naming its ROADMAP item; ``--device
-    cuda`` with fewer cards than ranks raises and says so; a mesh of more
-    than one rank needs a process group."""
+    """The replicated scheme, ported since its slice, gets as far as the
+    halo scheme without a process group: its mesh needs one (its ranks
+    are held to JAX's in tests/test_torch_edge_partition.py); another
+    scheme raises naming the two; ``--device cuda`` with fewer cards than
+    ranks raises and says so; a mesh of more than one rank needs a process
+    group."""
     cfg = ExperimentConfig(dataset="zinc", ep=2, ep_scheme="replicated")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Trainer(cfg, None, None, None, device="cpu")
+    model = PHCGNN(**_spec([1], (1, 2), jax_init=False)["model"],
+                   device="cpu")
+    with pytest.raises(RuntimeError, match="initialize"):
+        Trainer(cfg, model, None, None, device="cpu")
+    cfg.ep_scheme = "rows"
+    with pytest.raises(ValueError, match="'halo' or 'replicated'"):
+        Trainer(cfg, model, None, None, device="cpu")
     with pytest.raises(RuntimeError, match="need 2 GPUs"):
         tcli.run_benchmark("zinc", ["--dp", "2", "--data_root", FIX,
                                     "--device", "cuda"])

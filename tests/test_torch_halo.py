@@ -323,13 +323,28 @@ def test_np_steps_and_the_exchange_match_jax_and_union():
 
 
 def test_axes_that_are_not_ported_raise():
-    """``node_axis`` builds; ``edge_axis`` (the replicated scheme) raises
-    and names its ROADMAP item; a sharded norm outside a step's mesh
-    raises."""
+    """``node_axis`` builds, and so does ``edge_axis`` (the replicated
+    scheme) since its slice: outside a step's mesh its collectives raise,
+    and on a one-rank mesh its eval of one edge shard is JAX's eval of the
+    batch (tests/test_torch_edge_partition.py holds it on ranks); a sharded
+    norm outside a step's mesh raises."""
     kw = dict(MODEL, atom_input_dims=ZINC_ATOM_DIMS,
               bond_input_dims=ZINC_BOND_DIMS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        PHCGNN(**kw, edge_axis="ep")
+    ep_model = PHCGNN(**kw, edge_axis="ep")
+    state = _port_state({k: v for k, v in kw.items() if k != "device"},
+                        _jax_variables())
+    ep_model.load_state_dict({k: torch.from_numpy(v)
+                              for k, v in state.items()})
+    edge_shard = P.edge_shard(synthetic_batch(*SHAPE, seed=1), 1, 0)
+    with pytest.raises(RuntimeError, match="not bound"):
+        ep_model(edge_shard)
+    jm = JaxPHCGNN(**MODEL, atom_input_dims=J_ATOM, bond_input_dims=J_BOND)
+    want = jm.apply(_jax_variables(), jax_synthetic_batch(*SHAPE, seed=1),
+                    training=False)
+    got = P.make_ep_eval_step(ep_model, P.make_mesh(1, 1), device="cpu")(
+        edge_shard)
+    _close(got.numpy(), np.asarray(want), REL_OUT, ATOL_OUT, "edge_axis eval")
+    assert ep_model.set_edge_axis(None).edge_axis is None
     model = PHCGNN(**kw, node_axis="ep")
     shard = P.partition_nodes(synthetic_batch(*SHAPE, seed=1), S)[0]
     with pytest.raises(RuntimeError, match="not bound"):

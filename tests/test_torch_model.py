@@ -15,6 +15,7 @@ import torch
 from phc_gnn_tpu.data import synthetic_batch as jax_synthetic_batch
 from phc_gnn_tpu.models import PHCGNN as JaxPHCGNN
 from phc_gnn_tpu.ops.stream_scan import attach_scan_plan
+from phc_gnn_torch import parallel as P
 from phc_gnn_torch import resolve_device
 from phc_gnn_torch.convert import from_flax_params, from_flax_variables
 from phc_gnn_torch.data import ZINC_ATOM_DIMS, ZINC_BOND_DIMS, synthetic_batch
@@ -156,8 +157,10 @@ def test_training_and_later_slice_configs_raise():
     in tests/test_torch_train.py), and so does the mean aggregation since
     the PNA slice (tests/test_torch_pna.py), and ``remat`` and the bf16
     ``compute_dtype``, and ``node_axis`` since the halo slice
-    (tests/test_torch_halo.py); ``edge_axis`` (the replicated scheme) and
-    another compute dtype raise."""
+    (tests/test_torch_halo.py), and ``edge_axis`` since the replicated
+    slice: on a one-rank mesh, its edges in one shard, its eval is JAX's
+    (tests/test_torch_edge_partition.py holds it on ranks); another
+    compute dtype raises."""
     model = PHCGNN(**_config(32, 2), device="cpu")
     out = model(attach_csr_plan(synthetic_batch(4, 128, 256)), training=True,
                 generator=torch.Generator().manual_seed(0))
@@ -165,8 +168,16 @@ def test_training_and_later_slice_configs_raise():
     out.sum().backward()
     assert all(p.grad is not None for p in model.parameters()
                if p.requires_grad)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        PHCGNN(**_config(32, 2, edge_axis="ep"), device="cpu")
+    jm = JaxPHCGNN(**_config(32, 2))
+    jb = jax_synthetic_batch(8, 256, 512, seed=3)
+    v = randomize(jm.init(jax.random.key(0), jb, training=False), seed=3)
+    ep_model = load_flax(PHCGNN(**_config(32, 2, edge_axis="ep"),
+                                device="cpu"), v)
+    shard = P.edge_shard(attach_csr_plan(synthetic_batch(8, 256, 512,
+                                                         seed=3)), 1, 0)
+    got = P.make_ep_eval_step(ep_model, P.make_mesh(1, 1), device="cpu")(
+        shard)
+    assert_close(got, np.asarray(jm.apply(v, jb, training=False)), REL)
     assert PHCGNN(**_config(32, 2, node_axis="ep"),
                   device="cpu").node_axis == "ep"
     # remat and the bf16 compute dtype build and run (tests/test_torch_remat.py

@@ -308,15 +308,23 @@ def test_inference_reproduces_test_bestval(tmp_path, capsys):
     assert result["mae"] == summary["test_bestval"]["mean"]
 
 
-@pytest.mark.parametrize("case", ["dp", "ep", "num_devices", "xla", "cuda"])
-def test_trainer_raises(case, monkeypatch):
-    """The paths the port does not have raise, naming their ROADMAP item
-    (``agg_kernel="xla"``; under ep the replicated scheme); ``dp``, ``ep``
+@pytest.mark.parametrize("case", ["dp", "ep", "num_devices", "xla", "cuda",
+                                  "pna_edge_axis"])
+def test_trainer_raises(case, monkeypatch, tmp_path):
+    """What the port refuses, and what it no longer does: ``dp``, ``ep``
     and ``num_devices`` above 1 run on ranks (tests/test_torch_dp.py) and
-    raise without a process group, naming the call that makes one;
-    ``device="cuda"`` without a card raises."""
+    raise without a process group, naming the call that makes one; under
+    ep the replicated scheme does too, and a CLI run of it on 2 ranks
+    trains; ``agg_kernel="xla"`` trains on the composite route (its loaders
+    build no plan); ``device="cuda"`` without a card raises; training PNA
+    under ``edge_axis`` raises in both frameworks, as ``pmax`` and
+    ``pmin`` have no derivative in JAX (its eval works,
+    tests/test_torch_edge_partition.py)."""
     from phc_gnn_torch.train.config import ExperimentConfig
     from phc_gnn_torch.train.trainer import build_model
+    if case == "pna_edge_axis":
+        _pna_under_edge_axis_raises()
+        return
     cfg = ExperimentConfig(input_embed_dim=8, mp_units=(8,), d_units=(8,),
                            dropout_mpnn=(0.0,), dropout_dn=(0.0,))
     model = build_model(cfg, [28], [4], device="cpu")
@@ -326,17 +334,69 @@ def test_trainer_raises(case, monkeypatch):
             Trainer(cfg, model, None, None, device="cuda")
         return
     if case == "xla":
-        cfg.agg_kernel = "xla"
-        with pytest.raises(NotImplementedError, match=r"item 15 \(a\)"):
-            Trainer(cfg, model, None, None, device="cpu")
+        summary = tcli.run_benchmark("zinc", SMALL + NO_DROPOUT + [
+            "--epochs", "1", "--agg_kernel", "xla", "--device", "cpu",
+            "--save_dir", str(tmp_path)])
+        assert np.isfinite(summary["test_last"]["mean"])
+        assert _json(tmp_path / "params.json")["agg_kernel"] == "xla"
         return
     setattr(cfg, case, 2)
     with pytest.raises(RuntimeError, match="initialize"):
         Trainer(cfg, model, None, None, device="cpu")
     if case == "ep":
         cfg.ep_scheme = "replicated"
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(RuntimeError, match="initialize"):
             Trainer(cfg, model, None, None, device="cpu")
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")  # a thread a rank
+        summary = tcli.run_benchmark("zinc", SMALL + NO_DROPOUT + [
+            "--epochs", "1", "--ep", "2", "--ep_scheme", "replicated",
+            "--device", "cpu", "--save_dir", str(tmp_path)])
+        assert np.isfinite(summary["test_last"]["mean"])
+        assert len(_rows(tmp_path)) == 1
+
+
+def _pna_under_edge_axis_raises():
+    """One train step of a PNA model (mean, min, max, std) under
+    ``edge_axis`` on a one-device mesh: JAX's ``make_ep_train_step`` raises
+    in its differentiation of ``pmin`` or ``pmax``, and so does the
+    port's ``make_ep_train_step``, in the backward."""
+    import optax
+    from phc_gnn_tpu.models import PHCGNN as JaxPHCGNN
+    from phc_gnn_tpu.parallel import make_mesh as jax_make_mesh
+    from phc_gnn_tpu.parallel import make_ep_train_step as jax_ep_step
+    from phc_gnn_tpu.train.loss import masked_l1 as jax_l1
+    from phc_gnn_tpu.train.state import TrainState
+    from phc_gnn_torch import parallel as P
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_optimizer
+    from phc_gnn_torch.train.loss import masked_l1
+    kw = dict(phm_dim=4, atom_input_dims=list(ZINC_ATOM_DIMS),
+              bond_input_dims=list(ZINC_BOND_DIMS), atom_encoded_dim=8,
+              mp_layers=(8,), dropout_mpnn=(0.0,), downstream_layers=(8,),
+              dropout_dn=(0.0,), msg_aggr="pna", sc_type="last",
+              avg_deg={"lin": 2.4, "log": 1.1})
+    jb = jax_synthetic_batch(4, 128, 256, seed=0)
+    tx = optax.chain(optax.scale(-1.0))
+    # one jitted init compiles in a third of the eager init's time
+    v = jax.jit(lambda key, b: JaxPHCGNN(**kw).init(key, b, training=False))(
+        jax.random.key(0), jb)
+    state = TrainState(params=v["params"], batch_stats=v["batch_stats"],
+                       opt_state=tx.init(v["params"]), rng=jax.random.key(1),
+                       step=np.zeros((), np.int32))
+    step = jax_ep_step(JaxPHCGNN(**kw, edge_axis="ep"), tx,
+                       lambda out, b: jax_l1(out, b.y),
+                       jax_make_mesh(dp=1, ep=1), donate=False)
+    rule = r"Differentiation rule for 'pm(in|ax)' not implemented"
+    with pytest.raises(NotImplementedError, match=rule):
+        step(state, jb, np.float32(1e-3))
+    model = PHCGNN(**kw, edge_axis="ep", device="cpu")
+    opt = make_optimizer(dict(model.named_parameters()))
+    tstep = P.make_ep_train_step(model, opt, lambda out, b: masked_l1(out,
+                                                                       b.y),
+                                 P.make_mesh(1, 1), device="cpu")
+    with pytest.raises(NotImplementedError, match=rule):
+        tstep(P.edge_shard(synthetic_batch(4, 128, 256, seed=0), 1, 0), 1e-3)
 
 
 @pytest.mark.parametrize("fn", ["row_diff", "col_diff"])

@@ -204,3 +204,138 @@ def halo_roundtrip(rank, world, spec):
     (got * w).sum().backward()
     return dict(x=x.detach().numpy(), halo_send=shard.halo_send.numpy(),
                 got=got.detach().numpy(), w=w.numpy(), dx=x.grad.numpy())
+
+
+def composite_inputs(spec):
+    """The composites' inputs of ``spec``, whole, as numpy: messages
+    [E, D], logits, receivers over ``N`` nodes, an edge mask and the
+    cotangent of the softmax aggregate, from ``spec["seed"]``."""
+    rng = np.random.default_rng(spec["seed"])
+    e, n, d = spec["edges"], spec["nodes"], spec["dim"]
+    return dict(m=rng.normal(size=(e, d)).astype(np.float32),
+                logits=rng.normal(size=(e, d)).astype(np.float32),
+                recv=np.sort(rng.integers(0, n, size=e)).astype(np.int32),
+                mask=rng.random(e) > 0.2,
+                w=rng.normal(size=(n, d)).astype(np.float32))
+
+
+def composites(rank, world, spec):
+    """graph/segment.py's and graph/aggregators.py's composites over the
+    ``ep`` axis of a ``(1, world)`` mesh, this rank holding edge slice
+    ``rank``: the six aggregations, the degrees, the softmax weights and
+    the softmax aggregate with its gradients in the messages and beta (of
+    ``sum(out * w)``), in float32, and the sum and the softmax aggregate on
+    bfloat16 messages; and whether the max's backward raises (pmax has no
+    derivative)."""
+    from phc_gnn_torch import parallel as P
+    from phc_gnn_torch.graph import aggregators as agg
+    from phc_gnn_torch.graph import segment as seg
+    from phc_gnn_torch.parallel import mesh as mesh_lib
+    grid = P.make_mesh(1, world, "gloo")
+    data = composite_inputs(spec)
+    n = spec["nodes"]
+    per = spec["edges"] // world
+    cut = slice(rank * per, (rank + 1) * per)
+    recv = torch.from_numpy(data["recv"][cut])
+    mask = torch.from_numpy(data["mask"][cut])
+    out = {}
+    beta = torch.tensor(0.7)
+    with mesh_lib.bind(grid):
+        for dt in ("float32", "bfloat16"):
+            m = torch.from_numpy(data["m"][cut]).to(getattr(torch, dt))
+            names = (agg.AGGREGATORS if dt == "float32" else ("sum",))
+            for name in names:
+                out[f"{name}/{dt}"] = agg.AGGREGATORS[name](
+                    m, recv, n, mask, axis_name="ep")
+            out[f"softmax_aggregate/{dt}"] = agg.softmax_aggregate(
+                m, recv, n, beta, mask, axis_name="ep")
+        m = torch.from_numpy(data["m"][cut]).requires_grad_()
+        beta.requires_grad_()
+        y = agg.softmax_aggregate(m, recv, n, beta, mask, axis_name="ep")
+        (y * torch.from_numpy(data["w"])).sum().backward()
+        out["softmax_dm"] = m.grad
+        out["softmax_dbeta"] = beta.grad
+        logits = torch.from_numpy(data["logits"][cut])
+        out["softmax_weights"] = seg.segment_softmax_weights(
+            logits, recv, n, mask, axis_name="ep")
+        out["degrees"] = agg.node_degrees(recv, n, mask, axis_name="ep")
+        x = torch.from_numpy(data["m"][cut]).requires_grad_()
+        try:
+            seg.segment_max(x, recv, n, mask, axis_name="ep").sum().backward()
+            out["max_backward"] = "ran"
+        except NotImplementedError as err:
+            out["max_backward"] = str(err)
+    return {k: v if isinstance(v, str) else v.detach().float().numpy()
+            for k, v in out.items()}
+
+
+def replicated(rank, world, spec):
+    """The replicated scheme on the ``(dp, ep)`` mesh of ``spec``: rank
+    (d, e) holds ``edge_shard(batch_d, ep, e)``, the model's edges over
+    ep.  Without ``spec["eval_only"]``: this rank's raw gradient (before
+    the mean over ep, from a copy of the model), one train step, then the
+    eval; with it, the eval of the state alone."""
+    import copy
+
+    from phc_gnn_torch import parallel as P
+    from phc_gnn_torch.parallel import mesh as mesh_lib
+    from phc_gnn_torch.train.state import make_loss_and_grads
+    dp, ep = spec["mesh"]
+    grid = P.make_mesh(dp, ep, "gloo")
+    model, opt, loss_fn = build(spec)
+    model.set_edge_axis("ep")
+    d, e = divmod(rank, ep)
+    mine = P.edge_shard(batches(spec)[d], ep, e)
+    evaluate = P.make_ep_eval_step if dp == 1 else P.make_dp_ep_eval_step
+    if spec.get("eval_only"):
+        return dict(eval=evaluate(model, grid, device="cpu")(mine).numpy())
+    twin = copy.deepcopy(model)
+    with mesh_lib.bind(grid):
+        _, _, raw = make_loss_and_grads(twin, loss_fn, spec["wd"])(
+            mine, spec["lr"])
+    kw = {"loss_name": "l1"} if dp > 1 else {}
+    make = P.make_ep_train_step if dp == 1 else P.make_dp_ep_train_step
+    step = make(model, opt, loss_fn, grid, weight_decay=spec["wd"],
+                device="cpu", **kw)
+    loss, out = step(mine, spec["lr"])
+    return dict(losses=[float(loss)], out=out.numpy().copy(),
+                raw={k: g.numpy().copy() for k, g in raw.items()},
+                state=_state(model),
+                eval=evaluate(model, grid, device="cpu")(mine).numpy())
+
+
+def count_np_step(rank, world, spec):
+    """One np step of the halo scheme (2 layers of the flagship's layout)
+    with ``torch.distributed``'s ``all_reduce`` and ``all_to_all_single``
+    wrapped to record each call's bytes: returns the calls in order, the
+    model's parameter count and the widths of its norms that reduce over
+    the shards."""
+    from phc_gnn_torch import parallel as P
+    grid = P.make_mesh(1, world, "gloo")
+    model, opt, loss_fn = build(spec)
+    model.set_node_axis("ep")
+    shard = P.partition_nodes(batches(spec)[0], world)[rank]
+    step = P.make_np_train_step(model, opt, loss_fn, grid,
+                                weight_decay=spec["wd"], device="cpu")
+    calls = []
+    real = {"all_reduce": dist.all_reduce,
+            "all_to_all_single": dist.all_to_all_single}
+
+    def wrap(name):
+        def collective(t, *args, **kw):
+            calls.append((name, t.numel() * t.element_size()))
+            return real[name](t, *args, **kw)
+        return collective
+
+    try:
+        for name in real:
+            setattr(dist, name, wrap(name))
+        step(shard, spec["lr"])
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    norms = [m.mean.numel() for m in model.modules()
+             if type(m).__name__ == "_BatchNorm" and m.stat_axis == "ep"]
+    return dict(calls=calls, params=sum(p.numel() for p in
+                                        model.parameters()),
+                norms=norms, num_graphs=shard.num_graphs)

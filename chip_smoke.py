@@ -308,11 +308,34 @@ Phases, each of which exits non-zero on failure:
    against eager; PNA's eval on the route against the CPU and the plan
    route; then the graphed step and eval on both routes in turns (plan,
    xla, xla, plan): ms, kernels, busy and idle, the port's kernels a step.
+22. export: the eval forward through ``phc_gnn_torch.export`` (``torch.export``,
+   its kernels ``torch.library`` ops).  The flagship at full width with
+   random eval state, exported at the main path's bucket in float32 and
+   in bf16: the graph calls the kernels' ops (A and B 4 each; in bf16 the
+   fused op 4), no ``scatter_reduce`` and the pooling's one ``index_add_``;
+   one exported call launches what one eager call launches (A, B 4; bf16
+   the fused kernel 4, no A or B), its output bit-equal to the eager
+   ``make_eval_step``'s under the deterministic algorithms and, in
+   float32, within TOL_SCAN_ATOMICS without them (the pooling's atomics;
+   two bf16 eager calls part by ~1e-2 there).  The f32 program
+   saved, then loaded and called in a child process that imports only
+   ``phc_gnn_torch.export``:
+   bit-equal, A and B 4 there, ``phc_gnn_torch.models`` never imported.
+   The quaternion preset, PNA and pcba's 512-graph eval exported: their
+   launches those of the eager eval (K's eval route 8, A, B 4; C 4, H 8, I
+   4; C 7), their outputs bit-equal to it under the deterministic
+   algorithms (TOL_SCAN).  The eager eval, the
+   exported program and the graphed eval in turns (EXPORT_TURNS): ms a
+   batch, kernels, busy, idle; A's and B's eval variant per call through
+   their ops and through the bare launch, in turns; and
+   ``torch.library.opcheck`` of every kernel op on CUDA inputs at the
+   flagship's shapes.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
 ``{"scan"}``, ``{"bf16"}``, ``{"remat"}``, ``{"harness"}``,
-``{"harness_bf16"}``, ``{"halo"}``, ``{"xla"}``, ``{"phase_seconds"}`` and
+``{"harness_bf16"}``, ``{"halo"}``, ``{"xla"}``, ``{"export"}``,
+``{"phase_seconds"}`` and
 ``{"kernels": [...]}``
 lines, then, as its last line, ``{"ok": true, "device": {...}}``.  The
 kernels line lists the bf16 kernels as kernels of their own
@@ -340,7 +363,9 @@ first call; ``bf16_pcba_eval``: 1 bf16 pcba batch; ``remat_flagship``,
 counts over one multi-rank step; ``halo_trainer``: rank 0's over its
 Trainer run; ``ep_ep2``, ``ep_dp_ep``, ``ep_trainer``: the same for the
 replicated scheme; ``xla_train``: the composite route's graphed call;
-``xla_eval``, ``xla_pna_eval``: 3 batches each), and ``launches`` is their sum; C's halo role has a row of
+``xla_eval``, ``xla_pna_eval``: 3 batches each; ``export_f32``,
+``export_bf16``, ``export_quat``, ``export_pna``, ``export_pcba``: one
+call of each exported program), and ``launches`` is their sum; C's halo role has a row of
 its own (``halo_gather_split_bwd``).  Without
 a CUDA device it exits non-zero and prints no result.  It imports nothing
 of JAX.
@@ -348,6 +373,7 @@ of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -1992,16 +2018,12 @@ def kernel_phase(torch, dev):
 
 
 def flagship_config(dropout: bool = True) -> dict:
-    """bench.py:140-146; with ``dropout=False`` every rate is 0."""
-    from phc_gnn_torch.data import ZINC_ATOM_DIMS, ZINC_BOND_DIMS
+    """bench.py:140-146 at width DIM (``phc_gnn_torch.export``'s, the
+    counterpart of ``__graft_entry__.entry()``'s); with ``dropout=False``
+    every rate is 0."""
+    from phc_gnn_torch.export import flagship_config as config
 
-    return dict(phm_dim=4, atom_input_dims=ZINC_ATOM_DIMS,
-                bond_input_dims=ZINC_BOND_DIMS, atom_encoded_dim=DIM,
-                mp_layers=(DIM,) * 4,
-                dropout_mpnn=(0.1 if dropout else 0.0,) * 4,
-                downstream_layers=(200, 100), target_dim=1,
-                dropout_dn=(0.2, 0.1) if dropout else (0.0, 0.0),
-                msg_aggr="softmax", mlp_mp=True, sc_type="last")
+    return config(DIM, 4, dropout)
 
 
 def randomize_eval_state(torch, model, seed: int = 1):
@@ -5946,6 +5968,451 @@ def xla_phase(torch, dev):
     return paths, info
 
 
+EXPORT_CALLS = {"f32": {"phc_gnn.segment_logit_max.default": 4,
+                         "phc_gnn.segment_softmax_aggregate.default": 4},
+                 "bf16": {"phc_gnn.segment_softmax_fused.default": 4}}
+EXPORT_LAUNCHES = {"f32": {"segment_logit_max": 4,
+                           "segment_softmax_aggregate": 4},
+                   "bf16": {"segment_softmax_fused_bf16": 4}}
+EXPORT_POOL_INDEX_ADDS = 1  # the soft-attention pooling's, a forward
+EXPORT_TURNS = ("eager", "exported", "graphed", "graphed", "exported",
+                "eager")
+EXPORT_PROFILED = 10         # calls profiled a turn
+EXPORT_RECOUNTS = 2          # eager profiled again where exported seems more
+# the exported graph's check of its inputs' shapes and dtypes: it launches
+# nothing, and eager has no counterpart
+EXPORT_ONLY_OPS = ("aten._assert_tensor_metadata.default",)
+# the child process that loads the saved program: it imports the export
+# module alone (which registers the ops), calls the program under the
+# deterministic algorithms and reports its launches of A and B
+EXPORT_CHILD = """
+import json, sys, torch
+from phc_gnn_torch import export
+from phc_gnn_torch.ops import segment_softmax as ss
+program = export.load(sys.argv[1])
+args = torch.load(sys.argv[2])
+torch.use_deterministic_algorithms(True, warn_only=True)
+with torch.inference_mode():
+    out = program.module()(*args)
+torch.cuda.synchronize()
+torch.save(out.cpu(), sys.argv[3])
+print(json.dumps({"models_imported": "phc_gnn_torch.models" in sys.modules,
+                  "launches": {"segment_logit_max": ss.segment_logit_max.launches,
+                               "segment_softmax_aggregate":
+                                   ss.segment_softmax_aggregate.launches}}))
+"""
+
+
+def phc_gnn_calls(program) -> dict:
+    """The ``phc_gnn::`` ops called in an exported program's graph, with
+    their counts, and the count of every ``scatter_reduce`` and
+    ``index_add`` (aten) beside them."""
+    calls: dict = {}
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and (name.startswith("phc_gnn.") or
+                                           "scatter_reduce" in name or
+                                           "index_add" in name):
+            calls[name] = calls.get(name, 0) + 1
+    return calls
+
+
+def exported_launches(torch, fn) -> dict:
+    """The launch counts of one call of ``fn``, zeroed just before and read
+    just after, those that are not 0."""
+    torch.cuda.synchronize()
+    reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for k, v in read_launches().items() if v}
+
+
+def export_flagship(torch, dev, dtype: str, batch):
+    """(a), (b): the flagship at full width with random eval state, in
+    ``dtype``, exported at ``batch``'s bucket; its graph's kernel ops, its
+    launches a call against the eager forward's and ``EXPORT_LAUNCHES``,
+    and its output against the eager ``make_eval_step``: bit-equal under
+    the deterministic algorithms, in float32 within TOL_SCAN_ATOMICS
+    without them (the pooling's atomics).
+    Returns the model, the program, the record and the launch counts."""
+    from phc_gnn_torch import export
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_eval_step
+
+    model = (bf16_flagship(torch, dev, True) if dtype == "bf16" else
+             PHCGNN(**flagship_config(), seed=0, device=dev))
+    randomize_eval_state(torch, model)
+    t0 = time.perf_counter()
+    program = export.export_forward(model, batch)
+    seconds = time.perf_counter() - t0
+    calls = phc_gnn_calls(program)
+    want_calls = {**EXPORT_CALLS[dtype],
+                  "aten.index_add_.default": EXPORT_POOL_INDEX_ADDS}
+    print(f"export {dtype}: torch.export of the flagship in {seconds:.2f} s; "
+          f"its graph calls {calls} (expected {want_calls}: the kernels' ops, "
+          f"no scatter_reduce, the pooling's index_add_ alone)", flush=True)
+    if calls != want_calls:
+        fail(f"export {dtype}: the exported graph calls {calls}, not "
+             f"{want_calls}")
+    module = program.module()
+    args = export.forward_args(batch)
+    eager = make_eval_step(model, device=dev)
+    with torch.inference_mode():
+        got = exported_launches(torch, lambda: module(*args))
+        want = exported_launches(torch, lambda: eager(batch))
+    print(f"export {dtype}: launches of one exported call {got}, of one "
+          f"eager call {want} (expected {EXPORT_LAUNCHES[dtype]})", flush=True)
+    if not got == want == EXPORT_LAUNCHES[dtype]:
+        fail(f"export {dtype}: the exported forward launched {got}, the eager "
+             f"one {want}, not {EXPORT_LAUNCHES[dtype]}")
+    with torch.inference_mode():
+        with deterministic(torch):
+            exact_out = module(*args)
+            exact_want = eager(batch)
+        loose_out, loose_want = module(*args), eager(batch)
+        control = eager(batch)
+    torch.cuda.synchronize()
+    if exact_out.shape != (FLAGSHIP["batch_size"] + 1, 1) or not bool(
+            torch.isfinite(exact_out).all()):
+        fail(f"export {dtype}: output {tuple(exact_out.shape)}, or not "
+             f"finite")
+    bit_equal = torch_equal(exact_out, exact_want)
+    loose = normwise(loose_out.cpu(), loose_want.cpu())[1]
+    eager_eager = normwise(control.cpu(), loose_want.cpu())[1]
+    # bf16 rounds each order of the pooling's atomics apart (two eager
+    # calls part by ~1e-2): only float32 is held outside the deterministic
+    # algorithms
+    tol = TOL_SCAN_ATOMICS if dtype == "f32" else math.inf
+    print(f"export {dtype}: exported against eager: bit-equal under the "
+          f"deterministic algorithms {bit_equal}; without them normwise "
+          f"{loose:.3e} (tolerance {tol:g}: the pooling's atomics; two "
+          f"eager calls {eager_eager:.3e})", flush=True)
+    if not bit_equal or not loose <= tol:
+        fail(f"export {dtype}: the exported forward disagrees with the "
+             f"eager one")
+    rec = {"export_s": seconds, "graph_calls": calls, "launches": got,
+           "bit_equal_deterministic": bit_equal, "normwise_atomics": loose,
+           "normwise_eager_eager": eager_eager}
+    return model, program, exact_out, rec, got
+
+
+def export_round_trip(torch, program, args, want):
+    """(c): ``save``, then ``load`` and call in a fresh process that imports
+    only ``phc_gnn_torch.export``, under the deterministic algorithms: the
+    result bit-equal to ``want``, A and B 4 launches each there, and
+    ``phc_gnn_torch.models`` never imported.  Returns the file's bytes and
+    the child's seconds."""
+    import os
+    import tempfile
+
+    from phc_gnn_torch import export
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.pt2")
+        nbytes = export.save(program, path)
+        torch.save(args, os.path.join(tmp, "args.pt"))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, path,
+             os.path.join(tmp, "args.pt"), os.path.join(tmp, "out.pt")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        if child.returncode != 0:
+            fail(f"export: the child that loads the program failed:\n"
+                 f"{child.stdout}\n{child.stderr}")
+        report = json.loads(child.stdout.strip().splitlines()[-1])
+        got = torch.load(os.path.join(tmp, "out.pt"))
+    bit_equal = torch_equal(got, want.cpu())
+    print(f"export: the saved program ({nbytes} bytes) loaded and called in "
+          f"a fresh process in {seconds:.1f} s: bit-equal {bit_equal}, "
+          f"launches there {report['launches']}, phc_gnn_torch.models "
+          f"imported {report['models_imported']}", flush=True)
+    if (not bit_equal or report["models_imported"]
+            or report["launches"] != EXPORT_LAUNCHES["f32"]):
+        fail("export: the loaded program differs, launched otherwise, or "
+             "needed phc_gnn_torch.models")
+    return nbytes, seconds
+
+
+def export_families(torch, dev):
+    """(d): the quaternion add preset (K's eval route), PNA (C's masked
+    role, H, I) and pcba's 512-graph eval (C) exported at their bench
+    shapes: each exported call's launches equal the eager call's and the
+    family's eval launches, its output within TOL_SCAN of the eager eval
+    under the deterministic algorithms.  Returns the launch counts and the
+    readings."""
+    from phc_gnn_torch import export
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+    from phc_gnn_torch.train import make_eval_step
+
+    flagship_batch = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP))
+    cases = (("quat", quat_model(torch, dev), flagship_batch,
+              QUAT_EVAL_LAUNCHES),
+             ("pna", pna_model(torch, dev)[0], flagship_batch,
+              PNA_EVAL_LAUNCHES),
+             ("pcba", pcba_model(torch, dev)[0],
+              pcba_batch(torch, 0, PCBA_EVAL), PCBA_EVAL_LAUNCHES))
+    paths, info = {}, {}
+    for name, model, host, per_batch in cases:
+        randomize_eval_state(torch, model)
+        batch = host.to(dev)
+        t0 = time.perf_counter()
+        program = export.export_forward(model, batch)
+        seconds = time.perf_counter() - t0
+        module, args = program.module(), export.forward_args(batch)
+        eager = make_eval_step(model, device=dev)
+        with torch.inference_mode():
+            want = exported_launches(torch, lambda: eager(batch))
+            got = exported_launches(torch, lambda: module(*args))
+            paths[f"export_{name}"] = read_launches()
+            with deterministic(torch):
+                out, ref = module(*args), eager(batch)
+        torch.cuda.synchronize()
+        err = normwise(out.cpu(), ref.cpu())[1]
+        info[name] = {"export_s": seconds, "graph_calls":
+                      phc_gnn_calls(program), "launches": got,
+                      "vs_eager": err}
+        print(f"export {name}: exported in {seconds:.2f} s; launches of one "
+              f"exported call {got}, of one eager call {want} (expected "
+              f"{per_batch}); against the eager eval under the deterministic "
+              f"algorithms normwise {err:.3e} (tolerance {TOL_SCAN:g})",
+              flush=True)
+        if not got == want == {k: v for k, v in per_batch.items() if v}:
+            fail(f"export {name}: the exported forward launched {got}, the "
+                 f"eager one {want}")
+        if not (out.shape == ref.shape and err <= TOL_SCAN):
+            fail(f"export {name}: the exported forward disagrees with the "
+                 f"eager eval")
+        del program, module, model
+    return paths, info
+
+
+def export_turns(torch, dev, model, program, batch):
+    """(e): the eager eval, the exported program and the graphed eval
+    (``make_scan_eval_steps`` over N_BATCHES copies of the batch) in turns
+    (EXPORT_TURNS): ms a batch (CUDA events; the host clock beside), and
+    from a profile the kernels a batch, device busy and idle.  Then the
+    ops and the kernels a call of the eager and the exported call by name:
+    the run fails if the exported call takes an op to the dispatcher more
+    often than eager (``ops_a_call``, which loses nothing; but for
+    EXPORT_ONLY_OPS), or launches a kernel more often (half a launch a
+    call or more), in eager's calls profiled again up to EXPORT_RECOUNTS
+    times, as the profiler can lose an event."""
+    from phc_gnn_torch import export
+    from phc_gnn_torch.train import make_eval_step, make_scan_eval_steps
+
+    module, args = program.module(), export.forward_args(batch)
+    eager = make_eval_step(model, device=dev)
+    graphed = make_scan_eval_steps(model, device=dev)
+    batches = [batch] * N_BATCHES
+
+    def exported():
+        with torch.inference_mode():
+            return module(*args)
+
+    fns = {"eager": (lambda: eager(batch), 1),
+           "exported": (exported, 1),
+           "graphed": (lambda: graphed(batches), N_BATCHES)}
+    out = {k: [] for k in fns}
+    for how in EXPORT_TURNS:
+        fn, per = fns[how]
+        ms, host_ms = (time_steps(torch, fn) if per == 1
+                       else time_scan(torch, fn, per))
+        prof = device_profile(torch, fn, ms * per,
+                              iters=max(1, EXPORT_PROFILED // per))
+        rec = {"ms": ms, "host_ms": host_ms,
+               "kernels": prof["kernels_per_call"] / per,
+               "busy_ms": prof["busy_ms"] / per,
+               "idle_share": prof["idle_share"]}
+        out[how].append(rec)
+        print(f"export turn {how}: {ms:.3f} ms a batch (host "
+              f"{host_ms:.3f}), {rec['kernels']:g} kernels, busy "
+              f"{rec['busy_ms']:.3f} ms (idle {100 * rec['idle_share']:.1f} "
+              f"%)", flush=True)
+    ops = {how: ops_a_call(torch, fns[how][0])
+           for how in ("eager", "exported")}
+    out["ops_apart"] = {"beyond_eager": dict(ops["exported"] - ops["eager"]),
+                        "below_eager": dict(ops["eager"] - ops["exported"])}
+    print(f"export: ops a call that the exported call takes to the "
+          f"dispatcher more and less often than eager: {out['ops_apart']}",
+          flush=True)
+    extra = {k: n for k, n in out["ops_apart"]["beyond_eager"].items()
+             if k not in EXPORT_ONLY_OPS}
+    if extra:
+        fail(f"export: the exported call runs ops that the eager call does "
+             f"not (a call, beyond eager's): {extra}")
+    eager_n, exported_n = (kernel_names_a_call(torch, fns[how][0])
+                           for how in ("eager", "exported"))
+
+    def beyond_eager():
+        return {k[:90]: [eager_n.get(k, 0.0), n] for k, n in exported_n.items()
+                if n - eager_n.get(k, 0.0) >= 0.5}
+
+    # a lost event cannot raise a count: a kernel the exported call seems
+    # to launch more often than eager is profiled again in eager's calls
+    for _ in range(EXPORT_RECOUNTS):
+        if not beyond_eager():
+            break
+        print(f"export: the exported call seems to launch {beyond_eager()} "
+              f"(eager, exported) beyond eager's; eager profiled again",
+              flush=True)
+        for k, n in kernel_names_a_call(torch, fns["eager"][0]).items():
+            eager_n[k] = max(eager_n.get(k, 0.0), n)
+    out["kernels_apart"] = {
+        k[:90]: [eager_n.get(k, 0.0), exported_n.get(k, 0.0)]
+        for k in set(eager_n) | set(exported_n)
+        if eager_n.get(k) != exported_n.get(k)}
+    print(f"export: kernels a batch that the eager and the exported call "
+          f"launch apart (eager, exported): {out['kernels_apart']}",
+          flush=True)
+    beyond = beyond_eager()
+    if beyond:
+        fail(f"export: the exported call launches kernels that the eager "
+             f"call does not (a batch, eager against exported): {beyond}")
+    return out
+
+
+def ops_a_call(torch, fn) -> collections.Counter:
+    """The ops (aten and ``phc_gnn::``) that one call of ``fn`` takes to
+    the dispatcher, by name: what it launches, counted on the host, where
+    no event is lost."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.counts[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as mode:
+        fn()
+    return mode.counts
+
+
+def kernel_names_a_call(torch, fn, iters: int = EXPORT_PROFILED,
+                        tries: int = 3) -> dict:
+    """Each CUDA kernel's launches a call of ``fn``, by name: the most of
+    ``tries`` profiles of ``iters`` calls, since the profiler can drop an
+    event (a profile once read A at 3.9 launches a call, which launches it
+    4 times, another the eager eval's device-to-device copies at 19.2 of
+    20) and a lost event cannot raise a count."""
+    most: dict = {}
+    for _ in range(tries):
+        for name, n in device_profile(torch, fn, 1.0,
+                                      iters=iters)["counts"].items():
+            most[name] = max(most.get(name, 0.0), n / iters)
+    return most
+
+
+def op_overhead(torch, dev, batch):
+    """(e): A's and B's eval variant per call through their ops (the public
+    wrappers) and through the bare launch the ops call (the wrappers before
+    the ops), in turns, at the flagship's shape: the dispatcher's cost."""
+    from phc_gnn_torch.ops import segment_softmax as ss
+
+    gen = torch.Generator().manual_seed(0)
+    msgs = torch.randn((batch.num_edges, DIM), generator=gen).to(dev)
+    args = (msgs, batch.edge_mask, torch.tensor(1.5, device=dev),
+            batch.rowptr)
+    segmax = ss.segment_logit_max(*args)
+    fns = {"A op": lambda: ss.segment_logit_max(*args),
+           "A bare": lambda: ss._logit_max_cuda(*args),
+           "B op": lambda: ss.segment_softmax_aggregate(*args, segmax),
+           "B bare": lambda: ss._aggregate_cuda(*args, segmax, emit_w=False)}
+    out = {k: [] for k in fns}
+    for k in ("A op", "A bare", "B op", "B bare",
+              "B bare", "B op", "A bare", "A op"):
+        out[k].append(time_eager(torch, fns[k]) * 1e3)
+    print(f"export: per call us, through the op and bare, in turns: {out}",
+          flush=True)
+    return out
+
+
+def op_checks(torch, dev, batch):
+    """(f): ``torch.library.opcheck`` of every kernel op on CUDA inputs at
+    the flagship's shapes (the whitening's at [4096, 200]), its default
+    tests: the schema, the autograd registration, the fake implementation
+    against the kernel, and the trace under ``aot_dispatch``."""
+    gen = torch.Generator().manual_seed(1)
+    n, e = batch.num_nodes, batch.num_edges
+    msgs = torch.randn((e, DIM), generator=gen).to(dev)
+    mask, rowptr = batch.edge_mask, batch.rowptr
+    beta = torch.tensor(1.5, device=dev)
+    segmax = torch.ops.phc_gnn.segment_logit_max(msgs, mask, beta, rowptr)
+    bf16 = msgs.bfloat16()
+    d = DIM // 4
+    x = torch.randn((n, DIM), generator=gen).to(dev)
+    b = torch.randn((d, 4, 4), generator=gen)
+    cov = (b @ b.transpose(1, 2) / 4 + 0.2 * torch.eye(4)).permute(
+        1, 2, 0).contiguous().to(dev)
+    gamma = (torch.eye(4)[:, :, None].repeat(1, 1, d)
+             + 0.1 * torch.randn((4, 4, d), generator=gen)).to(dev)
+    mean, wbeta = (torch.randn((4, d), generator=gen).to(dev)
+                   for _ in range(2))
+    ops = torch.ops.phc_gnn
+    cases = [
+        ("segment_logit_max", ops.segment_logit_max, (msgs, mask, beta, rowptr)),
+        ("segment_softmax_aggregate", ops.segment_softmax_aggregate,
+         (msgs, mask, beta, rowptr, segmax)),
+        ("segment_softmax_aggregate_train",
+         ops.segment_softmax_aggregate_train, (msgs, mask, beta, rowptr,
+                                               segmax)),
+        ("segment_softmax_fused", ops.segment_softmax_fused,
+         (bf16, mask, beta, rowptr)),
+        ("segment_softmax_fused_train", ops.segment_softmax_fused_train,
+         (bf16, mask, beta, rowptr)),
+        ("segment_sum_masked", ops.segment_sum_masked, (msgs, mask, rowptr)),
+        ("segment_sum_masked bf16", ops.segment_sum_masked,
+         (bf16, mask, rowptr)),
+        ("segment_extreme max", ops.segment_extreme,
+         (msgs, mask, rowptr, False)),
+        ("segment_extreme min", ops.segment_extreme,
+         (msgs, mask, rowptr, True)),
+        ("segment_moments", ops.segment_moments, (msgs, mask, rowptr)),
+        ("wbn_transform_eval", ops.wbn_transform_eval,
+         (x, mean, cov, gamma, wbeta, 1e-5))]
+    out = {}
+    for name, op, args in cases:
+        out[name] = torch.library.opcheck(op, args)
+        print(f"export: opcheck {name} on the card: {out[name]}", flush=True)
+        if set(out[name].values()) != {"SUCCESS"}:
+            fail(f"export: opcheck of {name} on the card: {out[name]}")
+    torch.cuda.synchronize()
+    return out
+
+
+def export_phase(torch, dev):
+    """22. export: the flagship's eval forward exported with torch.export,
+    its kernels called as torch.library ops; returns the launch counts of
+    its main-path runs (the exported programs' calls) and the readings."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+
+    batch = attach_csr_plan(synthetic_batch(seed=0, **FLAGSHIP)).to(dev)
+    paths, info = {}, {}
+    model, program, want, info["f32"], paths["export_f32"] = export_flagship(
+        torch, dev, "f32", batch)
+    _, _, _, info["bf16"], paths["export_bf16"] = export_flagship(
+        torch, dev, "bf16", batch)
+    from phc_gnn_torch import export
+
+    info["bytes"], info["load_child_s"] = export_round_trip(
+        torch, program, export.forward_args(batch), want)
+    family_paths, info["families"] = export_families(torch, dev)
+    paths.update(family_paths)
+    info["turns"] = export_turns(torch, dev, model, program, batch)
+    info["op_us"] = op_overhead(torch, dev, batch)
+    info["opcheck"] = op_checks(torch, dev, batch)
+    print(json.dumps({"export": info}), flush=True)
+    return {k: {**dict.fromkeys(counter_names(), 0), **v}
+            for k, v in paths.items()}, info
+
+
 def main() -> None:
     import torch
 
@@ -6018,6 +6485,8 @@ def main() -> None:
     print(json.dumps({"halo": halo}), flush=True)
     xla_paths, _ = timed("xla", xla_phase)
     paths.update(xla_paths)
+    export_paths, _ = timed("export", export_phase)
+    paths.update(export_paths)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}

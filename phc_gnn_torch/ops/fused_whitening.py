@@ -46,7 +46,10 @@ run in the dtype of their inputs, so a check can run them in float64.
 
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
 launches its kernel or raises; it never falls back.  ``<wrapper>.launches``
-counts the launches.
+counts the launches.  K's eval route, which eval forwards run, is a
+``torch.library`` op (``torch.ops.phc_gnn.wbn_transform_eval``, as in
+``ops/segment_softmax.py``), so that ``torch.export`` traces it; the
+training kernels stay plain calls.
 
 ``wbn_plan`` computes J's and L's launch: a cluster owns a slab of features
 (all four component columns of each), its CTAs split the rows and meet
@@ -350,12 +353,14 @@ def wbn_dx_plain(x, g, mask, gamma, mean, l, mmat, sw, cnt,
 
 # ------------------------------------------------------------------ wrappers
 
-def _check(x, named, mask=None, g=None):
-    """``x`` float32 [N, 4d] on a CUDA device; each ``(name, tensor, shape)``
-    of ``named`` float32 of that shape; ``mask`` bool [N]; ``g`` like ``x``;
-    all on x's device and contiguous."""
+def _check(x, named, mask=None, g=None, fake: bool = False):
+    """``x`` float32 [N, 4d] on a CUDA device; each ``(name, tensor,
+    shape)`` of ``named`` float32 of that shape; ``mask`` bool [N]; ``g``
+    like ``x``; all on x's device and contiguous, read without the data.
+    ``fake``: a fake implementation's check, which passes CPU tensors too
+    (a trace on the CPU); a meta tensor never passes."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in (("cuda", "cpu") if fake else ("cuda",)):
         raise ValueError(f"the whitening kernels run on CPU or CUDA tensors, "
                          f"got {dev}")
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] % 4:
@@ -439,16 +444,24 @@ def wbn_transform(x, mean, l, gamma, beta):
 wbn_transform.launches = 0
 
 
-def wbn_transform_eval(x, mean, cov, gamma, beta, eps: float):
-    """``(y, L)`` of the eval path in one launch of K: ``L [10, d]`` the
-    Cholesky factor of the running ``cov [4, 4, d] + eps I`` (its upper
-    triangle), ``y = Gamma L^{-1} (x - mean) + beta`` on every row.  Counted
-    under ``wbn_transform.launches``."""
-    if x.device.type == "cpu":
-        return wbn_transform_eval_plain(x, mean, cov, gamma, beta, eps)
+def _eval_fields(x, mean, cov, gamma, beta):
+    d = x.shape[1] // 4
+    return [("gamma", gamma, (4, 4, d)), ("mean", mean, (4, d)),
+            ("cov", cov, (4, 4, d)), ("beta", beta, (4, d))]
+
+
+@torch.library.custom_op("phc_gnn::wbn_transform_eval", mutates_args=(),
+                         device_types="cpu")
+def _transform_eval_op(x: torch.Tensor, mean: torch.Tensor, cov: torch.Tensor,
+                       gamma: torch.Tensor, beta: torch.Tensor, eps: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return wbn_transform_eval_plain(x, mean, cov, gamma, beta, eps)
+
+
+@_transform_eval_op.register_kernel("cuda")
+def _transform_eval_cuda(x, mean, cov, gamma, beta, eps):
     n, d = x.shape[0], x.shape[1] // 4
-    _check(x, [("gamma", gamma, (4, 4, d)), ("mean", mean, (4, d)),
-               ("cov", cov, (4, 4, d)), ("beta", beta, (4, d))])
+    _check(x, _eval_fields(x, mean, cov, gamma, beta))
     y, l = torch.empty_like(x), _empty(x.device, 10, d)
     _build.check_launch("wbn_transform_eval", _lib().wbn_transform_eval_f32(
         x.data_ptr(), mean.data_ptr(), cov.data_ptr(), gamma.data_ptr(),
@@ -456,6 +469,22 @@ def wbn_transform_eval(x, mean, cov, gamma, beta, eps: float):
         _build.stream(x.device)))
     wbn_transform.launches += 1
     return y, l
+
+
+@_transform_eval_op.register_fake
+def _transform_eval_fake(x, mean, cov, gamma, beta, eps):
+    _check(x, _eval_fields(x, mean, cov, gamma, beta), fake=True)
+    return torch.empty_like(x), x.new_empty((10, x.shape[1] // 4))
+
+
+def wbn_transform_eval(x, mean, cov, gamma, beta, eps: float):
+    """``(y, L)`` of the eval path in one launch of K: ``L [10, d]`` the
+    Cholesky factor of the running ``cov [4, 4, d] + eps I`` (its upper
+    triangle), ``y = Gamma L^{-1} (x - mean) + beta`` on every row
+    (``torch.ops.phc_gnn.wbn_transform_eval``).  Counted under
+    ``wbn_transform.launches``."""
+    return torch.ops.phc_gnn.wbn_transform_eval(x, mean, cov, gamma, beta,
+                                                float(eps))
 
 
 def wbn_bwd_sums(x, g, gamma, mean, l, frozen: bool = False,

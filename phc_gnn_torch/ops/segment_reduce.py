@@ -36,7 +36,10 @@ masked edges among real ones stay inside their segment, so it cannot be
 read off ``rowptr``.
 
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors
-it launches the kernel or raises; it never falls back.
+it launches the kernel or raises; it never falls back.  H and I are
+``torch.library`` ops (``torch.ops.phc_gnn.segment_extreme``,
+``segment_moments``, as in ``ops/segment_softmax.py``), so that
+``torch.export`` traces them.
 
 H and I read float32 only.  Under the model's bf16 ``compute_dtype`` the
 aggregations cast the messages to float32 before them, as JAX's glue does
@@ -48,6 +51,7 @@ in the messages' dtype (:997, :1040, :1111).
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -114,12 +118,20 @@ def segment_moments_plain(msgs, mask, rowptr):
     return mean, s2 / cnt - mean * mean
 
 
-def segment_extreme(msgs, mask, rowptr, minimum: bool = False):
-    """[N, D] max (or min) of the rows ``msgs[e]`` whose ``mask[e]`` holds,
-    per CSR segment of ``rowptr`` [N + 1]; 0 for a segment without one
-    (kernel H)."""
-    if msgs.device.type == "cpu":
-        return segment_extreme_plain(msgs, mask, rowptr, minimum)
+def _fake_out(name, msgs, mask, rowptr):
+    check_masked_csr(name, msgs, mask, rowptr, (torch.float32,), fake=True)
+    return msgs.new_empty((rowptr.shape[0] - 1, msgs.shape[1]))
+
+
+@torch.library.custom_op("phc_gnn::segment_extreme", mutates_args=(),
+                         device_types="cpu")
+def _extreme_op(msgs: torch.Tensor, mask: torch.Tensor, rowptr: torch.Tensor,
+                minimum: bool) -> torch.Tensor:
+    return segment_extreme_plain(msgs, mask, rowptr, minimum)
+
+
+@_extreme_op.register_kernel("cuda")
+def _extreme_cuda(msgs, mask, rowptr, minimum):
     check_masked_csr("segment_extreme", msgs, mask, rowptr, (torch.float32,))
     dev = msgs.device
     n, d = rowptr.shape[0] - 1, msgs.shape[1]
@@ -131,15 +143,20 @@ def segment_extreme(msgs, mask, rowptr, minimum: bool = False):
     return out
 
 
-segment_extreme.launches = 0
+_extreme_op.register_fake(
+    lambda msgs, mask, rowptr, minimum: _fake_out("segment_extreme", msgs,
+                                                  mask, rowptr))
 
 
-def segment_moments(msgs, mask, rowptr):
-    """``(mean, var)``, each [N, D], of the rows ``msgs[e]`` whose
-    ``mask[e]`` holds, per CSR segment of ``rowptr`` [N + 1]: both 0 for a
-    segment without one (kernel I)."""
-    if msgs.device.type == "cpu":
-        return segment_moments_plain(msgs, mask, rowptr)
+@torch.library.custom_op("phc_gnn::segment_moments", mutates_args=(),
+                         device_types="cpu")
+def _moments_op(msgs: torch.Tensor, mask: torch.Tensor, rowptr: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return segment_moments_plain(msgs, mask, rowptr)
+
+
+@_moments_op.register_kernel("cuda")
+def _moments_cuda(msgs, mask, rowptr):
     check_masked_csr("segment_moments", msgs, mask, rowptr, (torch.float32,))
     dev = msgs.device
     n, d = rowptr.shape[0] - 1, msgs.shape[1]
@@ -150,6 +167,29 @@ def segment_moments(msgs, mask, rowptr):
         var.data_ptr(), n, d, _build.stream(dev)))
     segment_moments.launches += 1
     return mean, var
+
+
+@_moments_op.register_fake
+def _moments_fake(msgs, mask, rowptr):
+    mean = _fake_out("segment_moments", msgs, mask, rowptr)
+    return mean, torch.empty_like(mean)
+
+
+def segment_extreme(msgs, mask, rowptr, minimum: bool = False):
+    """[N, D] max (or min) of the rows ``msgs[e]`` whose ``mask[e]`` holds,
+    per CSR segment of ``rowptr`` [N + 1]; 0 for a segment without one
+    (kernel H, ``torch.ops.phc_gnn.segment_extreme``)."""
+    return torch.ops.phc_gnn.segment_extreme(msgs, mask, rowptr, minimum)
+
+
+segment_extreme.launches = 0
+
+
+def segment_moments(msgs, mask, rowptr):
+    """``(mean, var)``, each [N, D], of the rows ``msgs[e]`` whose
+    ``mask[e]`` holds, per CSR segment of ``rowptr`` [N + 1]: both 0 for a
+    segment without one (kernel I, ``torch.ops.phc_gnn.segment_moments``)."""
+    return torch.ops.phc_gnn.segment_moments(msgs, mask, rowptr)
 
 
 segment_moments.launches = 0

@@ -48,11 +48,19 @@ wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
 launches its kernel or raises; it never falls back.  ``<wrapper>.launches``
 counts the launches of the float32 instance, ``<wrapper>.launches_bf16``
 those of the bf16 one (the fused kernel has a bf16 instance alone).
+
+Each wrapper calls its ``torch.library`` op (``torch.ops.phc_gnn.<name>``;
+B and the fused kernel have a ``<name>_train`` op beside it for ``(out, w,
+den)``), so that ``torch.export`` traces the kernels
+(``phc_gnn_torch/export.py``): the op's CPU implementation is the plain
+version, its CUDA one the launch, which counts it, and its fake one gives
+the outputs' shapes, so that a trace launches and counts nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -135,9 +143,13 @@ def segment_softmax_aggregate_plain(msgs, mask, beta, rowptr, segmax,
 
 # ------------------------------------------------------------------ wrappers
 
-def _check(msgs, mask, beta, rowptr):
+def _check(msgs, mask, beta, rowptr, fake: bool = False):
+    """The devices, dtypes, shapes and contiguity that the kernels take,
+    read without the data.  ``fake``: a fake implementation's check, which
+    passes CPU tensors too (a trace on the CPU); a meta tensor never
+    passes."""
     dev = msgs.device
-    if dev.type != "cuda":
+    if dev.type not in (("cuda", "cpu") if fake else ("cuda",)):
         raise ValueError(f"segment softmax kernels run on CPU or CUDA "
                          f"tensors, got {dev}")
     if msgs.dtype not in ROW_DTYPES or msgs.ndim != 2:
@@ -158,24 +170,169 @@ def _check(msgs, mask, beta, rowptr):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_segmax(msgs, rowptr, segmax):
+    n, d = rowptr.shape[0] - 1, msgs.shape[1]
+    if (segmax.dtype != torch.float32 or segmax.shape != (n, d)
+            or segmax.device != msgs.device or not segmax.is_contiguous()):
+        raise TypeError(f"segmax must be contiguous float32 [{n}, {d}] on "
+                        f"{msgs.device}")
+
+
 def _suffix(msgs) -> str:
     return "bf16" if msgs.dtype == torch.bfloat16 else "f32"
 
 
-def segment_logit_max(msgs, mask, beta, rowptr):
-    """[N, D] float32 max over each segment of ``where(mask, beta * m,
-    -2^100)``."""
-    if msgs.device.type == "cpu":
-        return segment_logit_max_plain(msgs, mask, beta, rowptr)
+def _outputs(msgs, rowptr, emit_w: bool):
+    """New float32 ``out`` [N, D], and with ``emit_w`` a zeroed ``w``
+    [E, D] and ``den`` [N, D]."""
+    n, (e, d) = rowptr.shape[0] - 1, msgs.shape
+    out = msgs.new_empty((n, d), dtype=torch.float32)
+    if not emit_w:
+        return out, None, None
+    return (out, msgs.new_zeros((e, d), dtype=torch.float32),
+            torch.empty_like(out))
+
+
+# The kernels as torch.library ops (namespace phc_gnn), so that torch.export
+# traces them: the CPU implementation is the plain version, the CUDA one
+# launches the kernel on the current stream and counts the launch on the
+# public wrapper, the fake one gives the outputs' shapes.  B and the fused
+# kernel are two ops each, the eval variant and the training variant
+# ``(out, w, den)``: an op's outputs cannot depend on a flag.
+
+@torch.library.custom_op("phc_gnn::segment_logit_max", mutates_args=(),
+                         device_types="cpu")
+def _logit_max_op(msgs: torch.Tensor, mask: torch.Tensor, beta: torch.Tensor,
+                  rowptr: torch.Tensor) -> torch.Tensor:
+    return segment_logit_max_plain(msgs, mask, beta, rowptr)
+
+
+@_logit_max_op.register_kernel("cuda")
+def _logit_max_cuda(msgs, mask, beta, rowptr):
     _check(msgs, mask, beta, rowptr)
-    n, d = rowptr.shape[0] - 1, msgs.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=msgs.device)
+    out, _, _ = _outputs(msgs, rowptr, False)
+    n, d = out.shape
     fn = getattr(_lib(), f"segment_logit_max_{_suffix(msgs)}")
     _build.check_launch("segment_logit_max", fn(
         msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
         out.data_ptr(), n, d, _build.stream(msgs.device)))
     count_launch(segment_logit_max, msgs)
     return out
+
+
+@_logit_max_op.register_fake
+def _logit_max_fake(msgs, mask, beta, rowptr):
+    _check(msgs, mask, beta, rowptr, fake=True)
+    return _outputs(msgs, rowptr, False)[0]
+
+
+def _aggregate_cuda(msgs, mask, beta, rowptr, segmax, emit_w: bool):
+    _check(msgs, mask, beta, rowptr)
+    _check_segmax(msgs, rowptr, segmax)
+    out, w, den = _outputs(msgs, rowptr, emit_w)
+    n, d = out.shape
+    fn = getattr(_lib(), f"segment_softmax_aggregate_{_suffix(msgs)}")
+    err = fn(
+        msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
+        segmax.data_ptr(), out.data_ptr(), w.data_ptr() if emit_w else None,
+        den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
+    _build.check_launch("segment_softmax_aggregate", err)
+    count_launch(segment_softmax_aggregate, msgs)
+    return (out, w, den) if emit_w else out
+
+
+def _aggregate_fake(msgs, mask, beta, rowptr, segmax, emit_w: bool):
+    _check(msgs, mask, beta, rowptr, fake=True)
+    _check_segmax(msgs, rowptr, segmax)
+    out, w, den = _outputs(msgs, rowptr, emit_w)
+    return (out, w, den) if emit_w else out
+
+
+@torch.library.custom_op("phc_gnn::segment_softmax_aggregate",
+                         mutates_args=(), device_types="cpu")
+def _aggregate_op(msgs: torch.Tensor, mask: torch.Tensor, beta: torch.Tensor,
+                  rowptr: torch.Tensor, segmax: torch.Tensor) -> torch.Tensor:
+    return segment_softmax_aggregate_plain(msgs, mask, beta, rowptr, segmax)
+
+
+_aggregate_op.register_kernel("cuda")(
+    lambda *args: _aggregate_cuda(*args, emit_w=False))
+_aggregate_op.register_fake(lambda *args: _aggregate_fake(*args, emit_w=False))
+
+
+@torch.library.custom_op("phc_gnn::segment_softmax_aggregate_train",
+                         mutates_args=(), device_types="cpu")
+def _aggregate_train_op(
+        msgs: torch.Tensor, mask: torch.Tensor, beta: torch.Tensor,
+        rowptr: torch.Tensor, segmax: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return segment_softmax_aggregate_plain(msgs, mask, beta, rowptr, segmax,
+                                           emit_w=True)
+
+
+_aggregate_train_op.register_kernel("cuda")(
+    lambda *args: _aggregate_cuda(*args, emit_w=True))
+_aggregate_train_op.register_fake(
+    lambda *args: _aggregate_fake(*args, emit_w=True))
+
+
+def _fused_plain(msgs, mask, beta, rowptr, emit_w: bool):
+    segmax = segment_logit_max_plain(msgs, mask, beta, rowptr)
+    return segment_softmax_aggregate_plain(msgs, mask, beta, rowptr, segmax,
+                                           emit_w)
+
+
+def _fused_cuda(msgs, mask, beta, rowptr, emit_w: bool):
+    _check(msgs, mask, beta, rowptr)
+    if msgs.dtype != torch.bfloat16:
+        raise TypeError("the fused softmax kernel reads bfloat16 messages; "
+                        "float32 ones run segment_logit_max, then "
+                        "segment_softmax_aggregate")
+    out, w, den = _outputs(msgs, rowptr, emit_w)
+    n, d = out.shape
+    err = _lib().segment_softmax_fused_bf16(
+        msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
+        out.data_ptr(), w.data_ptr() if emit_w else None,
+        den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
+    _build.check_launch("segment_softmax_fused", err)
+    count_launch(segment_softmax_fused, msgs)
+    return (out, w, den) if emit_w else out
+
+
+def _fused_fake(msgs, mask, beta, rowptr, emit_w: bool):
+    _check(msgs, mask, beta, rowptr, fake=True)
+    out, w, den = _outputs(msgs, rowptr, emit_w)
+    return (out, w, den) if emit_w else out
+
+
+@torch.library.custom_op("phc_gnn::segment_softmax_fused", mutates_args=(),
+                         device_types="cpu")
+def _fused_op(msgs: torch.Tensor, mask: torch.Tensor, beta: torch.Tensor,
+              rowptr: torch.Tensor) -> torch.Tensor:
+    return _fused_plain(msgs, mask, beta, rowptr, emit_w=False)
+
+
+_fused_op.register_kernel("cuda")(lambda *args: _fused_cuda(*args, False))
+_fused_op.register_fake(lambda *args: _fused_fake(*args, False))
+
+
+@torch.library.custom_op("phc_gnn::segment_softmax_fused_train",
+                         mutates_args=(), device_types="cpu")
+def _fused_train_op(
+        msgs: torch.Tensor, mask: torch.Tensor, beta: torch.Tensor,
+        rowptr: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _fused_plain(msgs, mask, beta, rowptr, emit_w=True)
+
+
+_fused_train_op.register_kernel("cuda")(lambda *args: _fused_cuda(*args, True))
+_fused_train_op.register_fake(lambda *args: _fused_fake(*args, True))
+
+
+def segment_logit_max(msgs, mask, beta, rowptr):
+    """[N, D] float32 max over each segment of ``where(mask, beta * m,
+    -2^100)`` (``torch.ops.phc_gnn.segment_logit_max``)."""
+    return torch.ops.phc_gnn.segment_logit_max(msgs, mask, beta, rowptr)
 
 
 segment_logit_max.launches = 0
@@ -187,30 +344,14 @@ def segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax,
     """[N, D] float32 softmax-weighted segment sum given ``segmax`` from
     ``segment_logit_max``; with ``emit_w`` the triple ``(out, w, den)``,
     adding the per-edge weights ``w`` [E, D] (0 on masked and padding-tail
-    edges) and ``den = max(sum w, 1e-16)`` [N, D], both float32."""
-    if msgs.device.type == "cpu":
-        return segment_softmax_aggregate_plain(msgs, mask, beta, rowptr,
-                                               segmax, emit_w)
-    _check(msgs, mask, beta, rowptr)
-    n, d = rowptr.shape[0] - 1, msgs.shape[1]
-    if (segmax.dtype != torch.float32 or segmax.shape != (n, d)
-            or segmax.device != msgs.device or not segmax.is_contiguous()):
-        raise TypeError(f"segmax must be contiguous float32 [{n}, {d}] on "
-                        f"{msgs.device}")
-    out = torch.empty((n, d), dtype=torch.float32, device=msgs.device)
-    w = den = None
+    edges) and ``den = max(sum w, 1e-16)`` [N, D], both float32
+    (``torch.ops.phc_gnn.segment_softmax_aggregate``, or its ``_train``
+    op)."""
     if emit_w:
-        w = torch.zeros((msgs.shape[0], d), dtype=torch.float32,
-                        device=msgs.device)
-        den = torch.empty_like(out)
-    fn = getattr(_lib(), f"segment_softmax_aggregate_{_suffix(msgs)}")
-    err = fn(
-        msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
-        segmax.data_ptr(), out.data_ptr(), w.data_ptr() if emit_w else None,
-        den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
-    _build.check_launch("segment_softmax_aggregate", err)
-    count_launch(segment_softmax_aggregate, msgs)
-    return (out, w, den) if emit_w else out
+        return torch.ops.phc_gnn.segment_softmax_aggregate_train(
+            msgs, mask, beta, rowptr, segmax)
+    return torch.ops.phc_gnn.segment_softmax_aggregate(msgs, mask, beta,
+                                                       rowptr, segmax)
 
 
 segment_softmax_aggregate.launches = 0
@@ -222,29 +363,12 @@ def segment_softmax_fused(msgs, mask, beta, rowptr, emit_w: bool = False):
     messages in one launch (on the CPU their plain versions in sequence):
     ``out``, or with ``emit_w`` the triple ``(out, w, den)``, all float32
     (``w`` zeroed, so that edges past ``rowptr[-1]`` hold 0), bit-equal to
-    the two kernels in sequence."""
-    if msgs.device.type == "cpu":
-        segmax = segment_logit_max_plain(msgs, mask, beta, rowptr)
-        return segment_softmax_aggregate_plain(msgs, mask, beta, rowptr,
-                                               segmax, emit_w)
-    _check(msgs, mask, beta, rowptr)
-    if msgs.dtype != torch.bfloat16:
-        raise TypeError("the fused softmax kernel reads bfloat16 messages; "
-                        "float32 ones run segment_logit_max, then "
-                        "segment_softmax_aggregate")
-    n, (e, d) = rowptr.shape[0] - 1, msgs.shape
-    out = torch.empty((n, d), dtype=torch.float32, device=msgs.device)
-    w = den = None
+    the two kernels in sequence (``torch.ops.phc_gnn.segment_softmax_fused``,
+    or its ``_train`` op)."""
     if emit_w:
-        w = torch.zeros((e, d), dtype=torch.float32, device=msgs.device)
-        den = torch.empty_like(out)
-    err = _lib().segment_softmax_fused_bf16(
-        msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
-        out.data_ptr(), w.data_ptr() if emit_w else None,
-        den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
-    _build.check_launch("segment_softmax_fused", err)
-    count_launch(segment_softmax_fused, msgs)
-    return (out, w, den) if emit_w else out
+        return torch.ops.phc_gnn.segment_softmax_fused_train(msgs, mask, beta,
+                                                             rowptr)
+    return torch.ops.phc_gnn.segment_softmax_fused(msgs, mask, beta, rowptr)
 
 
 segment_softmax_fused.launches = 0

@@ -40,7 +40,10 @@ Around them:
 A wrapper runs the plain version for tensors on the CPU.  For CUDA tensors
 it launches the kernel or raises; it never falls back.  ``<wrapper>.launches``
 counts the launches of the float32 instance, ``<wrapper>.launches_bf16``
-those of the bf16 one.  The kernels trust
+those of the bf16 one.  ``segment_sum_masked``, which eval forwards run, is
+a ``torch.library`` op (``torch.ops.phc_gnn.segment_sum_masked``, as in
+``ops/segment_softmax.py``), so that ``torch.export`` traces it; the
+training-only roles stay plain calls.  The kernels trust
 ``rowptr`` to be ascending and ``perm`` to index rows of ``values`` (checking
 would cost a host sync per launch); ``graph.attach_csr_plan`` builds both.
 
@@ -236,12 +239,15 @@ def segment_sum_masked_plain(msgs, mask, rowptr):
 ROW_DTYPES = (torch.float32, torch.bfloat16)  # the rows C, A and B read
 
 
-def _check(name, values, index, rowptr, dtypes=ROW_DTYPES):
-    """Device, dtype, shape and contiguity of a segment-sum launch;
-    ``index`` is ``(name, tensor, dtype)``; the rows' dtype one of
-    ``dtypes``."""
+def _check(name, values, index, rowptr, dtypes=ROW_DTYPES,
+           fake: bool = False):
+    """Device, dtype, shape and contiguity of a segment-sum launch, read
+    without the data; ``index`` is ``(name, tensor, dtype)``; the rows'
+    dtype one of ``dtypes``.  ``fake``: a fake implementation's check,
+    which passes CPU tensors too (a trace on the CPU); a meta tensor never
+    passes."""
     dev = values.device
-    if dev.type != "cuda":
+    if dev.type not in (("cuda", "cpu") if fake else ("cuda",)):
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {dev}")
     if values.dtype not in dtypes or values.ndim != 2:
         names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
@@ -259,11 +265,12 @@ def _check(name, values, index, rowptr, dtypes=ROW_DTYPES):
             raise ValueError(f"{tname} must be contiguous")
 
 
-def check_masked_csr(name, msgs, mask, rowptr, dtypes=ROW_DTYPES):
+def check_masked_csr(name, msgs, mask, rowptr, dtypes=ROW_DTYPES,
+                     fake: bool = False):
     """``_check`` of a launch over the receiver CSR that reads ``mask`` [E]
     beside ``msgs`` [E, D]: C's forward role (float32 or bf16 rows), and
-    kernels H and I (float32 only)."""
-    _check(name, msgs, ("mask", mask, torch.bool), rowptr, dtypes)
+    kernels H and I (float32 only); ``fake`` as there."""
+    _check(name, msgs, ("mask", mask, torch.bool), rowptr, dtypes, fake)
     if mask.shape[0] != msgs.shape[0]:
         raise ValueError(f"mask has {mask.shape[0]} entries for "
                          f"{msgs.shape[0]} rows of msgs")
@@ -332,15 +339,33 @@ segment_sum_perm.launches = 0
 segment_sum_perm.launches_bf16 = 0
 
 
-def segment_sum_masked(msgs, mask, rowptr):
-    """[N, D] float32 sums of the rows ``msgs[e]`` (float32 or bf16) whose
-    ``mask[e]`` holds over each CSR segment of ``rowptr`` [N + 1]."""
-    if msgs.device.type == "cpu":
-        return segment_sum_masked_plain(msgs, mask, rowptr)
+@torch.library.custom_op("phc_gnn::segment_sum_masked", mutates_args=(),
+                         device_types="cpu")
+def _masked_op(msgs: torch.Tensor, mask: torch.Tensor,
+               rowptr: torch.Tensor) -> torch.Tensor:
+    return segment_sum_masked_plain(msgs, mask, rowptr)
+
+
+@_masked_op.register_kernel("cuda")
+def _masked_cuda(msgs, mask, rowptr):
     check_masked_csr("segment_sum_masked", msgs, mask, rowptr)
     out = _launch("masked", msgs, mask, rowptr)
     count_launch(segment_sum_masked, msgs)
     return out
+
+
+@_masked_op.register_fake
+def _masked_fake(msgs, mask, rowptr):
+    check_masked_csr("segment_sum_masked", msgs, mask, rowptr, fake=True)
+    return msgs.new_empty((rowptr.shape[0] - 1, msgs.shape[1]),
+                          dtype=torch.float32)
+
+
+def segment_sum_masked(msgs, mask, rowptr):
+    """[N, D] float32 sums of the rows ``msgs[e]`` (float32 or bf16) whose
+    ``mask[e]`` holds over each CSR segment of ``rowptr`` [N + 1]
+    (``torch.ops.phc_gnn.segment_sum_masked``)."""
+    return torch.ops.phc_gnn.segment_sum_masked(msgs, mask, rowptr)
 
 
 segment_sum_masked.launches = 0

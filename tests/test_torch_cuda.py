@@ -816,3 +816,28 @@ def test_wrappers_take_only_f32_or_bf16(dev):
         ssum.segment_sum_masked(m.half(), k, rp)
     with pytest.raises(TypeError, match="float32"):
         sr.segment_extreme(m.to(torch.bfloat16), k, rp)
+
+
+def test_exported_forward_launches_the_kernels(dev):
+    """The tiny flagship exported on the card (``phc_gnn_torch.export``):
+    one call of the program launches A and B once a layer, as the eager
+    forward does, and agrees with it bit for bit under the deterministic
+    algorithms."""
+    from phc_gnn_torch import export
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_eval_step
+
+    model = PHCGNN(**export.flagship_config(32, 2), seed=0, device=dev)
+    batch = attach_csr_plan(synthetic_batch(8, 256, 512, seed=3)).to(dev)
+    program = export.export_forward(model, batch)
+    wrappers = (ss.segment_logit_max, ss.segment_softmax_aggregate)
+    counts = [w.launches for w in wrappers]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.inference_mode():
+            got = program.module()(*export.forward_args(batch))
+        assert [w.launches for w in wrappers] == [c + 2 for c in counts]
+        want = make_eval_step(model, device=dev)(batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got, want)

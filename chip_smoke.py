@@ -330,12 +330,26 @@ Phases, each of which exits non-zero on failure:
    their ops and through the bare launch, in turns; and
    ``torch.library.opcheck`` of every kernel op on CUDA inputs at the
    flagship's shapes.
+23. convergence: the quat parity task trained whole on the card through
+   ``phc_gnn_torch.cli.parity`` (the counterpart of
+   scripts/run_convergence_parity.py): the CLI's defaults (CSR plans,
+   graphed steps), 40 epochs on the 6,000 / 800 / 800 graphs of
+   ``data.parity`` (generator seed 7) from the committed init
+   (parity_runs/quat/init_params.pkl), at the committed record's widths
+   (96, 3 convs: the parity tasks run at about half the canonical widths).
+   The counters over the run hold each graph's warm-ups and capture of a
+   step (C in both roles 3, J-M 6, D, E 2) and of an eval batch (C 3, K's
+   eval route 6); every train loss, valid loss and valid MAE finite; the
+   valid MAE cut by more than CONVERGENCE_GAIN from epoch 0.  The
+   endpoints and ``hold``'s misses against the reference's committed half
+   are printed beside the reference's, JAX's and the card's committed
+   record's, and not held: they move with dropout masks and shuffle order.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
 ``{"scan"}``, ``{"bf16"}``, ``{"remat"}``, ``{"harness"}``,
 ``{"harness_bf16"}``, ``{"halo"}``, ``{"xla"}``, ``{"export"}``,
-``{"phase_seconds"}`` and
+``{"convergence"}``, ``{"phase_seconds"}`` and
 ``{"kernels": [...]}``
 lines, then, as its last line, ``{"ok": true, "device": {...}}``.  The
 kernels line lists the bf16 kernels as kernels of their own
@@ -365,7 +379,8 @@ Trainer run; ``ep_ep2``, ``ep_dp_ep``, ``ep_trainer``: the same for the
 replicated scheme; ``xla_train``: the composite route's graphed call;
 ``xla_eval``, ``xla_pna_eval``: 3 batches each; ``export_f32``,
 ``export_bf16``, ``export_quat``, ``export_pna``, ``export_pcba``: one
-call of each exported program), and ``launches`` is their sum; C's halo role has a row of
+call of each exported program; ``convergence``: the quat parity run,
+whose wrappers count each graph's warm-ups and capture), and ``launches`` is their sum; C's halo role has a row of
 its own (``halo_gather_split_bwd``).  Without
 a CUDA device it exits non-zero and prints no result.  It imports nothing
 of JAX.
@@ -4607,6 +4622,9 @@ ZINC_STEP = {"segment_sum_masked": 4, "segment_sum_perm": 4,
              "bn_forward": 10, "bn_backward": 10}
 ZINC_EVAL = {"segment_sum_masked": 4}
 PROFILE_LOST = 0.02         # a profile may lose a few kernel events (§7)
+PROFILE_RECOUNTS = 2        # fresh profiles of the same calls read where a
+                            # kernel's count falls short (one read 176 of
+                            # 188: a profile loses events, never adds them)
 TOL_GROUP = 1e-6            # the dummy-padded group's loss against the
                             # eager body over its real sub-batches: the
                             # pooling's atomics alone part them
@@ -4680,20 +4698,50 @@ def profiled(torch):
     out["idle_share"] = 1.0 - out["busy_ms"] / out["wall_ms"]
 
 
-def hold_profile(phase, counts, per_step, steps):
+def hold_profile(phase, counts, per_step, steps, again=None):
     """The port's kernels in a profile (``kernel_families`` of its counts
     over ``steps`` steps) against ``per_step``: zero where it says none,
-    else at most the count and at least 1 - PROFILE_LOST of it."""
-    got = kernel_families(counts, 1)
-    for name, n in got.items():
-        want = per_step.get(name, 0) * steps
-        if n > want or n < want * (1 - PROFILE_LOST):
-            fail(f"{phase}: the profile read {n:g} {name} kernels over "
-                 f"{steps} steps, not {want}")
-    per = {k: v / steps for k, v in got.items() if v}
+    else at most the count and at least 1 - PROFILE_LOST of it.  A lost
+    event cannot raise a count, so one above fails at once; where one
+    falls short, ``again()`` (a fresh profile of the same calls: its counts
+    and steps) is read, up to PROFILE_RECOUNTS times, and each kernel
+    keeps its most a step over the profiles."""
+    per = {}
+    for attempt in range(PROFILE_RECOUNTS + 1):
+        if attempt:
+            counts, steps = again()
+        for name, n in kernel_families(counts, 1).items():
+            want = per_step.get(name, 0) * steps
+            if n > want:
+                fail(f"{phase}: the profile read {n:g} {name} kernels over "
+                     f"{steps} steps, more than {want}")
+            per[name] = max(per.get(name, 0.0), n / steps)
+        short = {k: v for k, v in per.items()
+                 if v < per_step.get(k, 0) * (1 - PROFILE_LOST)}
+        if not short:
+            break
+        if again is None or attempt == PROFILE_RECOUNTS:
+            fail(f"{phase}: the profiles read {short} kernels a step, not "
+                 f"{ {k: per_step[k] for k in short} }")
+        print(f"{phase}: the profile read {short} kernels a step, short of "
+              f"{ {k: per_step[k] for k in short} }: events lost; profiled "
+              f"again", flush=True)
+    per = {k: v for k, v in per.items() if v}
     print(f"{phase}: the port's kernels a step, by name in the profile: "
           f"{per}", flush=True)
     return per
+
+
+def profile_calls(torch, fn, calls: int, steps_a_call: int):
+    """``again`` of ``hold_profile``: a fresh profile of ``calls`` calls of
+    ``fn``, each ``steps_a_call`` steps (a finished run's graphed step:
+    the calls train its model on)."""
+    def again():
+        with profiled(torch) as prof:
+            for _ in range(calls):
+                fn()
+        return prof["counts"], calls * steps_a_call
+    return again
 
 
 @contextlib.contextmanager
@@ -4702,7 +4750,9 @@ def observe_trainer(torch, profile_epoch=None):
     stats (host seconds, steps, real edges and ``Trainer.epoch_log``'s
     host ms: packing, plans, the move to the card, the loop's wait, the
     step's call), and with ``profile_epoch`` a profile of that epoch's
-    train loop and of the evaluation after it."""
+    train loop and of the evaluation after it; ``again`` below reads a
+    fresh profile of the same calls: the epoch's last train step call
+    replayed (``rec["last_step"]``) or the evaluation (``eval_again``)."""
     from phc_gnn_torch.train.trainer import Trainer
 
     rec = {"epochs": [], "train_profile": None, "eval_profile": None}
@@ -4714,8 +4764,18 @@ def observe_trainer(torch, profile_epoch=None):
         if epoch != profile_epoch:
             out = train_epoch(self, epoch_seed, lr)
         else:
-            with profiled(torch) as prof:
-                out = train_epoch(self, epoch_seed, lr)
+            step = self.train_step
+
+            def kept(batches, lr_):  # the epoch's last call, to replay
+                rec["last_step"] = (step, batches, lr_)
+                return step(batches, lr_)
+
+            self.train_step = kept
+            try:
+                with profiled(torch) as prof:
+                    out = train_epoch(self, epoch_seed, lr)
+            finally:
+                self.train_step = step
             rec["train_profile"] = dict(prof, steps=out["steps"])
             pending.append(True)
         rec["epochs"].append({"epoch": epoch, **{
@@ -4730,6 +4790,8 @@ def observe_trainer(torch, profile_epoch=None):
         with profiled(torch) as prof:
             out = evaluate(self, batches)
         rec["eval_profile"] = dict(prof, batches=len(batches))
+        rec["eval_again"] = profile_calls(
+            torch, lambda: evaluate(self, batches), 1, len(batches))
         return out
 
     Trainer._train_epoch, Trainer.evaluate = watched_train, watched_eval
@@ -4737,6 +4799,14 @@ def observe_trainer(torch, profile_epoch=None):
         yield rec
     finally:
         Trainer._train_epoch, Trainer.evaluate = train_epoch, evaluate
+
+
+def replay_again(torch, rec, steps: int):
+    """``again`` of ``hold_profile`` for ``observe_trainer``'s profiled
+    epoch: its last train step call replayed for about ``steps`` steps."""
+    step, batches, lr = rec["last_step"]
+    return profile_calls(torch, lambda: step(batches, lr),
+                         max(1, round(steps / len(batches))), len(batches))
 
 
 def scalars(save_dir, run=1) -> list:
@@ -4784,9 +4854,9 @@ def harness_synthetic(torch, tmp):
     tp, ep = rec["train_profile"], rec["eval_profile"]
     steps = tp["steps"]
     per_step = hold_profile("harness synthetic train loop", tp["counts"],
-                            SYNTH_STEP, steps)
+                            SYNTH_STEP, steps, replay_again(torch, rec, steps))
     per_batch = hold_profile("harness synthetic eval", ep["counts"],
-                             SYNTH_EVAL, ep["batches"])
+                             SYNTH_EVAL, ep["batches"], rec["eval_again"])
     epochs = []
     for r, e in zip(rows, rec["epochs"]):
         epochs.append({"epoch": r["epoch"], "wall_s": r["wall_s"],
@@ -4963,11 +5033,13 @@ def harness_pcba(torch, tmp):
                for k in ("train_loss", "valid_loss", "valid_metric")):
         fail(f"harness pcba: a loss or metric is not finite: {rows}")
     tp = obs["train_profile"]
-    per_step = hold_profile("harness pcba train loop", tp["counts"],
-                            {"segment_sum_masked": 28,
-                             "segment_sum_perm": 28, "bn_forward": 36,
-                             "bn_backward": 36},
-                            rec["calls"] + capture_calls() - 1)
+    calls = rec["calls"] + capture_calls() - 1
+    per_step = hold_profile(
+        "harness pcba train loop", tp["counts"],
+        {"segment_sum_masked": 28, "segment_sum_perm": 28, "bn_forward": 36,
+         "bn_backward": 36}, calls,
+        profile_calls(torch, lambda: rec["step"](rec["batches"], rec["lr"]),
+                      calls, 1))
     # the padded group: 3 real sub-batches and a dummy
     if "batches" not in rec:
         fail("harness pcba: no group was padded with a dummy")
@@ -5042,7 +5114,8 @@ def harness_zinc(torch, tmp):
         fail(f"harness zinc: a loss or metric is not finite: {rows}")
     tp = obs["train_profile"]
     per_step = hold_profile("harness zinc train loop", tp["counts"],
-                            ZINC_STEP, tp["steps"])
+                            ZINC_STEP, tp["steps"],
+                            replay_again(torch, obs, tp["steps"]))
     with open(os.path.join(save, "run_1", "val_test.json")) as f:
         val_test = json.load(f)
     with deterministic(torch), contextlib.redirect_stdout(io.StringIO()):
@@ -6413,6 +6486,84 @@ def export_phase(torch, dev):
             for k, v in paths.items()}, info
 
 
+# ------------------------------------------------------------ 23. convergence
+
+CONVERGENCE_TASK = "quat"
+CONVERGENCE_GAIN = 4.0      # val[0] / best_val: the committed reference
+                            # reads 8.5, JAX 8.7; the endpoints, which move
+                            # with dropout masks and shuffle order, are
+                            # printed and not held
+# one quat parity train step: 3 convs with the sum aggregation and the MLP,
+# C's masked role (the aggregation) and its gather role (the backward of
+# x[senders]) once a conv, J-M at each conv's two whitening norms (the
+# MLP's and the layer's), D and E at the head's two naive norms; an eval
+# batch: C's masked role and K's eval route
+CONVERGENCE_STEP = {"segment_sum_masked": 3, "segment_sum_perm": 3,
+                    "wbn_stats": 6, "wbn_transform": 6, "wbn_bwd_sums": 6,
+                    "wbn_dx": 6, "bn_forward": 2, "bn_backward": 2}
+CONVERGENCE_EVAL = {"segment_sum_masked": 3, "wbn_transform": 6}
+
+
+def convergence_phase(torch, dev):
+    """23. convergence: the quat parity task trained whole through
+    ``phc_gnn_torch.cli.parity`` (40 epochs, the committed init, 6,000 /
+    800 / 800 graphs); the counters over the run, every loss and metric
+    finite, the validation MAE cut by more than CONVERGENCE_GAIN from epoch
+    0; the endpoints and ``hold``'s misses printed beside the reference's,
+    JAX's and the card's committed record's, not held.  Returns the run's
+    launches and a ``{"convergence"}`` line's fields."""
+    import os
+
+    from phc_gnn_torch.cli import parity
+
+    task = CONVERGENCE_TASK
+    reset_launches()
+    record, rows = parity.run_task(task, dev)
+    launches = read_launches()
+    hold_counters("convergence", launches,
+                  add_counts((capture_calls(), CONVERGENCE_STEP),
+                             (capture_calls(), CONVERGENCE_EVAL)))
+    epochs = parity.HPARAMS[task]["epochs"]
+    if len(rows) != epochs or record["init"] != "committed":
+        fail(f"convergence: {len(rows)} epochs from the {record['init']} "
+             f"init, not {epochs} from the committed one")
+    for r in rows:
+        if not all(math.isfinite(r[k]) for k in ("train_loss", "valid_loss",
+                                                 "valid_metric")):
+            fail(f"convergence: a loss or metric is not finite: {r}")
+    port = record["port"]
+    gain = port["val_metric"][0] / port["best_val"]
+    if not gain > CONVERGENCE_GAIN:
+        fail(f"convergence: the validation MAE fell {gain:.3g}x from epoch "
+             f"0 (val[0] {port['val_metric'][0]!r}, best {port['best_val']!r}"
+             f"), not more than {CONVERGENCE_GAIN:g}x")
+    committed = parity.committed_record(task)
+    ends = ("best_val", "test_bestval", "test_last")
+    card_path = os.path.join(parity.CARD_RECORDS, f"{task}.json")
+    card = None
+    if os.path.exists(card_path):
+        with open(card_path) as f:
+            card = json.load(f)["port"]
+    out = {"task": task, "init": record["init"], "epochs": len(rows),
+           "seconds": port["seconds"], "s_per_epoch": port["s_per_epoch"],
+           "card": port["card"], "gain": gain,
+           "val_metric": port["val_metric"], "train_loss": port["train_loss"],
+           "valid_loss": [r["valid_loss"] for r in rows],
+           "steps_per_s": [r["steps_per_s"] for r in rows],
+           "port": {k: port[k] for k in ends},
+           "reference": {k: committed["reference"][k] for k in ends},
+           "jax": {k: committed["ours"][k] for k in ends},
+           "card_record": card and {k: card[k] for k in ends + ("card",)},
+           "misses": record["misses"], "launches": launches}
+    print(f"convergence: {task} {len(rows)} epochs in {port['seconds']:.1f} s"
+          f", val MAE {port['val_metric'][0]:.4f} -> best "
+          f"{port['best_val']:.4f} ({gain:.2f}x), test@best "
+          f"{port['test_bestval']:.4f}; reference {out['reference']}, jax "
+          f"{out['jax']}; misses (printed, not held): "
+          f"{record['misses'] or 'none'}", flush=True)
+    return launches, out
+
+
 def main() -> None:
     import torch
 
@@ -6487,6 +6638,9 @@ def main() -> None:
     paths.update(xla_paths)
     export_paths, _ = timed("export", export_phase)
     paths.update(export_paths)
+    paths["convergence"], convergence = timed("convergence",
+                                              convergence_phase)
+    print(json.dumps({"convergence": convergence}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}

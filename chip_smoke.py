@@ -344,11 +344,27 @@ Phases, each of which exits non-zero on failure:
    endpoints and ``hold``'s misses against the reference's committed half
    are printed beside the reference's, JAX's and the card's committed
    record's, and not held: they move with dropout masks and shuffle order.
+24. nccl (run right after halo): the multi-rank steps as CUDA graphs on
+   NCCL ranks that share the card (``nccl_rank_main``: each rank names a
+   host of its own with ``NCCL_HOSTID``, as NCCL refuses two ranks of one
+   host on one GPU, and talks over the socket transport on loopback), in
+   two starts: on 2 ranks the np step on 2 node shards, the dp step with
+   a dummy rank and the replicated ep step on 2 edge shards; on 4 dp x
+   ep in both schemes and the Trainer on dp 2 x ep 2 in both schemes
+   (graphed steps and evals), against the single-device Trainer with
+   ``grad_accum`` 2.  Each step, from one state: the graphed step against
+   the eager step on the same ranks (dropout off, deterministic
+   algorithms) bit-equal on 2 and 4 ranks (TOL_NCCL_GRAPH);
+   against the single-device step on the card (``hold_halo``, the eager
+   ReLU pattern replayed); with dropout, the replays' losses and
+   parameters against the eager steps'; one replay's kernels on rank 0,
+   from its profile, equal to the eager counters; rank 0's eager and
+   graphed ms a step (time-sliced ranks: not a scaling number).
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
 ``{"scan"}``, ``{"bf16"}``, ``{"remat"}``, ``{"harness"}``,
-``{"harness_bf16"}``, ``{"halo"}``, ``{"xla"}``, ``{"export"}``,
+``{"harness_bf16"}``, ``{"halo"}``, ``{"nccl"}``, ``{"xla"}``, ``{"export"}``,
 ``{"convergence"}``, ``{"phase_seconds"}`` and
 ``{"kernels": [...]}``
 lines, then, as its last line, ``{"ok": true, "device": {...}}``.  The
@@ -376,7 +392,11 @@ first call; ``bf16_pcba_eval``: 1 bf16 pcba batch; ``remat_flagship``,
 ``halo_np2``, ``halo_np4``, ``halo_dp_dummy``, ``halo_dp_ep``: rank 0's
 counts over one multi-rank step; ``halo_trainer``: rank 0's over its
 Trainer run; ``ep_ep2``, ``ep_dp_ep``, ``ep_trainer``: the same for the
-replicated scheme; ``xla_train``: the composite route's graphed call;
+replicated scheme; ``nccl_np2``, ``nccl_dp_dummy``, ``nccl_ep2``,
+``nccl_dp_ep``, ``nccl_ep_dp_ep``: rank 0's counts over one eager step
+on NCCL ranks; ``nccl_trainer``, ``nccl_ep_trainer``: rank 0's over its
+graphed Trainer run (each graph's warm-ups and capture); ``xla_train``:
+the composite route's graphed call;
 ``xla_eval``, ``xla_pna_eval``: 3 batches each; ``export_f32``,
 ``export_bf16``, ``export_quat``, ``export_pna``, ``export_pcba``: one
 call of each exported program; ``convergence``: the quat parity run,
@@ -5361,9 +5381,12 @@ def halo_rank_main(rank, world, port, jobs, out):
         out.put((rank, None, traceback.format_exc()))
 
 
-def run_halo_ranks(world: int, jobs, timeout: float = 600.0) -> list:
+def run_halo_ranks(world: int, jobs, timeout: float = 600.0,
+                   target=None) -> list:
     """Start ``world`` rank processes (``spawn``), run ``jobs`` on each and
-    return their results in rank order; fails with a rank's traceback."""
+    return their results in rank order; fails with a rank's traceback.
+    ``target`` is the rank's entry, ``halo_rank_main`` (gloo) unless
+    given."""
     import multiprocessing
     import queue
     import socket
@@ -5373,7 +5396,7 @@ def run_halo_ranks(world: int, jobs, timeout: float = 600.0) -> list:
         port = sock.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
-    procs = [ctx.Process(target=halo_rank_main,
+    procs = [ctx.Process(target=target or halo_rank_main,
                          args=(r, world, port, jobs, out))
              for r in range(world)]
     for p in procs:
@@ -5810,6 +5833,360 @@ def halo_phase(torch, dev):
                                "card: not a scaling number")
     print(f"halo: seconds {seconds}", flush=True)
     return paths, rec, summary
+
+
+# ------------------------------------------------------------------- 24. nccl
+
+# the environment of a rank that shares the card over NCCL: NCCL refuses two
+# ranks of one host on one GPU ("Duplicate GPU detected"), and takes a rank's
+# host from NCCL_HOSTID where it is set, so each rank names a host of its
+# own; the ranks then talk over NCCL's socket transport on loopback.  The
+# heartbeat monitor and its dump check poll rank 0's store, which ends with
+# rank 0: both off
+NCCL_RANK_ENV = {"NCCL_SOCKET_IFNAME": "lo", "NCCL_IB_DISABLE": "1",
+                 "TORCH_NCCL_ENABLE_MONITORING": "0",
+                 "TORCH_NCCL_DUMP_ON_TIMEOUT": "0"}
+# one dp flagship train step on one rank: the single-device step's kernels
+DP_STEP_LAUNCHES = dict(TRAIN_LAUNCHES)
+NCCL_TIMED_STEPS = 5        # a rank's eager steps and replays timed
+NCCL_PROFILES = 1 + PROFILE_RECOUNTS  # rank 0's profiles of one replay each
+NCCL_DROPOUT_STEPS = 2      # steps with dropout, eager and graphed
+TOL_NCCL_GRAPH = 0.0        # graphed against eager on the same NCCL ranks:
+                            # bit-equal on 2 and on 4 ranks (two H100 runs
+                            # read 0.0 at 4, where the reduction's order
+                            # could have differed, and did not)
+
+
+def nccl_rank_main(rank, world, port, jobs, out):
+    """A rank process of the nccl phase: it names a host of its own to
+    NCCL (``NCCL_HOSTID``) and its transport (``NCCL_RANK_ENV``) in its own
+    environment, joins the NCCL group over ``tcp://localhost:<port>`` on
+    cuda:0 and runs each job ``(name, kwargs)`` as ``halo_rank_main`` does.
+    It ends with ``os._exit`` once its results are sent: tearing down a
+    communicator of ranks that share one card hangs."""
+    import os
+    import traceback
+
+    os.environ.update(NCCL_RANK_ENV, NCCL_HOSTID=f"phc-smoke-rank-{rank}")
+    try:
+        import torch
+        from phc_gnn_torch.parallel import initialize
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.cuda.set_device(0)
+        initialize("nccl", f"tcp://localhost:{port}", world, rank)
+        res = [globals()[name](torch, rank, **kw) for name, kw in jobs]
+        out.put((rank, halo_numpy(res), None))
+    except BaseException:  # noqa: BLE001 - reported by the parent
+        out.put((rank, None, traceback.format_exc()))
+    out.close()
+    out.join_thread()
+    os._exit(0)
+
+
+def rank_graphed(torch, rank, mesh, state, cfg, drop_cfg, seeds, shape,
+                 scheme="halo", device="cuda:0"):
+    """The flagship's step on the ``(dp, ep)`` NCCL ``mesh``, as
+    ``rank_step`` lays it out, eager and graphed from one state: the eager
+    step runs the same NCCL groups through a copy of the mesh relabelled
+    so that ``parallel.dp.graphed_on`` declines it.  With dropout off: the
+    eager step (ReLU pattern recorded, the counters zeroed just before and
+    read just after), then the graphed step's first call (warm-ups,
+    capture, one replay), the state after each; rank 0 profiles
+    ``NCCL_PROFILES`` more replays, one each, while every rank replays;
+    then ``NCCL_TIMED_STEPS`` eager steps and replays, host clock around
+    each, the card synced.  With dropout (``drop_cfg``):
+    ``NCCL_DROPOUT_STEPS`` eager steps and graphed steps from the state,
+    their losses and parameters.  On the CPU (a rehearsal) the mesh is
+    gloo's and both steps are eager."""
+    import dataclasses
+
+    from phc_gnn_torch import parallel as P
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.train import make_optimizer
+    from phc_gnn_torch.train.loss import masked_l1
+
+    dev = torch.device(device)
+    dp, ep = mesh
+    grid = P.make_mesh(dp, ep, "nccl" if dev.type == "cuda" else "gloo")
+    eager_grid = dataclasses.replace(grid, backend="eager")
+    replicated = scheme == "replicated"
+    d, e = divmod(rank, ep)
+    mine = halo_batch(torch, seeds[d], shape)
+    if ep > 1:
+        mine = (P.edge_shard(mine, ep, e) if replicated
+                else P.partition_nodes(mine, ep)[e])
+    loss_fn = lambda out, b: masked_l1(out, b.y)  # noqa: E731
+
+    def build(config, g):
+        model = PHCGNN(**config, seed=0, device="cpu")
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+        if ep > 1:
+            (model.set_edge_axis if replicated else model.set_node_axis)("ep")
+        opt = make_optimizer(dict(model.named_parameters()),
+                             grad_clip=GRAD_CLIP)
+        seen, adam_step = {}, opt.step
+
+        def recording_step(grads, lr):
+            seen["grads"] = [gr.detach().clone() for gr in grads]
+            adam_step(grads, lr)
+
+        opt.step = recording_step
+        kw = dict(weight_decay=WEIGHT_DECAY, device=dev)
+        if replicated:
+            step = (P.make_ep_train_step(model, opt, loss_fn, g, **kw)
+                    if dp == 1 else P.make_dp_ep_train_step(
+                        model, opt, loss_fn, g, loss_name="l1", **kw))
+        else:
+            step = (P.make_np_train_step(model, opt, loss_fn, g, **kw)
+                    if dp == 1 else P.make_dp_train_step(
+                        model, opt, loss_fn, g, loss_name="l1", **kw)
+                    if ep == 1 else P.make_dp_np_train_step(
+                        model, opt, loss_fn, g, loss_name="l1", **kw))
+        return model, opt, step, seen
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def after(model, opt, loss, seen):
+        sync()
+        # the gradients a graph's replays overwrite: copied
+        return {"loss": float(loss),
+                "grads": {k: g.clone() for k, g in zip(opt.params,
+                                                       seen["grads"])},
+                "stats": {k: b.clone() for k, b in model.named_buffers()},
+                "params": {k: p.detach().clone() for k, p in
+                           model.named_parameters()}}
+
+    def timed(step):
+        times = []
+        for _ in range(NCCL_TIMED_STEPS):
+            sync()
+            t = time.perf_counter()
+            step(mine, LR)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times
+
+    model, opt, step, seen = build(cfg, eager_grid)
+    relu = ReluReplay(torch).install(model)
+    sync()
+    reset_launches()
+    with relu.patched():
+        loss, _ = step(mine, LR)
+    sync()
+    launches = read_launches()
+    eager = after(model, opt, loss, seen)
+    eager_ms = timed(step)
+    model, opt, step, seen = build(cfg, grid)
+    loss, _ = step(mine, LR)
+    graphed = after(model, opt, loss, seen)
+    profiles = []
+    for _ in range(NCCL_PROFILES):
+        if rank == 0:
+            with profiled(torch) as prof:
+                step(mine, LR)
+            profiles.append(prof["counts"])
+        else:
+            step(mine, LR)
+            sync()
+    graphed_ms = timed(step)
+    dropout = {}
+    for name, g in (("eager", eager_grid), ("graphed", grid)):
+        model, opt, step, _ = build(drop_cfg, g)
+        losses = [float(step(mine, LR)[0])
+                  for _ in range(NCCL_DROPOUT_STEPS)]
+        dropout[name] = {"losses": losses, "params": {
+            k: p.detach().clone() for k, p in model.named_parameters()}}
+    return {"eager": dict(eager, relu=relu.recorded()["relu"],
+                          rows=mine.num_nodes),
+            "graphed": graphed, "launches": launches, "profiles": profiles,
+            "eager_ms": eager_ms, "graphed_ms": graphed_ms,
+            "dropout": dropout}
+
+
+def state_apart(a: dict, b: dict) -> float:
+    """The largest difference of two steps' loss, gradients, running stats
+    and parameters (numpy, as the ranks return them; those of them that
+    ``a`` holds), relative to each tensor's own largest entry; 0.0 where
+    every one is bit-equal."""
+    import numpy as np
+
+    worst = (abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-30)
+             if "loss" in a else 0.0)
+    for part in ("grads", "stats", "params"):
+        for k, x in a.get(part, {}).items():
+            y = b[part][k]
+            if not np.array_equal(x, y):
+                worst = max(worst, float(np.abs(x - y).max())
+                            / max(float(np.abs(y).max()), 1e-30))
+    return worst
+
+
+def profile_launches(launches: dict) -> dict:
+    """An eager step's counters as the profile names its kernels: C's
+    halo role launches C's gather kernel (``segment_sum_perm``'s)."""
+    out = dict(launches)
+    out["segment_sum_perm"] = (out.get("segment_sum_perm", 0)
+                               + out.pop("halo_gather_split_bwd", 0))
+    return {k: v for k, v in out.items() if v}
+
+
+def hold_nccl(torch, dev, phase, base, res, mesh, seeds, want, replicated):
+    """One graphed NCCL step of ``rank_graphed`` (``res`` in rank order):
+    rank 0's eager counters equal ``want``; on every rank the graphed step
+    against the eager one (loss, gradients, stats, parameters) bit-equal:
+    on 2 ranks a sum of two is order-free, and on 4 NCCL sums in one order
+    in and out of a graph (TOL_NCCL_GRAPH); the graphed step against the
+    single-device step on the
+    card (``hold_halo``, the eager ReLU pattern replayed); with dropout,
+    the replays' losses and parameters against the eager steps' (the same
+    masks drawn: the same bound); the kernels of one replay on rank 0, read
+    from its profiles, equal to the eager counters; rank 0's eager and
+    graphed ms a step."""
+    import numpy as np
+
+    r0 = res[0]
+    if r0["launches"] != want:
+        fail(f"{phase}: rank 0's eager step launched {r0['launches']}, not "
+             f"{want}")
+    tol = TOL_NCCL_GRAPH
+    apart = max(state_apart(r["graphed"], r["eager"]) for r in res)
+    hold_scan(phase, apart, tol, "graphed against eager on the same NCCL "
+              "ranks, dropout off: loss, gradients, stats and parameters, "
+              "worst relative to a tensor's largest, over every rank")
+    drop = 0.0
+    for r in res:
+        e, g = r["dropout"]["eager"], r["dropout"]["graphed"]
+        drop = max(drop, max(abs(x - y) / abs(y) for x, y in
+                             zip(g["losses"], e["losses"])),
+                   state_apart({"params": g["params"]},
+                               {"params": e["params"]}))
+    hold_scan(phase, drop, tol, f"{NCCL_DROPOUT_STEPS} steps with dropout, "
+              f"replays against eager steps (the eager masks drawn): "
+              f"losses and parameters")
+    moved = abs(r0["dropout"]["eager"]["losses"][0]
+                - r0["dropout"]["eager"]["losses"][1])
+    if not moved > 0:
+        fail(f"{phase}: two dropout steps gave one loss")
+    graphed = [dict(r["graphed"], relu=r["eager"]["relu"],
+                    rows=r["eager"]["rows"]) for r in res]
+    summary = hold_halo(torch, dev, f"{phase}, graphed", base, graphed, mesh,
+                        seeds, FLAGSHIP, replicated=replicated)
+    rounds = iter(r0["profiles"][1:])
+    per = hold_profile(f"{phase}, one replay on rank 0",
+                       r0["profiles"][0], profile_launches(want), 1,
+                       again=lambda: (next(rounds), 1))
+    eager_ms = statistics.median(r0["eager_ms"])
+    graphed_ms = statistics.median(r0["graphed_ms"])
+    print(f"{phase}: rank 0's eager step {eager_ms:.2f} ms, graphed "
+          f"{graphed_ms:.2f} ms (medians of {NCCL_TIMED_STEPS}, host clock, "
+          f"card synced; {len(res)} ranks time-sliced on one card over a "
+          f"loopback socket: not a scaling number)", flush=True)
+    summary.update(graphed_vs_eager=apart, graphed_bit_equal=apart == 0.0,
+                   dropout_vs_eager=drop, replay_kernels=per,
+                   eager_ms=r0["eager_ms"], graphed_ms=r0["graphed_ms"])
+    return summary
+
+
+def run_nccl_single(torch, argv):
+    """The single-device Trainer with ``grad_accum`` 2: the rows of its
+    ``scalars.jsonl`` (``halo_phase``'s reference, run again where the
+    phase runs alone)."""
+    import tempfile
+
+    from phc_gnn_torch.cli.common import run_benchmark
+
+    with tempfile.TemporaryDirectory(prefix="phc_nccl_") as tmp:
+        run_benchmark("synthetic", argv + ["--grad_accum", "2",
+                                           "--save_dir", tmp])
+        return scalars(tmp)
+
+
+def nccl_phase(torch, dev, single_rows=None):
+    """24. nccl: the multi-rank steps graphed on NCCL ranks that share the
+    card (``nccl_rank_main``), in two starts of rank processes: on 2 ranks
+    the np step on 2 shards, the dp step with a dummy rank and the
+    replicated ep step on 2 edge shards; on 4 dp x ep in both schemes and
+    the Trainer on dp 2 x ep 2 in both schemes (graphed steps and evals),
+    against the single-device Trainer with ``grad_accum`` 2
+    (``single_rows``: ``halo_phase``'s, else run here).  Each step is held
+    by ``hold_nccl``.  Returns (the launch counts of its main-path runs,
+    its summary)."""
+    import os
+    import tempfile
+
+    from phc_gnn_torch.models import PHCGNN
+
+    seconds, paths, summary = {}, {}, {}
+    cfg = flagship_config(dropout=False)
+    base = PHCGNN(**cfg, seed=0, device=dev)
+    randomize_eval_state(torch, base)
+    state = {k: v.detach().cpu().numpy() for k, v in base.state_dict().items()}
+    job = dict(state=state, cfg=cfg, drop_cfg=flagship_config(dropout=True),
+               shape=FLAGSHIP, device=str(dev))
+    wants = {name: {k: counts.get(k, 0) for k in counter_names()}
+             for name, counts in (("halo", HALO_STEP_LAUNCHES),
+                                  ("dp", DP_STEP_LAUNCHES),
+                                  ("ep", EP_STEP_LAUNCHES))}
+
+    def hold(name, res, mesh, seeds, want, replicated=False):
+        paths[f"nccl_{name}"] = res[0]["launches"]
+        summary[name] = hold_nccl(torch, dev, f"nccl {name}", base, res, mesh,
+                                  seeds, wants[want], replicated)
+
+    argv = HALO_TRAINER + ["--device", dev.type]
+    rep_argv = argv + ["--agg_kernel", "xla"]
+    with deterministic(torch), tempfile.TemporaryDirectory(
+            prefix="phc_nccl_") as tmp:
+        t = time.perf_counter()
+        res = run_halo_ranks(2, [
+            ("rank_graphed", dict(job, mesh=(1, 2), seeds=[0])),
+            ("rank_graphed", dict(job, mesh=(2, 1), seeds=[0, None])),
+            ("rank_graphed", dict(job, mesh=(1, 2), seeds=[0],
+                                  scheme="replicated"))],
+            target=nccl_rank_main)
+        seconds["ranks_2"] = time.perf_counter() - t
+        hold("np2", [r[0] for r in res], (1, 2), [0], "halo")
+        hold("dp_dummy", [r[1] for r in res], (2, 1), [0, None], "dp")
+        hold("ep2", [r[2] for r in res], (1, 2), [0], "ep", replicated=True)
+        t = time.perf_counter()
+        res = run_halo_ranks(4, [
+            ("rank_graphed", dict(job, mesh=(2, 2), seeds=[0, 1])),
+            ("rank_graphed", dict(job, mesh=(2, 2), seeds=[0, 1],
+                                  scheme="replicated")),
+            ("rank_trainer", dict(argv=argv + [
+                "--dp", "2", "--ep", "2",
+                "--save_dir", os.path.join(tmp, "ranks")], device=str(dev))),
+            ("rank_trainer", dict(argv=argv + [
+                "--dp", "2", "--ep", "2", "--ep_scheme", "replicated",
+                "--save_dir", os.path.join(tmp, "ep_ranks")],
+                device=str(dev)))],
+            target=nccl_rank_main)
+        seconds["ranks_4"] = time.perf_counter() - t
+        hold("dp_ep", [r[0] for r in res], (2, 2), [0, 1], "halo")
+        hold("ep_dp_ep", [r[1] for r in res], (2, 2), [0, 1], "ep",
+             replicated=True)
+        paths["nccl_trainer"] = res[0][2]["launches"]
+        paths["nccl_ep_trainer"] = res[0][3]["launches"]
+        t = time.perf_counter()
+        want_rows, want_x = single_rows or (run_nccl_single(torch, argv),
+                                            run_nccl_single(torch, rep_argv))
+        seconds["single_trainer"] = time.perf_counter() - t
+    summary["trainer"] = hold_trainer("nccl trainer", res[0][2], want_rows,
+                                      "halo_gather_split_bwd")
+    summary["ep_trainer"] = hold_trainer("nccl replicated trainer",
+                                         res[0][3], want_x, "bn_forward")
+    summary["seconds"] = seconds
+    summary["step_ms_note"] = ("rank 0's host ms a step, ranks time-sliced "
+                               "on one shared card over a loopback socket: "
+                               "not a scaling number")
+    print(f"nccl: seconds {seconds}", flush=True)
+    return paths, summary
 
 
 # -------------------------------------------------------------------- 21. xla
@@ -6634,6 +7011,10 @@ def main() -> None:
     paths.update(halo_paths)
     records.append(halo_rec)
     print(json.dumps({"halo": halo}), flush=True)
+    nccl_paths, nccl = timed("nccl", nccl_phase, (
+        halo["trainer"]["single_rows"], halo["ep_trainer"]["single_rows"]))
+    paths.update(nccl_paths)
+    print(json.dumps({"nccl": nccl}), flush=True)
     xla_paths, _ = timed("xla", xla_phase)
     paths.update(xla_paths)
     export_paths, _ = timed("export", export_phase)

@@ -65,7 +65,6 @@ not touch the RNG state, which a CUDA graph's capture could not read.
 from __future__ import annotations
 
 import contextlib
-import hashlib
 from typing import Dict, Optional, Sequence, Union
 
 import torch
@@ -89,23 +88,6 @@ from phc_gnn_torch.parallel.halo import halo_exchange
 __all__ = ["PHCGNN"]
 
 COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
-
-
-def _shard_generator(generator: torch.Generator, shard: int
-                     ) -> torch.Generator:
-    """The node dropout generator of node shard ``shard`` for one forward
-    (phc_gnn.py:210-218, which folds the shard index into the layers'
-    keys): seeded from the shared ``generator``'s state and ``shard``, so
-    each shard draws its own rows' masks; the shared generator then takes
-    one draw, so that the next forward's seeds differ, and goes on to the
-    head's dropout, which every shard draws alike (its ``[G, d]`` rows are
-    replicated)."""
-    digest = hashlib.blake2b(generator.get_state().numpy().tobytes()
-                             + shard.to_bytes(4, "little"),
-                             digest_size=8).digest()
-    torch.empty(1, device=generator.device).uniform_(generator=generator)
-    return torch.Generator(device=generator.device).manual_seed(
-        int.from_bytes(digest, "little") >> 1)
 
 
 def _remat_contexts():
@@ -283,10 +265,11 @@ class PHCGNN(nn.Module):
         remat = self.remat and torch.is_grad_enabled()
         halo = self.node_axis is not None and graphs.halo_send is not None
         ax = mesh.axis(self.node_axis) if halo else None
-        node_gen = generator
-        if (halo and training and generator is not None
-                and any(self.dropout_mpnn)):
-            node_gen = _shard_generator(generator, ax.index)
+        # each node shard keeps its own rows' dropout masks from draws that
+        # every shard makes alike, so the shards' generators stay in step
+        # and a CUDA graph replays their draws (phc_gnn.py:210-218 folds the
+        # shard into the key)
+        node_block = (ax.index, ax.size) if halo else None
         for i in range(self.num_layers):
             skip = atom if (self.concat or self.sc_type == "first"
                             or i == 0) else x
@@ -313,8 +296,8 @@ class PHCGNN(nn.Module):
                 h = getattr(self, f"norm_{i}")(h, training=training,
                                                mask=graphs.node_mask)
             h = phm_dropout(self.act(h), self.dropout_mpnn[i], self.phm_dim,
-                            node_gen, training=training,
-                            same=self.same_dropout)
+                            generator, training=training,
+                            same=self.same_dropout, block=node_block)
             x = torch.cat([h, skip], dim=-1) if self.concat else h + skip
         pool_axis = self.node_axis if halo else None
         if isinstance(self.pooling, PHMGlobalSumPooling):

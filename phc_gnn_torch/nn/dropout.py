@@ -10,7 +10,7 @@ run with the rate at 0.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,11 +19,15 @@ __all__ = ["phm_dropout"]
 
 def phm_dropout(x: torch.Tensor, p: float, phm_dim: int,
                 generator: Optional[torch.Generator], training: bool = True,
-                same: bool = False) -> torch.Tensor:
+                same: bool = False,
+                block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout on a flat component-block tensor ``[N, n*d]``: each
     kept entry is divided by ``keep = 1 - p`` in ``x``'s dtype; in bf16
     ``keep`` is first rounded to bf16, as JAX's ``x / keep`` rounds its
-    weakly typed scalar."""
+    weakly typed scalar.  With ``block = (index, count)`` the generator
+    draws ``count`` masks and ``x`` takes mask ``index``: the ``count``
+    node shards of one batch draw alike from one generator, and each keeps
+    its own rows' mask (JAX folds the shard index into the key)."""
     if not 0.0 <= p <= 1.0:
         raise ValueError(f"dropout rate must be in [0, 1], got {p}")
     if not training or p == 0.0:
@@ -39,5 +43,11 @@ def phm_dropout(x: torch.Tensor, p: float, phm_dim: int,
         xs = x.reshape(x.shape[:-1] + (phm_dim, d))
     else:
         shape, xs = x.shape, x
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if block is None:
+        u = torch.rand(shape, generator=generator, device=x.device)
+    else:
+        index, count = block
+        u = torch.rand((count,) + tuple(shape), generator=generator,
+                       device=x.device)[index]
+    mask = u < keep
     return torch.where(mask, xs / scale, 0.0).reshape(x.shape)

@@ -27,6 +27,12 @@ the whole batch's already, stay as they are (halo.py:351-370).
 
 As JAX's, the dp steps keep ``grad_accum`` single-device: the Trainer
 ignores it under dp and ep.
+
+JAX jits every step of the mesh and scans T of them in one dispatch.  The
+port's counterpart is ``grid_scan_train_steps``: over NCCL on a CUDA
+device, one CUDA graph a bucket shape holds a whole step with its
+collectives, captured at the same call on every rank and replayed; on
+gloo and on the CPU the steps run eagerly (``graphed_on``).
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from phc_gnn_torch.parallel.mesh import Axis, Mesh
 __all__ = ["loss_weight", "make_dummy_batch", "weighted_mean",
            "make_dp_train_step", "make_dp_eval_step",
            "make_scan_dp_train_steps", "grid_train_step", "grid_eval_step",
-           "scan_steps", "fold_seed"]
+           "grid_scan_train_steps", "grid_scan_eval_steps", "graphed_on",
+           "fold_seed"]
 
 
 def make_dummy_batch(batch: GraphsTuple) -> GraphsTuple:
@@ -113,16 +120,50 @@ def _grid(mesh: Mesh) -> Axis:
     return Axis("grid", mesh.size, mesh.rank, mesh.world)
 
 
-def grid_train_step(model, optimizer, loss_fn: Callable, mesh: Mesh,
-                    weight_decay: float = 0.0, weight_decay2: float = 0.0,
-                    reg_p: int = 2, loss_name: str = "l1", seed: int = 0,
-                    device: Union[str, torch.device] = "cuda"):
-    """The train step of every mesh shape: ``step(batch, lr) -> (loss,
-    out)``, ``out`` [G, T] at dp = 1, else the dp batches' outputs
-    [dp, G, T].  Moves ``model`` and ``optimizer`` to ``device`` (this
-    rank's); the dropout generator is seeded with ``fold_seed(seed, d)``.
-    ``step.generator`` is it."""
-    from phc_gnn_torch.train.state import _bind, make_loss_and_grads
+def graphed_on(mesh: Mesh, dev: torch.device) -> bool:
+    """Whether the steps of ``mesh`` on ``dev`` replay CUDA graphs: on a
+    CUDA device over NCCL, whose collectives run on the card and so go
+    into a graph with the kernels around them.  Gloo runs its collectives
+    on the host, where a graph cannot hold them, and the CPU has no
+    graphs: there the steps run eagerly.  The choice follows the mesh's
+    backend alone; a capture that fails raises."""
+    return dev.type == "cuda" and mesh.backend == "nccl"
+
+
+# ProcessGroupNCCL's watchdog thread polls its work's CUDA events; in the
+# default global mode one poll during a capture would invalidate it, so an
+# NCCL mesh captures in thread-local mode (this thread's calls checked)
+NCCL_CAPTURE_MODE = "thread_local"
+
+
+def grid_scan_train_steps(model, optimizer, loss_fn: Callable, mesh: Mesh,
+                          weight_decay: float = 0.0,
+                          weight_decay2: float = 0.0, reg_p: int = 2,
+                          loss_name: str = "l1", seed: int = 0,
+                          device: Union[str, torch.device] = "cuda"):
+    """The train steps of every mesh shape, T at a time: ``steps(batches,
+    lr) -> (losses [T], outs [T, ...])`` over this rank's T batches or
+    shards of one bucket shape (a sequence, or a stack from
+    ``graph.stack_batches``), one after another at one ``lr``, as JAX's
+    scanned steps (dp.py:128-154, halo.py:377-417, 531-555).  ``out`` is
+    [G, T] at dp = 1, else the dp batches' outputs [dp, G, T].  Moves
+    ``model`` and ``optimizer`` to ``device`` (this rank's); the dropout
+    generator is seeded with ``fold_seed(seed, d)``.  ``steps.generator``
+    is it.
+
+    On a CUDA device over NCCL (``graphed_on``) the first call for a bucket
+    shape captures one whole step in a CUDA graph (``train.state.
+    _GraphedStep``): the forward, the backward, the step's collectives
+    and the Adam update, with the dropout generator registered, so that
+    each replay draws what the eager step draws.  Every rank of the mesh
+    must capture at the same call, or their collectives deadlock: the
+    graph's key is the shape of the batch or shard, which every rank
+    derives alike (a dp rank's dummy batch has its real batch's shape,
+    the halo shards take the rungs of the whole dp group).  Later calls
+    copy each batch into the graph's buffers and replay it.  On gloo and
+    on the CPU the steps run eagerly, one after another."""
+    from phc_gnn_torch.train.state import (_as_list, _bind, _capture_train,
+                                           make_loss_and_grads)
     dev = _bind(model, optimizer, device)
     loss_and_grads = make_loss_and_grads(model, loss_fn, weight_decay,
                                          weight_decay2, reg_p)
@@ -131,9 +172,7 @@ def grid_train_step(model, optimizer, loss_fn: Callable, mesh: Mesh,
     stats = [b for b in model.buffers() if b.is_floating_point()]
     grid, shards = _grid(mesh), mesh.ep.size
 
-    def step(batch: GraphsTuple, lr: Union[float, torch.Tensor]):
-        optimizer.set_lr(lr)
-        batch = batch.to(dev, non_blocking=True)
+    def body(batch: GraphsTuple):
         with mesh_lib.bind(mesh):
             loss, out, grads = loss_and_grads(batch, optimizer.lr, gen)
         g = list(grads.values())
@@ -148,40 +187,95 @@ def grid_train_step(model, optimizer, loss_fn: Callable, mesh: Mesh,
         optimizer.step(g, optimizer.lr)
         return loss, out
 
-    step.generator = gen
+    graphs = {}
+    graphed = graphed_on(mesh, dev)
+
+    def steps(batches, lr: Union[float, torch.Tensor]):
+        batches = _as_list(batches, "the mesh steps")
+        optimizer.set_lr(lr)
+        if not graphed:
+            losses, outs = zip(*(body(b.to(dev, non_blocking=True))
+                                 for b in batches))
+            return torch.stack(losses), torch.stack(outs)
+        # lockstep: the same key on every rank (docstring)
+        key = batches[0].shape_key()
+        if key not in graphs:
+            graphs[key] = _capture_train(
+                body, [batches[0].to(dev, non_blocking=True)], dev, model,
+                optimizer, gen, NCCL_CAPTURE_MODE)
+        losses, outs = graphs[key].run([(b,) for b in batches])
+        optimizer.count += len(batches)
+        return losses, outs
+
+    steps.generator = gen
+    return steps
+
+
+def grid_train_step(model, optimizer, loss_fn: Callable, mesh: Mesh,
+                    weight_decay: float = 0.0, weight_decay2: float = 0.0,
+                    reg_p: int = 2, loss_name: str = "l1", seed: int = 0,
+                    device: Union[str, torch.device] = "cuda"):
+    """The train step of every mesh shape: ``step(batch, lr) -> (loss,
+    out)``, ``grid_scan_train_steps`` on one batch (one CUDA graph a
+    bucket shape over NCCL, eager on gloo and on the CPU).
+    ``step.generator`` is the dropout generator."""
+    steps = grid_scan_train_steps(model, optimizer, loss_fn, mesh,
+                                  weight_decay, weight_decay2, reg_p,
+                                  loss_name, seed, device)
+
+    def step(batch: GraphsTuple, lr: Union[float, torch.Tensor]):
+        losses, outs = steps([batch], lr)
+        return losses[0], outs[0]
+
+    step.generator = steps.generator
     return step
+
+
+def grid_scan_eval_steps(model, mesh: Mesh,
+                         device: Union[str, torch.device] = "cuda"):
+    """``steps(batches) -> outs [T, ...]``: the eval forward of this rank's
+    T batches or shards of one bucket shape under
+    ``torch.inference_mode()``; ``out`` [G, T] at dp = 1, else the dp
+    batches' outputs gathered, [dp, G, T].  Over NCCL on a CUDA device one
+    forward with its collectives is captured in a CUDA graph a bucket
+    shape, in lockstep on every rank as the train steps'
+    (``grid_scan_train_steps``), and replayed for each batch; on gloo and
+    on the CPU the forwards run eagerly."""
+    from phc_gnn_torch.device import resolve_device
+    from phc_gnn_torch.train.state import _as_list, _GraphedStep
+    dev = resolve_device(device)
+    model.to(dev).eval()
+    graphs = {}
+    graphed = graphed_on(mesh, dev)
+
+    def forward(batch: GraphsTuple):
+        with mesh_lib.bind(mesh):
+            out = model(batch, training=False)
+            return ((mesh_lib.all_gather(out, mesh.dp) if mesh.dp.size > 1
+                     else out),)
+
+    def steps(batches) -> torch.Tensor:
+        batches = _as_list(batches, "the mesh evals")
+        with torch.inference_mode():
+            if not graphed:
+                return torch.stack([forward(b.to(dev, non_blocking=True))[0]
+                                    for b in batches])
+            key = batches[0].shape_key()
+            if key not in graphs:
+                graphs[key] = _GraphedStep(
+                    forward, [batches[0].to(dev, non_blocking=True)], dev,
+                    capture_error_mode=NCCL_CAPTURE_MODE)
+            return graphs[key].run([(b,) for b in batches])[0]
+
+    return steps
 
 
 def grid_eval_step(model, mesh: Mesh,
                    device: Union[str, torch.device] = "cuda"):
-    """``step(batch) -> out``: the eval forward of this rank's batch or
-    shard under ``torch.inference_mode()``; ``out`` [G, T] at dp = 1, else
-    the dp batches' outputs gathered, [dp, G, T]."""
-    from phc_gnn_torch.device import resolve_device
-    dev = resolve_device(device)
-    model.to(dev).eval()
-
-    def step(batch: GraphsTuple) -> torch.Tensor:
-        batch = batch.to(dev, non_blocking=True)
-        with torch.inference_mode(), mesh_lib.bind(mesh):
-            out = model(batch, training=False)
-            return (mesh_lib.all_gather(out, mesh.dp) if mesh.dp.size > 1
-                    else out)
-
-    return step
-
-
-def scan_steps(step):
-    """``steps(batches, lr) -> (losses [T], outs [T, ...])``: ``step`` on
-    each of T batches, one after another, at one ``lr`` (JAX's
-    ``lax.scan`` of its device step, dp.py:128-154)."""
-
-    def steps(batches: Sequence[GraphsTuple], lr):
-        losses, outs = zip(*(step(b, lr) for b in batches))
-        return torch.stack(losses), torch.stack(outs)
-
-    steps.generator = step.generator
-    return steps
+    """``step(batch) -> out``: ``grid_scan_eval_steps`` on one batch or
+    shard; ``out`` [G, T] at dp = 1, else [dp, G, T]."""
+    steps = grid_scan_eval_steps(model, mesh, device)
+    return lambda batch: steps([batch])[0]
 
 
 def make_dp_train_step(model, optimizer, loss_fn: Callable, mesh: Mesh,
@@ -194,9 +288,7 @@ def make_dp_train_step(model, optimizer, loss_fn: Callable, mesh: Mesh,
     loss_weight(batch, loss_name)``; the running stats are weighted by the
     batches' real nodes; one Adam step follows on every rank.  Arguments as
     ``train.make_train_step``, with the ``(dp, 1)`` ``mesh``."""
-    if mesh.ep.size != 1:
-        raise ValueError(f"the dp step runs on a (dp, 1) mesh, got "
-                         f"{mesh.shape}: take parallel.make_dp_np_train_step")
+    _dp_only(mesh)
     return grid_train_step(model, optimizer, loss_fn, mesh, weight_decay,
                            weight_decay2, reg_p, loss_name, seed, device)
 
@@ -216,7 +308,15 @@ def make_scan_dp_train_steps(model, optimizer, loss_fn: Callable, mesh: Mesh,
                              device: Union[str, torch.device] = "cuda"):
     """``steps(batches, lr) -> (losses [T], outs [T, dp, G, T'])``: T
     ``make_dp_train_step`` steps over this rank's T batches
-    (dp.py:128-154)."""
-    return scan_steps(make_dp_train_step(
-        model, optimizer, loss_fn, mesh, weight_decay, weight_decay2, reg_p,
-        loss_name, seed, device))
+    (dp.py:128-154): one CUDA graph a bucket shape over NCCL, eager on
+    gloo and on the CPU (``grid_scan_train_steps``)."""
+    _dp_only(mesh)
+    return grid_scan_train_steps(model, optimizer, loss_fn, mesh,
+                                 weight_decay, weight_decay2, reg_p,
+                                 loss_name, seed, device)
+
+
+def _dp_only(mesh: Mesh) -> None:
+    if mesh.ep.size != 1:
+        raise ValueError(f"the dp step runs on a (dp, 1) mesh, got "
+                         f"{mesh.shape}: take parallel.make_dp_np_train_step")

@@ -22,8 +22,11 @@ the halo scheme's do (parallel/dp.py).
 
 A min or max aggregation (PNA) cannot be trained under the scheme: ``pmax``
 and ``pmin`` have no derivative in JAX, and the port's raise in the
-backward likewise; their eval works.  As JAX's Trainer, the port keeps one
-step a batch for this scheme (trainer.py:245-250): no scanned form.
+backward likewise; their eval works.  JAX jits one step a batch for this
+scheme (edge_partition.py:92, 177) and gives it no scanned form; over NCCL
+on a CUDA device the port captures the step in one CUDA graph a shard
+shape and replays it a batch (``parallel.dp.grid_train_step``), the
+counterpart of that jit; on gloo and on the CPU the steps run eagerly.
 """
 
 from __future__ import annotations

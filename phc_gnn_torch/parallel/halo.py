@@ -22,6 +22,10 @@ times its own nodes' contribution, the forward psum transposing to a psum:
 the mean over ``ep`` is the exact gradient of the batch, as in JAX
 (halo.py:351-370).  JAX overlaps the exchange with local work through
 TPU compiler options; the port's exchange is a blocking collective.
+JAX jits each step and scans T of them; over NCCL on a CUDA device the
+port captures one step, its exchanges included, in a CUDA graph a shard
+shape and replays it (``parallel.dp.grid_scan_train_steps``); on gloo and
+on the CPU the steps run eagerly.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from phc_gnn_torch.parallel import mesh as mesh_lib
 from phc_gnn_torch.parallel.mesh import Axis, Mesh
 from phc_gnn_torch.utils import round_up
 
-__all__ = ["SlotOverflow", "partition_nodes", "halo_exchange",
+__all__ = ["SlotOverflow", "partition_nodes", "slot_needs", "halo_exchange",
            "make_np_train_step", "make_np_eval_step", "make_dp_np_train_step",
            "make_dp_np_eval_step", "make_scan_np_train_steps",
            "make_scan_dp_np_train_steps"]
@@ -53,6 +57,51 @@ class SlotOverflow(ValueError):
         super().__init__(msg)
         self.needed_edge_slots = needed_edge_slots
         self.needed_halo_slots = needed_halo_slots
+
+
+def _cut(batch: GraphsTuple, S: int, halo_align: int, edge_align: int):
+    """How ``partition_nodes`` cuts ``batch`` into ``S`` node shards: the
+    shard rows ``NS``, the real edges' receivers and senders, each edge
+    shard's start in them, the sorted unique senders that each shard t
+    sends to each shard s (``send_lists[t][s]``) and the widths ``ES`` and
+    ``H`` the batch needs."""
+    NS = round_up(-(-batch.num_nodes // S), 8)
+    recv = batch.receivers.cpu().numpy().astype(np.int64)
+    send = batch.senders.cpu().numpy().astype(np.int64)
+    if np.any(recv[1:] < recv[:-1]):
+        raise ValueError("partition_nodes needs receiver-sorted edges")
+    # the real edges only: the batch's padding edges all point at the last
+    # node, which would pile them on the last shard
+    edge_mask = batch.edge_mask.cpu().numpy()
+    recv, send = recv[edge_mask], send[edge_mask]
+    owner_e = np.minimum(recv // NS, S - 1)
+    counts = np.bincount(owner_e, minlength=S)
+    ES = round_up(max(int(counts.max()), 1), edge_align)
+    e_starts = np.concatenate([[0], np.cumsum(counts)])
+
+    # for each (source shard t, edge shard s) the sorted unique t-owned
+    # senders of s's edges
+    send_lists = [[None] * S for _ in range(S)]
+    max_cut = 0
+    for s in range(S):
+        es_send = send[e_starts[s]:e_starts[s + 1]]
+        es_owner = np.minimum(es_send // NS, S - 1)
+        for t in range(S):
+            if t != s:
+                uniq = np.unique(es_send[es_owner == t])
+                send_lists[t][s] = uniq
+                max_cut = max(max_cut, len(uniq))
+    H = round_up(max(max_cut, 1), halo_align)
+    return NS, recv, send, e_starts, send_lists, ES, H
+
+
+def slot_needs(batch: GraphsTuple, num_shards: int, halo_align: int = 8,
+               edge_align: int = 128) -> tuple:
+    """``(edge_slots, halo_slots)``: the ``ES`` and ``H`` that
+    ``partition_nodes(batch, num_shards)`` takes without fixed widths,
+    without building the shards (the Trainer grows its rungs from every
+    batch of a dp group with it)."""
+    return _cut(batch, num_shards, halo_align, edge_align)[-2:]
 
 
 def partition_nodes(batch: GraphsTuple, num_shards: int, halo_align: int = 8,
@@ -79,39 +128,15 @@ def partition_nodes(batch: GraphsTuple, num_shards: int, halo_align: int = 8,
     the kernels run unchanged inside each shard."""
     S = num_shards
     N = batch.num_nodes
-    NS = round_up(-(-N // S), 8)
     nodes = batch.nodes.cpu().numpy()
-    recv = batch.receivers.cpu().numpy().astype(np.int64)
-    send = batch.senders.cpu().numpy().astype(np.int64)
     edges = batch.edges.cpu().numpy()
     edge_mask = batch.edge_mask.cpu().numpy()
     node_mask = batch.node_mask.cpu().numpy()
     graph_ids = batch.graph_ids.cpu().numpy()
     G = batch.num_graphs
-    if np.any(recv[1:] < recv[:-1]):
-        raise ValueError("partition_nodes needs receiver-sorted edges")
-
-    # the real edges only: the batch's padding edges all point at the last
-    # node, which would pile them on the last shard
-    recv, send, edges = recv[edge_mask], send[edge_mask], edges[edge_mask]
-    owner_e = np.minimum(recv // NS, S - 1)
-    counts = np.bincount(owner_e, minlength=S)
-    ES = round_up(max(int(counts.max()), 1), edge_align)
-    e_starts = np.concatenate([[0], np.cumsum(counts)])
-
-    # for each (source shard t, edge shard s) the sorted unique t-owned
-    # senders of s's edges
-    send_lists = [[None] * S for _ in range(S)]
-    max_cut = 0
-    for s in range(S):
-        es_send = send[e_starts[s]:e_starts[s + 1]]
-        es_owner = np.minimum(es_send // NS, S - 1)
-        for t in range(S):
-            if t != s:
-                uniq = np.unique(es_send[es_owner == t])
-                send_lists[t][s] = uniq
-                max_cut = max(max_cut, len(uniq))
-    H = round_up(max(max_cut, 1), halo_align)
+    edges = edges[edge_mask]
+    NS, recv, send, e_starts, send_lists, ES, H = _cut(
+        batch, S, halo_align, edge_align)
     if ((edge_slots is not None and ES > edge_slots)
             or (halo_slots is not None and H > halo_slots)):
         raise SlotOverflow(ES, H, (
@@ -271,10 +296,11 @@ def make_scan_np_train_steps(model, optimizer, loss_fn: Callable, mesh: Mesh,
     """``steps(shards, lr) -> (losses [T], outs [T, G, T'])``: T
     ``make_np_train_step`` steps, one after another, over this rank's
     shards of T batches (halo.py:395-417, a ``lax.scan`` there)."""
-    from phc_gnn_torch.parallel.dp import scan_steps
-    return scan_steps(make_np_train_step(
-        model, optimizer, loss_fn, mesh, weight_decay, weight_decay2, reg_p,
-        seed, device))
+    from phc_gnn_torch.parallel.dp import grid_scan_train_steps
+    _one_row(mesh)
+    return grid_scan_train_steps(model, optimizer, loss_fn, mesh,
+                                 weight_decay, weight_decay2, reg_p, "l1",
+                                 seed, device)
 
 
 def make_scan_dp_np_train_steps(model, optimizer, loss_fn: Callable,
@@ -285,10 +311,10 @@ def make_scan_dp_np_train_steps(model, optimizer, loss_fn: Callable,
     """``steps(shards, lr) -> (losses [T], outs [T, dp, G, T'])``: T
     ``make_dp_np_train_step`` steps over this rank's shards of T dp groups
     (halo.py:531-555)."""
-    from phc_gnn_torch.parallel.dp import scan_steps
-    return scan_steps(make_dp_np_train_step(
-        model, optimizer, loss_fn, mesh, weight_decay, weight_decay2, reg_p,
-        loss_name, seed, device))
+    from phc_gnn_torch.parallel.dp import grid_scan_train_steps
+    return grid_scan_train_steps(model, optimizer, loss_fn, mesh,
+                                 weight_decay, weight_decay2, reg_p,
+                                 loss_name, seed, device)
 
 
 def _one_row(mesh: Mesh) -> None:

@@ -306,10 +306,13 @@ class _GraphedStep:
     host sync (``capture_begin`` and ``capture_end`` directly, without
     ``torch.cuda.graph``'s device synchronize), so a caller can hold the
     whole first call to ``torch.cuda.set_sync_debug_mode("error")``.  A
-    failed capture raises; nothing runs the step eagerly in its place."""
+    failed capture raises; nothing runs the step eagerly in its place.
+    ``capture_error_mode`` is ``CUDAGraph.capture_begin``'s (the multi-rank
+    steps over NCCL take "thread_local", ``parallel.dp``)."""
 
     def __init__(self, fn, batches: Sequence[GraphsTuple], dev: torch.device,
-                 generator=None, restore=None):
+                 generator=None, restore=None,
+                 capture_error_mode: str = "global"):
         self.static = [b.empty_like(dev).copy_(b) for b in batches]
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -323,7 +326,8 @@ class _GraphedStep:
                     # each replay draws the next dropout masks of the
                     # generator, as the eager step would
                     self.graph.register_generator_state(generator)
-                self.graph.capture_begin()
+                self.graph.capture_begin(
+                    capture_error_mode=capture_error_mode)
                 try:
                     self.result = fn(*self.static)
                 finally:
@@ -348,8 +352,8 @@ class _GraphedStep:
 
 
 def _capture_train(fn, batches: Sequence[GraphsTuple], dev: torch.device,
-                   model: nn.Module, optimizer: Adam,
-                   gen: torch.Generator) -> _GraphedStep:
+                   model: nn.Module, optimizer: Adam, gen: torch.Generator,
+                   capture_error_mode: str = "global") -> _GraphedStep:
     """``_GraphedStep`` of a train step ``fn``, whose warm-ups and capture
     train: the parameters, buffers and Adam state, the optimizer's
     ``count`` and the generator come out of the capture as they went in."""
@@ -363,7 +367,7 @@ def _capture_train(fn, batches: Sequence[GraphsTuple], dev: torch.device,
         optimizer.count = count
         gen.set_state(rng)
 
-    return _GraphedStep(fn, batches, dev, gen, restore)
+    return _GraphedStep(fn, batches, dev, gen, restore, capture_error_mode)
 
 
 def make_scan_train_steps(model: nn.Module, optimizer: Adam, loss_fn: LossFn,

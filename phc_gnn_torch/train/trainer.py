@@ -34,10 +34,11 @@ from phc_gnn_torch.data.prefetch import prefetch
 from phc_gnn_torch.device import resolve_device
 from phc_gnn_torch.graph.batch import GraphsTuple
 from phc_gnn_torch.models.phc_gnn import PHCGNN
-from phc_gnn_torch.parallel.dp import (fold_seed, grid_eval_step,
-                                       grid_train_step, make_dummy_batch)
+from phc_gnn_torch.parallel.dp import (fold_seed, grid_scan_eval_steps,
+                                       grid_scan_train_steps,
+                                       make_dummy_batch)
 from phc_gnn_torch.parallel.edge_partition import edge_shard
-from phc_gnn_torch.parallel.halo import SlotOverflow, partition_nodes
+from phc_gnn_torch.parallel.halo import partition_nodes, slot_needs
 from phc_gnn_torch.parallel.mesh import make_mesh
 from phc_gnn_torch.train.checkpoint import CheckpointManager
 from phc_gnn_torch.train.config import ExperimentConfig
@@ -113,14 +114,19 @@ def build_loss(cfg: ExperimentConfig) -> Callable:
     raise ValueError(f"unknown loss {cfg.loss!r}")
 
 
-def iter_scan_chunks(batches, chunk_size: int):
+def _bucket(batch: GraphsTuple) -> tuple:
+    return (batch.num_nodes, batch.num_edges, batch.num_graphs)
+
+
+def iter_scan_chunks(batches, chunk_size: int, bucket=_bucket):
     """Group an iterable of GraphsTuples into same-shape chunks of at most
     ``chunk_size``: consecutive batches of one ``(num_nodes, num_edges,
     num_graphs)`` bucket, a new chunk at each change of bucket (shared by the
-    scanned train and eval loops)."""
+    scanned train and eval loops); ``bucket(item)`` names an item's bucket
+    (the mesh loops chunk their items by their shards' ``shape_key``)."""
     chunk, shape_key = [], None
     for batch in batches:
-        key = (batch.num_nodes, batch.num_edges, batch.num_graphs)
+        key = bucket(batch)
         if chunk and (key != shape_key or len(chunk) >= chunk_size):
             yield chunk
             chunk = []
@@ -180,9 +186,11 @@ class Trainer:
     member ``d`` of each group of ``dp`` batches of one bucket shape (the
     last group padded with ``make_dummy_batch``) and, with ep > 1, its
     node shard of it (``ep_scheme="halo"``) or its edge shard
-    (``"replicated"``: ``parallel.edge_shard``, the model's edges over ep,
-    one step a batch as in JAX; ``_partition``), and steps with
-    ``parallel.dp.grid_train_step``; the
+    (``"replicated"``: ``parallel.edge_shard``, the model's edges over ep;
+    ``_partition``), and steps with ``parallel.dp.grid_scan_train_steps``
+    in chunks of ``max(cfg.scan_chunk, 1)`` shards of one shape (over
+    NCCL on the card one CUDA graph a shard shape, replayed a step, and
+    its eval forward likewise); the
     outputs of a group reach every rank, so every rank computes the same
     metrics, and only the primary (rank 0) writes files.  ``grad_accum``
     and ``profile_steps`` are single-device there, as JAX keeps
@@ -275,9 +283,10 @@ class Trainer:
         ``(dp, ep)`` mesh over the default process group (``cli.train``
         sets it up), the model's nodes sharded over ``ep``
         (``set_node_axis``) or, under the replicated scheme, its edges
-        (``set_edge_axis``), one train step a batch (the scanned chunks of
-        JAX are the same steps one after another) and the eval forward on
-        the same shards; ``grad_accum`` stays single-device, as in JAX."""
+        (``set_edge_axis``), the scanned train steps and eval forwards of
+        ``parallel.dp`` on its shards (one CUDA graph a shard shape over
+        NCCL on the card, eager on gloo and on the CPU); ``grad_accum``
+        stays single-device, as in JAX."""
         if self.accum > 1:
             log.info("grad_accum is single-device; ignored under dp/ep")
             self.accum = 1
@@ -286,10 +295,10 @@ class Trainer:
             model.set_node_axis("ep")
         elif self.ep > 1:
             model.set_edge_axis("ep")
-        self.train_step = grid_train_step(
+        self.train_step = grid_scan_train_steps(
             model, self.opt, self.loss_fn, self.mesh, loss_name=self.cfg.loss,
             **kw)
-        self.eval_step = grid_eval_step(model, self.mesh, self.device)
+        self.eval_steps = grid_scan_eval_steps(model, self.mesh, self.device)
         self._start = _host_state(model)
 
     # -- helpers ------------------------------------------------------------
@@ -318,34 +327,32 @@ class Trainer:
                     size - len(group))
                 yield group, full
 
-    def _partition(self, batch: GraphsTuple) -> GraphsTuple:
-        """This rank's shard of ``batch`` (JAX's trainer.py:331-360): under
-        the replicated scheme its edge shard; under the halo scheme its
-        node shard, with its CSR plans unless the model is on the
-        composite route, the per-shard edge and halo widths on coarse rungs
-        (multiples of 512 and 64), grown when a batch needs more, so
-        consecutive batches share their shapes.  Every rank of a dp row
-        partitions the same batches, so their rungs move together."""
+    def _partition(self, batch: GraphsTuple, group) -> GraphsTuple:
+        """This rank's shard of ``batch``, a member of the dp ``group``
+        (JAX's trainer.py:331-390): under the replicated scheme its edge
+        shard; under the halo scheme its node shard, with its CSR plans
+        unless the model is on the composite route, the per-shard edge and
+        halo widths on coarse rungs (multiples of 512 and 64), grown when a
+        batch of the group needs more, so consecutive batches share their
+        shapes.  Every rank grows the rungs from the same whole group, as
+        JAX partitions every member with one rung: every shard of a step
+        then has one shape, the key under which every rank captures its
+        step's CUDA graph at the same call (lockstep)."""
         if self.ep_scheme == "replicated":
             return edge_shard(batch, self.ep, self.mesh.ep.index)
-        plan = not self.model.composite
         es, h = self._np_slots
-        if es is not None:
-            try:
-                return partition_nodes(batch, self.ep, edge_slots=es,
-                                       halo_slots=h, csr_plan=plan)[
-                    self.mesh.ep.index]
-            except SlotOverflow as o:
-                need_es, need_h = o.needed_edge_slots, o.needed_halo_slots
-        else:
-            nat = partition_nodes(batch, self.ep, csr_plan=False)
-            need_es, need_h = nat[0].num_edges, nat[0].halo_send.shape[1]
-        es = -(-max(need_es, es or 0) // 512) * 512
-        h = -(-max(need_h, h or 0) // 64) * 64
-        self._np_slots = (es, h)
-        log.info("halo partition rungs -> edge_slots=%d halo_slots=%d", es, h)
+        needs = [slot_needs(b, self.ep) for b in group]
+        need_es = max(n[0] for n in needs)
+        need_h = max(n[1] for n in needs)
+        if es is None or need_es > es or need_h > h:
+            es = -(-max(need_es, es or 0) // 512) * 512
+            h = -(-max(need_h, h or 0) // 64) * 64
+            self._np_slots = (es, h)
+            log.info("halo partition rungs -> edge_slots=%d halo_slots=%d",
+                     es, h)
         return partition_nodes(batch, self.ep, edge_slots=es, halo_slots=h,
-                               csr_plan=plan)[self.mesh.ep.index]
+                               csr_plan=not self.model.composite)[
+            self.mesh.ep.index]
 
     def _dp_groups(self, batches: Iterable[GraphsTuple]):
         """``(real batches, this rank's batch or node shard)`` per step
@@ -357,7 +364,14 @@ class Trainer:
                   else (([b], [b]) for b in batches))
         for real, group in groups:
             mine = group[self.mesh.dp.index]
-            yield real, (self._partition(mine) if self.ep > 1 else mine)
+            yield real, (self._partition(mine, group) if self.ep > 1
+                         else mine)
+
+    def _mesh_chunks(self, items):
+        """``_parallel_items``' items in chunks of at most
+        ``max(scan_chunk, 1)`` whose shards share one shape."""
+        return iter_scan_chunks(items, self.chunk,
+                                bucket=lambda item: item[1].shape_key())
 
     def _parallel_items(self, batches: Iterable[GraphsTuple]):
         """``_dp_groups`` with the partitioning in the prefetch thread
@@ -428,9 +442,10 @@ class Trainer:
             # every rank evaluates its batch or shard; the outputs of the
             # dp batches come back to every rank, a dummy's dropped
             groups = (
-                (real, outs if self.dp > 1 else outs[None])
-                for real, outs in ((real, self.eval_step(mine)) for real, mine
-                                   in self._parallel_items(batches)))
+                (real, outs[i] if self.dp > 1 else outs[i][None])
+                for chunk in self._mesh_chunks(self._parallel_items(batches))
+                for outs in [self.eval_steps([mine for _, mine in chunk])]
+                for i, (real, _) in enumerate(chunk))
         else:
             groups = ((chunk, self.eval_steps(chunk)) for chunk in
                       iter_scan_chunks(self._batches(batches), self.chunk))
@@ -474,14 +489,17 @@ class Trainer:
                    else self._batches(loader))
         step_s = 0.0
         if self.mesh is not None:
-            # one step a dp group; every rank gets the group's outputs
-            for real, mine in batches:
+            # one step a dp group, in chunks of shards of one shape; every
+            # rank gets each group's outputs
+            for chunk in self._mesh_chunks(batches):
                 t = time.perf_counter()
-                loss, outs = self.train_step(mine, lr)
+                step_losses, outs = self.train_step(
+                    [mine for _, mine in chunk], lr)
                 step_s += time.perf_counter() - t
-                outs = outs if self.dp > 1 else outs[None]
-                for i, b in enumerate(real):
-                    consume(b, loss, outs[i])
+                for (real, _), loss, out in zip(chunk, step_losses, outs):
+                    out = out if self.dp > 1 else out[None]
+                    for i, b in enumerate(real):
+                        consume(b, loss, out[i])
         elif self.accum > 1:
             # gradient accumulation: one optimizer step a group of K
             # (exact weighted-mean grads; dummy pads contribute nothing)

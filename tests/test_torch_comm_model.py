@@ -7,7 +7,8 @@ that the port's collectives send.
   the cut matrix, the halo volume, the step volume and the predicted
   efficiency.
 - Over one np train step of the halo scheme on 2 and 4 gloo ranks
-  (tests/torch_ranks.py, one start each, together; width 16, 2 layers of
+  (tests/torch_ranks.py; the pytest run's one start of each size, which
+  tests/test_torch_edge_partition.py's cases share; width 16, 2 layers of
   the flagship's layout, naive BN, ``synthetic_batch(6, 160, 384)``),
   ``torch.distributed``'s ``all_to_all_single`` and ``all_reduce`` are
   wrapped and each call's bytes recorded.  The gradient's ``all_reduce``
@@ -30,7 +31,7 @@ from phc_gnn_tpu.parallel import comm_model as jcm
 from phc_gnn_torch.data import ZINC_ATOM_DIMS, ZINC_BOND_DIMS, synthetic_batch
 from phc_gnn_torch.models import PHCGNN
 from phc_gnn_torch.parallel import comm_model as tcm
-from torch_ranks import start_ranks
+from test_torch_edge_partition import _ranks, shared_dir  # noqa: F401
 
 DIM = 16
 MODEL = dict(phm_dim=4, atom_encoded_dim=DIM, mp_layers=(DIM, DIM),
@@ -71,18 +72,23 @@ def test_comm_model_matches_jax(shards):
                         1.91e-3, want["total_bytes"], shards, overlap=overlap)
 
 
-def test_np_step_bytes_match_the_model():
+def count_spec():
+    """The spec of the np step whose bytes are counted: the test model
+    from seed 0, SGD, ``synthetic_batch(6, 160, 384, seed=1)``."""
+    model = PHCGNN(**MODEL, device="cpu")
+    return dict(model=MODEL, state={k: v.numpy() for k, v in
+                                    model.state_dict().items()},
+                opt="sgd", wd=0.1, lr=1e-3, shape=SHAPE, seeds=[1])
+
+
+def test_np_step_bytes_match_the_model(shared_dir):
     """One np step on 2 and on 4 gloo ranks: each rank's bytes through
     ``all_to_all_single`` and ``all_reduce``, the gradient's apart, against
     ``step_comm_volume`` of the batch (module docstring)."""
-    model = PHCGNN(**MODEL, device="cpu")
-    spec = dict(model=MODEL, state={k: v.numpy() for k, v in
-                                    model.state_dict().items()},
-                opt="sgd", wd=0.1, lr=1e-3, shape=SHAPE, seeds=[1])
-    runs = {s: start_ranks("count_np_step", s, spec) for s in (2, 4)}
+    runs = {s: _ranks(shared_dir, s) for s in (2, 4)}
     batch = synthetic_batch(*SHAPE, seed=1)
     for shards, wait in runs.items():
-        for rank, res in enumerate(wait()):
+        for rank, res in enumerate(r[-1] for r in wait()):
             what = f"{shards} shards, rank {rank}"
             norms = res["norms"]
             vol = tcm.step_comm_volume(batch, shards, [DIM] * 2, DIM, norms)

@@ -5,7 +5,10 @@ package on the CPU.
 JAX runs on the 8-device virtual CPU mesh of tests/conftest.py, under
 ``shard_map``; the port runs in gloo rank processes started with
 ``spawn`` (tests/torch_ranks.py, which imports no JAX), one an edge
-shard, and the test process compares while they run.  Sizes are those of
+shard, and the test process compares while they run.  Each world size
+starts once in a pytest run (``torch_ranks.shared_ranks``): its ranks run
+every case of the tests that need that size, in turn, whichever xdist
+worker runs each test.  Sizes are those of
 JAX's own edge-partition tests (tests/test_parallel.py): width 16, 2
 layers, dropout off, ``synthetic_batch(6, 160, 382)`` (382 edges: 4
 shards pad them to 384).  Tolerances, each beside its check:
@@ -34,6 +37,7 @@ shards pad them to 384).  Tolerances, each beside its check:
   metrics, ROADMAP.md section 3).
 """
 
+import functools
 import json
 import os
 
@@ -72,7 +76,7 @@ from test_torch_dp import _init_pickle, _rows
 from test_torch_halo import (J_ATOM, J_BOND, MODEL, _jax_loss, _jax_state,
                              _jax_variables, _port_state)
 from torch_parity import assert_close, assert_leaf_close, numpy_tree
-from torch_ranks import start_ranks
+from torch_ranks import shared_ranks
 
 REL_SHARD, ATOL_SHARD = 1e-5, 1e-7
 BF16_ULP = 2.0 ** -7
@@ -90,6 +94,41 @@ LR = 1e-3
 SHAPE = (6, 160, 382)
 COMPOSITES = dict(seed=0, edges=96, nodes=20, dim=4)
 PNA_DEG = {"lin": 2.4, "log": 1.1}
+PNA_OVER = dict(msg_aggr="pna", mlp_mp=False, sc_type="last",
+                avg_deg=PNA_DEG)
+
+
+@pytest.fixture(scope="session")
+def shared_dir(tmp_path_factory):
+    """A directory that every xdist worker of the pytest run shares (the
+    run's own where there are no workers)."""
+    base = tmp_path_factory.getbasetemp()
+    return str(base.parent if os.environ.get("PYTEST_XDIST_WORKER")
+               else base)
+
+
+def _world_cases(world):
+    """The cases of ``world`` ranks, in their order: the composites, then
+    on 2 ranks the ep step and PNA's eval under the scheme, on 4 the
+    dp x ep step; last the np step whose bytes
+    tests/test_torch_comm_model.py counts."""
+    from test_torch_comm_model import count_spec
+    if world == 4:
+        return {"cases": [("composites", COMPOSITES),
+                          ("replicated", _spec([1, 2], (2, 2))),
+                          ("count_np_step", count_spec())]}
+    spec, pna_spec = _ep_specs()
+    return {"cases": [("composites", COMPOSITES), ("replicated", spec),
+                      ("replicated", pna_spec),
+                      ("count_np_step", count_spec())]}
+
+
+def _ranks(shared_dir, world):
+    """The one start of ``world`` ranks in the pytest run (``_world_cases``),
+    shared with tests/test_torch_comm_model.py: a function that waits for
+    each rank's case results."""
+    return shared_ranks(shared_dir, f"ranks_{world}", "cases", world,
+                        lambda: _world_cases(world))
 
 
 def _close(got, want, rel, atol, name):
@@ -173,7 +212,7 @@ def _jax_composites(world):
     return {k: np.asarray(v.astype(jnp.float32)) for k, v in out.items()}
 
 
-def test_composites_over_edge_shards_match_jax():
+def test_composites_over_edge_shards_match_jax(shared_dir):
     """graph/segment.py's and graph/aggregators.py's composites with
     ``axis_name`` on 2 and 4 gloo ranks (one start each, together) against
     JAX's same functions under ``shard_map`` on 2 and 4 devices: the sum,
@@ -188,14 +227,14 @@ def test_composites_over_edge_shards_match_jax():
     Each rank's node arrays are equal, and equal to the unsharded
     composites."""
     from phc_gnn_torch.graph import aggregators as agg
-    runs = {w: start_ranks("composites", w, COMPOSITES) for w in (2, 4)}
+    runs = {w: _ranks(shared_dir, w) for w in (2, 4)}
     wants = {w: _jax_composites(w) for w in runs}
     data = torch_ranks.composite_inputs(COMPOSITES)
     whole = agg.AGGREGATORS["mean"](
         torch.from_numpy(data["m"]), torch.from_numpy(data["recv"]),
         COMPOSITES["nodes"], torch.from_numpy(data["mask"]))
     for world, wait in runs.items():
-        res, want = wait(), wants[world]
+        res, want = [r[0] for r in wait()], wants[world]
         for r in res:
             assert "Differentiation rule for 'pmax'" in r["max_backward"]
         for key, w in want.items():
@@ -247,7 +286,25 @@ def _check_state(got, want, what):
                ATOL_STATS if buf else ATOL_PARAM, f"{what}: {k}")
 
 
-def test_ep_step_matches_jax_and_single_device():
+def _ep_specs():
+    """The ep = 2 step's spec, and PNA's eval-only spec under the
+    scheme."""
+    spec = _spec([1], (1, 2))
+    pna_model = dict(spec["model"], **PNA_OVER)
+    return spec, dict(spec, model=pna_model,
+                      state=_port_state(pna_model, _pna_variables()),
+                      eval_only=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _pna_variables():
+    """JAX's initial variables of the test model with PNA aggregation."""
+    jpna = _jax_model(**PNA_OVER)
+    return numpy_tree(jax.jit(lambda k, b: jpna.init(k, b, training=False))(
+        jax.random.key(0), jax_synthetic_batch(*SHAPE, seed=1)))
+
+
+def test_ep_step_matches_jax_and_single_device(shared_dir):
     """ep = 2 (2 ranks, one edge shard each, one start): each rank's raw
     gradient differs from the other's by more than ``RAW_SPREAD`` while
     their mean is the single-device gradient (JAX's
@@ -258,18 +315,9 @@ def test_ep_step_matches_jax_and_single_device():
     after it against JAX's ``make_ep_eval_step``; and PNA's eval under the
     scheme (its min and max over the axis, no derivative needed) against
     JAX's."""
-    spec = _spec([1], (1, 2))
-    pna_over = dict(msg_aggr="pna", mlp_mp=False, sc_type="last",
-                    avg_deg=PNA_DEG)
-    pna_model = dict(spec["model"], **pna_over)
-    jpna = _jax_model(**pna_over)
+    ranks = _ranks(shared_dir, 2)
+    spec, pna_spec = _ep_specs()
     jb = jax_synthetic_batch(*SHAPE, seed=1)
-    pv = numpy_tree(jax.jit(lambda k, b: jpna.init(k, b, training=False))(
-        jax.random.key(0), jb))
-    pna_spec = dict(spec, model=pna_model, state=_port_state(pna_model, pv),
-                    eval_only=True)
-    ranks = start_ranks("cases", 2, {"cases": [("replicated", spec),
-                                               ("replicated", pna_spec)]})
     tx = optax.chain(optax.scale(-1.0))
     mesh = jax_make_mesh(dp=1, ep=2)
     part = jax_partition_edges(jb, 2)
@@ -281,10 +329,10 @@ def test_ep_step_matches_jax_and_single_device():
     want = _port_state(spec["model"], numpy_tree(
         {"params": new.params, "batch_stats": new.batch_stats}))
     jpna_eval = np.asarray(make_ep_eval_step(
-        _jax_model(edge_axis="ep", **pna_over), mesh)(
-        _jax_state(pv, tx), part))
+        _jax_model(edge_axis="ep", **PNA_OVER), mesh)(
+        _jax_state(_pna_variables(), tx), part))
     single = _port_grads(spec)
-    res = ranks()
+    res = [r[1:] for r in ranks()]
     steps = [r[0] for r in res]
     for r in steps[1:]:
         for k in r["state"]:
@@ -310,15 +358,15 @@ def test_ep_step_matches_jax_and_single_device():
                                      model.state_dict().items()}, "single")
 
 
-def test_dp_ep_step_matches_jax_and_the_weighted_union():
+def test_dp_ep_step_matches_jax_and_the_weighted_union(shared_dir):
     """dp = 2 x ep = 2 (4 ranks): two batches, each over 2 edge shards, one
     SGD step and the dp x ep eval, against JAX's ``make_dp_ep_train_step``
     and ``make_dp_ep_eval_step`` on ``make_mesh(dp=2, ep=2)``, and against
     the port's accumulated step over the two whole batches on the
     composite route (the same load-weighted gradient and node-weighted
     running stats); every rank's state equal."""
+    ranks = _ranks(shared_dir, 4)
     spec = _spec([1, 2], (2, 2))
-    ranks = start_ranks("replicated", 4, spec)
     tx = optax.chain(optax.scale(-1.0))
     mesh = jax_make_mesh(dp=2, ep=2)
     stacked = jax_stack_batches([jax_partition_edges(
@@ -333,7 +381,7 @@ def test_dp_ep_step_matches_jax_and_the_weighted_union():
     jeval = np.asarray(make_dp_ep_eval_step(jm, mesh)(new, stacked))
     want = _port_state(spec["model"], numpy_tree(
         {"params": new.params, "batch_stats": new.batch_stats}))
-    res = ranks()
+    res = [r[1] for r in ranks()]
     for r in res[1:]:
         for k in r["state"]:
             np.testing.assert_array_equal(r["state"][k], res[0]["state"][k])

@@ -10,8 +10,12 @@ the test process compares their results with JAX.
 
 from __future__ import annotations
 
+import os
+import pickle
 import queue
 import socket
+import threading
+import time
 import traceback
 
 import numpy as np
@@ -20,6 +24,9 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 RANK_TIMEOUT_S = 120
+# a shared start's wait: the first caller builds the spec (JAX's inits),
+# then the ranks run every case
+SHARED_TIMEOUT_S = 600
 
 
 def free_port() -> int:
@@ -60,6 +67,59 @@ def start_ranks(case: str, world: int, spec: dict):
     for p in procs:
         p.start()
     return lambda: _results(case, procs, out)
+
+
+def shared_ranks(base: str, name: str, case: str, world: int, make_spec):
+    """One start of ``world`` ranks running ``case`` for every test of a
+    pytest run that asks for ``name``, on whichever xdist worker each
+    runs: the first caller builds the spec (``make_spec()``) and starts the
+    ranks, a thread of its process writes their results (or the error) to
+    ``base/<name>.pkl``; each caller gets a function that waits for that
+    file.  ``base`` is a directory that the run's workers share."""
+    os.makedirs(base, exist_ok=True)
+    path = os.path.join(base, f"{name}.pkl")
+
+    def publish(payload):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(payload, f)
+        os.replace(tmp, path)
+
+    try:
+        fd = os.open(f"{path}.started", os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        pass
+    else:
+        os.close(fd)
+        try:
+            wait = start_ranks(case, world, make_spec())
+        except BaseException as err:
+            publish(("error", f"{name}: the spec or the start failed: "
+                              f"{err!r}"))
+            raise
+
+        def collect():
+            try:
+                publish(("ok", wait()))
+            except Exception as err:  # noqa: BLE001 - for the waiters
+                publish(("error", str(err)))
+
+        threading.Thread(target=collect, daemon=True).start()
+
+    def result() -> list:
+        deadline = time.monotonic() + SHARED_TIMEOUT_S
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"{name}: no result in "
+                                   f"{SHARED_TIMEOUT_S} s")
+            time.sleep(0.1)
+        with open(path, "rb") as f:
+            kind, value = pickle.load(f)
+        if kind == "error":
+            raise RuntimeError(value)
+        return value
+
+    return result
 
 
 def _results(case, procs, out) -> list:
@@ -339,3 +399,10 @@ def count_np_step(rank, world, spec):
     return dict(calls=calls, params=sum(p.numel() for p in
                                         model.parameters()),
                 norms=norms, num_graphs=shard.num_graphs)
+
+
+def stress_steps(rank, world, spec):
+    """``cli.stress.rank_steps`` on this rank: one step of each scheme on
+    each mesh of ``world`` ranks that the stress command runs."""
+    from phc_gnn_torch.cli import stress
+    return stress.rank_steps(rank, world, "cpu")

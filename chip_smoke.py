@@ -21,7 +21,15 @@ Phases, each of which exits non-zero on failure:
    D = 512, width 37 (the scalar instance), an isolated sender, a
    sender of 1,100 edges and a cotangent that is non-zero on masked edges,
    each output bit-equal on a second launch and to the sequential f32 sum
-   in edge order (the plain version on the CPU);
+   in edge order (the plain version on the CPU); for A fused into B on
+   float32 rows (both variants) the same inputs, width 37 and rows 8 and 4
+   bytes off 16-byte alignment (two lanes and one lane a thread), its
+   ``out``, ``w`` and ``den`` bit-equal to A then B and ``w`` 0 on the
+   padding run; for the softmax backward the same inputs with a random
+   cotangent, ``dm`` bit-equal to the plain backward on the card (0 on
+   the padding run and masked edges) and ``dbeta`` within TOL_DBETA of the
+   plain f32 sum and of a float64 sum of its terms, both bit-equal on a
+   second launch;
    for the batch norms D and E, against their plain versions in float64,
    an all-masked and a one-row mask, the size gate's edges [109375, 8] and
    [4096, 213], a ragged width [4096, 203], one row [1, 200], columns at an
@@ -52,7 +60,9 @@ Phases, each of which exits non-zero on failure:
    200 with ReLU messages, exact ties, the adversarial receivers of A and B (one-edge, all-masked and isolated
    segments) and, for H, |m| >= 1e29: H bit for bit, I within TOL_SUM and
    var 0 exactly on one-edge segments; and the bf16 instances of A, B (both
-   variants), A fused into B (both variants) and C (both roles, the flagship's and
+   variants), A fused into B (both variants), the softmax backward (its
+   ``dm`` bit-equal to the plain backward and to the float32 instance's on
+   the upcast rows rounded to bf16) and C (both roles, the flagship's and
    pcba's shapes with the eval shape, width 37, bf16 rows off 16-byte
    alignment, the adversarial cases; C's bulk instance, rows staged by the
    TMA's bulk copy, wherever the rows allow it) on bf16 rows against their
@@ -69,8 +79,9 @@ Phases, each of which exits non-zero on failure:
    200, 4 x PHMGINEConvSoftmax, soft-attention pooling, (200, 100) -> 1 head)
    at random weights from a seed, with random running stats and betas,
    served through ``train.make_eval_step`` on 3 batches.  The launch
-   counters are zeroed just before and read just after: A and B run 4 times
-   a batch, the training kernels C, D and E never.  The outputs are held to
+   counters are zeroed just before and read just after: A fused into B
+   runs 4 times a batch; A and B alone, the softmax backward and the
+   training kernels C, D and E never.  The outputs are held to
    the same model and batches on the CPU, where the kernels' plain versions
    run.  A CUDA batch without its CSR plan must raise.  The forward is timed
    from a CUDA graph and profiled (kernels per forward, device busy time and
@@ -84,8 +95,9 @@ Phases, each of which exits non-zero on failure:
    exceeds TOL_GRAD / COND_GRAD may differ by COND_GRAD times that error, up
    to TOL_GRAD_CAP) and the running stats, then the optimizer's update given
    the same gradients.  Then ten steps with the flagship's dropout on one
-   batch, the counters zeroed just before and read just after: per step A,
-   B and C run 4 times, D and E 10; the loss stays finite and falls.  A
+   batch, the counters zeroed just before and read just after: per step A
+   fused into B, the softmax backward and C run 4 times, D and E 10, A
+   and B alone never; the loss stays finite and falls.  A
    CUDA batch without its sender plan must raise.  Last, the step is timed
    and profiled;
 6. pcba eval: the molpcba PHC-2 configuration (benchmarks/
@@ -124,20 +136,21 @@ Phases, each of which exits non-zero on failure:
    ``QuaternionSkipConnectAdd``: the flagship's widths with
    ``QuaternionWhiteningNorm`` at the 8 conv sites, the frozen quaternion
    rule, random weights and running stats, on 3 batches: per batch K's
-   eval route (the Cholesky folded in) runs 8 times, A and B 4.  Held to the CPU path; a CUDA
+   eval route (the Cholesky folded in) runs 8 times, A fused into B 4.  Held to the CPU path; a CUDA
    graph of the forward replays to the eager output; timed and profiled;
 9. quaternion train: one dropout-free step against the CPU as in 5 (a
    softmax beta's gradient, a sum that cancels, is where the float64 rule
    can widen a limit); then ten steps with dropout (per step J, K, L, M 8
-   times, A, B, C 4, D, E 2; the loss falls); timed over 30 steps after 5
+   times, the fused softmax, its backward, C 4, D, E 2; the loss falls);
+   timed over 30 steps after 5
    warm-ups and profiled;
 10. quaternion concat: ``QuaternionSkipConnectConcat`` (``build("concat",
    "q-batch-norm")``: convs of 200/400/400/400 features, pooling and head
    at 400) on one batch against the CPU, and one dropout-free step as in 9;
 11. quaternion eval gradient: the add preset's eval forward (running stats
    fixed) differentiated in every parameter on one batch, on the card
-   (K's eval route, then the frozen L writing dx at the 8 sites, A, B, C
-   4) against the CPU under the rule of 5; then in the input encoders'
+   (K's eval route, then the frozen L writing dx at the 8 sites, the
+   fused softmax, its backward, C 4) against the CPU under the rule of 5; then in the input encoders'
    tables alone (input attribution: the whitening's Gamma and beta need no
    gradient, so each site runs M's frozen variant alone);
 12. PNA eval: the ZINC PHC-4 recipe with ``--aggr_msg pna``
@@ -197,8 +210,9 @@ Phases, each of which exits non-zero on failure:
    ``scan_chunk`` 16, 4,096 / 512 / 512 graphs, bucket 3,456 / 7,424) for
    3 epochs: the wrappers' counters over the run hold 4 times a step's and
    an eval batch's launches (each graph's 3 warm-ups and capture), epoch
-   2's train loop and the evaluation after it are profiled (per step A, B,
-   C 4, D, E 10; per eval batch A, B 4, C, D, E none; device busy and idle
+   2's train loop and the evaluation after it are profiled (per step the
+   fused softmax, its backward, C 4, D, E 10; per eval batch the fused
+   softmax 4, C, D, E none; device busy and idle
    share), the losses finite and falling; each epoch's steps/s, real
    edges/s and host ms (packing, plans, the move to the card, the loop's
    wait, the step's call).  Exact resume: 2 epochs then a resume for 1
@@ -232,9 +246,9 @@ Phases, each of which exits non-zero on failure:
    of that distance (two bf16 runs whose f32 sums differ in order part by
    nearly as much as bf16 from f32, so an f32 model passes this bound
    too); parameters' gradients float32 and finite, the output float32.  Three
-   eager steps with dropout, counted (the fused softmax and C's gather
-   backward in its bf16 instance 4 a step, D and E 10, no A, B or float32
-   C), then the dropout-free bf16 model served on 3 batches (the fused
+   eager steps with dropout, counted (the fused softmax, its backward and
+   C's gather backward in their bf16 instances 4 a step, D and E 10, no
+   A, B or float32 C), then the dropout-free bf16 model served on 3 batches (the fused
    softmax 4 a batch, no A or B); the graphed
    steps' first call under ``set_sync_debug_mode("error")``, counted;
    graphed steps held bit-equal to eager ones under the deterministic
@@ -258,8 +272,8 @@ Phases, each of which exits non-zero on failure:
    once), then 3 graphed steps (``make_scan_train_steps``, or pcba's
    ``make_accum_train_step``: captured with the recompute inside) with
    every parameter, running stat and Adam tensor bit-equal; with dropout
-   one eager step counted (the convs' forward kernels twice: A, B 8, C 4,
-   D 14, E 10; pcba's C masked 56), and each model's peak memory over an
+   one eager step counted (the convs' forward kernels twice: the fused
+   softmax 8, its backward 4, C 4, D 14, E 10; pcba's C masked 56), and each model's peak memory over an
    eager step and over its graph's first call, its eager and graphed ms;
 19. harness bf16: the ZINC recipe through the CLI with ``--compute_dtype
    bf16`` for 2 epochs on the zinc parity task: C's bf16 instances alone
@@ -311,18 +325,19 @@ Phases, each of which exits non-zero on failure:
 22. export: the eval forward through ``phc_gnn_torch.export`` (``torch.export``,
    its kernels ``torch.library`` ops).  The flagship at full width with
    random eval state, exported at the main path's bucket in float32 and
-   in bf16: the graph calls the kernels' ops (A and B 4 each; in bf16 the
-   fused op 4), no ``scatter_reduce`` and the pooling's one ``index_add_``;
-   one exported call launches what one eager call launches (A, B 4; bf16
-   the fused kernel 4, no A or B), its output bit-equal to the eager
+   in bf16: the graph calls the kernels' ops (the fused op 4), no
+   ``scatter_reduce`` and the pooling's one ``index_add_``; one exported
+   call launches what one eager call launches (the fused kernel 4, no A
+   or B), its output bit-equal to the eager
    ``make_eval_step``'s under the deterministic algorithms and, in
    float32, within TOL_SCAN_ATOMICS without them (the pooling's atomics;
    two bf16 eager calls part by ~1e-2 there).  The f32 program
    saved, then loaded and called in a child process that imports only
    ``phc_gnn_torch.export``:
-   bit-equal, A and B 4 there, ``phc_gnn_torch.models`` never imported.
-   The quaternion preset, PNA and pcba's 512-graph eval exported: their
-   launches those of the eager eval (K's eval route 8, A, B 4; C 4, H 8, I
+   bit-equal, the fused kernel 4 there, ``phc_gnn_torch.models`` never
+   imported.  The quaternion preset, PNA and pcba's 512-graph eval
+   exported: their launches those of the eager eval (K's eval route 8,
+   the fused softmax 4; C 4, H 8, I
    4; C 7), their outputs bit-equal to it under the deterministic
    algorithms (TOL_SCAN).  The eager eval, the
    exported program and the graphed eval in turns (EXPORT_TURNS): ms a
@@ -423,6 +438,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
 TOL_MAX = 1e-6              # segment max: order-free, the same f32 products
 TOL_AGG = 1e-5              # softmax aggregate: exp ulps, summation order
+TOL_DBETA = 1e-5            # the softmax backward's dbeta against the plain
+                            # backward's f32 sum and a float64 sum of the
+                            # same terms, over the sum of their magnitudes:
+                            # E x D signed terms that cancel (the kernel
+                            # sums them in float64, the plain version in
+                            # f32)
 TOL_SUM = 1e-5              # segment sum, per leaf, against a float64 sum:
                             # the kernel's f32 running sum of 1,100 rows
                             # drifts ~1e-6 of the leaf's max; one row
@@ -475,10 +496,15 @@ LR = 1e-3
 WEIGHT_DECAY = 0.1
 GRAD_CLIP = 2.0
 TRAIN_STEPS = 10
-# launches per train step: A, B and C once per layer; D and E once per norm
-# (4 in the convs' MLPs, 4 after the convs, 2 in the downstream head)
-TRAIN_LAUNCHES = {"segment_logit_max": 4, "segment_softmax_aggregate": 4,
-                  "segment_sum_perm": 4, "bn_forward": 10, "bn_backward": 10}
+# launches per train step: A fused into B, the softmax backward and C once
+# per layer (A and B alone never); D and E once per norm (4 in the convs'
+# MLPs, 4 after the convs, 2 in the downstream head)
+SOFTMAX_TRAIN = {"segment_softmax_fused": 4, "segment_softmax_backward": 4,
+                 "segment_logit_max": 0, "segment_softmax_aggregate": 0}
+SOFTMAX_EVAL = {"segment_softmax_fused": 4, "segment_logit_max": 0,
+                "segment_softmax_aggregate": 0}
+TRAIN_LAUNCHES = {**SOFTMAX_TRAIN, "segment_sum_perm": 4, "bn_forward": 10,
+                  "bn_backward": 10}
 # the molpcba PHC-2 configuration (benchmarks/run_script_pcba_phm2.sh)
 PCBA_DIM = 512
 PCBA_LAYERS = 7
@@ -493,25 +519,26 @@ PCBA_GRAPH_STEPS = 3        # graphed accumulated steps held to the eager body
 PCBA_REPLAYS = 5            # replays profiled for the kernels' grids
 # the quaternion family with whitening batch norm (scripts/bench_presets.py
 # build(family, "q-batch-norm")): per train step J, K, L, M at the 8
-# whitening sites (4 in the convs' MLPs, 4 after the convs), A, B and C once
-# per layer, D and E in the head's 2 norms; per eval batch the running
-# stats' Cholesky and K in one launch at the 8 sites, A and B once per layer
+# whitening sites (4 in the convs' MLPs, 4 after the convs), the softmax
+# (fused forward, backward) and C once per layer, D and E in the head's 2
+# norms; per eval batch the running stats' Cholesky and K in one launch at
+# the 8 sites, the fused softmax once per layer
 QUAT_TRAIN_LAUNCHES = {"wbn_stats": 8, "wbn_transform": 8, "wbn_bwd_sums": 8,
-                       "wbn_dx": 8, "segment_logit_max": 4,
-                       "segment_softmax_aggregate": 4, "segment_sum_perm": 4,
+                       "wbn_dx": 8, **SOFTMAX_TRAIN, "segment_sum_perm": 4,
                        "bn_forward": 2, "bn_backward": 2}
-QUAT_EVAL_LAUNCHES = {"wbn_transform": 8, "segment_logit_max": 4,
-                      "segment_softmax_aggregate": 4}
+QUAT_EVAL_LAUNCHES = {"wbn_transform": 8, **SOFTMAX_EVAL}
 QUAT_STEPS = 10
 # the eval whitening's backward (fine-tuning with frozen running stats):
 # per quaternion batch the eval forward's kernels, then at the 8 sites the
-# frozen L writing dx in the same launch, and C's gather backward once per
-# layer
+# frozen L writing dx in the same launch, and the softmax backward and C's
+# gather backward once per layer
 QUAT_EVAL_GRAD_LAUNCHES = {**QUAT_EVAL_LAUNCHES, "wbn_bwd_sums": 8,
+                           "segment_softmax_backward": 4,
                            "segment_sum_perm": 4}
 # ... and with the gradient in the input encoders alone (attribution), M's
 # frozen variant alone at the 8 sites
 QUAT_EVAL_ATTR_LAUNCHES = {**QUAT_EVAL_LAUNCHES, "wbn_dx": 8,
+                           "segment_softmax_backward": 4,
                            "segment_sum_perm": 4}
 # PNA (benchmarks/run_script_zinc_phm4.sh --aggr_msg pna): per layer the mean
 # through C's forward role, the min and the max through H, the std through I
@@ -542,13 +569,14 @@ PCBA_LAUNCHES = {"segment_sum_masked": 28, "segment_sum_perm": 28,
 PCBA_EVAL_LAUNCHES = {"segment_sum_masked": PCBA_LAYERS}
 # compute_dtype=bf16: C reads bf16 messages through its bf16 instances
 # (counted apart, "<wrapper>_bf16"), and the softmax aggregation through the
-# fused kernel (A's function then B's in one launch), not A and B, whose
-# bf16 instances stay public and held; the norms upcast, so D-G run as in
-# float32
+# fused kernel (A's function then B's in one launch) and the backward
+# kernel, not A and B, whose bf16 instances stay public and held; the norms
+# upcast, so D-G run as in float32
 BF16_KERNELS = ("segment_logit_max", "segment_softmax_aggregate",
-                "segment_softmax_fused", "segment_sum_perm",
-                "segment_sum_masked")
+                "segment_softmax_fused", "segment_softmax_backward",
+                "segment_sum_perm", "segment_sum_masked")
 BF16_TRAIN_LAUNCHES = {"segment_softmax_fused_bf16": 4,
+                       "segment_softmax_backward_bf16": 4,
                        "segment_logit_max_bf16": 0,
                        "segment_softmax_aggregate_bf16": 0,
                        "segment_sum_perm_bf16": 4, "bn_forward": 10,
@@ -581,9 +609,9 @@ BF16_WHOLE_FACTOR = 1.0     # the card's whole bf16 model from the CPU's, the
 BF16_F32_BOUND = 0.05       # tests/test_bf16.py: a bf16 output within 5 % of
                             # the f32 one
 # remat=True: the backward recomputes each conv, so its forward kernels run
-# twice a step: A, B 4 + 4, D 10 + the 4 MLP norms inside the convs; pcba's
-# sum aggregation 28 + 28 (its norms sit outside the convs)
-REMAT_TRAIN_LAUNCHES = {"segment_logit_max": 8, "segment_softmax_aggregate": 8,
+# twice a step: the fused softmax 4 + 4, D 10 + the 4 MLP norms inside the
+# convs; pcba's sum aggregation 28 + 28 (its norms sit outside the convs)
+REMAT_TRAIN_LAUNCHES = {**SOFTMAX_TRAIN, "segment_softmax_fused": 8,
                         "segment_sum_perm": 4, "bn_forward": 14,
                         "bn_backward": 10}
 PCBA_REMAT_LAUNCHES = {**PCBA_LAUNCHES, "segment_sum_masked": 56}
@@ -678,8 +706,7 @@ def time_graph(torch, fn, iters: int = 100, reps: int = 5) -> float:
 def kernel_wrappers():
     """The launch-counting wrapper of every kernel of the port, A to G with
     C's two roles, J to M (K with its eval route, L and M with their frozen
-    variants), H and I, and A fused into B on bf16 rows (whose float32
-    counter stays 0: float32 messages run A then B)."""
+    variants), H and I, A fused into B and the softmax backward."""
     from phc_gnn_torch.ops import fused_bn
     from phc_gnn_torch.ops import fused_whitening as fw
     from phc_gnn_torch.ops import segment_reduce as sr
@@ -689,6 +716,7 @@ def kernel_wrappers():
     return {"segment_logit_max": ss.segment_logit_max,
             "segment_softmax_aggregate": ss.segment_softmax_aggregate,
             "segment_softmax_fused": ss.segment_softmax_fused,
+            "segment_softmax_backward": ss.segment_softmax_backward,
             "segment_sum_perm": ssum.segment_sum_perm,
             "segment_sum_masked": ssum.segment_sum_masked,
             "bn_forward": fused_bn.bn_forward,
@@ -833,9 +861,116 @@ def variant(torch, name, fn, nbytes, what="frozen variant"):
     return rec
 
 
+def offset_copy(torch, t, k: int):
+    """A contiguous copy of ``t`` ``k`` elements past its allocation's base:
+    rows off their alignment, which the kernels take with fewer lanes a
+    thread (float32 rows 8 bytes off 16: two; 4 bytes off: one; bf16 rows
+    2 bytes off 4: one)."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = buf[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def csr_receivers(torch, rp, num_edges: int):
+    """The receiver of each of ``num_edges`` edges of the CSR ``rp``, the
+    padding run past ``rp[-1]`` on the last node (as the batcher emits it):
+    the gather index of the plain backward."""
+    n = rp.shape[0] - 1
+    recv = torch.repeat_interleave(torch.arange(n, device=rp.device),
+                                   (rp[1:] - rp[:-1]).long())
+    return torch.cat([recv, recv.new_full((num_edges - recv.shape[0],),
+                                          n - 1)]).to(torch.int32)
+
+
+def hold_fused(torch, errs, kname, case, m, k, b, rp):
+    """A fused into B on one input: both variants against the plain A then
+    B (TOL_AGG), ``w`` 0 past ``rp[-1]``, and whether ``out``, ``w``,
+    ``den`` and the eval ``out`` are bit-equal to A then B on the card."""
+    from phc_gnn_torch.ops import segment_softmax as ss
+
+    counter = "launches_bf16" if m.dtype == torch.bfloat16 else "launches"
+    before = getattr(ss.segment_softmax_fused, counter)
+    fused = ss.segment_softmax_fused(m, k, b, rp, emit_w=True)
+    fused_nw = ss.segment_softmax_fused(m, k, b, rp)
+    torch.cuda.synchronize()
+    if getattr(ss.segment_softmax_fused, counter) != before + 2:
+        fail(f"{kname} [{case}]: the fused kernel's counter did not move")
+    smax = ss.segment_logit_max(m, k, b, rp)
+    pair = ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True)
+    pair_nw = ss.segment_softmax_aggregate(m, k, b, rp, smax)
+    out_ref, w_ref, den_ref = ss.segment_softmax_aggregate_plain(
+        m, k, b, rp, ss.segment_logit_max_plain(m, k, b, rp), emit_w=True)
+    for what, got, want in (("out", fused[0], out_ref),
+                            ("eval out", fused_nw, out_ref),
+                            ("w", fused[1], w_ref)):
+        check(errs, kname, f"{case}, {what}", got, want, TOL_AGG,
+              own_scale=False)
+    check(errs, kname, f"{case}, den", fused[2], den_ref, TOL_AGG)
+    if not bool((fused[1][int(rp[-1]):] == 0).all()):
+        fail(f"{kname} [{case}]: w is not 0 on the padding run")
+    return all(map(torch_equal, (*fused, fused_nw), (*pair, pair_nw)))
+
+
+def hold_softmax_backward(torch, errs, kname, case, m, k, b, rp, g):
+    """The backward kernel on one input, fed the fused kernel's ``out``,
+    ``w`` and ``den`` and the cotangent ``g``: ``dm`` bit-equal to
+    ``segment_softmax_backward_plain`` on the card, 0 on the padding run
+    and on masked edges; ``dbeta`` within TOL_DBETA of the plain version's
+    f32 sum and of a float64 sum of the same terms; both bit-equal on a
+    second launch.  Returns ``dm``."""
+    from phc_gnn_torch.ops import segment_softmax as ss
+
+    recv = csr_receivers(torch, rp, m.shape[0])
+    out, w, den = ss.segment_softmax_fused(m, k, b, rp, emit_w=True)
+    counter = "launches_bf16" if m.dtype == torch.bfloat16 else "launches"
+    before = getattr(ss.segment_softmax_backward, counter)
+    dm, db = ss.segment_softmax_backward(m, b, w, den, out, g, rp, recv)
+    dm2, db2 = ss.segment_softmax_backward(m, b, w, den, out, g, rp, recv)
+    torch.cuda.synchronize()
+    if getattr(ss.segment_softmax_backward, counter) != before + 2:
+        fail(f"{kname} [{case}]: the launch counter did not move")
+    want_dm, want_db = ss.segment_softmax_backward_plain(m, b, w, den, out,
+                                                         g, recv)
+    if dm.dtype != m.dtype or not torch_equal(dm, want_dm):
+        err = leafwise(dm.float(), want_dm.float())
+        fail(f"{kname} [{case}]: dm differs from the plain backward on the "
+             f"card (max abs err {err[0]:.3e}, {err[1]:.3e} of its max)")
+    if not (torch_equal(dm, dm2) and torch_equal(db, db2)):
+        fail(f"{kname} [{case}]: two launches differ")
+    e_seg = int(rp[-1])
+    if not (bool((dm[e_seg:] == 0).all()) and bool((dm[~k] == 0).all())):
+        fail(f"{kname} [{case}]: dm is not 0 on the padding run or on "
+             f"masked edges")
+    rl = recv.long()
+    md, gd = m.double(), g.double()[rl]
+    terms = (w.double() / den.double()[rl]) * md * (
+        md * gd - out.double()[rl] * gd)
+    scale = float(terms.abs().sum())
+    for what, want in (("the plain f32 sum", float(want_db)),
+                       ("a float64 sum", float(terms.sum()))):
+        abs_err = abs(float(db) - want)
+        rel = abs_err / scale if scale else (0.0 if not abs_err else math.inf)
+        errs.setdefault(kname, []).append((abs_err, rel))
+        print(f"kernel {kname} [{case}]: dbeta {float(db):.9g} against "
+              f"{what} {want:.9g}: abs err {abs_err:.3e}, {rel:.3e} of the "
+              f"terms' magnitudes {scale:.4g} (tolerance {TOL_DBETA:g})",
+              flush=True)
+        if not rel <= TOL_DBETA:
+            fail(f"{kname} [{case}]: dbeta off {what}")
+    print(f"kernel {kname} [{case}]: dm bit-equal to the plain backward on "
+          f"the card, 0 on the {m.shape[0] - e_seg} padding rows and the "
+          f"masked edges; dm and dbeta bit-equal on relaunch", flush=True)
+    return dm
+
+
 def softmax_kernels(torch, dev, batch, errs):
-    """A and B against their plain versions; B's training variant with its
-    ``w`` and ``den`` outputs too.  Returns the timing records."""
+    """A and B against their plain versions (B's training variant with its
+    ``w`` and ``den`` too); A fused into B on float32 rows against them and
+    bit-equal to A then B, with four, two and one lanes a thread; the
+    backward kernel against the plain backward on the card.  Returns the
+    timing records: the fused kernel's, with A's and B's under its
+    ``parent_pair`` (no main path runs them), and the backward's."""
     from phc_gnn_torch.ops import segment_softmax as ss
 
     gen = torch.Generator().manual_seed(0)
@@ -875,6 +1010,22 @@ def softmax_kernels(torch, dev, batch, errs):
                 fail("isolated or all-masked segment did not give 0")
 
     m, k, b, rp = main
+    cases.update({"d = 37": (m[:, :37].contiguous(), k, b, rp),
+                  "rows two lanes": (offset_copy(torch, m, 2), k, b, rp),
+                  "rows one lane": (offset_copy(torch, m, 1), k, b, rp)})
+    same_bits = {name: hold_fused(torch, errs, "segment_softmax_fused", name,
+                                  *case) for name, case in cases.items()}
+    print(f"kernel segment_softmax_fused: out, w, den and the eval out "
+          f"bit-equal to A then B: {same_bits}", flush=True)
+    if not all(same_bits.values()):
+        fail("segment_softmax_fused differs from A then B on float32 rows")
+    cot = {name: torch.randn((c[3].shape[0] - 1, c[0].shape[1]),
+                             generator=gen).to(dev)
+           for name, c in cases.items()}
+    for name, case in cases.items():
+        hold_softmax_backward(torch, errs, "segment_softmax_backward", name,
+                              *case, cot[name])
+
     smax = ss.segment_logit_max(m, k, b, rp)
     n, d = rp.shape[0] - 1, m.shape[1]
     e_seg = int(rp[-1])  # edges inside segments: what these inputs need
@@ -890,6 +1041,44 @@ def softmax_kernels(torch, dev, batch, errs):
     in_bytes = e_seg * d * 4 + e_seg + (n + 1) * 4 + 4
     nd_bytes = n * d * 4
     src = "phc_gnn_torch/csrc/segment_softmax.cu"
+    rec_f = record(torch, "segment_softmax_fused", src,
+                   "phc_gnn_tpu/ops/stream_scan.py:521", errs,
+                   lambda: ss.segment_softmax_fused(m, k, b, rp),
+                   lambda: ss.segment_softmax_aggregate_plain(
+                       m, k, b, rp, ss.segment_logit_max_plain(m, k, b, rp)),
+                   None, in_bytes + nd_bytes, 8 * e_seg * d + n * d)
+    rec_f["replaces_too"] = ("phc_gnn_tpu/ops/stream_scan.py:415 (A), :439 "
+                             "(B's training variant)")
+    rec_f["train_variant"] = variant(
+        torch, "segment_softmax_fused",
+        lambda: ss.segment_softmax_fused(m, k, b, rp, emit_w=True),
+        in_bytes + 2 * nd_bytes + m.shape[0] * d * 4,
+        "training variant, w and den")
+    rec_f["train_variant"]["replaces"] = "phc_gnn_tpu/ops/stream_scan.py:439"
+    # the parent pair in the same call, A then B as graphs of the two calls,
+    # and the instances of two lanes and one lane a thread, in turns
+    pair_ms = {"eval": [], "train": []}
+    lanes_ms = {f"{lanes} lanes": {"eval": [], "train": []}
+                for lanes in (4, 2, 1)}
+    rows = {"4 lanes": m, "2 lanes": cases["rows two lanes"][0],
+            "1 lanes": cases["rows one lane"][0]}
+    for turn in range(2):
+        for v, emit in (("eval", False), ("train", True)):
+            pair_ms[v].append(time_graph(
+                torch, lambda: ss.segment_softmax_aggregate(
+                    m, k, b, rp, ss.segment_logit_max(m, k, b, rp), emit)))
+            for key in (list(rows) if turn == 0 else list(rows)[::-1]):
+                lanes_ms[key][v].append(time_graph(
+                    torch, lambda: ss.segment_softmax_fused(
+                        rows[key], k, b, rp, emit)))
+    rec_f["parent_pair_graph_ms"] = pair_ms
+    rec_f["lanes_graph_ms"] = lanes_ms
+    print(f"kernel segment_softmax_fused: A then B in the same call "
+          f"{[round(x * 1e3, 2) for x in pair_ms['eval']]} us device (eval), "
+          f"{[round(x * 1e3, 2) for x in pair_ms['train']]} us (training); "
+          f"by lanes a thread, device us "
+          f"{ {key: {v: [round(x * 1e3, 2) for x in t] for v, t in r.items()} for key, r in lanes_ms.items()} }",
+          flush=True)
     rec_a = record(torch, "segment_logit_max", src,
                    "phc_gnn_tpu/ops/stream_scan.py:415", errs,
                    lambda: ss.segment_logit_max(m, k, b, rp),
@@ -907,7 +1096,44 @@ def softmax_kernels(torch, dev, batch, errs):
         lambda: ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True),
         in_bytes + 3 * nd_bytes + m.shape[0] * d * 4, "training variant, w and den")
     rec_b["train_variant"]["replaces"] = "phc_gnn_tpu/ops/stream_scan.py:439"
-    return [rec_a, rec_b]
+    # A and B run on no main path now (the fused kernel does their work):
+    # their records sit in the fused kernel's, not in the line
+    rec_f["parent_pair"] = {"segment_logit_max": rec_a,
+                            "segment_softmax_aggregate": rec_b}
+    rec_bw = softmax_backward_record(torch, errs, "segment_softmax_backward",
+                                     m, k, b, rp, batch.receivers,
+                                     cot["main"])
+    return [rec_f, rec_bw]
+
+
+def softmax_backward_record(torch, errs, kname, m, k, b, rp, recv, g):
+    """The backward kernel's timing record at the main path's shapes: its
+    bound reads ``m`` and ``w`` over the real edges, ``den``, ``g`` and
+    ``out``, and writes ``dm`` over every edge; beside it the plain
+    backward's device time (what the port ran before; its kernels a call:
+    ``tools/time_softmax.py``)."""
+    from phc_gnn_torch.ops import segment_softmax as ss
+
+    out, w, den = ss.segment_softmax_fused(m, k, b, rp, emit_w=True)
+    n, (e, d) = rp.shape[0] - 1, m.shape
+    e_seg = int(rp[-1])
+    elem = m.element_size()
+    nbytes = (e_seg * d * (elem + 4) + 3 * n * d * 4 + (n + 1) * 4 + 4
+              + e * d * elem + 4)
+    plain = lambda: ss.segment_softmax_backward_plain(  # noqa: E731
+        m, b, w, den, out, g, recv)
+    rec = record(torch, kname, "phc_gnn_torch/csrc/segment_softmax.cu",
+                 "phc_gnn_tpu/ops/stream_scan.py:794", errs,
+                 lambda: ss.segment_softmax_backward(m, b, w, den, out, g,
+                                                     rp, recv),
+                 plain, None, nbytes, 10 * e_seg * d + n * d)
+    rec["replaces_what"] = ("XLA glue of _softmax_agg_streamed_bwd "
+                            "(stream_scan.py:794-815), no Pallas kernel")
+    rec["plain_graph_ms"] = time_graph(torch, plain)
+    print(f"kernel {kname}: the plain backward on the card "
+          f"{rec['plain_graph_ms'] * 1e3:.2f} us device (CUDA graph)",
+          flush=True)
+    return rec
 
 
 def hold_sequential(torch, kname, case, out, again, plain):
@@ -1738,10 +1964,12 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
     the same bits are expected), the fused kernel's ``out``, ``w`` and
     ``den`` against A bf16 then B bf16, and C's two instances (the bulk
     one and the one without it) against each other wherever the rows
-    allow the bulk one.  Returns the timing records of the three bf16 kernels
-    of the main paths (the fused softmax with A bf16 and B bf16 timed
-    beside it, C's two roles with both instances), their bounds at the
-    bf16 input bytes."""
+    allow the bulk one; the softmax backward on bf16 rows against the plain
+    backward (``dm`` bit-equal) and its ``dm`` against the float32
+    instance's on the upcast rows rounded to bf16.  Returns the timing
+    records of the four bf16 kernels of the main paths (the fused softmax
+    with A bf16 and B bf16 timed beside it, the softmax backward, C's two
+    roles with both instances), their bounds at the bf16 input bytes."""
     from phc_gnn_torch.ops import segment_softmax as ss
     from phc_gnn_torch.ops import segment_sum as ssum
 
@@ -1751,10 +1979,10 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
     beta = torch.tensor(1.37, device=dev)
     adv_m, adv_k, adv_b, adv_rp = adversarial_case(torch, dev, DIM)
     same_bits = {}
+    cgen = torch.Generator().manual_seed(8)  # the backward's cotangents
+    cot = {}
     # rows one element past a 4-byte boundary take one lane a thread
-    off16 = torch.empty(msgs.numel() + 1, dtype=torch.bfloat16,
-                        device=dev)[1:].view(msgs.shape)
-    off16.copy_(msgs)
+    off16 = offset_copy(torch, msgs, 1)
     cases = {"main": (msgs, batch.edge_mask, beta, batch.rowptr),
              "adversarial": (adv_m.to(torch.bfloat16), adv_k, adv_b, adv_rp),
              "d = 37": (msgs[:, :37].contiguous(), batch.edge_mask, beta,
@@ -1790,22 +2018,22 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
         same_bits[f"A {name}"] = torch_equal(smax, smax32)
         same_bits[f"B {name}"] = all(map(torch_equal, (out, w, den), f32))
         # A fused into B in both variants, against A then B and f32
-        before = ss.segment_softmax_fused.launches_bf16
-        fused = ss.segment_softmax_fused(m, k, b, rp, emit_w=True)
-        fused_nw = ss.segment_softmax_fused(m, k, b, rp)
-        torch.cuda.synchronize()
-        if ss.segment_softmax_fused.launches_bf16 != before + 2:
-            fail(f"bf16 {name}: the fused kernel's counter did not move")
-        for what, got, want in (("out", fused[0], out_ref),
-                                ("eval out", fused_nw, out_ref),
-                                ("w", fused[1], w_ref)):
-            check(errs, "segment_softmax_fused_bf16", f"{name}, {what}", got,
-                  want, TOL_AGG, own_scale=False)
-        check(errs, "segment_softmax_fused_bf16", f"{name}, den", fused[2],
-              den_ref, TOL_AGG)
-        same_bits[f"fused {name} = A then B"] = all(
-            map(torch_equal, (*fused, fused_nw), (out, w, den, out_nw)))
-        same_bits[f"fused {name} = f32"] = all(map(torch_equal, fused, f32))
+        same_bits[f"fused {name} = A then B"] = hold_fused(
+            torch, errs, "segment_softmax_fused_bf16", name, m, k, b, rp)
+        same_bits[f"fused {name} = f32"] = all(map(
+            torch_equal, ss.segment_softmax_fused(m, k, b, rp, True), f32))
+        # the backward: dm bit-equal to the plain backward, and to the
+        # float32 instance's dm on the upcast rows rounded to bf16
+        cot[name] = torch.randn((rp.shape[0] - 1, m.shape[1]),
+                                generator=cgen).to(dev)
+        dm16 = hold_softmax_backward(torch, errs,
+                                     "segment_softmax_backward_bf16", name,
+                                     m, k, b, rp, cot[name])
+        dm32, _ = ss.segment_softmax_backward(
+            up, b, f32[1], f32[2], f32[0], cot[name], rp,
+            csr_receivers(torch, rp, m.shape[0]))
+        same_bits[f"backward {name} = f32"] = torch_equal(
+            dm16, dm32.to(torch.bfloat16))
 
     g = torch.randn((batch.num_edges, DIM), generator=gen).to(dev).to(
         torch.bfloat16)
@@ -1813,9 +2041,7 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
         torch.bfloat16)
     adv_g, adv_perm, adv_srp = adversarial_senders(torch, dev, DIM)
     # rows one element past a 16-byte boundary take the scalar instance
-    off = torch.empty(g.numel() + 1, dtype=torch.bfloat16,
-                      device=dev)[1:].view(g.shape)
-    off.copy_(g)
+    off = offset_copy(torch, g, 1)
     perm_cases = {"main": (g, batch.snd_perm, batch.snd_rowptr),
                   f"pcba [{pcba.num_edges}, {PCBA_DIM}]": (
                       p_g, pcba.snd_perm, pcba.snd_rowptr),
@@ -1934,6 +2160,9 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
     # work): their records sit in the fused kernel's, not in the line
     rec_f["parent_pair"] = {"segment_logit_max_bf16": rec_a,
                             "segment_softmax_aggregate_bf16": rec_b}
+    rec_bw = softmax_backward_record(
+        torch, errs, "segment_softmax_backward_bf16", msgs, k, beta, rp,
+        batch.receivers, cot["main"])
 
     def c_record(kname, fn, plain, v, idx, rp, real_rows, seg_of_real, role):
         """C's bf16 instance: the library call is one ``index_add_`` of the
@@ -2029,7 +2258,8 @@ def bf16_kernels(torch, dev, batch, pcba, pcba_eval, errs):
               flush=True)
     for rec in (rec_f, rec_a, rec_b, rec_cp, rec_cm):
         rec["bit_equal_to_f32_on_upcast_rows"] = True
-    return [rec_f, rec_cp, rec_cm]
+    rec_bw["dm_bit_equal_to_f32_on_upcast_rows"] = True
+    return [rec_f, rec_bw, rec_cp, rec_cm]
 
 
 def kernel_phase(torch, dev):
@@ -2112,13 +2342,11 @@ def slice_phase(torch, dev):
     outs = [step(b) for b in batches]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {name: (4 * N_BATCHES if name in ("segment_logit_max",
-                                             "segment_softmax_aggregate")
-                   else 0)
+    want = {name: 4 * N_BATCHES if name == "segment_softmax_fused" else 0
             for name in launches}
     print(f"slice: launches on the eval path {launches} (expected {want}: A "
-          f"and B once per layer, 4 layers x {N_BATCHES} batches; the "
-          f"training kernels never)", flush=True)
+          f"fused into B once per layer, 4 layers x {N_BATCHES} batches; A "
+          f"and B alone and the training kernels never)", flush=True)
     if launches != want:
         fail(f"the eval path launched {launches}, not {want}")
 
@@ -3416,13 +3644,19 @@ def pna_train_phase(torch, dev):
 KERNEL_NAMES = {"segment_logit_max": "segment_logit_max_kernel<float",
                 "segment_softmax_aggregate":
                     "segment_softmax_aggregate_kernel<float",
+                "segment_softmax_fused": "segment_softmax_fused_kernel<float",
+                "segment_softmax_backward":
+                    "segment_softmax_backward_kernel<float",
                 "segment_sum_perm": "segment_sum_kernel<float,true",
                 "segment_sum_masked": "segment_sum_kernel<float,false",
                 "segment_logit_max_bf16":
                     "segment_logit_max_kernel<__nv_bfloat16",
                 "segment_softmax_aggregate_bf16":
                     "segment_softmax_aggregate_kernel<__nv_bfloat16",
-                "segment_softmax_fused_bf16": "segment_softmax_fused_kernel<",
+                "segment_softmax_fused_bf16":
+                    "segment_softmax_fused_kernel<__nv_bfloat16",
+                "segment_softmax_backward_bf16":
+                    "segment_softmax_backward_kernel<__nv_bfloat16",
                 "segment_sum_perm_bf16": (
                     "segment_sum_kernel<__nv_bfloat16,true",
                     "segment_sum_bulk_kernel<true"),
@@ -3885,8 +4119,7 @@ def scan_phase(torch, dev):
     scan = make_scan_eval_steps(served, device=dev)
     info["flagship_eval"]["profile"] = scan_profile(
         torch, "scan flagship eval", lambda: one(evals[0]),
-        lambda: scan(evals), len(evals),
-        ("segment_logit_max", "segment_softmax_aggregate"))
+        lambda: scan(evals), len(evals), SOFTMAX_EVAL)
     pcba, _, _ = pcba_model(torch, dev)
     randomize_eval_state(torch, pcba)
     info["pcba_eval"] = {"err": scan_eval_check(
@@ -4637,7 +4870,7 @@ HARNESS_EPOCHS = 3          # the synthetic recipe's epochs
 HARNESS_PROFILED = 2        # ... the epoch whose train loop is profiled
 HARNESS_BUCKET = (3456, 7424)  # its train bucket (JAX's compute_bucket_spec)
 SYNTH_STEP = dict(TRAIN_LAUNCHES)
-SYNTH_EVAL = {"segment_logit_max": 4, "segment_softmax_aggregate": 4}
+SYNTH_EVAL = dict(SOFTMAX_EVAL)
 ZINC_STEP = {"segment_sum_masked": 4, "segment_sum_perm": 4,
              "bn_forward": 10, "bn_backward": 10}
 ZINC_EVAL = {"segment_sum_masked": 4}
@@ -5178,12 +5411,12 @@ def harness_phase(torch, dev):
 # ------------------------------------------------------------------- 20. halo
 
 HALO_SHARDS = (2, 4)
-# one np flagship train step on one rank: A and B once a conv, C's halo role
-# as each conv's gather backward (C's gather role not at all), and D and E
-# in the head alone (the layers' norms take the cross-shard inline formula)
-HALO_STEP_LAUNCHES = {"segment_logit_max": 4, "segment_softmax_aggregate": 4,
-                      "halo_gather_split_bwd": 4, "bn_forward": 2,
-                      "bn_backward": 2}
+# one np flagship train step on one rank: the fused softmax and its backward
+# once a conv, C's halo role as each conv's gather backward (C's gather role
+# not at all), and D and E in the head alone (the layers' norms take the
+# cross-shard inline formula)
+HALO_STEP_LAUNCHES = {**SOFTMAX_TRAIN, "halo_gather_split_bwd": 4,
+                      "bn_forward": 2, "bn_backward": 2}
 # one replicated flagship train step on one rank: the composites and D and
 # E at every norm (each rank normalises all the nodes, on the card)
 EP_STEP_LAUNCHES = {"bn_forward": 10, "bn_backward": 10}
@@ -6418,11 +6651,9 @@ def xla_phase(torch, dev):
     return paths, info
 
 
-EXPORT_CALLS = {"f32": {"phc_gnn.segment_logit_max.default": 4,
-                         "phc_gnn.segment_softmax_aggregate.default": 4},
-                 "bf16": {"phc_gnn.segment_softmax_fused.default": 4}}
-EXPORT_LAUNCHES = {"f32": {"segment_logit_max": 4,
-                           "segment_softmax_aggregate": 4},
+EXPORT_CALLS = {"f32": {"phc_gnn.segment_softmax_fused.default": 4},
+                "bf16": {"phc_gnn.segment_softmax_fused.default": 4}}
+EXPORT_LAUNCHES = {"f32": {"segment_softmax_fused": 4},
                    "bf16": {"segment_softmax_fused_bf16": 4}}
 EXPORT_POOL_INDEX_ADDS = 1  # the soft-attention pooling's, a forward
 EXPORT_TURNS = ("eager", "exported", "graphed", "graphed", "exported",
@@ -6434,7 +6665,7 @@ EXPORT_RECOUNTS = 2          # eager profiled again where exported seems more
 EXPORT_ONLY_OPS = ("aten._assert_tensor_metadata.default",)
 # the child process that loads the saved program: it imports the export
 # module alone (which registers the ops), calls the program under the
-# deterministic algorithms and reports its launches of A and B
+# deterministic algorithms and reports its launches of A fused into B
 EXPORT_CHILD = """
 import json, sys, torch
 from phc_gnn_torch import export
@@ -6447,9 +6678,8 @@ with torch.inference_mode():
 torch.cuda.synchronize()
 torch.save(out.cpu(), sys.argv[3])
 print(json.dumps({"models_imported": "phc_gnn_torch.models" in sys.modules,
-                  "launches": {"segment_logit_max": ss.segment_logit_max.launches,
-                               "segment_softmax_aggregate":
-                                   ss.segment_softmax_aggregate.launches}}))
+                  "launches": {"segment_softmax_fused":
+                                   ss.segment_softmax_fused.launches}}))
 """
 
 
@@ -6549,7 +6779,7 @@ def export_flagship(torch, dev, dtype: str, batch):
 def export_round_trip(torch, program, args, want):
     """(c): ``save``, then ``load`` and call in a fresh process that imports
     only ``phc_gnn_torch.export``, under the deterministic algorithms: the
-    result bit-equal to ``want``, A and B 4 launches each there, and
+    result bit-equal to ``want``, the fused kernel 4 launches there, and
     ``phc_gnn_torch.models`` never imported.  Returns the file's bytes and
     the child's seconds."""
     import os
@@ -6795,6 +7025,13 @@ def op_checks(torch, dev, batch):
     beta = torch.tensor(1.5, device=dev)
     segmax = torch.ops.phc_gnn.segment_logit_max(msgs, mask, beta, rowptr)
     bf16 = msgs.bfloat16()
+    # the backward's inputs: the training forward's w, den and out, and a
+    # cotangent of out
+    fwd, fwd16 = ((w, den, out) for out, w, den in (
+        torch.ops.phc_gnn.segment_softmax_fused_train(m, mask, beta, rowptr)
+        for m in (msgs, bf16)))
+    cot = torch.randn((n, DIM), generator=torch.Generator().manual_seed(2)
+                      ).to(dev)
     d = DIM // 4
     x = torch.randn((n, DIM), generator=gen).to(dev)
     b = torch.randn((d, 4, 4), generator=gen)
@@ -6813,9 +7050,17 @@ def op_checks(torch, dev, batch):
          ops.segment_softmax_aggregate_train, (msgs, mask, beta, rowptr,
                                                segmax)),
         ("segment_softmax_fused", ops.segment_softmax_fused,
-         (bf16, mask, beta, rowptr)),
+         (msgs, mask, beta, rowptr)),
         ("segment_softmax_fused_train", ops.segment_softmax_fused_train,
+         (msgs, mask, beta, rowptr)),
+        ("segment_softmax_fused bf16", ops.segment_softmax_fused,
          (bf16, mask, beta, rowptr)),
+        ("segment_softmax_fused_train bf16", ops.segment_softmax_fused_train,
+         (bf16, mask, beta, rowptr)),
+        ("segment_softmax_backward", ops.segment_softmax_backward,
+         (msgs, beta, *fwd, cot, rowptr, batch.receivers)),
+        ("segment_softmax_backward bf16", ops.segment_softmax_backward,
+         (bf16, beta, *fwd16, cot, rowptr, batch.receivers)),
         ("segment_sum_masked", ops.segment_sum_masked, (msgs, mask, rowptr)),
         ("segment_sum_masked bf16", ops.segment_sum_masked,
          (bf16, mask, rowptr)),

@@ -1,6 +1,6 @@
 """Softmax aggregation over receiver-sorted CSR segments.
 
-Two Hopper kernels (``csrc/segment_softmax.cu``), each beside its plain
+Hopper kernels (``csrc/segment_softmax.cu``), each beside its plain
 PyTorch version over the same CSR and mask semantics:
 
 - ``segment_logit_max`` replaces ``_softmax_suffix_max_kernel``
@@ -12,23 +12,28 @@ PyTorch version over the same CSR and mask semantics:
   ``out = sum(w * m) / den`` with ``den = max(sum(w), 1e-16)`` and
   ``w = mask * exp(beta * m - segmax)``; its training variant also writes
   the per-edge ``w`` and the per-node ``den`` that the backward reads.
-
 - ``segment_softmax_fused`` runs A's function and then B's in one launch
-  on bf16 messages (``segment_softmax_fused_bf16``), with or without ``w``
-  and ``den``: ``segmax`` never reaches device memory, and each row is
-  read from it once.  A block a receiver segment runs A's loop then B's
-  over the segment's rows (the second reads them from L1).  Its plain
-  version is A's then B's.
+  on float32 or bf16 messages, with or without ``w`` and ``den``:
+  ``segmax`` never reaches device memory, and each row is read from it
+  once.  A block a receiver segment runs A's loop then B's over the
+  segment's rows (the second reads them from L1).  Its plain version is
+  A's then B's.
+- ``segment_softmax_backward`` replaces the XLA glue of JAX's backward,
+  ``_softmax_agg_streamed_bwd`` (stream_scan.py:794-815): a block a
+  receiver segment, ``den``, ``g`` and ``out * g`` read once a node, then
+  per edge ``dm = (w / den_n) * (g_n + beta * (m * g_n - s_n))`` and the
+  terms of ``dbeta = sum (w / den_n) * m * (m * g_n - s_n)``, summed in
+  float64 in a fixed order (no atomics).  Its plain version,
+  ``segment_softmax_backward_plain``, is the same closed form in torch
+  ops, as JAX leaves it to XLA: one gather of ``[den, g, out * g]`` at the
+  receivers, then elementwise passes and a sum.
 
-``segment_softmax`` runs the two in sequence on float32 messages, the
-fused kernel on bf16 ones.  Where a gradient is wanted it
-goes through an ``autograd.Function`` whose backward is the closed form of
-``_softmax_agg_streamed_bwd`` (stream_scan.py:794-815) in plain torch ops, as
-JAX leaves it to XLA: one gather of ``[den, g, out * g]`` at the receivers,
-then ``dm = (w / den_e) * (g_e + beta * (m * g_e - s_e))`` and
-``dbeta = sum (w / den_e) * m * (m * g_e - s_e)``.  The segment max gets no
-gradient (``stop_gradient``, :772).  Without a gradient (the eval path) B
-runs its eval variant and writes neither ``w`` nor ``den``.
+``segment_softmax`` runs the fused kernel forward and, where a gradient is
+wanted, the backward kernel, through an ``autograd.Function``.  The segment
+max gets no gradient (``stop_gradient``, :772).  Without a gradient (the
+eval path) the fused kernel runs its eval variant and writes neither ``w``
+nor ``den``.  A and B stay public with their plain versions; no path of the
+model runs them.
 
 The CSR ``rowptr`` [N + 1] (int32) comes from ``graph.batch.attach_csr_plan``;
 it stops at the last real edge, so the padding run at the tail of the edge
@@ -43,11 +48,11 @@ JAX's kernels convert their blocks (stream_scan.py:435, :465); ``segmax``,
 ``out``, ``w`` and ``den`` are float32 either way, and the backward returns
 ``dm`` in the messages' dtype (:813).  The plain versions upcast first.
 
-Both kernels are bound by the bytes they move (see the source's note).  A
+The kernels are bound by the bytes they move (see the source's note).  A
 wrapper runs the plain version for tensors on the CPU.  For CUDA tensors it
 launches its kernel or raises; it never falls back.  ``<wrapper>.launches``
 counts the launches of the float32 instance, ``<wrapper>.launches_bf16``
-those of the bf16 one (the fused kernel has a bf16 instance alone).
+those of the bf16 one.
 
 Each wrapper calls its ``torch.library`` op (``torch.ops.phc_gnn.<name>``;
 B and the fused kernel have a ``<name>_train`` op beside it for ``(out, w,
@@ -74,6 +79,8 @@ __all__ = [
     "segment_softmax_aggregate",
     "segment_softmax_aggregate_plain",
     "segment_softmax_fused",
+    "segment_softmax_backward",
+    "segment_softmax_backward_plain",
     "segment_softmax",
 ]
 
@@ -95,8 +102,12 @@ def _lib():
             fn = getattr(lib, f"segment_softmax_aggregate_{t}")
             fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P]
             fn.restype = ctypes.c_int
-        lib.segment_softmax_fused_bf16.argtypes = [_P] * 7 + [_I64] * 2 + [_P]
-        lib.segment_softmax_fused_bf16.restype = ctypes.c_int
+            fn = getattr(lib, f"segment_softmax_fused_{t}")
+            fn.argtypes = [_P] * 7 + [_I64] * 3 + [_P]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"segment_softmax_backward_{t}")
+            fn.argtypes = [_P] * 10 + [_I64] * 3 + [_P]
+            fn.restype = ctypes.c_int
         _typed_lib = lib
     return _typed_lib
 
@@ -141,13 +152,32 @@ def segment_softmax_aggregate_plain(msgs, mask, beta, rowptr, segmax,
     return out, w_full, den
 
 
+def segment_softmax_backward_plain(msgs, beta, w, den, out, g, receivers):
+    """``(dm, dbeta)`` of the softmax aggregation given the cotangent ``g``
+    of ``out``: the closed form of ``_softmax_agg_streamed_bwd``
+    (stream_scan.py:794-815) in plain torch ops, one gather of ``[den, g,
+    out * g]`` at the receivers, then ``dm = (w / den_e) * (g_e + beta * (m
+    * g_e - s_e))`` in the messages' dtype and ``dbeta = sum (w / den_e) *
+    m * (m * g_e - s_e)`` shaped as ``beta``."""
+    d = msgs.shape[1]
+    packed = torch.cat([den, g, out * g], dim=1)
+    den_e, g_e, s_e = packed.index_select(0, receivers).split(d, dim=1)
+    wt = w / den_e
+    m = msgs.float()
+    diff = m * g_e - s_e
+    dm = (wt * (g_e + beta * diff)).to(msgs.dtype)
+    dbeta = (wt * m * diff).sum().reshape(beta.shape)
+    return dm, dbeta
+
+
 # ------------------------------------------------------------------ wrappers
 
-def _check(msgs, mask, beta, rowptr, fake: bool = False):
-    """The devices, dtypes, shapes and contiguity that the kernels take,
-    read without the data.  ``fake``: a fake implementation's check, which
-    passes CPU tensors too (a trace on the CPU); a meta tensor never
-    passes."""
+def _check_rows(msgs, beta, rowptr, fake: bool, **others):
+    """What every kernel here takes: ``msgs``, ``beta`` and ``rowptr``'s
+    device, dtypes and shapes, and every tensor on ``msgs``' device and
+    contiguous (``others`` by name too), read without the data.  ``fake``:
+    a fake implementation's check, which passes CPU tensors too (a trace
+    on the CPU); a meta tensor never passes."""
     dev = msgs.device
     if dev.type not in (("cuda", "cpu") if fake else ("cuda",)):
         raise ValueError(f"segment softmax kernels run on CPU or CUDA "
@@ -155,19 +185,25 @@ def _check(msgs, mask, beta, rowptr, fake: bool = False):
     if msgs.dtype not in ROW_DTYPES or msgs.ndim != 2:
         raise TypeError(f"msgs must be a 2-D float32 or bfloat16 tensor, got "
                         f"{msgs.dtype} {tuple(msgs.shape)}")
-    if mask.dtype != torch.bool or mask.shape != msgs.shape[:1]:
-        raise TypeError(f"mask must be bool [{msgs.shape[0]}], got "
-                        f"{mask.dtype} {tuple(mask.shape)}")
     if beta.dtype != torch.float32 or beta.numel() != 1:
         raise TypeError("beta must be a float32 scalar tensor")
     if rowptr.dtype != torch.int32 or rowptr.ndim != 1:
         raise TypeError(f"rowptr must be 1-D int32, got {rowptr.dtype}")
-    for name, t in (("msgs", msgs), ("mask", mask), ("beta", beta),
-                    ("rowptr", rowptr)):
+    for name, t in (("msgs", msgs), ("beta", beta), ("rowptr", rowptr),
+                    *others.items()):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, msgs on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(msgs, mask, beta, rowptr, fake: bool = False):
+    """The forward kernels' inputs (``_check_rows``) and the bool ``mask``
+    [E]."""
+    if mask.dtype != torch.bool or mask.shape != msgs.shape[:1]:
+        raise TypeError(f"mask must be bool [{msgs.shape[0]}], got "
+                        f"{mask.dtype} {tuple(mask.shape)}")
+    _check_rows(msgs, beta, rowptr, fake, mask=mask)
 
 
 def _check_segmax(msgs, rowptr, segmax):
@@ -182,15 +218,17 @@ def _suffix(msgs) -> str:
     return "bf16" if msgs.dtype == torch.bfloat16 else "f32"
 
 
-def _outputs(msgs, rowptr, emit_w: bool):
-    """New float32 ``out`` [N, D], and with ``emit_w`` a zeroed ``w``
-    [E, D] and ``den`` [N, D]."""
+def _outputs(msgs, rowptr, emit_w: bool, zero_w: bool = True):
+    """New float32 ``out`` [N, D], and with ``emit_w`` a ``w`` [E, D]
+    (zeroed, unless the kernel zeroes its padding rows itself:
+    ``zero_w=False``) and ``den`` [N, D]."""
     n, (e, d) = rowptr.shape[0] - 1, msgs.shape
     out = msgs.new_empty((n, d), dtype=torch.float32)
     if not emit_w:
         return out, None, None
-    return (out, msgs.new_zeros((e, d), dtype=torch.float32),
-            torch.empty_like(out))
+    w = (msgs.new_zeros if zero_w else msgs.new_empty)((e, d),
+                                                       dtype=torch.float32)
+    return out, w, torch.empty_like(out)
 
 
 # The kernels as torch.library ops (namespace phc_gnn), so that torch.export
@@ -284,16 +322,14 @@ def _fused_plain(msgs, mask, beta, rowptr, emit_w: bool):
 
 def _fused_cuda(msgs, mask, beta, rowptr, emit_w: bool):
     _check(msgs, mask, beta, rowptr)
-    if msgs.dtype != torch.bfloat16:
-        raise TypeError("the fused softmax kernel reads bfloat16 messages; "
-                        "float32 ones run segment_logit_max, then "
-                        "segment_softmax_aggregate")
-    out, w, den = _outputs(msgs, rowptr, emit_w)
+    out, w, den = _outputs(msgs, rowptr, emit_w, zero_w=False)
     n, d = out.shape
-    err = _lib().segment_softmax_fused_bf16(
+    fn = getattr(_lib(), f"segment_softmax_fused_{_suffix(msgs)}")
+    err = fn(
         msgs.data_ptr(), mask.data_ptr(), beta.data_ptr(), rowptr.data_ptr(),
         out.data_ptr(), w.data_ptr() if emit_w else None,
-        den.data_ptr() if emit_w else None, n, d, _build.stream(msgs.device))
+        den.data_ptr() if emit_w else None, n, msgs.shape[0], d,
+        _build.stream(msgs.device))
     _build.check_launch("segment_softmax_fused", err)
     count_launch(segment_softmax_fused, msgs)
     return (out, w, den) if emit_w else out
@@ -329,6 +365,60 @@ _fused_train_op.register_kernel("cuda")(lambda *args: _fused_cuda(*args, True))
 _fused_train_op.register_fake(lambda *args: _fused_fake(*args, True))
 
 
+def _check_backward(msgs, beta, w, den, out, g, rowptr, receivers,
+                    fake: bool = False):
+    """The backward's inputs: ``msgs``, ``beta`` and ``rowptr`` as the
+    forward's (``_check_rows``), float32 ``w`` [E, D] and ``den``, ``out``,
+    ``g`` [N, D], ``receivers`` [E]."""
+    _check_rows(msgs, beta, rowptr, fake, w=w, den=den, out=out, g=g,
+                receivers=receivers)
+    n, (e, d) = rowptr.shape[0] - 1, msgs.shape
+    for name, t, shape in (("w", w, (e, d)), ("den", den, (n, d)),
+                           ("out", out, (n, d)), ("g", g, (n, d))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise TypeError(f"{name} must be float32 {list(shape)}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    if receivers.shape != (e,):
+        raise TypeError(f"receivers must be [{e}], got "
+                        f"{tuple(receivers.shape)}")
+
+
+def _backward_cuda(msgs, beta, w, den, out, g, rowptr, receivers):
+    _check_backward(msgs, beta, w, den, out, g, rowptr, receivers)
+    n, (e, d) = rowptr.shape[0] - 1, msgs.shape
+    dm = torch.empty_like(msgs)
+    dbeta = torch.empty_like(beta)
+    # the blocks' dbeta partials, summed in node order by the last block
+    partials = msgs.new_empty((max(n, 1),), dtype=torch.float64)
+    fn = getattr(_lib(), f"segment_softmax_backward_{_suffix(msgs)}")
+    err = fn(msgs.data_ptr(), beta.data_ptr(), w.data_ptr(), den.data_ptr(),
+             out.data_ptr(), g.data_ptr(), rowptr.data_ptr(), dm.data_ptr(),
+             partials.data_ptr(), dbeta.data_ptr(), n, e, d,
+             _build.stream(msgs.device))
+    _build.check_launch("segment_softmax_backward", err)
+    count_launch(segment_softmax_backward, msgs)
+    return dm, dbeta
+
+
+@torch.library.custom_op("phc_gnn::segment_softmax_backward",
+                         mutates_args=(), device_types="cpu")
+def _backward_op(msgs: torch.Tensor, beta: torch.Tensor, w: torch.Tensor,
+                 den: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
+                 rowptr: torch.Tensor, receivers: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return segment_softmax_backward_plain(msgs, beta, w, den, out, g,
+                                          receivers)
+
+
+_backward_op.register_kernel("cuda")(_backward_cuda)
+
+
+@_backward_op.register_fake
+def _backward_fake(msgs, beta, w, den, out, g, rowptr, receivers):
+    _check_backward(msgs, beta, w, den, out, g, rowptr, receivers, fake=True)
+    return torch.empty_like(msgs), torch.empty_like(beta)
+
+
 def segment_logit_max(msgs, mask, beta, rowptr):
     """[N, D] float32 max over each segment of ``where(mask, beta * m,
     -2^100)`` (``torch.ops.phc_gnn.segment_logit_max``)."""
@@ -359,12 +449,12 @@ segment_softmax_aggregate.launches_bf16 = 0
 
 
 def segment_softmax_fused(msgs, mask, beta, rowptr, emit_w: bool = False):
-    """``segment_softmax_aggregate`` of ``segment_logit_max`` on bf16
-    messages in one launch (on the CPU their plain versions in sequence):
-    ``out``, or with ``emit_w`` the triple ``(out, w, den)``, all float32
-    (``w`` zeroed, so that edges past ``rowptr[-1]`` hold 0), bit-equal to
-    the two kernels in sequence (``torch.ops.phc_gnn.segment_softmax_fused``,
-    or its ``_train`` op)."""
+    """``segment_softmax_aggregate`` of ``segment_logit_max`` in one launch,
+    on float32 or bf16 messages (on the CPU their plain versions in
+    sequence): ``out``, or with ``emit_w`` the triple ``(out, w, den)``, all
+    float32 (``w`` 0 on edges past ``rowptr[-1]``), bit-equal to the two
+    kernels in sequence (``torch.ops.phc_gnn.segment_softmax_fused``, or its
+    ``_train`` op)."""
     if emit_w:
         return torch.ops.phc_gnn.segment_softmax_fused_train(msgs, mask, beta,
                                                              rowptr)
@@ -375,50 +465,49 @@ segment_softmax_fused.launches = 0
 segment_softmax_fused.launches_bf16 = 0
 
 
-def _forward(msgs, mask, beta, rowptr, emit_w: bool = False):
-    """The softmax aggregation's kernels: the fused one on bf16 messages,
-    A then B on float32 ones."""
-    if msgs.dtype == torch.bfloat16:
-        return segment_softmax_fused(msgs, mask, beta, rowptr, emit_w)
-    segmax = segment_logit_max(msgs, mask, beta, rowptr)
-    return segment_softmax_aggregate(msgs, mask, beta, rowptr, segmax,
-                                     emit_w)
+def segment_softmax_backward(msgs, beta, w, den, out, g, rowptr, receivers):
+    """``(dm, dbeta)``: the softmax aggregation's backward given the
+    forward's ``w`` and ``den`` (``segment_softmax_fused(..., emit_w=True)``)
+    and ``out``, and the cotangent ``g`` [N, D] of ``out``; ``dm`` [E, D] in
+    the messages' dtype (0 past ``rowptr[-1]``), ``dbeta`` shaped as
+    ``beta`` (``torch.ops.phc_gnn.segment_softmax_backward``).  The kernel
+    walks the CSR ``rowptr``; the plain version on the CPU gathers at
+    ``receivers``."""
+    return torch.ops.phc_gnn.segment_softmax_backward(
+        msgs, beta, w, den, out, g, rowptr, receivers)
+
+
+segment_softmax_backward.launches = 0
+segment_softmax_backward.launches_bf16 = 0
 
 
 class _SegmentSoftmax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, mask, beta, rowptr, receivers):
-        out, w, den = _forward(msgs, mask, beta, rowptr, emit_w=True)
-        ctx.save_for_backward(msgs, beta, w, den, out, receivers)
+        out, w, den = segment_softmax_fused(msgs, mask, beta, rowptr,
+                                            emit_w=True)
+        ctx.save_for_backward(msgs, beta, w, den, out, rowptr, receivers)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        msgs, beta, w, den, out, receivers = ctx.saved_tensors
-        d = msgs.shape[1]
-        g = g.float()
-        packed = torch.cat([den, g, out * g], dim=1)
-        den_e, g_e, s_e = packed.index_select(0, receivers).split(d, dim=1)
-        wt = w / den_e
-        m = msgs.float()
-        diff = m * g_e - s_e
-        dm = dbeta = None
-        if ctx.needs_input_grad[0]:
-            dm = (wt * (g_e + beta * diff)).to(msgs.dtype)
-        if ctx.needs_input_grad[2]:
-            dbeta = (wt * m * diff).sum().reshape(beta.shape)
-        return dm, None, dbeta, None, None
+        msgs, beta, w, den, out, rowptr, receivers = ctx.saved_tensors
+        dm, dbeta = segment_softmax_backward(
+            msgs, beta, w, den, out, g.float().contiguous(), rowptr,
+            receivers)
+        return (dm if ctx.needs_input_grad[0] else None, None,
+                dbeta if ctx.needs_input_grad[2] else None, None, None)
 
 
 def segment_softmax(msgs, mask, beta, rowptr, receivers=None):
     """Softmax aggregation ``sum_e softmax(beta * m)_e * m_e`` per node, per
-    lane: the two kernels in sequence on float32 messages, the fused kernel
-    on bf16 ones (their plain versions on the CPU).
-    Differentiable in ``msgs`` and ``beta``; the backward gathers at
+    lane: A fused into B (``segment_softmax_fused``; the plain A then B on
+    the CPU).  Differentiable in ``msgs`` and ``beta``: the backward is
+    ``segment_softmax_backward``, whose plain version on the CPU gathers at
     ``receivers`` [E], which a gradient needs."""
     if torch.is_grad_enabled() and (msgs.requires_grad or beta.requires_grad):
         if receivers is None:
             raise ValueError("the softmax backward gathers at the receivers: "
                              "pass receivers")
         return _SegmentSoftmax.apply(msgs, mask, beta, rowptr, receivers)
-    return _forward(msgs, mask, beta, rowptr)
+    return segment_softmax_fused(msgs, mask, beta, rowptr)

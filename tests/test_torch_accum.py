@@ -27,6 +27,7 @@ from test_torch_pcba import (CLIP, LR, REL_GRAD, REL_OUT, SHAPE, TASKS,
                              _batches, _config, _shift_invariant,
                              blocked_gate, jax_accum)  # noqa: F401
 from torch_parity import assert_close, assert_leaf_close, load_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEEDS = (4, 5, 6)
 DUMMY = (5,)

@@ -15,6 +15,7 @@ import sys
 import pytest
 
 from phc_gnn_torch import bench
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the slope between 2 and 12 calls: on a CPU shared with other test
 # workers, a slope over fewer calls can come out negative

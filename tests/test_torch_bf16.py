@@ -75,6 +75,7 @@ from test_torch_trainer import (NO_DROPOUT, SMALL, _init_pickle, _json, _rel,
                                 _rows)
 from torch_parity import (adversarial_receivers, assert_close,
                           assert_leaf_close, numpy_tree, port_flat)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 BF16_ULP = 2.0 ** -7

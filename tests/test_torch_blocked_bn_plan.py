@@ -22,6 +22,7 @@ import torch
 
 from phc_gnn_torch.ops import fused_bn
 from test_torch_bn_plan import SMEM_PER_BLOCK, _emulate, _tiles
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMS = 132                     # H100 SXM
 SMEM_PER_SM = 233_472         # 228 KiB of shared memory an SM

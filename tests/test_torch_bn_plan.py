@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from phc_gnn_torch.ops import fused_bn
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMEM_PER_BLOCK = 232_448      # H100: shared memory a block can use
 GATE_SHAPES = [(4096, 200), (4096, 213), (109_375, 8), (129, 768), (129, 100),

@@ -32,6 +32,7 @@ from phc_gnn_torch.data import ZINC_ATOM_DIMS, ZINC_BOND_DIMS, synthetic_batch
 from phc_gnn_torch.models import PHCGNN
 from phc_gnn_torch.parallel import comm_model as tcm
 from test_torch_edge_partition import _ranks, shared_dir  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIM = 16
 MODEL = dict(phm_dim=4, atom_encoded_dim=DIM, mp_layers=(DIM, DIM),

@@ -41,6 +41,7 @@ from phc_gnn_torch.data.parity import make_parity_graphs
 from phc_gnn_torch.train import make_eval_step
 from phc_gnn_torch.train.trainer import build_model
 from torch_parity import assert_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_INIT = 1e-5  # eval forward from one init, JAX against the port, normwise
 HALF_KEYS = {"val_metric", "train_loss", "lr", "best_val", "test_bestval",
@@ -304,18 +305,7 @@ def test_runner_runs_the_records_config(task):
         assert g == w, (key, g, w)
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the run: the suite's workers share the box,
-    and a worker's own threads oversubscribe it (the smoke run took 117 s
-    beside six busy processes, against 5 s on one thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_runner_smoke_on_cpu(tmp_path, one_thread):
+def test_runner_smoke_on_cpu(tmp_path):
     hp = parity.HPARAMS["quat"]
     for task in parity.TASKS:
         argv = parity.cli_argv(task, parity.HPARAMS[task], "D", "S", "I",

@@ -702,30 +702,48 @@ def test_bf16_instances_match_the_f32_instances(dev, case):
         m.double(), k, rp)) <= 1e-5
 
 
-def _off_by_one(t):
-    """A contiguous copy of ``t`` one element past its allocation's base:
-    bf16 rows 2 bytes off 16-byte alignment."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    view = buf[1:].view(t.shape)
+def _off_by(t, k):
+    """A contiguous copy of ``t`` ``k`` elements past its allocation's
+    base: float32 rows 8 bytes (k = 2) or 4 bytes (k = 1) off 16-byte
+    alignment take two lanes or one lane a thread."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = buf[k:].view(t.shape)
     view.copy_(t)
     return view
 
 
-@pytest.mark.parametrize("case", ["flagship", "adversarial", "d37",
-                                  "unaligned"])
-def test_fused_softmax_is_the_pair_bit_for_bit(dev, case):
-    """The fused kernel on bf16 messages: ``out``, ``w`` and ``den`` of its
-    training variant and ``out`` of its eval variant bit-equal to A bf16
-    then B bf16 and to float32 A then B fed the upcast rows; the softmax
-    aggregation on bf16 messages launches it once, counted on
-    ``segment_softmax_fused.launches_bf16``, and neither A nor B."""
+def _softmax_case(dev, case, dtype):
+    """The flagship's or the adversarial CSR at width 200; ``d37`` the
+    flagship's at width 37; ``unaligned`` its rows one element off their
+    alignment (bf16 or f32 one lane a thread), ``pairs`` two (f32 rows two
+    lanes a thread)."""
     m, k, b, rp = (_flagship_case(dev, 1.37) if case != "adversarial"
                    else _adversarial_case(dev))
     if case == "d37":
         m = m[:, :37].contiguous()
-    m = m.to(torch.bfloat16)
-    if case == "unaligned":
-        m = _off_by_one(m)
+    m = m.to(dtype)
+    if case in ("unaligned", "pairs"):
+        m = _off_by(m, 1 if case == "unaligned" else 2)
+    return m, k, b, rp
+
+
+def _counts():
+    return [(w.launches, w.launches_bf16) for w in (
+        ss.segment_logit_max, ss.segment_softmax_aggregate,
+        ss.segment_softmax_fused, ss.segment_softmax_backward)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["flagship", "adversarial", "d37",
+                                  "unaligned", "pairs"])
+def test_fused_softmax_is_the_pair_bit_for_bit(dev, case, dtype):
+    """The fused kernel on bf16 and float32 messages: ``out``, ``w`` and
+    ``den`` of its training variant and ``out`` of its eval variant
+    bit-equal to A then B (on bf16 rows also to float32 A then B fed the
+    upcast rows); ``w`` 0 on the padding run; the softmax aggregation
+    launches it once, counted on the dtype's counter of
+    ``segment_softmax_fused``, and neither A nor B."""
+    m, k, b, rp = _softmax_case(dev, case, dtype)
     smax = ss.segment_logit_max(m, k, b, rp)
     pair = ss.segment_softmax_aggregate(m, k, b, rp, smax, emit_w=True)
     pair_nw = ss.segment_softmax_aggregate(m, k, b, rp, smax)
@@ -739,16 +757,63 @@ def test_fused_softmax_is_the_pair_bit_for_bit(dev, case):
         assert g.dtype == torch.float32
         assert torch.equal(g, p) and torch.equal(g, f)
     assert torch.equal(got_nw, pair_nw)
-    counters = (ss.segment_logit_max, ss.segment_softmax_aggregate,
-                ss.segment_softmax_fused)
-    before = [(w.launches, w.launches_bf16) for w in counters]
+    assert torch.all(got[1][int(rp[-1]):] == 0)
+    before = _counts()
     out = ss.segment_softmax(m, k, b, rp)
     torch.cuda.synchronize()
-    after = [(w.launches, w.launches_bf16) for w in counters]
-    assert after == before[:2] + [(before[2][0], before[2][1] + 1)]
+    bump = (0, 1) if dtype == torch.bfloat16 else (1, 0)
+    assert _counts() == before[:2] + [
+        (before[2][0] + bump[0], before[2][1] + bump[1]), before[3]]
     assert torch.equal(out, pair_nw)
-    with pytest.raises(TypeError, match="bfloat16"):
-        ss.segment_softmax_fused(up, k, b, rp)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["flagship", "adversarial", "d37",
+                                  "unaligned", "pairs"])
+def test_softmax_backward_kernel_is_the_plain_backward(dev, case, dtype):
+    """The backward kernel on bf16 and float32 messages: ``dm`` bit-equal
+    to ``segment_softmax_backward_plain`` on the card (0 on the padding
+    run and on masked edges), ``dbeta`` within 1e-5 of the sum of its
+    terms' magnitudes from the plain version's f32 sum and from a float64
+    sum of the same terms, and bit-equal on a second launch; a gradient
+    through the softmax aggregation launches the fused kernel and the
+    backward kernel once each, and neither A nor B."""
+    m, k, b, rp = _softmax_case(dev, case, dtype)
+    n = rp.shape[0] - 1
+    recv = torch.repeat_interleave(torch.arange(n, device=dev),
+                                   rp.diff().long())
+    recv = torch.cat([recv, recv.new_full((m.shape[0] - recv.shape[0],),
+                                          n - 1)]).to(torch.int32)
+    gen = torch.Generator().manual_seed(4)
+    g = torch.randn((n, m.shape[1]), generator=gen).to(dev)
+    out, w, den = ss.segment_softmax_fused(m, k, b, rp, emit_w=True)
+    before = _counts()
+    dm, db = ss.segment_softmax_backward(m, b, w, den, out, g, rp, recv)
+    dm2, db2 = ss.segment_softmax_backward(m, b, w, den, out, g, rp, recv)
+    torch.cuda.synchronize()
+    lane = 1 if dtype == torch.bfloat16 else 0
+    assert _counts()[3][lane] == before[3][lane] + 2
+    want_dm, want_db = ss.segment_softmax_backward_plain(m, b, w, den, out,
+                                                         g, recv)
+    assert dm.dtype == dtype and torch.equal(dm, want_dm)
+    assert torch.equal(dm, dm2) and torch.equal(db, db2)
+    assert torch.all(dm[int(rp[-1]):] == 0) and torch.all(dm[~k] == 0)
+    rl = recv.long()
+    md, gd = m.double(), g.double()[rl]
+    terms = (w.double() / den.double()[rl]) * md * (md * gd
+                                                    - out.double()[rl] * gd)
+    scale = float(terms.abs().sum())
+    for want in (float(want_db), float(terms.sum())):
+        assert abs(float(db) - want) <= 1e-5 * scale
+    mg = m.detach().clone().requires_grad_(True)
+    bg = b.detach().clone().requires_grad_(True)
+    before = _counts()
+    (ss.segment_softmax(mg, k, bg, rp, recv) * g).sum().backward()
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after[:2] == before[:2]
+    assert [a[lane] - c[lane] for a, c in zip(after[2:], before[2:])] == [1, 1]
+    assert torch.equal(mg.grad, want_dm)
 
 
 @pytest.mark.parametrize("role", ["masked", "perm"])
@@ -820,9 +885,9 @@ def test_wrappers_take_only_f32_or_bf16(dev):
 
 def test_exported_forward_launches_the_kernels(dev):
     """The tiny flagship exported on the card (``phc_gnn_torch.export``):
-    one call of the program launches A and B once a layer, as the eager
-    forward does, and agrees with it bit for bit under the deterministic
-    algorithms."""
+    one call of the program launches A fused into B once a layer, as the
+    eager forward does, and agrees with it bit for bit under the
+    deterministic algorithms."""
     from phc_gnn_torch import export
     from phc_gnn_torch.models import PHCGNN
     from phc_gnn_torch.train import make_eval_step
@@ -830,13 +895,15 @@ def test_exported_forward_launches_the_kernels(dev):
     model = PHCGNN(**export.flagship_config(32, 2), seed=0, device=dev)
     batch = attach_csr_plan(synthetic_batch(8, 256, 512, seed=3)).to(dev)
     program = export.export_forward(model, batch)
-    wrappers = (ss.segment_logit_max, ss.segment_softmax_aggregate)
+    wrappers = (ss.segment_logit_max, ss.segment_softmax_aggregate,
+                ss.segment_softmax_fused)
     counts = [w.launches for w in wrappers]
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with torch.inference_mode():
             got = program.module()(*export.forward_args(batch))
-        assert [w.launches for w in wrappers] == [c + 2 for c in counts]
+        assert [w.launches for w in wrappers] == [counts[0], counts[1],
+                                                  counts[2] + 2]
         want = make_eval_step(model, device=dev)(batch)
     finally:
         torch.use_deterministic_algorithms(False)

@@ -32,6 +32,7 @@ from phc_gnn_torch.data.prefetch import prefetch
 from phc_gnn_torch.data.synthetic import random_graph as t_random_graph
 from phc_gnn_torch.graph import (GraphsTuple, attach_csr_plan, batch_graphs,
                                  pad_graph_batch)
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 FIELDS = ("nodes", "edges", "senders", "receivers", "graph_ids", "node_mask",

@@ -48,6 +48,7 @@ from test_torch_halo import (J_ATOM, J_BOND, MODEL, SHAPE, _jax_loss,
                              _jax_state, _jax_variables, _port_state)
 from torch_parity import numpy_tree
 from torch_ranks import run_ranks, start_ranks
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_EXACT = 1e-6
 REL_LOSS = 1e-5

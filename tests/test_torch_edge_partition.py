@@ -77,6 +77,7 @@ from test_torch_halo import (J_ATOM, J_BOND, MODEL, _jax_loss, _jax_state,
                              _jax_variables, _port_state)
 from torch_parity import assert_close, assert_leaf_close, numpy_tree
 from torch_ranks import shared_ranks
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_SHARD, ATOL_SHARD = 1e-5, 1e-7
 BF16_ULP = 2.0 ** -7

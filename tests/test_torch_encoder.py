@@ -32,6 +32,7 @@ from phc_gnn_torch.nn import IntegerEncoder, NaivePHMEncoder, PHMEncoder
 from phc_gnn_torch.train import make_eval_step
 from torch_parity import (assert_close, assert_leaf_close, numpy_tree,
                           port_flat, randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_FWD = 1e-6
 REL_GRAD = 1e-5

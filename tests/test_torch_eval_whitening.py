@@ -35,6 +35,7 @@ from phc_gnn_torch.models import presets
 from phc_gnn_torch.nn.norm import QuaternionWhiteningNorm
 from phc_gnn_torch.ops import fused_whitening as tfw
 from torch_parity import assert_leaf_close, load_flax, numpy_tree, spd_cov
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL_GRAD = 1e-5
 TOL_EXACT = 1e-12

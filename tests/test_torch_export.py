@@ -41,6 +41,7 @@ from phc_gnn_torch.train.config import DATASET_DEFAULTS, ExperimentConfig
 from phc_gnn_torch.train.trainer import build_model
 from torch_parity import (adversarial_receivers, assert_close, load_flax,
                           randomize, spd_cov)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-4
 SHAPE = (8, 256, 512)
@@ -131,7 +132,8 @@ def test_exported_flagship_matches_jax_export(jax_export_run, tiny):
 
 def test_saved_program_round_trips_bit_equal(tiny, tmp_path):
     """``save`` then ``load`` gives the same output bit for bit; the graph
-    calls A and B once a layer and no other kernel; in a fresh process that
+    calls A fused into B once a layer and no other kernel; in a fresh
+    process that
     imports only ``phc_gnn_torch.export``, the loaded program runs without
     ``phc_gnn_torch.models``."""
     _, batch, program = tiny
@@ -143,8 +145,7 @@ def test_saved_program_round_trips_bit_equal(tiny, tmp_path):
     with torch.no_grad():
         assert torch.equal(back.module()(*args), want)
     assert _phc_gnn_calls(back) == {
-        "phc_gnn.segment_logit_max.default": 2,
-        "phc_gnn.segment_softmax_aggregate.default": 2}
+        "phc_gnn.segment_softmax_fused.default": 2}
 
     torch.save(args, tmp_path / "args.pt")
     script = (
@@ -187,6 +188,8 @@ def _op_cases():
         (ops.segment_softmax_aggregate, (msgs, mask, beta, rowptr, segmax)),
         (ops.segment_softmax_aggregate_train,
          (msgs, mask, beta, rowptr, segmax)),
+        (ops.segment_softmax_fused, (msgs, mask, beta, rowptr)),
+        (ops.segment_softmax_fused_train, (msgs, mask, beta, rowptr)),
         (ops.segment_softmax_fused, (bf16, mask, beta, rowptr)),
         (ops.segment_softmax_fused_train, (bf16, mask, beta, rowptr)),
         (ops.segment_sum_masked, (msgs, mask, rowptr)),
@@ -264,8 +267,7 @@ def _family(name):
 
 @pytest.mark.parametrize("family,calls", [
     ("quat", {"phc_gnn.wbn_transform_eval.default": 4,
-              "phc_gnn.segment_logit_max.default": 2,
-              "phc_gnn.segment_softmax_aggregate.default": 2}),
+              "phc_gnn.segment_softmax_fused.default": 2}),
     ("pna", {"phc_gnn.segment_sum_masked.default": 2,
              "phc_gnn.segment_extreme.default": 4,
              "phc_gnn.segment_moments.default": 2})])

@@ -18,6 +18,7 @@ from phc_gnn_tpu.ops.fused_bn import fused_masked_bn as jax_fused_masked_bn
 from phc_gnn_torch.nn import PHMNorm
 from phc_gnn_torch.ops import fused_bn
 from torch_parity import assert_leaf_close, load_flax, randomize
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 EPS = 1e-5

@@ -43,6 +43,7 @@ from phc_gnn_torch.models import PHCGNN
 from phc_gnn_torch.ops.segment_sum import halo_gather_split
 from torch_parity import numpy_tree, randomize, spd_cov
 from torch_ranks import run_ranks, start_ranks
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_LOSS = 1e-5
 REL_PARAM, ATOL_PARAM = 5e-4, 1e-5

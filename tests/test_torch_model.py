@@ -24,6 +24,7 @@ from phc_gnn_torch.models import PHCGNN
 from phc_gnn_torch.train import make_eval_step
 from torch_parity import (assert_close, load_flax, numpy_tree, port_flat,
                           randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-4
 

@@ -30,6 +30,7 @@ from phc_gnn_torch.hypercomplex import (get_multiplication_rule, glorot_uniform,
 from phc_gnn_torch.nn import (PHMDownstreamNet, PHMEncoder, PHMLinear, PHMMLP,
                               PHMNorm, RealTransformer)
 from torch_parity import assert_close, load_flax, randomize
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 N4 = 4

@@ -51,6 +51,7 @@ from phc_gnn_torch.nn import (RealTransformer, activations,
 from phc_gnn_torch.train import make_eval_step, make_loss_and_grads, masked_l1
 from torch_parity import (assert_close, assert_leaf_close, load_flax,
                           numpy_tree, port_flat, randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_OUT = 1e-5
 REL_EVAL = 1e-4

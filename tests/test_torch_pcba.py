@@ -73,6 +73,7 @@ from phc_gnn_torch.train.config import DATASET_DEFAULTS, ExperimentConfig
 from phc_gnn_torch.train.trainer import build_loss, build_model
 from torch_parity import (assert_close, assert_leaf_close, load_flax,
                           numpy_tree, port_flat, randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_OUT = 1e-5
 REL_EVAL = 1e-4

@@ -57,6 +57,7 @@ from phc_gnn_torch.train import (loss as tloss, make_eval_step,
                                  make_train_step)
 from torch_parity import (assert_close, assert_leaf_close, assert_update,
                           load_flax, numpy_tree, port_flat, randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 REL_MODEL = 1e-4

@@ -46,6 +46,7 @@ from phc_gnn_torch.train.trainer import build_model
 from torch_parity import (adversarial_receivers, assert_close,
                           assert_leaf_close, jax_plan_aggregate,
                           pna_messages, port_plan_aggregate, small_receivers)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_AGG = 1e-5
 REL_GRAD = 1e-5

@@ -26,6 +26,7 @@ import torch
 from torch_parity import (adversarial_receivers, assert_leaf_close,
                           jax_plan_aggregate, pna_messages,
                           port_plan_aggregate, small_receivers)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_AGG = 1e-5
 REL_EXTREME_GRAD = 1e-6

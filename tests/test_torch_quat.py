@@ -52,6 +52,7 @@ from phc_gnn_torch.train.config import ExperimentConfig
 from phc_gnn_torch.train.trainer import build_model
 from torch_parity import (assert_close, assert_leaf_close, assert_update,
                           load_flax, numpy_tree, port_flat, spd_cov)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-4
 REL_OUT = 1e-5

@@ -36,6 +36,7 @@ from phc_gnn_torch.train import (loss as tloss, make_accum_train_step,
                                  make_train_step)
 from torch_parity import (assert_close, assert_leaf_close, numpy_tree,
                           port_flat, randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_OUT = 1e-5
 REL_GRAD = 2e-5

@@ -48,6 +48,7 @@ from phc_gnn_torch.train import (make_loss_and_grads, make_optimizer,
 from phc_gnn_torch.train.trainer import iter_scan_chunks
 from torch_parity import (assert_close, assert_leaf_close, numpy_tree,
                           port_flat, randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_OUT = 1e-5
 REL_EVAL = 1e-4

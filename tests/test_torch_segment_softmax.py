@@ -3,7 +3,12 @@
 The kernels' plain versions run here (CPU tensors); the CUDA kernels are held
 to them on the card (test_torch_cuda.py, chip_smoke.py).  Tolerance: 1e-5
 normwise relative (different summation order, same f32 arithmetic); the
-backward's gradients 1e-5 per leaf, scaled by the gradient's own max.
+backward's gradients 1e-5 per leaf, scaled by the gradient's own max; on
+bf16 messages ``dm`` (bf16 on both sides) within one bf16 rounding step,
+2^-8 of the leaf's max: f32 values ~1e-7 apart can round to neighbouring
+bf16 values.  ``dbeta`` sums E x D signed terms that cancel, so its limit
+is 1e-5 of the sum of the terms' magnitudes, against JAX and against a
+float64 sum of the same terms.
 """
 
 import jax
@@ -20,6 +25,7 @@ from phc_gnn_torch.graph import attach_csr_plan, build_csr_rowptr
 from phc_gnn_torch.graph.aggregators import softmax_aggregate
 from phc_gnn_torch.ops import segment_softmax as ss
 from torch_parity import assert_close, assert_leaf_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 
@@ -207,3 +213,94 @@ def test_wrappers_never_fall_back_for_non_cpu_tensors():
         ss.segment_logit_max(m, k, b, rowptr)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ss.segment_softmax_aggregate(m, k, b, rowptr, torch.empty(2, 8, device="meta"))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_f32_cpu_path_is_the_plain_pair(case):
+    """On float32 messages the fused wrapper's CPU path, in both variants,
+    gives the bits of the plain A then B, and counts no launch."""
+    msgs, recv, mask, n, beta = CASES[case]()
+    m, k, b = torch.from_numpy(msgs), torch.from_numpy(mask), torch.tensor(beta)
+    rowptr = torch.from_numpy(build_csr_rowptr(recv, n, mask))
+    smax = ss.segment_logit_max_plain(m, k, b, rowptr)
+    want = ss.segment_softmax_aggregate_plain(m, k, b, rowptr, smax, True)
+    before = ss.segment_softmax_fused.launches
+    got = ss.segment_softmax_fused(m, k, b, rowptr, emit_w=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(ss.segment_softmax_fused(m, k, b, rowptr), want[0])
+    assert ss.segment_softmax_fused.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_softmax_backward_plain_matches_streamed_vjp(case, dtype):
+    """``segment_softmax_backward_plain``'s ``dm`` and ``dbeta``, fed the
+    port's forward outputs, against ``jax.vjp`` of
+    ``softmax_aggregate_streamed`` (Pallas A and B in interpret mode, its
+    custom VJP) on the same messages and cotangent, in f32 and on bf16
+    messages; ``dm`` is exactly 0 on the padding tail and on masked edges
+    (the adversarial cases also hold an isolated node and an all-masked
+    segment)."""
+    msgs, recv, mask, n, beta = CASES[case]()
+    flags, cont, last = build_scan_plan(recv, n, edge_mask=mask)
+    g = np.random.default_rng(6).normal(
+        size=(n, msgs.shape[1])).astype(np.float32)
+    m_j = jnp.asarray(msgs).astype(dtype)
+    _, vjp = jax.vjp(lambda m, b: softmax_aggregate_streamed(
+        m, jnp.asarray(recv), jnp.asarray(flags), jnp.asarray(cont),
+        jnp.asarray(last), n, b, edge_mask=jnp.asarray(mask)),
+        m_j, jnp.float32(beta))
+    dm_j, db_j = vjp(jnp.asarray(g))
+    assert dm_j.dtype == m_j.dtype
+
+    m = torch.from_numpy(msgs).to(getattr(torch, dtype))
+    k, b = torch.from_numpy(mask), torch.tensor(beta)
+    rowptr = torch.from_numpy(build_csr_rowptr(recv, n, mask))
+    r = torch.from_numpy(recv)
+    out, w, den = ss.segment_softmax_fused(m, k, b, rowptr, emit_w=True)
+    dm, db = ss.segment_softmax_backward_plain(m, b, w, den, out,
+                                               torch.from_numpy(g), r)
+    assert dm.dtype == m.dtype and db.shape == b.shape
+    rel = REL if dtype == "float32" else 2.0 ** -8
+    assert_leaf_close(dm.float(), np.asarray(dm_j, np.float32), rel, "dmsgs")
+    e = int(rowptr[-1])
+    assert torch.all(dm[e:] == 0) and torch.all(dm[~k] == 0)
+    # the terms of dbeta in float64, from the port's f32 forward outputs
+    md, gd, rl = m.double(), torch.from_numpy(g).double()[r.long()], r.long()
+    terms = (w.double() / den.double()[rl]) * md * (md * gd
+                                                    - out.double()[rl] * gd)
+    scale = float(terms.abs().sum())
+    for name, want in (("jax", float(db_j)), ("float64", float(terms.sum()))):
+        err = abs(float(db) - want)
+        assert err <= REL * scale, (name, err, want, scale)
+
+
+def test_backward_never_reaches_the_plain_version_off_the_cpu(monkeypatch):
+    """The backward's op runs its plain version for CPU tensors alone: on
+    the CPU the autograd Function's backward reaches it once through the
+    op, which ``torch.library.opcheck`` holds (schema, fake shapes); a
+    tensor on any other device goes to the kernel path, which refuses what
+    it cannot launch, and never to the plain version."""
+    msgs, recv, mask, n, beta = _synthetic(0, d=8)
+    rowptr = torch.from_numpy(build_csr_rowptr(recv, n, mask))
+    m = torch.tensor(msgs, requires_grad=True)
+    k, b, r = torch.from_numpy(mask), torch.tensor(beta), torch.from_numpy(recv)
+    out, w, den = ss.segment_softmax_fused(m.detach(), k, b, rowptr, True)
+    g = torch.ones_like(out)
+    torch.library.opcheck(torch.ops.phc_gnn.segment_softmax_backward.default,
+                          (m.detach(), b, w, den, out, g, rowptr, r))
+    calls = []
+    plain = ss.segment_softmax_backward_plain
+
+    def counted(*args):
+        calls.append(args[0].device.type)
+        return plain(*args)
+
+    monkeypatch.setattr(ss, "segment_softmax_backward_plain", counted)
+    ss.segment_softmax(m, k, b, rowptr, r).sum().backward()
+    assert calls == ["cpu"] and m.grad.shape == m.shape
+    meta = [torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for t in (m, b, w, den, out, g, rowptr, r)]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ss.segment_softmax_backward(*meta)
+    assert calls == ["cpu"]

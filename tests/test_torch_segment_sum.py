@@ -22,6 +22,7 @@ from phc_gnn_torch.data import synthetic_batch
 from phc_gnn_torch.graph import attach_csr_plan, build_sender_csr
 from phc_gnn_torch.ops import segment_sum as ssum
 from torch_parity import assert_leaf_close
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-6
 

@@ -33,6 +33,7 @@ import torch
 
 from phc_gnn_torch.graph import build_csr_rowptr, build_sender_csr
 from phc_gnn_torch.ops import segment_sum as ssum
+from torch_threads import one_torch_thread  # noqa: F401
 
 UNROLL = 4  # kUnroll of csrc/segment_sum.cu
 # (n, e, d): pcba's eval and train receivers at width 512, the flagship's

@@ -16,6 +16,7 @@ import torch
 
 from phc_gnn_torch.graph import build_csr_rowptr
 from phc_gnn_torch.ops import segment_softmax as ss
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _case(seed, d, n=48):

@@ -41,6 +41,7 @@ from phc_gnn_torch.parallel import dp as dp_lib
 from phc_gnn_torch.train import make_accum_train_step, make_optimizer
 from phc_gnn_torch.train import state as state_lib
 from torch_ranks import run_ranks
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_LOSS = 1e-5
 REL_GRAD = 1e-4

@@ -31,6 +31,7 @@ from phc_gnn_torch.graph import attach_csr_plan, build_csr_rowptr, conv
 from phc_gnn_torch.ops import segment_sum as ssum
 from torch_parity import (adversarial_receivers, assert_close,
                           assert_leaf_close, load_flax, randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_SUM = 1e-5
 REL_GATHER = 1e-6

@@ -52,6 +52,7 @@ from phc_gnn_torch.train import (ReduceLROnPlateau, loss as tloss,
                                  make_train_step)
 from torch_parity import (assert_close, assert_leaf_close, assert_update,
                           numpy_tree, port_flat, randomize)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_OUT = 1e-5
 REL_GRAD = 2e-5

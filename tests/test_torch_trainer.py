@@ -57,6 +57,7 @@ from phc_gnn_torch.train.state import make_loss_and_grads
 from phc_gnn_torch.train.trainer import Trainer
 from phc_gnn_torch.utils import col_diff, row_diff
 from torch_parity import assert_leaf_close, port_flat
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 REL_TRAIN = 1e-4

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from phc_gnn_torch.ops import fused_whitening as fw
+from torch_threads import one_torch_thread  # noqa: F401
 
 SUMS = (fw.WBN_STATS_SUMS, fw.WBN_SUMS)
 # [n, d] with x [n, 4d]: the quaternion add and concat presets' whitening

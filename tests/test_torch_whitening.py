@@ -29,6 +29,7 @@ from phc_gnn_torch.nn.norm import PHMNorm, QuaternionWhiteningNorm
 from phc_gnn_torch.ops import fused_whitening as tfw
 from torch_parity import (assert_close, assert_leaf_close, load_flax,
                           numpy_tree, spd_cov)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL_WBN = 2e-5
 TOL_MODULE = 1e-5

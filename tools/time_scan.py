@@ -2,15 +2,17 @@
 """Profile a model's train step and eval forward on one NVIDIA GPU, eager
 and, where the checkout has them, as CUDA graphs.
 
-    python3 tools/time_scan.py [--root DIR] [--label NAME] [--model pcba]
-                               [--dtype bf16]
+    python3 tools/time_scan.py [--root DIR] [--label NAME]
+                               [--model flagship|quat|pcba] [--dtype bf16]
 
 ``--root`` names the checkout whose ``phc_gnn_torch`` and ``chip_smoke.py``
 are run (default: this one), so that two versions can be profiled in turns
 on one card, one process each: parent, change, change, parent.  The model,
 weights, batch and training setup are ``chip_smoke.py``'s flagship (width
 200, dropout on, ``synthetic_batch(128, 4096, 8192, seed=0)``, masked L1
-with weight decay 0.1, clip 2.0, lr 1e-3), or with ``--model pcba`` its
+with weight decay 0.1, clip 2.0, lr 1e-3), with ``--model quat`` the
+quaternion add preset with whitening (``quat_model``) in its place, on the
+same batches and training setup, or with ``--model pcba`` its
 pcba model (``pcba_model``: width 512, 7 layers, 128 tasks, dropout on),
 its accumulated step over K = 4 batches of ``PCBA`` and its eval forward
 on the 512-graph ``PCBA_EVAL`` batch, both eager (the accumulated step's
@@ -63,8 +65,9 @@ def profile(torch, cs, fn, call_ms: float, iters: int, per: int = 1) -> dict:
             "top_us": [[n, us / per] for n, us in prof["top_us"]]}
 
 
-def flagship(torch, cs, train, dev, dtype: str) -> dict:
-    """The flagship's eager and graphed train step and eval forward."""
+def flagship(torch, cs, train, dev, dtype: str, quat: bool = False) -> dict:
+    """The flagship's (or the quaternion preset's) eager and graphed train
+    step and eval forward."""
     from phc_gnn_torch.data import synthetic_batch
     from phc_gnn_torch.graph import attach_csr_plan
     from phc_gnn_torch.models import PHCGNN
@@ -78,8 +81,13 @@ def flagship(torch, cs, train, dev, dtype: str) -> dict:
 
     kw = {"compute_dtype": torch.bfloat16} if dtype == "bf16" else {}
 
+    def model_of():
+        if quat:
+            return cs.quat_model(torch, dev)
+        return PHCGNN(**cs.flagship_config(), seed=0, device=dev, **kw)
+
     def build():
-        model = PHCGNN(**cs.flagship_config(), seed=0, device=dev, **kw)
+        model = model_of()
         opt = train.make_optimizer(dict(model.named_parameters()),
                                    grad_clip=cs.GRAD_CLIP)
         return model, opt
@@ -91,7 +99,7 @@ def flagship(torch, cs, train, dev, dtype: str) -> dict:
     line = {}
     ms, _ = cs.time_steps(torch, lambda: step(b0, cs.LR))
     line["eager_step"] = profile(torch, cs, lambda: step(b0, cs.LR), ms, 10)
-    served = PHCGNN(**cs.flagship_config(), seed=0, device=dev, **kw)
+    served = model_of()
     cs.randomize_eval_state(torch, served)
     ev = train.make_eval_step(served, device=dev)
     ms, _ = cs.time_steps(torch, lambda: ev(b0))
@@ -146,11 +154,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(REPO))
     ap.add_argument("--label", default="this checkout")
-    ap.add_argument("--model", choices=("flagship", "pcba"),
+    ap.add_argument("--model", choices=("flagship", "quat", "pcba"),
                     default="flagship")
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
                     help="the model's compute_dtype")
     args = ap.parse_args()
+    if args.model == "quat" and args.dtype == "bf16":
+        ap.error("--model quat runs in float32 alone")
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -176,7 +186,8 @@ def main() -> None:
     if args.model == "pcba":
         line.update(pcba(torch, cs, train, dev, args.dtype))
     else:
-        line.update(flagship(torch, cs, train, dev, args.dtype))
+        line.update(flagship(torch, cs, train, dev, args.dtype,
+                             quat=args.model == "quat"))
     print(json.dumps(line), flush=True)
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the softmax aggregation's kernels on one NVIDIA GPU at the
-flagship's shape: A and B in each instance the wrappers can launch, and
-the bf16 path the model runs (A then B, or the fused kernel).
+flagship's shape: A and B in each instance the wrappers can launch, the
+f32 and bf16 paths the model runs (A then B, or the fused kernel), and
+the backward (the kernel against the plain backward's sequence).
 
     python3 tools/time_softmax.py [--root DIR] [--label NAME]
 
@@ -21,13 +22,23 @@ process each: parent, change, change, parent.  Lines:
   4-byte aligned, a thread a pair of lanes) and ``bf16 scalar`` (the same
   messages one element past a 4-byte boundary, one lane a thread); both
   bf16 instances held bit-equal to f32 fed the upcast messages;
-- ``bf16 path``: what the checkout's model runs on bf16 messages, its eval
-  forward (``segment_softmax`` without a gradient) and its training
-  forward (``out``, ``w`` and ``den``: ``segment_softmax_fused`` where the
-  checkout has it, else A then B's training variant), each timed as one
-  call, with a SHA-256 of its outputs, so that two checkouts can be shown
-  bit-equal; beside it A then B timed as a pair of calls in the same
-  graph.
+- ``f32 path`` and ``bf16 path``: what the checkout's model runs on
+  float32 and bf16 messages, its eval forward (``segment_softmax`` without
+  a gradient) and its training forward (``out``, ``w`` and ``den``:
+  ``segment_softmax_fused`` where the checkout has it for the dtype, else
+  A then B's training variant), each timed as one call, with a SHA-256 of
+  its outputs, so that two checkouts can be shown bit-equal; beside it A
+  then B timed as a pair of calls in the same graph, in turns (pair,
+  path, path, pair);
+- ``f32 lanes`` (a checkout with the fused kernel on float32 rows): its
+  eval and training variants on rows 16-byte aligned (four lanes a
+  thread), 8 bytes off (two) and 4 bytes off (one), in turns, bit-equal;
+- ``backward f32`` and ``backward bf16`` (a checkout with the backward
+  kernel): ``segment_softmax_backward`` against
+  ``segment_softmax_backward_plain`` on the card (the port's backward
+  before the kernel), in turns (kernel, plain, plain, kernel), the plain
+  sequence's CUDA kernels a call, ``dm`` bit-equal, and a SHA-256 of
+  ``dm``.
 
 Prints the card's name and power limit first; exits non-zero without a
 CUDA device or if an output differs.
@@ -47,9 +58,12 @@ D = 200
 
 
 def digest(tensors) -> str:
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().numpy().tobytes())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
     return h.hexdigest()[:16]
 
 
@@ -114,8 +128,44 @@ def main() -> None:
                 "bit_equal_to_f32": same}
         print(json.dumps(line), flush=True)
 
-    m = m16
-    fused = getattr(ss, "segment_softmax_fused", None)
+    for name, m in (("f32 path", instances["f32"]), ("bf16 path", m16)):
+        ok &= time_path(torch, ss, time_graph, digest, args.label, name, m,
+                        mask, beta, rowptr)
+    if fused_takes(torch, ss, instances["f32"], mask, beta, rowptr):
+        ok &= time_lanes(torch, ss, time_graph, args.label,
+                         instances["f32"], mask, beta, rowptr)
+    if hasattr(ss, "segment_softmax_backward"):
+        from chip_smoke import device_profile
+        g = torch.randn((b.num_nodes, D), generator=gen).to(dev)
+        for name, m in (("backward f32", instances["f32"]),
+                        ("backward bf16", m16)):
+            ok &= time_backward(torch, ss, time_graph, device_profile, digest,
+                                args.label, name, m, mask, beta, rowptr,
+                                b.receivers, g)
+
+    if not ok:
+        sys.exit("time_softmax: an output differs")
+
+
+def fused_takes(torch, ss, m, mask, beta, rowptr) -> bool:
+    """Whether the checkout's fused kernel takes ``m``'s dtype (an older
+    one takes bf16 rows alone and raises on float32)."""
+    if not hasattr(ss, "segment_softmax_fused"):
+        return False
+    try:
+        ss.segment_softmax_fused(m, mask, beta, rowptr)
+    except (TypeError, RuntimeError) as exc:
+        if "bfloat16" not in str(exc):
+            raise
+        return False
+    return True
+
+
+def time_path(torch, ss, time_graph, digest, label, name, m, mask, beta,
+              rowptr) -> bool:
+    """The ``f32 path`` or ``bf16 path`` line; whether the path's outputs
+    are bit-equal to A then B."""
+    fused = fused_takes(torch, ss, m, mask, beta, rowptr)
 
     def pair(emit_w):
         smax = ss.segment_logit_max(m, mask, beta, rowptr)
@@ -123,8 +173,8 @@ def main() -> None:
                                             emit_w)
 
     def path_train():
-        return (fused(m, mask, beta, rowptr, emit_w=True) if fused
-                else pair(True))
+        return (ss.segment_softmax_fused(m, mask, beta, rowptr, emit_w=True)
+                if fused else pair(True))
 
     def path_eval():
         return ss.segment_softmax(m, mask, beta, rowptr)
@@ -133,18 +183,76 @@ def main() -> None:
     ref = (*pair(True), pair(False))
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(got, ref))
-    ok &= same
-    print(json.dumps({
-        "label": args.label, "instance": "bf16 path",
-        "runs": "fused" if fused else "A then B",
-        "eval_us": time_graph(torch, path_eval) * 1e3,
-        "train_us": time_graph(torch, path_train) * 1e3,
-        "pair_eval_us": time_graph(torch, lambda: pair(False)) * 1e3,
-        "pair_train_us": time_graph(torch, lambda: pair(True)) * 1e3,
-        "sha256": digest(got), "bit_equal_to_pair": same}), flush=True)
+    times = {k: [] for k in ("eval_us", "train_us", "pair_eval_us",
+                             "pair_train_us")}
+    for fns in ((("pair_eval_us", lambda: pair(False)),
+                 ("pair_train_us", lambda: pair(True))),
+                (("eval_us", path_eval), ("train_us", path_train)),
+                (("eval_us", path_eval), ("train_us", path_train)),
+                (("pair_eval_us", lambda: pair(False)),
+                 ("pair_train_us", lambda: pair(True)))):
+        for key, fn in fns:
+            times[key].append(time_graph(torch, fn) * 1e3)
+    print(json.dumps({"label": label, "instance": name,
+                      "runs": "fused" if fused else "A then B", **times,
+                      "sha256": digest(got), "bit_equal_to_pair": same}),
+          flush=True)
+    return same
 
-    if not ok:
-        sys.exit("time_softmax: an output differs")
+
+def time_lanes(torch, ss, time_graph, label, m, mask, beta, rowptr) -> bool:
+    """The ``f32 lanes`` line; whether the three instances are bit-equal."""
+    rows = {}
+    for lanes, k in ((4, 0), (2, 2), (1, 1)):
+        buf = torch.empty(m.numel() + k, dtype=m.dtype, device=m.device)
+        rows[lanes] = buf[k:].view(m.shape)
+        rows[lanes].copy_(m)
+    outs = {lanes: ss.segment_softmax_fused(r, mask, beta, rowptr, True)
+            for lanes, r in rows.items()}
+    torch.cuda.synchronize()
+    same = all(all(torch.equal(x, y) for x, y in zip(o, outs[4]))
+               for o in outs.values())
+    times = {f"{lanes}_lanes_{v}_us": [] for lanes in rows
+             for v in ("eval", "train")}
+    for order in (list(rows), list(rows)[::-1]):
+        for lanes in order:
+            for v, emit in (("eval", False), ("train", True)):
+                times[f"{lanes}_lanes_{v}_us"].append(time_graph(
+                    torch, lambda: ss.segment_softmax_fused(
+                        rows[lanes], mask, beta, rowptr, emit)) * 1e3)
+    print(json.dumps({"label": label, "instance": "f32 lanes", **times,
+                      "bit_equal": same}), flush=True)
+    return same
+
+
+def time_backward(torch, ss, time_graph, device_profile, digest, label,
+                  name, m, mask, beta, rowptr, recv, g) -> bool:
+    """A ``backward`` line; whether ``dm`` is bit-equal to the plain
+    backward's."""
+    out, w, den = ss.segment_softmax_fused(m, mask, beta, rowptr, True)
+    args = (m, beta, w, den, out, g)
+
+    def kernel():
+        return ss.segment_softmax_backward(*args, rowptr, recv)
+
+    def plain():
+        return ss.segment_softmax_backward_plain(*args, recv)
+
+    dm, db = kernel()
+    pdm, pdb = plain()
+    torch.cuda.synchronize()
+    same = torch.equal(dm, pdm)
+    times = {"kernel_us": [], "plain_us": []}
+    for key in ("kernel_us", "plain_us", "plain_us", "kernel_us"):
+        times[key].append(time_graph(
+            torch, kernel if key == "kernel_us" else plain) * 1e3)
+    print(json.dumps({
+        "label": label, "instance": name, **times,
+        "plain_kernels_a_call": device_profile(
+            torch, plain, 1.0, iters=20)["kernels_per_call"],
+        "dbeta": float(db), "plain_dbeta": float(pdb),
+        "sha256": digest([dm]), "dm_bit_equal_to_plain": same}), flush=True)
+    return same
 
 
 if __name__ == "__main__":

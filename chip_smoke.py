@@ -375,12 +375,34 @@ Phases, each of which exits non-zero on failure:
    parameters against the eager steps'; one replay's kernels on rank 0,
    from its profile, equal to the eager counters; rank 0's eager and
    graphed ms a step (time-sliced ranks: not a scaling number).
+25. sweeps (the last phase): the flagship as the port's sweeps drive it
+   (``phc_gnn_torch.cli.scaling``, ``phc_gnn_torch.cli.ablation``, the
+   counterparts of scripts/bench_scaling.py and scripts/bench_ablation.py).
+   First its kernels at the scaling sweep's 2x, 4x and 8x buckets (8,192,
+   16,384 and 32,768 nodes, width 200): A fused into B in both variants
+   bit-equal to A then B, the softmax backward (``dm`` bit-equal to the
+   plain backward, ``dbeta`` within TOL_DBETA), C's gather backward
+   (TOL_SUM against float64, bit-equal to the sequential f32 sum), F and G
+   at the conv norms' [N, 200], past the size gate (TOL_BN against
+   float64, bit-equal on relaunch).  Then the flagship at the 8x bucket
+   (``synthetic_batch(1024, 32768, 65536)``): one dropout-free step
+   against the CPU as in 5 (the counters zeroed just before and read just
+   after: the fused softmax, its backward and C 4, F and G 8 on the conv
+   norms, D and E 2 on the head's, as ``ablation.step_launches`` writes
+   them down from the size gate before the run), and 3 graphed steps
+   against eager ones under the deterministic algorithms (TOL_SCAN, as in
+   14).  Then each of the 13 ablation variants on its batch and route
+   (``ablation.build``, ``ablation.batch``): one graphed step against one
+   eager step under the deterministic algorithms (TOL_SCAN), its losses
+   finite, the counters over the check (its eager steps, the graph's
+   warm-ups and capture) equal to ``ablation.variant_launches`` a step.
+   No timing: the two commands time.
 
 It prints ``{"slice"}``, ``{"profile"}``, ``{"train"}``,
 ``{"profile_train"}``, ``{"pcba"}``, ``{"quat"}``, ``{"pna"}``,
 ``{"scan"}``, ``{"bf16"}``, ``{"remat"}``, ``{"harness"}``,
 ``{"harness_bf16"}``, ``{"halo"}``, ``{"nccl"}``, ``{"xla"}``, ``{"export"}``,
-``{"convergence"}``, ``{"phase_seconds"}`` and
+``{"convergence"}``, ``{"sweeps"}``, ``{"phase_seconds"}`` and
 ``{"kernels": [...]}``
 lines, then, as its last line, ``{"ok": true, "device": {...}}``.  The
 kernels line lists the bf16 kernels as kernels of their own
@@ -415,7 +437,11 @@ the composite route's graphed call;
 ``xla_eval``, ``xla_pna_eval``: 3 batches each; ``export_f32``,
 ``export_bf16``, ``export_quat``, ``export_pna``, ``export_pcba``: one
 call of each exported program; ``convergence``: the quat parity run,
-whose wrappers count each graph's warm-ups and capture), and ``launches`` is their sum; C's halo role has a row of
+whose wrappers count each graph's warm-ups and capture;
+``sweeps_bucket_step``: one step at the 8x bucket; ``sweeps_bucket_scan``
+and ``sweeps_<variant>``: the graphed-against-eager checks of the 8x
+bucket and of each ablation variant, eager steps, warm-ups and
+captures), and ``launches`` is their sum; C's halo role has a row of
 its own (``halo_gather_split_bwd``).  Without
 a CUDA device it exits non-zero and prints no result.  It imports nothing
 of JAX.
@@ -3798,6 +3824,7 @@ def scan_train_check(torch, dev, phase, build, loss_fn, weight_decay, lr,
         e_losses, e_outs = run_eager(torch, eager, batches, lr)
         torch.cuda.synchronize()
     info = {"steps": len(batches),
+            "losses": [float(x) for x in losses.cpu()],
             "eager_vs_eager_atomics": state_diff(*x_runs),
             "loss_err": normwise(losses.cpu(), e_losses.cpu())[1],
             "loss_bit_equal": torch_equal(losses.cpu(), e_losses.cpu()),
@@ -7186,6 +7213,160 @@ def convergence_phase(torch, dev):
     return launches, out
 
 
+SWEEPS_BUCKET = 3            # scaling.BUCKETS[3]: the 8x bucket, 32,768
+                             # nodes, held against the CPU
+SWEEPS_KERNEL_BUCKETS = (1, 2, 3)  # the 2x-8x buckets the kernels are held at
+SWEEPS_SCAN_STEPS = 3        # graphed steps held to eager ones there
+
+
+def sweeps_batch(torch, bucket, seed: int = 0):
+    """``synthetic_batch`` of a ``scaling.BUCKETS`` entry with its CSR plans,
+    on the CPU."""
+    from phc_gnn_torch.data import synthetic_batch
+    from phc_gnn_torch.graph import attach_csr_plan
+
+    size, nodes, edges, _ = bucket
+    return attach_csr_plan(synthetic_batch(size, nodes, edges, seed=seed))
+
+
+def sweeps_kernels(torch, dev):
+    """The flagship's kernels at the 2x-8x buckets of the scaling sweep, as
+    its train step feeds them, against their plain versions: A fused into B
+    (both variants) on [E, 200] messages over the bucket's receiver CSR,
+    bit-equal to A then B; the softmax backward (``dm`` bit-equal to the
+    plain backward on the card, ``dbeta`` within TOL_DBETA); C's gather
+    backward over the sender plan (TOL_SUM against float64, bit-equal to
+    the sequential f32 sum); F and G at the conv norms' [N, 200] with the
+    bucket's node mask, past the size gate (TOL_BN against float64,
+    bit-equal on relaunch)."""
+    from phc_gnn_torch.cli import scaling
+    from phc_gnn_torch.ops import fused_bn
+    from phc_gnn_torch.ops import segment_sum as ssum
+
+    gen = torch.Generator().manual_seed(7)
+    errs: dict = {}
+    for i in SWEEPS_KERNEL_BUCKETS:
+        b = sweeps_batch(torch, scaling.BUCKETS[i]).to(dev)
+        n, e = b.num_nodes, b.num_edges
+        case = f"{n} nodes, {e} edges"
+        m = torch.randn((e, DIM), generator=gen).to(dev)
+        beta = torch.tensor(1.37, device=dev)
+        if not hold_fused(torch, errs, "segment_softmax_fused", case, m,
+                          b.edge_mask, beta, b.rowptr):
+            fail(f"segment_softmax_fused differs from A then B at {case}")
+        g = torch.randn((n, DIM), generator=gen).to(dev)
+        hold_softmax_backward(torch, errs, "segment_softmax_backward", case,
+                              m, b.edge_mask, beta, b.rowptr, g)
+        gv = torch.randn((e, DIM), generator=gen).to(dev)
+        out = ssum.segment_sum_perm(gv, b.snd_perm, b.snd_rowptr)
+        check(errs, "segment_sum_perm", case, out, ssum.segment_sum_perm_plain(
+            gv.double(), b.snd_perm, b.snd_rowptr), TOL_SUM)
+        hold_sequential(torch, "segment_sum_perm", case, out,
+                        ssum.segment_sum_perm(gv, b.snd_perm, b.snd_rowptr),
+                        ssum.segment_sum_perm_plain(
+                            gv.cpu(), b.snd_perm.cpu(), b.snd_rowptr.cpu()))
+        if not n * DIM * 4 > fused_bn.FUSED_BN_VMEM_LIMIT:
+            fail(f"[{n}, {DIM}] is under the size gate")
+        x = (torch.randn((n, DIM), generator=gen) * 2 + 3).to(dev)
+        hold_bn_pair(torch, errs, fused_bn.bn_forward_blocked,
+                     fused_bn.bn_backward_blocked,
+                     fused_bn.bn_forward_blocked_plain,
+                     fused_bn.bn_backward_blocked_plain,
+                     {f"[{n}, {DIM}]": ((x, torch.randn(
+                         (n, DIM), generator=gen).to(dev),
+                         torch.randn(DIM, generator=gen).to(dev),
+                         torch.randn(DIM, generator=gen).to(dev)),
+                         b.node_mask)})
+    return {k: max(r for _, r in v) for k, v in errs.items()}
+
+
+def sweeps_check(torch, dev, phase, build, batches, per_step):
+    """``scan_train_check`` of ``build`` on ``batches`` (graphed against
+    eager, dropout off, under ``deterministic``) with the wrappers' counters
+    zeroed just before and read just after: its eager steps (two outside
+    ``deterministic``, one inside, each a batch) and the graph's warm-ups
+    and capture, each one step's ``per_step``.  Returns the counts and the
+    check's readings."""
+    from phc_gnn_torch.train import masked_l1
+
+    def loss_fn(out, b):
+        return masked_l1(out, b.y)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    info, _ = scan_train_check(torch, dev, phase, build, loss_fn,
+                               WEIGHT_DECAY, LR, batches)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    hold_counters(phase, launches, add_counts(
+        (3 * len(batches) + capture_calls(), per_step)))
+    if not all(math.isfinite(x) for x in info["losses"]):
+        fail(f"{phase}: non-finite loss {info['losses']}")
+    return launches, info
+
+
+def sweeps_phase(torch, dev):
+    """25. sweeps: the flagship at the scaling sweep's 8x bucket, and every
+    variant of the ablation sweep (``phc_gnn_torch.cli.scaling``,
+    ``phc_gnn_torch.cli.ablation``), as the two commands drive them;
+    returns the launch counts of its runs and a ``{"sweeps"}`` line's
+    fields.  No timing: the commands time."""
+    from phc_gnn_torch.cli import ablation, scaling
+    from phc_gnn_torch.models import PHCGNN
+    from phc_gnn_torch.ops import fused_bn
+    from phc_gnn_torch.train import masked_l1
+
+    def loss_fn(out, b):
+        return masked_l1(out, b.y)
+
+    info, paths = {"kernels_max_rel_err": sweeps_kernels(torch, dev)}, {}
+    bucket = scaling.BUCKETS[SWEEPS_BUCKET]
+    size, nodes, edges, _ = bucket
+    cfg = flagship_config(dropout=False)
+    per_step = ablation.step_launches(cfg, "plan", nodes, size + 1)
+    info["bucket"] = {"graphs": size, "nodes": nodes, "edges": edges,
+                      "expected_per_step": per_step,
+                      "conv_norm_plans": [
+                          fused_bn.bn_plan(nodes, DIM, t)._asdict()
+                          for t in (1, 2)]}
+    print(f"sweeps: the flagship at {nodes} nodes, {edges} edges: expected "
+          f"launches a step {per_step} (conv norms [{nodes}, {DIM}] past the "
+          f"size gate on F and G, plans {info['bucket']['conv_norm_plans']})",
+          flush=True)
+
+    def build(dropout):
+        return PHCGNN(**flagship_config(dropout), seed=0, device=dev)
+
+    host = sweeps_batch(torch, bucket)
+    batch = host.to(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    info["vs_cpu"] = agreement(torch, dev, host, batch, loss_fn,
+                               phase=f"sweeps {nodes} nodes vs CPU")
+    info["vs_cpu_s"] = time.perf_counter() - t0
+    paths["sweeps_bucket_step"] = read_launches()
+    hold_counters("sweeps bucket step", paths["sweeps_bucket_step"],
+                  add_counts((1, per_step)))
+    batches = [batch] + [sweeps_batch(torch, bucket, s).to(dev)
+                         for s in range(1, SWEEPS_SCAN_STEPS)]
+    paths["sweeps_bucket_scan"], info["scan"] = sweeps_check(
+        torch, dev, f"sweeps {nodes} nodes scan", build, batches, per_step)
+    del host, batch, batches
+
+    info["variants"] = {}
+    for name in ablation.VARIANTS:
+        want = ablation.variant_launches(name, DIM)
+        print(f"sweeps {name}: expected launches a step {want}", flush=True)
+        b = ablation.batch(name).to(dev)
+        paths[f"sweeps_{name}"], info["variants"][name] = sweeps_check(
+            torch, dev, f"sweeps {name}",
+            lambda dropout, name=name: ablation.build(name, dev, DIM,
+                                                      dropout=dropout),
+            [b], want)
+    return paths, info
+
+
 def main() -> None:
     import torch
 
@@ -7267,6 +7448,9 @@ def main() -> None:
     paths["convergence"], convergence = timed("convergence",
                                               convergence_phase)
     print(json.dumps({"convergence": convergence}), flush=True)
+    sweeps_paths, sweeps = timed("sweeps", sweeps_phase)
+    paths.update(sweeps_paths)
+    print(json.dumps({"sweeps": sweeps}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}

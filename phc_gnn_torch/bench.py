@@ -78,6 +78,7 @@ from phc_gnn_torch.data import (ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS,
                                 avg_deg_from_histogram, degree_histogram,
                                 synthetic_batch, synthetic_graphs)
 from phc_gnn_torch.device import resolve_device
+from phc_gnn_torch.export import flagship_config
 from phc_gnn_torch.graph import GraphsTuple, attach_csr_plan
 from phc_gnn_torch.models import PHCGNN
 from phc_gnn_torch.train import (make_accum_train_step, make_eval_step,
@@ -88,7 +89,7 @@ from phc_gnn_torch.train.config import DATASET_DEFAULTS, ExperimentConfig
 from phc_gnn_torch.train.state import _eager_accum_train_step
 from phc_gnn_torch.train.trainer import build_loss, build_model
 
-__all__ = ["CONFIGS", "run", "card", "main"]
+__all__ = ["CONFIGS", "flagship_kwargs", "run", "card", "host_card", "main"]
 
 # NVIDIA's H100 SXM data sheet, dense rates at the 700 W limit: float32
 # outside the tensor cores (TF32 is off in the port, so no tensor-core peak
@@ -149,20 +150,30 @@ def _l1(out, b):
     return masked_l1(out, b.y)
 
 
+def flagship_kwargs(dim: int = 200, layers: int = 4,
+                    head: Optional[Sequence[int]] = None,
+                    dropout: bool = True, **overrides) -> dict:
+    """The flagship's ``PHCGNN`` arguments (bench.py:140-146) at width
+    ``dim`` with ``layers`` convs and the head ``head`` (``(dim, dim //
+    2)``, the published (200, 100), without it); with ``dropout=False``
+    every rate is 0; then ``overrides`` replace any of them."""
+    kwargs = flagship_config(dim, layers, dropout)
+    if head is not None:
+        kwargs["downstream_layers"] = tuple(head)
+    kwargs.update(overrides)
+    return kwargs
+
+
 def _preset(skip: str, norm: str, description: str,
             compute_dtype: Optional[torch.dtype] = None):
     """scripts/bench_presets.py's ``build(sc, norm)`` (``add`` with
     naive-batch-norm is the flagship), in ``compute_dtype``."""
     def build(w: Widths, dev) -> Setup:
-        model = PHCGNN(
-            phm_dim=4, atom_input_dims=ZINC_ATOM_DIMS,
-            bond_input_dims=ZINC_BOND_DIMS, atom_encoded_dim=w.dim,
-            mp_layers=(w.dim,) * w.layers, dropout_mpnn=(0.1,) * w.layers,
-            downstream_layers=tuple(w.head), target_dim=1,
-            dropout_dn=(0.2, 0.1), msg_aggr="softmax", mlp_mp=True,
+        model = PHCGNN(**flagship_kwargs(
+            w.dim, w.layers, w.head,
             sc_type="last" if skip == "add" else "first", skip_connect=skip,
             norm_mp=norm, norm_dn="naive-batch-norm",
-            compute_dtype=compute_dtype, seed=0, device=dev)
+            compute_dtype=compute_dtype), seed=0, device=dev)
         batch = _batch(*FLAGSHIP_BATCH, w)
         return Setup(model, _l1, "l1", WEIGHT_DECAY, LR, GRAD_CLIP, [batch],
                      False, batch, description)
@@ -256,17 +267,26 @@ def card() -> dict:
     return {"device": name.strip(), "power_limit_w": float(limit)}
 
 
-def _slope(fn, k1: int, k2: int, sync) -> tuple:
+def host_card(dev: torch.device) -> dict:
+    """``card()`` on a CUDA device; on the CPU its stand-in, no card."""
+    return (card() if dev.type == "cuda"
+            else {"device": "cpu", "power_limit_w": None})
+
+
+def _slope(fn, k1: int, k2: int, sync, reps: int = 1) -> tuple:
     """(seconds a call, seconds of ``fn(k1)``): ``fn(k)`` runs k calls;
-    each count runs once to warm up and once timed, with the host clock
-    around the calls and a final ``sync``."""
-    def timed(k):
-        fn(k)
-        sync()
+    each count runs once to warm up, then ``reps`` times timed, the least
+    taken, with the host clock around the calls and a final ``sync``."""
+    def once(k):
         t0 = time.perf_counter()
         fn(k)
         sync()
         return time.perf_counter() - t0
+
+    def timed(k):
+        fn(k)
+        sync()
+        return min(once(k) for _ in range(reps))
 
     t1, t2 = timed(k1), timed(k2)
     return (t2 - t1) / (k2 - k1), t1
@@ -364,7 +384,7 @@ def run(config: str = "flagship", device: Union[str, torch.device] = "cuda",
     detail["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(dev)
                                 if cuda else None)
     detail["backend"] = dev.type
-    detail.update(card() if cuda else {"device": "cpu", "power_limit_w": None})
+    detail.update(host_card(dev))
     how = "CUDA graphs" if cuda else "eager, CPU"
     return {"metric": f"edges/s ({s.description}, {how})",
             "value": real_edges / per_step, "unit": "edges/s",
